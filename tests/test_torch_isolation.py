@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
 def test_wrappers_have_no_fallback():
     """A CUDA tensor launches the kernel or raises: the wrappers catch
     nothing that could route it to the plain version."""
-    for name in ("traverse.py", "shade.py"):
+    for name in ("traverse.py", "shade.py", "frame.py"):
         with open(os.path.join(PKG, "ops", name)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -62,10 +62,11 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_import_builds_nothing():
-    from voxelhex_tpu_torch.ops import _build, shade, traverse  # noqa: F401
+    from voxelhex_tpu_torch.ops import _build, frame, shade, traverse  # noqa: F401
 
     assert _build._lib is None or torch.cuda.is_available()
     assert traverse.traverse.launches >= 0 and shade.shade.launches >= 0
+    assert frame.render_frame.launches >= 0
 
 
 def _smoke(cwd):

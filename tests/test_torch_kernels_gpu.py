@@ -92,3 +92,42 @@ def test_render_cuda_equals_cpu(cuda):
     a = fastest_renderer(bg, device="cuda").render(cam)
     b = fastest_renderer(bg, device="cpu").render(cam)
     assert _equal(a.cpu(), b)
+
+
+# grids of 2, 3 and 4 pyramid levels (the bench scene has 4)
+@pytest.mark.parametrize("size,density", [(16, 0.05), (64, 0.02), (128, 0.01)])
+@pytest.mark.parametrize("out_u8", [True, False])
+def test_frame_kernel_equals_plain(cuda, size, density, out_u8):
+    """At 333x187 the pixel tiles are ragged on the right and at the bottom."""
+    from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    grid = _grid(size=size, seed=size, density=density)
+    tree = device_bitgrid(grid, cuda)
+    assert len(tree["bases"]) == {16: 2, 64: 3, 128: 4}[size]
+    cam = orbit_camera(float(size), yaw_deg=130.0, resolution=(333, 187))
+    bg = (0.1, 0.2, 0.3)
+    n0 = render_frame.launches
+    k = render_frame(tree, cam, bg, out_u8)
+    torch.cuda.synchronize()
+    assert render_frame.launches == n0 + 1
+    p = render_frame_plain(tree, cam, bg, out_u8)
+    assert k.shape == p.shape == (187, 333, 3) and k.dtype == p.dtype
+    assert len(torch.unique(p.reshape(-1, 3), dim=0)) >= 3  # misses, hits on two faces
+    assert _equal(k, p)
+
+
+def test_render_is_one_frame_launch(cuda):
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.shade import shade
+    from voxelhex_tpu_torch.ops.traverse import traverse
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    r = fastest_renderer(_grid(), device="cuda")
+    counts = (render_frame.launches, traverse.launches, shade.launches)
+    r.render(orbit_camera(64.0, resolution=(160, 90)))
+    torch.cuda.synchronize()
+    assert (render_frame.launches, traverse.launches, shade.launches) == (
+        counts[0] + 1, counts[1], counts[2])

@@ -7,7 +7,7 @@ It imports neither JAX nor the reference package.  Layout:
 * :mod:`.scene` — the benchmark scene as a BitGrid;
 * :mod:`.render` — camera and rays, the BitGrid and its plain tracer,
   plain shading, the renderer (:func:`.render.fastest_renderer`);
-* :mod:`.ops` — the CUDA kernels' wrappers (traversal, shading) and the
-  ``nvcc`` build of ``csrc/``;
+* :mod:`.ops` — the CUDA kernels' wrappers (the frame, traversal,
+  shading) and the ``nvcc`` build of ``csrc/``;
 * :mod:`.convert` — a reference BitGrid's fields to the port's BitGrid.
 """

@@ -26,7 +26,9 @@ def traverse_plain(tree, origins, dirs, max_iters=MAX_ITERS):
     return trace(tree, origins, dirs)
 
 
-def _params(tree, max_iters):
+def trace_params(tree, max_iters=MAX_ITERS) -> _build.TraceParams:
+    """The traversal's launch parameters for ``tree``: its level table,
+    world extent and block count, and ``max_iters``."""
     n_levels = len(tree["bases"])
     if not 1 <= n_levels <= _build.MAX_LEVELS:
         raise ValueError(f"{n_levels} pyramid levels; the kernel takes 1..{_build.MAX_LEVELS}")
@@ -64,7 +66,7 @@ def traverse(tree, origins, dirs, max_iters=MAX_ITERS):
                 f"{name}: want contiguous {dtype} {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    params = _params(tree, max_iters)
+    params = trace_params(tree, max_iters)
     lib = _build.library()
     hit = torch.empty(R, dtype=torch.bool, device=dev)
     voxel = torch.empty(R, dtype=torch.int32, device=dev)

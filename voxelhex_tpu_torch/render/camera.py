@@ -104,14 +104,19 @@ def camera_params(camera: Camera):
     )
 
 
+def pixel_steps(w: int, h: int):
+    """``(1 / w * 2, 1 / h * 2)``: the f32 constants into which the
+    reference folds the divide of ``(i + 0.5) / w * 2 - 1``."""
+    return (float(np.float32(1.0) / np.float32(w) * np.float32(2.0)),
+            float(np.float32(1.0) / np.float32(h) * np.float32(2.0)))
+
+
 def raygen(w: int, h: int, origin, right, up, forward, scale):
     """Rays of a ``w x h`` frame from camera params (f32 tensors on one
     device): ``(origins, dirs)``, each f32 ``[h*w, 3]``, row-major from the
     top-left pixel."""
     dev = forward.device
-    # (i + 0.5) / w * 2 - 1, with the divide folded into one f32 constant
-    cw = float(np.float32(1.0) / np.float32(w) * np.float32(2.0))
-    ch = float(np.float32(1.0) / np.float32(h) * np.float32(2.0))
+    cw, ch = pixel_steps(w, h)
     px = fma32(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, cw, -1.0)
     py = fma32(-(torch.arange(h, dtype=torch.float32, device=dev) + 0.5), ch, 1.0)
     pxs = (px * scale[0])[None, :, None]  # [1, w, 1]

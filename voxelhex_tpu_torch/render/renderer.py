@@ -1,16 +1,17 @@
 """Whole-frame renderer over the BitGrid (the reference's
 ``BitGridRenderer`` in ``render/bitgrid.py``, without compaction, beam
 prepass or batched frames: one thread per ray already stops each ray on
-its own, and the frame is the same)."""
+its own, and the frame is the same).  A frame is one launch of the frame
+kernel (:func:`voxelhex_tpu_torch.ops.frame.render_frame`)."""
 
 from __future__ import annotations
 
 import torch
 
-from voxelhex_tpu_torch.ops.shade import shade
+from voxelhex_tpu_torch.ops.frame import render_frame
 from voxelhex_tpu_torch.ops.traverse import traverse
 from voxelhex_tpu_torch.render.bitgrid import BitGrid, device_bitgrid
-from voxelhex_tpu_torch.render.camera import Camera, device_rays
+from voxelhex_tpu_torch.render.camera import Camera
 
 
 def resolve_device(device) -> torch.device:
@@ -40,9 +41,6 @@ class BitGridRenderer:
 
     def render(self, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8: bool = True):
         """A ``[h, w, 3]`` frame on the renderer's device: u8, or f32 when
-        ``out_u8`` is false."""
-        w, h = camera.resolution
-        o, d = device_rays(camera, self.device)
-        hit, voxel, _hvox, _point, hnormal = self.trace(o, d)
-        rgb = shade(hit, voxel, hnormal, self.tree["palette"], bg, out_u8=out_u8)
-        return rgb.reshape(h, w, 3)
+        ``out_u8`` is false.  On the card it is one launch of the frame
+        kernel, from the camera params to the pixels."""
+        return render_frame(self.tree, camera, bg, out_u8)
