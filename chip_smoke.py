@@ -10,9 +10,19 @@ renders three 1920x1080 frames of the benchmark scene through
 ``fastest_renderer(...).render`` (one frame-kernel launch each) and through
 the two-kernel path (``device_rays``, ``trace``, ``shade``), checks both
 against the digests of the reference package's frames, then times the two
-paths in turns and each kernel alone.  The last line is ``{"ok": true,
-"device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
-card; there is no CPU fallback.
+paths in turns and each kernel alone.
+
+The training slice follows: the multi-hit march, the composite's forward
+and backward and the Adam update, each against its plain version at the
+bench's shapes (every ray of the 1080p bench pose, K = 2, the 67,108,864
+params of the 256^3 world); the march against the reference package's hits
+by digest; the training path (``SoftRenderer.train_step_fused``) on the
+bench's own target (loss exactly 0, params unchanged) and on a constant
+target for 4 steps against the reference package's losses and param sums,
+one launch of each of the four kernels per step and no host
+synchronization inside a step; then its timing.  The last line is
+``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
+Needs one CUDA card; there is no CPU fallback.
 """
 
 import faulthandler
@@ -20,11 +30,12 @@ import sys
 
 # a hang anywhere (a kernel that never returns, a stuck build) becomes a
 # traceback and a non-zero exit instead of a run that never ends
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(900, exit=True)
 
 import ctypes  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
@@ -58,6 +69,51 @@ TRAVERSE_OPS_PER_STEP = 100
 # f32 operations per pixel of the frame kernel's ray generation (prologue)
 # and shading with the u8 step (epilogue), counted low from frame.cu
 FRAME_OPS_PER_PIXEL = 40
+
+# ---- the training slice: bench.py's SoftRenderer(tree, max_hits=2,
+# max_iters=2048) with optax.adam(0.05), on the bench pose at 1920x1080
+MAX_HITS = 2
+LR = 0.05
+CONST_TARGET = (0.25, 0.5, 0.75)
+TRAIN_STEPS = 4
+CHAIN = 16  # steps timed back to back (bench.py's CHAIN)
+# sha256 of count (int32 [R]) then voxels (int32 [R, 2, 3]) from the
+# reference package's march, made on the CPU with
+#   SoftRenderer(flatten(bench.build_scene()), max_hits=2, max_iters=2048)
+#   .trace_hits(o, d, compact=True)
+# on device_rays(orbit_camera(128.0, yaw_deg=40, resolution=(1920, 1080)))
+HITS_SHA256 = "a646a03a5f5e3f0d4117f445fc9f40f2ec665e2ccfe35e51ed1cd1bdea1a51e7"
+# the reference package's 4 steps of train_step_fused from init_params()
+# with optax.adam(0.05) on those rays and the constant target, on the CPU:
+# each step's loss, and the float64 sums of albedo and logits after it
+# (REF_SUM0: before the first step)
+REF_LOSSES = (0.2622765898704529, 0.2590024173259735, 0.256399929523468, 0.2544224262237549)
+REF_SUM0 = {"albedo": 89102.28788679838, "logits": -166815187.1749115}
+REF_SUMS = {
+    "albedo": (90025.99316576123, 90742.01666738093, 91332.63153621554, 91779.63657346368),
+    "logits": (-166815207.79333878, -166815221.9527297, -166815231.7289281,
+               -166815239.2986846),
+}
+# tolerances of the training path against the reference.  The losses are
+# means over the same squared errors; the backward's atomics add in run
+# order, which moves a gradient by ulps, and Adam's nearly sign-like step
+# turns a gradient ulps from zero into a param step of +-lr: the change of
+# each param sum since REF_SUM0 is held to a relative 1e-4 plus 0.25, five
+# params stepped the other way.
+LOSS_RTOL = 1e-5
+SUM_RTOL, SUM_ATOL = 1e-4, 0.25
+# the composite's kernels against their plain versions: expf in the kernel
+# and in PyTorch's sigmoid may round an alpha an ulp apart (rgb atol 1e-6);
+# the backward's atomics add in no fixed order (a gradient element to a
+# relative 1e-4 of itself or 1e-6 of the largest element)
+RGB_ATOL = 1e-6
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-4, 1e-6
+# f32 operations per hit slot of the composite forward (sigmoid, weight,
+# three products and sums) and backward (its recompute plus the recurrence
+# and four products), counted low from composite.cu; per element of Adam
+COMPOSITE_FWD_OPS_PER_SLOT = 20
+COMPOSITE_BWD_OPS_PER_SLOT = 40
+ADAM_OPS_PER_ELEMENT = 16
 
 
 def log(msg):
@@ -264,6 +320,10 @@ def main():
     t0 = time.time()
     renderer = fastest_renderer(scene, device="cuda")
 
+    def device_frame(cam):
+        """The main path's u8 frame, left on the card."""
+        return renderer.render(cam, out_u8=True, out_device=True)
+
     def two_kernel_frame(cam):
         """The frame through the traversal and shading kernels, from rays
         made by ``device_rays``."""
@@ -273,7 +333,7 @@ def main():
 
     launches = {}
     for path, draw, want in (
-        ("main path (render)", renderer.render, {"frame": len(YAWS), "traverse": 0, "shade": 0}),
+        ("main path (render)", device_frame, {"frame": len(YAWS), "traverse": 0, "shade": 0}),
         ("two-kernel path", two_kernel_frame, {"frame": 0, "traverse": len(YAWS),
                                                "shade": len(YAWS)}),
     ):
@@ -309,7 +369,7 @@ def main():
     # ---- phase 4: timing
     t0 = time.time()
     cam = orbit_camera(128.0, resolution=RES)
-    paths = {"two-kernel": lambda: two_kernel_frame(cam), "frame kernel": lambda: renderer.render(cam)}
+    paths = {"two-kernel": lambda: two_kernel_frame(cam), "frame kernel": lambda: device_frame(cam)}
     for fn in paths.values():
         for _ in range(2):
             fn()
@@ -379,12 +439,331 @@ def main():
          "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
          "bound_ms": shade_bound, "bound_by": shade_by, "library_ms": None},
     ]
+    del k_out, p_out, st, hit, voxel, hn, s_k, s_p
+    torch.cuda.empty_cache()
+    kernels += training_slice(dev, scene, o, d, tag)
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_steps(soft, params, state, opt, o, d, target, step_ms, tag, n_steps=4):
+    """Where a step's device time goes: ``torch.profiler`` over ``n_steps``
+    steps, the device time of each kernel name per step, and the card's
+    busy share (all device time over the step time of the unprofiled run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        soft.train_steps_fused(params, state, opt, o, d, target, n_steps)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            ms = getattr(e, "device_time_total", 0.0) / 1e3 / n_steps
+            rows.append((ms, e.count / n_steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0.0:
+        log(f"  profiler: no device time recorded; busy share not measured {tag}")
+        return
+    log(f"  profiler, per step over {n_steps} steps: device time {busy:.4f} ms, busy share "
+        f"{busy / step_ms:.3f} of the {step_ms:.4f} ms step {tag}")
+    for ms, count, key in rows[:12]:
+        log(f"    {ms:.4f} ms  {count:g} x  {key[:90]}")
+
+
+def training_slice(dev, scene, o, d, tag):
+    """Phases 5-9: the training slice's kernels against their plain versions
+    and the reference, the training path, its timing.  Returns the four
+    kernels' entries of the kernels line."""
+    from voxelhex_tpu_torch.diff.optim import adam
+    from voxelhex_tpu_torch.diff.soft import CLAMPS, SoftRenderer
+    from voxelhex_tpu_torch.ops import adam as adam_ops
+    from voxelhex_tpu_torch.ops.composite import (
+        composite_backward, composite_backward_plain, composite_forward,
+        composite_forward_plain)
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.multihit import multihit
+    from voxelhex_tpu_torch.ops.shade import shade
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, traverse
+    from voxelhex_tpu_torch.render.bitgrid import make_multihit_tracer
+
+    R = o.shape[0]
+    K = MAX_HITS
+    soft = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, device=dev)
+    tree = soft.tree
+    n_vox = soft.size ** 3
+
+    # ---- phase 5: the multi-hit march against its plain version and the reference
+    t0 = time.time()
+    k_hits = multihit(tree, o, d, K)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    trace = make_multihit_tracer(len(tree["bases"]), tree["size"], K, MAX_ITERS, **KERNEL_CONFIG)
+    *p_hits, steps = trace(tree, o, d, with_steps=True)
+    torch.cuda.synchronize()
+    mh_plain_ms = (time.time() - t1) * 1e3
+    for name, a, b in zip(("count", "voxels"), k_hits, p_hits):
+        n_bad = int((a != b).reshape(R, -1).any(dim=1).sum())
+        log(f"  multihit {name}: {n_bad} rays differ from the plain march")
+        if n_bad:
+            raise AssertionError(f"multihit kernel differs from the plain march on {name}")
+    kd, pd = k_hits[2], p_hits[2]
+    ulps = (kd.view(torch.int32).long() - pd.view(torch.int32).long()).abs()
+    ulps = torch.where(same(kd, pd), torch.zeros_like(ulps), ulps)
+    n_bad = int((ulps > 0).sum())
+    log(f"  multihit dists: {n_bad} slots differ from the plain march, largest {int(ulps.max())} "
+        "ulp")
+    if int(ulps.max()) > 1:
+        raise AssertionError("multihit dists differ from the plain march by more than 1 ulp")
+    mh_err = max(max_abs_err(k_hits[0], p_hits[0]), max_abs_err(k_hits[1], p_hits[1]),
+                 max_abs_err(kd, pd))
+    count, voxels = k_hits[0], k_hits[1]
+    n_hit_rays = int((count > 0).sum())
+    n_slots = int(count.sum())
+    v = voxels[voxels[..., 0] >= 0].long()  # [n_slots, 3]
+    n_unique = int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * soft.size) * soft.size).numel())
+    del v
+    total_steps = int(steps.sum())
+    at_budget = int((steps >= K * MAX_ITERS).sum())
+    log(f"  multihit == plain on all {R} rays: {n_hit_rays} rays hit, {n_slots} hit slots "
+        f"on {n_unique} distinct voxels, "
+        f"{total_steps} automaton steps (max {int(steps.max())} per ray), {at_budget} rays at "
+        f"the step budget of {K * MAX_ITERS}")
+    digest = hashlib.sha256(count.cpu().numpy().tobytes()
+                            + voxels.cpu().numpy().tobytes()).hexdigest()
+    log(f"  multihit count+voxels sha256 {digest} "
+        f"{'== reference' if digest == HITS_SHA256 else '!= reference'}")
+    if digest != HITS_SHA256:
+        raise AssertionError("the multi-hit march differs from the reference package's")
+    del p_hits, steps
+    log(f"phase 5 multi-hit march: {time.time() - t0:.1f} s")
+
+    # ---- phase 6: the composite's kernels against their plain versions
+    t0 = time.time()
+    params = soft.init_params()
+    alb, lgt = params["albedo"], params["logits"]
+    rgb_k = composite_forward(alb, lgt, voxels, soft.size)
+    torch.cuda.synchronize()
+    rgb_p = composite_forward_plain(alb, lgt, voxels, soft.size)
+    fwd_err = max_abs_err(rgb_k, rgb_p)
+    n_bad = int((~same(rgb_k, rgb_p)).any(dim=1).sum())
+    log(f"  composite forward: {n_bad} rays differ from the plain version, max abs err "
+        f"{fwd_err} (tolerance {RGB_ATOL})")
+    if fwd_err > RGB_ATOL:
+        raise AssertionError("composite forward kernel differs from its plain version")
+    target = torch.tensor(CONST_TARGET, dtype=torch.float32, device=dev).expand(R, 3).contiguous()
+    grad_rgb = (2.0 * (rgb_k - target) / (3 * R)).contiguous()
+    g_k = composite_backward(grad_rgb, alb, lgt, voxels, soft.size)
+    torch.cuda.synchronize()
+    g_p = composite_backward_plain(grad_rgb, alb, lgt, voxels, soft.size)
+    bwd_err = 0.0
+    for name, a, b in zip(("albedo", "logits"), g_k, g_p):
+        err = max_abs_err(a, b)
+        scale = float(b.abs().max())
+        rel = float(((a - b).abs() / b.abs().clamp_min(1e-30))[b != 0].max())
+        zeros_differ = int(((a == 0) != (b == 0)).sum())
+        bwd_err = max(bwd_err, err)
+        log(f"  composite backward {name}: max abs err {err} (largest element {scale}), max "
+            f"relative err {rel}, {int((b != 0).sum())} non-zero, {zeros_differ} zero in one "
+            "only")
+        ok = bool(((a - b).abs() <= GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * scale).all())
+        if not ok or zeros_differ or scale == 0:
+            raise AssertionError(f"composite backward kernel differs on {name}")
+    del rgb_p, g_p
+    log(f"phase 6 composite kernels == plain versions: {time.time() - t0:.1f} s")
+
+    # ---- phase 7: the Adam kernel against its plain version, all params, two steps
+    t0 = time.time()
+    opt = adam(LR)
+    pk = soft.init_params()
+    sk = opt.init(pk)
+    pp = {k: v.clone() for k, v in pk.items()}
+    sp = opt.init(pp)
+    adam_err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for step in range(2):
+        grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-4
+                 for k, v in pk.items()}
+        grads["logits"][: n_vox // 2] = 0.0  # half the voxels see no gradient
+        sk = adam_ops.adam_update(pk, grads, sk, opt, 0.0, CLAMPS)
+        torch.cuda.synchronize()
+        sp = adam_ops.adam_plain(pp, grads, sp, opt, 0.0, CLAMPS)
+        for name, a, b in (("albedo", pk["albedo"], pp["albedo"]),
+                           ("logits", pk["logits"], pp["logits"]),
+                           ("mu albedo", sk["mu"]["albedo"], sp["mu"]["albedo"]),
+                           ("mu logits", sk["mu"]["logits"], sp["mu"]["logits"]),
+                           ("nu albedo", sk["nu"]["albedo"], sp["nu"]["albedo"]),
+                           ("nu logits", sk["nu"]["logits"], sp["nu"]["logits"])):
+            n_bad = int((~same(a, b)).sum())
+            adam_err = max(adam_err, max_abs_err(a, b))
+            if n_bad:
+                raise AssertionError(f"adam kernel step {step}: {name} differs in {n_bad} "
+                                     "elements")
+        if int(sk["count"]) != step + 1 or int(sp["count"]) != step + 1:
+            raise AssertionError("adam count")
+    log(f"  adam == plain on all {n_vox * 4} params, mu and nu, two steps (max abs err "
+        f"{adam_err})")
+    del pp, sp, grads
+    log(f"phase 7 adam kernel == plain: {time.time() - t0:.1f} s")
+
+    # ---- phase 8: the training path
+    t0 = time.time()
+    counters = (multihit, composite_forward, composite_backward, adam_ops.adam_update,
+                render_frame, traverse, shade)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def want(n):
+        return {"multihit": n, "composite_forward": n, "composite_backward": n,
+                "adam_update": n, "render_frame": 0, "traverse": 0, "shade": 0}
+
+    # (a) the bench's target: the stop-gradient composite of the initial params
+    params = soft.init_params()
+    state = opt.init(params)
+    _c, vox_t, _d = soft.trace_hits(o, d)
+    bench_target = soft.composite(params, vox_t).detach()
+    before = {k: v.clone() for k, v in params.items()}
+    reset()
+    params, state, loss = soft.train_step_fused(params, state, opt, o, d, bench_target)
+    torch.cuda.synchronize()
+    counts = read()
+    unchanged = all(bool((params[k] == before[k]).all()) for k in before)
+    log(f"  (a) bench target: loss {float(loss)!r}, params unchanged: {unchanged}, "
+        f"launches {counts}")
+    if float(loss) != 0.0 or not unchanged or counts != want(1):
+        raise AssertionError("the bench target's step is not a no-op of one launch per kernel")
+    del before, bench_target
+
+    # (b) the constant target, 4 steps, against the reference's constants
+    params = soft.init_params()
+    state = opt.init(params)
+    sums0 = {k: float(v.double().sum()) for k, v in params.items()}
+    for k, v in sums0.items():
+        if abs(v - REF_SUM0[k]) > 1e-9 * abs(REF_SUM0[k]):
+            raise AssertionError(f"initial {k} sum {v!r} != the reference's {REF_SUM0[k]!r}")
+    losses, sums = [], {k: [] for k in sums0}
+    reset()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.set_sync_debug_mode("error")  # a step that reads the host raises
+        try:
+            params, state, loss = soft.train_step_fused(params, state, opt, o, d, target)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(float(loss))
+        for k in sums:
+            sums[k].append(float(params[k].double().sum()))
+    counts = read()
+    log(f"  (b) constant target {CONST_TARGET}, {TRAIN_STEPS} steps, launches {counts}")
+    if counts != want(TRAIN_STEPS):
+        raise AssertionError(f"training path launches {counts}, want {want(TRAIN_STEPS)}")
+    bad = []
+    for i in range(TRAIN_STEPS):
+        rel = abs(losses[i] - REF_LOSSES[i]) / REF_LOSSES[i]
+        line = f"  step {i}: loss {losses[i]!r} (reference {REF_LOSSES[i]!r}, rel err {rel:.3g})"
+        if rel > LOSS_RTOL:
+            bad.append(f"loss {i}")
+        for k in sums:
+            got, ref = sums[k][i] - sums0[k], REF_SUMS[k][i] - REF_SUM0[k]
+            line += f"; {k} sum change {got!r} (reference {ref!r})"
+            if abs(got - ref) > SUM_RTOL * abs(ref) + SUM_ATOL:
+                bad.append(f"{k} sum {i}")
+        log(line)
+    if bad or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the training path differs from the reference: {bad}")
+    log(f"phase 8 training path: {time.time() - t0:.1f} s")
+
+    # ---- phase 9: timing
+    t0 = time.time()
+    for _ in range(2):
+        soft.train_steps_fused(params, state, opt, o, d, target, 2)
+    torch.cuda.synchronize()
+    step_ms = timed(lambda: soft.train_steps_fused(params, state, opt, o, d, target, CHAIN),
+                    1) / CHAIN
+    step_host_ms = host_ms(lambda: soft.train_steps_fused(params, state, opt, o, d, target,
+                                                          CHAIN), 1) / CHAIN
+    mh_ms = device_ms(lambda: multihit(tree, o, d, K), TIMED_FRAMES)
+    fwd_ms = device_ms(lambda: composite_forward(alb, lgt, voxels, soft.size), TIMED_FRAMES)
+    # as the step calls it: the two dense gradients zeroed, then the scatter
+    bwd_ms = device_ms(lambda: composite_backward(grad_rgb, alb, lgt, voxels, soft.size),
+                       TIMED_FRAMES)
+    grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-4 for k, v in pk.items()}
+
+    def adam_step():
+        return adam_ops.adam_update(pk, grads, sk, opt, 0.0, CLAMPS)
+
+    adam_ms = device_ms(adam_step, TIMED_FRAMES)
+    fwd_plain_ms = timed(lambda: composite_forward_plain(alb, lgt, voxels, soft.size), 3)
+    bwd_plain_ms = timed(lambda: composite_backward_plain(grad_rgb, alb, lgt, voxels,
+                                                          soft.size), 3)
+    adam_plain_ms = timed(lambda: adam_ops.adam_plain(pk, grads, sk, opt, 0.0, CLAMPS), 3)
+    # torch.optim.Adam(fused=True) on the same tensors, as a yardstick only
+    lib_params = [torch.nn.Parameter(pk[k].clone()) for k in ("albedo", "logits")]
+    for prm, k in zip(lib_params, ("albedo", "logits")):
+        prm.grad = grads[k].clone()
+    lib_opt = torch.optim.Adam(lib_params, lr=LR, fused=True)
+    lib_opt.step()
+    adam_lib_ms = timed(lib_opt.step, TIMED_FRAMES)
+    adam_event_ms = timed(adam_step, TIMED_FRAMES)
+    del lib_opt, lib_params
+    kernel_sum = mh_ms + fwd_ms + bwd_ms + adam_ms
+    log(f"training step, 1920x1080, K={K}: {step_ms:.4f} ms/step back to back over {CHAIN} "
+        f"steps by CUDA events, {step_host_ms:.4f} ms/step by host clock {tag}")
+    log(f"  multihit {mh_ms:.4f} ms, composite forward {fwd_ms:.4f} ms, composite backward "
+        f"{bwd_ms:.4f} ms, adam {adam_ms:.4f} ms device time per launch; the four kernels "
+        f"{kernel_sum:.4f} ms = {kernel_sum / step_ms:.3f} of the step {tag}")
+    log(f"  plain versions: multihit {mh_plain_ms:.1f} ms (host clock, one run), composite "
+        f"forward {fwd_plain_ms:.3f} ms, backward {bwd_plain_ms:.3f} ms, adam "
+        f"{adam_plain_ms:.3f} ms (CUDA events); adam kernel {adam_event_ms:.4f} ms and "
+        f"torch.optim.Adam(fused=True).step() {adam_lib_ms:.4f} ms by CUDA events around the "
+        f"calls {tag}")
+    log(f"  observation, not a claim: {R / step_ms * 1e3:.0f} rays/s through the training "
+        f"step {tag}")
+    profile_steps(soft, params, state, opt, o, d, target, step_ms, tag)
+
+    # least time the card could take for the same work
+    n_pairs = tree["occ_pairs"].shape[0]
+    mh_bound, mh_by = bound(R * 24 + n_pairs * 8 + R * (4 + 16 * K),
+                            total_steps * TRAVERSE_OPS_PER_STEP)
+    # the composite reads each ray's slots, the params of each distinct hit
+    # voxel (16 B) and, backward, dL/drgb of the rays with a hit (a ray with
+    # none gets a zero gradient); it writes rgb, or the two dense gradients
+    fwd_bound, fwd_by = bound(R * 12 * K + n_unique * 16 + R * 12,
+                              n_slots * COMPOSITE_FWD_OPS_PER_SLOT)
+    bwd_bound, bwd_by = bound(n_hit_rays * 12 + R * 12 * K + n_unique * 16 + 4 * 4 * n_vox,
+                              n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
+    adam_bound, adam_by = bound(7 * 4 * 4 * n_vox, ADAM_OPS_PER_ELEMENT * 4 * n_vox)
+    log(f"bounds: multihit {mh_bound:.4f} ms ({mh_by}), composite forward {fwd_bound:.4f} ms "
+        f"({fwd_by}), composite backward {bwd_bound:.4f} ms ({bwd_by}), adam "
+        f"{adam_bound:.4f} ms ({adam_by}) {tag}")
+    log(f"phase 9 training timing: {time.time() - t0:.1f} s")
+    src = "voxelhex_tpu_torch/csrc/"
+    return [
+        {"name": "multihit", "route": "cuda", "source": src + "multihit.cu",
+         "replaces": "voxelhex_tpu/diff/soft.py:108", "launches": counts["multihit"],
+         "max_abs_err": mh_err, "ms": mh_ms, "plain_ms": mh_plain_ms, "bound_ms": mh_bound,
+         "bound_by": mh_by, "library_ms": None},
+        {"name": "composite_forward", "route": "cuda", "source": src + "composite.cu",
+         "replaces": "voxelhex_tpu/diff/soft.py:1033", "launches": counts["composite_forward"],
+         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+         "bound_by": fwd_by, "library_ms": None},
+        {"name": "composite_backward", "route": "cuda", "source": src + "composite.cu",
+         "replaces": "voxelhex_tpu/diff/soft.py:95", "launches": counts["composite_backward"],
+         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
+         "bound_by": bwd_by, "library_ms": None},
+        {"name": "adam", "route": "cuda", "source": src + "adam.cu",
+         "replaces": "voxelhex_tpu/diff/soft.py:532", "launches": counts["adam_update"],
+         "max_abs_err": adam_err, "ms": adam_ms, "plain_ms": adam_plain_ms,
+         "bound_ms": adam_bound, "bound_by": adam_by, "library_ms": adam_lib_ms},
+    ]
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference():
 def test_wrappers_have_no_fallback():
     """A CUDA tensor launches the kernel or raises: the wrappers catch
     nothing that could route it to the plain version."""
-    for name in ("traverse.py", "shade.py", "frame.py"):
+    for name in ("traverse.py", "shade.py", "frame.py", "multihit.py", "composite.py", "adam.py"):
         with open(os.path.join(PKG, "ops", name)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -62,11 +62,28 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_import_builds_nothing():
-    from voxelhex_tpu_torch.ops import _build, frame, shade, traverse  # noqa: F401
+    from voxelhex_tpu_torch.diff import optim, soft  # noqa: F401
+    from voxelhex_tpu_torch.ops import _build, adam, composite, frame, multihit, shade, traverse
 
     assert _build._lib is None or torch.cuda.is_available()
     assert traverse.traverse.launches >= 0 and shade.shade.launches >= 0
-    assert frame.render_frame.launches >= 0
+    assert frame.render_frame.launches >= 0 and multihit.multihit.launches >= 0
+    assert composite.composite_forward.launches >= 0
+    assert composite.composite_backward.launches >= 0 and adam.adam_update.launches >= 0
+
+
+def test_soft_renderer_needs_cuda_by_default(monkeypatch):
+    from voxelhex_tpu_torch.diff.soft import SoftRenderer
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bg = bitgrid_from_occupancy(torch.zeros((16, 16, 16), dtype=torch.bool).numpy())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SoftRenderer(bg)
+    assert SoftRenderer(bg, device="cpu").device.type == "cpu"
+    for kw in ({"tracer": "skip"}, {"flat_params": False}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            SoftRenderer(bg, device="cpu", **kw)
 
 
 def _smoke(cwd):

@@ -89,9 +89,11 @@ def test_render_cuda_equals_cpu(cuda):
 
     bg = _grid(size=128, seed=4, density=0.01)
     cam = orbit_camera(128.0, resolution=(160, 90))
-    a = fastest_renderer(bg, device="cuda").render(cam)
-    b = fastest_renderer(bg, device="cpu").render(cam)
-    assert _equal(a.cpu(), b)
+    a = fastest_renderer(bg, device="cuda").render(cam, out_u8=True, out_device=True)
+    b = fastest_renderer(bg, device="cpu").render(cam, out_u8=True, out_device=True)
+    assert a.device.type == "cuda" and _equal(a.cpu(), b)
+    np.testing.assert_array_equal(fastest_renderer(bg, device="cuda").render(cam),
+                                  fastest_renderer(bg, device="cpu").render(cam))
 
 
 # grids of 2, 3 and 4 pyramid levels (the bench scene has 4)
@@ -127,7 +129,133 @@ def test_render_is_one_frame_launch(cuda):
 
     r = fastest_renderer(_grid(), device="cuda")
     counts = (render_frame.launches, traverse.launches, shade.launches)
-    r.render(orbit_camera(64.0, resolution=(160, 90)))
+    r.render(orbit_camera(64.0, resolution=(160, 90)), out_u8=True, out_device=True)
     torch.cuda.synchronize()
     assert (render_frame.launches, traverse.launches, shade.launches) == (
         counts[0] + 1, counts[1], counts[2])
+
+
+@pytest.mark.parametrize("max_hits,max_iters", [(2, 2048), (4, 2048), (3, 5)])
+def test_multihit_kernel_equals_plain(cuda, max_hits, max_iters):
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(), cuda)
+    o, d = (t.to(cuda) for t in _rays(5000, 64, 5))
+    n0 = multihit.launches
+    k = multihit(tree, o, d, max_hits, max_iters)
+    torch.cuda.synchronize()
+    assert multihit.launches == n0 + 1
+    p = multihit_plain(tree, o, d, max_hits, max_iters)
+    assert int((p[0] >= 2).sum()) > 10
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape and _equal(a, b)
+
+
+def _soft_case(cuda, K, seed):
+    from voxelhex_tpu_torch.ops.multihit import multihit
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    rng = np.random.default_rng(seed)
+    n = 64**3
+    albedo = torch.from_numpy(rng.random(3 * n).astype(np.float32)).to(cuda)
+    logits = torch.from_numpy(rng.normal(0, 3, n).astype(np.float32)).to(cuda)
+    o, d = (t.to(cuda) for t in _rays(20000, 64, seed))
+    _count, voxels, _dists = multihit(device_bitgrid(_grid(density=0.05), cuda), o, d, K)
+    grad = torch.from_numpy(rng.normal(0, 1e-3, (o.shape[0], 3)).astype(np.float32)).to(cuda)
+    return albedo, logits, voxels, grad
+
+
+# composite tolerances: expf in the kernel and in PyTorch's sigmoid may round
+# an alpha an ulp apart; the backward's atomics add in no fixed order
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("bg", [None, (0.25, 0.5, 0.75)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_composite_kernels_equal_plain(cuda, K, bg, packed):
+    from voxelhex_tpu_torch.ops.composite import (
+        composite_backward, composite_backward_plain, composite_forward,
+        composite_forward_plain)
+
+    albedo, logits, voxels, grad = _soft_case(cuda, K, K)
+    if not packed:  # empty slots first: each slot is valid or not on its own
+        voxels = voxels.flip(1).contiguous()
+        assert K == 1 or bool(((voxels[:, 0, 0] < 0) & (voxels[:, -1, 0] >= 0)).any())
+    n0 = (composite_forward.launches, composite_backward.launches)
+    rgb = composite_forward(albedo, logits, voxels, 64, bg)
+    ga, gl = composite_backward(grad, albedo, logits, voxels, 64, bg)
+    torch.cuda.synchronize()
+    assert (composite_forward.launches, composite_backward.launches) == (n0[0] + 1, n0[1] + 1)
+    want = composite_forward_plain(albedo, logits, voxels, 64, bg)
+    np.testing.assert_allclose(rgb.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=1e-6)
+    wa, wl = composite_backward_plain(grad, albedo, logits, voxels, 64, bg)
+    for got, ref in ((ga, wa), (gl, wl)):
+        got, ref = got.cpu().numpy(), ref.cpu().numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6 * float(np.abs(ref).max()))
+        np.testing.assert_array_equal(got == 0, ref == 0)
+
+
+@pytest.mark.parametrize("fit_albedo,opacity_l1", [(True, 0.0), (False, 0.0), (True, 0.1)])
+def test_adam_kernel_equals_plain(cuda, fit_albedo, opacity_l1):
+    from voxelhex_tpu_torch.ops.adam import AdamConfig, adam_plain, adam_update
+
+    rng = np.random.default_rng(9)
+    n = 100_003
+    cfg = AdamConfig(0.05)
+    extra = (opacity_l1, ((0.0, 1.0), (-12.0, 12.0)))
+
+    def group():
+        return {"albedo": torch.from_numpy(rng.random(3 * n).astype(np.float32)).to(cuda),
+                "logits": torch.from_numpy(rng.normal(0, 6, n).astype(np.float32)).to(cuda)}
+
+    def state():
+        return {"count": torch.tensor(3, dtype=torch.int32, device=cuda),
+                "mu": {k: v * 1e-3 for k, v in group().items()},
+                "nu": {k: v * v * 1e-6 for k, v in group().items()}}
+
+    pk, sk = group(), state()
+    pp, sp = {k: v.clone() for k, v in pk.items()}, {
+        "count": sk["count"].clone(), "mu": {k: v.clone() for k, v in sk["mu"].items()},
+        "nu": {k: v.clone() for k, v in sk["nu"].items()}}
+    for _ in range(2):
+        grads = {k: v * 1e-3 for k, v in group().items()}
+        if not fit_albedo:
+            grads["albedo"] = None
+        n0 = adam_update.launches
+        sk = adam_update(pk, grads, sk, cfg, *extra)
+        torch.cuda.synchronize()
+        assert adam_update.launches == n0 + 1
+        sp = adam_plain(pp, grads, sp, cfg, *extra)
+        assert int(sk["count"]) == int(sp["count"])
+        for a, b in ((pk, pp), (sk["mu"], sp["mu"]), (sk["nu"], sp["nu"])):
+            for k in a:
+                if opacity_l1 and k == "logits":
+                    np.testing.assert_allclose(a[k].cpu().numpy(), b[k].cpu().numpy(),
+                                               rtol=1e-6, atol=1e-9)
+                else:
+                    assert _equal(a[k], b[k]), k
+
+
+def test_training_step_is_four_launches(cuda):
+    from voxelhex_tpu_torch.diff.optim import adam
+    from voxelhex_tpu_torch.diff.soft import SoftRenderer
+    from voxelhex_tpu_torch.ops import adam as adam_ops
+    from voxelhex_tpu_torch.ops import composite, multihit
+
+    r = SoftRenderer(_grid(density=0.05), max_hits=2, device="cuda")
+    p = r.init_params()
+    opt = adam(0.05)
+    s = opt.init(p)
+    o, d = (t.to(cuda) for t in _rays(4000, 64, 8))
+    target = torch.full((4000, 3), 0.5, device=cuda)
+    before = (multihit.multihit.launches, composite.composite_forward.launches,
+              composite.composite_backward.launches, adam_ops.adam_update.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, s, losses = r.train_steps_fused(p, s, opt, o, d, target, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = (multihit.multihit.launches, composite.composite_forward.launches,
+             composite.composite_backward.launches, adam_ops.adam_update.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 3]
+    losses = losses.cpu().numpy()
+    assert np.isfinite(losses).all() and losses[2] < losses[0]

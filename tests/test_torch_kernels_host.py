@@ -1,17 +1,21 @@
 """The CUDA kernels' sources, compiled for the host and run on the CPU,
-against their plain PyTorch versions, bit for bit.
+against their plain PyTorch versions.
 
 A CUDA kernel cannot run without a card, but its arithmetic can: the host
-compiler builds ``csrc/frame.cu`` and ``csrc/traverse.cu`` against a small
-header that stands in for the CUDA names they use (``__fmaf_rn`` is the
-correctly rounded ``fmaf``, ``__fdiv_rn`` an IEEE division, ...; no
-contraction of multiply-adds), and a loop runs every thread of every block
-in turn.  That checks the kernels' logic (pixel tiles, ragged edges, the
-level table, the reciprocal multiplications, ray generation, shading) on
-grids of 2, 3 and 4 pyramid levels.  What it cannot check (the nvcc build,
-the launch, the card's own arithmetic) ``tests/test_torch_kernels_gpu.py``
-and ``chip_smoke.py`` check on the card.  Skips where there is no C++
-compiler.
+compiler builds every source of ``csrc/`` against a small header that
+stands in for the CUDA names they use (``__fmaf_rn`` is the correctly
+rounded ``fmaf``, ``__fdiv_rn`` an IEEE division, ``atomicAdd`` a plain
+add, ...; no contraction of multiply-adds), and a loop runs every thread of
+every block in turn.  That checks the kernels' logic (pixel tiles, ragged
+edges, the level table, the reciprocal multiplications, ray generation,
+shading, the resumed multi-hit march, the composite's recurrence, the
+optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels.
+The outputs equal the plain versions bit for bit, except where a sigmoid's
+``expf`` enters: the host's libm and PyTorch's vectorized ``exp`` may
+differ by an ulp, so those outputs are held within a stated tolerance.
+What this cannot check (the nvcc build, the launch, the card's own
+arithmetic) ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``
+check on the card.  Skips where there is no C++ compiler.
 """
 
 import ctypes
@@ -39,6 +43,7 @@ SHIM = r"""
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#include <math.h>
 struct uint2 { uint32_t x, y; };
 struct int2 { int x, y; };
 struct float4 { float x, y, z, w; };
@@ -46,7 +51,8 @@ struct dim3 {
     unsigned x, y, z;
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-extern dim3 threadIdx, blockIdx, blockDim;
+extern dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline float atomicAdd(float* p, float v) { float old = *p; *p = old + v; return old; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
@@ -70,10 +76,87 @@ using std::signbit;
 # right for kernels whose threads share only what thread 0 writes before it
 HARNESS = r"""
 #include "cuda_runtime.h"
-dim3 threadIdx, blockIdx, blockDim;
+dim3 threadIdx, blockIdx, blockDim, gridDim;
 #include "frame_host.cu"
 namespace trav {
 #include "traverse_host.cu"
+}
+namespace shd {
+#include "shade_host.cu"
+}
+namespace mh {
+#include "multihit_host.cu"
+}
+namespace comp {
+#include "composite_host.cu"
+}
+namespace adm {
+#include "adam_host.cu"
+}
+
+// run `kernel` for every thread of `blocks` blocks of `threads`
+template <class F>
+static void each_thread(unsigned blocks, unsigned threads, F kernel) {
+    blockDim = dim3(threads);
+    gridDim = dim3(blocks);
+    for (unsigned b = 0; b < blocks; ++b)
+        for (unsigned t = 0; t < threads; ++t) {
+            blockIdx = dim3(b);
+            threadIdx = dim3(t);
+            kernel();
+        }
+}
+
+extern "C" long long host_voxel_addr(int x, int y, int z, int size) {
+    return vhx::voxel_addr(x, y, z, size);
+}
+extern "C" void host_shade(const void* hit, const int* voxel, const float* normal,
+                           const float* palette, int n_colors, float bg0, float bg1, float bg2,
+                           int R, float* rgb, unsigned char* u8) {
+    each_thread((R + 255) / 256, 256, [&] {
+        shd::shade_kernel((const unsigned char*)hit, voxel, normal, (const float4*)palette,
+                          n_colors, bg0, bg1, bg2, R, rgb, u8);
+    });
+}
+extern "C" void host_multihit(const float* o, const float* d, const void* occ,
+                              const TraceParams* P, int R, int K, int* count, int* voxels,
+                              float* dists) {
+    each_thread((R + mh::THREADS - 1) / mh::THREADS, mh::THREADS, [&] {
+        mh::multihit_kernel(o, d, (const uint2*)occ, *P, R, K, count, voxels, dists);
+    });
+}
+template <int K>
+static void composite_k(int backward, const float* grad, const float* albedo,
+                        const float* logits, const int* voxels, int R, int size, const float* bg,
+                        float* out, float* g_albedo, float* g_logits) {
+    const float b0 = bg ? bg[0] : 0.f, b1 = bg ? bg[1] : 0.f, b2 = bg ? bg[2] : 0.f;
+    each_thread((R + comp::THREADS - 1) / comp::THREADS, comp::THREADS, [&] {
+        if (backward)
+            comp::composite_bwd_kernel<K>(grad, albedo, logits, voxels, R, size, b0, b1, b2,
+                                          bg ? 1 : 0, g_albedo, g_logits);
+        else
+            comp::composite_fwd_kernel<K>(albedo, logits, voxels, R, size, b0, b1, b2,
+                                          bg ? 1 : 0, out);
+    });
+}
+extern "C" int host_composite(int backward, const float* grad, const float* albedo,
+                              const float* logits, const int* voxels, int R, int K, int size,
+                              const float* bg, float* out, float* g_albedo, float* g_logits) {
+    switch (K) {
+        case 1: composite_k<1>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
+        case 2: composite_k<2>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
+        case 3: composite_k<3>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
+        case 4: composite_k<4>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
+    }
+    return 1;
+}
+extern "C" void host_adam(float* p0, const float* g0, float* mu0, float* nu0, long long n0,
+                          float* p1, const float* g1, float* mu1, float* nu1, long long n1,
+                          const int* count_in, int* count_out, const adm::AdamParams* A,
+                          int blocks) {
+    each_thread(blocks, adm::THREADS, [&] {
+        adm::adam_kernel(p0, g0, mu0, nu0, n0, p1, g1, mu1, nu1, n1, count_in, count_out, *A);
+    });
 }
 extern "C" void host_frame(const void* occ, const void* colors, const float* palette,
                            int n_colors, const FrameParams* P, float* rgb, unsigned char* u8) {
@@ -113,9 +196,10 @@ def host_lib(tmp_path_factory):
     launch = re.compile(r"<<<[^>]*>>>")  # a launch becomes a call of one thread
     with open(os.path.join(CSRC, "frame.cu")) as f:
         (d / "frame_host.cu").write_text(launch.sub("", f.read()))
-    with open(os.path.join(CSRC, "traverse.cu")) as f:
-        (d / "traverse_host.cu").write_text(
-            launch.sub("", f.read()).replace('extern "C" ', ""))
+    for name in ("traverse", "shade", "multihit", "composite", "adam"):
+        with open(os.path.join(CSRC, f"{name}.cu")) as f:
+            (d / f"{name}_host.cu").write_text(
+                launch.sub("", f.read()).replace('extern "C" ', ""))
     (d / "harness.cpp").write_text(HARNESS)
     so = d / "libkernels_host.so"
     out = subprocess.run(
@@ -129,8 +213,16 @@ def host_lib(tmp_path_factory):
 
     p = ctypes.c_void_p
     lib.host_frame.argtypes = [p, p, p, ctypes.c_int, ctypes.POINTER(_build.FrameParams), p, p]
-    lib.host_traverse.argtypes = [p, p, p, p, ctypes.POINTER(_build.TraceParams), ctypes.c_int,
+    i, f = ctypes.c_int, ctypes.c_float
+    lib.host_traverse.argtypes = [p, p, p, p, ctypes.POINTER(_build.TraceParams), i,
                                   p, p, p, p, p]
+    lib.host_voxel_addr.argtypes = [i, i, i, i]
+    lib.host_voxel_addr.restype = ctypes.c_longlong
+    lib.host_shade.argtypes = [p, p, p, p, i, f, f, f, i, p, p]
+    lib.host_multihit.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), i, i, p, p, p]
+    lib.host_composite.argtypes = [i, p, p, p, p, i, i, i, ctypes.POINTER(f), p, p, p]
+    lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
+                              p, ctypes.POINTER(_build.AdamParams), i]
     return lib
 
 
@@ -195,3 +287,157 @@ def test_traverse_kernel_source_equals_plain(host_lib, size, density):
     assert int(want[0].sum()) > n // 10
     for a, b in zip(out, want):
         assert _equal(a, b)
+
+
+def test_voxel_addr_is_64_bit(host_lib):
+    """The address of the last voxel of a 2048^3 world (8,589,934,591) and a
+    few others: in 32 bits they would wrap."""
+    for x, y, z, size in ((2047, 2047, 2047, 2048), (0, 0, 1291, 1291), (5, 1290, 1290, 1291),
+                          (3, 2, 1, 16)):
+        assert host_lib.host_voxel_addr(x, y, z, size) == x + y * size + z * size * size
+
+
+def test_shade_kernel_source_equals_plain(host_lib):
+    from voxelhex_tpu_torch.ops.shade import shade_plain
+
+    rng = np.random.default_rng(3)
+    R, P = 1999, 37
+    hit = torch.from_numpy(rng.random(R) < 0.7)
+    voxel = torch.from_numpy(rng.integers(-1, P + 3, R).astype(np.int32))
+    voxel[rng.random(R) < 0.1] = 0x3FFFFFFE  # NO_COLOR_HIT
+    normal = torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32))
+    palette = torch.from_numpy(rng.random((P, 4)).astype(np.float32))
+    bg = (0.1, 0.2, 0.3)
+    for out_u8 in (True, False):
+        out = torch.zeros((R, 3), dtype=torch.uint8 if out_u8 else torch.float32)
+        host_lib.host_shade(hit.data_ptr(), voxel.data_ptr(), normal.data_ptr(),
+                            palette.data_ptr(), P, *bg, R, None if out_u8 else out.data_ptr(),
+                            out.data_ptr() if out_u8 else None)
+        assert _equal(out, shade_plain(hit, voxel, normal, palette, bg, out_u8))
+
+
+def _rays_into(size, n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5 * size, 1.5 * size, (n, 3)).astype(np.float32)
+    d = rng.uniform(0, size, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d.astype(np.float32))
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("max_hits,max_iters", [(3, 2048), (2, 6)])
+def test_multihit_kernel_source_equals_plain(host_lib, size, density, max_hits, max_iters):
+    """Bit for bit, also when the step budget (max_hits * max_iters) cuts rays."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+
+    tree = _tree(size, density)
+    n = 1500
+    o, d = _rays_into(size, n, 1)
+    out = [torch.zeros(n, dtype=torch.int32), torch.zeros((n, max_hits, 3), dtype=torch.int32),
+           torch.zeros((n, max_hits))]
+    host_lib.host_multihit(o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
+                           trace_params(tree, max_iters), n, max_hits,
+                           *[t.data_ptr() for t in out])
+    want = multihit_plain(tree, o, d, max_hits, max_iters)
+    assert int((want[0] >= 2).sum()) > 10  # rays resumed after a hit
+    for a, b in zip(out, want):
+        assert _equal(a, b)
+
+
+def _soft_inputs(size, K, seed):
+    """Params and recorded voxels for the composite: random flat params and
+    the multi-hit march of random rays (with duplicate voxels across rays)."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+
+    rng = np.random.default_rng(seed)
+    n = size**3
+    albedo = torch.from_numpy(rng.random(3 * n).astype(np.float32))
+    logits = torch.from_numpy(rng.normal(0, 3, n).astype(np.float32))
+    tree = _tree(size, 0.05)
+    o, d = _rays_into(size, 1200, seed)
+    _count, voxels, _dists = multihit_plain(tree, o, d, K)
+    grad = torch.from_numpy(rng.normal(0, 1e-3, (o.shape[0], 3)).astype(np.float32))
+    return albedo, logits, voxels, grad
+
+
+# The composite's sigmoid calls expf: the host's libm and PyTorch's vectorized
+# exp may round an alpha differently by an ulp, which moves an rgb value by
+# about as much (atol 1e-6) and a gradient by a few ulps of its terms.
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("bg", [None, (0.25, 0.5, 0.75)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_composite_kernel_sources_equal_plain(host_lib, K, bg, packed):
+    from voxelhex_tpu_torch.ops.composite import composite_backward_plain, composite_forward_plain
+
+    size = 16
+    albedo, logits, voxels, grad = _soft_inputs(size, K, 7 + K)
+    if not packed:  # empty slots first: each slot is valid or not on its own
+        voxels = voxels.flip(1).contiguous()
+        assert K == 1 or bool(((voxels[:, 0, 0] < 0) & (voxels[:, -1, 0] >= 0)).any())
+    R = voxels.shape[0]
+    bg_arg = None if bg is None else (ctypes.c_float * 3)(*bg)
+    rgb = torch.full((R, 3), 7.0)
+    assert host_lib.host_composite(0, None, albedo.data_ptr(), logits.data_ptr(),
+                                   voxels.data_ptr(), R, K, size, bg_arg, rgb.data_ptr(),
+                                   None, None) == 0
+    want = composite_forward_plain(albedo, logits, voxels, size, bg)
+    np.testing.assert_allclose(rgb.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+    g_albedo, g_logits = torch.zeros_like(albedo), torch.zeros_like(logits)
+    assert host_lib.host_composite(1, grad.data_ptr(), albedo.data_ptr(), logits.data_ptr(),
+                                   voxels.data_ptr(), R, K, size, bg_arg, None,
+                                   g_albedo.data_ptr(), g_logits.data_ptr()) == 0
+    wa, wl = composite_backward_plain(grad, albedo, logits, voxels, size, bg)
+    assert int((wl != 0).sum()) > 100
+    for got, ref in ((g_albedo, wa), (g_logits, wl)):
+        scale = float(ref.abs().max())
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-6 * scale)
+        assert bool(((got == 0) == (ref == 0)).all())  # the same voxels receive gradient
+
+
+@pytest.mark.parametrize("fit_albedo,opacity_l1", [(True, 0.0), (False, 0.0), (True, 0.3)])
+def test_adam_kernel_source_equals_plain(host_lib, fit_albedo, opacity_l1):
+    """Two steps; bit for bit without the L1 term, whose sigmoid calls expf."""
+    from voxelhex_tpu_torch.ops.adam import AdamConfig, adam_params, adam_plain
+
+    rng = np.random.default_rng(11)
+    n = 3000
+    cfg = AdamConfig(0.05)
+    extra = (opacity_l1, ((0.0, 1.0), (-12.0, 12.0)))
+
+    def state():
+        return {"albedo": torch.from_numpy(rng.random(3 * n).astype(np.float32)),
+                "logits": torch.from_numpy(rng.normal(0, 6, n).astype(np.float32))}
+
+    params = state()
+    moments = {"count": torch.tensor(6, dtype=torch.int32),
+               "mu": {k: v * 1e-3 for k, v in state().items()},
+               "nu": {k: v * v * 1e-6 for k, v in state().items()}}
+    kp = {k: v.clone() for k, v in params.items()}
+    km = {"count": moments["count"].clone(),
+          "mu": {k: v.clone() for k, v in moments["mu"].items()},
+          "nu": {k: v.clone() for k, v in moments["nu"].items()}}
+    for step in range(2):
+        grads = {k: torch.from_numpy(rng.normal(0, 1e-3, v.shape).astype(np.float32))
+                 for k, v in params.items()}
+        if not fit_albedo:
+            grads["albedo"] = None
+        moments = adam_plain(params, grads, moments, cfg, *extra)
+        new_count = torch.zeros((), dtype=torch.int32)
+        ga = grads["albedo"]
+        host_lib.host_adam(kp["albedo"].data_ptr(), None if ga is None else ga.data_ptr(),
+                           km["mu"]["albedo"].data_ptr(), km["nu"]["albedo"].data_ptr(), 3 * n,
+                           kp["logits"].data_ptr(), grads["logits"].data_ptr(),
+                           km["mu"]["logits"].data_ptr(), km["nu"]["logits"].data_ptr(), n,
+                           km["count"].data_ptr(), new_count.data_ptr(),
+                           adam_params(cfg, n, *extra), 3)  # 3 blocks: the grid-stride loop wraps
+        km["count"] = new_count
+        assert int(new_count) == int(moments["count"]) == 7 + step
+        for got, ref in ((kp, params), (km["mu"], moments["mu"]), (km["nu"], moments["nu"])):
+            for k in got:
+                if opacity_l1 and k == "logits":
+                    np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=1e-6,
+                                               atol=1e-9)
+                else:
+                    assert _equal(got[k], ref[k]), (step, k)

@@ -1,5 +1,6 @@
 // The BitGrid automaton of one ray, shared by the traversal kernel
-// (traverse.cu) and the frame kernel (frame.cu).
+// (traverse.cu), the frame kernel (frame.cu) and the multi-hit march
+// (multihit.cu).
 //
 // It computes what the production tracer computes (`make_bitgrid_tracer`,
 // voxelhex_tpu/render/bitgrid.py:482-808): clip to the world box, then the
@@ -14,6 +15,10 @@
 // both round the same exact value, so the results are the same bits.  The
 // loop stops after `max_iters` iterations whatever the ray does, and a ray
 // restarts at most MAX_RESTARTS times.
+//
+// The march is resumable: `init` and `run` keep the automaton's state in a
+// `March`, and `run` stops on each hit, so the multi-hit march
+// (multihit.cu) resumes the same state after clearing the hit's bit.
 //
 // The tracer settings are those of the reference renderer
 // (BitGridRenderer.__init__): lateral steps on, MAX_RESTARTS restarts,
@@ -220,6 +225,236 @@ __device__ __forceinline__ void load_levels(const TraceParams& P, int2* levels) 
     __syncthreads();
 }
 
+// The flat index x + y * size + z * size^2 of a voxel, in 64 bits: in
+// 32 bits it wraps from size 1291 on.  Colors ([S^3]) and the soft params
+// ([S^3] logits, [S^3 * 3] albedo) are addressed through it.
+__device__ __forceinline__ long long voxel_addr(int x, int y, int z, int size) {
+    return (long long)x + (long long)y * size + (long long)z * size * size;
+}
+
+// What the march reads besides the ray: the pyramid, its level table (in
+// shared memory, load_levels), its depth, the world extent, its rows.
+struct Grid {
+    const uint2* occ;
+    const int2* levels;
+    int n_levels;
+    int size;
+    int n_blocks;
+};
+
+// One ray's automaton between steps, the loop state of the reference's
+// trace.init / trace.run, held in registers.  `run` stops on a hit with
+// the state as the hit left it, so that the multi-hit march can clear the
+// hit voxel's bit in (lo, hi) and resume (soft.py `_hit_step`).
+struct March {
+    float d[3];
+    float sf[3];      // path length per unit step along each axis
+    int octant;
+    float p[3];       // the current point
+    float tmin[3];    // min corner of the current cell
+    float bmin[3];    // min corner of the current block
+    float tsize;      // the cell edge, 4^level
+    int level;
+    int tsect;        // the cell's sectant in its block; OOB outside it
+    uint32_t lo, hi;  // the block's occupancy words
+    int restarts;
+    int steps;        // automaton steps taken, each hit's step included
+    bool active;      // still marching
+    bool hit;         // stopped on an occupied voxel
+};
+
+// Clip the ray (o, d) to the world box and enter it at the top level.
+__device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g) {
+    const float S = (float)g.size;
+    const int top = g.n_levels - 1;
+    const float top_block = pow4(top) * 4.f;
+    const float inv_top_block = inv_pow4(top + 1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m.d[c] = d[c];
+    {
+        float a = __fdiv_rn(d[2], d[0]), b = __fdiv_rn(d[1], d[0]);
+        m.sf[0] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
+        a = __fdiv_rn(d[0], d[1]);
+        b = __fdiv_rn(d[2], d[1]);
+        m.sf[1] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
+        a = __fdiv_rn(d[0], d[2]);
+        b = __fdiv_rn(d[1], d[2]);
+        m.sf[2] = __fsqrt_rn(__fadd_rn(__fmaf_rn(a, a, __fmul_rn(b, b)), 1.f));
+    }
+    m.octant = (d[0] >= 0.f ? 1 : 0) + (d[2] >= 0.f ? 2 : 0) + (d[1] >= 0.f ? 4 : 0);
+    float pmin[3], pmax[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        float t_lo = __fdiv_rn(__fsub_rn(0.f, o[c]), d[c]);
+        float t_hi = __fdiv_rn(__fsub_rn(S, o[c]), d[c]);
+        pmin[c] = fmin_nan(t_lo, t_hi);
+        pmax[c] = fmax_nan(t_lo, t_hi);
+    }
+    const float tmin_r = fmax_nan(fmax_nan(pmin[0], pmin[1]), pmin[2]);
+    const float tmax_r = fmin_nan(fmin_nan(pmax[0], pmax[1]), pmax[2]);
+    m.active = !((tmax_r < 0.f) || (tmin_r > tmax_r));
+    m.hit = false;
+    const float enter = xla_max(tmin_r, 0.f);
+    // the reference fuses this multiply-add on x and y, not on z
+    m.p[0] = __fmaf_rn(d[0], enter, o[0]);
+    m.p[1] = __fmaf_rn(d[1], enter, o[1]);
+    m.p[2] = __fadd_rn(o[2], __fmul_rn(d[2], enter));
+
+    m.level = top;  // the cell edge tsize is 4^level throughout
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m.bmin[c] = 0.f;
+    fetch(g.occ, g.levels, g.n_blocks, top, m.bmin, m.lo, m.hi);
+    m.tsect = m.active ? offset_sectant(m.p, inv_top_block) : OOB;
+    sectant_offset(clamp63(m.tsect), m.tmin);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) m.tmin[c] = __fmul_rn(m.tmin[c], top_block);
+    m.tsize = pow4(top);
+    m.restarts = 0;
+    m.steps = 0;
+}
+
+// Step the automaton until the ray hits an occupied voxel (hit, inactive),
+// leaves the world (inactive), or has taken `max_steps` steps in all.
+__device__ __forceinline__ void run(March& m, const Grid& g, int max_steps) {
+    const float S = (float)g.size;
+    const int top = g.n_levels - 1;
+    const float top_cell = pow4(top);
+    const float top_block = top_cell * 4.f;
+    const float inv_top_block = inv_pow4(top + 1);
+
+    while (m.active && m.steps < max_steps) {
+        m.steps += 1;
+        const bool inb = m.tsect < OOB;
+        const bool occupied = occ_bit(m.lo, m.hi, m.tsect);
+        const bool at_bottom = m.level <= 0;
+        if (occupied && at_bottom && inb) {
+            m.hit = true;
+            m.active = false;
+            return;
+        }
+        uint32_t m_lo, m_hi;
+        reach_mask(clamp63(m.tsect), m.octant, m_lo, m_hi);
+        const bool no_overlap = ((m.lo & m_lo) == 0u) && ((m.hi & m_hi) == 0u);
+        const bool descend = occupied && !at_bottom && inb;
+        const bool lateral = !inb && !descend;
+        const bool ascend = no_overlap && !descend && !lateral;
+        const float block = m.tsize * 4.f;
+        const float inv_block = inv_pow4(m.level + 1);
+        bool moved = true;
+        if (descend) {
+            float off[3], so[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(m.p[c], m.tmin[c]);
+            const int d_tsect = offset_sectant(off, inv_pow4(m.level));
+            sectant_offset(d_tsect, so);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                m.bmin[c] = m.tmin[c];
+                m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(so[c], m.tsize));
+            }
+            m.tsect = d_tsect;
+            m.tsize = __fmul_rn(m.tsize, 0.25f);  // tsize / 4
+            m.level -= 1;
+        } else if (ascend) {
+            const float parent_block = block * 4.f;
+            const float inv_parent = inv_pow4(m.level + 2);
+            float pmin_[3], off[3], np[3], st[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                pmin_[c] = block_floor(m.bmin[c], parent_block, inv_parent);
+                off[c] = __fsub_rn(__fadd_rn(m.bmin[c], __fmul_rn(block, 0.5f)), pmin_[c]);
+            }
+            const int a_ts0 = offset_sectant(off, inv_parent);
+            dda_step(m.d, m.sf, m.p, m.bmin, block, np, st);
+            m.tsect = step_sectant(a_ts0, st);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                m.p[c] = np[c];
+                m.tmin[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
+                m.bmin[c] = pmin_[c];
+            }
+            m.tsize = block;
+            m.level += 1;
+        } else if (lateral) {
+            float np[3], st[3], lb[3], off[3], so[3];
+            dda_step(m.d, m.sf, m.p, m.bmin, block, np, st);
+            bool outside = false;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                lb[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
+                outside = outside || lb[c] < 0.f || lb[c] >= S;
+            }
+            if (outside) {  // the neighbor block lies outside the world
+                m.active = false;
+                return;
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(np[c], lb[c]);
+            m.tsect = offset_sectant(off, inv_block);
+            sectant_offset(clamp63(m.tsect), so);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                m.p[c] = np[c];
+                m.tmin[c] = __fadd_rn(lb[c], __fmul_rn(so[c], block));
+                m.bmin[c] = lb[c];
+            }
+        } else {  // ADVANCE inside the current block
+            moved = false;
+            for (int k = 0; k < ADVANCE_SUBSTEPS; ++k) {
+                float np[3], st[3];
+                dda_step(m.d, m.sf, m.p, m.tmin, m.tsize, np, st);
+                const int s_ts = step_sectant(m.tsect, st);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    m.p[c] = np[c];
+                    if (s_ts < OOB) m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(st[c], m.tsize));
+                }
+                m.tsect = s_ts;
+                if (m.tsect >= OOB || occ_bit(m.lo, m.hi, m.tsect)) break;
+            }
+        }
+
+        if (m.level > top) {  // ascended past the top: restart a little on
+            float re[3];
+            bool inside = true;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                re[c] = __fadd_rn(m.p[c], __fmul_rn(m.d[c], 0.1f));
+                inside = inside && re[c] > 0.f && re[c] < S;
+                m.p[c] = re[c];
+            }
+            const bool can_restart = inside && m.restarts < MAX_RESTARTS;
+            m.restarts += 1;
+            if (!can_restart) {
+                m.active = false;
+                return;
+            }
+            m.tsect = offset_sectant(m.p, inv_top_block);
+            sectant_offset(clamp63(m.tsect), m.tmin);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                m.tmin[c] = __fmul_rn(m.tmin[c], top_block);
+                m.bmin[c] = 0.f;
+            }
+            m.tsize = top_cell;
+            m.level = top;
+        }
+        if (moved) fetch(g.occ, g.levels, g.n_blocks, m.level, m.bmin, m.lo, m.hi);
+    }
+}
+
+// Clear the bit of the voxel the ray stopped on in its register words and
+// let it march on: the next hit it records is another voxel (soft.py
+// `_hit_step`).  Only the register copy changes; a later fetch of the same
+// block reads the bit again.
+__device__ __forceinline__ void resume_after_hit(March& m) {
+    const int s = clamp63(m.tsect);
+    if (s < 32) m.lo &= ~(1u << s);
+    else m.hi &= ~(1u << (s - 32));
+    m.hit = false;
+    m.active = true;
+}
+
 // What one ray ends with
 struct Hit {
     bool hit;
@@ -235,185 +470,29 @@ __device__ __forceinline__ Hit march(const float o[3], const float d[3],
                                      const unsigned short* __restrict__ colors,
                                      const int2* levels, int n_levels, int size, int n_blocks,
                                      int max_iters) {
-    const float S = (float)size;
-    const int top = n_levels - 1;
-    const float top_cell = pow4(top);
-    const float top_block = top_cell * 4.f;
-    const float inv_top_block = inv_pow4(top + 1);
+    const Grid g{occ, levels, n_levels, size, n_blocks};
+    March m;
+    init(m, o, d, g);
+    run(m, g, max_iters);
 
-    // ---- init: clip to the world box, enter at the top level
-    float sf[3];
-    {
-        float a = __fdiv_rn(d[2], d[0]), b = __fdiv_rn(d[1], d[0]);
-        sf[0] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
-        a = __fdiv_rn(d[0], d[1]);
-        b = __fdiv_rn(d[2], d[1]);
-        sf[1] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
-        a = __fdiv_rn(d[0], d[2]);
-        b = __fdiv_rn(d[1], d[2]);
-        sf[2] = __fsqrt_rn(__fadd_rn(__fmaf_rn(a, a, __fmul_rn(b, b)), 1.f));
-    }
-    const int octant = (d[0] >= 0.f ? 1 : 0) + (d[2] >= 0.f ? 2 : 0) + (d[1] >= 0.f ? 4 : 0);
-    float pmin[3], pmax[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        float t_lo = __fdiv_rn(__fsub_rn(0.f, o[c]), d[c]);
-        float t_hi = __fdiv_rn(__fsub_rn(S, o[c]), d[c]);
-        pmin[c] = fmin_nan(t_lo, t_hi);
-        pmax[c] = fmax_nan(t_lo, t_hi);
-    }
-    const float tmin_r = fmax_nan(fmax_nan(pmin[0], pmin[1]), pmin[2]);
-    const float tmax_r = fmin_nan(fmin_nan(pmax[0], pmax[1]), pmax[2]);
-    bool active = !((tmax_r < 0.f) || (tmin_r > tmax_r));
-    const float enter = xla_max(tmin_r, 0.f);
-    float p[3];
-    // the reference fuses this multiply-add on x and y, not on z
-    p[0] = __fmaf_rn(d[0], enter, o[0]);
-    p[1] = __fmaf_rn(d[1], enter, o[1]);
-    p[2] = __fadd_rn(o[2], __fmul_rn(d[2], enter));
-
-    int level = top;  // the cell edge tsize is 4^level throughout
-    float bmin[3] = {0.f, 0.f, 0.f};
-    uint32_t lo, hi;
-    fetch(occ, levels, n_blocks, top, bmin, lo, hi);
-    int tsect = active ? offset_sectant(p, inv_top_block) : OOB;
-    float tmin[3];
-    sectant_offset(clamp63(tsect), tmin);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) tmin[c] = __fmul_rn(tmin[c], top_block);
-    float tsize = top_cell;
     Hit out;
-    out.hit = false;
+    out.hit = m.hit;
     out.hvox[0] = out.hvox[1] = out.hvox[2] = 0;
     out.normal[0] = out.normal[1] = out.normal[2] = 0.f;
-    int restarts = 0;
-
-    // ---- the automaton, at most max_iters steps
-    for (int it = 0; active && it < max_iters; ++it) {
-        const bool inb = tsect < OOB;
-        const bool occupied = occ_bit(lo, hi, tsect);
-        const bool at_bottom = level <= 0;
-        if (occupied && at_bottom && inb) {
-            out.hit = true;
 #pragma unroll
-            for (int c = 0; c < 3; ++c) out.hvox[c] = (int)tmin[c];
-            impact_normal(tmin, tsize, p, out.normal);
-            break;
-        }
-        uint32_t m_lo, m_hi;
-        reach_mask(clamp63(tsect), octant, m_lo, m_hi);
-        const bool no_overlap = ((lo & m_lo) == 0u) && ((hi & m_hi) == 0u);
-        const bool descend = occupied && !at_bottom && inb;
-        const bool lateral = !inb && !descend;
-        const bool ascend = no_overlap && !descend && !lateral;
-        const float block = tsize * 4.f;
-        const float inv_block = inv_pow4(level + 1);
-        bool moved = true;
-        if (descend) {
-            float off[3], so[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(p[c], tmin[c]);
-            const int d_tsect = offset_sectant(off, inv_pow4(level));
-            sectant_offset(d_tsect, so);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                bmin[c] = tmin[c];
-                tmin[c] = __fadd_rn(tmin[c], __fmul_rn(so[c], tsize));
-            }
-            tsect = d_tsect;
-            tsize = __fmul_rn(tsize, 0.25f);  // tsize / 4
-            level -= 1;
-        } else if (ascend) {
-            const float parent_block = block * 4.f;
-            const float inv_parent = inv_pow4(level + 2);
-            float pmin_[3], off[3], np[3], st[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                pmin_[c] = block_floor(bmin[c], parent_block, inv_parent);
-                off[c] = __fsub_rn(__fadd_rn(bmin[c], __fmul_rn(block, 0.5f)), pmin_[c]);
-            }
-            const int a_ts0 = offset_sectant(off, inv_parent);
-            dda_step(d, sf, p, bmin, block, np, st);
-            tsect = step_sectant(a_ts0, st);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                p[c] = np[c];
-                tmin[c] = __fadd_rn(bmin[c], __fmul_rn(st[c], block));
-                bmin[c] = pmin_[c];
-            }
-            tsize = block;
-            level += 1;
-        } else if (lateral) {
-            float np[3], st[3], lb[3], off[3], so[3];
-            dda_step(d, sf, p, bmin, block, np, st);
-            bool outside = false;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                lb[c] = __fadd_rn(bmin[c], __fmul_rn(st[c], block));
-                outside = outside || lb[c] < 0.f || lb[c] >= S;
-            }
-            if (outside) break;  // the neighbor block lies outside the world
-#pragma unroll
-            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(np[c], lb[c]);
-            tsect = offset_sectant(off, inv_block);
-            sectant_offset(clamp63(tsect), so);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                p[c] = np[c];
-                tmin[c] = __fadd_rn(lb[c], __fmul_rn(so[c], block));
-                bmin[c] = lb[c];
-            }
-        } else {  // ADVANCE inside the current block
-            moved = false;
-            for (int k = 0; k < ADVANCE_SUBSTEPS; ++k) {
-                float np[3], st[3];
-                dda_step(d, sf, p, tmin, tsize, np, st);
-                const int s_ts = step_sectant(tsect, st);
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    p[c] = np[c];
-                    if (s_ts < OOB) tmin[c] = __fadd_rn(tmin[c], __fmul_rn(st[c], tsize));
-                }
-                tsect = s_ts;
-                if (tsect >= OOB || occ_bit(lo, hi, tsect)) break;
-            }
-        }
-
-        if (level > top) {  // ascended past the top: restart a little on
-            float re[3];
-            bool inside = true;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                re[c] = __fadd_rn(p[c], __fmul_rn(d[c], 0.1f));
-                inside = inside && re[c] > 0.f && re[c] < S;
-                p[c] = re[c];
-            }
-            const bool can_restart = inside && restarts < MAX_RESTARTS;
-            restarts += 1;
-            if (!can_restart) break;
-            tsect = offset_sectant(p, inv_top_block);
-            sectant_offset(clamp63(tsect), tmin);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                tmin[c] = __fmul_rn(tmin[c], top_block);
-                bmin[c] = 0.f;
-            }
-            tsize = top_cell;
-            level = top;
-        }
-        if (moved) fetch(occ, levels, n_blocks, level, bmin, lo, hi);
-    }
-
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out.point[c] = p[c];
-    // the color of the hit voxel
+    for (int c = 0; c < 3; ++c) out.point[c] = m.p[c];
     out.voxel = EMPTY_DESC;
-    if (out.hit) {
+    if (m.hit) {
+        // the hit step moved nothing: the cell and point are the hit's
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out.hvox[c] = (int)m.tmin[c];
+        impact_normal(m.tmin, m.tsize, m.p, out.normal);
+        // the color of the hit voxel
         int v[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c)
             v[c] = out.hvox[c] < 0 ? 0 : (out.hvox[c] > size - 1 ? size - 1 : out.hvox[c]);
-        const int cidx = (int)__ldg(&colors[v[0] + v[1] * size + v[2] * size * size]);
+        const int cidx = (int)__ldg(&colors[voxel_addr(v[0], v[1], v[2], size)]);
         out.voxel = cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
     }
     return out;

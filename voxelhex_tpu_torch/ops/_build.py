@@ -26,7 +26,7 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
-SOURCES = ("traverse.cu", "shade.cu", "frame.cu")
+SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "multihit.cu", "composite.cu", "adam.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -66,6 +66,24 @@ class FrameParams(ctypes.Structure):
         ("bg", ctypes.c_float * 3),
         ("w", ctypes.c_int),
         ("h", ctypes.c_int),
+    ]
+
+
+class AdamParams(ctypes.Structure):
+    """Mirror of ``struct AdamParams`` in adam.cu."""
+
+    _fields_ = [
+        ("neg_lr", ctypes.c_float),
+        ("b1", ctypes.c_float),
+        ("b2", ctypes.c_float),
+        ("one_m_b1", ctypes.c_float),
+        ("one_m_b2", ctypes.c_float),
+        ("eps", ctypes.c_float),
+        ("b1_d", ctypes.c_double),
+        ("b2_d", ctypes.c_double),
+        ("l1_scale", ctypes.c_float),
+        ("lo", ctypes.c_float * 2),
+        ("hi", ctypes.c_float * 2),
     ]
 
 
@@ -154,7 +172,8 @@ def _build(out_dir: str, sources) -> None:
 
 def library() -> types.SimpleNamespace:
     """The kernels' C entry points (``vhx_traverse``, ``vhx_shade``,
-    ``vhx_render_frame``), built first if needed."""
+    ``vhx_render_frame``, ``vhx_multihit``, ``vhx_composite_forward``,
+    ``vhx_composite_backward``, ``vhx_adam``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -163,27 +182,50 @@ def library() -> types.SimpleNamespace:
             if missing:
                 _build(out_dir, missing)
             dlls = {s: ctypes.CDLL(_so(out_dir, s)) for s in SOURCES}
-            trav, shade, frame = dlls["traverse.cu"], dlls["shade.cu"], dlls["frame.cu"]
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            trav.vhx_traverse.argtypes = [p, p, p, p, ctypes.POINTER(TraceParams), i,
-                                          p, p, p, p, p, i, p]
-            trav.vhx_traverse.restype = i
-            shade.vhx_shade.argtypes = [p, p, p, p, i, f, f, f, i, p, p, i, p]
-            shade.vhx_shade.restype = i
-            frame.vhx_render_frame.argtypes = [p, p, p, i, ctypes.POINTER(FrameParams), p, p,
-                                               i, p]
-            frame.vhx_render_frame.restype = i
-            for fn, struct in ((trav.vhx_trace_params_size, TraceParams),
-                               (frame.vhx_frame_params_size, FrameParams)):
+            p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+            trace_p, f3 = ctypes.POINTER(TraceParams), ctypes.POINTER(ctypes.c_float)
+            signatures = {
+                "traverse.cu": {"vhx_traverse": [p, p, p, p, trace_p, i, p, p, p, p, p, i, p]},
+                "shade.cu": {"vhx_shade": [p, p, p, p, i, f, f, f, i, p, p, i, p]},
+                "frame.cu": {"vhx_render_frame": [p, p, p, i, ctypes.POINTER(FrameParams), p,
+                                                  p, i, p]},
+                "multihit.cu": {"vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p]},
+                "composite.cu": {
+                    "vhx_composite_forward": [p, p, p, i, i, i, f3, p, i, p],
+                    "vhx_composite_backward": [p, p, p, p, i, i, i, f3, p, p, i, p],
+                },
+                "adam.cu": {"vhx_adam": [p, p, p, p, ll, p, p, p, p, ll, p, p,
+                                         ctypes.POINTER(AdamParams), i, p]},
+            }
+            fns = {}
+            for source, entries in signatures.items():
+                for name, argtypes in entries.items():
+                    fn = getattr(dlls[source], name)
+                    fn.argtypes, fn.restype = argtypes, i
+                    fns[name] = fn
+            for source, name, struct in (("traverse.cu", "vhx_trace_params_size", TraceParams),
+                                         ("multihit.cu", "vhx_multihit_params_size", TraceParams),
+                                         ("frame.cu", "vhx_frame_params_size", FrameParams),
+                                         ("adam.cu", "vhx_adam_params_size", AdamParams)):
+                fn = getattr(dlls[source], name)
                 fn.argtypes, fn.restype = [], i
                 if fn() != ctypes.sizeof(struct):
                     raise RuntimeError(f"{struct.__name__}: {fn()} B in C, "
                                        f"{ctypes.sizeof(struct)} B in ctypes")
-            _lib = types.SimpleNamespace(
-                vhx_traverse=trav.vhx_traverse, vhx_shade=shade.vhx_shade,
-                vhx_render_frame=frame.vhx_render_frame, dlls=dlls,
-            )
+            _lib = types.SimpleNamespace(dlls=dlls, **fns)
         return _lib
+
+
+def check_inputs(dev, specs) -> None:
+    """Raise unless each ``(name, tensor, dtype, shape)`` of ``specs`` is a
+    contiguous tensor of that dtype and shape on ``dev``."""
+    for name, t, dtype, shape in specs:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: want contiguous {dtype} {tuple(shape)} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
 
 
 def check(err: int, what: str) -> None:

@@ -21,21 +21,23 @@ from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params, traverse_pl
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
 
-def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True):
+def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
+                       max_iters=MAX_ITERS):
     """The plain PyTorch frame (see :func:`render_frame`)."""
     w, h = camera.resolution
     o, d = device_rays(camera, tree["occ_pairs"].device)
-    hit, voxel, _hvox, _point, hnormal = traverse_plain(tree, o, d)
+    hit, voxel, _hvox, _point, hnormal = traverse_plain(tree, o, d, max_iters)
     return shade_plain(hit, voxel, hnormal, tree["palette"], bg, out_u8).reshape(h, w, 3)
 
 
-def frame_params(tree, camera: Camera, bg=(0.0, 0.0, 0.0)) -> _build.FrameParams:
+def frame_params(tree, camera: Camera, bg=(0.0, 0.0, 0.0),
+                 max_iters=MAX_ITERS) -> _build.FrameParams:
     """The launch parameters of one frame: the tree's level table, the
     camera params of :func:`camera_params`, the folded pixel constants of
     the plain ray generation, the background and the resolution."""
     w, h = camera.resolution
     p = _build.FrameParams()
-    p.trace = trace_params(tree, MAX_ITERS)
+    p.trace = trace_params(tree, max_iters)
     origin, right, up, forward, scale = camera_params(camera)
     p.origin[:], p.right[:], p.up[:], p.forward[:] = (
         [float(v) for v in a] for a in (origin, right, up, forward))
@@ -46,34 +48,30 @@ def frame_params(tree, camera: Camera, bg=(0.0, 0.0, 0.0)) -> _build.FrameParams
     return p
 
 
-def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True):
+def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS):
     """The frame of ``camera`` over the BitGrid ``tree``
-    (:func:`device_bitgrid`) with the reference renderer's tracer settings:
-    ``[h, w, 3]`` u8, or f32 when ``out_u8`` is false, ``bg`` on a miss.
+    (:func:`device_bitgrid`) with the reference renderer's tracer settings,
+    each ray for at most ``max_iters`` steps: ``[h, w, 3]`` u8, or f32 when
+    ``out_u8`` is false, ``bg`` on a miss.
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel."""
     dev = tree["occ_pairs"].device
     if dev.type == "cpu":
-        return render_frame_plain(tree, camera, bg, out_u8)
+        return render_frame_plain(tree, camera, bg, out_u8, max_iters)
     if dev.type != "cuda":
         raise ValueError(f"render_frame runs on cuda or cpu tensors, not {dev}")
-    for name, t, dtype, shape in (
+    _build.check_inputs(dev, (
         ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
         ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
         ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    ))
     n_colors = tree["palette"].shape[0]
     if n_colors < 1:
         raise ValueError("empty palette")
     w, h = camera.resolution
     if w < 1 or h < 1:
         raise ValueError(f"resolution {camera.resolution}")
-    params = frame_params(tree, camera, bg)
+    params = frame_params(tree, camera, bg, max_iters)
     lib = _build.library()
     out = torch.empty((h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     rgb_ptr, u8_ptr = (None, out.data_ptr()) if out_u8 else (out.data_ptr(), None)

@@ -34,17 +34,12 @@ def shade(hit, voxel, normal, palette, bg=(0.0, 0.0, 0.0), out_u8=True):
         raise ValueError(f"shade runs on cuda or cpu tensors, not {normal.device}")
     R = normal.shape[0]
     dev = normal.device
-    for name, t, dtype, shape in (
+    _build.check_inputs(dev, (
         ("hit", hit, torch.bool, (R,)),
         ("voxel", voxel, torch.int32, (R,)),
         ("normal", normal, torch.float32, (R, 3)),
         ("palette", palette, torch.float32, (palette.shape[0], 4)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    ))
     if palette.shape[0] < 1:
         raise ValueError("empty palette")
     bg0, bg1, bg2 = (float(v) for v in np.asarray(bg, dtype=np.float32))

@@ -55,17 +55,12 @@ def traverse(tree, origins, dirs, max_iters=MAX_ITERS):
         raise ValueError(f"traverse runs on cuda or cpu tensors, not {origins.device}")
     R = origins.shape[0]
     dev = origins.device
-    for name, t, dtype, shape in (
+    _build.check_inputs(dev, (
         ("origins", origins, torch.float32, (R, 3)),
         ("dirs", dirs, torch.float32, (R, 3)),
         ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
         ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: want contiguous {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    ))
     params = trace_params(tree, max_iters)
     lib = _build.library()
     hit = torch.empty(R, dtype=torch.bool, device=dev)

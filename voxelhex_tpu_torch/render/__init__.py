@@ -7,9 +7,11 @@
 """
 
 
-def fastest_renderer(bitgrid, device="cuda"):
-    """The BitGrid renderer on ``device`` (the CUDA kernels by default;
-    ``device="cpu"`` runs their plain PyTorch versions)."""
+def fastest_renderer(source, device="cuda", **kwargs):
+    """The BitGrid renderer of ``source`` on ``device`` (the CUDA kernels by
+    default; ``device="cpu"`` runs their plain PyTorch versions).  The
+    reference ``BitGridRenderer``'s keywords pass through
+    (:class:`~voxelhex_tpu_torch.render.renderer.BitGridRenderer`)."""
     from voxelhex_tpu_torch.render.renderer import BitGridRenderer
 
-    return BitGridRenderer(bitgrid, device=device)
+    return BitGridRenderer(source, device=device, **kwargs)

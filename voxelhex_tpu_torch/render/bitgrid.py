@@ -418,6 +418,63 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     return trace
 
 
+
+def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters: int = 2048,
+                         **settings):
+    """Plain PyTorch multi-hit march over a pyramid of ``n_levels`` levels:
+    ``trace(tree, origins, dirs) -> (count int32 [R], voxels int32 [R, K, 3],
+    dists f32 [R, K])``, K = ``max_hits``; an empty slot holds voxel -1 and
+    distance inf.  With ``with_steps=True`` it also returns each ray's
+    automaton steps (int32 [R]).  ``settings`` go to
+    :func:`make_bitgrid_tracer`.
+
+    Each ray marches with the single-hit automaton (``init`` / ``run``);
+    on a hit it records the voxel and ``|point - o|`` at its cursor, the
+    hit voxel's bit is cleared in the ray's register words ``lo`` / ``hi``
+    and the ray resumes at the same cell (the reference's ``_hit_step``,
+    ``voxelhex_tpu/diff/soft.py:189``).  ``restarts`` carries across hits.
+    A ray takes at most ``max_hits * max_iters`` steps in all, a hit's step
+    included: the reference's global budget, which its lock-step rounds
+    spend the same way unless a ray comes near it."""
+    base = make_bitgrid_tracer(n_levels, size, max_iters=max_iters, **settings)
+    K = int(max_hits)
+
+    def trace(tree, o, dirv, with_steps=False):
+        R = o.shape[0]
+        dev = o.device
+        st = base.init(tree, o, dirv)
+        voxels = torch.full((R, K, 3), -1, dtype=torch.int32, device=dev)
+        dists = torch.full((R, K), float("inf"), dtype=torch.float32, device=dev)
+        cursor = torch.zeros(R, dtype=torch.int64, device=dev)
+        # every unfinished ray steps once per pass, so a ray's steps are the
+        # passes it took part in
+        for _ in range(K * max_iters):
+            if not bool(st["active"].any()):
+                break
+            st = base.run(tree, st, 1)
+            idx = torch.nonzero(st["hit"]).squeeze(1)
+            if idx.numel() == 0:
+                continue
+            k = cursor[idx]
+            voxels[idx, k] = st["hvox"][idx]
+            x = st["point"][idx] - o[idx]
+            # XLA:CPU fuses the norm's sum of squares into two multiply-adds
+            sq = fma32(x[:, 2], x[:, 2], fma32(x[:, 1], x[:, 1], x[:, 0] * x[:, 0]))
+            dists[idx, k] = sqrt32(sq)
+            cursor[idx] = k + 1
+            st["hit"][idx] = False
+            more = idx[k + 1 < K]
+            s = st["tsect"][more].clamp(0, 63).long()
+            bit = torch.ones_like(s) << (s % 32)
+            low = s < 32
+            st["lo"][more] = torch.where(low, st["lo"][more] & ~bit, st["lo"][more])
+            st["hi"][more] = torch.where(low, st["hi"][more], st["hi"][more] & ~bit)
+            st["active"][more] = True
+        out = (cursor.int(), voxels, dists)
+        return out + (st["iters"],) if with_steps else out
+
+    return trace
+
 def _floor_mod(x, y):
     """``jnp.mod`` on floats: the remainder takes the sign of ``y``."""
     r = torch.fmod(x, y)
