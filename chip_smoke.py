@@ -16,9 +16,12 @@ The training slice follows: the multi-hit march, the composite's forward
 and backward and the Adam update, each against its plain version at the
 bench's shapes (every ray of the 1080p bench pose, K = 2, the 67,108,864
 params of the 256^3 world); the march against the reference package's hits
-by digest; the training path (``SoftRenderer.train_step_fused``) on the
-bench's own target (loss exactly 0, params unchanged) and on a constant
-target for 4 steps against the reference package's losses and param sums,
+by digest, with ptxas's report of its kernel (no stack, no spills) and the
+share of lane-steps that do work when a warp runs its rays to their first
+hits and then on, and when it runs each ray in one loop, counted from the
+plain march's steps; the training path (``SoftRenderer.train_step_fused``)
+on the bench's own target (loss exactly 0, params unchanged) and on a
+constant target for 4 steps against the reference package's losses and param sums,
 one launch of each of the four kernels per step and no host
 synchronization inside a step; then its timing.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
@@ -211,6 +214,28 @@ def ptxas_lines(log):
     """The lines of an ``nvcc -Xptxas -v`` log that say what each kernel uses."""
     keys = ("Compiling entry", "registers", "spill", "smem")
     return [line.strip() for line in log.splitlines() if any(k in line for k in keys)]
+
+
+def ptxas_usage(log, kernel):
+    """``(registers, stack B, spill stores B, spill loads B)`` of the entry
+    function whose name holds ``kernel``, from an ``nvcc -Xptxas -v`` log."""
+    for chunk in log.split("Compiling entry function")[1:]:
+        if kernel not in chunk.splitlines()[0]:
+            continue
+        regs = re.search(r"Used (\d+) registers", chunk)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                        r"loads", chunk)
+        if regs and mem:
+            return (int(regs.group(1)),) + tuple(int(x) for x in mem.groups())
+    raise AssertionError(f"no ptxas report of {kernel}")
+
+
+def warp_steps(phases):
+    """Warp-steps of warps of 32 consecutive rays whose lanes run ``phases``
+    (a list of per-ray step counts) one after the other: each phase costs a
+    warp its lanes' largest count, so lanes done early wait."""
+    return sum(int(torch.nn.functional.pad(p, (0, -p.numel() % 32)).reshape(-1, 32)
+                   .max(dim=1).values.sum()) for p in phases)
 
 
 def main():
@@ -481,6 +506,7 @@ def training_slice(dev, scene, o, d, tag):
     kernels' entries of the kernels line."""
     from voxelhex_tpu_torch.diff.optim import adam
     from voxelhex_tpu_torch.diff.soft import CLAMPS, SoftRenderer
+    from voxelhex_tpu_torch.ops import _build
     from voxelhex_tpu_torch.ops import adam as adam_ops
     from voxelhex_tpu_torch.ops.composite import (
         composite_backward, composite_backward_plain, composite_forward,
@@ -506,6 +532,11 @@ def training_slice(dev, scene, o, d, tag):
     *p_hits, steps = trace(tree, o, d, with_steps=True)
     torch.cuda.synchronize()
     mh_plain_ms = (time.time() - t1) * 1e3
+    usage = ptxas_usage(_build.build_log("multihit.cu"), "multihit_kernel")
+    log(f"  ptxas multihit_kernel: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
+        f"spill stores, {usage[3]} B spill loads")
+    if usage[1:] != (0, 0, 0):
+        raise AssertionError("multihit_kernel uses local memory")
     for name, a, b in zip(("count", "voxels"), k_hits, p_hits):
         n_bad = int((a != b).reshape(R, -1).any(dim=1).sum())
         log(f"  multihit {name}: {n_bad} rays differ from the plain march")
@@ -533,6 +564,20 @@ def training_slice(dev, scene, o, d, tag):
         f"on {n_unique} distinct voxels, "
         f"{total_steps} automaton steps (max {int(steps.max())} per ray), {at_budget} rays at "
         f"the step budget of {K * MAX_ITERS}")
+    # the schedules' lane-steps, from the plain march's steps a ray, in warps
+    # of 32 consecutive rays: two phases run each ray to its first hit, then
+    # on to the next (K = 2); one loop runs each ray once
+    trace1 = make_multihit_tracer(len(tree["bases"]), tree["size"], 1, MAX_ITERS,
+                                  **KERNEL_CONFIG)
+    steps1 = trace1(tree, o, d, with_steps=True)[-1]
+    schedules = {"two phases a ray": [steps1, steps - steps1],
+                 "one loop a ray": [steps]}
+    for name, phases in schedules.items():
+        ws = warp_steps(phases)
+        log(f"  working lane-steps, {name}, warps of 32 consecutive rays: "
+            f"{total_steps / (32 * ws):.4f} ({ws} warp-steps)")
+    log(f"  lanes refilled as rays end (the limit): {-(-total_steps // 32)} warp-steps")
+    del steps1
     digest = hashlib.sha256(count.cpu().numpy().tobytes()
                             + voxels.cpu().numpy().tobytes()).hexdigest()
     log(f"  multihit count+voxels sha256 {digest} "

@@ -152,6 +152,58 @@ def test_multihit_kernel_equals_plain(cuda, max_hits, max_iters):
         assert a.dtype == b.dtype and a.shape == b.shape and _equal(a, b)
 
 
+# 300,000 rays are more threads than the card holds at once (132 SMs x at
+# most 2,048 threads, 270,336): the grid runs in more than one wave
+@pytest.mark.parametrize("n_rays", [0, 1, 33, 300_000])
+def test_multihit_kernel_ray_counts(cuda, n_rays):
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(), cuda)
+    o, d = _rays(max(n_rays, 1), 64, 6)
+    o, d = o[:n_rays].to(cuda), d[:n_rays].to(cuda)
+    k = multihit(tree, o, d, 3)
+    torch.cuda.synchronize()
+    p = multihit_plain(tree, o, d, 3)
+    assert k[0].shape == (n_rays,) and k[1].shape == (n_rays, 3, 3) and k[2].shape == (n_rays, 3)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and _equal(a, b)
+
+
+def test_multihit_kernel_twice_in_a_row(cuda):
+    """Two launches queued on one stream, with no host read between them,
+    each into outputs of its own."""
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(), cuda)
+    o, d = (t.to(cuda) for t in _rays(50_000, 64, 7))
+    first = multihit(tree, o, d, 2)
+    second = multihit(tree, o.flip(0).contiguous(), d.flip(0).contiguous(), 2)
+    torch.cuda.synchronize()
+    want = multihit_plain(tree, o, d, 2)
+    assert int((want[0] == 2).sum()) > 100
+    for a, b, c in zip(first, second, want):
+        assert _equal(a, c) and _equal(b.flip(0), c)
+
+
+@pytest.mark.parametrize("max_iters", [1, 3, 9])
+def test_multihit_kernel_budget_cuts_rays(cuda, max_iters):
+    from voxelhex_tpu_torch.ops.multihit import multihit
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid, make_multihit_tracer
+
+    tree = device_bitgrid(_grid(density=0.05), cuda)
+    o, d = (t.to(cuda) for t in _rays(20_000, 64, 8))
+    k = multihit(tree, o, d, 2, max_iters)
+    torch.cuda.synchronize()
+    trace = make_multihit_tracer(len(tree["bases"]), tree["size"], 2, max_iters, **KERNEL_CONFIG)
+    *p, steps = trace(tree, o, d, with_steps=True)
+    assert int((steps == 2 * max_iters).sum()) > 1000  # rays the budget cuts
+    for a, b in zip(k, p):
+        assert _equal(a, b)
+
+
 def _soft_case(cuda, K, seed):
     from voxelhex_tpu_torch.ops.multihit import multihit
     from voxelhex_tpu_torch.render.bitgrid import device_bitgrid

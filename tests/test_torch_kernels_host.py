@@ -8,8 +8,9 @@ rounded ``fmaf``, ``__fdiv_rn`` an IEEE division, ``atomicAdd`` a plain
 add, ...; no contraction of multiply-adds), and a loop runs every thread of
 every block in turn.  That checks the kernels' logic (pixel tiles, ragged
 edges, the level table, the reciprocal multiplications, ray generation,
-shading, the resumed multi-hit march, the composite's recurrence, the
-optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels.
+shading, the multi-hit march's one loop per ray, the composite's
+recurrence, the optimizer's order of operations) on grids of 2, 3 and 4
+pyramid levels.
 The outputs equal the plain versions bit for bit, except where a sigmoid's
 ``expf`` enters: the host's libm and PyTorch's vectorized ``exp`` may
 differ by an ulp, so those outputs are held within a stated tolerance.
@@ -324,25 +325,49 @@ def _rays_into(size, n, seed):
     return torch.from_numpy(o), torch.from_numpy(d.astype(np.float32))
 
 
+def _host_multihit(host_lib, tree, o, d, max_hits, max_iters=2048):
+    """The multi-hit kernel on the host, into outputs that start as garbage,
+    so that a slot the kernel does not write shows."""
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+
+    n = o.shape[0]
+    out = [torch.full((n,), 7, dtype=torch.int32),
+           torch.full((n, max_hits, 3), 7, dtype=torch.int32),
+           torch.full((n, max_hits), 7.0)]
+    host_lib.host_multihit(o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
+                           trace_params(tree, max_iters), n, max_hits,
+                           *[t.data_ptr() for t in out])
+    return out
+
+
 @pytest.mark.parametrize("size,density", GRIDS)
 @pytest.mark.parametrize("max_hits,max_iters", [(3, 2048), (2, 6)])
 def test_multihit_kernel_source_equals_plain(host_lib, size, density, max_hits, max_iters):
     """Bit for bit, also when the step budget (max_hits * max_iters) cuts rays."""
     from voxelhex_tpu_torch.ops.multihit import multihit_plain
-    from voxelhex_tpu_torch.ops.traverse import trace_params
 
     tree = _tree(size, density)
-    n = 1500
-    o, d = _rays_into(size, n, 1)
-    out = [torch.zeros(n, dtype=torch.int32), torch.zeros((n, max_hits, 3), dtype=torch.int32),
-           torch.zeros((n, max_hits))]
-    host_lib.host_multihit(o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
-                           trace_params(tree, max_iters), n, max_hits,
-                           *[t.data_ptr() for t in out])
+    o, d = _rays_into(size, 1500, 1)
+    out = _host_multihit(host_lib, tree, o, d, max_hits, max_iters)
     want = multihit_plain(tree, o, d, max_hits, max_iters)
-    assert int((want[0] >= 2).sum()) > 10  # rays resumed after a hit
+    assert int((want[0] >= 2).sum()) > 10  # rays that march on after a hit
     for a, b in zip(out, want):
         assert _equal(a, b)
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 769, 2000])
+def test_multihit_kernel_source_ray_counts(host_lib, n):
+    """Ray counts below a warp, ragged ones (not a multiple of 32 or of the
+    128-thread block) and several blocks: every ray's slots are written, and
+    the threads past the last ray write nothing."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+
+    tree = _tree(64, 0.02)
+    o, d = _rays_into(64, n, 3)
+    out = _host_multihit(host_lib, tree, o, d, 2)
+    want = multihit_plain(tree, o, d, 2)
+    for a, b in zip(out, want):
+        assert a.shape == b.shape and _equal(a, b)
 
 
 def _soft_inputs(size, K, seed):

@@ -16,9 +16,11 @@
 // loop stops after `max_iters` iterations whatever the ray does, and a ray
 // restarts at most MAX_RESTARTS times.
 //
-// The march is resumable: `init` and `run` keep the automaton's state in a
-// `March`, and `run` stops on each hit, so the multi-hit march
-// (multihit.cu) resumes the same state after clearing the hit's bit.
+// One loop marches a ray: `init` puts the automaton's state in a `March`,
+// and `run` steps it, asking a policy what to do on a hit.  The single-hit
+// march (`march`, for traverse.cu and frame.cu) stops on the first hit; the
+// multi-hit march (multihit.cu) records each hit, clears its bit and steps
+// on in the same loop.
 //
 // The tracer settings are those of the reference renderer
 // (BitGridRenderer.__init__): lateral steps on, MAX_RESTARTS restarts,
@@ -243,9 +245,8 @@ struct Grid {
 };
 
 // One ray's automaton between steps, the loop state of the reference's
-// trace.init / trace.run, held in registers.  `run` stops on a hit with
-// the state as the hit left it, so that the multi-hit march can clear the
-// hit voxel's bit in (lo, hi) and resume (soft.py `_hit_step`).
+// trace.init / trace.run, held in registers.  On a hit the state is as the
+// hit left it: the cell is the hit voxel's, the point the hit point.
 struct March {
     float d[3];
     float sf[3];      // path length per unit step along each axis
@@ -313,9 +314,18 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
     m.steps = 0;
 }
 
-// Step the automaton until the ray hits an occupied voxel (hit, inactive),
-// leaves the world (inactive), or has taken `max_steps` steps in all.
-__device__ __forceinline__ void run(March& m, const Grid& g, int max_steps) {
+// The policy of the single-hit march: stop on the first hit.
+struct StopAtHit {
+    __device__ __forceinline__ bool on_hit(March&) const { return true; }
+};
+
+// Step the automaton until the ray leaves the world (inactive), has taken
+// `max_steps` steps in all, or the policy `pol` ends the march.  On a hit,
+// `pol.on_hit(m)` either returns true, and the march stops there (hit,
+// inactive), or changes the state (multihit.cu clears the voxel's bit) and
+// returns false, and the march steps on from the same cell.
+template <class Policy>
+__device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Policy& pol) {
     const float S = (float)g.size;
     const int top = g.n_levels - 1;
     const float top_cell = pow4(top);
@@ -328,9 +338,12 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps) {
         const bool occupied = occ_bit(m.lo, m.hi, m.tsect);
         const bool at_bottom = m.level <= 0;
         if (occupied && at_bottom && inb) {
-            m.hit = true;
-            m.active = false;
-            return;
+            if (pol.on_hit(m)) {
+                m.hit = true;
+                m.active = false;
+                return;
+            }
+            continue;
         }
         uint32_t m_lo, m_hi;
         reach_mask(clamp63(m.tsect), m.octant, m_lo, m_hi);
@@ -443,16 +456,14 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps) {
     }
 }
 
-// Clear the bit of the voxel the ray stopped on in its register words and
-// let it march on: the next hit it records is another voxel (soft.py
-// `_hit_step`).  Only the register copy changes; a later fetch of the same
-// block reads the bit again.
-__device__ __forceinline__ void resume_after_hit(March& m) {
+// Clear the bit of the voxel the ray stands on in its register words, so
+// that the march steps on past it: the next hit it records is another
+// voxel (soft.py `_hit_step`).  Only the register copy changes; a later
+// fetch of the same block reads the bit again.
+__device__ __forceinline__ void clear_hit_voxel(March& m) {
     const int s = clamp63(m.tsect);
     if (s < 32) m.lo &= ~(1u << s);
     else m.hi &= ~(1u << (s - 32));
-    m.hit = false;
-    m.active = true;
 }
 
 // What one ray ends with
@@ -473,7 +484,8 @@ __device__ __forceinline__ Hit march(const float o[3], const float d[3],
     const Grid g{occ, levels, n_levels, size, n_blocks};
     March m;
     init(m, o, d, g);
-    run(m, g, max_iters);
+    StopAtHit stop;
+    run(m, g, max_iters, stop);
 
     Hit out;
     out.hit = m.hit;
