@@ -12,6 +12,16 @@ the two-kernel path (``device_rays``, ``trace``, ``shade``), checks both
 against the digests of the reference package's frames, then times the two
 paths in turns and each kernel alone.
 
+The batched frames follow (phase 4b): the batched kernel (``csrc/frames.cu``,
+K frames a launch with each frame's row digest) against its plain version
+on every pixel and digest of a 16-frame batch of the three poses, each frame
+against the reference digests; ``render_delta_many`` of 16 bench frames
+twice (one launch a batch; the first fetches one frame, the second none,
+with one blocking read); a block painted into the scene, of which only the
+row band is fetched; ``FramePipeline`` frames; then the batched kernel's
+device time against the frame kernel's, and the per-frame host time of the
+delta batch, of waited ``render()`` calls and of pipelined frames, in turns.
+
 The training slice follows: the multi-hit march, the composite's forward
 and backward and the Adam update, each against its plain version at the
 bench's shapes (every ray of the 1080p bench pose, K = 2, the 67,108,864
@@ -64,6 +74,13 @@ WARP_TILE = (4, 8)
 # enqueued them all before the first one runs: the events then time the
 # device alone (about 25 ms at the H100's clock)
 SPACER_CYCLES = 50_000_000
+BATCH = 16  # bench.py's K: frames a render_delta_many batch
+# the batched kernel's mixed-pose check: the three poses, each for two frames
+MIXED_YAWS = tuple(YAWS[k // 2 % len(YAWS)] for k in range(BATCH))
+# a block painted into the scene for the content-change check: its min
+# corner and edge, in voxels; it moves a band of about 80 of the 1080 rows
+# of the bench pose
+PAINT = ((96, 8, 30), 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 # f32 and int32 operations in one automaton step of the traversal kernel,
@@ -267,8 +284,14 @@ def main():
     for source in _build.SOURCES:
         for line in ptxas_lines(_build.build_log(source)):
             log(f"  ptxas {source}: {line}")
-    stack = re.search(r"(\d+) bytes stack frame", _build.build_log("frame.cu"))
-    log(f"  frame kernel stack frame: {stack.group(1) + ' bytes' if stack else 'not reported'}")
+    for source, kernel, max_regs in (("frame.cu", "frame_kernel", 47),
+                                     ("frames.cu", "frames_kernel", None)):
+        usage = ptxas_usage(_build.build_log(source), kernel)
+        log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
+            f"spill stores, {usage[3]} B spill loads")
+        if usage[1:] != (0, 0, 0) or (max_regs is not None and usage[0] > max_regs):
+            raise AssertionError(f"{kernel}: {usage[0]} registers (at most {max_regs}), "
+                                 f"{usage[1:]} B of stack and spills")
 
     # ---- phase 2: each kernel against its plain version, bench pose
     t0 = time.time()
@@ -418,6 +441,13 @@ def main():
     trav_event_ms = timed(lambda: traverse(tree, o, d), TIMED_FRAMES)
     shade_event_ms = timed(lambda: shade(hit, voxel, hn, tree["palette"]), TIMED_FRAMES)
     shade_plain_ms = timed(lambda: shade_plain(hit, voxel, hn, tree["palette"]), 3)
+    # shade's 41.7 MB of inputs fit the 50 MB L2, where the timing above finds
+    # them: time it also with the L2 flushed (256 MB written) before each launch
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cold = device_ms_each(lambda: shade(hit, voxel, hn, tree["palette"]), TIMED_FRAMES,
+                          before=flush.zero_)
+    shade_cold_ms = sum(cold) / len(cold)
+    del flush
     log(f"frame kernel: {frame_ms:.4f} ms/launch device time (u8), {frame_f32_ms:.4f} ms (f32), "
         f"1 launch/frame {tag}")
     ev, ho = (sum(turns["frame kernel"][k]) / 2 for k in ("event", "host"))
@@ -426,8 +456,9 @@ def main():
     log(f"raygen (plain PyTorch, two-kernel path): {raygen_ms:.3f} ms/frame by CUDA events {tag}")
     log(f"traverse kernel: {trav_ms:.4f} ms/launch device time, {trav_event_ms:.4f} ms by "
         f"CUDA events around the calls {tag}")
-    log(f"shade kernel: {shade_ms:.4f} ms/launch device time, {shade_event_ms:.4f} ms by "
-        f"CUDA events around the calls {tag}")
+    log(f"shade kernel: {shade_ms:.4f} ms/launch device time with its inputs in L2, "
+        f"{shade_cold_ms:.4f} ms with the L2 flushed before each launch, {shade_event_ms:.4f} ms "
+        f"by CUDA events around the calls {tag}")
     log(f"plain tracer: {plain_trace_ms:.1f} ms (host clock, one run); "
         f"plain shade: {shade_plain_ms:.3f} ms; plain frame: {frame_plain_ms:.1f} ms "
         f"(host clock, one run) {tag}")
@@ -450,6 +481,7 @@ def main():
         f"frame {frame_bound:.4f} ms ({frame_bytes} B, {frame_ops} ops) {tag}")
     log(f"phase 4 timing: {time.time() - t0:.1f} s")
 
+    frames_entry = batched_slice(dev, tree, renderer, tag, steps, n_hit)
     kernels = [
         {"name": "frame", "route": "cuda", "source": "voxelhex_tpu_torch/csrc/frame.cu",
          "replaces": "voxelhex_tpu/ops/traverse_pallas.py:79", "launches": launches["frame"],
@@ -461,18 +493,261 @@ def main():
          "bound_ms": trav_bound, "bound_by": trav_by, "library_ms": None},
         {"name": "shade", "route": "cuda", "source": "voxelhex_tpu_torch/csrc/shade.cu",
          "replaces": "voxelhex_tpu/ops/shade_pallas.py:40", "launches": launches["shade"],
-         "max_abs_err": shade_err, "ms": shade_ms, "plain_ms": shade_plain_ms,
+         "max_abs_err": shade_err, "ms": shade_cold_ms, "plain_ms": shade_plain_ms,
          "bound_ms": shade_bound, "bound_by": shade_by, "library_ms": None},
+        frames_entry,
     ]
     del k_out, p_out, st, hit, voxel, hn, s_k, s_p
     torch.cuda.empty_cache()
     kernels += training_slice(dev, scene, o, d, tag)
+    # after phase 9, whose profile stays the process's first, as before
+    profile_delta(renderer, [cam] * BATCH, tag)
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sha(frame):
+    return hashlib.sha256(frame.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def device_ms_each(fn, reps, before=None):
+    """Device ms of each of ``reps`` launches of ``fn()``, each between
+    events of its own, all queued behind a GPU-side wait so that host time
+    does not count; ``before()``, if given, runs before each launch, outside
+    its events (an L2 flush)."""
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPACER_CYCLES)
+    for start, end in pairs:
+        if before is not None:
+            before()
+        start.record()
+        fn()
+        end.record()
+    behind = pairs[0][0].query()
+    torch.cuda.synchronize()
+    if behind:
+        raise AssertionError("the GPU-side wait ended before the launches were enqueued")
+    return [start.elapsed_time(end) for start, end in pairs]
+
+
+def batched_slice(dev, tree, renderer, tag, steps, n_hit):
+    """Phase 4b: the batched kernel against its plain version, the delta
+    path, a content change, the pipeline and the timings.  Returns the
+    batched kernel's entry of the kernels line."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.frames import (render_frames, render_frames_digest,
+                                               render_frames_plain)
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_grids, device_bitgrid
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.pipeline import FramePipeline
+    from voxelhex_tpu_torch.scene import SIZE, grids_from_points, scene_points
+
+    t0 = time.time()
+    R = RES[0] * RES[1]
+    cam = orbit_camera(128.0, resolution=RES)
+    bench = [cam] * BATCH
+    # (a) the kernel against its plain version: 16 frames of the three poses,
+    # frame 0 against a baseline that differs from it in one row
+    mixed = [orbit_camera(128.0, yaw_deg=y, resolution=RES) for y in MIXED_YAWS]
+    prev = render_frame(tree, mixed[0])
+    prev[RES[1] // 2, RES[0] // 3, 1] ^= 1
+    k_out = render_frames(tree, mixed, prev=prev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    p_out = render_frames_plain(tree, mixed, prev=prev)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t1) * 1e3
+    for name, a, b in zip(("frames", "nrows_changed", "rowflags"), k_out, p_out):
+        n_bad = int((~same(a, b)).sum())
+        log(f"  frames {name}: {n_bad} elements differ from the plain version")
+        if n_bad or a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"the batched kernel differs from its plain version on {name}")
+    err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
+    nrows = k_out[1].tolist()
+    log(f"  batched kernel == plain on {BATCH} frames of yaws {MIXED_YAWS}: changed rows "
+        f"{nrows} (plain batch {plain_ms:.1f} ms, host clock, one run)")
+    if nrows[0] != 1 or nrows[1] != 0 or min(nrows[2::2]) == 0 or max(nrows[1::2]) != 0:
+        raise AssertionError("the digests do not show the baseline's row and the pose changes")
+    bad = [k for k, (y, f) in enumerate(zip(MIXED_YAWS, k_out[0])) if sha(f) != REFERENCE_SHA256[y]]
+    log(f"  batched frames against the reference digests: {BATCH - len(bad)} of {BATCH} equal")
+    if bad:
+        raise AssertionError(f"batched frames {bad} differ from the reference digests")
+    del k_out, p_out
+
+    # (b) the delta path: the bench's batch twice, the counts read around it
+    counters = (render_frames, render_frame)
+    for fn in counters:
+        fn.launches = 0
+    batches, stats = [], []
+    for _ in range(2):
+        batches.append(renderer.render_delta_many(bench))
+        stats.append(dict(renderer.last_stats))
+    counts = {fn.__name__: fn.launches for fn in counters}
+    log(f"  render_delta_many x {BATCH}, two batches: launches {counts}")
+    for st in stats:
+        log(f"    {st}")
+    if counts != {"render_frames": 2, "render_frame": 0}:
+        raise AssertionError(f"the delta path's launches {counts}, want 2 batched, 0 single")
+    if [st["delta_fetched"] for st in stats] != [1, 0] or stats[1]["host_reads"] != 1:
+        raise AssertionError("the first batch did not fetch one frame, or the second fetched "
+                             "a frame or read more than the digests")
+    frames_launches = counts["render_frames"]
+    distinct = {id(f): f for b in batches for f in b}
+    digests = {sha(torch.from_numpy(f)) for f in distinct.values()}
+    log(f"  delta frames: {len(distinct)} distinct array(s), sha256 {digests}")
+    if digests != {REFERENCE_SHA256[40.0]} or len(distinct) != 1:
+        raise AssertionError("the delta frames differ from the reference or were fetched again")
+
+    # (c) a content change: a block painted into the scene's grids, swapped
+    # in with the edit pattern; only its band of rows is fetched
+    (x0, y0, z0), e = PAINT
+    occ, colors, palette = grids_from_points(*scene_points(), SIZE)
+    occ[x0:x0 + e, y0:y0 + e, z0:z0 + e] = True
+    colors.reshape(SIZE, SIZE, SIZE)[z0:z0 + e, y0:y0 + e, x0:x0 + e] = 0  # [z, y, x]
+    original = (renderer.bitgrid, renderer.tree)
+    renderer.bitgrid = bitgrid_from_grids(occ, colors, palette)
+    renderer.tree = device_bitgrid(renderer.bitgrid, dev)
+    renderer.invalidate_beam()
+    painted = renderer.render_delta_many(bench)
+    st = dict(renderer.last_stats)
+    fresh = renderer.render(cam, out_u8=True)
+    log(f"  painted block {PAINT}: {st}")
+    if st["delta_fetched"] != 1 or not 0 < st["delta_rows_fetched"] < RES[1] // 2:
+        raise AssertionError("the content change did not fetch one band of rows")
+    if not all(f is painted[0] for f in painted) or not (painted[0] == fresh).all():
+        raise AssertionError("the patched frame differs from a fresh render()")
+    renderer.bitgrid, renderer.tree = original
+    renderer.invalidate_beam()
+    del occ, colors, painted, fresh
+
+    # (d) FramePipeline frames against the reference digests (= render()'s)
+    pipe = FramePipeline(renderer)
+    poses = list(YAWS) * 2
+    futs = [pipe.render(orbit_camera(128.0, yaw_deg=y, resolution=RES), out_u8=True)
+            for y in poses]
+    pipe.close()
+    bad = [y for y, f in zip(poses, futs) if sha(torch.from_numpy(f.result())) !=
+           REFERENCE_SHA256[y]]
+    log(f"  FramePipeline: {len(poses) - len(bad)} of {len(poses)} frames equal the reference")
+    if bad:
+        raise AssertionError(f"pipelined frames {bad} differ from the reference digests")
+    log(f"phase 4b (a-d) batched kernel, delta path, content change, pipeline: "
+        f"{time.time() - t0:.1f} s")
+
+    # (e) timing: the batched kernel against the frame kernel, device time
+    t0 = time.time()
+    bench_prev = render_frame(tree, cam)
+    for _ in range(2):
+        render_frames(tree, bench, prev=bench_prev)
+    dev_turns = {"frame kernel": [], "batched kernel": []}
+    for name in ("frame kernel", "batched kernel", "batched kernel", "frame kernel"):
+        if name == "frame kernel":
+            ms = device_ms(lambda: render_frame(tree, cam), BATCH)
+        else:
+            ms = device_ms(lambda: render_frames(tree, bench, prev=bench_prev), 4) / BATCH
+        dev_turns[name].append(ms)
+        log(f"  turn {name}: {ms:.4f} ms/frame device time {tag}")
+    frame_dev = sum(dev_turns["frame kernel"]) / 2
+    batch_dev = sum(dev_turns["batched kernel"]) / 2
+    log(f"device time per frame: batched kernel (K={BATCH}, with digest) {batch_dev:.4f} ms, "
+        f"frame kernel {frame_dev:.4f} ms {tag}")
+
+    # the host's time to enqueue one delta batch (the frames and their digest),
+    # with the card busy, so that no wait counts
+    enqueue = []
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPACER_CYCLES)
+    for _ in range(3):
+        t1 = time.perf_counter()
+        render_frames_digest(tree, bench, prev=bench_prev)
+        enqueue.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    log(f"host time to enqueue a batch of {BATCH}: {enqueue} ms {tag}")
+
+    # the per-frame host time of three paths that deliver 16 frames to the host
+    pipe = FramePipeline(renderer)
+
+    def delta_batch():
+        renderer.render_delta_many(bench)
+
+    def waited_renders():
+        for _ in range(BATCH):
+            renderer.render(cam, out_u8=True)
+
+    def pipelined():
+        futs = [pipe.render(cam, out_u8=True) for _ in range(BATCH)]
+        pipe.drain()
+        return futs
+
+    paths = {"render_delta_many": delta_batch, "16 waited render()": waited_renders,
+             "FramePipeline": pipelined}
+    for fn in paths.values():
+        fn()
+    host_turns = {name: [] for name in paths}
+    for name in list(paths) + list(paths)[::-1]:
+        ms = host_ms(paths[name], 3) / BATCH
+        host_turns[name].append(ms)
+        log(f"  turn {name}: {ms:.4f} ms/frame by host clock {tag}")
+    pipe.close()
+    for name, t in host_turns.items():
+        ms = sum(t) / 2
+        kernel = batch_dev if name == "render_delta_many" else frame_dev
+        log(f"{name}: {ms:.4f} ms/frame by host clock, frames on the host; card busy "
+            f"{kernel / ms:.3f} (kernel device time over host time) {tag}")
+
+    n_pairs = tree["occ_pairs"].shape[0]
+    # a launch reads the pyramid, 2 B of color per hit a frame, the palette,
+    # its parameters and the 6.2 MB baseline; it writes K frames and digests
+    G = -(-RES[1] // 8)
+    frames_bytes = (n_pairs * 8 + BATCH * n_hit * 2 + tree["palette"].shape[0] * 16
+                    + ctypes.sizeof(_build.FramesParams) + R * 3 + BATCH * R * 3
+                    + BATCH * (1 + G) * 4)
+    frames_ops = BATCH * (steps * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL)
+    frames_bound, frames_by = bound(frames_bytes, frames_ops)
+    log(f"bound: batched kernel {frames_bound:.4f} ms a launch of {BATCH} ({frames_bytes} B, "
+        f"{frames_ops} ops, {frames_by}); measured {batch_dev * BATCH:.4f} ms {tag}")
+    log(f"phase 4b (e) timing: {time.time() - t0:.1f} s")
+    return {"name": "frames", "route": "cuda", "source": "voxelhex_tpu_torch/csrc/frames.cu",
+            "replaces": "voxelhex_tpu/render/bitgrid.py:2215", "launches": frames_launches,
+            "max_abs_err": err, "ms": batch_dev * BATCH, "plain_ms": plain_ms,
+            "bound_ms": frames_bound, "bound_by": frames_by, "library_ms": None}
+
+
+def profile_delta(renderer, cameras, tag, n_batches=3):
+    """Where a delta batch's time goes: ``torch.profiler`` over one batch
+    that is not timed and ``n_batches`` that are; the device time a batch
+    against the wall time a batch inside the profiler, and the host
+    operations that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        renderer.render_delta_many(cameras)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_batches):
+            renderer.render_delta_many(cameras)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / n_batches
+    events = prof.key_averages()
+    n = n_batches + 1
+    device = sum(getattr(e, "device_time_total", 0.0) for e in events
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / n
+    if device == 0.0:
+        log(f"  profiler: no device time recorded; busy share not measured {tag}")
+        return
+    log(f"  profiler, per delta batch of {len(cameras)}: device time {device:.4f} ms, wall time "
+        f"{wall:.4f} ms under the profiler, busy share {device / wall:.3f} {tag}")
+    rows = sorted(((e.self_cpu_time_total / 1e3 / n, e.count / n, e.key) for e in events),
+                  reverse=True)
+    for ms, count, key in rows[:8]:
+        log(f"    host {ms:.4f} ms  {count:g} x  {key[:80]}")
 
 
 def profile_steps(soft, params, state, opt, o, d, target, step_ms, tag, n_steps=4):

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_reference():
 def test_wrappers_have_no_fallback():
     """A CUDA tensor launches the kernel or raises: the wrappers catch
     nothing that could route it to the plain version."""
-    for name in ("traverse.py", "shade.py", "frame.py", "multihit.py", "composite.py", "adam.py"):
+    for name in ("traverse.py", "shade.py", "frame.py", "frames.py", "multihit.py",
+                 "composite.py", "adam.py"):
         with open(os.path.join(PKG, "ops", name)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -63,13 +64,48 @@ def test_default_device_needs_cuda(monkeypatch):
 
 def test_import_builds_nothing():
     from voxelhex_tpu_torch.diff import optim, soft  # noqa: F401
-    from voxelhex_tpu_torch.ops import _build, adam, composite, frame, multihit, shade, traverse
+    from voxelhex_tpu_torch.ops import (_build, adam, composite, frame, frames, multihit, shade,
+                                        traverse)
+    from voxelhex_tpu_torch.render import pipeline  # noqa: F401
 
     assert _build._lib is None or torch.cuda.is_available()
+    assert frames.render_frames.launches >= 0
     assert traverse.traverse.launches >= 0 and shade.shade.launches >= 0
     assert frame.render_frame.launches >= 0 and multihit.multihit.launches >= 0
     assert composite.composite_forward.launches >= 0
     assert composite.composite_backward.launches >= 0 and adam.adam_update.launches >= 0
+
+
+def test_batched_paths_raise_on_the_card_path_without_a_fallback(monkeypatch):
+    """A tree that is not on the CPU never reaches the plain version: the
+    batched wrappers launch the kernel or raise."""
+    from voxelhex_tpu_torch.ops import frames
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = device_bitgrid(bitgrid_from_occupancy(torch.ones((16, 16, 16), dtype=torch.bool)
+                                                 .numpy()), "cpu")
+    meta = dict(tree, occ_pairs=tree["occ_pairs"].to("meta"))
+    monkeypatch.setattr(frames, "render_frames_plain", None)
+    cams = [orbit_camera(16.0, resolution=(8, 8))]
+    for call in (lambda: frames.render_frames(meta, cams),
+                 lambda: frames.render_frames_digest(meta, cams)):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
+
+
+def test_frame_pipeline_needs_no_card_for_a_cpu_renderer():
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy
+    from voxelhex_tpu_torch.render.pipeline import FramePipeline
+
+    r = fastest_renderer(bitgrid_from_occupancy(torch.zeros((16, 16, 16), dtype=torch.bool)
+                                                .numpy()), device="cpu")
+    pipe = FramePipeline(r)
+    assert pipe._copy_stream is None
+    pipe.close()
+    with pytest.raises(ValueError, match="max_in_flight"):
+        FramePipeline(r, max_in_flight=0)
 
 
 def test_soft_renderer_needs_cuda_by_default(monkeypatch):

@@ -311,3 +311,70 @@ def test_training_step_is_four_launches(cuda):
     assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 3]
     losses = losses.cpu().numpy()
     assert np.isfinite(losses).all() and losses[2] < losses[0]
+
+
+def _batch(K, res, size):
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    yaws = [130.0, 130.0, 40.0, 250.0, 250.0, 40.0, 40.0]
+    return [orbit_camera(float(size), yaw_deg=yaws[k % len(yaws)], resolution=res)
+            for k in range(K)]
+
+
+# K = 1 and 3, and KMAX + 1 (two launches, the second's baseline the first's
+# last frame); 1080p, and ragged pixel tiles at 333 x 187
+@pytest.mark.parametrize("K,res", [(1, (1920, 1080)), (3, (1920, 1080)), (33, (1920, 1080)),
+                                   (3, (333, 187))])
+def test_frames_kernel_equals_plain(cuda, K, res):
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(size=128, seed=128, density=0.01), cuda)
+    cams = _batch(K, res, 128)
+    bg = (0.1, 0.2, 0.3)
+    w, h = res
+    prev = render_frames_plain(tree, cams[:1], bg)[0][0].clone()
+    prev[h // 2, w // 3, 1] ^= 1  # the baseline differs from frame 0 in one row
+    n0 = render_frames.launches
+    k = render_frames(tree, cams, bg, True, prev=prev)
+    torch.cuda.synchronize()
+    assert render_frames.launches == n0 + -(-K // _build.KMAX)
+    p = render_frames_plain(tree, cams, bg, True, prev=prev)
+    assert int(p[1][0]) == 1
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape and _equal(a, b)
+    f32 = render_frames(tree, cams[:3], bg, False)
+    assert f32[1] is None and _equal(f32[0], render_frames_plain(tree, cams[:3], bg, False)[0])
+
+
+def test_batched_renderer_paths_equal_cpu(cuda):
+    """render_many, render_delta_many and FramePipeline on the card against
+    the CPU renderer; a delta batch is one launch of the batched kernel and
+    one blocking read when nothing changed."""
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.frames import render_frames
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.pipeline import FramePipeline
+
+    bg = _grid(size=128, seed=4, density=0.01)
+    gpu, cpu = fastest_renderer(bg, device="cuda"), fastest_renderer(bg, device="cpu")
+    cams = _batch(4, (160, 90), 128)
+    for out_u8 in (True, False):
+        np.testing.assert_array_equal(gpu.render_many(cams, out_u8=out_u8),
+                                      cpu.render_many(cams, out_u8=out_u8))
+    for batch in (cams, cams[-1:] * 3, cams[:2]):
+        a, b = gpu.render_delta_many(batch), cpu.render_delta_many(batch)
+        assert gpu.last_stats == cpu.last_stats
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    n0, m0 = render_frames.launches, render_frame.launches
+    same = gpu.render_delta_many(cams[1:2] * 16)
+    assert (render_frames.launches - n0, render_frame.launches - m0) == (1, 0)
+    assert gpu.last_stats["delta_fetched"] == 0 and gpu.last_stats["host_reads"] == 1
+    assert all(f is same[0] for f in same)
+    pipe = FramePipeline(gpu)
+    futs = [pipe.render(c, out_u8=True) for c in cams]
+    pipe.close()
+    for f, c in zip(futs, cams):
+        np.testing.assert_array_equal(f.result(timeout=60), cpu.render(c, out_u8=True))

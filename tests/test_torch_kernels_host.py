@@ -8,9 +8,9 @@ rounded ``fmaf``, ``__fdiv_rn`` an IEEE division, ``atomicAdd`` a plain
 add, ...; no contraction of multiply-adds), and a loop runs every thread of
 every block in turn.  That checks the kernels' logic (pixel tiles, ragged
 edges, the level table, the reciprocal multiplications, ray generation,
-shading, the multi-hit march's one loop per ray, the composite's
-recurrence, the optimizer's order of operations) on grids of 2, 3 and 4
-pyramid levels.
+shading, the batched kernel's frames, chunks and row digests, the
+multi-hit march's one loop per ray, the composite's recurrence, the
+optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels.
 The outputs equal the plain versions bit for bit, except where a sigmoid's
 ``expf`` enters: the host's libm and PyTorch's vectorized ``exp`` may
 differ by an ulp, so those outputs are held within a stated tolerance.
@@ -53,7 +53,10 @@ struct dim3 {
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 extern dim3 threadIdx, blockIdx, blockDim, gridDim;
+#define __grid_constant__
 inline float atomicAdd(float* p, float v) { float old = *p; *p = old + v; return old; }
+inline int atomicAdd(int* p, int v) { int old = *p; *p = old + v; return old; }
+inline int atomicOr(int* p, int v) { int old = *p; *p = old | v; return old; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
@@ -70,7 +73,25 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+    std::memset(p, v, n);
+    return cudaSuccess;
+}
 using std::signbit;
+// a launch that the test rewrites into this call: every thread of every
+// block of the 2-D grid in turn
+template <class F>
+inline void vhx_host_launch(dim3 grid, unsigned threads, int, cudaStream_t, F kernel) {
+    blockDim = dim3(threads);
+    gridDim = grid;
+    for (unsigned by = 0; by < grid.y; ++by)
+        for (unsigned bx = 0; bx < grid.x; ++bx)
+            for (unsigned t = 0; t < threads; ++t) {
+                blockIdx = dim3(bx, by);
+                threadIdx = dim3(t);
+                kernel();
+            }
+}
 """
 
 # every thread of every block in turn; __syncthreads is a no-op, which is
@@ -93,6 +114,9 @@ namespace comp {
 }
 namespace adm {
 #include "adam_host.cu"
+}
+namespace frm {
+#include "frames_host.cu"
 }
 
 // run `kernel` for every thread of `blocks` blocks of `threads`
@@ -193,10 +217,19 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs a C++ compiler")
     d = tmp_path_factory.mktemp("kernels_host")
     (d / "cuda_runtime.h").write_text(SHIM)
-    shutil.copy(os.path.join(CSRC, "traverse.cuh"), d)
+    for header in ("traverse.cuh", "frame.cuh"):
+        shutil.copy(os.path.join(CSRC, header), d)
     launch = re.compile(r"<<<[^>]*>>>")  # a launch becomes a call of one thread
     with open(os.path.join(CSRC, "frame.cu")) as f:
         (d / "frame_host.cu").write_text(launch.sub("", f.read()))
+    # the batched kernel runs through its C entry, whose launch becomes a
+    # loop over the grid (vhx_host_launch): the test drives the entry, its
+    # checks and its memset as the wrapper does
+    with open(os.path.join(CSRC, "frames.cu")) as f:
+        src, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"vhx_host_launch(\2, [&] { \1(\3); });",
+                         f.read(), flags=re.S)
+    assert n == 1
+    (d / "frames_host.cu").write_text(src)
     for name in ("traverse", "shade", "multihit", "composite", "adam"):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             (d / f"{name}_host.cu").write_text(
@@ -215,6 +248,11 @@ def host_lib(tmp_path_factory):
     p = ctypes.c_void_p
     lib.host_frame.argtypes = [p, p, p, ctypes.c_int, ctypes.POINTER(_build.FrameParams), p, p]
     i, f = ctypes.c_int, ctypes.c_float
+    lib.vhx_render_frames.argtypes = [p, p, p, i, ctypes.POINTER(_build.FramesParams), p, p, p,
+                                      p, i, p]
+    lib.vhx_render_frames.restype = i
+    lib.vhx_frames_params_size.restype = i
+    lib.vhx_frames_kmax.restype = i
     lib.host_traverse.argtypes = [p, p, p, p, ctypes.POINTER(_build.TraceParams), i,
                                   p, p, p, p, p]
     lib.host_voxel_addr.argtypes = [i, i, i, i]
@@ -266,6 +304,91 @@ def test_frame_kernel_source_equals_plain(host_lib, size, density, out_u8):
     want = render_frame_plain(tree, cam, bg, out_u8)
     assert len(torch.unique(want.reshape(-1, 3), dim=0)) >= 3  # misses and hits
     assert _equal(out, want)
+
+
+def test_frames_struct_layout(host_lib):
+    from voxelhex_tpu_torch.ops import _build
+
+    assert host_lib.vhx_frames_params_size() == ctypes.sizeof(_build.FramesParams)
+    assert host_lib.vhx_frames_kmax() == _build.KMAX
+
+
+def _frames_case(K, res, seed=0):
+    """K cameras cycling through three poses, each pose held for a frame or
+    two, so that some frames repeat the one before and some do not."""
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    yaws = [130.0, 130.0, 40.0, 250.0, 250.0, 40.0, 40.0]
+    return [orbit_camera(64.0, yaw_deg=yaws[(k + seed) % len(yaws)], resolution=res)
+            for k in range(K)]
+
+
+# K = 1 and 3, and KMAX + 1: two launches, the second's baseline the first's
+# last frame; 160 x 90 fills its pixel tiles, 37 x 21 leaves them ragged
+@pytest.mark.parametrize("K,res", [(1, (160, 90)), (3, (37, 21)), (33, (37, 21))])
+def test_frames_kernel_source_equals_plain(host_lib, K, res):
+    """Frames and digests bit for bit, frame 0's against a baseline that
+    differs from its own frame in one row only."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frame import render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
+
+    assert _build.KMAX == 32
+    tree = _tree(64, 0.02)
+    cams = _frames_case(K, res)
+    bg = (0.1, 0.2, 0.3)
+    w, h = res
+    prev = render_frame_plain(tree, cams[0], bg, True).clone()
+    prev[h // 2, w // 3, 1] ^= 1
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams, bg, True,
+                                             MAX_ITERS, prev)
+    assert launches == -(-K // _build.KMAX)
+    want, nrows, flags = render_frames_plain(tree, cams, bg, True, MAX_ITERS, prev)
+    assert int(nrows[0]) == 1 and int(flags[0].count_nonzero()) == 1
+    if K > 1:  # a repeated pose changes no row, a new pose many
+        assert int(nrows[1]) == 0 and int(nrows[2]) > h // 4
+    assert _equal(frames, want)
+    assert _equal(digest[:, 0], nrows) and _equal(digest[:, 1:], flags)
+
+
+def test_frames_kernel_source_f32_without_digest(host_lib):
+    from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
+
+    tree = _tree(16, 0.05)
+    cams = _frames_case(3, (37, 21))
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams,
+                                             (0.1, 0.2, 0.3), False, MAX_ITERS, None)
+    assert digest is None and launches == 1 and frames.dtype == torch.float32
+    assert _equal(frames, render_frames_plain(tree, cams, (0.1, 0.2, 0.3), False)[0])
+
+
+def test_frames_kernel_entry_rejects_bad_params(host_lib):
+    """The C entry refuses a batch it cannot launch: no frames, more than
+    KMAX, a digest of f32 frames or a digest with no baseline."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frames import frames_params
+
+    tree = _tree(16, 0.05)
+    p = frames_params(tree, _frames_case(2, (37, 21)))[0]
+    out = torch.zeros((2, 21, 37, 3))
+    u8 = torch.zeros((2, 21, 37, 3), dtype=torch.uint8)
+    digest = torch.zeros((2, 4), dtype=torch.int32)
+    args = (tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+            tree["palette"].data_ptr(), tree["palette"].shape[0])
+
+    def call(params, rgb, frames_u8, prev, dig):
+        return host_lib.vhx_render_frames(*args, params, rgb, frames_u8, prev, dig, 0, None)
+
+    assert call(p, None, u8.data_ptr(), u8[0].data_ptr(), digest.data_ptr()) == 0
+    for n in (0, _build.KMAX + 1):
+        bad = _build.FramesParams.from_buffer_copy(p)
+        bad.n_frames = n
+        assert call(bad, None, u8.data_ptr(), None, None) != 0
+    assert call(p, out.data_ptr(), None, u8[0].data_ptr(), digest.data_ptr()) != 0
+    assert call(p, None, u8.data_ptr(), None, digest.data_ptr()) != 0
+    assert call(p, out.data_ptr(), u8.data_ptr(), None, None) != 0
 
 
 @pytest.mark.parametrize("size,density", GRIDS)

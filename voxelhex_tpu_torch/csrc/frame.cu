@@ -20,11 +20,11 @@
 // reads only the pyramid (2.1 MB on the benchmark scene, L2-resident), 2 B
 // of color per hit and a palette row per colored hit, and writes 3 B per
 // pixel (12 B for f32).  Each warp covers a 4-column x 8-row pixel tile
-// rather than 32 pixels of a row: neighbouring rays take similar numbers of
-// steps, so fewer lanes wait on the warp's slowest ray.  The ragged right
-// and bottom edges are masked; the output stays row-major [h, w, 3].
+// (frame.cuh).  The ragged right and bottom edges are masked; the output
+// stays row-major [h, w, 3].  The prologue, the tile and the epilogue are
+// frame.cuh's, shared with the batched kernel (frames.cu).
 
-#include "traverse.cuh"
+#include "frame.cuh"
 
 struct FrameParams {
     TraceParams trace;
@@ -40,11 +40,9 @@ struct FrameParams {
 
 namespace {
 
-constexpr int WARP_W = 4;  // a warp's pixel tile: 4 columns x 8 rows
-constexpr int WARP_H = 8;
-constexpr int BLOCK_WARPS = 4;  // side by side: a block covers 16 x 8 pixels
-constexpr int THREADS = 32 * BLOCK_WARPS;
-constexpr int BLOCK_W = WARP_W * BLOCK_WARPS;
+constexpr int WARP_H = vhx::WARP_H;
+constexpr int THREADS = vhx::FRAME_THREADS;
+constexpr int BLOCK_W = vhx::BLOCK_W;
 
 __global__ void __launch_bounds__(THREADS)
 frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
@@ -52,59 +50,26 @@ frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ c
              float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
     vhx::load_levels(P.trace, levels);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int x = blockIdx.x * BLOCK_W + warp * WARP_W + lane % WARP_W;
-    const int y = blockIdx.y * WARP_H + lane / WARP_W;
+    int x, y;
+    vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
 
     // ---- prologue: the pixel's ray
-    // (x + 0.5) / w * 2 - 1 and -(y + 0.5) / h * 2 + 1, each one multiply-add
-    const float px = __fmaf_rn(__fadd_rn((float)x, 0.5f), P.cw, -1.f);
-    const float py = __fmaf_rn(-__fadd_rn((float)y, 0.5f), P.ch, 1.f);
-    const float pxs = __fmul_rn(px, P.scale[0]);
-    const float pys = __fmul_rn(py, P.scale[1]);
-    float o[3], d[3], head[3], dn[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        head[c] = __fmaf_rn(pxs, P.right[c], P.forward[c]);
-        dn[c] = __fadd_rn(head[c], __fmul_rn(pys, P.up[c]));  // the norm's copy: unfused
-    }
-    const float dlen = __fsqrt_rn(
-        __fmaf_rn(dn[2], dn[2], __fmaf_rn(dn[1], dn[1], __fmul_rn(dn[0], dn[0]))));
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        d[c] = __fdiv_rn(__fmaf_rn(pys, P.up[c], head[c]), dlen);  // the divided copy: fused
-        o[c] = P.origin[c];
-    }
+    float o[3], d[3];
+    vhx::pixel_ray(P.origin, P.right, P.up, P.forward, P.scale, P.cw, P.ch, x, y, o, d);
 
     // ---- the ray
     const vhx::Hit h = vhx::march(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
                                   P.trace.n_blocks, P.trace.max_iters);
 
     // ---- epilogue: albedo x Lambert, the background on a miss, u8
-    float rgb[3] = {P.bg[0], P.bg[1], P.bg[2]};
-    if (h.hit) {
-        const int v = h.voxel;
-        float4 albedo = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (v != vhx::NO_COLOR_HIT && v >= 0) albedo = __ldg(&palette[v < n_colors ? v : n_colors - 1]);
-        // dot(n, (-0.5, 0.5, -0.5)) / 2 + 0.5
-        const float s = __fadd_rn(__fadd_rn(__fmul_rn(h.normal[0], -0.5f),
-                                            __fmul_rn(h.normal[1], 0.5f)),
-                                  __fmul_rn(h.normal[2], -0.5f));
-        const float lambert = __fadd_rn(__fmul_rn(s, 0.5f), 0.5f);  // s / 2 + 0.5
-        rgb[0] = __fmul_rn(albedo.x, lambert);
-        rgb[1] = __fmul_rn(albedo.y, lambert);
-        rgb[2] = __fmul_rn(albedo.z, lambert);
-    }
+    float rgb[3];
+    vhx::shade_hit(h, palette, n_colors, P.bg, rgb);
     const int r = y * P.w + x;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
         if (rgb_out) rgb_out[3 * r + k] = rgb[k];
-        if (u8_out) {
-            // NaN -> 0 as the reference's float-to-int conversion does
-            const float q = fminf(fmaxf(rintf(__fmul_rn(rgb[k], 255.f)), 0.f), 255.f);
-            u8_out[3 * r + k] = (unsigned char)q;
-        }
+        if (u8_out) u8_out[3 * r + k] = vhx::to_u8(rgb[k]);
     }
 }
 

@@ -26,13 +26,15 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
-SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "multihit.cu", "composite.cu", "adam.cu")
+SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "frames.cu", "multihit.cu", "composite.cu",
+           "adam.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 600
 MAX_LEVELS = 12  # VHX_MAX_LEVELS in traverse.cuh
+KMAX = 32  # VHX_KMAX in frames.cu: cameras a launch
 
 _lock = threading.Lock()
 _lib = None
@@ -66,6 +68,33 @@ class FrameParams(ctypes.Structure):
         ("bg", ctypes.c_float * 3),
         ("w", ctypes.c_int),
         ("h", ctypes.c_int),
+    ]
+
+
+class FrameCam(ctypes.Structure):
+    """Mirror of ``struct FrameCam`` in frames.cu."""
+
+    _fields_ = [
+        ("origin", ctypes.c_float * 3),
+        ("right", ctypes.c_float * 3),
+        ("up", ctypes.c_float * 3),
+        ("forward", ctypes.c_float * 3),
+        ("scale", ctypes.c_float * 2),
+    ]
+
+
+class FramesParams(ctypes.Structure):
+    """Mirror of ``struct FramesParams`` in frames.cu."""
+
+    _fields_ = [
+        ("trace", TraceParams),
+        ("cw", ctypes.c_float),
+        ("ch", ctypes.c_float),
+        ("bg", ctypes.c_float * 3),
+        ("w", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("n_frames", ctypes.c_int),
+        ("cams", FrameCam * KMAX),
     ]
 
 
@@ -172,7 +201,7 @@ def _build(out_dir: str, sources) -> None:
 
 def library() -> types.SimpleNamespace:
     """The kernels' C entry points (``vhx_traverse``, ``vhx_shade``,
-    ``vhx_render_frame``, ``vhx_multihit``, ``vhx_composite_forward``,
+    ``vhx_render_frame``, ``vhx_render_frames``, ``vhx_multihit``, ``vhx_composite_forward``,
     ``vhx_composite_backward``, ``vhx_adam``), built first if needed."""
     global _lib
     with _lock:
@@ -189,6 +218,8 @@ def library() -> types.SimpleNamespace:
                 "shade.cu": {"vhx_shade": [p, p, p, p, i, f, f, f, i, p, p, i, p]},
                 "frame.cu": {"vhx_render_frame": [p, p, p, i, ctypes.POINTER(FrameParams), p,
                                                   p, i, p]},
+                "frames.cu": {"vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p,
+                                                    p, p, p, i, p]},
                 "multihit.cu": {"vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p]},
                 "composite.cu": {
                     "vhx_composite_forward": [p, p, p, i, i, i, f3, p, i, p],
@@ -206,12 +237,17 @@ def library() -> types.SimpleNamespace:
             for source, name, struct in (("traverse.cu", "vhx_trace_params_size", TraceParams),
                                          ("multihit.cu", "vhx_multihit_params_size", TraceParams),
                                          ("frame.cu", "vhx_frame_params_size", FrameParams),
+                                         ("frames.cu", "vhx_frames_params_size", FramesParams),
                                          ("adam.cu", "vhx_adam_params_size", AdamParams)):
                 fn = getattr(dlls[source], name)
                 fn.argtypes, fn.restype = [], i
                 if fn() != ctypes.sizeof(struct):
                     raise RuntimeError(f"{struct.__name__}: {fn()} B in C, "
                                        f"{ctypes.sizeof(struct)} B in ctypes")
+            kmax = dlls["frames.cu"].vhx_frames_kmax
+            kmax.argtypes, kmax.restype = [], i
+            if kmax() != KMAX:
+                raise RuntimeError(f"VHX_KMAX is {kmax()} in C, KMAX {KMAX} in ctypes")
             _lib = types.SimpleNamespace(dlls=dlls, **fns)
         return _lib
 

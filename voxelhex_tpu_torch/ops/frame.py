@@ -12,6 +12,10 @@ plain PyTorch version: the plain ray generation, tracer and shading in turn.
 
 from __future__ import annotations
 
+import collections
+import functools
+import threading
+
 import numpy as np
 import torch
 
@@ -30,19 +34,59 @@ def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
     return shade_plain(hit, voxel, hnormal, tree["palette"], bg, out_u8).reshape(h, w, 3)
 
 
+# the camera params of recent poses, as bytes: frame_cam's cache
+CAM_CACHE_SIZE = 256
+_cams: collections.OrderedDict = collections.OrderedDict()
+_cams_lock = threading.Lock()
+_pixel_steps = functools.lru_cache(maxsize=64)(pixel_steps)
+
+
+def _camera_key(camera: Camera):
+    """Every field that the camera params depend on, exactly: the bytes,
+    dtype and shape of origin, target, up and the field of view, and the
+    resolution."""
+    fields = [np.asarray(f) for f in (camera.origin, camera.target, camera.up, camera.fov_y_deg)]
+    return tuple((a.dtype.str, a.shape, a.tobytes()) for a in fields) + (
+        tuple(camera.resolution),)
+
+
+def frame_cam(camera: Camera) -> _build.FrameCam:
+    """The camera params of :func:`camera_params` as the kernels read them
+    (``FrameCam``).  A repeated pose takes them from a cache of the last
+    ``CAM_CACHE_SIZE`` poses, keyed on the camera's exact fields and its
+    resolution, so a cached value is the bytes that a fresh computation
+    gives."""
+    key = _camera_key(camera)
+    with _cams_lock:
+        cached = _cams.get(key)
+        if cached is not None:
+            _cams.move_to_end(key)
+    if cached is None:
+        cam = _build.FrameCam()
+        origin, right, up, forward, scale = camera_params(camera)
+        cam.origin[:], cam.right[:], cam.up[:], cam.forward[:] = (
+            [float(v) for v in a] for a in (origin, right, up, forward))
+        cam.scale[:] = [float(v) for v in scale]
+        cached = bytes(cam)
+        with _cams_lock:
+            _cams[key] = cached
+            while len(_cams) > CAM_CACHE_SIZE:
+                _cams.popitem(last=False)
+    return _build.FrameCam.from_buffer_copy(cached)
+
+
 def frame_params(tree, camera: Camera, bg=(0.0, 0.0, 0.0),
                  max_iters=MAX_ITERS) -> _build.FrameParams:
     """The launch parameters of one frame: the tree's level table, the
-    camera params of :func:`camera_params`, the folded pixel constants of
-    the plain ray generation, the background and the resolution."""
+    camera params of :func:`frame_cam`, the folded pixel constants of the
+    plain ray generation, the background and the resolution."""
     w, h = camera.resolution
     p = _build.FrameParams()
     p.trace = trace_params(tree, max_iters)
-    origin, right, up, forward, scale = camera_params(camera)
-    p.origin[:], p.right[:], p.up[:], p.forward[:] = (
-        [float(v) for v in a] for a in (origin, right, up, forward))
-    p.scale[:] = [float(v) for v in scale]
-    p.cw, p.ch = pixel_steps(w, h)
+    cam = frame_cam(camera)
+    p.origin, p.right, p.up, p.forward, p.scale = (
+        cam.origin, cam.right, cam.up, cam.forward, cam.scale)
+    p.cw, p.ch = _pixel_steps(w, h)
     p.bg[:] = [float(v) for v in np.asarray(bg, dtype=np.float32).reshape(3)]
     p.w, p.h = int(w), int(h)
     return p

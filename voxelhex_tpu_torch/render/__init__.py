@@ -3,7 +3,10 @@
 * :mod:`voxelhex_tpu_torch.render.camera` — pinhole camera and ray generation.
 * :mod:`voxelhex_tpu_torch.render.bitgrid` — the occupancy pyramid and the
   plain tracer.
-* :mod:`voxelhex_tpu_torch.render.renderer` — the whole-frame renderer.
+* :mod:`voxelhex_tpu_torch.render.renderer` — the whole-frame renderer:
+  single frames, batches, and batches that fetch only what changed.
+* :mod:`voxelhex_tpu_torch.render.pipeline` — ``FramePipeline``, frames
+  whose copies to the host overlap the next frames' rendering.
 """
 
 
