@@ -18,9 +18,15 @@ on every pixel and digest of a 16-frame batch of the three poses, each frame
 against the reference digests; ``render_delta_many`` of 16 bench frames
 twice (one launch a batch; the first fetches one frame, the second none,
 with one blocking read); a block painted into the scene, of which only the
-row band is fetched; ``FramePipeline`` frames; then the batched kernel's
-device time against the frame kernel's, and the per-frame host time of the
-delta batch, of waited ``render()`` calls and of pipelined frames, in turns.
+row band is fetched; ``FramePipeline`` frames; then the device times of
+the batched kernel, the frame kernel and the multi-hit march in turns, and
+the per-frame host time of the delta batch, of waited ``render()`` calls
+and of pipelined frames, in turns; then (f) what the automaton's warps
+run at the bench pose: the plain tracer's record of each ray's moves, the
+share of 4 x 8 warp-steps whose lanes move differently, and the DDA steps
+a warp runs with one branch a move and with one DDA step a turn (the loop
+of ``csrc/traverse.cuh``), with ptxas's report of the four kernels that
+run the automaton (no stack, no spills).
 
 The training slice follows: the multi-hit march, the composite's forward
 and backward and the Adam update, each against its plain version at the
@@ -255,6 +261,98 @@ def warp_steps(phases):
                    .max(dim=1).values.sum()) for p in phases)
 
 
+# the turn codes of move_counts: a step's first turn by its move, or a
+# later ADVANCE substep
+TURN_HIT, TURN_DESCEND, TURN_ASCEND, TURN_LATERAL, TURN_RESTART = 1, 2, 3, 4, 5
+TURN_ADVANCE, TURN_SUBSTEP = 6, 7
+# the three shapes of the automaton's loop that move_counts counts
+LOOPS = {"branches": "one branch a move (the loop before)",
+         "step_turns": "one DDA step a turn, the warp's lanes in one step",
+         "free_turns": "one DDA step a turn, each lane's turns free-running"}
+
+
+def move_counts(moves, res, tile, substeps):
+    """What warps of ``tile`` (columns, rows) pixels run, from the plain
+    tracer's move record ``moves`` (int8 [T, h * w], ``MOVE_*`` codes) of a
+    frame of ``res``, under three shapes of the automaton's loop (``LOOPS``):
+
+    * ``branches``: a warp-step runs every move one of its lanes makes, a
+      DDA step for ascend (restart included) and for lateral if a lane takes
+      it, and the ADVANCE's as often as its longest lane's substeps;
+    * ``step_turns``: the warp's lanes still take a step together, and each
+      DDA step of it is shared: the first of every moving lane's, then the
+      ADVANCE's others, as often as its longest lane's substeps;
+    * ``free_turns``: each lane's step takes a turn (an ADVANCE one a
+      substep), a lane's turns follow each other whatever the other lanes
+      do, and a turn runs one DDA step if any of its lanes needs one.
+
+    Returns counts summed over the warps: ``dda_<loop>``, the DDA steps
+    run; ``turns_<loop>``, the loop's turns (warp-steps for the first
+    two); ``runs_<loop>_<branch>``, the turns in which a branch runs."""
+    from voxelhex_tpu_torch.render import bitgrid as bgm
+
+    (w, h), (tw, th) = res, tile
+    T = moves.shape[0]
+    x = torch.zeros((T, -(-h // th) * th, -(-w // tw) * tw), dtype=torch.int8,
+                    device=moves.device)
+    x[:, :h, :w] = moves.reshape(T, h, w)
+    lanes = x.reshape(T, x.shape[1] // th, th, x.shape[2] // tw, tw).permute(0, 1, 3, 2, 4)
+    lanes = lanes.reshape(T, -1, tw * th).long()  # [T, warps, lanes]
+    took = lanes != bgm.MOVE_NONE
+    adv = lanes > bgm.MOVE_ADVANCE
+    k = torch.where(adv, lanes - bgm.MOVE_ADVANCE, 0)
+    kinds = {"hit": lanes == bgm.MOVE_HIT, "descend": lanes == bgm.MOVE_DESCEND,
+             "ascend": lanes == bgm.MOVE_ASCEND, "lateral": lanes == bgm.MOVE_LATERAL,
+             "restart": lanes == bgm.MOVE_RESTART, "advance": adv}
+    present = {name: m.any(dim=2) for name, m in kinds.items()}
+    steps = took.any(dim=2)
+    n_kinds = sum(p.long() for p in present.values())
+    up = present["ascend"] | present["restart"]
+    k_max = k.max(dim=2).values
+    out = {"warps": lanes.shape[1], "lane_steps": int(took.sum()),
+           "mixed_warp_steps": int((n_kinds >= 2).sum())}
+    # a warp-step's branches, the same in the two shapes that keep steps together
+    step = {"start": steps, "reach_mask": (took & ~kinds["hit"]).any(dim=2),
+            "hit": present["hit"], "descend": present["descend"], "ascend": up,
+            "restart": present["restart"], "lateral": present["lateral"],
+            "fetch": present["descend"] | up | present["lateral"]}
+    shared = torch.maximum((up | present["lateral"]).long(), k_max)
+    for loop, dda in (("branches", up.long() + present["lateral"].long() + k_max),
+                      ("step_turns", shared)):
+        out[f"dda_{loop}"] = int(dda.sum())
+        out[f"turns_{loop}"] = int(steps.sum())
+        out.update({f"runs_{loop}_{name}": int(m.sum()) for name, m in step.items()})
+        out[f"runs_{loop}_advance"] = int(k_max.sum())
+    # free-running turns: each lane's turns in order
+    n = torch.where(adv, k, took.long())
+    end = n.cumsum(dim=0)
+    start = end - n
+    n_turns = int(end[-1].max())
+    code = torch.full_like(lanes, 0)
+    for name, c in (("hit", TURN_HIT), ("descend", TURN_DESCEND), ("ascend", TURN_ASCEND),
+                    ("lateral", TURN_LATERAL), ("restart", TURN_RESTART),
+                    ("advance", TURN_ADVANCE)):
+        code = torch.where(kinds[name], c, code)
+    turns = torch.zeros((n_turns + 1,) + lanes.shape[1:], dtype=torch.int8, device=lanes.device)
+    for j in range(substeps):
+        at = torch.where(n > j, start + j, n_turns)  # row n_turns takes what no turn does
+        turns.scatter_(0, at, (code if j == 0 else torch.full_like(code, TURN_SUBSTEP)).to(
+            torch.int8))
+    turns = turns[:n_turns].long()
+    has = {c: (turns == c).any(dim=2) for c in range(1, 8)}
+    up_t = has[TURN_ASCEND] | has[TURN_RESTART]
+    free = {"start": has[TURN_HIT] | has[TURN_DESCEND] | up_t | has[TURN_LATERAL]
+            | has[TURN_ADVANCE],
+            "reach_mask": up_t | has[TURN_ADVANCE], "hit": has[TURN_HIT],
+            "descend": has[TURN_DESCEND], "ascend": up_t, "restart": has[TURN_RESTART],
+            "lateral": has[TURN_LATERAL], "fetch": has[TURN_DESCEND] | up_t | has[TURN_LATERAL],
+            "advance": has[TURN_ADVANCE] | has[TURN_SUBSTEP]}
+    out["dda_free_turns"] = int((up_t | has[TURN_LATERAL] | free["advance"]).sum())
+    out["turns_free_turns"] = int((turns != 0).any(dim=2).sum())
+    out.update({f"runs_free_turns_{name}": int(m.sum()) for name, m in free.items()})
+    return out
+
+
 def main():
     t_all = time.time()
     # ---- phase 0: device
@@ -285,7 +383,9 @@ def main():
         for line in ptxas_lines(_build.build_log(source)):
             log(f"  ptxas {source}: {line}")
     for source, kernel, max_regs in (("frame.cu", "frame_kernel", 47),
-                                     ("frames.cu", "frames_kernel", None)):
+                                     ("frames.cu", "frames_kernel", None),
+                                     ("traverse.cu", "traverse_kernel", None),
+                                     ("multihit.cu", "multihit_kernel", None)):
         usage = ptxas_usage(_build.build_log(source), kernel)
         log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
             f"spill stores, {usage[3]} B spill loads")
@@ -544,8 +644,9 @@ def batched_slice(dev, tree, renderer, tag, steps, n_hit):
     from voxelhex_tpu_torch.ops.frame import render_frame
     from voxelhex_tpu_torch.ops.frames import (render_frames, render_frames_digest,
                                                render_frames_plain)
+    from voxelhex_tpu_torch.ops.multihit import multihit
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_grids, device_bitgrid
-    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
     from voxelhex_tpu_torch.render.pipeline import FramePipeline
     from voxelhex_tpu_torch.scene import SIZE, grids_from_points, scene_points
 
@@ -553,6 +654,7 @@ def batched_slice(dev, tree, renderer, tag, steps, n_hit):
     R = RES[0] * RES[1]
     cam = orbit_camera(128.0, resolution=RES)
     bench = [cam] * BATCH
+
     # (a) the kernel against its plain version: 16 frames of the three poses,
     # frame 0 against a baseline that differs from it in one row
     mixed = [orbit_camera(128.0, yaw_deg=y, resolution=RES) for y in MIXED_YAWS]
@@ -641,23 +743,30 @@ def batched_slice(dev, tree, renderer, tag, steps, n_hit):
     log(f"phase 4b (a-d) batched kernel, delta path, content change, pipeline: "
         f"{time.time() - t0:.1f} s")
 
-    # (e) timing: the batched kernel against the frame kernel, device time
+    # (e) timing: the kernels of the automaton in turns, device time: the
+    # batched kernel and the frame kernel a frame, the multi-hit march a launch
     t0 = time.time()
     bench_prev = render_frame(tree, cam)
+    o, d = device_rays(cam, dev)
     for _ in range(2):
         render_frames(tree, bench, prev=bench_prev)
-    dev_turns = {"frame kernel": [], "batched kernel": []}
-    for name in ("frame kernel", "batched kernel", "batched kernel", "frame kernel"):
-        if name == "frame kernel":
-            ms = device_ms(lambda: render_frame(tree, cam), BATCH)
-        else:
-            ms = device_ms(lambda: render_frames(tree, bench, prev=bench_prev), 4) / BATCH
+        multihit(tree, o, d, MAX_HITS)
+    timers = {"frame kernel": lambda: device_ms(lambda: render_frame(tree, cam), BATCH),
+              "batched kernel": lambda: device_ms(
+                  lambda: render_frames(tree, bench, prev=bench_prev), 4) / BATCH,
+              "multihit kernel": lambda: device_ms(lambda: multihit(tree, o, d, MAX_HITS),
+                                                   TIMED_FRAMES)}
+    dev_turns = {name: [] for name in timers}
+    for name in list(timers) + list(timers)[::-1]:
+        ms = timers[name]()
         dev_turns[name].append(ms)
-        log(f"  turn {name}: {ms:.4f} ms/frame device time {tag}")
+        log(f"  turn {name}: {ms:.4f} ms {'a launch' if name == 'multihit kernel' else 'a frame'} "
+            f"device time {tag}")
     frame_dev = sum(dev_turns["frame kernel"]) / 2
     batch_dev = sum(dev_turns["batched kernel"]) / 2
     log(f"device time per frame: batched kernel (K={BATCH}, with digest) {batch_dev:.4f} ms, "
-        f"frame kernel {frame_dev:.4f} ms {tag}")
+        f"frame kernel {frame_dev:.4f} ms; multihit kernel (K={MAX_HITS}) "
+        f"{sum(dev_turns['multihit kernel']) / 2:.4f} ms a launch, in the same turns {tag}")
 
     # the host's time to enqueue one delta batch (the frames and their digest),
     # with the card busy, so that no wait counts
@@ -714,10 +823,59 @@ def batched_slice(dev, tree, renderer, tag, steps, n_hit):
     log(f"bound: batched kernel {frames_bound:.4f} ms a launch of {BATCH} ({frames_bytes} B, "
         f"{frames_ops} ops, {frames_by}); measured {batch_dev * BATCH:.4f} ms {tag}")
     log(f"phase 4b (e) timing: {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    automaton_report(dev, tree, tag, steps)
+    log(f"phase 4b (f) the automaton's moves: {time.time() - t0:.1f} s")
     return {"name": "frames", "route": "cuda", "source": "voxelhex_tpu_torch/csrc/frames.cu",
             "replaces": "voxelhex_tpu/render/bitgrid.py:2215", "launches": frames_launches,
             "max_abs_err": err, "ms": batch_dev * BATCH, "plain_ms": plain_ms,
             "bound_ms": frames_bound, "bound_by": frames_by, "library_ms": None}
+
+
+def automaton_report(dev, tree, tag, steps=None):
+    """Phase 4b (f): what the automaton's warps run at the bench pose,
+    from the plain tracer's move record, under the frame kernels' 4 x 8
+    warp tile (``move_counts``), and ptxas's report of the four kernels
+    that run the automaton.  ``steps``, if given, is what the move record
+    must count: the march's automaton steps at that pose."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
+    from voxelhex_tpu_torch.render.bitgrid import MOVE_ADVANCE, make_bitgrid_tracer
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+
+    R = RES[0] * RES[1]
+    cam = orbit_camera(128.0, resolution=RES)
+    substeps = KERNEL_CONFIG["advance_substeps"]
+    plain = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=MAX_ITERS,
+                                **KERNEL_CONFIG)
+    moves = []
+    st = plain.run(tree, plain.init(tree, *device_rays(cam, dev)), MAX_ITERS, moves)
+    moves = torch.stack(moves)
+    mc = move_counts(moves, RES, WARP_TILE, substeps)
+    if mc["lane_steps"] != int(st["iters"].sum()) or steps not in (None, mc["lane_steps"]):
+        raise AssertionError(f"the move record holds {mc['lane_steps']} steps, the march took "
+                             f"{int(st['iters'].sum())} ({steps} in phase 2)")
+    names = {1: "hit", 2: "descend", 3: "ascend", 4: "lateral", 5: "ascend past the top"}
+    names.update({MOVE_ADVANCE + j: f"advance of {j} substep(s)" for j in range(1, substeps + 1)})
+    hist = {name: int((moves == code).sum()) for code, name in names.items()}
+    log(f"  moves at the bench pose, {mc['lane_steps']} steps of {R} rays: {hist} {tag}")
+    warp_steps = mc["turns_branches"]
+    log(f"  warps of {WARP_TILE[0]} x {WARP_TILE[1]} pixels ({mc['warps']}): {warp_steps} "
+        f"warp-steps, {mc['mixed_warp_steps']} ({mc['mixed_warp_steps'] / warp_steps:.4f}) with "
+        "two or more different moves")
+    for loop, what in LOOPS.items():
+        dda, turns = mc[f"dda_{loop}"], mc[f"turns_{loop}"]
+        key = f"runs_{loop}_"
+        log(f"  {what}: {dda} DDA steps ({dda / mc['warps']:.3f} a warp) in {turns} turns "
+            f"({turns / mc['warps']:.3f} a warp); turns a branch runs in "
+            f"{ {k[len(key):]: v for k, v in mc.items() if k.startswith(key)} }")
+    for source, kernel in (("traverse.cu", "traverse_kernel"), ("frame.cu", "frame_kernel"),
+                           ("frames.cu", "frames_kernel"), ("multihit.cu", "multihit_kernel")):
+        usage = ptxas_usage(_build.build_log(source), kernel)
+        log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
+            f"spill stores, {usage[3]} B spill loads {tag}")
+    return mc
 
 
 def profile_delta(renderer, cameras, tag, n_batches=3):

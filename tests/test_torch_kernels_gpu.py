@@ -348,6 +348,31 @@ def test_frames_kernel_equals_plain(cuda, K, res):
     assert f32[1] is None and _equal(f32[0], render_frames_plain(tree, cams[:3], bg, False)[0])
 
 
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 7])
+def test_frames_kernel_stops_at_max_iters(cuda, max_iters):
+    """Budgets that cut rays at their first steps and inside an ADVANCE
+    step, with a camera outside the world and one inside it."""
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    tree = device_bitgrid(_grid(size=128, seed=128, density=0.01), cuda)
+    res = (333, 187)
+    inside = np.float32([70.25, 50.5, 60.75])
+    cams = _batch(2, res, 128) + [Camera(origin=inside, target=inside + np.float32([1, -2, 3]),
+                                         resolution=res)]
+    bg = (0.1, 0.2, 0.3)
+    prev = render_frames_plain(tree, cams[-1:], bg, True, max_iters)[0][0]
+    k = render_frames(tree, cams, bg, True, max_iters, prev)
+    torch.cuda.synchronize()
+    p = render_frames_plain(tree, cams, bg, True, max_iters, prev)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape and _equal(a, b)
+    f32 = render_frames(tree, cams, bg, False, max_iters)[0]
+    torch.cuda.synchronize()
+    assert _equal(f32, render_frames_plain(tree, cams, bg, False, max_iters)[0])
+
+
 def test_batched_renderer_paths_equal_cpu(cuda):
     """render_many, render_delta_many and FramePipeline on the card against
     the CPU renderer; a delta batch is one launch of the batched kernel and

@@ -10,7 +10,9 @@ every block in turn.  That checks the kernels' logic (pixel tiles, ragged
 edges, the level table, the reciprocal multiplications, ray generation,
 shading, the batched kernel's frames, chunks and row digests, the
 multi-hit march's one loop per ray, the composite's recurrence, the
-optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels.
+optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels,
+and the automaton's step count where ``max_iters`` cuts rays at their
+first steps or inside an ADVANCE, on rays built to take every move.
 The outputs equal the plain versions bit for bit, except where a sigmoid's
 ``expf`` enters: the host's libm and PyTorch's vectorized ``exp`` may
 differ by an ulp, so those outputs are held within a stated tolerance.
@@ -265,11 +267,15 @@ def host_lib(tmp_path_factory):
     return lib
 
 
-def _tree(size, density):
+def _tree(size, density, half=False):
+    """A random grid; with ``half``, the voxels at x >= size / 2 are empty,
+    so that rays there ascend past the top level."""
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
 
     rng = np.random.default_rng(size)
     occ = rng.random((size, size, size)) < density
+    if half:
+        occ[size // 2:] = False
     colors = np.where(occ, rng.integers(0, 5, occ.shape), 0xFFFF).astype(np.uint16)
     bg = bitgrid_from_occupancy(occ, palette=rng.random((5, 4)))
     bg.colors = np.ascontiguousarray(colors.transpose(2, 1, 0)).ravel()
@@ -411,6 +417,171 @@ def test_traverse_kernel_source_equals_plain(host_lib, size, density):
     assert int(want[0].sum()) > n // 10
     for a, b in zip(out, want):
         assert _equal(a, b)
+
+
+def _occupied_voxels(tree):
+    """The (x, y, z) of every occupied voxel of a ``_tree`` grid."""
+    size = int(tree["size"])
+    flat = np.flatnonzero(tree["colors"].numpy() != -1)  # 0xFFFF as int16: empty
+    return np.stack([flat % size, flat // size % size, flat // (size * size)], axis=1)
+
+
+def _every_move_rays(tree, seed=5):
+    """Rays that take every move of the automaton on a ``_tree(...,
+    half=True)`` grid: random rays from inside
+    and outside the world, rays along an axis (two components of d zero,
+    some -0.0, the DDA's d == 0 path) and in a plane (one zero), from
+    outside and inside; rays that start inside an occupied voxel; and rays
+    that start in the world and leave it, sideways (a lateral step out) or
+    past the top level (an ascend past it)."""
+    size = int(tree["size"])
+    rng = np.random.default_rng(seed)
+    o_rand, d_rand = _rays_into(size, 300, seed)
+    n = 120
+    rows = np.arange(n)
+    axis = rng.integers(0, 3, n)
+    sign = rng.choice([-1.0, 1.0], n)
+    o_axis = rng.uniform(0, size, (n, 3))
+    outside = rows < n // 2  # half start outside, before the face they enter by
+    o_axis[rows[outside], axis[outside]] = size / 2 - sign[outside] * 0.8 * size
+    d_axis = np.where(rng.random((n, 3)) < 0.5, 0.0, -0.0)
+    d_axis[rows, axis] = sign
+    d_plane = rng.normal(size=(n, 3))
+    d_plane[rows, axis] = 0.0
+    o_plane = rng.uniform(-0.5 * size, 1.5 * size, (n, 3))
+    o_plane[rows, axis] = rng.uniform(0, size, n)  # in the world's slab along the zero axis
+    vox = _occupied_voxels(tree)
+    o_vox = vox[rng.choice(len(vox), n)] + rng.uniform(0.05, 0.95, (n, 3))
+    d_vox = rng.normal(size=(n, 3))
+    o_in = rng.uniform(0, size, (n, 3))
+    d_in = rng.normal(size=(n, 3))
+    d = np.concatenate([d_plane, d_vox, d_in])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.concatenate([o_axis, o_plane, o_vox, o_in]).astype(np.float32)
+    d = np.concatenate([d_axis, d]).astype(np.float32)
+    return torch.cat([o_rand, torch.from_numpy(o)]), torch.cat([d_rand, torch.from_numpy(d)])
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+def test_every_move_rays_take_every_move(size, density):
+    """The ray set of the kernels' cut-step cases takes every move (the
+    plain tracer's move record), ADVANCE with each substep count, and
+    holds rays along an axis, rays that start in an occupied voxel and
+    rays that leave the world by a lateral step."""
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
+    from voxelhex_tpu_torch.render import bitgrid as bgm
+
+    tree = _tree(size, density, half=True)
+    o, d = _every_move_rays(tree)
+    trace = bgm.make_bitgrid_tracer(len(tree["bases"]), size, MAX_ITERS, **KERNEL_CONFIG)
+    moves = []
+    st = trace.run(tree, trace.init(tree, o, d), MAX_ITERS, moves)
+    moves = torch.stack(moves)
+    subs = KERNEL_CONFIG["advance_substeps"]
+    want = {bgm.MOVE_HIT, bgm.MOVE_DESCEND, bgm.MOVE_ASCEND, bgm.MOVE_LATERAL, bgm.MOVE_RESTART}
+    want |= {bgm.MOVE_ADVANCE + k for k in range(1, subs + 1)}
+    assert want <= set(torch.unique(moves).tolist())
+    assert int(((d == 0).sum(dim=1) == 2).sum()) > 50
+    last = moves.gather(0, (st["iters"].long() - 1).clamp(min=0)[None])[0]
+    assert int(((last == bgm.MOVE_LATERAL) & ~st["hit"]).sum()) > 10  # left sideways
+    starts_in = (st["hvox"] == torch.floor(o).int()).all(dim=1) & st["hit"]
+    assert int(starts_in.sum()) > 50
+
+
+def _host_traverse(host_lib, tree, o, d, max_iters):
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+
+    n = o.shape[0]
+    out = [torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.int32),
+           torch.zeros((n, 3), dtype=torch.int32), torch.zeros((n, 3)), torch.zeros((n, 3))]
+    host_lib.host_traverse(o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
+                           tree["colors"].data_ptr(), trace_params(tree, max_iters), n,
+                           *[t.data_ptr() for t in out])
+    return out
+
+
+# budgets that cut rays at their first steps and inside an ADVANCE step
+CUT_STEPS = [1, 2, 3, 7]
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("max_iters", CUT_STEPS + [2048])
+def test_traverse_kernel_source_every_move(host_lib, size, density, max_iters):
+    """Bit for bit on the every-move rays, also where max_iters cuts them."""
+    from voxelhex_tpu_torch.ops.traverse import traverse_plain
+
+    tree = _tree(size, density, half=True)
+    o, d = _every_move_rays(tree)
+    out = _host_traverse(host_lib, tree, o, d, max_iters)
+    want = traverse_plain(tree, o, d, max_iters)
+    for a, b in zip(out, want):
+        assert _equal(a, b)
+
+
+def _cut_cameras(tree, res):
+    """Cameras whose rays take every kind of start: from outside the world
+    (orbit), from inside an occupied voxel, from an empty point inside, and
+    along the z axis, whose rays have d.y = 0 at a resolution of one row."""
+    from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+
+    size = float(tree["size"])
+    vox = _occupied_voxels(tree)[7] + 0.5
+    mid = np.array([size / 2 + 0.25] * 3, dtype=np.float32)
+    axis_from = mid - np.array([0.0, 0.0, 0.9 * size], dtype=np.float32)
+    return [orbit_camera(size, yaw_deg=130.0, resolution=res),
+            Camera(origin=vox.astype(np.float32), target=vox + np.float32([3.0, 1.0, 2.0]),
+                   resolution=res),
+            Camera(origin=mid, target=mid + np.float32([-1.0, 2.0, 1.5]), resolution=res),
+            Camera(origin=axis_from, target=mid, resolution=res)]
+
+
+@pytest.mark.parametrize("max_iters", CUT_STEPS)
+@pytest.mark.parametrize("res", [(37, 21), (37, 1)])
+def test_frame_kernel_source_cut_steps(host_lib, max_iters, res):
+    from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
+
+    tree = _tree(64, 0.02)
+    bg = (0.1, 0.2, 0.3)
+    w, h = res
+    for cam in _cut_cameras(tree, res):
+        out = torch.full((h, w, 3), 7.0)
+        host_lib.host_frame(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                            tree["palette"].data_ptr(), tree["palette"].shape[0],
+                            frame_params(tree, cam, bg, max_iters), out.data_ptr(), None)
+        assert _equal(out, render_frame_plain(tree, cam, bg, False, max_iters))
+
+
+@pytest.mark.parametrize("max_iters", CUT_STEPS)
+@pytest.mark.parametrize("res", [(37, 21), (37, 1)])
+def test_frames_kernel_source_cut_steps(host_lib, max_iters, res):
+    """The four cameras of ``_cut_cameras`` as one batch, u8 with digests."""
+    from voxelhex_tpu_torch.ops.frame import render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
+
+    tree = _tree(64, 0.02)
+    cams = _cut_cameras(tree, res)
+    bg = (0.1, 0.2, 0.3)
+    prev = render_frame_plain(tree, cams[-1], bg, True, max_iters)
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams, bg, True,
+                                             max_iters, prev)
+    want, nrows, flags = render_frames_plain(tree, cams, bg, True, max_iters, prev)
+    assert launches == 1 and _equal(frames, want)
+    assert _equal(digest[:, 0], nrows) and _equal(digest[:, 1:], flags)
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+def test_multihit_kernel_source_every_move(host_lib, size, density):
+    """The multi-hit march of the every-move rays with one step a hit
+    (a budget of 2): rays cut at their first steps and after a hit."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+
+    tree = _tree(size, density, half=True)
+    o, d = _every_move_rays(tree)
+    for max_iters in (1, 2048):
+        out = _host_multihit(host_lib, tree, o, d, 2, max_iters)
+        want = multihit_plain(tree, o, d, 2, max_iters)
+        for a, b in zip(out, want):
+            assert _equal(a, b)
 
 
 def test_voxel_addr_is_64_bit(host_lib):

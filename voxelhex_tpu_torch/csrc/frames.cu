@@ -28,6 +28,16 @@
 // changed reads its group's word first and sets its row's bit only if it
 // is clear, and the thread whose atomicOr set the bit adds the row to the
 // count.  A changed row costs a few atomics, not one a pixel.
+//
+// What bounds it on the H100: the instructions its warps execute in the
+// automaton, not bytes (35 us of a launch's 2.6 ms is its bytes bound) and
+// not idle lanes.  A warp's 32 pixels take different moves in the same
+// step (hit, descend, ascend, lateral, ADVANCE) in 29% of its steps at the
+// bench pose, and most of a move's instructions are a DDA step.  The
+// automaton (traverse.cuh `run`) gives each step one DDA loop whose turns
+// the lanes share, so a warp whose lanes ascend, step sideways and advance
+// in one step runs the DDA steps of its longest ADVANCE, not one more
+// for each other move.
 
 #include "frame.cuh"
 

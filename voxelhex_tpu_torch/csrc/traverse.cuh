@@ -1,6 +1,6 @@
 // The BitGrid automaton of one ray, shared by the traversal kernel
-// (traverse.cu), the frame kernel (frame.cu) and the multi-hit march
-// (multihit.cu).
+// (traverse.cu), the frame kernels (frame.cu, frames.cu) and the multi-hit
+// march (multihit.cu).
 //
 // It computes what the production tracer computes (`make_bitgrid_tracer`,
 // voxelhex_tpu/render/bitgrid.py:482-808): clip to the world box, then the
@@ -13,14 +13,34 @@
 // reference.  Where the reference divides by a cell or block edge (a power
 // of two, 4^k with k <= 12), the code multiplies by the exact reciprocal:
 // both round the same exact value, so the results are the same bits.  The
-// loop stops after `max_iters` iterations whatever the ray does, and a ray
+// loop stops after `max_iters` steps whatever the ray does, and a ray
 // restarts at most MAX_RESTARTS times.
 //
 // One loop marches a ray: `init` puts the automaton's state in a `March`,
 // and `run` steps it, asking a policy what to do on a hit.  The single-hit
-// march (`march`, for traverse.cu and frame.cu) stops on the first hit; the
-// multi-hit march (multihit.cu) records each hit, clears its bit and steps
-// on in the same loop.
+// march (`march`, for traverse.cu, frame.cu and frames.cu) stops on the
+// first hit; the multi-hit march (multihit.cu) records each hit, clears its
+// bit and steps on in the same loop.
+//
+// What bounds the loop on the H100: the instructions a warp executes, not
+// bytes (a frame reads the L2-resident 2.1 MB pyramid) and not idle lanes
+// (8.8% of lane-steps under the 4 x 8 pixel tile).  A warp executes every
+// branch that one of its lanes takes in a step, and most of a move's
+// instructions are its DDA step: ascend and lateral steps take one through
+// the block, an ADVANCE up to ADVANCE_SUBSTEPS through the cell.  Written as
+// one branch a move, a warp whose lanes ascend, step sideways and advance
+// in one step ran a DDA for each of them (six DDA steps inlined).  So the
+// warp's lanes still take a step together, and each turn of the step's DDA
+// loop runs one `dda_step` that all of them share: in the first, every
+// lane that ascends, steps sideways or advances picks its box (the block or
+// the cell) and takes its DDA step; in the others, the lanes whose ADVANCE
+// goes on take their next substep (`March::sub`).  Then each move's short
+// tail runs.  Each lane computes the same f32 operations in the same order
+// on the same values as one branch a move would: only the loop's shape is
+// the GPU's.  Letting each lane's turns run free of its warp's steps (a
+// lane in an ADVANCE takes its next substep while others start a step) ran
+// fewer DDA steps still, but in 69% more turns a warp, and was slower on
+// the card (PERF.md).
 //
 // The tracer settings are those of the reference renderer
 // (BitGridRenderer.__init__): lateral steps on, MAX_RESTARTS restarts,
@@ -141,19 +161,21 @@ __device__ __forceinline__ void reach_mask(int t, int octant, uint32_t& m_lo, ui
     m_hi = x32 & y32 & z_hi;
 }
 
-// one DDA step to the nearest face of the cell [cmin, cmin + csize)
-__device__ __forceinline__ void dda_step(const float d[3], const float sf[3], const float p[3],
-                                         const float cmin[3], float csize,
+// one DDA step to the nearest face of the cell [cmin, cmin + csize), for
+// the direction d whose signs are sg = sgn(d).  The reference's need,
+// csize * max(sg, 0) - sg * (p - cmin), takes csize * 1 = csize where
+// sg = 1 and csize * +0 = +0 where sg is -1 or +-0; where sg is NaN (so is
+// d) the distance is BIG either way, as it is where d = +-0 (sg = +-0).
+__device__ __forceinline__ void dda_step(const float d[3], const float sg[3], const float sf[3],
+                                         const float p[3], const float cmin[3], float csize,
                                          float new_p[3], float step[3]) {
-    float sg[3], dist[3];
+    float dist[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-        sg[c] = sgn(d[c]);
-        float need = __fsub_rn(__fmul_rn(csize, xla_max(sg[c], 0.f)),
+        float need = __fsub_rn(sg[c] > 0.f ? csize : 0.f,
                                __fmul_rn(sg[c], __fsub_rn(p[c], cmin[c])));
         float dd = fabsf(__fmul_rn(need, sf[c]));
-        if (d[c] == 0.f) dd = BIG;
-        if (dd != dd) dd = BIG;
+        if (sg[c] == 0.f || dd != dd) dd = BIG;
         dist[c] = dd;
     }
     float m = fminf(fminf(dist[0], dist[1]), dist[2]);
@@ -249,6 +271,7 @@ struct Grid {
 // hit left it: the cell is the hit voxel's, the point the hit point.
 struct March {
     float d[3];
+    float sg[3];      // sgn(d), what the DDA reads of the direction besides d
     float sf[3];      // path length per unit step along each axis
     int octant;
     float p[3];       // the current point
@@ -260,9 +283,19 @@ struct March {
     uint32_t lo, hi;  // the block's occupancy words
     int restarts;
     int steps;        // automaton steps taken, each hit's step included
+    int sub;          // DDA substeps the current ADVANCE step has taken; 0 between steps
     bool active;      // still marching
     bool hit;         // stopped on an occupied voxel
 };
+
+// The moves of one automaton step.  A step ascends or steps sideways with
+// one DDA step and advances with one a substep; it hits or descends with
+// none.
+constexpr int MOVE_HIT = 1;
+constexpr int MOVE_DESCEND = 2;
+constexpr int MOVE_ASCEND = 3;
+constexpr int MOVE_LATERAL = 4;
+constexpr int MOVE_ADVANCE = 5;
 
 // Clip the ray (o, d) to the world box and enter it at the top level.
 __device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g) {
@@ -271,7 +304,10 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
     const float top_block = pow4(top) * 4.f;
     const float inv_top_block = inv_pow4(top + 1);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) m.d[c] = d[c];
+    for (int c = 0; c < 3; ++c) {
+        m.d[c] = d[c];
+        m.sg[c] = sgn(d[c]);
+    }
     {
         float a = __fdiv_rn(d[2], d[0]), b = __fdiv_rn(d[1], d[0]);
         m.sf[0] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
@@ -312,6 +348,7 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
     m.tsize = pow4(top);
     m.restarts = 0;
     m.steps = 0;
+    m.sub = 0;
 }
 
 // The policy of the single-hit march: stop on the first hit.
@@ -319,25 +356,154 @@ struct StopAtHit {
     __device__ __forceinline__ bool on_hit(March&) const { return true; }
 };
 
+// The pieces of one step, each a function that `run` calls (and
+// tools/automaton_probes.cu alone, to count its instructions).
+
+// The move of a step that starts in the current cell.
+__device__ __forceinline__ int choose_move(const March& m) {
+    if (m.tsect >= OOB) return MOVE_LATERAL;
+    if (occ_bit(m.lo, m.hi, m.tsect)) return m.level <= 0 ? MOVE_HIT : MOVE_DESCEND;
+    // an empty cell: ascend if the ray can reach no occupied cell of the block
+    uint32_t m_lo, m_hi;
+    reach_mask(m.tsect, m.octant, m_lo, m_hi);
+    return ((m.lo & m_lo) | (m.hi & m_hi)) == 0u ? MOVE_ASCEND : MOVE_ADVANCE;
+}
+
+// DESCEND into the occupied cell
+__device__ __forceinline__ void descend(March& m) {
+    float off[3], so[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(m.p[c], m.tmin[c]);
+    const int d_tsect = offset_sectant(off, inv_pow4(m.level));
+    sectant_offset(d_tsect, so);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        m.bmin[c] = m.tmin[c];
+        m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(so[c], m.tsize));
+    }
+    m.tsect = d_tsect;
+    m.tsize = __fmul_rn(m.tsize, 0.25f);  // tsize / 4
+    m.level -= 1;
+}
+
+// The DDA step of every other move: through the cell for an ADVANCE
+// substep, through the block for an ascend or a lateral step.
+__device__ __forceinline__ void move_dda(const March& m, int move, float np[3], float st[3]) {
+    const bool advance = move == MOVE_ADVANCE;
+    float cmin[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cmin[c] = advance ? m.tmin[c] : m.bmin[c];
+    dda_step(m.d, m.sg, m.sf, m.p, cmin, advance ? m.tsize : m.tsize * 4.f, np, st);
+}
+
+// An ADVANCE substep to the DDA's point; `m.sub` is 0 again when the step
+// ends: the cell left the block or is occupied, or the substeps are spent.
+__device__ __forceinline__ void advance_tail(March& m, const float np[3], const float st[3]) {
+    const int s_ts = step_sectant(m.tsect, st);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        m.p[c] = np[c];
+        if (s_ts < OOB) m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(st[c], m.tsize));
+    }
+    m.tsect = s_ts;
+    m.sub += 1;
+    if (m.sub == ADVANCE_SUBSTEPS || s_ts >= OOB || occ_bit(m.lo, m.hi, s_ts)) m.sub = 0;
+}
+
+// ASCEND to the parent block, derived arithmetically
+__device__ __forceinline__ void ascend_tail(March& m, const float np[3], const float st[3]) {
+    const float block = m.tsize * 4.f;
+    const float parent_block = block * 4.f;
+    const float inv_parent = inv_pow4(m.level + 2);
+    float pmin_[3], off[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        pmin_[c] = block_floor(m.bmin[c], parent_block, inv_parent);
+        off[c] = __fsub_rn(__fadd_rn(m.bmin[c], __fmul_rn(block, 0.5f)), pmin_[c]);
+    }
+    m.tsect = step_sectant(offset_sectant(off, inv_parent), st);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        m.p[c] = np[c];
+        m.tmin[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
+        m.bmin[c] = pmin_[c];
+    }
+    m.tsize = block;
+    m.level += 1;
+}
+
+// After an ascend past the top level: restart a little on, at the top
+// level, or leave the world (false).
+__device__ __forceinline__ bool restart(March& m, const Grid& g) {
+    const float S = (float)g.size;
+    const int top = g.n_levels - 1;
+    float re[3];
+    bool inside = true;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        re[c] = __fadd_rn(m.p[c], __fmul_rn(m.d[c], 0.1f));
+        inside = inside && re[c] > 0.f && re[c] < S;
+        m.p[c] = re[c];
+    }
+    const bool can_restart = inside && m.restarts < MAX_RESTARTS;
+    m.restarts += 1;
+    if (!can_restart) return false;
+    m.tsect = offset_sectant(m.p, inv_pow4(top + 1));
+    sectant_offset(clamp63(m.tsect), m.tmin);
+    const float top_block = pow4(top + 1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        m.tmin[c] = __fmul_rn(m.tmin[c], top_block);
+        m.bmin[c] = 0.f;
+    }
+    m.tsize = pow4(top);
+    m.level = top;
+    return true;
+}
+
+// A LATERAL step to the same-level neighbor block, or out of the world
+// (false) when that block lies outside it.
+__device__ __forceinline__ bool lateral_tail(March& m, const float np[3], const float st[3],
+                                             float S) {
+    const float block = m.tsize * 4.f;
+    float lb[3], off[3], so[3];
+    bool outside = false;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        lb[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
+        outside = outside || lb[c] < 0.f || lb[c] >= S;
+    }
+    if (outside) return false;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(np[c], lb[c]);
+    m.tsect = offset_sectant(off, inv_pow4(m.level + 1));
+    sectant_offset(clamp63(m.tsect), so);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        m.p[c] = np[c];
+        m.tmin[c] = __fadd_rn(lb[c], __fmul_rn(so[c], block));
+        m.bmin[c] = lb[c];
+    }
+    return true;
+}
+
 // Step the automaton until the ray leaves the world (inactive), has taken
 // `max_steps` steps in all, or the policy `pol` ends the march.  On a hit,
 // `pol.on_hit(m)` either returns true, and the march stops there (hit,
 // inactive), or changes the state (multihit.cu clears the voxel's bit) and
 // returns false, and the march steps on from the same cell.
+//
+// Each turn of a step's DDA loop moves the ray by one DDA step, shared by
+// the warp's lanes (the header's note).  A step is counted when it starts,
+// and `max_steps` is tested only there: an ADVANCE's substeps belong to the
+// step that began them, as in the reference, whose step runs all of them.
 template <class Policy>
 __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Policy& pol) {
-    const float S = (float)g.size;
     const int top = g.n_levels - 1;
-    const float top_cell = pow4(top);
-    const float top_block = top_cell * 4.f;
-    const float inv_top_block = inv_pow4(top + 1);
-
     while (m.active && m.steps < max_steps) {
         m.steps += 1;
-        const bool inb = m.tsect < OOB;
-        const bool occupied = occ_bit(m.lo, m.hi, m.tsect);
-        const bool at_bottom = m.level <= 0;
-        if (occupied && at_bottom && inb) {
+        const int move = choose_move(m);
+        if (move == MOVE_HIT) {
             if (pol.on_hit(m)) {
                 m.hit = true;
                 m.active = false;
@@ -345,114 +511,33 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Poli
             }
             continue;
         }
-        uint32_t m_lo, m_hi;
-        reach_mask(clamp63(m.tsect), m.octant, m_lo, m_hi);
-        const bool no_overlap = ((m.lo & m_lo) == 0u) && ((m.hi & m_hi) == 0u);
-        const bool descend = occupied && !at_bottom && inb;
-        const bool lateral = !inb && !descend;
-        const bool ascend = no_overlap && !descend && !lateral;
-        const float block = m.tsize * 4.f;
-        const float inv_block = inv_pow4(m.level + 1);
-        bool moved = true;
-        if (descend) {
-            float off[3], so[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(m.p[c], m.tmin[c]);
-            const int d_tsect = offset_sectant(off, inv_pow4(m.level));
-            sectant_offset(d_tsect, so);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                m.bmin[c] = m.tmin[c];
-                m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(so[c], m.tsize));
-            }
-            m.tsect = d_tsect;
-            m.tsize = __fmul_rn(m.tsize, 0.25f);  // tsize / 4
-            m.level -= 1;
-        } else if (ascend) {
-            const float parent_block = block * 4.f;
-            const float inv_parent = inv_pow4(m.level + 2);
-            float pmin_[3], off[3], np[3], st[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                pmin_[c] = block_floor(m.bmin[c], parent_block, inv_parent);
-                off[c] = __fsub_rn(__fadd_rn(m.bmin[c], __fmul_rn(block, 0.5f)), pmin_[c]);
-            }
-            const int a_ts0 = offset_sectant(off, inv_parent);
-            dda_step(m.d, m.sf, m.p, m.bmin, block, np, st);
-            m.tsect = step_sectant(a_ts0, st);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                m.p[c] = np[c];
-                m.tmin[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
-                m.bmin[c] = pmin_[c];
-            }
-            m.tsize = block;
-            m.level += 1;
-        } else if (lateral) {
-            float np[3], st[3], lb[3], off[3], so[3];
-            dda_step(m.d, m.sf, m.p, m.bmin, block, np, st);
-            bool outside = false;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                lb[c] = __fadd_rn(m.bmin[c], __fmul_rn(st[c], block));
-                outside = outside || lb[c] < 0.f || lb[c] >= S;
-            }
-            if (outside) {  // the neighbor block lies outside the world
-                m.active = false;
-                return;
-            }
-#pragma unroll
-            for (int c = 0; c < 3; ++c) off[c] = __fsub_rn(np[c], lb[c]);
-            m.tsect = offset_sectant(off, inv_block);
-            sectant_offset(clamp63(m.tsect), so);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                m.p[c] = np[c];
-                m.tmin[c] = __fadd_rn(lb[c], __fmul_rn(so[c], block));
-                m.bmin[c] = lb[c];
-            }
-        } else {  // ADVANCE inside the current block
-            moved = false;
-            for (int k = 0; k < ADVANCE_SUBSTEPS; ++k) {
-                float np[3], st[3];
-                dda_step(m.d, m.sf, m.p, m.tmin, m.tsize, np, st);
-                const int s_ts = step_sectant(m.tsect, st);
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    m.p[c] = np[c];
-                    if (s_ts < OOB) m.tmin[c] = __fadd_rn(m.tmin[c], __fmul_rn(st[c], m.tsize));
+        if (move == MOVE_DESCEND) {
+            descend(m);
+        } else {
+            // the step's DDA steps, one a turn, each shared by the lanes that
+            // need it: every moving lane's first, then an ADVANCE's others
+            float np[3], st[3];
+#pragma unroll 1
+            do {
+                move_dda(m, move, np, st);
+                if (move != MOVE_ADVANCE) break;
+                advance_tail(m, np, st);
+            } while (m.sub != 0);
+            if (move != MOVE_ADVANCE) {
+                bool on;
+                if (move == MOVE_ASCEND) {
+                    ascend_tail(m, np, st);
+                    on = m.level <= top || restart(m, g);
+                } else {
+                    on = lateral_tail(m, np, st, (float)g.size);
                 }
-                m.tsect = s_ts;
-                if (m.tsect >= OOB || occ_bit(m.lo, m.hi, m.tsect)) break;
+                if (!on) {
+                    m.active = false;
+                    return;
+                }
             }
         }
-
-        if (m.level > top) {  // ascended past the top: restart a little on
-            float re[3];
-            bool inside = true;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                re[c] = __fadd_rn(m.p[c], __fmul_rn(m.d[c], 0.1f));
-                inside = inside && re[c] > 0.f && re[c] < S;
-                m.p[c] = re[c];
-            }
-            const bool can_restart = inside && m.restarts < MAX_RESTARTS;
-            m.restarts += 1;
-            if (!can_restart) {
-                m.active = false;
-                return;
-            }
-            m.tsect = offset_sectant(m.p, inv_top_block);
-            sectant_offset(clamp63(m.tsect), m.tmin);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                m.tmin[c] = __fmul_rn(m.tmin[c], top_block);
-                m.bmin[c] = 0.f;
-            }
-            m.tsize = top_cell;
-            m.level = top;
-        }
-        if (moved) fetch(g.occ, g.levels, g.n_blocks, m.level, m.bmin, m.lo, m.hi);
+        if (move != MOVE_ADVANCE) fetch(g.occ, g.levels, g.n_blocks, m.level, m.bmin, m.lo, m.hi);
     }
 }
 

@@ -38,6 +38,18 @@ from voxelhex_tpu_torch.render.wavefront import (
 
 U32_MASK = 0xFFFFFFFF
 
+# The moves of the move record (``make_bitgrid_tracer``'s ``run(...,
+# moves=...)``): a step that ascends past the top level (to restart or to
+# leave) is ``MOVE_RESTART``, and an ADVANCE of k DDA substeps is
+# ``MOVE_ADVANCE + k``, 1 <= k <= the tracer's substeps.
+MOVE_NONE = 0  # the ray took no step
+MOVE_HIT = 1
+MOVE_DESCEND = 2
+MOVE_ASCEND = 3
+MOVE_LATERAL = 4
+MOVE_RESTART = 5
+MOVE_ADVANCE = 8
+
 
 @dataclass
 class BitGrid:
@@ -275,8 +287,9 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
             "iters": torch.zeros(R, dtype=torch.int32, device=dev),  # steps taken
         }
 
-    def body(tree, tables, st):
-        """One automaton step for rays that are all active."""
+    def body(tree, tables, st, record=False):
+        """One automaton step for rays that are all active; with ``record``,
+        ``st["move"]`` is each ray's move."""
         point, tsect, tmin, tsize = st["point"], st["tsect"], st["tmin"], st["tsize"]
         level, lo, hi, bmin = st["level"], st["lo"], st["hi"], st["bmin"]
         dirv, sf = st["dirv"], st["sf"]
@@ -320,7 +333,9 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
 
         # ADVANCE: DDA substeps inside the current block
         v_ts, v_tmin, v_p, v_go = tsect, tmin, point, advance
+        n_sub = torch.zeros_like(level)  # the substeps each ray takes
         for _ in range(advance_substeps):
+            n_sub = n_sub + v_go.int()
             s_new_p, s_step = _dda_step_v(dirv, sf, v_p, v_tmin, tsize)
             s_ts = _step_sectant_v(v_ts, s_step)
             s_tmin = torch.where(
@@ -380,6 +395,13 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         # one fetch for the rays whose block changed
         moved = descend | ascend | lateral | can_restart
         f_lo, f_hi = _fetch_words(tree, tables, level.clamp(0, top_level), bmin)
+        if record:
+            move = torch.where(found, MOVE_HIT, MOVE_ADVANCE + n_sub)
+            move = torch.where(descend, MOVE_DESCEND, move)
+            move = torch.where(ascend, MOVE_ASCEND, move)
+            move = torch.where(over_top, MOVE_RESTART, move)
+            move = torch.where(lateral | l_out, MOVE_LATERAL, move)
+            st["move"] = move.to(torch.int8)
         st.update(
             point=point, tsect=tsect, tmin=tmin, tsize=tsize, level=level,
             lo=torch.where(moved, f_lo, lo), hi=torch.where(moved, f_hi, hi),
@@ -387,15 +409,22 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         )
         return st
 
-    def run(tree, st, iters):
+    def run(tree, st, iters, moves=None):
         """Advance up to ``iters`` iterations, stepping only active rays
-        (inactive rays are fixed points of the step)."""
+        (inactive rays are fixed points of the step).  With a list
+        ``moves``, append each iteration's move of every ray to it (int8
+        [R], the ``MOVE_*`` codes; ``MOVE_NONE`` for a ray that took no
+        step): off on every path, for measuring the automaton."""
         tables = _level_tables(tree, st["point"].device)
         for _ in range(iters):
             idx = torch.nonzero(st["active"]).squeeze(1)
             if idx.numel() == 0:
                 break
-            sub = body(tree, tables, {k: v[idx] for k, v in st.items()})
+            sub = body(tree, tables, {k: v[idx] for k, v in st.items()}, moves is not None)
+            if moves is not None:
+                row = torch.full_like(st["iters"], MOVE_NONE, dtype=torch.int8)
+                row[idx] = sub.pop("move")
+                moves.append(row)
             for k, v in sub.items():
                 st[k][idx] = v
         return st
