@@ -39,7 +39,19 @@ plain march's steps; the training path (``SoftRenderer.train_step_fused``)
 on the bench's own target (loss exactly 0, params unchanged) and on a
 constant target for 4 steps against the reference package's losses and param sums,
 one launch of each of the four kernels per step and no host
-synchronization inside a step; then its timing.  The last line is
+synchronization inside a step; then its timing.
+
+Phase 10 runs the scene model: the bench scene built as a BoxTree by
+``from_voxels``, flattened and turned into a BitGrid by the host library,
+equal to the painted one field for field, and rendered by
+``fastest_renderer(tree)`` to the reference digests; a bencode save and
+load; an edit (``insert_at_lod``) whose delta batch fetches one row band,
+equal to a fresh ``render()``; the same content at brick_dim 32 in a 512
+world (5 levels, a padded top level) and the 1024 terrain (2 GiB of
+colors) resident on the card, each frame against ``render_frame_plain`` on
+every pixel and the reference digest, the batched kernel against the frame
+kernel on 16 terrain poses; then each stage's host seconds and both frame
+kernels' device time at the terrain beside the bench.  The last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Needs one CUDA card; there is no CPU fallback.
 """
@@ -55,10 +67,12 @@ import ctypes  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 RES = (1920, 1080)
@@ -87,6 +101,21 @@ MIXED_YAWS = tuple(YAWS[k // 2 % len(YAWS)] for k in range(BATCH))
 # corner and edge, in voxels; it moves a band of about 80 of the 1080 rows
 # of the bench pose
 PAINT = ((96, 8, 30), 8)
+# ---- phase 10, the scene model: the bench content at brick_dim 32 in a 512
+# world (5 levels, a padded top level), and the large terrain
+# (examples/terrain.py, BASELINE.json's config 4) in a 1024 world
+TERRAIN_WORLD = 1024
+# sha256 of the reference package's u8 frames, made on the CPU with
+#   fastest_renderer(from_voxels(pts, cols, size=512, brick_dim=32)).render(
+#       orbit_camera(128.0, yaw_deg=40, resolution=(1920, 1080)), out_u8=True)
+# over bench.build_scene()'s points and colors (the same frame as the
+# 256 world's, REFERENCE_SHA256[40.0]), and with
+#   fastest_renderer(examples/terrain.build_terrain(1024)).render(
+#       orbit_camera(1024.0, resolution=(1920, 1080)), out_u8=True)
+BRICK32_SHA256 = "d91c061522544beaaef401931cfee12625ddee1e3771ce0d108ac062208fca62"
+TERRAIN_SHA256 = "4453a7c9857153c1f9842a6b376aebac2aca7b99ebd094f0d645062b3dbbe6b2"
+# the edit of phase 10 (c): insert_at_lod of this block into the bench tree
+EDIT = ((96, 8, 30), 8, (30, 30, 240, 255))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 # f32 and int32 operations in one automaton step of the traversal kernel,
@@ -366,6 +395,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
+    from voxelhex_tpu_torch import native
     from voxelhex_tpu_torch.ops import _build
     from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
     from voxelhex_tpu_torch.ops.shade import shade, shade_plain
@@ -375,10 +405,12 @@ def main():
     from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
     from voxelhex_tpu_torch.scene import build_scene
 
-    # ---- phase 1: build
+    # ---- phase 1: build the CUDA kernels and, beside them, the host library
     t0 = time.time()
     _build.library()
-    log(f"phase 1 build: {time.time() - t0:.1f} s -> {_build.library_dir()}")
+    native.library()
+    log(f"phase 1 build: {time.time() - t0:.1f} s -> {_build.library_dir()}, "
+        f"{native.library_path()}")
     for source in _build.SOURCES:
         for line in ptxas_lines(_build.build_log(source)):
             log(f"  ptxas {source}: {line}")
@@ -563,16 +595,23 @@ def main():
         f"plain shade: {shade_plain_ms:.3f} ms; plain frame: {frame_plain_ms:.1f} ms "
         f"(host clock, one run) {tag}")
 
-    # least time the card could take for the same work
-    n_pairs = tree["occ_pairs"].shape[0]
-    trav_bytes = R * (12 + 12) + n_pairs * 8 + n_hit * 2 + R * (1 + 4 + 12 + 12 + 12)
+    # least time the card could take for the same work: the pyramid's word
+    # pairs and the colors that the march at this pose reads, each once
+    reads = plain_reads(tree, orbit_camera(128.0, resolution=RES), dev)
+    if (reads["steps"], reads["hits"]) != (steps, n_hit):
+        raise AssertionError(f"the plain march's record {reads} differs from phase 2's "
+                             f"{steps} steps and {n_hit} hits")
+    log(f"  the march at the bench pose reads {reads['pairs']} word pairs and "
+        f"{reads['colors']} colors ({reads['sectors']} sectors of 32 B)")
+    read_bytes = reads["pairs"] * 8 + reads["colors"] * 2
+    trav_bytes = R * (12 + 12) + read_bytes + R * (1 + 4 + 12 + 12 + 12)
     trav_ops = steps * TRAVERSE_OPS_PER_STEP
     trav_bound, trav_by = bound(trav_bytes, trav_ops)
     shade_bytes = R * (1 + 4 + 12 + 3) + tree["palette"].shape[0] * 16
     shade_bound, shade_by = bound(shade_bytes, R * 12)
-    # the frame reads the pyramid, 2 B of color per hit, the palette and its
-    # launch parameters, and writes 3 B per pixel
-    frame_bytes = (n_pairs * 8 + n_hit * 2 + tree["palette"].shape[0] * 16
+    # the frame reads those, the palette and its launch parameters, and
+    # writes 3 B per pixel
+    frame_bytes = (read_bytes + tree["palette"].shape[0] * 16
                    + ctypes.sizeof(_build.FrameParams) + R * 3)
     frame_ops = steps * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL
     frame_bound, frame_by = bound(frame_bytes, frame_ops)
@@ -581,7 +620,7 @@ def main():
         f"frame {frame_bound:.4f} ms ({frame_bytes} B, {frame_ops} ops) {tag}")
     log(f"phase 4 timing: {time.time() - t0:.1f} s")
 
-    frames_entry = batched_slice(dev, tree, renderer, tag, steps, n_hit)
+    frames_entry = batched_slice(dev, tree, renderer, tag, reads)
     kernels = [
         {"name": "frame", "route": "cuda", "source": "voxelhex_tpu_torch/csrc/frame.cu",
          "replaces": "voxelhex_tpu/ops/traverse_pallas.py:79", "launches": launches["frame"],
@@ -602,6 +641,11 @@ def main():
     kernels += training_slice(dev, scene, o, d, tag)
     # after phase 9, whose profile stays the process's first, as before
     profile_delta(renderer, [cam] * BATCH, tag)
+    del renderer
+    torch.cuda.empty_cache()
+    counts = scene_model_slice(dev, card)
+    kernels[0]["launches"] += counts["frame"]
+    frames_entry["launches"] += counts["frames"]
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -636,9 +680,10 @@ def device_ms_each(fn, reps, before=None):
     return [start.elapsed_time(end) for start, end in pairs]
 
 
-def batched_slice(dev, tree, renderer, tag, steps, n_hit):
+def batched_slice(dev, tree, renderer, tag, reads):
     """Phase 4b: the batched kernel against its plain version, the delta
-    path, a content change, the pipeline and the timings.  Returns the
+    path, a content change, the pipeline and the timings; ``reads``, the
+    march's record at the bench pose (:func:`plain_reads`).  Returns the
     batched kernel's entry of the kernels line."""
     from voxelhex_tpu_torch.ops import _build
     from voxelhex_tpu_torch.ops.frame import render_frame
@@ -811,11 +856,12 @@ def batched_slice(dev, tree, renderer, tag, steps, n_hit):
         log(f"{name}: {ms:.4f} ms/frame by host clock, frames on the host; card busy "
             f"{kernel / ms:.3f} (kernel device time over host time) {tag}")
 
-    n_pairs = tree["occ_pairs"].shape[0]
-    # a launch reads the pyramid, 2 B of color per hit a frame, the palette,
-    # its parameters and the 6.2 MB baseline; it writes K frames and digests
+    steps = reads["steps"]
+    # a launch of K frames of one pose reads the word pairs and colors its
+    # march reads (once), the palette, its parameters and the 6.2 MB
+    # baseline; it writes K frames and digests
     G = -(-RES[1] // 8)
-    frames_bytes = (n_pairs * 8 + BATCH * n_hit * 2 + tree["palette"].shape[0] * 16
+    frames_bytes = (reads["pairs"] * 8 + reads["colors"] * 2 + tree["palette"].shape[0] * 16
                     + ctypes.sizeof(_build.FramesParams) + R * 3 + BATCH * R * 3
                     + BATCH * (1 + G) * 4)
     frames_ops = BATCH * (steps * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL)
@@ -933,6 +979,303 @@ def profile_steps(soft, params, state, opt, o, d, target, step_ms, tag, n_steps=
         log(f"    {ms:.4f} ms  {count:g} x  {key[:90]}")
 
 
+def host_cpu():
+    """The host CPU's model name, as ``lscpu`` or ``/proc/cpuinfo`` give it."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60)
+    lines = out.stdout.splitlines() if out.returncode == 0 else []
+    with open("/proc/cpuinfo") as f:
+        lines += f.read().splitlines()
+    for line in lines:
+        key, _, value = line.partition(":")
+        if key.strip().lower() in ("model name", "cpu model", "hardware") and value.strip():
+            return value.strip()
+    return "CPU model not reported"
+
+
+def plain_reads(tree, cam, dev):
+    """What the plain tracer's march over ``cam``'s rays takes of the card:
+    ``steps`` (automaton steps), ``hits``, ``pairs`` (the distinct 8 B word
+    pairs the rays fetch) and ``colors`` (the distinct 2 B colors of the hit
+    voxels), each input counted once however many rays read it, the least a
+    kernel that marches these rays must read; ``sectors``, the 32 B sectors
+    those pairs and colors lie in; ``share``, the working lane-steps of the
+    frame kernel's warps (:func:`working_share`)."""
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
+    from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+    from voxelhex_tpu_torch.render.camera import device_rays
+
+    o, d = device_rays(cam, dev)
+    plain = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=MAX_ITERS,
+                                **KERNEL_CONFIG)
+    reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+    st = plain.run(tree, plain.init(tree, o, d), MAX_ITERS, reads=reads)
+    v = st["hvox"][st["hit"]].long()
+    S = tree["size"]
+    caddr = torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S)
+    pairs = torch.nonzero(reads).squeeze(1)
+    w, h = cam.resolution
+    return {"steps": int(st["iters"].sum()), "hits": int(st["hit"].sum()),
+            "pairs": int(pairs.numel()), "colors": int(caddr.numel()),
+            "sectors": int(torch.unique(pairs // 4).numel() + torch.unique(caddr // 16).numel()),
+            "share": working_share(st["iters"].reshape(h, w), *WARP_TILE)}
+
+
+def check_frames_plain(tree, cams, what):
+    """Each frame kernel frame of ``cams`` against ``render_frame_plain`` on
+    every pixel; returns the frames and the largest difference."""
+    from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
+
+    out, err = [], 0.0
+    for cam in cams:
+        k = render_frame(tree, cam)
+        p = render_frame_plain(tree, cam)
+        n_bad = int((~same(k, p)).any(dim=-1).sum())
+        err = max(err, max_abs_err(k, p))
+        log(f"  {what}: frame kernel against render_frame_plain, {n_bad} pixels differ")
+        if n_bad:
+            raise AssertionError(f"{what}: the frame kernel differs from its plain version")
+        out.append(k)
+        del p
+    return out, err
+
+
+def check_resident(renderer, bg, levels, what):
+    """Every pyramid level and the colors of ``bg`` on the card, as the
+    kernels read them."""
+    t = renderer.tree
+    pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).view(np.int32)
+    if (len(t["bases"]) != levels or bg.n_levels != levels
+            or t["occ_pairs"].device.type != "cuda"
+            or not np.array_equal(t["occ_pairs"].cpu().numpy(), pairs)
+            or not np.array_equal(t["colors"].cpu().numpy().view(np.uint16), bg.colors)):
+        raise AssertionError(f"{what}: the pyramid on the card is not the host's {levels} "
+                             f"levels")
+    log(f"  {what}: {levels} levels of {t['dims']} blocks an axis, bases {t['bases']}, "
+        f"{pairs.shape[0]} word pairs and {bg.colors.nbytes} B of colors on the card")
+
+
+def scene_model_slice(dev, card):
+    """Phase 10: trees built by the port's scene model, rendered by the
+    frame kernels.  Returns the launches of the frame and batched kernels in
+    its main path's runs."""
+    import tempfile
+
+    from voxelhex_tpu_torch.io import bencode
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.frames import render_frames
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_grids, build_bitgrid, device_bitgrid
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.scene import (SIZE, build_scene, build_scene_tree,
+                                          grids_from_points, scene_points, terrain_points)
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
+    from voxelhex_tpu_torch.tree.build import from_voxels
+    from voxelhex_tpu_torch.tree.flat import ARRAYS, flatten
+
+    t_all = time.time()
+    cpu = host_cpu()
+    host_tag = f"[{card}; host {cpu}]"
+    log(f"phase 10 host: {cpu}, {os.cpu_count()} cores")
+    fields = ("size", "n_levels", "level_bases", "occ_lo", "occ_hi", "colors", "palette")
+    cam = orbit_camera(128.0, resolution=RES)
+    counts = {"frame": 0, "frames": 0}
+
+    def clock(fn):
+        t1 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t1
+
+    def read_counts():
+        counts["frame"] += render_frame.launches
+        counts["frames"] += render_frames.launches
+        return {"frame": render_frame.launches, "frames": render_frames.launches}
+
+    # (a) the bench scene through the tree
+    t0 = time.time()
+    tree, s_tree = clock(lambda: build_scene_tree(4))
+    flat, s_flat = clock(lambda: flatten(tree))
+    bg, s_native = clock(lambda: build_bitgrid(flat))
+    bg_np, s_numpy = clock(lambda: build_bitgrid(flat, native=False))
+    painted = build_scene()
+    for name, got in (("host library", bg), ("NumPy", bg_np)):
+        bad = [k for k in fields if not np.array_equal(getattr(got, k), getattr(painted, k))]
+        if bad:
+            raise AssertionError(f"bench tree, {name} build_bitgrid: {bad} differ from "
+                                 "build_scene()'s")
+    log(f"  bench tree: {tree.node_count} nodes, {flat.n_bricks} bricks of 4^3, "
+        f"{len(tree.color_palette)} colors; build_bitgrid (native and NumPy) == build_scene() "
+        f"in every field")
+    log(f"bench host stages: from_voxels {s_tree:.3f} s, flatten {s_flat:.3f} s, "
+        f"build_bitgrid native {s_native:.3f} s, NumPy {s_numpy:.3f} s {host_tag}")
+    del bg_np
+    render_frame.launches = render_frames.launches = 0
+    (renderer, s_up) = clock(lambda: fastest_renderer(tree))
+    frames = {yaw: sha(renderer.render(orbit_camera(128.0, yaw_deg=yaw, resolution=RES),
+                                       out_u8=True, out_device=True)) for yaw in YAWS}
+    n = read_counts()
+    log(f"  fastest_renderer(tree) ({s_up:.3f} s from the tree to the card): launches {n}, "
+        f"digests == reference: {[frames[y] == REFERENCE_SHA256[y] for y in YAWS]}")
+    if n != {"frame": len(YAWS), "frames": 0}:
+        raise AssertionError(f"fastest_renderer(tree): launches {n}")
+    if frames != REFERENCE_SHA256:
+        raise AssertionError("the tree-built bench frames differ from the reference digests")
+    log(f"phase 10 (a) bench tree: {time.time() - t0:.1f} s")
+
+    # (e) the bencode round trip
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.bencode")
+        bencode.save(tree, path)
+        n_bytes = os.path.getsize(path)
+        again = flatten(bencode.load(path))
+    bad = [k for k in ARRAYS if not np.array_equal(getattr(again, k), getattr(flat, k))]
+    log(f"  bencode save -> load: {n_bytes} B, flattens to the same arrays: {not bad}")
+    if bad:
+        raise AssertionError(f"bencode round trip: {bad} differ")
+    log(f"phase 10 (e) bencode: {time.time() - t0:.1f} s")
+    del again
+
+    # (c) an edit the reference's way, through the port's tree
+    t0 = time.time()
+    bench = [cam] * BATCH
+    renderer.render_delta_many(bench)
+    pos, lod, rgba = EDIT
+    tree.insert_at_lod(pos, lod, Albedo(*rgba))
+    render_frame.launches = render_frames.launches = 0
+    renderer.bitgrid = build_bitgrid(tree)
+    renderer.tree = device_bitgrid(renderer.bitgrid, dev)
+    renderer.invalidate_beam()
+    edited = renderer.render_delta_many(bench)
+    st = dict(renderer.last_stats)
+    n = read_counts()
+    fresh = renderer.render(cam, out_u8=True)
+    log(f"  insert_at_lod{EDIT}: launches {n}, {st}")
+    if n != {"frame": 0, "frames": 1}:
+        raise AssertionError(f"the edit's delta batch: launches {n}")
+    if st["delta_fetched"] != 1 or not 0 < st["delta_rows_fetched"] < RES[1] // 2:
+        raise AssertionError("the edit did not fetch one band of rows")
+    if not all(f is edited[0] for f in edited) or not (edited[0] == fresh).all():
+        raise AssertionError("the edited frame differs from a fresh render()")
+    log(f"phase 10 (c) edit: {time.time() - t0:.1f} s")
+    bench_bg = painted  # the timing below renders the unedited bench
+    del tree, flat, bg, renderer, edited, fresh
+
+    # (b) the bench content at brick_dim 32 in a 512 world
+    t0 = time.time()
+    tree32 = build_scene_tree(32)
+    flat32 = flatten(tree32)
+    bg32 = build_bitgrid(flat32)
+    S = bg32.size
+    occ, colors, palette = grids_from_points(*scene_points(), SIZE)
+    occ_w = np.zeros((S, S, S), dtype=bool)
+    occ_w[:SIZE, :SIZE, :SIZE] = occ
+    col_w = np.full((S, S, S), 0xFFFF, dtype=np.uint16)
+    col_w[:SIZE, :SIZE, :SIZE] = colors.reshape(SIZE, SIZE, SIZE)  # [z, y, x]
+    want = bitgrid_from_grids(occ_w, col_w.ravel(), palette)
+    bad = [k for k in fields if not np.array_equal(getattr(bg32, k), getattr(want, k))]
+    if S != 512 or bad:
+        raise AssertionError(f"brick_dim 32: world {S}, {bad} differ from the painted grids "
+                             "placed in the 512 world")
+    log(f"  brick_dim 32: world {S}, {tree32.node_count} nodes, {flat32.n_bricks} bricks of "
+        f"32^3; grids == the painted ones on [0, {SIZE})^3 and empty elsewhere")
+    del occ, colors, occ_w, col_w, want, tree32
+    render_frame.launches = render_frames.launches = 0
+    r32 = fastest_renderer(flat32)
+    (k32,), err32 = check_frames_plain(r32.tree, [cam], "brick_dim 32, bench pose")
+    n = read_counts()
+    check_resident(r32, r32.bitgrid, 5, "brick_dim 32")
+    digest = sha(k32)
+    log(f"  brick_dim 32: launches {n}, sha256 {digest} "
+        f"{'==' if digest == BRICK32_SHA256 else '!='} reference")
+    if digest != BRICK32_SHA256 or n != {"frame": 1, "frames": 0}:
+        raise AssertionError("brick_dim 32: the frame differs from the reference digest, or "
+                             f"launches {n}")
+    log(f"phase 10 (b) brick_dim 32: {time.time() - t0:.1f} s")
+    del r32, flat32, bg32, k32
+    torch.cuda.empty_cache()
+
+    # (d) the terrain, resident on the card
+    t0 = time.time()
+    (pts, cols), s_pts = clock(lambda: terrain_points(TERRAIN_WORLD))
+    tree, s_tree = clock(lambda: from_voxels(pts, cols, size=TERRAIN_WORLD, brick_dim=4))
+    del pts, cols
+    flat, s_flat = clock(lambda: flatten(tree))
+    n_nodes = tree.node_count
+    del tree
+    tbg, s_native = clock(lambda: build_bitgrid(flat))
+    n_bricks = flat.n_bricks
+    del flat
+    render_frame.launches = render_frames.launches = 0
+    tr, s_up = clock(lambda: fastest_renderer(tbg))
+    torch.cuda.synchronize()
+    log(f"terrain host stages: points {s_pts:.3f} s, from_voxels {s_tree:.3f} s, flatten "
+        f"{s_flat:.3f} s, build_bitgrid native {s_native:.3f} s, upload {s_up:.3f} s "
+        f"({n_nodes} nodes, {n_bricks} bricks of 4^3) {host_tag}")
+    check_resident(tr, tbg, 5, "terrain")
+    tcam = orbit_camera(float(TERRAIN_WORLD), resolution=RES)
+    (kt,), errt = check_frames_plain(tr.tree, [tcam], "terrain")
+    digest = sha(kt)
+    log(f"  terrain: sha256 {digest} {'==' if digest == TERRAIN_SHA256 else '!='} reference")
+    if digest != TERRAIN_SHA256:
+        raise AssertionError("terrain: the frame differs from the reference digest")
+    tcams = [orbit_camera(float(TERRAIN_WORLD), yaw_deg=40.0 + 22.5 * k, resolution=RES)
+             for k in range(BATCH)]
+    batch = tr.render_many(tcams, out_u8=True, out_device=True)
+    single = [tr.render(c, out_u8=True, out_device=True) for c in tcams]
+    n = read_counts()
+    n_bad = [int((~same(a, b)).any(dim=-1).sum()) for a, b in zip(batch, single)]
+    log(f"  terrain, 16 poses: batched kernel against the frame kernel, pixels that differ "
+        f"{n_bad}; launches {n}")
+    if any(n_bad) or n != {"frame": 1 + BATCH, "frames": 1}:
+        raise AssertionError(f"terrain: the batched frames differ from the frame kernel's, "
+                             f"or launches {n}")
+    del batch, single
+    log(f"phase 10 (d) terrain: {time.time() - t0:.1f} s")
+
+    # (f) the frame kernels' device time, the terrain beside the bench
+    t0 = time.time()
+    scenes = {"bench": (device_bitgrid(bench_bg, dev), cam),
+              "terrain": (tr.tree, tcam)}
+    timers, stats = {}, {}
+    for name, (t, c) in scenes.items():
+        prev = render_frame(t, c)
+        timers[f"{name} frame kernel"] = (lambda t=t, c=c: device_ms(
+            lambda: render_frame(t, c), BATCH))
+        timers[f"{name} batched kernel"] = (lambda t=t, c=c, prev=prev: device_ms(
+            lambda: render_frames(t, [c] * BATCH, prev=prev), 4) / BATCH)
+        stats[name] = plain_reads(t, c, dev)
+    turns = {name: [] for name in timers}
+    for name in list(timers) + list(timers)[::-1]:
+        turns[name].append(timers[name]())
+        log(f"  turn {name}: {turns[name][-1]:.4f} ms a frame device time {host_tag}")
+    R = RES[0] * RES[1]
+    G = -(-RES[1] // 8)
+    for name, (t, c) in scenes.items():
+        rd = stats[name]
+        steps, n_pal = rd["steps"], t["palette"].shape[0]
+        # the word pairs and colors the march reads, each once (the 16
+        # frames of the batch share one pose)
+        read_bytes = rd["pairs"] * 8 + rd["colors"] * 2
+        fb, fby = bound(read_bytes + n_pal * 16 + ctypes.sizeof(_build.FrameParams) + R * 3,
+                        steps * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL)
+        bb, bby = bound(read_bytes + n_pal * 16 + ctypes.sizeof(_build.FramesParams) + R * 3
+                        + BATCH * R * 3 + BATCH * (1 + G) * 4,
+                        BATCH * (steps * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL))
+        fm = sum(turns[f"{name} frame kernel"]) / 2
+        bm = sum(turns[f"{name} batched kernel"]) / 2
+        log(f"{name} ({t['size']}^3, {len(t['bases'])} levels, {t['occ_pairs'].shape[0]} word "
+            f"pairs, {steps} automaton steps, {rd['hits']} hits; the march reads {rd['pairs']} "
+            f"word pairs and {rd['colors']} colors, {rd['sectors'] * 32} B of 32 B sectors; "
+            f"working lane-steps of {WARP_TILE[0]} x {WARP_TILE[1]} warps {rd['share']:.4f}): "
+            f"frame kernel {fm:.4f} ms, bound {fb:.4f} ms ({fby}); batched kernel {bm:.4f} ms "
+            f"a frame, bound {bb / BATCH:.4f} ms a frame ({bby}) {host_tag}")
+    log(f"phase 10 (f) timing: {time.time() - t0:.1f} s")
+    log(f"phase 10 scene model: {time.time() - t_all:.1f} s, launches {counts}, max abs err "
+        f"{max(err32, errt)}")
+    return counts
+
+
 def training_slice(dev, scene, o, d, tag):
     """Phases 5-9: the training slice's kernels against their plain versions
     and the reference, the training path, its timing.  Returns the four
@@ -986,6 +1329,11 @@ def training_slice(dev, scene, o, d, tag):
     mh_err = max(max_abs_err(k_hits[0], p_hits[0]), max_abs_err(k_hits[1], p_hits[1]),
                  max_abs_err(kd, pd))
     count, voxels = k_hits[0], k_hits[1]
+    # the distinct word pairs the march reads, for its bound
+    mh_reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+    trace(tree, o, d, reads=mh_reads)
+    n_mh_pairs = int(mh_reads.sum())
+    del mh_reads
     n_hit_rays = int((count > 0).sum())
     n_slots = int(count.sum())
     v = voxels[voxels[..., 0] >= 0].long()  # [n_slots, 3]
@@ -996,7 +1344,7 @@ def training_slice(dev, scene, o, d, tag):
     log(f"  multihit == plain on all {R} rays: {n_hit_rays} rays hit, {n_slots} hit slots "
         f"on {n_unique} distinct voxels, "
         f"{total_steps} automaton steps (max {int(steps.max())} per ray), {at_budget} rays at "
-        f"the step budget of {K * MAX_ITERS}")
+        f"the step budget of {K * MAX_ITERS}, {n_mh_pairs} word pairs read")
     # the schedules' lane-steps, from the plain march's steps a ray, in warps
     # of 32 consecutive rays: two phases run each ray to its first hit, then
     # on to the next (K = 2); one loop runs each ray once
@@ -1208,8 +1556,7 @@ def training_slice(dev, scene, o, d, tag):
     profile_steps(soft, params, state, opt, o, d, target, step_ms, tag)
 
     # least time the card could take for the same work
-    n_pairs = tree["occ_pairs"].shape[0]
-    mh_bound, mh_by = bound(R * 24 + n_pairs * 8 + R * (4 + 16 * K),
+    mh_bound, mh_by = bound(R * 24 + n_mh_pairs * 8 + R * (4 + 16 * K),
                             total_steps * TRAVERSE_OPS_PER_STEP)
     # the composite reads each ray's slots, the params of each distinct hit
     # voxel (16 B) and, backward, dL/drgb of the rays with a hit (a ray with

@@ -18,11 +18,14 @@ RES = (160, 90)  # full pixel tiles
 YAWS = (20.0, 24.0, 20.0)
 
 
-def make_tree(seed=1):
-    """A 16^3 reference BoxTree: 40 random voxels of varied colors and one
-    4^3 block."""
-    from voxelhex_tpu.tree.boxtree import Albedo, BoxTree
+def make_tree(seed=1, package="voxelhex_tpu"):
+    """A 16^3 BoxTree of ``package`` (the reference's, or the port's
+    ``voxelhex_tpu_torch``): 40 random voxels of varied colors and one 4^3
+    block."""
+    import importlib
 
+    boxtree = importlib.import_module(f"{package}.tree.boxtree")
+    Albedo, BoxTree = boxtree.Albedo, boxtree.BoxTree
     tree = BoxTree(16, 4, auto_simplify=False)
     rng = np.random.default_rng(seed)
     for _ in range(40):

@@ -8,7 +8,7 @@ reference's ``_digest``.  Scene, cameras and helpers are
 
 import numpy as np
 import pytest
-from test_torch_batch import cameras, make_renderers, make_tree, port_bitgrid, ref_batch
+from test_torch_batch import cameras, make_renderers, make_tree, ref_batch
 
 RES = (160, 90)
 A, B = 20.0, 24.0  # two poses close enough to share the reference's plan
@@ -69,22 +69,28 @@ def test_mixed_poses_fetch_the_frames_that_moved(renderers):
 
 
 def test_edit_fetches_its_row_band(renderers):
-    """The reference's edit pattern: insert into the tree, rebuild the
-    BitGrid, swap it in and call ``invalidate_beam``; only the band of rows
-    that the edit moved is fetched and patched into the frame before."""
-    from voxelhex_tpu.render.bitgrid import build_bitgrid
+    """The reference's edit pattern, on each package's own tree: insert into
+    the tree, rebuild the BitGrid, swap it in and call ``invalidate_beam``;
+    only the band of rows that the edit moved is fetched and patched into
+    the frame before, as the reference's edit of its tree does."""
+    from voxelhex_tpu.render.bitgrid import build_bitgrid as ref_build_bitgrid
     from voxelhex_tpu.render.bitgrid import device_bitgrid as ref_device_bitgrid
-    from voxelhex_tpu.tree.boxtree import Albedo
-    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu.tree.boxtree import Albedo as RefAlbedo
+    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid, device_bitgrid
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
 
     ref, port = renderers
     before = (ref.bitgrid, ref.tree, port.bitgrid, port.tree)
     both(renderers, [A])
-    tree = make_tree()
-    tree.insert_at_lod((12, 8, 12), 2, Albedo(30, 30, 240, 255))
-    edited = build_bitgrid(tree)
+    ref_tree = make_tree()
+    ref_tree.insert_at_lod((12, 8, 12), 2, RefAlbedo(30, 30, 240, 255))
+    edited = ref_build_bitgrid(ref_tree)
     ref.bitgrid, ref.tree = edited, ref_device_bitgrid(edited)
-    port.bitgrid = port_bitgrid(edited)
+    tree = make_tree(package="voxelhex_tpu_torch")
+    tree.insert_at_lod((12, 8, 12), 2, Albedo(30, 30, 240, 255))
+    port.bitgrid = build_bitgrid(tree)
+    for k in ("level_bases", "occ_lo", "occ_hi", "colors", "palette"):
+        np.testing.assert_array_equal(getattr(port.bitgrid, k), getattr(edited, k))
     port.tree = device_bitgrid(port.bitgrid, "cpu")
     try:
         ref.invalidate_beam()

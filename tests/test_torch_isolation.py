@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,6 +40,64 @@ def test_port_imports_no_jax_and_no_reference():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_scene_model_stands_alone():
+    """The scene model's modules are the port's own: they import no JAX and
+    nothing of the reference (the package-wide check above), no port file
+    names the repo's ``native/`` directory or its library, and the host
+    library's wrapper has no ``try`` that could route a failed build to
+    NumPy."""
+    files = _port_files()
+    for mod in ("constants.py", "native.py", os.path.join("spatial", "math.py"),
+                os.path.join("spatial", "luts.py"), os.path.join("tree", "boxtree.py"),
+                os.path.join("tree", "mipmap.py"), os.path.join("tree", "build.py"),
+                os.path.join("tree", "flat.py"), os.path.join("tree", "invariants.py"),
+                os.path.join("io", "vox.py"), os.path.join("io", "bencode.py")):
+        assert os.path.join(PKG, mod) in files, mod
+    sources = files + [os.path.join(PKG, "host", "rasterize.cpp")]
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        for needle in ("native/", "tree_edit"):
+            assert needle not in text, (path, needle)
+        if path.endswith(".py"):
+            for node in ast.walk(ast.parse(text)):
+                if isinstance(node, ast.Constant) and node.value == "native":
+                    raise AssertionError(f"{path} names a directory 'native'")
+    with open(os.path.join(PKG, "native.py")) as f:
+        tree = ast.parse(f.read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_a_failed_host_build_raises(monkeypatch, tmp_path):
+    from voxelhex_tpu_torch import native
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "FLAGS", native.FLAGS + ("-DVHX_NOT_A_FLAG", "-fno-such-flag"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ rasterize.cpp failed"):
+        native.library()
+    assert not os.listdir(os.path.dirname(native.library_path()))
+
+
+def test_check_source_takes_the_three_source_types():
+    from voxelhex_tpu_torch.render.bitgrid import BitGrid, bitgrid_from_occupancy
+    from voxelhex_tpu_torch.render.renderer import check_source
+    from voxelhex_tpu_torch.tree.boxtree import Albedo, BoxTree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    tree = BoxTree(16, 4)
+    tree.insert((1, 2, 3), Albedo(10, 20, 30, 255))
+    bg = bitgrid_from_occupancy(np.zeros((16, 16, 16), dtype=bool))
+    assert check_source(bg) is bg
+    for source in (tree, flatten(tree)):
+        got = check_source(source)
+        assert isinstance(got, BitGrid) and got.size == 16
+        assert (got.colors != 0xFFFF).sum() == 1
+    for other in (None, np.zeros((16, 16, 16), dtype=bool), {"size": 16}):
+        with pytest.raises(TypeError, match="BitGrid, BoxTree or FlatTree"):
+            check_source(other)
 
 
 def test_wrappers_have_no_fallback():

@@ -96,11 +96,14 @@ def test_fastest_renderer_takes_the_references_keywords():
 
 
 def test_fastest_renderer_rejects_trees():
+    """The reference package's trees are not the port's: they cross by
+    bencode bytes or ``convert.from_jax_flat_tree`` (the port's own trees
+    render, ``test_torch_scene_model.py``)."""
     from voxelhex_tpu.tree.boxtree import BoxTree
     from voxelhex_tpu.tree.flat import flatten
     from voxelhex_tpu_torch.render import fastest_renderer
 
     tree = BoxTree(16, 4)
     for source in (tree, flatten(tree)):
-        with pytest.raises(TypeError, match="queue 1 item 4"):
+        with pytest.raises(TypeError, match="BitGrid, BoxTree or FlatTree"):
             fastest_renderer(source, device="cpu")

@@ -22,3 +22,21 @@ NO_COLOR_HIT = 0x3FFFFFFE
 # Color-grid sentinels: voxel empty / voxel occupied but colorless.
 COLOR_EMPTY = 0xFFFF
 COLOR_NONE = 0xFFFE
+
+# ---- the boxtree's own constants
+
+# Epsilon used by traversal to nudge points off cell boundaries.
+VOXEL_EPSILON = 1e-5
+
+# Palette index meaning "no entry" in a 16-bit palette slot.
+EMPTY_U16 = 0xFFFF
+
+# A packed 32-bit palette value / node key meaning "empty".
+EMPTY_U32 = 0xFFFFFFFF
+
+# Packed voxel value of a completely empty voxel: no color, no data.
+EMPTY_VOXEL = EMPTY_U32
+
+# Most colors a palette holds: 16-bit indices, the largest kept as the
+# empty marker.
+MAX_PALETTE_SIZE = 0xFFFF

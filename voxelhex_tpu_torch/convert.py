@@ -1,9 +1,12 @@
 """State carried across from the reference package, and back.
 
-The reference's ``BitGrid`` is a dataclass of NumPy arrays; its fields,
-passed as a plain dict, become the port's BitGrid without importing the
-reference.  The soft renderer's params and optax's Adam state travel as
-NumPy arrays (``np.asarray`` of the reference's leaves) the same way.
+The reference's ``BitGrid`` and ``FlatTree`` are dataclasses of NumPy
+arrays; their fields, passed as a plain dict, become the port's BitGrid and
+FlatTree without importing the reference.  A BoxTree crosses as the
+reference's own bencode bytes, the format both packages write:
+``voxelhex_tpu_torch.io.bencode.from_bytes(ref_bencode.to_bytes(tree))``,
+and back the same way.  The soft renderer's params and optax's Adam state
+travel as NumPy arrays (``np.asarray`` of the reference's leaves).
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import numpy as np
 import torch
 
 from voxelhex_tpu_torch.render.bitgrid import BitGrid
+from voxelhex_tpu_torch.tree.flat import ARRAYS as FLAT_ARRAYS
+from voxelhex_tpu_torch.tree.flat import FlatTree
 
 FIELDS = ("size", "n_levels", "level_bases", "occ_lo", "occ_hi", "colors", "palette")
 
@@ -36,6 +41,30 @@ def from_jax_bitgrid(fields: dict) -> BitGrid:
     if bg.colors.size != bg.size**3:
         raise ValueError(f"colors has {bg.colors.size} entries, want {bg.size ** 3}")
     return bg
+
+
+FLAT_DTYPES = {"node_meta": np.uint32, "node_children": np.int32, "node_ocbits": np.uint32,
+               "node_mips": np.int32, "bricks": np.int32, "palette": np.float32,
+               "brick_ocbits": np.uint32}
+
+
+def from_jax_flat_tree(fields: dict) -> FlatTree:
+    """FlatTree from the reference FlatTree's fields (``size``,
+    ``brick_dim`` and the arrays of ``tree.flat.ARRAYS``)."""
+    missing = [k for k in ("size", "brick_dim") + FLAT_ARRAYS if k not in fields]
+    if missing:
+        raise KeyError(f"missing FlatTree fields: {missing}")
+    arrays = {k: np.array(fields[k], dtype=FLAT_DTYPES[k]) for k in FLAT_ARRAYS}
+    flat = FlatTree(size=int(fields["size"]), brick_dim=int(fields["brick_dim"]), **arrays)
+    n, d = flat.n_nodes, flat.brick_dim
+    shapes = {"node_children": (n, 64), "node_ocbits": (n, 2), "node_mips": (n,),
+              "bricks": (flat.n_bricks, d**3), "brick_ocbits": (flat.n_bricks, 2)}
+    for k, shape in shapes.items():
+        if arrays[k].shape != shape:
+            raise ValueError(f"{k} has shape {arrays[k].shape}, want {shape}")
+    if arrays["palette"].ndim != 2 or arrays["palette"].shape[1] != 4:
+        raise ValueError(f"palette has shape {arrays['palette'].shape}, want [P, 4]")
+    return flat
 
 
 SOFT_PARAMS = ("albedo", "logits")

@@ -31,7 +31,8 @@ CLAMPS = ((0.0, 1.0), (-12.0, 12.0))  # albedo, logits
 
 class SoftRenderer:
     """Differentiable renderer over dense per-voxel (albedo, opacity) params
-    of one BitGrid, on one device.
+    of one BitGrid (or of a BoxTree's or FlatTree's, built by
+    ``check_source``), on one device.
 
     A training step is a fixed sequence of launches that reads nothing back
     to the host: one thread per ray marches until its own end, and the
@@ -44,7 +45,7 @@ class SoftRenderer:
     beam prepass (``beam=``), ``with_candidates``, ``fit_soft`` and
     ``params_to_tree``."""
 
-    def __init__(self, bitgrid, max_hits: int = 4, max_iters: int = MAX_ITERS,
+    def __init__(self, source, max_hits: int = 4, max_iters: int = MAX_ITERS,
                  device="cuda", tracer: str = "stack", flat_params: bool = True):
         if tracer != "stack":
             raise NotImplementedError(f"tracer={tracer!r}: the skip tracer is ROADMAP.md "
@@ -55,9 +56,9 @@ class SoftRenderer:
         if not 1 <= int(max_hits) <= MAX_HITS:
             raise ValueError(f"max_hits {max_hits}: the kernels take 1..{MAX_HITS}")
         self.device = resolve_device(device)
-        self.bitgrid = check_source(bitgrid)
-        self.tree = device_bitgrid(bitgrid, self.device)
-        self.size = int(bitgrid.size)
+        self.bitgrid = check_source(source)
+        self.tree = device_bitgrid(self.bitgrid, self.device)
+        self.size = int(self.bitgrid.size)
         self.max_hits = int(max_hits)
         self.max_iters = int(max_iters)
 

@@ -11,9 +11,10 @@
 
 
 def fastest_renderer(source, device="cuda", **kwargs):
-    """The BitGrid renderer of ``source`` on ``device`` (the CUDA kernels by
-    default; ``device="cpu"`` runs their plain PyTorch versions).  The
-    reference ``BitGridRenderer``'s keywords pass through
+    """The BitGrid renderer of ``source`` (a BitGrid, BoxTree or FlatTree)
+    on ``device`` (the CUDA kernels by default; ``device="cpu"`` runs their
+    plain PyTorch versions).  The reference ``BitGridRenderer``'s keywords
+    pass through
     (:class:`~voxelhex_tpu_torch.render.renderer.BitGridRenderer`)."""
     from voxelhex_tpu_torch.render.renderer import BitGridRenderer
 

@@ -10,6 +10,10 @@ Color resolves after the march with one gather from a dense u16 grid.
 On the card the tracer is the CUDA kernel of :mod:`voxelhex_tpu_torch.ops.
 traverse`; :func:`make_bitgrid_tracer` here is its plain PyTorch version,
 bit-equal to the reference's ``make_bitgrid_tracer``.
+
+:func:`build_bitgrid` makes the BitGrid of a BoxTree or FlatTree on the
+host, in the host library or in NumPy, equal to the reference's field for
+field.
 """
 
 from __future__ import annotations
@@ -19,14 +23,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from voxelhex_tpu_torch import native as _native
 from voxelhex_tpu_torch.constants import (
+    BOX_NODE_CHILDREN_COUNT,
     COLOR_EMPTY,
     COLOR_NONE,
     EMPTY_DESC,
     NO_COLOR_HIT,
     OOB,
+    SOLID_FLAG,
 )
 from voxelhex_tpu_torch.fp import fma32, fmax_nan, fmin_nan, maximum, sqrt32
+from voxelhex_tpu_torch.tree.boxtree import BoxTree
+from voxelhex_tpu_torch.tree.flat import META_LEAF, META_UNIFORM, FlatTree, flatten
 from voxelhex_tpu_torch.render.wavefront import (
     _dda_step_v,
     _impact_normal_v,
@@ -131,6 +140,94 @@ def bitgrid_from_grids(occ_xyz: np.ndarray, colors: np.ndarray,
     )
 
 
+def _dense_from_flat(flat: FlatTree):
+    """A FlatTree painted into dense bool occupancy and u16 color grids,
+    both [x, y, z]: the plain version of the host library's
+    ``rasterize_flat``.  A node key or brick descriptor out of range, or a
+    node below the voxel level, raises ``ValueError`` as that does."""
+    S, d = flat.size, flat.brick_dim
+    occ = np.zeros((S, S, S), dtype=bool)
+    col = np.full((S, S, S), COLOR_EMPTY, dtype=np.uint16)
+
+    def paint(desc, x0, y0, z0, extent):
+        """Paint one brick descriptor spanning ``extent`` voxels."""
+        if desc == EMPTY_DESC:
+            return
+        sl = np.s_[x0:x0 + extent, y0:y0 + extent, z0:z0 + extent]
+        if desc & SOLID_FLAG:
+            v = desc & (SOLID_FLAG - 1)
+            occ[sl] = True
+            col[sl] = COLOR_NONE if v >= COLOR_NONE else v
+            return
+        if not 0 <= desc < flat.n_bricks:
+            raise ValueError("malformed FlatTree: a brick descriptor out of range")
+        grid = flat.bricks[desc].reshape(d, d, d).transpose(2, 1, 0)  # [x, y, z]
+        if extent >= d:
+            f = extent // d
+            if f > 1:
+                grid = np.repeat(np.repeat(np.repeat(grid, f, 0), f, 1), f, 2)
+        else:
+            grid = grid[:extent, :extent, :extent]
+        occupied = grid != EMPTY_DESC
+        colors = np.where(grid >= COLOR_NONE, COLOR_NONE, np.maximum(grid, 0)).astype(np.uint16)
+        occ[sl] |= occupied
+        csl = col[sl]
+        csl[occupied] = colors[occupied]
+
+    def visit(key, x0, y0, z0, size_):
+        if key >= flat.n_nodes:
+            raise ValueError("malformed FlatTree: a node key out of range")
+        if size_ < 1:
+            raise ValueError("malformed FlatTree: a node below the voxel level")
+        meta = int(flat.node_meta[key])
+        cell = size_ // 4
+        if meta & META_UNIFORM:
+            paint(int(flat.node_children[key, 0]), x0, y0, z0, size_)
+            return
+        for s in range(BOX_NODE_CHILDREN_COUNT):
+            entry = int(flat.node_children[key, s])  # a brick descriptor or a child key
+            at = (x0 + (s % 4) * cell, y0 + ((s // 4) % 4) * cell, z0 + (s // 16) * cell)
+            if meta & META_LEAF:
+                paint(entry, *at, cell)
+            elif entry >= 0:
+                visit(entry, *at, cell)
+
+    visit(0, 0, 0, 0, S)
+    return occ, col
+
+
+def build_bitgrid(source, native: bool = True) -> BitGrid:
+    """The BitGrid of a BoxTree or FlatTree.  ``native``: paint and pack it
+    in the host library (:mod:`voxelhex_tpu_torch.native`; a failed build
+    raises); ``False`` runs the plain NumPy versions
+    (:func:`_dense_from_flat`, :func:`_pack_pyramid`), which give the same
+    arrays.  The palette is the FlatTree's, in its order."""
+    if isinstance(source, BoxTree):
+        source = flatten(source)
+    if not isinstance(source, FlatTree):
+        raise TypeError(f"build_bitgrid takes a BoxTree or FlatTree, not "
+                        f"{type(source).__name__}")
+    flat = source
+    if native:
+        occ_flat, colors = _native.rasterize_flat(flat)
+        levels_lo, levels_hi = _native.pack_pyramid(occ_flat, flat.size)
+        del occ_flat
+        bases = np.cumsum([0] + [len(lo) for lo in levels_lo[:-1]]).astype(np.int64)
+    else:
+        occ, col = _dense_from_flat(flat)
+        levels_lo, levels_hi, bases = _pack_pyramid(occ)
+        colors = col.transpose(2, 1, 0).ravel()  # x fastest
+    return BitGrid(
+        size=int(flat.size),
+        n_levels=len(levels_lo),
+        level_bases=bases,
+        occ_lo=np.concatenate(levels_lo),
+        occ_hi=np.concatenate(levels_hi),
+        colors=colors,
+        palette=flat.palette,
+    )
+
+
 def bitgrid_from_occupancy(occ_xyz: np.ndarray, palette=None) -> BitGrid:
     """BitGrid over a raw boolean occupancy grid [x, y, z]; every occupied
     voxel takes palette index 0."""
@@ -207,17 +304,22 @@ def _level_tables(tree, device):
     )
 
 
-def _fetch_words(tree, tables, level, bmin):
-    """The (lo, hi) words of the level-``level`` block whose min corner is
-    ``bmin``, widened to int64."""
+def _block_address(tables, level, bmin, n_pairs):
+    """The index in ``occ_pairs`` of the level-``level`` block whose min
+    corner is ``bmin``."""
     bases, dims, block = tables
     level = level.long()
     bc = torch.floor(bmin / block[level][:, None]).to(torch.int64)
     n = dims[level]
     addr = bases[level] + bc[:, 0] + bc[:, 1] * n + bc[:, 2] * n * n
+    return addr.clamp(0, n_pairs - 1)
+
+
+def _fetch_words(tree, tables, level, bmin):
+    """The (lo, hi) words of the level-``level`` block whose min corner is
+    ``bmin``, widened to int64."""
     pairs = tree["occ_pairs"]
-    addr = addr.clamp(0, pairs.shape[0] - 1)
-    words = pairs[addr].long() & U32_MASK
+    words = pairs[_block_address(tables, level, bmin, pairs.shape[0])].long() & U32_MASK
     return words[:, 0], words[:, 1]
 
 
@@ -409,18 +511,30 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         )
         return st
 
-    def run(tree, st, iters, moves=None):
+    def run(tree, st, iters, moves=None, reads=None):
         """Advance up to ``iters`` iterations, stepping only active rays
         (inactive rays are fixed points of the step).  With a list
         ``moves``, append each iteration's move of every ray to it (int8
         [R], the ``MOVE_*`` codes; ``MOVE_NONE`` for a ray that took no
-        step): off on every path, for measuring the automaton."""
+        step).  With a bool tensor ``reads`` over ``occ_pairs``, set the
+        entry of each block an active ray holds: the word pairs the march
+        reads.  Both are off on every path, for measuring the automaton."""
         tables = _level_tables(tree, st["point"].device)
+        n_pairs = tree["occ_pairs"].shape[0]
+
+        def mark(s):
+            reads[_block_address(tables, s["level"].clamp(0, top_level), s["bmin"],
+                                 n_pairs)] = True
+
+        if reads is not None:
+            mark({k: st[k][st["active"]] for k in ("level", "bmin")})
         for _ in range(iters):
             idx = torch.nonzero(st["active"]).squeeze(1)
             if idx.numel() == 0:
                 break
             sub = body(tree, tables, {k: v[idx] for k, v in st.items()}, moves is not None)
+            if reads is not None:
+                mark(sub)
             if moves is not None:
                 row = torch.full_like(st["iters"], MOVE_NONE, dtype=torch.int8)
                 row[idx] = sub.pop("move")
@@ -454,7 +568,8 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
     ``trace(tree, origins, dirs) -> (count int32 [R], voxels int32 [R, K, 3],
     dists f32 [R, K])``, K = ``max_hits``; an empty slot holds voxel -1 and
     distance inf.  With ``with_steps=True`` it also returns each ray's
-    automaton steps (int32 [R]).  ``settings`` go to
+    automaton steps (int32 [R]); ``reads`` goes to the march's ``run``.
+    ``settings`` go to
     :func:`make_bitgrid_tracer`.
 
     Each ray marches with the single-hit automaton (``init`` / ``run``);
@@ -468,7 +583,7 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
     base = make_bitgrid_tracer(n_levels, size, max_iters=max_iters, **settings)
     K = int(max_hits)
 
-    def trace(tree, o, dirv, with_steps=False):
+    def trace(tree, o, dirv, with_steps=False, reads=None):
         R = o.shape[0]
         dev = o.device
         st = base.init(tree, o, dirv)
@@ -480,7 +595,7 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
         for _ in range(K * max_iters):
             if not bool(st["active"].any()):
                 break
-            st = base.run(tree, st, 1)
+            st = base.run(tree, st, 1, reads=reads)
             idx = torch.nonzero(st["hit"]).squeeze(1)
             if idx.numel() == 0:
                 continue

@@ -16,8 +16,10 @@ import torch
 from voxelhex_tpu_torch.ops.frame import render_frame
 from voxelhex_tpu_torch.ops.frames import ROW_GROUP, render_frames, render_frames_digest
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, traverse
-from voxelhex_tpu_torch.render.bitgrid import BitGrid, device_bitgrid
+from voxelhex_tpu_torch.render.bitgrid import BitGrid, build_bitgrid, device_bitgrid
 from voxelhex_tpu_torch.render.camera import Camera
+from voxelhex_tpu_torch.tree.boxtree import BoxTree
+from voxelhex_tpu_torch.tree.flat import FlatTree
 
 # The reference renderer's options that change no result here, each with the
 # values the kernels accept (csrc/traverse.cuh fixes the tracer settings);
@@ -51,15 +53,17 @@ def resolve_device(device) -> torch.device:
 
 
 def check_source(source) -> BitGrid:
-    """``source`` if it is the port's BitGrid; the reference's other scene
-    types are not ported yet."""
-    if not isinstance(source, BitGrid):
-        raise TypeError(
-            f"the port renders a BitGrid, not {type(source).__name__}: BoxTree and FlatTree "
-            "sources are ROADMAP.md queue 1 item 4 (convert.from_jax_bitgrid takes a "
-            "reference BitGrid's fields)"
-        )
-    return source
+    """The BitGrid to render from ``source``: a BitGrid as it is, a BoxTree
+    or FlatTree through :func:`~voxelhex_tpu_torch.render.bitgrid.
+    build_bitgrid` (the host library); anything else raises ``TypeError``."""
+    if isinstance(source, BitGrid):
+        return source
+    if isinstance(source, (BoxTree, FlatTree)):
+        return build_bitgrid(source)
+    raise TypeError(f"the port renders a BitGrid, BoxTree or FlatTree, not "
+                    f"{type(source).__name__} (convert.from_jax_bitgrid and "
+                    "convert.from_jax_flat_tree take a reference BitGrid's or FlatTree's "
+                    "fields)")
 
 
 def check_options(options: dict) -> None:
@@ -76,18 +80,19 @@ def check_options(options: dict) -> None:
 
 
 class BitGridRenderer:
-    """Renders frames of one BitGrid on one device.
+    """Renders frames of one BitGrid on one device; ``source`` is a BitGrid,
+    a BoxTree or a FlatTree (:func:`check_source`).
 
     Takes the reference ``BitGridRenderer``'s keywords: ``max_iters`` is the
     kernels' step limit per ray; the options of ``RESULT_NEUTRAL`` are
     accepted at the values the kernels fix; any other value raises."""
 
-    def __init__(self, bitgrid: BitGrid, device="cuda", max_iters: int = MAX_ITERS, **options):
+    def __init__(self, source, device="cuda", max_iters: int = MAX_ITERS, **options):
         check_options(options)
         self.device = resolve_device(device)
-        self.bitgrid = check_source(bitgrid)
+        self.bitgrid = check_source(source)
         self.max_iters = int(max_iters)
-        self.tree = device_bitgrid(bitgrid, self.device)
+        self.tree = device_bitgrid(self.bitgrid, self.device)
         # render, render_many and render_delta_many hold it, as the
         # reference's do: the delta baseline and last_stats are shared by
         # every thread that renders with this renderer

@@ -1,11 +1,16 @@
-"""The benchmark scene, built straight into a BitGrid.
+"""The benchmark scene, and the large terrain.
 
 128^3 of procedural content (a sloped floor slab, a hollow lattice box and a
 sphere shell) in a 256^3 world: the scene the reference's headline
-benchmark renders at 1920x1080.  The reference builds it as a boxtree and
-rasterizes that into the dense pyramid; the port paints the same voxels
-into the dense grids directly.  The palette takes the reference's order:
-distinct RGBA colors sorted by their little-endian u32 value.
+benchmark renders at 1920x1080.  :func:`build_scene_tree` builds it as the
+reference does, a boxtree through ``from_voxels``; :func:`build_scene`
+paints the same voxels into the dense grids directly, which is the check
+that the tree path (``flatten``, ``build_bitgrid``) gives the same BitGrid.
+The palette takes the reference's order: distinct RGBA colors sorted by
+their little-endian u32 value.
+
+:func:`terrain_points` is the large terrain's content (the reference's
+``examples/terrain.py``, a heightfield a few voxels thick).
 """
 
 from __future__ import annotations
@@ -13,7 +18,10 @@ from __future__ import annotations
 import numpy as np
 
 from voxelhex_tpu_torch.constants import COLOR_EMPTY
+from voxelhex_tpu_torch.io.vox import tree_size_for
 from voxelhex_tpu_torch.render.bitgrid import BitGrid, bitgrid_from_grids
+from voxelhex_tpu_torch.tree.boxtree import BoxTree
+from voxelhex_tpu_torch.tree.build import from_voxels
 
 SIZE = 256  # world extent
 EXTENT = 128  # content extent
@@ -77,3 +85,36 @@ def build_scene() -> BitGrid:
     pts, cols = scene_points()
     occ, colors, palette = grids_from_points(pts, cols, SIZE)
     return bitgrid_from_grids(occ, colors, palette)
+
+
+def build_scene_tree(brick_dim: int = 4) -> BoxTree:
+    """The benchmark scene as a BoxTree of ``brick_dim`` bricks, built by
+    ``from_voxels`` in the smallest world ``brick_dim * 4**k`` of at least
+    256: 256 for ``brick_dim=4`` (the reference's bench tree), 512 for 32."""
+    pts, cols = scene_points()
+    return from_voxels(pts, cols, size=tree_size_for(SIZE, brick_dim), brick_dim=brick_dim,
+                       simplify=True)
+
+
+def terrain_points(world: int):
+    """``(positions int64 [N, 3], colors uint8 [N, 4])`` of the procedural
+    terrain of a ``world``-wide tree: a heightfield of two sine layers, its
+    surface and the 2 voxels under it, colored by height."""
+    n = world
+    x, z = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    h = (
+        n * 0.06
+        + n * 0.04 * np.sin(x * 7.0 / n) * np.cos(z * 9.0 / n)
+        + n * 0.02 * np.sin(x * 31.0 / n + 1.7) * np.sin(z * 27.0 / n)
+    ).astype(np.int64)
+    h = np.clip(h, 1, n // 4)
+    pts, cols = [], []
+    for dy in range(3):  # the crust: the surface and 2 voxels under it
+        y = h - dy
+        keep = y >= 0
+        ys = y[keep]
+        pts.append(np.stack([x[keep], ys, z[keep]], axis=1))
+        shade = (ys * 255 // max(int(h.max()), 1)).astype(np.uint8)
+        cols.append(np.stack([50 + shade // 2, 90 + shade // 3, np.full_like(shade, 60),
+                              np.full_like(shade, 255)], axis=1).astype(np.uint8))
+    return np.concatenate(pts), np.concatenate(cols)
