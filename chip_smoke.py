@@ -51,9 +51,26 @@ world (5 levels, a padded top level) and the 1024 terrain (2 GiB of
 colors) resident on the card, each frame against ``render_frame_plain`` on
 every pixel and the reference digest, the batched kernel against the frame
 kernel on 16 terrain poses; then each stage's host seconds and both frame
-kernels' device time at the terrain beside the bench.  The last line is
-``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
-Needs one CUDA card; there is no CPU fallback.
+kernels' device time at the terrain beside the bench.
+
+Phase 11 runs checkpoints and the offline trainers: (a) ``save_tree`` /
+``load_tree`` and ``save_flat`` / ``load_flat`` of the bench tree, and
+``load_vox_tree_cached`` of a ``.vox`` built in code (written, then read
+back from the cache with the model overwritten); (b) ``DiffRenderer`` over
+two 1080p poses (4,147,200 rays): the albedo kernel (``csrc/albedo.cu``)
+against its plain version on every ray, forward bit for bit and backward
+within the composite's tolerance, then ``fit_albedo`` from gray for 16
+steps (one traversal, then one forward, backward and Adam launch a step;
+the loss falls); (c) ``with_candidates`` on the bench scene against its CPU
+route, the multi-hit march and the composite at K = 6 against their plain
+versions, ``fit_soft`` for 16 steps with checkpoints against the plain
+versions' steps on the card, resumed from step 8, and with the row layout;
+(d) the identity bake of ``params_to_tree`` rendered to the bench digest,
+and the bake of the fitted params; (e) the albedo kernels beside
+``index_add_``, the K = 6 kernels and a step of each trainer, timed in
+turns, with a profile of the steps.  The last line is ``{"ok": true,
+"device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
+card; there is no CPU fallback.
 """
 
 import faulthandler
@@ -69,7 +86,9 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
+import struct  # noqa: E402
 import subprocess  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -169,6 +188,23 @@ GRAD_RTOL, GRAD_ATOL_SHARE = 1e-4, 1e-6
 COMPOSITE_FWD_OPS_PER_SLOT = 20
 COMPOSITE_BWD_OPS_PER_SLOT = 40
 ADAM_OPS_PER_ELEMENT = 16
+
+# ---- phase 11, the offline trainers on the bench tree at 1920x1080:
+# DiffRenderer and fit_albedo (examples/fit_albedo.py, BASELINE.json's
+# config 5) over the bench pose and a second one, 4,147,200 rays; fit_soft
+# on with_candidates' dilated scene (examples/train_online.py) over the
+# bench pose
+ALBEDO_YAWS = (40.0, 130.0)
+ALBEDO_LR = 0.1  # examples/fit_albedo.py
+SOFT_LR = 0.15  # examples/train_online.py, with fit_albedo=False
+CAND_HITS = 6  # with_candidates' max_hits
+FIT_STEPS, FIT_CHAIN, FIT_EVERY = 16, 8, 8
+# the target of fit_soft: the initial composite with the scene's voxels of
+# this 8^3 block (min corner, edge) carved, a corner of the box
+CARVE = ((20, 40, 20), 8)
+# f32 operations a ray of the albedo kernels (Lambert, three products, the
+# selects), counted low from albedo.cu
+ALBEDO_OPS_PER_RAY = 10
 
 
 def log(msg):
@@ -646,6 +682,16 @@ def main():
     counts = scene_model_slice(dev, card)
     kernels[0]["launches"] += counts["frame"]
     frames_entry["launches"] += counts["frames"]
+    torch.cuda.empty_cache()
+    entries, counts, errs = offline_slice(dev, card)
+    by_name = {k["name"]: k for k in kernels}
+    for counter, name in (("render_frame", "frame"), ("traverse", "traverse"),
+                          ("multihit", "multihit"), ("composite_forward", "composite_forward"),
+                          ("composite_backward", "composite_backward"), ("adam_update", "adam")):
+        by_name[name]["launches"] += counts[counter]
+    for name, err in errs.items():
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    kernels += entries
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -955,13 +1001,21 @@ def profile_delta(renderer, cameras, tag, n_batches=3):
 
 
 def profile_steps(soft, params, state, opt, o, d, target, step_ms, tag, n_steps=4):
-    """Where a step's device time goes: ``torch.profiler`` over ``n_steps``
-    steps, the device time of each kernel name per step, and the card's
-    busy share (all device time over the step time of the unprofiled run)."""
+    """Where a training step's device time goes (:func:`profile_fn` over
+    ``n_steps`` of ``train_steps_fused``)."""
+    profile_fn(lambda: soft.train_steps_fused(params, state, opt, o, d, target, n_steps),
+               n_steps, step_ms, tag)
+
+
+def profile_fn(fn, n_steps, step_ms, tag):
+    """Where a step's device time goes: ``torch.profiler`` over ``fn()``,
+    which runs ``n_steps`` steps, the device time of each kernel name per
+    step, and the card's busy share (all device time over the step time of
+    the unprofiled run, ``step_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        soft.train_steps_fused(params, state, opt, o, d, target, n_steps)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1274,6 +1328,539 @@ def scene_model_slice(dev, card):
     log(f"phase 10 scene model: {time.time() - t_all:.1f} s, launches {counts}, max abs err "
         f"{max(err32, errt)}")
     return counts
+
+
+def vox_file_bytes(seed=0, n=600, extent=40):
+    """A MagicaVoxel file of one model of ``n`` random voxels (the default
+    palette): chunks MAIN, SIZE and XYZI."""
+    rng = np.random.default_rng(seed)
+    xyzi = np.concatenate([rng.integers(0, extent, (n, 3)), rng.integers(1, 256, (n, 1))],
+                          axis=1).astype(np.uint8)
+
+    def chunk(cid, content):
+        return cid + struct.pack("<ii", len(content), 0) + content
+
+    body = (chunk(b"SIZE", struct.pack("<3i", extent, extent, extent))
+            + chunk(b"XYZI", struct.pack("<i", n) + xyzi.tobytes()))
+    return b"VOX " + struct.pack("<i", 150) + b"MAIN" + struct.pack("<ii", 0, len(body)) + body
+
+
+def param_sums(params):
+    return {k: float(v.double().sum()) for k, v in params.items()}
+
+
+def offline_slice(dev, card):
+    """Phase 11 in a temporary directory that is removed however it ends
+    (:func:`offline_phases`)."""
+    with tempfile.TemporaryDirectory(prefix="vhx_offline_") as tmp:
+        return offline_phases(dev, card, tmp)
+
+
+def offline_phases(dev, card, tmp):
+    """Phase 11: checkpoints and the offline trainers at full width on the
+    card.  (a) tree, flat and ``.vox``-cache checkpoints of the bench tree;
+    (b) ``DiffRenderer`` and ``fit_albedo``: the albedo kernels against
+    their plain versions on every ray, 16 steps from gray; (c)
+    ``with_candidates`` (against its CPU route), the multi-hit march and
+    the composite at K = 6 against their plain versions, ``fit_soft`` with
+    checkpoints, against the plain versions' steps, resumed from step 8 and
+    with the row layout; (d) ``params_to_tree``: the identity bake renders
+    the bench digest; (e) times in turns.  Returns the albedo kernels'
+    entries of the kernels line, the launches of the other kernels in the
+    main path's runs, and the errors of the K = 6 checks."""
+    from voxelhex_tpu_torch.diff.fit import albedo_step, fit_albedo
+    from voxelhex_tpu_torch.diff.optim import adam
+    from voxelhex_tpu_torch.diff.render import DiffRenderer
+    from voxelhex_tpu_torch.diff.soft import (CLAMPS, SoftRenderer, fit_soft, params_to_tree,
+                                              with_candidates)
+    from voxelhex_tpu_torch.io import checkpoint
+    from voxelhex_tpu_torch.io.vox import load_vox_tree_cached
+    from voxelhex_tpu_torch.ops.adam import adam_plain, adam_update
+    from voxelhex_tpu_torch.ops.albedo import (albedo_backward, albedo_backward_plain,
+                                               albedo_forward, albedo_forward_plain, lambert,
+                                               shade_albedo)
+    from voxelhex_tpu_torch.ops.composite import (
+        composite_backward, composite_backward_plain, composite_forward,
+        composite_forward_plain)
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.multihit import multihit
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, traverse
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid, make_multihit_tracer
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.scene import build_scene, build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import ARRAYS, flatten
+
+    tag = f"[{card}]"
+    t_all = time.time()
+    counters = (traverse, multihit, composite_forward, composite_backward, adam_update,
+                albedo_forward, albedo_backward, render_frame)
+    counts = {f.__name__: 0 for f in counters}
+
+    def reset():
+        for f in counters:
+            f.launches = 0
+
+    def read():
+        n = {f.__name__: f.launches for f in counters}
+        for k, v in n.items():
+            counts[k] += v
+        return n
+
+    def want(**kw):
+        return {f.__name__: kw.get(f.__name__, 0) for f in counters}
+
+    def clock(fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    cam = orbit_camera(128.0, resolution=RES)
+
+    # (a) checkpoints of the bench tree, and the .vox cache
+    t0 = time.time()
+    tree = build_scene_tree(4)
+    flat = flatten(tree)
+    path = os.path.join(tmp, "bench.vhx")
+    _, s_save = clock(lambda: checkpoint.save_tree(path, tree))
+    loaded, s_load = clock(lambda: checkpoint.load_tree(path))
+    again = flatten(loaded)
+    bad = [k for k in ARRAYS if not np.array_equal(getattr(again, k), getattr(flat, k))]
+    if bad or (again.size, again.brick_dim) != (flat.size, flat.brick_dim):
+        raise AssertionError(f"save_tree -> load_tree: {bad} differ after flatten")
+    log(f"  save_tree {s_save:.3f} s ({os.path.getsize(path)} B), load_tree {s_load:.3f} s: "
+        f"flatten equals the original in every field {tag}")
+    fpath = os.path.join(tmp, "bench.npz")
+    _, s_save = clock(lambda: checkpoint.save_flat(fpath, flat))
+    lf, s_load = clock(lambda: checkpoint.load_flat(fpath))
+    saved = ("node_meta", "node_children", "node_ocbits", "node_mips", "bricks", "palette")
+    bad = [k for k in saved if not np.array_equal(getattr(lf, k), getattr(flat, k))]
+    if bad or checkpoint.peek_version(fpath) != checkpoint.FORMAT_VERSION:
+        raise AssertionError(f"save_flat -> load_flat: {bad} differ")
+    log(f"  save_flat {s_save:.3f} s ({os.path.getsize(fpath)} B), load_flat {s_load:.3f} s: "
+        f"every saved array equal {tag}")
+    vox_path = os.path.join(tmp, "scene.vox")
+    with open(vox_path, "wb") as f:
+        f.write(vox_file_bytes())
+    cache = os.path.join(tmp, ".cache_scene.vox_4.vhx")
+    first, s_first = clock(lambda: load_vox_tree_cached(vox_path, brick_dim=4))
+    if not os.path.exists(cache):
+        raise AssertionError("load_vox_tree_cached wrote no cache")
+    with open(vox_path, "wb") as f:  # the second call must read the cache, not the model
+        f.write(b"not a vox file")
+    second, s_second = clock(lambda: load_vox_tree_cached(vox_path, brick_dim=4))
+    a, b = flatten(first), flatten(second)
+    bad = [k for k in ARRAYS if not np.array_equal(getattr(a, k), getattr(b, k))]
+    if bad or a.n_bricks == 0:
+        raise AssertionError(f"load_vox_tree_cached: the cached tree differs in {bad}")
+    log(f"  load_vox_tree_cached: parsed and cached {s_first:.3f} s, from the cache {s_second:.3f} "
+        f"s (the model overwritten), {a.n_nodes} nodes, equal trees {tag}")
+    del loaded, again, lf, first, second, a, b
+    log(f"phase 11 (a) checkpoints: {time.time() - t0:.1f} s")
+
+    # (b) DiffRenderer and fit_albedo on two poses
+    t0 = time.time()
+    diff, s_diff = clock(lambda: DiffRenderer(flat, device=dev))
+    rays = [device_rays(orbit_camera(128.0, yaw_deg=y, resolution=RES), dev) for y in ALBEDO_YAWS]
+    o = torch.cat([r[0].reshape(-1, 3) for r in rays])
+    d = torch.cat([r[1].reshape(-1, 3) for r in rays])
+    del rays
+    R = o.shape[0]
+    true = diff.init_params()
+    shape = tuple(true.shape[:2])
+    hit, _voxel, brick, cell, _point, normal = diff.trace_rays(o, d)
+    ok = hit & (brick >= 0)
+    rows = brick[ok].long() * shape[1] + cell[ok].long()
+    n_rows = int(torch.unique(rows).numel())
+    log(f"  DiffRenderer (densify, lookup grids, pyramid, upload) {s_diff:.3f} s: {shape[0]} "
+        f"bricks x {shape[1]} cells x 3 = {true.numel()} params; {R} rays, {int(hit.sum())} hits, "
+        f"{int(ok.sum())} on {n_rows} distinct rows {tag}")
+    if int(hit.sum()) != int(ok.sum()):
+        raise AssertionError("a hit voxel of the densified bench tree has no params")
+    fwd_err = 0.0
+    for bg in ((0.0, 0.0, 0.0), BG):
+        k = albedo_forward(true, hit, brick, cell, normal, bg)
+        torch.cuda.synchronize()
+        p = albedo_forward_plain(true, hit, brick, cell, normal, bg)
+        n_bad = int((~same(k, p)).any(dim=1).sum())
+        fwd_err = max(fwd_err, max_abs_err(k, p))
+        log(f"  albedo forward, bg {bg}: {n_bad} of {R} rays differ from the plain version")
+        if n_bad:
+            raise AssertionError("the albedo forward kernel differs from its plain version")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g_rgb = torch.randn((R, 3), generator=gen, device=dev) * 1e-3
+    gk = albedo_backward(g_rgb, hit, brick, cell, normal, shape)
+    torch.cuda.synchronize()
+    gp = albedo_backward_plain(g_rgb, hit, brick, cell, normal, shape)
+    bwd_err = max_abs_err(gk, gp)
+    scale = float(gp.abs().max())
+    zeros_differ = int(((gk == 0) != (gp == 0)).sum())
+    close = bool(((gk - gp).abs() <= GRAD_RTOL * gp.abs() + GRAD_ATOL_SHARE * scale).all())
+    log(f"  albedo backward: max abs err {bwd_err} (largest element {scale}), "
+        f"{int((gp != 0).sum())} non-zero, {zeros_differ} zero in one only (tolerance: relative "
+        f"{GRAD_RTOL} or {GRAD_ATOL_SHARE} of the largest)")
+    if not close or zeros_differ or scale == 0:
+        raise AssertionError("the albedo backward kernel differs from its plain version")
+    del gk, gp
+    target = albedo_forward(true, hit, brick, cell, normal)
+    gray = torch.full_like(true, 0.5)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset()
+    (fitted, losses), s_fit = clock(lambda: fit_albedo(diff, o, d, target, steps=FIT_STEPS,
+                                                       lr=ALBEDO_LR, params0=gray,
+                                                       chain=FIT_CHAIN))
+    n = read()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    plain0 = float(torch.mean((albedo_forward_plain(gray, hit, brick, cell, normal) - target) ** 2))
+    err_after = float((albedo_forward(fitted, hit, brick, cell, normal) - target).abs().mean())
+    log(f"  fit_albedo {FIT_STEPS} steps, chain {FIT_CHAIN}, lr {ALBEDO_LR}, from gray 0.5: "
+        f"{s_fit:.3f} s, launches {n}, {peak} B of device memory at its peak above the inputs")
+    log(f"    losses {losses}; the first from the plain versions {plain0!r}; mean |rgb - "
+        f"target| after {err_after} {tag}")
+    if n != want(traverse=1, albedo_forward=FIT_STEPS, albedo_backward=FIT_STEPS,
+                 adam_update=FIT_STEPS):
+        raise AssertionError(f"fit_albedo launches {n}")
+    if (len(losses) != FIT_STEPS or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0] or abs(losses[0] - plain0) > LOSS_RTOL * plain0):
+        raise AssertionError("fit_albedo's loss did not fall, or its first loss differs from "
+                             "the plain versions'")
+    log(f"phase 11 (b) DiffRenderer and fit_albedo: {time.time() - t0:.1f} s")
+
+    # (c) with_candidates and fit_soft
+    t0 = time.time()
+    scene = build_scene()
+    (soft, params0, cand), s_cand = clock(lambda: with_candidates(scene, radius=1,
+                                                                  max_hits=CAND_HITS,
+                                                                  device=dev))
+    soft_c, params_c, cand_c = with_candidates(scene, radius=1, max_hits=CAND_HITS, device="cpu")
+    fields = ("size", "n_levels", "level_bases", "occ_lo", "occ_hi", "colors", "palette")
+    bad = [k for k in fields if not np.array_equal(getattr(soft.bitgrid, k),
+                                                   getattr(soft_c.bitgrid, k))]
+    bad += [k for k in params0 if not torch.equal(params0[k].cpu(), params_c[k])]
+    if bad or not np.array_equal(cand, cand_c):
+        raise AssertionError(f"with_candidates on the card differs from its CPU route: {bad}")
+    n_scene = int((scene.colors != 0xFFFF).sum())
+    log(f"  with_candidates(radius 1, max_hits {CAND_HITS}) {s_cand:.3f} s: {n_scene} scene "
+        f"voxels, {int(cand.sum())} candidates; pyramid, mask and params equal the CPU route's {tag}")
+    del soft_c, params_c, cand_c
+    S = soft.size
+    o, d = device_rays(cam, dev)
+    R = o.shape[0]
+    tree6 = soft.tree
+    k_hits = multihit(tree6, o, d, CAND_HITS)
+    torch.cuda.synchronize()
+    trace6 = make_multihit_tracer(len(tree6["bases"]), S, CAND_HITS, MAX_ITERS, **KERNEL_CONFIG)
+    t1 = time.time()
+    reads6 = torch.zeros(tree6["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+    *p_hits, steps6 = trace6(tree6, o, d, with_steps=True, reads=reads6)
+    torch.cuda.synchronize()
+    mh_plain_ms = (time.time() - t1) * 1e3
+    for name, a, b in zip(("count", "voxels"), k_hits, p_hits):
+        n_bad = int((a != b).reshape(R, -1).any(dim=1).sum())
+        log(f"  multihit K={CAND_HITS} {name}: {n_bad} rays differ from the plain march")
+        if n_bad:
+            raise AssertionError(f"multihit kernel at K={CAND_HITS} differs on {name}")
+    ulps = (k_hits[2].view(torch.int32).long() - p_hits[2].view(torch.int32).long()).abs()
+    ulps = torch.where(same(k_hits[2], p_hits[2]), torch.zeros_like(ulps), ulps)
+    if int(ulps.max()) > 1:
+        raise AssertionError(f"multihit dists at K={CAND_HITS} differ by more than 1 ulp")
+    mh6_err = max(max_abs_err(a, b) for a, b in zip(k_hits, p_hits))
+    count6, voxels = k_hits[0], k_hits[1]
+    n_slots, n_hit_rays = int(count6.sum()), int((count6 > 0).sum())
+    v = voxels[voxels[..., 0] >= 0].long()
+    n_unique = int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S).numel())
+    total6 = int(steps6.sum())
+    n_pairs6 = int(reads6.sum())
+    log(f"  multihit K={CAND_HITS} == plain on all {R} rays: {n_hit_rays} rays hit, {n_slots} "
+        f"slots on {n_unique} voxels, {total6} automaton steps, {n_pairs6} word pairs read, "
+        f"dists within {int(ulps.max())} ulp")
+    del p_hits, steps6, reads6, v
+    alb, lgt = params0["albedo"], params0["logits"]
+    rgb_k = composite_forward(alb, lgt, voxels, S)
+    torch.cuda.synchronize()
+    rgb_p = composite_forward_plain(alb, lgt, voxels, S)
+    cfwd6_err = max_abs_err(rgb_k, rgb_p)
+    # the gradient of phase 6: the loss against the constant target
+    const = torch.tensor(CONST_TARGET, dtype=torch.float32, device=dev)
+    grad6 = (2.0 * (rgb_k - const) / (3 * R)).contiguous()
+    ga_k, gl_k = composite_backward(grad6, alb, lgt, voxels, S)
+    torch.cuda.synchronize()
+    ga_p, gl_p = composite_backward_plain(grad6, alb, lgt, voxels, S)
+    cbwd6_err = 0.0
+    failed = []
+    for name, a, b in (("albedo", ga_k, ga_p), ("logits", gl_k, gl_p)):
+        scale = float(b.abs().max())
+        cbwd6_err = max(cbwd6_err, max_abs_err(a, b))
+        out = (a - b).abs() > GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * scale
+        zeros_differ = int(((a == 0) != (b == 0)).sum())
+        log(f"  composite backward K={CAND_HITS} {name}: max abs err {max_abs_err(a, b)} (largest "
+            f"element {scale}), {int(out.sum())} elements out of tolerance, {zeros_differ} zero "
+            f"in one only, {int((b != 0).sum())} non-zero")
+        if bool(out.any()) or zeros_differ or scale == 0:
+            failed.append(name)
+    log(f"  composite K={CAND_HITS}: forward max abs err {cfwd6_err} (tolerance {RGB_ATOL}), "
+        f"backward max abs err {cbwd6_err} (relative {GRAD_RTOL} or {GRAD_ATOL_SHARE} of the "
+        "largest)")
+    if failed:
+        raise AssertionError(f"composite backward at K={CAND_HITS} differs on {failed}")
+    # a gradient of random signs cancels inside a voxel's sum, where an
+    # elementwise relative tolerance does not hold for either f32 order:
+    # both against the f64 sum, for the record
+    g_rand = (torch.randn((R, 3), generator=gen, device=dev) * 1e-3).contiguous()
+    _ga, rl_k = composite_backward(g_rand, alb, lgt, voxels, S)
+    _ga, rl_p = composite_backward_plain(g_rand, alb, lgt, voxels, S, need_albedo=False)
+    _ga, rl_d = composite_backward_plain(g_rand.double(), alb.double(), lgt.double(), voxels, S,
+                                         need_albedo=False)
+    scale = float(rl_d.abs().max())
+    out = (rl_k.double() - rl_p.double()).abs() > GRAD_RTOL * rl_p.double().abs() + \
+        GRAD_ATOL_SHARE * scale
+    log(f"  random-sign dL/drgb, logits: kernel against f64 max abs err "
+        f"{float((rl_k.double() - rl_d).abs().max())}, plain f32 against f64 "
+        f"{float((rl_p.double() - rl_d).abs().max())} (largest {scale}); {int(out.sum())} "
+        "elements outside the elementwise tolerance between the two f32 sums")
+    del _ga, rl_k, rl_p, rl_d, g_rand, out
+    if cfwd6_err > RGB_ATOL:
+        raise AssertionError(f"composite forward at K={CAND_HITS} differs from its plain version")
+    del rgb_p, ga_k, gl_k, ga_p, gl_p
+    # the target: the initial composite with one block of the scene carved
+    (x0, y0, z0), e = CARVE
+    xs, ys, zs = (torch.arange(c, c + e, device=dev) for c in (x0, y0, z0))
+    block = (xs[:, None, None] + ys[None, :, None] * S + zs[None, None, :] * S * S).reshape(-1)
+    occupied = torch.from_numpy(scene.colors != 0xFFFF).to(dev)
+    carved = block[occupied[block]]
+    t_logits = lgt.clone()
+    t_logits[carved] = -10.0
+    target6 = composite_forward(alb, t_logits, voxels, S)
+    n_changed = int((target6 != rgb_k).any(dim=1).sum())
+    log(f"  target: {carved.numel()} scene voxels of the block {CARVE} carved, {n_changed} pixels "
+        "changed")
+    if not n_changed:
+        raise AssertionError("the carved block changes no pixel of the target")
+    del t_logits, rgb_k
+    opt = adam(SOFT_LR)
+    kw = dict(lr=SOFT_LR, params0=params0, fit_albedo=False, chain=FIT_CHAIN)
+    sums0 = param_sums(params0)
+    path_a, path_b = os.path.join(tmp, "fit_a.ckpt"), os.path.join(tmp, "fit_b.ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset()
+    (p_a, l_a), s_a = clock(lambda: fit_soft(soft, o, d, target6, steps=FIT_STEPS,
+                                             checkpoint_path=path_a,
+                                             checkpoint_every=FIT_EVERY, **kw))
+    n = read()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"  fit_soft {FIT_STEPS} steps, chain {FIT_CHAIN}, checkpoints every {FIT_EVERY}, lr "
+        f"{SOFT_LR}, fit_albedo=False: {s_a:.3f} s with 3 saves, launches {n}, {peak} B of "
+        f"device memory at its peak above the inputs {tag}")
+    log(f"    losses {l_a}")
+    if n != want(multihit=1, composite_forward=FIT_STEPS, composite_backward=FIT_STEPS,
+                 adam_update=FIT_STEPS):
+        raise AssertionError(f"fit_soft launches {n}")
+    if len(l_a) != FIT_STEPS or not all(math.isfinite(x) for x in l_a) or not l_a[-1] < l_a[0]:
+        raise AssertionError("fit_soft's loss did not fall")
+    n_vox = S ** 3
+    log(f"    on the card: params {4 * 4 * n_vox} B, moments {2 * 4 * 4 * n_vox} B, logits "
+        f"gradient {4 * n_vox} B (albedo frozen: no albedo gradient), voxels "
+        f"{voxels.numel() * 4} B")
+    # the plain versions' steps on the same voxels, on the card
+    pp = {k: v.clone() for k, v in params0.items()}
+    sp = opt.init(pp)
+    l_p = []
+    for _ in range(FIT_STEPS):
+        rgb = composite_forward_plain(pp["albedo"], pp["logits"], voxels, S)
+        diff_rgb = rgb - target6
+        l_p.append(float(torch.mean(diff_rgb ** 2)))
+        _ga, gl = composite_backward_plain((diff_rgb * (2.0 / diff_rgb.numel())).contiguous(),
+                                           pp["albedo"], pp["logits"], voxels, S,
+                                           need_albedo=False)
+        sp = adam_plain(pp, {"albedo": None, "logits": gl}, sp, opt, 0.0, CLAMPS)
+    bad = [i for i in range(FIT_STEPS) if abs(l_a[i] - l_p[i]) > LOSS_RTOL * l_p[i]]
+    sums_a, sums_p = param_sums(p_a), param_sums(pp)
+    for k in sums0:
+        got, ref = sums_a[k] - sums0[k], sums_p[k] - sums0[k]
+        log(f"    {k} sum change {got!r}, the plain versions' {ref!r}")
+        if abs(got - ref) > SUM_RTOL * abs(ref) + SUM_ATOL:
+            bad.append(f"{k} sum")
+    log(f"    the plain versions' losses {l_p}")
+    if bad:
+        raise AssertionError(f"fit_soft differs from the plain versions' steps: {bad}")
+    del pp, sp
+    # interrupted at step 8, resumed
+    reset()
+    (_p, l_b1), s_b1 = clock(lambda: fit_soft(soft, o, d, target6, steps=FIT_EVERY,
+                                              checkpoint_path=path_b,
+                                              checkpoint_every=FIT_EVERY, **kw))
+    (p_b, l_b), s_b = clock(lambda: fit_soft(soft, o, d, target6, steps=FIT_STEPS,
+                                             checkpoint_path=path_b, **kw))
+    n = read()
+    bad = [i for i in range(FIT_EVERY) if abs(l_b[i] - l_a[FIT_EVERY + i])
+           > LOSS_RTOL * l_a[FIT_EVERY + i]]
+    bad += [i for i in range(FIT_EVERY) if abs(l_b1[i] - l_a[i]) > LOSS_RTOL * l_a[i]]
+    sums_b = param_sums(p_b)
+    for k in sums0:
+        got, ref = sums_b[k] - sums0[k], sums_a[k] - sums0[k]
+        if abs(got - ref) > SUM_RTOL * abs(ref) + SUM_ATOL:
+            bad.append(f"{k} sum")
+    log(f"  fit_soft to step {FIT_EVERY} ({s_b1:.3f} s), then resumed to {FIT_STEPS} ({s_b:.3f} s, "
+        f"{len(l_b)} losses): launches {n}; losses {l_b}")
+    if len(l_b1) != FIT_EVERY or len(l_b) != FIT_STEPS - FIT_EVERY or bad:
+        raise AssertionError(f"the resumed fit differs from the uninterrupted one: {bad}")
+    # the row layout
+    soft_rows = SoftRenderer(soft.bitgrid, max_hits=CAND_HITS, flat_params=False, device=dev)
+    reset()
+    p_rows, l_rows = fit_soft(soft_rows, o, d, target6, steps=2, lr=SOFT_LR, fit_albedo=False,
+                              params0={"albedo": alb.view(-1, 3), "logits": lgt})
+    torch.cuda.synchronize()
+    n = read()
+    log(f"  flat_params=False: losses {l_rows} (flat {l_a[:2]}), albedo "
+        f"{tuple(p_rows['albedo'].shape)}, launches {n}")
+    if (p_rows["albedo"].shape != (n_vox, 3)
+            or any(abs(x - y) > LOSS_RTOL * y for x, y in zip(l_rows, l_a[:2]))):
+        raise AssertionError("the row layout's losses differ from the flat layout's")
+    del soft_rows, p_rows, p_b, _p
+    # the train-state checkpoint's size and seconds
+    spath = os.path.join(tmp, "state.ckpt")
+    state = opt.init(p_a)
+    _, s_save = clock(lambda: checkpoint.save_train_state(spath, FIT_STEPS, p_a, state))
+    (_step, _pl, _sl), s_load = clock(lambda: checkpoint.load_train_state(spath, p_a, state))
+    log(f"  train-state checkpoint of {4 * 4 * n_vox * 3} B of params and moments: save "
+        f"{s_save:.3f} s, load {s_load:.3f} s, {os.path.getsize(spath)} B on disk {tag}")
+    del state, _pl, _sl
+    log(f"phase 11 (c) with_candidates and fit_soft: {time.time() - t0:.1f} s")
+
+    # (d) params_to_tree
+    t0 = time.time()
+    soft0 = SoftRenderer(tree, device=dev)
+    baked, s_bake = clock(lambda: params_to_tree(soft0, soft0.init_params()))
+    del soft0
+    reset()
+    frame = fastest_renderer(baked, device=dev).render(cam, out_u8=True, out_device=True)
+    n = read()
+    digest = sha(frame)
+    log(f"  identity bake of SoftRenderer(bench tree).init_params() ({s_bake:.3f} s): launches "
+        f"{n}, sha256 {digest} {'==' if digest == REFERENCE_SHA256[40.0] else '!='} reference")
+    if digest != REFERENCE_SHA256[40.0] or n != want(render_frame=1):
+        raise AssertionError("the identity bake does not render the bench frame")
+    fitted_tree, s_fit_bake = clock(lambda: params_to_tree(soft, p_a))
+    n_baked = int((build_bitgrid(fitted_tree).colors != 0xFFFF).sum())
+    log(f"  bake of fit_soft's params ({s_fit_bake:.3f} s): {n_baked} voxels (the scene "
+        f"{n_scene}, the carved block {carved.numel()}) {tag}")
+    del baked, fitted_tree, frame
+    log(f"phase 11 (d) params_to_tree: {time.time() - t0:.1f} s")
+
+    # (e) times, in turns
+    t0 = time.time()
+    lam = lambert(normal[ok])
+    pre = (g_rgb[ok] * lam[:, None]).reshape(-1)
+    flat_idx = (rows[:, None] * 3 + torch.arange(3, device=dev)).reshape(-1)
+    n_params = true.numel()
+    grad_out = torch.zeros(n_params, device=dev)
+
+    def library():
+        return grad_out.zero_().index_add_(0, flat_idx, pre)
+
+    timers = {
+        "albedo forward": lambda: device_ms(
+            lambda: albedo_forward(true, hit, brick, cell, normal), TIMED_FRAMES),
+        "albedo backward": lambda: device_ms(
+            lambda: albedo_backward(g_rgb, hit, brick, cell, normal, shape), TIMED_FRAMES),
+        "index_add_": lambda: device_ms(library, TIMED_FRAMES),
+        f"multihit K={CAND_HITS}": lambda: device_ms(
+            lambda: multihit(tree6, o, d, CAND_HITS), TIMED_FRAMES),
+        f"composite forward K={CAND_HITS}": lambda: device_ms(
+            lambda: composite_forward(alb, lgt, voxels, S), TIMED_FRAMES),
+        f"composite backward K={CAND_HITS}": lambda: device_ms(
+            lambda: composite_backward(grad6, alb, lgt, voxels, S), TIMED_FRAMES),
+    }
+    for fn in timers.values():
+        fn()
+    turns = {name: [] for name in timers}
+    for name in list(timers) + list(timers)[::-1]:
+        turns[name].append(timers[name]())
+        log(f"  turn {name}: {turns[name][-1]:.4f} ms device time {tag}")
+    ms = {name: sum(t) / 2 for name, t in turns.items()}
+    fwd_plain_ms = timed(lambda: albedo_forward_plain(true, hit, brick, cell, normal), 3)
+    bwd_plain_ms = timed(lambda: albedo_backward_plain(g_rgb, hit, brick, cell, normal, shape), 3)
+
+    # a step of each trainer, 16 queued back to back (CUDA events around the
+    # host's calls, as phase 9 times the training step)
+    def loss_fn(p):
+        return torch.mean((shade_albedo(p, hit, brick, cell, normal) - target) ** 2)
+
+    a_opt = adam(ALBEDO_LR)
+    a_params = gray.clone()
+    a_state = a_opt.init(a_params)
+    s_params = {k: v.clone() for k, v in params0.items()}
+    s_state = opt.init(s_params)
+
+    def albedo_steps():
+        nonlocal a_params, a_state
+        for _ in range(FIT_STEPS):
+            a_params, a_state, _loss = albedo_step(a_params, a_state, a_opt, loss_fn)
+
+    def soft_steps():
+        nonlocal s_params, s_state
+        for _ in range(FIT_STEPS):
+            s_params, s_state, _loss = soft.fit_step(s_params, s_state, opt, voxels, target6,
+                                                     0.0, False)
+
+    steps_t = {"fit_albedo step": albedo_steps, "fit_soft step": soft_steps}
+    for fn in steps_t.values():
+        fn()
+    step_turns = {name: [] for name in steps_t}
+    for name in list(steps_t) + list(steps_t)[::-1]:
+        step_turns[name].append(timed(steps_t[name], 1) / FIT_STEPS)
+        log(f"  turn {name}: {step_turns[name][-1]:.4f} ms a step by CUDA events, {FIT_STEPS} "
+            f"back to back {tag}")
+    # what this run's rays need: every ray's hit flag; the forward writes
+    # every ray's rgb and reads a hit ray's brick, cell, normal and row; the
+    # backward reads a hit ray's brick, cell, normal and dL/drgb and writes
+    # the whole gradient (zeroed, then the rows added)
+    R2, n_hit2, n_ok2 = hit.shape[0], int(hit.sum()), int(ok.sum())
+    fwd_bytes = R2 * (1 + 12) + n_hit2 * (4 + 12) + n_ok2 * 4 + n_rows * 12
+    bwd_bytes = R2 + n_hit2 * 4 + n_ok2 * (4 + 12 + 12) + n_params * 4
+    fwd_bound, fwd_by = bound(fwd_bytes, n_hit2 * ALBEDO_OPS_PER_RAY)
+    bwd_bound, bwd_by = bound(bwd_bytes, n_ok2 * ALBEDO_OPS_PER_RAY)
+    mh_bound, mh_by = bound(R * 24 + n_pairs6 * 8 + R * (4 + 16 * CAND_HITS),
+                            total6 * TRAVERSE_OPS_PER_STEP)
+    cf_bound, cf_by = bound(R * 12 * CAND_HITS + n_unique * 16 + R * 12,
+                            n_slots * COMPOSITE_FWD_OPS_PER_SLOT)
+    cb_bound, cb_by = bound(n_hit_rays * 12 + R * 12 * CAND_HITS + n_unique * 16 + 4 * 4 * n_vox,
+                            n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
+    log(f"albedo forward {ms['albedo forward']:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); "
+        f"backward {ms['albedo backward']:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), "
+        f"index_add_ of the same rows {ms['index_add_']:.4f} ms; plain forward "
+        f"{fwd_plain_ms:.3f} ms, backward {bwd_plain_ms:.3f} ms (CUDA events); {R2} rays {tag}")
+    log(f"K={CAND_HITS} on the dilated bench: multihit {ms[f'multihit K={CAND_HITS}']:.4f} ms "
+        f"(bound {mh_bound:.4f}, {mh_by}; plain {mh_plain_ms:.1f} ms, host clock, one run), "
+        f"composite forward {ms[f'composite forward K={CAND_HITS}']:.4f} ms (bound "
+        f"{cf_bound:.4f}, {cf_by}), backward {ms[f'composite backward K={CAND_HITS}']:.4f} ms "
+        f"(bound {cb_bound:.4f}, {cb_by}) {tag}")
+    log(f"  albedo bounds: forward {fwd_bytes} B, backward {bwd_bytes} B ({n_hit2} of {R2} rays "
+        f"hit, {n_rows} distinct rows, {n_params} params)")
+    step_ms = {name: sum(t) / 2 for name, t in step_turns.items()}
+    log(f"trainer steps: fit_albedo {step_ms['fit_albedo step']:.4f} ms, fit_soft "
+        f"{step_ms['fit_soft step']:.4f} ms a step {tag}")
+    for name, fn in steps_t.items():
+        log(f"  {name}:")
+        profile_fn(fn, FIT_STEPS, step_ms[name], tag)
+    log(f"phase 11 (e) timing: {time.time() - t0:.1f} s")
+    log(f"phase 11 offline trainers: {time.time() - t_all:.1f} s, launches {counts}")
+    src = "voxelhex_tpu_torch/csrc/albedo.cu"
+    entries = [
+        {"name": "albedo_forward", "route": "cuda", "source": src,
+         "replaces": "voxelhex_tpu/diff/render.py:154", "launches": counts["albedo_forward"],
+         "max_abs_err": fwd_err, "ms": ms["albedo forward"], "plain_ms": fwd_plain_ms,
+         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None},
+        {"name": "albedo_backward", "route": "cuda", "source": src,
+         "replaces": "voxelhex_tpu/diff/render.py:158", "launches": counts["albedo_backward"],
+         "max_abs_err": bwd_err, "ms": ms["albedo backward"], "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": ms["index_add_"]},
+    ]
+    errs = {"multihit": mh6_err, "composite_forward": cfwd6_err, "composite_backward": cbwd6_err}
+    return entries, counts, errs
 
 
 def training_slice(dev, scene, o, d, tag):

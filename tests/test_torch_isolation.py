@@ -104,7 +104,7 @@ def test_wrappers_have_no_fallback():
     """A CUDA tensor launches the kernel or raises: the wrappers catch
     nothing that could route it to the plain version."""
     for name in ("traverse.py", "shade.py", "frame.py", "frames.py", "multihit.py",
-                 "composite.py", "adam.py"):
+                 "composite.py", "adam.py", "albedo.py"):
         with open(os.path.join(PKG, "ops", name)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -122,9 +122,10 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 def test_import_builds_nothing():
-    from voxelhex_tpu_torch.diff import optim, soft  # noqa: F401
-    from voxelhex_tpu_torch.ops import (_build, adam, composite, frame, frames, multihit, shade,
-                                        traverse)
+    from voxelhex_tpu_torch.diff import fit, optim, render, soft  # noqa: F401
+    from voxelhex_tpu_torch.io import checkpoint  # noqa: F401
+    from voxelhex_tpu_torch.ops import (_build, adam, albedo, composite, frame, frames, multihit,
+                                        shade, traverse)
     from voxelhex_tpu_torch.render import pipeline  # noqa: F401
 
     assert _build._lib is None or torch.cuda.is_available()
@@ -133,6 +134,7 @@ def test_import_builds_nothing():
     assert frame.render_frame.launches >= 0 and multihit.multihit.launches >= 0
     assert composite.composite_forward.launches >= 0
     assert composite.composite_backward.launches >= 0 and adam.adam_update.launches >= 0
+    assert albedo.albedo_forward.launches >= 0 and albedo.albedo_backward.launches >= 0
 
 
 def test_batched_paths_raise_on_the_card_path_without_a_fallback(monkeypatch):
@@ -176,9 +178,56 @@ def test_soft_renderer_needs_cuda_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SoftRenderer(bg)
     assert SoftRenderer(bg, device="cpu").device.type == "cpu"
-    for kw in ({"tracer": "skip"}, {"flat_params": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            SoftRenderer(bg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SoftRenderer(bg, device="cpu", tracer="skip")
+    assert not SoftRenderer(bg, device="cpu", flat_params=False).flat_params  # ported now
+
+
+def test_offline_trainers_need_cuda_by_default(monkeypatch):
+    """DiffRenderer and with_candidates (and so fit_albedo and fit_soft,
+    which run on their renderer's device) need the card unless the caller
+    asks for the CPU."""
+    from voxelhex_tpu_torch.diff.render import DiffRenderer
+    from voxelhex_tpu_torch.diff.soft import with_candidates
+    from voxelhex_tpu_torch.tree.boxtree import Albedo, BoxTree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = BoxTree(16, 4)
+    tree.insert((1, 2, 3), Albedo(10, 20, 30, 255))
+    flat = flatten(tree)
+    for make in (lambda **kw: DiffRenderer(flat, **kw), lambda **kw: with_candidates(tree, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert DiffRenderer(flat, device="cpu").device.type == "cpu"
+    assert with_candidates(tree, device="cpu")[0].device.type == "cpu"
+
+
+def test_offline_slice_stands_alone():
+    """The slice's modules are the port's own (the package-wide import check
+    above covers them), the package's top-level names load lazily, and the
+    names not ported yet say which ROADMAP item ports them."""
+    import voxelhex_tpu_torch as vt
+
+    files = _port_files()
+    for mod in (os.path.join("io", "checkpoint.py"), os.path.join("diff", "render.py"),
+                os.path.join("diff", "fit.py"), os.path.join("ops", "albedo.py")):
+        assert os.path.join(PKG, mod) in files, mod
+    assert os.path.exists(os.path.join(PKG, "csrc", "albedo.cu"))
+    from voxelhex_tpu_torch.io import checkpoint
+    from voxelhex_tpu_torch.tree.boxtree import BoxTree
+
+    assert vt.BoxTree is BoxTree and vt.save_tree is checkpoint.save_tree
+    for name in ("Albedo", "Entry", "flatten", "fastest_renderer", "Camera", "orbit_camera",
+                 "load_vox_tree", "load_vox_tree_cached", "load_vox_scene", "load_tree",
+                 "save_flat", "load_flat", "bencode", "SoftRenderer"):
+        assert getattr(vt, name) is not None, name
+    for name, item in (("NativeEditTree", "item 4"), ("StreamingView", "item 7"),
+                       ("RenderService", "item 10")):
+        with pytest.raises(AttributeError, match=f"ROADMAP.md queue 1 {item}"):
+            getattr(vt, name)
+    with pytest.raises(AttributeError):
+        vt.no_such_name  # noqa: B018
 
 
 def _smoke(cwd):

@@ -135,7 +135,7 @@ def test_render_is_one_frame_launch(cuda):
         counts[0] + 1, counts[1], counts[2])
 
 
-@pytest.mark.parametrize("max_hits,max_iters", [(2, 2048), (4, 2048), (3, 5)])
+@pytest.mark.parametrize("max_hits,max_iters", [(2, 2048), (4, 2048), (3, 5), (6, 2048)])
 def test_multihit_kernel_equals_plain(cuda, max_hits, max_iters):
     from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
     from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
@@ -220,7 +220,7 @@ def _soft_case(cuda, K, seed):
 
 # composite tolerances: expf in the kernel and in PyTorch's sigmoid may round
 # an alpha an ulp apart; the backward's atomics add in no fixed order
-@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("K", [1, 2, 4, 6])
 @pytest.mark.parametrize("bg", [None, (0.25, 0.5, 0.75)])
 @pytest.mark.parametrize("packed", [True, False])
 def test_composite_kernels_equal_plain(cuda, K, bg, packed):
@@ -285,6 +285,97 @@ def test_adam_kernel_equals_plain(cuda, fit_albedo, opacity_l1):
                                                rtol=1e-6, atol=1e-9)
                 else:
                     assert _equal(a[k], b[k]), k
+
+
+def test_adam_kernel_one_group_equals_plain(cuda):
+    """One param tensor (fit_albedo's [B, d^3, 3]) as group 0 beside an
+    empty group 1, clamped to [0, 1]: bit for bit."""
+    from voxelhex_tpu_torch.ops.adam import AdamConfig, adam_plain, adam_update
+
+    rng = np.random.default_rng(12)
+    cfg = AdamConfig(0.1)
+    pk = torch.from_numpy(rng.random((3905, 64, 3)).astype(np.float32)).to(cuda)
+    pp = pk.clone()
+    sk, sp = cfg.init(pk), cfg.init(pp)
+    for _ in range(3):
+        g = torch.from_numpy(rng.normal(0, 1e-2, pk.shape).astype(np.float32)).to(cuda)
+        n0 = adam_update.launches
+        sk = adam_update(pk, g, sk, cfg, 0.0, ((0.0, 1.0),))
+        torch.cuda.synchronize()
+        assert adam_update.launches == n0 + 1
+        sp = adam_plain(pp, g, sp, cfg, 0.0, ((0.0, 1.0),))
+        assert int(sk["count"]) == int(sp["count"])
+        for a, b in ((pk, pp), (sk["mu"], sp["mu"]), (sk["nu"], sp["nu"])):
+            assert _equal(a, b)
+    assert float(pk.min()) >= 0.0 and float(pk.max()) <= 1.0
+
+
+def _albedo_case(cuda, R=200_000, seed=4):
+    rng = np.random.default_rng(seed)
+    B, d3 = 3905, 64
+    params = torch.from_numpy(rng.random((B, d3, 3)).astype(np.float32)).to(cuda)
+    hit = torch.from_numpy(rng.random(R) < 0.6).to(cuda)
+    brick = torch.from_numpy(rng.integers(-1, B, R).astype(np.int32)).to(cuda)
+    cell = torch.from_numpy(rng.integers(0, d3, R).astype(np.int32)).to(cuda)
+    axis = rng.integers(0, 3, R)
+    normal = np.zeros((R, 3), np.float32)
+    normal[np.arange(R), axis] = rng.choice([-1.0, 1.0], R)  # cube-face normals
+    grad = torch.from_numpy(rng.normal(0, 1e-3, (R, 3)).astype(np.float32)).to(cuda)
+    return params, hit, brick, cell, torch.from_numpy(normal).to(cuda), grad
+
+
+def test_albedo_kernels_equal_plain(cuda):
+    """The forward bit for bit; the backward's atomics within the
+    composite's tolerance of the plain index_add_."""
+    from voxelhex_tpu_torch.ops.albedo import (albedo_backward, albedo_backward_plain,
+                                               albedo_forward, albedo_forward_plain)
+
+    params, hit, brick, cell, normal, grad = _albedo_case(cuda)
+    for bg in ((0.0, 0.0, 0.0), (0.25, 0.5, 0.75)):
+        n0 = albedo_forward.launches
+        rgb = albedo_forward(params, hit, brick, cell, normal, bg)
+        torch.cuda.synchronize()
+        assert albedo_forward.launches == n0 + 1
+        assert _equal(rgb, albedo_forward_plain(params, hit, brick, cell, normal, bg))
+    n0 = albedo_backward.launches
+    g = albedo_backward(grad, hit, brick, cell, normal, params.shape[:2])
+    torch.cuda.synchronize()
+    assert albedo_backward.launches == n0 + 1
+    want = albedo_backward_plain(grad, hit, brick, cell, normal, params.shape[:2])
+    got, ref = g.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6 * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(got == 0, ref == 0)
+
+
+def test_fit_albedo_step_is_three_launches(cuda):
+    """fit_albedo with precomputed hits: one traversal, then the albedo
+    forward, backward and Adam once a step; the losses match the plain
+    versions' run on the CPU."""
+    from voxelhex_tpu_torch.diff.fit import fit_albedo
+    from voxelhex_tpu_torch.diff.render import DiffRenderer
+    from voxelhex_tpu_torch.ops import adam as adam_ops
+    from voxelhex_tpu_torch.ops import albedo, traverse
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.scene import build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    flat = flatten(build_scene_tree(4))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        diff = DiffRenderer(flat, device=dev)
+        o, d = device_rays(orbit_camera(128.0, resolution=(160, 90)), dev)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        target = diff.render(diff.init_params(), o, d).detach()
+        counters = (traverse.traverse, albedo.albedo_forward, albedo.albedo_backward,
+                    adam_ops.adam_update)
+        before = [f.launches for f in counters]
+        _p, losses = fit_albedo(diff, o, d, target, steps=4, lr=0.1, chain=4,
+                                params0=torch.full_like(diff.init_params(), 0.5))
+        runs[dev] = (losses, [f.launches - b for f, b in zip(counters, before)])
+    assert runs["cuda"][1] == [1, 4, 4, 4] and runs["cpu"][1] == [0, 0, 0, 0]
+    losses = runs["cuda"][0]
+    assert losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, runs["cpu"][0], rtol=1e-5)
 
 
 def test_training_step_is_four_launches(cuda):

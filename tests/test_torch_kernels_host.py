@@ -10,8 +10,8 @@ every block in turn.  That checks the kernels' logic (pixel tiles, ragged
 edges, the level table, the reciprocal multiplications, ray generation,
 shading, the batched kernel's frames, chunks and row digests, the
 multi-hit march's one loop per ray, the composite's recurrence, the
-optimizer's order of operations) on grids of 2, 3 and 4 pyramid levels,
-and the automaton's step count where ``max_iters`` cuts rays at their
+optimizer's order of operations, the albedo gather, shading and scatter)
+on grids of 2, 3 and 4 pyramid levels, and the automaton's step count where ``max_iters`` cuts rays at their
 first steps or inside an ADVANCE, on rays built to take every move.
 The outputs equal the plain versions bit for bit, except where a sigmoid's
 ``expf`` enters: the host's libm and PyTorch's vectorized ``exp`` may
@@ -117,6 +117,9 @@ namespace comp {
 namespace adm {
 #include "adam_host.cu"
 }
+namespace alb {
+#include "albedo_host.cu"
+}
 namespace frm {
 #include "frames_host.cu"
 }
@@ -174,6 +177,7 @@ extern "C" int host_composite(int backward, const float* grad, const float* albe
         case 2: composite_k<2>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
         case 3: composite_k<3>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
         case 4: composite_k<4>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
+        case 6: composite_k<6>(backward, grad, albedo, logits, voxels, R, size, bg, out, g_albedo, g_logits); return 0;
     }
     return 1;
 }
@@ -183,6 +187,19 @@ extern "C" void host_adam(float* p0, const float* g0, float* mu0, float* nu0, lo
                           int blocks) {
     each_thread(blocks, adm::THREADS, [&] {
         adm::adam_kernel(p0, g0, mu0, nu0, n0, p1, g1, mu1, nu1, n1, count_in, count_out, *A);
+    });
+}
+extern "C" void host_albedo(int backward, const float* params, const float* grad,
+                            const void* hit, const int* brick, const int* cell,
+                            const float* normal, int R, int n_bricks, int d3, const float* bg,
+                            float* out) {
+    each_thread((R + alb::THREADS - 1) / alb::THREADS, alb::THREADS, [&] {
+        if (backward)
+            alb::albedo_bwd_kernel(grad, (const unsigned char*)hit, brick, cell, normal, R,
+                                   n_bricks, d3, out);
+        else
+            alb::albedo_fwd_kernel(params, (const unsigned char*)hit, brick, cell, normal, R,
+                                   n_bricks, d3, bg[0], bg[1], bg[2], out);
     });
 }
 extern "C" void host_frame(const void* occ, const void* colors, const float* palette,
@@ -232,7 +249,7 @@ def host_lib(tmp_path_factory):
                          f.read(), flags=re.S)
     assert n == 1
     (d / "frames_host.cu").write_text(src)
-    for name in ("traverse", "shade", "multihit", "composite", "adam"):
+    for name in ("traverse", "shade", "multihit", "composite", "adam", "albedo"):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             (d / f"{name}_host.cu").write_text(
                 launch.sub("", f.read()).replace('extern "C" ', ""))
@@ -262,6 +279,7 @@ def host_lib(tmp_path_factory):
     lib.host_shade.argtypes = [p, p, p, p, i, f, f, f, i, p, p]
     lib.host_multihit.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), i, i, p, p, p]
     lib.host_composite.argtypes = [i, p, p, p, p, i, i, i, ctypes.POINTER(f), p, p, p]
+    lib.host_albedo.argtypes = [i, p, p, p, p, p, p, i, i, i, ctypes.POINTER(f), p]
     lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
                               p, ctypes.POINTER(_build.AdamParams), i]
     return lib
@@ -683,7 +701,7 @@ def _soft_inputs(size, K, seed):
 # The composite's sigmoid calls expf: the host's libm and PyTorch's vectorized
 # exp may round an alpha differently by an ulp, which moves an rgb value by
 # about as much (atol 1e-6) and a gradient by a few ulps of its terms.
-@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("K", [1, 2, 4, 6])
 @pytest.mark.parametrize("bg", [None, (0.25, 0.5, 0.75)])
 @pytest.mark.parametrize("packed", [True, False])
 def test_composite_kernel_sources_equal_plain(host_lib, K, bg, packed):
@@ -760,3 +778,33 @@ def test_adam_kernel_source_equals_plain(host_lib, fit_albedo, opacity_l1):
                                                atol=1e-9)
                 else:
                     assert _equal(got[k], ref[k]), (step, k)
+
+
+@pytest.mark.parametrize("R", [1, 300, 1027])
+def test_albedo_kernel_sources_equal_plain(host_lib, R):
+    """The forward bit for bit (misses, hits with no params, rows clipped
+    into range, random normals); the backward's sequential adds against
+    ``index_add_``'s within an ulp of each sum's terms."""
+    from voxelhex_tpu_torch.ops.albedo import albedo_backward_plain, albedo_forward_plain
+
+    rng = np.random.default_rng(R)
+    B, d3 = 7, 64
+    params = torch.from_numpy(rng.random((B, d3, 3)).astype(np.float32))
+    hit = torch.from_numpy(rng.random(R) < 0.8)
+    brick = torch.from_numpy(rng.integers(-1, B + 1, R).astype(np.int32))
+    cell = torch.from_numpy(rng.integers(-1, d3 + 1, R).astype(np.int32))
+    normal = torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32))
+    bg = (0.25, 0.5, 0.75)
+    rgb = torch.full((R, 3), 7.0)
+    host_lib.host_albedo(0, params.data_ptr(), None, hit.data_ptr(), brick.data_ptr(),
+                         cell.data_ptr(), normal.data_ptr(), R, B, d3,
+                         (ctypes.c_float * 3)(*bg), rgb.data_ptr())
+    want = albedo_forward_plain(params, hit, brick, cell, normal, bg)
+    assert _equal(rgb, want) and bool((torch.signbit(rgb) == torch.signbit(want)).all())
+    g_rgb = torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32))
+    g = torch.zeros(B * d3 * 3)
+    host_lib.host_albedo(1, None, g_rgb.data_ptr(), hit.data_ptr(), brick.data_ptr(),
+                         cell.data_ptr(), normal.data_ptr(), R, B, d3, None, g.data_ptr())
+    ref = albedo_backward_plain(g_rgb, hit, brick, cell, normal, (B, d3)).reshape(-1)
+    np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+    assert bool(((g == 0) == (ref == 0)).all())

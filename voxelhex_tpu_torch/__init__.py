@@ -7,14 +7,90 @@ It imports neither JAX nor the reference package.  Layout:
 * :mod:`.scene` — the benchmark scene as a BitGrid or a BoxTree, and the
   large terrain's voxels;
 * :mod:`.spatial`, :mod:`.tree`, :mod:`.io` — the scene model on the host:
-  the boxtree (edits, MIP maps, bulk build, flat arrays), ``.vox`` import
-  and the bencode format; :mod:`.native` builds and binds its host library
-  (``host/rasterize.cpp``);
+  the boxtree (edits, MIP maps, bulk build, flat arrays), ``.vox`` import,
+  the bencode format and versioned checkpoints; :mod:`.native` builds and
+  binds its host library (``host/rasterize.cpp``);
 * :mod:`.render` — camera and rays, the BitGrid and its plain tracer,
   plain shading, the renderer (:func:`.render.fastest_renderer`);
+* :mod:`.diff` — differentiable rendering: the soft-occupancy renderer,
+  the albedo renderer and their offline trainers;
 * :mod:`.ops` — the CUDA kernels' wrappers (the frame, the batched
-  frames, traversal, shading, the training step's kernels) and the
+  frames, traversal, shading, the training steps' kernels) and the
   ``nvcc`` build of ``csrc/``;
-* :mod:`.convert` — a reference BitGrid's or FlatTree's fields, soft
-  params and Adam state to the port's.
+* :mod:`.convert` — a reference BitGrid's or FlatTree's fields, params and
+  Adam state to the port's.
+
+The reference's top-level names that the port has load lazily::
+
+    from voxelhex_tpu_torch import BoxTree, Albedo, fastest_renderer, orbit_camera
 """
+
+__version__ = "0.1.0"
+
+from voxelhex_tpu_torch.constants import (  # noqa: F401
+    BOX_NODE_CHILDREN_COUNT,
+    BOX_NODE_DIMENSION,
+    EMPTY_U16,
+    EMPTY_U32,
+    EMPTY_VOXEL,
+)
+
+# the reference's top-level names the port does not have yet, with the
+# ROADMAP.md item that ports each
+NOT_PORTED = {
+    "NativeEditTree": "queue 1 item 4 (the edit engine)",
+    "StreamingView": "queue 1 item 7 (streaming)",
+    "RenderService": "queue 1 item 10 (serving)",
+}
+
+
+def __getattr__(name):
+    # lazy, as the reference's: importing the package loads no renderer
+    import importlib
+
+    if name in ("BoxTree", "Albedo", "Entry"):
+        return getattr(importlib.import_module("voxelhex_tpu_torch.tree.boxtree"), name)
+    if name == "flatten":
+        return importlib.import_module("voxelhex_tpu_torch.tree.flat").flatten
+    if name == "fastest_renderer":
+        return importlib.import_module("voxelhex_tpu_torch.render").fastest_renderer
+    if name in ("Camera", "orbit_camera"):
+        return getattr(importlib.import_module("voxelhex_tpu_torch.render.camera"), name)
+    if name in ("load_vox_tree", "load_vox_tree_cached", "load_vox_scene"):
+        return getattr(importlib.import_module("voxelhex_tpu_torch.io.vox"), name)
+    if name in ("save_tree", "load_tree", "save_flat", "load_flat"):
+        return getattr(importlib.import_module("voxelhex_tpu_torch.io.checkpoint"), name)
+    if name == "bencode":
+        return importlib.import_module("voxelhex_tpu_torch.io.bencode")
+    if name == "SoftRenderer":
+        return importlib.import_module("voxelhex_tpu_torch.diff.soft").SoftRenderer
+    if name in NOT_PORTED:
+        raise AttributeError(f"voxelhex_tpu_torch.{name} is not ported yet: ROADMAP.md "
+                             f"{NOT_PORTED[name]}")
+    raise AttributeError(f"module 'voxelhex_tpu_torch' has no attribute '{name}'")
+
+
+__all__ = [
+    "Albedo",
+    "BOX_NODE_CHILDREN_COUNT",
+    "BOX_NODE_DIMENSION",
+    "bencode",
+    "BoxTree",
+    "Camera",
+    "EMPTY_U16",
+    "EMPTY_U32",
+    "EMPTY_VOXEL",
+    "Entry",
+    "fastest_renderer",
+    "flatten",
+    "load_flat",
+    "load_tree",
+    "load_vox_scene",
+    "load_vox_tree",
+    "load_vox_tree_cached",
+    "orbit_camera",
+    "save_flat",
+    "save_tree",
+    "SoftRenderer",
+    "__version__",
+]

@@ -5,8 +5,10 @@ arrays; their fields, passed as a plain dict, become the port's BitGrid and
 FlatTree without importing the reference.  A BoxTree crosses as the
 reference's own bencode bytes, the format both packages write:
 ``voxelhex_tpu_torch.io.bencode.from_bytes(ref_bencode.to_bytes(tree))``,
-and back the same way.  The soft renderer's params and optax's Adam state
-travel as NumPy arrays (``np.asarray`` of the reference's leaves).
+and back the same way.  The soft renderer's params, the differentiable
+renderer's albedo and optax's Adam state travel as NumPy arrays
+(``np.asarray`` of the reference's leaves); checkpoints
+(:mod:`voxelhex_tpu_torch.io.checkpoint`) are one file format for both.
 """
 
 from __future__ import annotations
@@ -71,36 +73,55 @@ SOFT_PARAMS = ("albedo", "logits")
 
 
 def from_jax_soft_params(params, device="cuda") -> dict:
-    """The reference ``SoftRenderer``'s flat params ``{"albedo": [S^3 * 3],
-    "logits": [S^3]}``, as NumPy arrays, as the port's f32 tensors."""
+    """The reference ``SoftRenderer``'s params, as NumPy arrays, as the
+    port's f32 tensors: albedo flat [S^3 * 3] or in the row layout
+    [S^3, 3] (``flat_params=False``), logits [S^3]."""
     out = {}
     for k in SOFT_PARAMS:
         a = np.asarray(params[k], dtype=np.float32)
-        if a.ndim != 1:
-            raise ValueError(f"{k}: want a flat array, got shape {a.shape}")
+        ok = a.ndim == 1 or (k == "albedo" and a.ndim == 2 and a.shape[1] == 3)
+        if not ok:
+            want = "[S^3 * 3] or [S^3, 3]" if k == "albedo" else "[S^3]"
+            raise ValueError(f"{k}: want {want}, got shape {a.shape}")
         out[k] = torch.from_numpy(a.copy()).to(device)
     return out
 
 
+def from_jax_albedo(params, device="cuda") -> torch.Tensor:
+    """The reference ``DiffRenderer``'s albedo [B, d^3, 3], as a NumPy
+    array, as the port's f32 tensor."""
+    a = np.asarray(params, dtype=np.float32)
+    if a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"albedo: want [B, d^3, 3], got shape {a.shape}")
+    return torch.from_numpy(a.copy()).to(device)
+
+
 def from_jax_adam_state(opt_state_leaves, device="cuda") -> dict:
-    """optax's Adam state for the soft params as the port's
-    ``{"count", "mu", "nu"}``.  ``opt_state_leaves`` is
-    ``jax.tree.leaves(opt_state)`` as NumPy arrays: count, mu["albedo"],
-    mu["logits"], nu["albedo"], nu["logits"]."""
+    """optax's Adam state as the port's ``{"count", "mu", "nu"}``.
+    ``opt_state_leaves`` is ``jax.tree.leaves(opt_state)`` as NumPy arrays:
+    count, mu["albedo"], mu["logits"], nu["albedo"], nu["logits"] for the
+    soft params (either albedo layout), or count, mu, nu for one param array
+    (``fit_albedo``'s)."""
     leaves = list(opt_state_leaves)
+    count = torch.tensor(int(np.asarray(leaves[0])), dtype=torch.int32, device=device)
+    if len(leaves) == 3:
+        mu, nu = (torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+                  for x in leaves[1:])
+        if mu.shape != nu.shape:
+            raise ValueError(f"mu {tuple(mu.shape)} and nu {tuple(nu.shape)} differ")
+        return {"count": count, "mu": mu, "nu": nu}
     if len(leaves) != 5:
-        raise ValueError(f"want 5 leaves (count, mu albedo/logits, nu albedo/logits), "
-                         f"got {len(leaves)}")
-    count, mu_a, mu_l, nu_a, nu_l = leaves
-    moments = {"mu": from_jax_soft_params({"albedo": mu_a, "logits": mu_l}, device),
-               "nu": from_jax_soft_params({"albedo": nu_a, "logits": nu_l}, device)}
-    return {"count": torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
-            **moments}
+        raise ValueError(f"want 5 leaves (count, mu albedo/logits, nu albedo/logits) or 3 "
+                         f"(count, mu, nu), got {len(leaves)}")
+    _count, mu_a, mu_l, nu_a, nu_l = leaves
+    return {"count": count,
+            "mu": from_jax_soft_params({"albedo": mu_a, "logits": mu_l}, device),
+            "nu": from_jax_soft_params({"albedo": nu_a, "logits": nu_l}, device)}
 
 
 def to_numpy(tree):
-    """A nested dict of tensors (params, or the Adam state) as the same dict
-    of NumPy arrays on the host."""
+    """A tensor, or a nested dict of tensors (params, or the Adam state), as
+    the same of NumPy arrays on the host."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()

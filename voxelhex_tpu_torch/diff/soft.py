@@ -7,10 +7,17 @@ image is composited with soft per-voxel opacities
     C = sum_i T_{i-1} a_i c_i (+ T_K bg),   T_i = prod_{j <= i} ((1 - a_j) + 1e-9),
 
 a = sigmoid(logit), over dense flat params: albedo f32 [S^3 * 3], logits
-f32 [S^3].  Pixel gradients flow into the albedo and the opacity of every
-recorded voxel.  On the card a training step is four kernel launches: the
-march (``ops/multihit.py``), the composite forward and backward
+f32 [S^3] (or, with ``flat_params=False``, albedo rows [S^3, 3]).  Pixel
+gradients flow into the albedo and the opacity of every recorded voxel.  On
+the card a training step is four kernel launches: the march
+(``ops/multihit.py``), the composite forward and backward
 (``ops/composite.py``) and the Adam update (``ops/adam.py``).
+
+Around the renderer: :func:`fit_soft`, the offline trainer (one march, then
+the composite and the update each step); :func:`with_candidates`, a
+renderer whose march also records the empty shell around the scene, so a
+fit can grow geometry; :func:`params_to_tree`, the bake of fitted params
+back into a BoxTree.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ import numpy as np
 import torch
 
 from voxelhex_tpu_torch.constants import COLOR_EMPTY
+from voxelhex_tpu_torch.diff.optim import adam, resume, run_steps
 from voxelhex_tpu_torch.ops.composite import MAX_HITS, composite as _composite
 from voxelhex_tpu_torch.ops.multihit import multihit
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
-from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+from voxelhex_tpu_torch.render.bitgrid import BitGrid, _pack_pyramid, device_bitgrid
 from voxelhex_tpu_torch.render.renderer import check_source, resolve_device
+from voxelhex_tpu_torch.tree.build import from_voxels
 
 # the param clamps of the reference's step (`_apply_update`)
 CLAMPS = ((0.0, 1.0), (-12.0, 12.0))  # albedo, logits
@@ -41,18 +50,20 @@ class SoftRenderer:
     (``soft.py:617-780``) have no counterpart here, and each step is exact
     without them.  Params and optimizer state are updated in place.
 
-    Not ported (ROADMAP.md): ``tracer="skip"``, ``flat_params=False``, the
-    beam prepass (``beam=``), ``with_candidates``, ``fit_soft`` and
-    ``params_to_tree``."""
+    The albedo is flat [S^3 * 3] (``flat_params``, the default) or rows
+    [S^3, 3]; both reach the same kernels (the rows as a flat view), and the
+    gradients, moments and ``init_params`` keep the layout.
+    ``flat_albedo_bwd`` is accepted at both values and changes nothing.
+
+    Not ported (ROADMAP.md): ``tracer="skip"`` and the beam prepass
+    (``beam=``)."""
 
     def __init__(self, source, max_hits: int = 4, max_iters: int = MAX_ITERS,
-                 device="cuda", tracer: str = "stack", flat_params: bool = True):
+                 tracer: str = "stack", flat_albedo_bwd: bool = True, flat_params: bool = True,
+                 *, device="cuda"):
         if tracer != "stack":
             raise NotImplementedError(f"tracer={tracer!r}: the skip tracer is ROADMAP.md "
                                       "queue 1 item 11")
-        if not flat_params:
-            raise NotImplementedError("flat_params=False (the [S^3, 3] albedo rows) is not "
-                                      "ported; params are flat (ROADMAP.md queue 1 item 6)")
         if not 1 <= int(max_hits) <= MAX_HITS:
             raise ValueError(f"max_hits {max_hits}: the kernels take 1..{MAX_HITS}")
         self.device = resolve_device(device)
@@ -61,11 +72,14 @@ class SoftRenderer:
         self.size = int(self.bitgrid.size)
         self.max_hits = int(max_hits)
         self.max_iters = int(max_iters)
+        self.flat_albedo_bwd = bool(flat_albedo_bwd)
+        self.flat_params = bool(flat_params)
 
     def init_params(self, init_opacity: float = 0.99):
-        """Flat albedo [S^3 * 3] (the voxel's palette color, 0 where empty)
-        and opacity logits [S^3] (logit(init_opacity) where occupied, -10
-        where empty), on the renderer's device."""
+        """Albedo [S^3 * 3] (rows [S^3, 3] with ``flat_params=False``: the
+        voxel's palette color, 0 where empty) and opacity logits [S^3]
+        (logit(init_opacity) where occupied, -10 where empty), on the
+        renderer's device."""
         colors = np.asarray(self.bitgrid.colors)
         pal = np.asarray(self.bitgrid.palette)
         occupied = colors != COLOR_EMPTY
@@ -74,7 +88,9 @@ class SoftRenderer:
         albedo[~occupied] = 0.0
         logit = np.float32(np.log(init_opacity / (1 - init_opacity)))
         logits = np.where(occupied, logit, np.float32(-10.0)).astype(np.float32)
-        return {"albedo": torch.from_numpy(albedo.reshape(-1)).to(self.device),
+        if self.flat_params:
+            albedo = albedo.reshape(-1)  # row-major: (i, c) at 3 i + c
+        return {"albedo": torch.from_numpy(albedo).to(self.device),
                 "logits": torch.from_numpy(logits).to(self.device)}
 
     def _rays(self, x):
@@ -93,11 +109,17 @@ class SoftRenderer:
 
     def composite(self, params, voxels, bg_color=None):
         """Differentiable transmittance compositing over recorded voxels:
-        rgb f32 [R, 3]."""
-        if params["albedo"].ndim != 1:
-            raise ValueError(f"params['albedo'] has ndim {params['albedo'].ndim}; the port's "
-                             "params are flat ([S^3 * 3]): use albedo.reshape(-1)")
-        return _composite(params["albedo"], params["logits"], voxels, self.size, bg_color)
+        rgb f32 [R, 3].  The albedo's layout must be this renderer's."""
+        want_ndim = 1 if self.flat_params else 2
+        if params["albedo"].ndim != want_ndim:
+            raise ValueError(
+                f"params['albedo'] has ndim {params['albedo'].ndim} but this "
+                f"SoftRenderer(flat_params={self.flat_params}) expects ndim {want_ndim}: a "
+                "checkpoint saved under the other layout?  Convert with albedo.reshape(-1) "
+                "(flat) or albedo.reshape(-1, 3) (rows), or construct the renderer with the "
+                "matching flat_params.")
+        return _composite(params["albedo"].reshape(-1), params["logits"], voxels, self.size,
+                          bg_color)
 
     def render(self, params, origins, dirs, bg_color=None):
         _count, voxels, _d = self.trace_hits(origins, dirs)
@@ -109,8 +131,8 @@ class SoftRenderer:
 
     def grad_on_hits(self, params, count, voxels, target, fit_albedo: bool = True):
         """``(loss, grads)``: the loss of :meth:`loss` and its gradients
-        ``{"albedo": f32 [S^3 * 3] or None, "logits": f32 [S^3]}`` (albedo None
-        when ``fit_albedo`` is false).  Rays with no hit add nothing to the
+        ``{"albedo": f32 in the albedo's layout or None, "logits": f32
+        [S^3]}`` (albedo None when ``fit_albedo`` is false).  Rays with no hit add nothing to the
         gradients (the backward kernel skips them), which is what the
         reference's compaction of hit rows computes; ``count`` is accepted
         for the reference's signature."""
@@ -125,25 +147,31 @@ class SoftRenderer:
         grads = {"albedo": g[0] if fit_albedo else None, "logits": g[-1]}
         return loss.detach(), grads
 
-    def train_step_fused(self, params, opt_state, opt, origins, dirs, target, beam=None,
-                         opacity_l1: float = 0.0, fit_albedo: bool = True, validate=None):
-        """One training step: the march, the composite and its gradient, the
+    def fit_step(self, params, opt_state, opt, voxels, target, opacity_l1: float = 0.0,
+                 fit_albedo: bool = True):
+        """A step on recorded voxels: the composite and its gradient, the
         opacity-L1 term, ``opt``'s update (:func:`~voxelhex_tpu_torch.diff.
         optim.adam`) and the param clamps.  Returns ``(params, opt_state,
         loss)`` with ``loss`` a device scalar; params and the moments are
         updated in place.  ``fit_albedo=False`` gives Adam zero albedo
-        gradients, as the reference does (momentum still moves albedo).
-        Nothing is read back to the host, so steps queue back to back;
-        ``validate`` is accepted for the reference's signature and has
-        nothing to check."""
-        del validate
-        _count, voxels, _dists = self.trace_hits(origins, dirs, beam=beam)
+        gradients, as the reference does (momentum still moves albedo)."""
         loss, grads = self.grad_on_hits(params, None, voxels, target, fit_albedo)
         if opacity_l1:
             loss = loss + opacity_l1 * torch.mean(torch.sigmoid(params["logits"]))
         params, opt_state = opt.update(grads, opt_state, params, opacity_l1=opacity_l1,
                                        clamps=CLAMPS)
         return params, opt_state, loss
+
+    def train_step_fused(self, params, opt_state, opt, origins, dirs, target, beam=None,
+                         opacity_l1: float = 0.0, fit_albedo: bool = True, validate=None):
+        """One training step: the march, then :meth:`fit_step`.  Returns
+        ``(params, opt_state, loss)`` with ``loss`` a device scalar.
+        Nothing is read back to the host, so steps queue back to back;
+        ``validate`` is accepted for the reference's signature and has
+        nothing to check."""
+        del validate
+        _count, voxels, _dists = self.trace_hits(origins, dirs, beam=beam)
+        return self.fit_step(params, opt_state, opt, voxels, target, opacity_l1, fit_albedo)
 
     def train_steps_fused(self, params, opt_state, opt, origins, dirs, target, n_steps: int,
                           beam=None, opacity_l1: float = 0.0, fit_albedo: bool = True,
@@ -158,3 +186,104 @@ class SoftRenderer:
                 opacity_l1=opacity_l1, fit_albedo=fit_albedo, validate=validate)
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
+
+
+def with_candidates(source, radius: int = 1, max_hits: int = 6, candidate_logit: float = -3.0,
+                    candidate_albedo: float = 0.5, max_iters: int = MAX_ITERS, *, device="cuda"):
+    """Grow-geometry setup: a SoftRenderer whose traced occupancy is the
+    scene (a BitGrid, BoxTree or FlatTree) dilated by ``radius`` voxels
+    (6-neighborhood), and params where the candidate voxels start nearly
+    transparent (``candidate_logit``) with ``candidate_albedo``.
+
+    The march records only voxels of the occupancy pyramid, so an absent
+    voxel gets no gradient; the dilated pyramid lets rays record the empty
+    shell around the geometry, and a fit can then raise a candidate's
+    opacity (grow) as well as carve.  The colors stay the scene's.  Returns
+    ``(renderer, params, candidate_mask)``, the mask a NumPy bool [S^3] in
+    voxel-address order (x fastest)."""
+    bg = check_source(source)
+    S = int(bg.size)
+    occ = (np.asarray(bg.colors) != COLOR_EMPTY).reshape(S, S, S)  # [z, y, x]
+    dil = occ.copy()
+    for _ in range(radius):
+        grown = dil.copy()
+        for ax in (0, 1, 2):
+            for shift, edge in ((1, 0), (-1, -1)):
+                shifted = np.roll(dil, shift, axis=ax)
+                sl = [slice(None)] * 3
+                sl[ax] = edge
+                shifted[tuple(sl)] = False
+                grown |= shifted
+        dil = grown
+    # the pyramid of the dilated mask ([x, y, z] for the packer)
+    levels_lo, levels_hi, bases = _pack_pyramid(dil.transpose(2, 1, 0))
+    bg2 = BitGrid(size=S, n_levels=len(levels_lo), level_bases=bases,
+                  occ_lo=np.concatenate(levels_lo), occ_hi=np.concatenate(levels_hi),
+                  colors=np.asarray(bg.colors), palette=np.asarray(bg.palette))
+    renderer = SoftRenderer(bg2, max_hits=max_hits, max_iters=max_iters, device=device)
+    params = renderer.init_params()
+    cand = (dil & ~occ).ravel()  # [z, y, x] ravels x fastest
+    cand_t = torch.from_numpy(cand).to(renderer.device)
+    params["logits"] = torch.where(cand_t, float(np.float32(candidate_logit)), params["logits"])
+    alb = torch.where(cand_t[:, None], float(np.float32(candidate_albedo)),
+                      params["albedo"].reshape(-1, 3))
+    params["albedo"] = alb.reshape(-1) if renderer.flat_params else alb
+    return renderer, params, cand
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def params_to_tree(renderer: SoftRenderer, params, threshold: float = 0.5, brick_dim: int = 4,
+                   simplify: bool = True):
+    """Bake fitted soft params into an editable BoxTree: the voxels whose
+    ``sigmoid(logit) >= threshold`` become occupied with their albedo
+    (rounded to u8 RGB, alpha 255), everything else is empty.  ``params``
+    may use either albedo layout; an identity bake of ``init_params()``
+    (opacity 0.99) gives the source scene's voxels and colors."""
+    S = renderer.size
+    logits = _numpy(params["logits"]).reshape(-1)
+    alb = _numpy(params["albedo"]).reshape(-1, 3)
+    keep = 1.0 / (1.0 + np.exp(-logits)) >= threshold
+    idx = np.flatnonzero(keep)
+    # voxel address order is x + y*S + z*S^2
+    positions = np.stack([idx % S, (idx // S) % S, idx // (S * S)], axis=1).astype(np.int64)
+    rgb = np.clip(np.round(alb[idx] * 255.0), 0, 255).astype(np.uint8)
+    colors = np.concatenate([rgb, np.full((idx.shape[0], 1), 255, dtype=np.uint8)], axis=1)
+    return from_voxels(positions, colors, size=S, brick_dim=brick_dim, simplify=simplify)
+
+
+def fit_soft(renderer: SoftRenderer, origins, dirs, targets, steps: int = 300, lr: float = 0.05,
+             params0=None, opacity_l1: float = 0.0, fit_albedo: bool = True,
+             checkpoint_path=None, checkpoint_every: int = 0, chain: int = 8):
+    """Optimize albedo and occupancy logits against target pixels: returns
+    ``(params, losses)``.
+
+    The rays are marched once; each step is :meth:`SoftRenderer.fit_step`
+    (the composite's forward and backward, the Adam update and the clamps).
+    ``opacity_l1`` penalizes the mean opacity (carving); ``fit_albedo=False``
+    freezes the colors' gradient, so only geometry adapts.  ``params0`` is
+    copied (default ``init_params()``).  ``checkpoint_path`` /
+    ``checkpoint_every``: save (step, params, optimizer state) every
+    ``checkpoint_every`` steps and at the end; a fit restarted with the same
+    path resumes from the last checkpoint, with the results of an
+    uninterrupted run.  ``chain``: steps queued before one blocking read of
+    their losses (:func:`~voxelhex_tpu_torch.diff.optim.run_steps`); it
+    changes no result."""
+    targets = renderer._rays(targets)
+    if params0 is None:
+        params = renderer.init_params()
+    else:
+        params = {k: torch.as_tensor(params0[k], dtype=torch.float32,
+                                     device=renderer.device).clone() for k in ("albedo", "logits")}
+    _count, voxels, _dists = renderer.trace_hits(origins, dirs)
+    opt = adam(lr)
+    start, params, opt_state = resume(checkpoint_path, params, opt.init(params))
+
+    def step(p, s):
+        return renderer.fit_step(p, s, opt, voxels, targets, opacity_l1, fit_albedo)
+
+    params, _state, losses = run_steps(step, params, opt_state, start, steps, chain,
+                                       checkpoint_path, checkpoint_every)
+    return params, losses

@@ -10,7 +10,8 @@ nTRN / nGRP / nSHP), the scene-graph walk and the coordinate handling:
   selection rules of VoxelHex's importer;
 * right-handed Z-up (.vox) to left-handed Y-up (the tree), that is
   ``(x, y, z) -> (x, z, y)``;
-* the tree's size: the smallest ``brick_dim * 4**k`` that holds the model.
+* the tree's size: the smallest ``brick_dim * 4**k`` that holds the model;
+* a cache of the parsed tree beside the model (:func:`load_vox_tree_cached`).
 
 The voxels come out as NumPy arrays and go into a tree through the bulk
 builder (:func:`voxelhex_tpu_torch.tree.build.from_voxels`).
@@ -18,11 +19,14 @@ builder (:func:`voxelhex_tpu_torch.tree.build.from_voxels`).
 
 from __future__ import annotations
 
+import os
 import struct
+import zipfile
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from voxelhex_tpu_torch.io import checkpoint
 from voxelhex_tpu_torch.tree.build import from_voxels
 from voxelhex_tpu_torch.tree.mipmap import recalculate_mips
 
@@ -290,4 +294,28 @@ def load_vox_tree(path, brick_dim: int = 32, frame: int = 0, simplify: bool = Tr
         tree.mip_strategy = mip_strategy
         if mip_strategy.enabled:
             recalculate_mips(tree)
+    return tree
+
+
+def load_vox_tree_cached(path, brick_dim: int = 32, frame: int = 0):
+    """:func:`load_vox_tree` with the parsed tree cached beside the model,
+    as ``.cache_<name>_<brick_dim>.vhx`` (a tree checkpoint, the reference's
+    name and format).  A cache whose version is compatible is loaded; an
+    unreadable or stale one (``ValueError``, ``KeyError``, ``OSError``,
+    ``zipfile.BadZipFile``) is ignored, and the model is parsed again and
+    the cache rewritten.  A directory that cannot be written skips the
+    cache."""
+    d = os.path.dirname(os.path.abspath(path))
+    cache = os.path.join(d, f".cache_{os.path.basename(path)}_{brick_dim}.vhx")
+    if os.path.exists(cache):
+        try:
+            if checkpoint.version_compatible(checkpoint.peek_version(cache)):
+                return checkpoint.load_tree(cache)
+        except (ValueError, KeyError, OSError, zipfile.BadZipFile):
+            pass  # unreadable or stale: parse the model again
+    tree = load_vox_tree(path, brick_dim=brick_dim, frame=frame)
+    try:
+        checkpoint.save_tree(cache, tree)
+    except OSError:
+        pass  # a read-only model directory: no cache
     return tree

@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
 SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "frames.cu", "multihit.cu", "composite.cu",
-           "adam.cu")
+           "adam.cu", "albedo.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -202,7 +202,8 @@ def _build(out_dir: str, sources) -> None:
 def library() -> types.SimpleNamespace:
     """The kernels' C entry points (``vhx_traverse``, ``vhx_shade``,
     ``vhx_render_frame``, ``vhx_render_frames``, ``vhx_multihit``, ``vhx_composite_forward``,
-    ``vhx_composite_backward``, ``vhx_adam``), built first if needed."""
+    ``vhx_composite_backward``, ``vhx_adam``, ``vhx_albedo_forward``,
+    ``vhx_albedo_backward``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -227,6 +228,10 @@ def library() -> types.SimpleNamespace:
                 },
                 "adam.cu": {"vhx_adam": [p, p, p, p, ll, p, p, p, p, ll, p, p,
                                          ctypes.POINTER(AdamParams), i, p]},
+                "albedo.cu": {
+                    "vhx_albedo_forward": [p, p, p, p, p, i, i, i, f3, p, i, p],
+                    "vhx_albedo_backward": [p, p, p, p, p, i, i, i, p, i, p],
+                },
             }
             fns = {}
             for source, entries in signatures.items():

@@ -1,5 +1,5 @@
-"""The soft renderer's optimizer step in one pass: the CUDA kernel
-``csrc/adam.cu`` and its wrapper.
+"""The trainers' optimizer step in one pass: the CUDA kernel ``csrc/adam.cu``
+and its wrapper.
 
 Replaces the XLA program of the step's tail (``_apply_update`` /
 ``_finish_step_fn`` with the opacity-L1 term, ``voxelhex_tpu/diff/soft.py``),
@@ -9,8 +9,12 @@ version.  Both compute optax 0.2.6's Adam in the order XLA:CPU compiles it
 inputs; ``torch.optim.Adam`` folds the bias corrections differently and is
 not used.
 
-Params and state are updated in place (the reference makes new arrays);
-the new count is a new device tensor, so no step reads the host.
+The params are one of two layouts, each one launch of the kernel: the soft
+renderer's two groups ``{"albedo", "logits"}`` (``GROUPS``, the kernel's
+groups 0 and 1), or one tensor (the differentiable renderer's albedo), which
+the kernel takes as group 0 beside an empty group 1.  Params and state are
+updated in place (the reference makes new arrays); the new count is a new
+device tensor, so no step reads the host.
 """
 
 from __future__ import annotations
@@ -34,16 +38,29 @@ def _l1_scale(opacity_l1, n_logits: int):
 
 
 def _bounds(clamps, grp):
-    c = clamps[grp]
+    c = None if clamps is None or grp >= len(clamps) else clamps[grp]
     return (-np.inf, np.inf) if c is None else (float(c[0]), float(c[1]))
+
+
+def _groups(params, grads, state, opacity_l1=0.0):
+    """``[(p, g, mu, nu), ...]``: the two soft groups of a dict of params
+    (``GROUPS``), or the one group of a tensor; ``g`` None for zeros."""
+    if torch.is_tensor(params):
+        if opacity_l1:
+            raise ValueError("opacity_l1 applies to the soft renderer's logits, not to a "
+                             "single param tensor")
+        return [(params, grads, state["mu"], state["nu"])]
+    grads = grads or {}
+    return [(params[k], grads.get(k), state["mu"][k], state["nu"][k]) for k in GROUPS]
 
 
 @dataclass(frozen=True)
 class AdamConfig:
-    """optax.adam's hyperparameters, and the soft renderer's fused step with
-    them (:meth:`init`, :meth:`update`).  Not a general optax replacement:
-    the params are the soft renderer's two flat groups (``GROUPS``), and the
-    step adds the opacity-L1 gradient and clamps each group."""
+    """optax.adam's hyperparameters, and the trainers' fused step with them
+    (:meth:`init`, :meth:`update`).  Not a general optax replacement: the
+    params are the soft renderer's two groups (``GROUPS``) or one tensor,
+    and the step adds the soft renderer's opacity-L1 gradient and clamps
+    each group."""
 
     lr: float
     b1: float = 0.9
@@ -52,8 +69,11 @@ class AdamConfig:
 
     def init(self, params):
         """``{"count": int32 [] (0), "mu": zeros, "nu": zeros}`` on the params'
-        device, ``mu`` and ``nu`` keyed as ``params``: optax's
-        ``ScaleByAdamState``."""
+        device, ``mu`` and ``nu`` shaped as ``params`` (a tensor, or a dict
+        keyed as ``GROUPS``): optax's ``ScaleByAdamState``."""
+        if torch.is_tensor(params):
+            return {"count": torch.zeros((), dtype=torch.int32, device=params.device),
+                    "mu": torch.zeros_like(params), "nu": torch.zeros_like(params)}
         dev = params[GROUPS[0]].device
         return {
             "count": torch.zeros((), dtype=torch.int32, device=dev),
@@ -61,7 +81,7 @@ class AdamConfig:
             "nu": {k: torch.zeros_like(params[k]) for k in GROUPS},
         }
 
-    def update(self, grads, state, params, opacity_l1: float = 0.0, clamps=(None, None)):
+    def update(self, grads, state, params, opacity_l1: float = 0.0, clamps=None):
         """optax's ``update`` and ``apply_updates`` in one pass: returns
         ``(params, state)``, params updated in place (see
         :func:`adam_update`)."""
@@ -80,16 +100,13 @@ def _bias_corrections(count, cfg):
     return c, bc1, bc2
 
 
-def adam_plain(params, grads, state, cfg: AdamConfig, opacity_l1: float = 0.0,
-               clamps=(None, None)):
+def adam_plain(params, grads, state, cfg: AdamConfig, opacity_l1: float = 0.0, clamps=None):
     """The plain PyTorch step (see :func:`adam_update`)."""
     c, bc1, bc2 = _bias_corrections(state["count"], cfg)
     f = np.float32
-    for grp, name in enumerate(GROUPS):
-        p, mu, nu = params[name], state["mu"][name], state["nu"][name]
-        g = grads.get(name)
+    for grp, (p, g, mu, nu) in enumerate(_groups(params, grads, state, opacity_l1)):
         g = torch.zeros_like(p) if g is None else g
-        if name == "logits" and opacity_l1:
+        if grp == 1 and opacity_l1:
             s = 1.0 / (torch.exp(-p) + 1.0)
             scale = float(_l1_scale(opacity_l1, p.numel()))
             g = fma32(torch.full_like(p, scale), s * (1.0 - s), g)
@@ -107,7 +124,7 @@ def adam_plain(params, grads, state, cfg: AdamConfig, opacity_l1: float = 0.0,
 
 
 def adam_params(cfg: AdamConfig, n_logits: int, opacity_l1: float = 0.0,
-                clamps=(None, None)) -> _build.AdamParams:
+                clamps=None) -> _build.AdamParams:
     """The kernel's launch constants."""
     f = np.float32
     a = _build.AdamParams()
@@ -122,40 +139,44 @@ def adam_params(cfg: AdamConfig, n_logits: int, opacity_l1: float = 0.0,
     return a
 
 
-def adam_update(params, grads, state, cfg: AdamConfig, opacity_l1: float = 0.0,
-                clamps=(None, None)):
-    """One optimizer step over ``params`` = {"albedo": f32 [3N], "logits": f32
-    [N]}: the opacity-L1 gradient ``opacity_l1 * sigmoid'(logit) / N`` added
-    to the logits' gradient, optax's Adam (``state`` = {"count": int32 [],
-    "mu": {...}, "nu": {...}}), then each group's clamp, ``clamps[i]`` =
-    (low, high) or None for no clamp.  A gradient of
-    ``None`` is zeros.  Updates params, mu and nu in place and returns the
-    state with the new count.
+def adam_update(params, grads, state, cfg: AdamConfig, opacity_l1: float = 0.0, clamps=None):
+    """One optimizer step.  ``params`` = {"albedo": f32, "logits": f32} (the
+    soft renderer's) or one f32 tensor, any shape; ``grads`` and ``state``'s
+    ``mu`` and ``nu`` shaped alike (``state`` = {"count": int32 [], "mu",
+    "nu"}); a gradient of ``None`` is zeros.  The soft renderer's
+    opacity-L1 gradient ``opacity_l1 * sigmoid'(logit) / N`` is added to the
+    logits' gradient, then optax's Adam, then each group's clamp:
+    ``clamps[i]`` = (low, high) or None, one entry a group (``None``: no
+    clamps).  Updates params, mu and nu in place and returns the state with
+    the new count.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    dev = params["logits"].device
+    groups = _groups(params, grads, state, opacity_l1)
+    dev = groups[0][0].device
     if dev.type == "cpu":
         return adam_plain(params, grads, state, cfg, opacity_l1, clamps)
     if dev.type != "cuda":
         raise ValueError(f"adam runs on cuda or cpu tensors, not {dev}")
     specs = [("count", state["count"], torch.int32, ())]
-    for name in GROUPS:
-        n = params[name].numel()
-        specs += [(name, params[name], torch.float32, (n,)),
-                  (f"mu[{name}]", state["mu"][name], torch.float32, (n,)),
-                  (f"nu[{name}]", state["nu"][name], torch.float32, (n,))]
-        if grads.get(name) is not None:
-            specs.append((f"grads[{name}]", grads[name], torch.float32, (n,)))
+    for grp, (p, g, mu, nu) in enumerate(groups):
+        n = p.numel()
+        specs += [(f"params[{grp}]", p, torch.float32, tuple(p.shape)),
+                  (f"mu[{grp}]", mu, torch.float32, tuple(p.shape)),
+                  (f"nu[{grp}]", nu, torch.float32, tuple(p.shape))]
+        if g is not None:
+            specs.append((f"grads[{grp}]", g, torch.float32, tuple(p.shape)))
     _build.check_inputs(dev, specs)
     lib = _build.library()
     count = torch.empty_like(state["count"])
     ptrs = []
-    for name in GROUPS:
-        g = grads.get(name)
-        ptrs += [params[name].data_ptr(), None if g is None else g.data_ptr(),
-                 state["mu"][name].data_ptr(), state["nu"][name].data_ptr(), params[name].numel()]
+    for p, g, mu, nu in groups:
+        ptrs += [p.data_ptr(), None if g is None else g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                 p.numel()]
+    if len(groups) == 1:  # an empty group 1: the kernel reads none of its pointers
+        ptrs += [None, None, None, None, 0]
+    n_logits = groups[1][0].numel() if len(groups) == 2 else 0
     err = lib.vhx_adam(*ptrs, state["count"].data_ptr(), count.data_ptr(),
-                       adam_params(cfg, params["logits"].numel(), opacity_l1, clamps),
+                       adam_params(cfg, n_logits, opacity_l1, clamps),
                        dev.index or 0,
                        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "adam kernel launch")

@@ -69,8 +69,6 @@ def check_source(source) -> BitGrid:
 def check_options(options: dict) -> None:
     """Raise for a reference renderer option the kernels do not implement."""
     for name, value in options.items():
-        if name not in RESULT_NEUTRAL:
-            raise TypeError(f"unexpected keyword argument {name!r}")
         allowed = RESULT_NEUTRAL[name]
         if allowed is not None and value not in allowed:
             raise NotImplementedError(
@@ -83,12 +81,21 @@ class BitGridRenderer:
     """Renders frames of one BitGrid on one device; ``source`` is a BitGrid,
     a BoxTree or a FlatTree (:func:`check_source`).
 
-    Takes the reference ``BitGridRenderer``'s keywords: ``max_iters`` is the
-    kernels' step limit per ray; the options of ``RESULT_NEUTRAL`` are
-    accepted at the values the kernels fix; any other value raises."""
+    Takes the reference ``BitGridRenderer``'s parameters in its order:
+    ``max_iters`` is the kernels' step limit per ray; the options of
+    ``RESULT_NEUTRAL`` are accepted at the values the kernels fix; any other
+    value raises.  ``device`` is keyword-only."""
 
-    def __init__(self, source, device="cuda", max_iters: int = MAX_ITERS, **options):
-        check_options(options)
+    def __init__(self, source, max_iters: int = MAX_ITERS, prepass: bool = False,
+                 prepass_levels: int = 2, lateral_step: bool = True, parent_skip: bool = False,
+                 advance_substeps: int = 4, auto_plan: bool = False, fuse_plan: bool = False,
+                 color_u8: bool = False, tracer: str = "stack", skip_substeps: int = 3, *,
+                 device="cuda"):
+        check_options({"prepass": prepass, "prepass_levels": prepass_levels,
+                       "lateral_step": lateral_step, "parent_skip": parent_skip,
+                       "advance_substeps": advance_substeps, "auto_plan": auto_plan,
+                       "fuse_plan": fuse_plan, "color_u8": color_u8, "tracer": tracer,
+                       "skip_substeps": skip_substeps})
         self.device = resolve_device(device)
         self.bitgrid = check_source(source)
         self.max_iters = int(max_iters)
@@ -242,7 +249,8 @@ class BitGridRenderer:
                     self._delta_state = None
                     raise AssertionError("render_delta_many: reconstruction mismatch")
                 self._delta_validated = key
-            self._delta_state = (key, frames_dev[-1], frames[-1])
+            # a copy: a view of the last frame would keep the whole batch alive
+            self._delta_state = (key, frames_dev[-1].clone(), frames[-1])
             self.last_stats = {"rays": w * h * K, "batched_frames": K, "delta": True,
                                "delta_fetched": fetched, "delta_rows_fetched": rows_fetched,
                                "host_reads": reads}
