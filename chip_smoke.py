@@ -59,16 +59,19 @@ Phase 11 runs checkpoints and the offline trainers: (a) ``save_tree`` /
 back from the cache with the model overwritten); (b) ``DiffRenderer`` over
 two 1080p poses (4,147,200 rays): the albedo kernel (``csrc/albedo.cu``)
 against its plain version on every ray, forward bit for bit and backward
-within the composite's tolerance, then ``fit_albedo`` from gray for 16
-steps (one traversal, then one forward, backward and Adam launch a step;
-the loss falls); (c) ``with_candidates`` on the bench scene against its CPU
-route, the multi-hit march and the composite at K = 6 against their plain
-versions, ``fit_soft`` for 16 steps with checkpoints against the plain
-versions' steps on the card, resumed from step 8, and with the row layout;
+within the composite's tolerance, with the atomic adds the backward
+issues (its runs of rays on one row) counted from the data, then
+``fit_albedo`` from gray for 16 steps (one traversal, then one forward,
+backward and Adam launch a step; the loss falls); (c) ``with_candidates``
+on the bench scene against its CPU route, the multi-hit march and the
+composite at K = 6 against their plain versions, ``fit_soft`` for 16
+steps with checkpoints against the plain versions' steps on the card,
+resumed from step 8, and with the row layout;
 (d) the identity bake of ``params_to_tree`` rendered to the bench digest,
 and the bake of the fitted params; (e) the albedo kernels beside
-``index_add_``, the K = 6 kernels and a step of each trainer, timed in
-turns, with a profile of the steps.  The last line is ``{"ok": true,
+``index_add_`` (the backward and ``index_add_`` also with the L2 flushed),
+the K = 6 kernels and a step of each trainer, timed in turns, with a
+profile of the steps.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -1376,9 +1379,9 @@ def offline_phases(dev, card, tmp):
     from voxelhex_tpu_torch.io import checkpoint
     from voxelhex_tpu_torch.io.vox import load_vox_tree_cached
     from voxelhex_tpu_torch.ops.adam import adam_plain, adam_update
-    from voxelhex_tpu_torch.ops.albedo import (albedo_backward, albedo_backward_plain,
-                                               albedo_forward, albedo_forward_plain, lambert,
-                                               shade_albedo)
+    from voxelhex_tpu_torch.ops.albedo import (CHUNK, albedo_backward, albedo_backward_plain,
+                                               albedo_forward, albedo_forward_plain,
+                                               backward_adds, lambert, shade_albedo)
     from voxelhex_tpu_torch.ops.composite import (
         composite_backward, composite_backward_plain, composite_forward,
         composite_forward_plain)
@@ -1500,6 +1503,10 @@ def offline_phases(dev, card, tmp):
     log(f"  albedo backward: max abs err {bwd_err} (largest element {scale}), "
         f"{int((gp != 0).sum())} non-zero, {zeros_differ} zero in one only (tolerance: relative "
         f"{GRAD_RTOL} or {GRAD_ATOL_SHARE} of the largest)")
+    n_adds, n_runs = backward_adds(hit, brick, cell, shape)
+    log(f"  albedo backward atomics, counted from the data: {n_adds} adds of {n_runs} runs "
+        f"(chunks of {CHUNK} rays, runs merged in a warp, 8 B vector adds), against "
+        f"{3 * int(ok.sum())} with one add a channel and hit ray")
     if not close or zeros_differ or scale == 0:
         raise AssertionError("the albedo backward kernel differs from its plain version")
     del gk, gp
@@ -1781,6 +1788,15 @@ def offline_phases(dev, card, tmp):
         turns[name].append(timers[name]())
         log(f"  turn {name}: {turns[name][-1]:.4f} ms device time {tag}")
     ms = {name: sum(t) / 2 for name, t in turns.items()}
+    # the backward's 22 MB of inputs fit the 50 MB L2, where the turns above
+    # find them: time it and index_add_ also with the L2 flushed (256 MB
+    # written) before each launch
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cold = {name: device_ms_each(fn, TIMED_FRAMES, before=flush.zero_) for name, fn in (
+        ("albedo backward", lambda: albedo_backward(g_rgb, hit, brick, cell, normal, shape)),
+        ("index_add_", library))}
+    cold = {name: sum(t) / len(t) for name, t in cold.items()}
+    del flush
     fwd_plain_ms = timed(lambda: albedo_forward_plain(true, hit, brick, cell, normal), 3)
     bwd_plain_ms = timed(lambda: albedo_backward_plain(g_rgb, hit, brick, cell, normal, shape), 3)
 
@@ -1831,7 +1847,9 @@ def offline_phases(dev, card, tmp):
                             n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
     log(f"albedo forward {ms['albedo forward']:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); "
         f"backward {ms['albedo backward']:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), "
-        f"index_add_ of the same rows {ms['index_add_']:.4f} ms; plain forward "
+        f"index_add_ of the same rows {ms['index_add_']:.4f} ms; with the L2 flushed before "
+        f"each launch: backward {cold['albedo backward']:.4f} ms, index_add_ "
+        f"{cold['index_add_']:.4f} ms; plain forward "
         f"{fwd_plain_ms:.3f} ms, backward {bwd_plain_ms:.3f} ms (CUDA events); {R2} rays {tag}")
     log(f"K={CAND_HITS} on the dilated bench: multihit {ms[f'multihit K={CAND_HITS}']:.4f} ms "
         f"(bound {mh_bound:.4f}, {mh_by}; plain {mh_plain_ms:.1f} ms, host clock, one run), "

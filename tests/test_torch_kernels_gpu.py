@@ -347,6 +347,61 @@ def test_albedo_kernels_equal_plain(cuda):
     np.testing.assert_array_equal(got == 0, ref == 0)
 
 
+def _albedo_runs_case(cuda, R=1_000_003, seed=5):
+    """Image-ordered runs of 1-64 rays on one row (a voxel seen by
+    neighbouring pixels), with misses and hits with brick < 0 inside them,
+    at a ray count that leaves the last chunk ragged."""
+    rng = np.random.default_rng(seed)
+    B, d3 = 3905, 64
+    row = np.repeat(rng.integers(0, B * d3, R), rng.integers(1, 65, R))[:R]
+    brick = np.where(rng.random(R) < 0.05, -1, row // d3).astype(np.int32)
+    hit = rng.random(R) < 0.9
+    axis = rng.integers(0, 3, R)
+    normal = np.zeros((R, 3), np.float32)
+    normal[np.arange(R), axis] = rng.choice([-1.0, 1.0], R)
+    grad = rng.normal(0, 1e-3, (R, 3)).astype(np.float32)
+    return ((B, d3), torch.from_numpy(hit).to(cuda), torch.from_numpy(brick).to(cuda),
+            torch.from_numpy((row % d3).astype(np.int32)).to(cuda),
+            torch.from_numpy(normal).to(cuda), torch.from_numpy(grad).to(cuda))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_albedo_backward_runs_equal_plain(cuda, offset):
+    """The backward on coherent rays, its inputs from ``offset`` rays into
+    their buffers (``hit`` then starts off its 16 B boundary, ``normal`` and
+    dL/drgb off theirs): within the composite's tolerance of the plain
+    index_add_, with the zero pattern equal, one launch a call."""
+    from voxelhex_tpu_torch.ops.albedo import albedo_backward, albedo_backward_plain
+
+    shape, hit, brick, cell, normal, grad = _albedo_runs_case(cuda)
+    hit, brick, cell, normal, grad = (t[offset:] for t in (hit, brick, cell, normal, grad))
+    n0 = albedo_backward.launches
+    g = albedo_backward(grad, hit, brick, cell, normal, shape)
+    torch.cuda.synchronize()
+    assert albedo_backward.launches == n0 + 1
+    want = albedo_backward_plain(grad, hit, brick, cell, normal, shape)
+    got, ref = g.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6 * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(got == 0, ref == 0)
+
+
+def test_albedo_backward_all_miss_is_zero(cuda):
+    """Where no ray hits, every warp of the backward leaves at once and the
+    gradient is the entry's fill: exactly +0 everywhere, though the caching
+    allocator hands the gradient a block that held NaN just before."""
+    from voxelhex_tpu_torch.ops.albedo import albedo_backward
+
+    shape, hit, brick, cell, normal, grad = _albedo_runs_case(cuda)
+    n = shape[0] * shape[1] * 3
+    stale = torch.full((n,), float("nan"), device=cuda)
+    del stale
+    n0 = albedo_backward.launches
+    g = albedo_backward(grad, torch.zeros_like(hit), brick, cell, normal, shape)
+    assert albedo_backward.launches == n0 + 1
+    got = g.cpu()
+    assert bool((got == 0).all()) and not bool(torch.signbit(got).any())
+
+
 def test_fit_albedo_step_is_three_launches(cuda):
     """fit_albedo with precomputed hits: one traversal, then the albedo
     forward, backward and Adam once a step; the losses match the plain

@@ -21,6 +21,7 @@ import torch
 from voxelhex_tpu_torch.ops import _build
 
 LIGHT = (-0.5, 0.5, -0.5)  # the reference's light direction (diff/render.py)
+CHUNK = 4  # the backward kernel's rays a thread (CHUNK in csrc/albedo.cu)
 
 
 def lambert(normal):
@@ -62,6 +63,37 @@ def albedo_backward_plain(grad_rgb, hit, brick, cell, normal, shape):
     g = torch.zeros(n_bricks * d3 * 3, dtype=torch.float32, device=grad_rgb.device)
     g.index_add_(0, flat, rows.reshape(-1))
     return g.view(n_bricks, d3, 3)
+
+
+def backward_adds(hit, brick, cell, shape):
+    """The atomic adds that the backward kernel (``csrc/albedo.cu``) issues
+    on these rays, as ``(adds, runs)``, counted from the data: a thread sums
+    each run of its :data:`CHUNK` consecutive rays (the rays that hit a
+    voxel with params, in order, on one row); a warp's 32 chunks merge the
+    runs that cross their edges and the runs that end on one row; each
+    merged run goes out as 2 atomics (an 8 B vector and a scalar).  Chunks
+    start where the kernel starts them, at ``hit``'s address."""
+    off = hit.data_ptr() % CHUNK
+    ok = (hit & (brick >= 0)).cpu().numpy()
+    ray = np.flatnonzero(ok)
+    rows = _rows(brick[ok], cell[ok], shape).cpu().numpy()
+    chunks = (ray + off) // CHUNK
+    new = np.ones(len(ray), bool)
+    new[1:] = (rows[1:] != rows[:-1]) | (chunks[1:] != chunks[:-1])
+    run_row, run_chunk = rows[new], chunks[new]
+    n_runs = len(run_row)
+    if not n_runs:
+        return 0, 0
+    uc, first, count = np.unique(run_chunk, return_index=True, return_counts=True)
+    last = first + count - 1
+    flushes = int((count - np.minimum(count, 2)).sum())  # runs neither first nor last
+    after = np.zeros(len(uc), bool)  # the chunk before, in the same warp, has a run
+    after[1:] = (uc[1:] == uc[:-1] + 1) & (uc[1:] % 32 != 0)
+    joins = np.zeros(len(uc), bool)
+    joins[1:] = run_row[last[:-1]] == run_row[first[1:]]
+    flushes += int((count >= 2).sum() - (after & joins & (count >= 2)).sum())
+    flushes += len(np.unique(np.stack([uc // 32, run_row[last]], 1), axis=0))
+    return 2 * flushes, n_runs
 
 
 def _check(dev, hit, brick, cell, normal, extra=()):
@@ -111,8 +143,10 @@ def albedo_backward(grad_rgb, hit, brick, cell, normal, shape):
     a flat gradient into which each ray that hit a voxel with params adds
     ``dL/drgb * lambert`` at its row.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel, which
-    adds with f32 atomics in no fixed order."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel (its
+    C entry zeroes the gradient on the stream first), which sums each run
+    of rays on one row in registers and adds the runs with f32 atomics in
+    no fixed order."""
     dev = grad_rgb.device
     if dev.type == "cpu":
         return albedo_backward_plain(grad_rgb, hit, brick, cell, normal, shape)
@@ -122,7 +156,7 @@ def albedo_backward(grad_rgb, hit, brick, cell, normal, shape):
     R = _check(dev, hit, brick, cell, normal,
                (("grad_rgb", grad_rgb, torch.float32, (hit.shape[0], 3)),))
     lib = _build.library()
-    g = torch.zeros(n_bricks * d3 * 3, dtype=torch.float32, device=dev)
+    g = torch.empty(n_bricks * d3 * 3, dtype=torch.float32, device=dev)
     err = lib.vhx_albedo_backward(
         grad_rgb.data_ptr(), hit.data_ptr(), brick.data_ptr(), cell.data_ptr(), normal.data_ptr(),
         R, n_bricks, d3, g.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
