@@ -71,7 +71,28 @@ resumed from step 8, and with the row layout;
 and the bake of the fitted params; (e) the albedo kernels beside
 ``index_add_`` (the backward and ``index_add_`` also with the L2 flushed),
 the K = 6 kernels and a step of each trainer, timed in turns, with a
-profile of the steps.  The last line is ``{"ok": true,
+profile of the steps.
+
+Phase 12 runs streaming over phase 10's 1024 terrain (the fly-over of
+``benches/ab_flyover.py``): (a) ``StreamingView(tree, view_size=256,
+regions_per_update=8192)`` follows ``flight_cam`` for 8 frames at
+1920x1080, one window shift a frame and a whole-world ring at factor 4;
+each launch of the region scatter, coarse rebuild and window shift
+(``csrc/stream.cu``) is held to its plain version on the same inputs, the
+window on the card to the host's BitGrid after every update, each frame
+of the far-frame kernel (``csrc/far.cu``) to ``far_frame_plain`` on every
+pixel (with the plain march's steps a ray against the step limit) and to
+the reference package's digest; (b) 64 regions an update with
+placeholders and occlusion pruning, rendered until settled, to (a)'s last
+frame; (d) ``async_uploads`` with ``async_far`` settled at two poses, to
+the reference digests; (e) a 64 window (W/S = 16: an anchored ring at
+factor 4 and the world at 16), two frames against the plain version; (c)
+an ``insert_at_lod`` that pages through the partial scatter, to a new
+view's frame; (f) the four kernels' device times in turns beside their
+bounds, plain versions, ``index_copy_`` and ``torch.roll``, the far frame
+beside ``frame.cu`` at the same window and pose, and the fly-over's frames
+by host clock, split into the update (placeholders, rasterize, the rest),
+the far refresh and the device.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -146,6 +167,35 @@ TRAVERSE_OPS_PER_STEP = 100
 # f32 operations per pixel of the frame kernel's ray generation (prologue)
 # and shading with the u8 step (epilogue), counted low from frame.cu
 FRAME_OPS_PER_PIXEL = 40
+
+# ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
+# (examples/terrain.py's StreamingView, BASELINE.json's config 4): the
+# 1024 terrain through a 256 window, 8 frames at 1920x1080
+FLY_FRAMES = 8
+FLY_VIEW = 256
+# sha256 of the reference package's u8 frames of the fly-over, made on the
+# CPU with
+#   view = StreamingView(examples/terrain.build_terrain(1024), view_size=256,
+#                        regions_per_update=8192)
+#   view.render(benches/ab_flyover.flight_cam(i, 8, (1920, 1080)), out_u8=True)
+# for i = 0 .. 7 in turn (each frame settled: no region left to page)
+FLYOVER_SHA256 = (
+    "6aceaffe20bdfb4866349605b3ea6b7f91b8c49f25a0e5d971f8daf8832370e1",
+    "1bac077d264896856aedb8461dfda9bbf2628bfe44ab8e595ebb7feb57df2ea0",
+    "cfbeef70adbcd048196f8d4d4b127b01d0c4294bf8ee23c3556df74a5b0d9661",
+    "9c7fd05d6b279b9c33f5b266ebb5dbb6fd09c87858ebd23ea110e7ed7740b5a1",
+    "557f6c8f2dce7d0e91981543f018c13adaa73480f0f0a5b53832147da33decf0",
+    "e112cc451893b0423425b14b0960ef22cffbae8e1e62fddb672210dab3a4c118",
+    "8e9a422266d1f736bb9cc03e9dd10b6f636092331ab60ce7fccb760876268442",
+    "f41dccc1278251b85fabc80f41a82091f86801dee5af33c2e248973d3f17ca4c",
+)
+# the budgeted view's regions an update (the reference's default)
+FLY_BUDGET = 64
+# the edit of phase 12 (c): insert_at_lod of this block into the terrain,
+# inside the last fly-over frame's window and in its view
+FLY_EDIT = ((816, 80, 400), 16, (250, 40, 40, 255))
+# the ring ladder of phase 12 (e): a 64 window in the 1024 world (W/S = 16)
+LADDER_VIEW = 64
 
 # ---- the training slice: bench.py's SoftRenderer(tree, max_hits=2,
 # max_iters=2048) with optax.adam(0.05), on the bench pose at 1920x1080
@@ -456,7 +506,8 @@ def main():
     for source, kernel, max_regs in (("frame.cu", "frame_kernel", 47),
                                      ("frames.cu", "frames_kernel", None),
                                      ("traverse.cu", "traverse_kernel", None),
-                                     ("multihit.cu", "multihit_kernel", None)):
+                                     ("multihit.cu", "multihit_kernel", None),
+                                     ("far.cu", "far_kernel", None)):
         usage = ptxas_usage(_build.build_log(source), kernel)
         log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
             f"spill stores, {usage[3]} B spill loads")
@@ -682,7 +733,7 @@ def main():
     profile_delta(renderer, [cam] * BATCH, tag)
     del renderer
     torch.cuda.empty_cache()
-    counts = scene_model_slice(dev, card)
+    counts, terrain = scene_model_slice(dev, card)
     kernels[0]["launches"] += counts["frame"]
     frames_entry["launches"] += counts["frames"]
     torch.cuda.empty_cache()
@@ -695,6 +746,8 @@ def main():
     for name, err in errs.items():
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
     kernels += entries
+    torch.cuda.empty_cache()
+    kernels += streaming_slice(dev, card, terrain)
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1114,7 +1167,7 @@ def check_resident(renderer, bg, levels, what):
 def scene_model_slice(dev, card):
     """Phase 10: trees built by the port's scene model, rendered by the
     frame kernels.  Returns the launches of the frame and batched kernels in
-    its main path's runs."""
+    its main path's runs, and the terrain's BoxTree."""
     import tempfile
 
     from voxelhex_tpu_torch.io import bencode
@@ -1259,7 +1312,7 @@ def scene_model_slice(dev, card):
     del pts, cols
     flat, s_flat = clock(lambda: flatten(tree))
     n_nodes = tree.node_count
-    del tree
+    terrain = tree  # phase 12 streams it
     tbg, s_native = clock(lambda: build_bitgrid(flat))
     n_bricks = flat.n_bricks
     del flat
@@ -1330,7 +1383,7 @@ def scene_model_slice(dev, card):
     log(f"phase 10 (f) timing: {time.time() - t0:.1f} s")
     log(f"phase 10 scene model: {time.time() - t_all:.1f} s, launches {counts}, max abs err "
         f"{max(err32, errt)}")
-    return counts
+    return counts, terrain
 
 
 def vox_file_bytes(seed=0, n=600, extent=40):
@@ -2194,6 +2247,434 @@ def training_slice(dev, scene, o, d, tag):
          "max_abs_err": adam_err, "ms": adam_ms, "plain_ms": adam_plain_ms,
          "bound_ms": adam_bound, "bound_by": adam_by, "library_ms": adam_lib_ms},
     ]
+
+
+def flight_cam(i, res=RES):
+    """``benches/ab_flyover.flight_cam(i, FLY_FRAMES, res)``: the camera of
+    fly-over frame ``i`` over the 1024 terrain."""
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    t = i / (FLY_FRAMES - 1)
+    cx = TERRAIN_WORLD * (0.2 + 0.6 * t)
+    cz = TERRAIN_WORLD * 0.4
+    return Camera(origin=np.array([cx - 80.0, TERRAIN_WORLD * 0.12, cz - 120.0]),
+                  target=np.array([cx, TERRAIN_WORLD * 0.05, cz]), resolution=res,
+                  fov_y_deg=55.0)
+
+
+class CheckedUpdates:
+    """The streaming view's three device updates, each launch held to its
+    plain version on the same inputs, bit for bit (installed where
+    ``render/streaming.py`` calls them, for phase 12's checked runs).  The
+    plain versions launch no kernel, so the wrappers' counts hold the
+    kernels' launches alone.  ``last`` keeps each kernel's latest inputs for
+    the timing."""
+
+    def __init__(self):
+        from voxelhex_tpu_torch.ops import stream
+        from voxelhex_tpu_torch.render import streaming
+
+        self.stream, self.streaming = stream, streaming
+        self.calls = {"region_scatter": 0, "coarse_rebuild": 0, "window_shift": 0}
+        self.last = {}
+
+    @staticmethod
+    def _grids(tree):
+        return tree["colors"].clone(), tree["occ_pairs"].clone()
+
+    def _check(self, name, got, want):
+        self.calls[name] += 1
+        if not all(bool(same(a, b).all()) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: the kernel's grids differ from its plain version's")
+
+    def region_scatter(self, tree, corners, col_vals, blk_vals):
+        colors, pairs = self._grids(tree)
+        self.last["region_scatter"] = (corners, col_vals, blk_vals)
+        self.stream.region_scatter_plain(colors, pairs, corners, col_vals, blk_vals,
+                                         int(tree["size"]))
+        self.stream.region_scatter(tree, corners, col_vals, blk_vals)
+        self._check("region_scatter", (tree["colors"], tree["occ_pairs"]), (colors, pairs))
+
+    def coarse_rebuild(self, tree):
+        pairs = self.stream.coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"],
+                                                 tree["dims"])
+        self.stream.coarse_rebuild(tree)
+        self._check("coarse_rebuild", (tree["occ_pairs"],), (pairs,))
+
+    def window_shift(self, tree, shift):
+        want = self.stream.window_shift_plain(tree["colors"], tree["occ_pairs"],
+                                              int(tree["size"]), shift)
+        self.last["window_shift"] = tuple(int(v) for v in shift)
+        got = self.stream.window_shift(tree, shift)
+        self._check("window_shift", got, want)
+        return got
+
+    def __enter__(self):
+        for name in self.calls:
+            setattr(self.streaming, name, getattr(self, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.calls:
+            setattr(self.streaming, name, getattr(self.stream, name))
+
+
+def check_window(view, what):
+    """The window's grids on the card against the view's host BitGrid (the
+    mirrors the reference's host path keeps)."""
+    t, bg = view.renderer.tree, view.renderer.bitgrid
+    pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).view(np.int32)
+    if (not np.array_equal(t["occ_pairs"].cpu().numpy(), pairs)
+            or not np.array_equal(t["colors"].cpu().numpy().view(np.uint16), bg.colors)):
+        raise AssertionError(f"{what}: the window on the card differs from the host's BitGrid")
+
+
+def check_far_frame(view, cam, frame, what):
+    """A view's far frame (the kernel's) against ``far_frame_plain`` on every
+    pixel, with the plain march's steps: returns the plain march's record
+    (``far_frame_plain``'s ``stats``), the largest difference and the plain
+    frame's host-clock ms."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
+
+    stats = []
+    t0 = time.perf_counter()
+    plain = far_frame_plain(view.layers(cam), view.camera_inside(cam), out_u8=frame.dtype ==
+                            torch.uint8, stats=stats)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_bad = int((~same(frame, plain)).any(dim=-1).sum())
+    top = [int(s["iters"].max()) for s in stats]
+    at_limit = sum(int((s["iters"] >= MAX_ITERS).sum()) for s in stats)
+    log(f"  {what}: far-frame kernel against far_frame_plain, {n_bad} pixels differ; "
+        f"{len(stats)} layers, most steps a ray {top}, {at_limit} rays at the limit of "
+        f"{MAX_ITERS}")
+    if n_bad:
+        raise AssertionError(f"{what}: the far-frame kernel differs from its plain version")
+    return stats, max_abs_err(frame, plain), plain_ms
+
+
+def far_bound(view, cam, stats):
+    """The far frame's bound from the plain march's record: the distinct
+    word pairs and hit colors each layer reads, its palette and parameters,
+    3 B a pixel written; each layer's steps and each ray it starts."""
+    from voxelhex_tpu_torch.ops import _build
+
+    R = cam.resolution[0] * cam.resolution[1]
+    n_bytes, n_ops = ctypes.sizeof(_build.FarParams) + R * 3, 0
+    for (tree, _c, _f), s in zip(view.layers(cam), stats):
+        v = s["hvox"][s["hit"]].long()
+        S = int(tree["size"])
+        colors = int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S).numel())
+        n_bytes += int(s["reads"].sum()) * 8 + colors * 2 + tree["palette"].shape[0] * 16
+        n_ops += int(s["iters"].sum()) * TRAVERSE_OPS_PER_STEP + s["rays"] * FRAME_OPS_PER_PIXEL
+    return bound(n_bytes, n_ops)
+
+
+def settle(view, cam, what, max_renders=200):
+    """Render ``cam`` until the view has no work left (worker jobs waited
+    for); returns the settled frame on the card."""
+    for _ in range(max_renders):
+        frame = view.render(cam, out_u8=True, out_device=True)
+        if view.settled():
+            return view.render(cam, out_u8=True, out_device=True)
+        if view._inflight:
+            view._inflight[0][0].result()
+        elif view.far is not None and view.far._job is not None:
+            view.far._job[0].result()
+    del frame
+    raise AssertionError(f"{what}: not settled after {max_renders} renders")
+
+
+def streaming_slice(dev, card, tree):
+    """Phase 12: the port's ``StreamingView`` over the 1024 terrain (phase
+    10's tree) on the card.  (a) the fly-over, the main path: 8 frames at
+    1920x1080 through a 256 window and its whole-world ring, each update's
+    device grids held to the plain scatter, rebuild and shift and to the
+    host's BitGrid, each frame's far-frame kernel to ``far_frame_plain`` on
+    every pixel and to the reference digest; (b) paging 64 regions an update
+    with placeholders and occlusion pruning until settled; (d) worker
+    threads (``async_uploads``, ``async_far``); (e) the ring ladder of a 64
+    window; (c) an edit through the partial scatter; (f) each kernel's
+    device time beside its bound, plain version and library call, the far
+    frame beside ``frame.cu``, and a fly-over's frames by host clock.
+    Returns the four kernels' entries of the ``kernels`` line."""
+    from voxelhex_tpu_torch.ops import stream
+    from voxelhex_tpu_torch.ops.far import render_far
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.render.streaming import FarField, FarTier, StreamingView
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
+
+    t_all = time.time()
+    host_tag = f"[{card}; host {host_cpu()}]"
+    counters = (stream.region_scatter, stream.coarse_rebuild, stream.window_shift, render_far,
+                render_frame)
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    def detach(view):
+        view.close()
+        tree.update_triggers.remove(view._on_tree_update)
+
+    # (a) the fly-over, the main path
+    t0 = time.time()
+    checks = CheckedUpdates()
+    far_err, fly_frames = 0.0, []
+    with checks:
+        view = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=8192)
+        for f in counters:
+            f.launches = 0
+        for i in range(FLY_FRAMES):
+            cam = flight_cam(i)
+            frame = view.render(cam, out_u8=True, out_device=True)
+            # the plain versions launch nothing: the counts stay the path's
+            check_window(view, f"fly-over frame {i}")
+            far_err = max(far_err, check_far_frame(view, cam, frame, f"fly-over frame {i}")[1])
+            digest = sha(frame)
+            log(f"  fly-over frame {i}: window at {tuple(int(v) for v in view.origin)}, "
+                f"{view.uploads} regions paged, settled {view.settled()}; sha256 {digest} "
+                f"{'==' if digest == FLYOVER_SHA256[i] else '!='} reference")
+            if digest != FLYOVER_SHA256[i] or not view.settled():
+                raise AssertionError(f"fly-over frame {i} differs from the reference digest")
+            fly_frames.append(frame)
+        launches = counts()
+    ring = [(t.factor, t.cells, tuple(int(v) for v in t.origin)) for t in view.far.tiers]
+    log(f"  fly-over: launches {launches}; calls held to their plain versions {checks.calls}; "
+        f"the ring (factor, cells, origin) {ring}; a frame's scatter takes "
+        f"{checks.last['region_scatter'][0].shape[0]} regions, its shift "
+        f"{checks.last['window_shift']}")
+    want = {"region_scatter": FLY_FRAMES - 1, "window_shift": FLY_FRAMES - 1,
+            "render_far": FLY_FRAMES, "render_frame": 0}
+    if (any(launches[k] != n for k, n in want.items()) or launches["coarse_rebuild"] == 0
+            or any(checks.calls[k] != launches[k] for k in checks.calls
+                   if k != "coarse_rebuild")):
+        raise AssertionError(f"fly-over: launches {launches}, want {want}")
+    fly_inputs = dict(checks.last)  # a fly-over frame's scatter and shift
+    log(f"phase 12 (a) fly-over: {time.time() - t0:.1f} s")
+
+    with checks:
+        # (b) 64 regions an update, placeholders and occlusion pruning
+        t0 = time.time()
+        budget = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=FLY_BUDGET)
+        cam = flight_cam(FLY_FRAMES - 1)
+        renders = 0
+        while True:
+            frame = budget.render(cam, out_u8=True, out_device=True)
+            renders += 1
+            if budget.settled() or renders > 2 * (FLY_VIEW // 16) ** 3 // FLY_BUDGET:
+                break
+        digest = sha(frame)
+        log(f"  {FLY_BUDGET} regions an update: settled after {renders} renders, "
+            f"{budget.uploads} regions paged, {len(budget._occluded)} parked by occlusion; "
+            f"sha256 {digest} {'==' if digest == FLYOVER_SHA256[-1] else '!='} reference")
+        if not budget.settled() or not bool((frame == fly_frames[-1]).all()):
+            raise AssertionError("the budgeted view's settled frame differs from the fly-over's")
+        detach(budget)
+        del budget
+        log(f"phase 12 (b) budgeted paging: {time.time() - t0:.1f} s")
+
+        # (d) worker threads
+        t0 = time.time()
+        workers = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=8192,
+                                async_uploads=True, async_far=True)
+        for i in (FLY_FRAMES - 2, FLY_FRAMES - 1):
+            digest = sha(settle(workers, flight_cam(i), f"worker threads, frame {i}"))
+            log(f"  worker threads, frame {i}: sha256 {digest} "
+                f"{'==' if digest == FLYOVER_SHA256[i] else '!='} reference")
+            if digest != FLYOVER_SHA256[i]:
+                raise AssertionError(f"worker threads: frame {i} differs from the reference")
+        detach(workers)
+        del workers
+        log(f"phase 12 (d) worker threads: {time.time() - t0:.1f} s")
+
+        # (e) the ring ladder: a 64 window, W/S = 16
+        t0 = time.time()
+        ladder = StreamingView(tree, view_size=LADDER_VIEW, regions_per_update=8192)
+        for i in (FLY_FRAMES - 2, FLY_FRAMES - 1):
+            cam = flight_cam(i)
+            frame = ladder.render(cam, out_u8=True, out_device=True)
+            far_err = max(far_err, check_far_frame(
+                ladder, cam, frame, f"ring ladder, frame {i} (camera inside the window: "
+                f"{ladder.camera_inside(cam)})")[1])
+        rings = [(t.factor, t.cells, tuple(int(v) for v in t.origin)) for t in ladder.far.tiers]
+        log(f"  ring ladder: rings (factor, cells, origin) {rings}")
+        if len(rings) != 2:
+            raise AssertionError(f"the ring ladder has rings {rings}")
+        detach(ladder)
+        del ladder
+        log(f"phase 12 (e) ring ladder: {time.time() - t0:.1f} s")
+
+        # (c) an edit inside the window: the partial scatter
+        t0 = time.time()
+        cam = flight_cam(FLY_FRAMES - 1)
+        colors_before = view.renderer.tree["colors"]
+        pos, lod, rgba = FLY_EDIT
+        tree.insert_at_lod(pos, lod, Albedo(*rgba))
+        dirty = len(view._dirty)
+        edited = view.render(cam, out_u8=True, out_device=True)
+        partial = view.renderer.tree["colors"] is colors_before
+        check_window(view, "edit")
+        edit_stats, err, far_plain_ms = check_far_frame(view, cam, edited, "edit")
+        far_err = max(far_err, err)
+        fresh_view = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=8192)
+        fresh = fresh_view.render(cam, out_u8=True, out_device=True)
+        n_moved = int((edited != fly_frames[-1]).any(dim=-1).sum())
+        log(f"  insert_at_lod{FLY_EDIT}: {dirty} regions paged by the partial scatter "
+            f"{partial}, {n_moved} pixels changed, equal to a new view's frame "
+            f"{bool((edited == fresh).all())}")
+        if not partial or not n_moved or not bool((edited == fresh).all()):
+            raise AssertionError("the edit: no partial scatter, no change, or a frame that "
+                                 "differs from a new view's")
+        detach(fresh_view)
+        del fresh_view, fresh
+        log(f"phase 12 (c) edit: {time.time() - t0:.1f} s")
+
+    # (f) times: each kernel at the fly-over's shapes, in turns; the far frame
+    # beside frame.cu at the same window and pose
+    t0 = time.time()
+    cam = flight_cam(FLY_FRAMES - 1)
+    window = view.renderer.tree
+    S = FLY_VIEW
+    work = dict(window, colors=window["colors"].clone(), occ_pairs=window["occ_pairs"].clone())
+    corners, col_vals, blk_vals = fly_inputs["region_scatter"]
+    shift = fly_inputs["window_shift"]
+    K = corners.shape[0]
+    # the library's scatter: index_copy_ of the widened colors and the pairs
+    # at addresses built before the timing
+    r = torch.arange(16, device=dev)
+    c = corners.long()
+    addr = (c[:, 0, None, None, None] + r[None, :, None, None]
+            + (c[:, 1, None, None, None] + r[None, None, :, None]) * S
+            + (c[:, 2, None, None, None] + r[None, None, None, :]) * S * S).reshape(-1)
+    widened = work["colors"].clone()
+    stream.region_scatter_plain(widened, work["occ_pairs"].clone(), corners, col_vals,
+                                blk_vals, S)
+    values16 = widened[addr]
+    nb = S // 4
+    b = torch.arange(4, device=dev)
+    baddr = ((c[:, 0, None, None, None] // 4 + b[None, None, None, :])
+             + (c[:, 1, None, None, None] // 4 + b[None, None, :, None]) * nb
+             + (c[:, 2, None, None, None] // 4 + b[None, :, None, None]) * nb * nb).reshape(-1)
+    blk2 = blk_vals.reshape(-1, 2)
+    layers, inside = view.layers(cam), view.camera_inside(cam)
+    cam_local = layers[0][1]
+    def warm_ms(fn, reps):
+        """device_ms after one call (which allocates what the calls reuse)."""
+        fn()
+        return device_ms(fn, reps)
+
+    timers = {
+        "region_scatter": lambda: warm_ms(lambda: stream.region_scatter(
+            work, corners, col_vals, blk_vals), 20),
+        "index_copy_": lambda: warm_ms(lambda: (work["colors"].index_copy_(0, addr, values16),
+                                                work["occ_pairs"].index_copy_(0, baddr, blk2)),
+                                       20),
+        "coarse_rebuild": lambda: warm_ms(lambda: stream.coarse_rebuild(work), 20),
+        "window_shift": lambda: warm_ms(lambda: stream.window_shift(work, shift), 10),
+        "torch.roll": lambda: warm_ms(lambda: (
+            torch.roll(work["colors"].view(S, S, S), (-shift[2], -shift[1], -shift[0]),
+                       (0, 1, 2)),
+            torch.roll(work["occ_pairs"][: nb**3].view(nb, nb, nb, 2),
+                       (-shift[2] // 4, -shift[1] // 4, -shift[0] // 4), (0, 1, 2))), 5),
+        "far frame": lambda: warm_ms(lambda: render_far(layers, inside), 10),
+        "frame.cu": lambda: warm_ms(lambda: render_frame(window, cam_local), 10),
+    }
+    turns = {name: [] for name in timers}
+    for name in list(timers) + list(timers)[::-1]:
+        turns[name].append(timers[name]())
+        log(f"  turn {name}: {turns[name][-1]:.4f} ms device time {host_tag}")
+    ms = {name: sum(v) / len(v) for name, v in turns.items()}
+    plain = {
+        "region_scatter": host_ms(lambda: stream.region_scatter_plain(
+            work["colors"], work["occ_pairs"], corners, col_vals, blk_vals, S), 3),
+        "coarse_rebuild": host_ms(lambda: stream.coarse_rebuild_plain(
+            work["occ_pairs"], work["bases"], work["dims"]), 3),
+        "window_shift": host_ms(lambda: stream.window_shift_plain(
+            work["colors"], work["occ_pairs"], S, shift), 3),
+        "far frame": far_plain_ms,  # (c)'s check, at this state and pose
+    }
+    n_pairs = window["occ_pairs"].shape[0]
+    wide = col_vals.element_size()
+    up = sum(d**3 for d in window["dims"][1:])
+    bounds = {
+        "region_scatter": bound(K * (12 + 4096 * wide + 64 * 8) + K * (4096 * 2 + 64 * 8), 0),
+        "coarse_rebuild": bound((n_pairs - up) * 8 + sum(d**3 for d in window["dims"][1:-1]) * 8
+                                + up * 8, 0),
+        "window_shift": bound(2 * (S**3 * 2 + n_pairs * 8), 0),
+        "far frame": far_bound(view, cam, edit_stats),
+    }
+    for name in ("region_scatter", "coarse_rebuild", "window_shift", "far frame"):
+        lib = {"region_scatter": "index_copy_", "window_shift": "torch.roll"}.get(name)
+        log(f"{name}: {ms[name]:.4f} ms device time, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}), plain version {plain[name]:.3f} ms (host clock)"
+            + (f", {lib} {ms[lib]:.4f} ms" if lib else "") + f" {host_tag}")
+    log(f"far frame {ms['far frame']:.4f} ms against frame.cu {ms['frame.cu']:.4f} ms at the "
+        f"same {FLY_VIEW} window and pose ({ms['far frame'] / ms['frame.cu']:.2f} times) {host_tag}")
+    del work, widened
+
+    # a fly-over's frames by host clock: the update and its stages, the far
+    # refresh (the ring's plan: its hole cut and pyramid pack; its upload),
+    # and the device (what is left of render(), the far frame's launch and
+    # the wait for the card)
+    spent = {}
+    stages = ("_region_occluded", "_fill_placeholders", "_rasterize_batch_sync",
+              "_shift_window", "_shift_device", "_update_device_partial", "_rebuild_device")
+    wrapped = ([(StreamingView, "update"), (FarField, "refresh"), (FarTier, "plan_refresh"),
+                (FarTier, "apply_refresh")] + [(StreamingView, name) for name in stages])
+    originals = [getattr(cls, name) for cls, name in wrapped]
+
+    def timer(fn, key):
+        def call(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t1
+        return call
+
+    detach(view)
+    del view
+    try:
+        for (cls, name), fn in zip(wrapped, originals):
+            setattr(cls, name, timer(fn, name))
+        timed_view = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=8192)
+        for i in range(FLY_FRAMES):
+            spent.clear()
+            t1 = time.perf_counter()
+            timed_view.render(flight_cam(i), out_u8=True, out_device=True)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t1
+            ms_of = {k: spent.get(k, 0.0) * 1e3 for k in spent}
+            other = ms_of["update"] - sum(ms_of.get(k, 0.0) for k in stages)
+            log(f"  fly-over frame {i}: {total * 1e3:.1f} ms by host clock: update "
+                f"{ms_of['update']:.1f} ms ("
+                + ", ".join(f"{k.strip('_')} {ms_of.get(k, 0.0):.1f}" for k in stages)
+                + f", the rest {other:.1f}), far refresh {ms_of.get('refresh', 0.0):.1f} ms "
+                f"(plan {ms_of.get('plan_refresh', 0.0):.1f}, apply "
+                f"{ms_of.get('apply_refresh', 0.0):.1f}), device and launch "
+                f"{total * 1e3 - ms_of['update'] - ms_of.get('refresh', 0.0):.1f} ms {host_tag}")
+    finally:
+        for (cls, name), fn in zip(wrapped, originals):
+            setattr(cls, name, fn)
+    detach(timed_view)
+    del timed_view
+    log(f"phase 12 (f) timing: {time.time() - t0:.1f} s")
+    log(f"phase 12 streaming: {time.time() - t_all:.1f} s, launches {launches}")
+
+    src = "voxelhex_tpu_torch/csrc/"
+    ref = "voxelhex_tpu/render/streaming.py:"
+    rows = (("region_scatter", "stream.cu", "42", "region_scatter", "index_copy_"),
+            ("coarse_rebuild", "stream.cu", "114", "coarse_rebuild", None),
+            ("window_shift", "stream.cu", "1073", "window_shift", "torch.roll"),
+            ("far_frame", "far.cu", "1479", "far frame", None))
+    return [{"name": name, "route": "cuda", "source": src + source, "replaces": ref + line,
+             "launches": launches["render_far" if name == "far_frame" else name],
+             "max_abs_err": far_err if name == "far_frame" else 0.0, "ms": ms[key],
+             "plain_ms": plain[key],
+             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+             "library_ms": ms[lib] if lib else None}
+            for name, source, line, key, lib in rows]
 
 
 if __name__ == "__main__":

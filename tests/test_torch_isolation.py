@@ -104,7 +104,7 @@ def test_wrappers_have_no_fallback():
     """A CUDA tensor launches the kernel or raises: the wrappers catch
     nothing that could route it to the plain version."""
     for name in ("traverse.py", "shade.py", "frame.py", "frames.py", "multihit.py",
-                 "composite.py", "adam.py", "albedo.py"):
+                 "composite.py", "adam.py", "albedo.py", "stream.py", "far.py"):
         with open(os.path.join(PKG, "ops", name)) as f:
             tree = ast.parse(f.read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
@@ -124,9 +124,9 @@ def test_default_device_needs_cuda(monkeypatch):
 def test_import_builds_nothing():
     from voxelhex_tpu_torch.diff import fit, optim, render, soft  # noqa: F401
     from voxelhex_tpu_torch.io import checkpoint  # noqa: F401
-    from voxelhex_tpu_torch.ops import (_build, adam, albedo, composite, frame, frames, multihit,
-                                        shade, traverse)
-    from voxelhex_tpu_torch.render import pipeline  # noqa: F401
+    from voxelhex_tpu_torch.ops import (_build, adam, albedo, composite, far, frame, frames,
+                                        multihit, shade, stream, traverse)
+    from voxelhex_tpu_torch.render import pipeline, streaming  # noqa: F401
 
     assert _build._lib is None or torch.cuda.is_available()
     assert frames.render_frames.launches >= 0
@@ -135,6 +135,8 @@ def test_import_builds_nothing():
     assert composite.composite_forward.launches >= 0
     assert composite.composite_backward.launches >= 0 and adam.adam_update.launches >= 0
     assert albedo.albedo_forward.launches >= 0 and albedo.albedo_backward.launches >= 0
+    assert stream.region_scatter.launches >= 0 and stream.coarse_rebuild.launches >= 0
+    assert stream.window_shift.launches >= 0 and far.render_far.launches >= 0
 
 
 def test_batched_paths_raise_on_the_card_path_without_a_fallback(monkeypatch):
@@ -205,8 +207,9 @@ def test_offline_trainers_need_cuda_by_default(monkeypatch):
 
 def test_offline_slice_stands_alone():
     """The slice's modules are the port's own (the package-wide import check
-    above covers them), the package's top-level names load lazily, and the
-    names not ported yet say which ROADMAP item ports them."""
+    above covers them), the package's top-level names load lazily (the
+    streaming view's too), and the names not ported yet say which ROADMAP
+    item ports them."""
     import voxelhex_tpu_torch as vt
 
     files = _port_files()
@@ -220,10 +223,12 @@ def test_offline_slice_stands_alone():
     assert vt.BoxTree is BoxTree and vt.save_tree is checkpoint.save_tree
     for name in ("Albedo", "Entry", "flatten", "fastest_renderer", "Camera", "orbit_camera",
                  "load_vox_tree", "load_vox_tree_cached", "load_vox_scene", "load_tree",
-                 "save_flat", "load_flat", "bencode", "SoftRenderer"):
+                 "save_flat", "load_flat", "bencode", "SoftRenderer", "StreamingView"):
         assert getattr(vt, name) is not None, name
-    for name, item in (("NativeEditTree", "item 4"), ("StreamingView", "item 7"),
-                       ("RenderService", "item 10")):
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+
+    assert vt.StreamingView is StreamingView
+    for name, item in (("NativeEditTree", "item 4"), ("RenderService", "item 10")):
         with pytest.raises(AttributeError, match=f"ROADMAP.md queue 1 {item}"):
             getattr(vt, name)
     with pytest.raises(AttributeError):

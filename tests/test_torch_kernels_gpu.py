@@ -549,3 +549,130 @@ def test_batched_renderer_paths_equal_cpu(cuda):
     pipe.close()
     for f, c in zip(futs, cams):
         np.testing.assert_array_equal(f.result(timeout=60), cpu.render(c, out_u8=True))
+
+
+# ---- the streaming view's kernels (csrc/stream.cu) and its far-field frame
+# (csrc/far.cu)
+
+def _window(S, cuda, density=0.05, seed=0, n_colors=300):
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+
+    rng = np.random.default_rng(seed)
+    occ = rng.random((S, S, S)) < density
+    bg = bitgrid_from_occupancy(occ, palette=rng.random((n_colors, 4)))
+    colors = np.where(occ, rng.integers(0, n_colors, occ.shape), 0xFFFF).astype(np.uint16)
+    bg.colors = np.ascontiguousarray(colors.transpose(2, 1, 0)).ravel()
+    return device_bitgrid(bg, cuda)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_region_scatter_kernel_equals_plain(cuda, wide):
+    from voxelhex_tpu_torch.ops.stream import region_scatter, region_scatter_plain
+
+    S, K = 256, 1500
+    tree = _window(S, cuda)
+    rng = np.random.default_rng(11)
+    n = S // 16
+    picks = rng.choice(n**3, K, replace=False)
+    corners = torch.from_numpy(np.stack([picks % n, picks // n % n, picks // (n * n)], 1)
+                               .astype(np.int32) * 16).to(cuda)
+    if wide:
+        vals = rng.integers(0, 2**16, (K, 4096)).astype(np.uint16).view(np.int16)
+    else:
+        vals = rng.integers(0, 256, (K, 4096)).astype(np.uint8)
+    vals = torch.from_numpy(vals).to(cuda)
+    blk = torch.from_numpy(rng.integers(0, 2**32, (K, 64, 2), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32)).to(cuda)
+    want = dict(tree, colors=tree["colors"].clone(), occ_pairs=tree["occ_pairs"].clone())
+    region_scatter_plain(want["colors"], want["occ_pairs"], corners, vals, blk, S)
+    n0 = region_scatter.launches
+    region_scatter(tree, corners, vals, blk)
+    torch.cuda.synchronize()
+    assert region_scatter.launches == n0 + 1
+    assert _equal(tree["colors"], want["colors"]) and _equal(tree["occ_pairs"],
+                                                             want["occ_pairs"])
+
+
+@pytest.mark.parametrize("S", [48, 128, 256])
+def test_coarse_rebuild_kernel_equals_plain(cuda, S):
+    from voxelhex_tpu_torch.ops.stream import coarse_rebuild, coarse_rebuild_plain
+
+    tree = _window(S, cuda, density=0.0005, seed=S)
+    nb = S // 4
+    rng = np.random.default_rng(S)
+    level0 = (rng.random((nb**3, 2)) < 0.01) * rng.integers(1, 2**31, (nb**3, 2))
+    tree["occ_pairs"][: nb**3] = torch.from_numpy(level0.astype(np.int32)).to(cuda)
+    want = coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"], tree["dims"])
+    n0 = coarse_rebuild.launches
+    coarse_rebuild(tree)
+    torch.cuda.synchronize()
+    assert coarse_rebuild.launches == n0 + len(tree["bases"]) - 1
+    assert _equal(tree["occ_pairs"], want)
+
+
+@pytest.mark.parametrize("shift", [(96, 0, 16), (-80, -16, 0), (32, -48, 16), (256, 0, 0),
+                                   (4, 0, -4)])
+def test_window_shift_kernel_equals_plain(cuda, shift):
+    from voxelhex_tpu_torch.ops.stream import window_shift, window_shift_plain
+
+    S = 256
+    tree = _window(S, cuda, seed=5)
+    before = (tree["colors"].clone(), tree["occ_pairs"].clone())
+    want = window_shift_plain(tree["colors"], tree["occ_pairs"], S, shift)
+    n0 = window_shift.launches
+    got = window_shift(tree, shift)
+    torch.cuda.synchronize()
+    assert window_shift.launches == n0 + 1
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+    assert _equal(tree["colors"], before[0]) and _equal(tree["occ_pairs"], before[1])
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
+@pytest.mark.parametrize("inside", [True, False])
+def test_far_kernel_equals_plain(cuda, n_layers, inside):
+    """A window of 64 and rings of 64 cells at factors 4 and 16, each with
+    its own camera frame, at 1920 x 1080, u8 and f32."""
+    from dataclasses import replace
+
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    eye = np.array([30.5, 20.0, 25.5] if inside else [-200.0, 300.0, -250.0], dtype=np.float32)
+    target = np.array([300.0, 4.0, 500.0], dtype=np.float32)
+    cam = Camera(origin=eye, target=target, resolution=(1920, 1080), fov_y_deg=55.0)
+    layers = []
+    for i, (factor, origin) in enumerate([(1, (0, 0, 0)), (4, (-64, 0, -64)),
+                                          (16, (-512, 0, -512))][:n_layers]):
+        o = np.asarray(origin, dtype=np.float32)
+        c = replace(cam, origin=(eye - o) / np.float32(factor),
+                    target=(target - o) / np.float32(factor))
+        layers.append((device_bitgrid(_grid(64, seed=i, density=0.01), cuda), c, factor))
+    for out_u8 in (True, False):
+        n0 = render_far.launches
+        k = render_far(layers, inside, (0.1, 0.2, 0.3), out_u8)
+        torch.cuda.synchronize()
+        assert render_far.launches == n0 + 1
+        assert _equal(k, far_frame_plain(layers, inside, (0.1, 0.2, 0.3), out_u8))
+
+
+def test_streaming_view_on_the_card_equals_cpu(cuda):
+    """A short flight over a 256 terrain through a 64 window (one whole-world
+    ring at factor 4): the card's frames and grids equal the CPU's."""
+    from voxelhex_tpu_torch.render.camera import Camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import terrain_points
+    from voxelhex_tpu_torch.tree.build import from_voxels
+
+    pts, cols = terrain_points(256)
+    views = {dev: StreamingView(from_voxels(pts, cols, size=256, brick_dim=4), view_size=64,
+                                regions_per_update=64, device=dev) for dev in (cuda, "cpu")}
+    for i in range(4):
+        cx = 256 * (0.2 + 0.2 * i)
+        cam = Camera(origin=np.array([cx - 20.0, 31.0, 72.0]),
+                     target=np.array([cx, 13.0, 102.0]), resolution=(320, 180), fov_y_deg=55.0)
+        a, b = (views[dev].render(cam, out_u8=True) for dev in (cuda, "cpu"))
+        assert np.array_equal(a, b)
+        ta, tb = views[cuda].renderer.tree, views["cpu"].renderer.tree
+        assert _equal(ta["colors"].cpu(), tb["colors"]) and _equal(ta["occ_pairs"].cpu(),
+                                                                   tb["occ_pairs"])

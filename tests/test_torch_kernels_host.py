@@ -163,6 +163,7 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int atomicAdd(int* p, int v) { int old = *p; *p = old + v; return old; }
 inline int atomicOr(int* p, int v) { int old = *p; *p = old | v; return old; }
 inline int2 make_int2(int a, int b) { return {a, b}; }
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -252,6 +253,28 @@ namespace alb {
 }
 namespace frm {
 #include "frames_host.cu"
+}
+namespace strm {
+#include "stream_host.cu"
+}
+namespace farn {
+#include "far_host.cu"
+}
+
+// traverse.cuh's init of each ray, from `start` (kStart) or without it
+extern "C" void host_init(const float* o, const float* d, const void* occ, const TraceParams* P,
+                          const float* start, int R, float* point, int* active, int* tsect) {
+    int2 levels[VHX_MAX_LEVELS];
+    for (int i = 0; i < VHX_MAX_LEVELS; ++i) levels[i] = make_int2(P->bases[i], P->dims[i]);
+    const vhx::Grid g{(const uint2*)occ, levels, P->n_levels, P->size, P->n_blocks};
+    for (int r = 0; r < R; ++r) {
+        vhx::March m;
+        if (start) vhx::init<true>(m, o + 3 * r, d + 3 * r, g, start[r]);
+        else vhx::init(m, o + 3 * r, d + 3 * r, g);
+        for (int c = 0; c < 3; ++c) point[3 * r + c] = m.p[c];
+        active[r] = m.active;
+        tsect[r] = m.tsect;
+    }
 }
 
 // the warp stand-ins on their own: each lane's key from the lane above, the
@@ -384,9 +407,11 @@ def host_lib(tmp_path_factory):
     # checks and its memset as the wrapper does; and so do the albedo
     # kernels', whose launches run a warp's lanes as threads
     # (vhx_host_warp_launch) for the backward's warp intrinsics
-    entry = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);", flags=re.S)
+    entry = re.compile(r"(\w+(?:<[\w ]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
     for name, launcher, n_launches in (("frames", "vhx_host_launch", 1),
-                                       ("albedo", "vhx_host_warp_launch", 2)):
+                                       ("albedo", "vhx_host_warp_launch", 2),
+                                       ("stream", "vhx_host_launch", 5),
+                                       ("far", "vhx_host_launch", 1)):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src, n = entry.subn(launcher + r"(\2, [&] { \1(\3); });", f.read())
         assert n == n_launches
@@ -425,6 +450,16 @@ def host_lib(tmp_path_factory):
     lib.vhx_albedo_forward.argtypes = [p, p, p, p, p, i, i, i, ctypes.POINTER(f), p, i, p]
     lib.vhx_albedo_backward.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
     lib.host_atomics.restype = ctypes.c_longlong
+    lib.vhx_region_scatter.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.vhx_coarse_rebuild.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p]
+    lib.vhx_window_shift.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.vhx_render_far.argtypes = [ctypes.POINTER(_build.FarParams), p, p, i, p]
+    lib.vhx_far_params_size.restype = i
+    lib.vhx_far_max_layers.restype = i
+    for name in ("vhx_region_scatter", "vhx_coarse_rebuild", "vhx_window_shift",
+                 "vhx_render_far"):
+        getattr(lib, name).restype = i
+    lib.host_init.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), p, i, p, p, p]
     lib.host_warp_probe.argtypes = [p, p, i]
     lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
                               p, ctypes.POINTER(_build.AdamParams), i]
@@ -1043,3 +1078,187 @@ def test_albedo_kernel_sources_equal_plain(host_lib, R, case, offsets):
     if case == "random":
         np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
     assert bool(((g == 0) == (ref == 0)).all())
+
+
+# ---- the streaming view's kernels (csrc/stream.cu) and its far-field frame
+# (csrc/far.cu), through their C entries
+
+def _window(S, density, seed=0):
+    """A random window of edge S on the CPU (``device_bitgrid``)."""
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+
+    rng = np.random.default_rng(seed)
+    occ = rng.random((S, S, S)) < density
+    bg = bitgrid_from_occupancy(occ, palette=rng.random((300, 4)))
+    colors = np.where(occ, rng.integers(0, 300, occ.shape), 0xFFFF).astype(np.uint16)
+    bg.colors = np.ascontiguousarray(colors.transpose(2, 1, 0)).ravel()
+    return device_bitgrid(bg, "cpu")
+
+
+def _clone(tree):
+    return dict(tree, colors=tree["colors"].clone(), occ_pairs=tree["occ_pairs"].clone())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_region_scatter_kernel_source_equals_plain(host_lib, wide):
+    """Regions at corners all over a 64 window, both wires: u8 with its two
+    sentinels, and u16 (past 254 palette colors)."""
+    from voxelhex_tpu_torch.ops.stream import region_scatter_plain
+
+    S = 64
+    tree = _window(S, 0.05)
+    rng = np.random.default_rng(3)
+    n = S // 16
+    picks = rng.choice(n**3, 9, replace=False)
+    corners = torch.from_numpy(np.stack([picks % n, picks // n % n, picks // (n * n)], 1)
+                               .astype(np.int32) * 16)
+    if wide:
+        vals = torch.from_numpy(rng.integers(0, 2**16, (9, 4096)).astype(np.uint16).view(np.int16))
+    else:
+        vals = torch.from_numpy(rng.integers(0, 256, (9, 4096)).astype(np.uint8))
+        vals[0, :8] = 255
+        vals[1, :8] = 254
+    blk = torch.from_numpy(rng.integers(0, 2**32, (9, 64, 2), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32))
+    want = _clone(tree)
+    region_scatter_plain(want["colors"], want["occ_pairs"], corners, vals, blk, S)
+    got = _clone(tree)
+    assert host_lib.vhx_region_scatter(got["colors"].data_ptr(), got["occ_pairs"].data_ptr(),
+                                       corners.data_ptr(), vals.data_ptr(), blk.data_ptr(), 9,
+                                       S, int(wide), 0, None) == 0
+    assert not _equal(want["colors"], tree["colors"])
+    assert _equal(got["colors"], want["colors"]) and _equal(got["occ_pairs"], want["occ_pairs"])
+    assert host_lib.vhx_region_scatter(got["colors"].data_ptr(), got["occ_pairs"].data_ptr(),
+                                       corners.data_ptr(), vals.data_ptr(), blk.data_ptr(), 9,
+                                       S + 8, int(wide), 0, None) != 0
+
+
+@pytest.mark.parametrize("S", [48, 64, 128])
+def test_coarse_rebuild_kernel_source_equals_plain(host_lib, S):
+    """Levels above 0 from a level 0 that the upper levels do not match; at
+    48 and 128 a level's blocks an axis are not a multiple of 4 (3, 2)."""
+    from voxelhex_tpu_torch.ops.stream import _ints, coarse_rebuild_plain
+
+    tree = _window(S, 0.002, seed=S)
+    nb = S // 4
+    rng = np.random.default_rng(S)
+    tree["occ_pairs"][: nb**3] = torch.from_numpy(
+        (rng.random((nb**3, 2)) < 0.02).astype(np.int32) * rng.integers(1, 2**31, (nb**3, 2))
+        .astype(np.int32))
+    want = coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"], tree["dims"])
+    got = tree["occ_pairs"].clone()
+    assert host_lib.vhx_coarse_rebuild(got.data_ptr(), _ints(tree["bases"]),
+                                       _ints(tree["dims"]), len(tree["bases"]), 0, None) == 0
+    assert not _equal(want, tree["occ_pairs"])
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("shift", [(16, 0, 32), (-16, -48, 0), (32, -16, 16), (64, 0, 0),
+                                   (0, 0, 0), (-80, 16, 0), (4, 8, -4), (-12, 0, 0)])
+def test_window_shift_kernel_source_equals_plain(host_lib, shift):
+    """Positive, negative and mixed moves, a move by the whole window and
+    past it, and none; moves along x by a multiple of 8 move 8 colors a
+    thread, the others one."""
+    from voxelhex_tpu_torch.ops.stream import window_shift_plain
+
+    S = 64
+    tree = _window(S, 0.05, seed=7)
+    want = window_shift_plain(tree["colors"], tree["occ_pairs"], S, shift)
+    got = (torch.zeros_like(tree["colors"]), torch.zeros_like(tree["occ_pairs"]))
+    assert host_lib.vhx_window_shift(tree["colors"].data_ptr(), got[0].data_ptr(),
+                                     tree["occ_pairs"].data_ptr(), got[1].data_ptr(),
+                                     tree["occ_pairs"].shape[0], S, *shift, 0, None) == 0
+    assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+    assert host_lib.vhx_window_shift(tree["colors"].data_ptr(), got[0].data_ptr(),
+                                     tree["occ_pairs"].data_ptr(), got[1].data_ptr(),
+                                     tree["occ_pairs"].shape[0], S, 2, 0, 0, 0, None) != 0
+
+
+def _far_case(n_layers, inside, res=(37, 21)):
+    """A window of 16 and rings of 32 cells at factor 2 and 64 at factor 4,
+    random content, one world camera seen from each layer's frame."""
+    from dataclasses import replace
+
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    eye = np.array([8.5, 9.0, 7.5] if inside else [-20.0, 30.0, -25.0], dtype=np.float32)
+    target = np.array([40.0, 4.0, 50.0], dtype=np.float32)
+    cam = Camera(origin=eye, target=target, resolution=res, fov_y_deg=55.0)
+    layers = []
+    for i, (size, density, factor, origin) in enumerate(
+            [(16, 0.02, 1, (0, 0, 0)), (32, 0.03, 2, (0, 0, 0)), (64, 0.01, 4, (-64, 0, -64))]
+            [:n_layers]):
+        o = np.asarray(origin, dtype=np.float32)
+        c = replace(cam, origin=(eye - o) / np.float32(factor),
+                    target=(target - o) / np.float32(factor))
+        layers.append((_tree(size, density), c, factor))
+    return layers
+
+
+@pytest.mark.parametrize("n_layers", [1, 2, 3])
+@pytest.mark.parametrize("inside", [True, False])
+@pytest.mark.parametrize("out_u8", [True, False])
+def test_far_kernel_source_equals_plain(host_lib, n_layers, inside, out_u8):
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params
+
+    assert host_lib.vhx_far_params_size() == ctypes.sizeof(_build.FarParams)
+    assert host_lib.vhx_far_max_layers() == _build.FAR_MAX_LAYERS
+    layers = _far_case(n_layers, inside)
+    bg = (0.1, 0.2, 0.3)
+    out = torch.full((21, 37, 3), 7, dtype=torch.uint8 if out_u8 else torch.float32)
+    assert host_lib.vhx_render_far(far_params(layers, inside, bg),
+                                   None if out_u8 else out.data_ptr(),
+                                   out.data_ptr() if out_u8 else None, 0, None) == 0
+    want = far_frame_plain(layers, inside, bg, out_u8)
+    assert len(torch.unique(want.reshape(-1, 3), dim=0)) >= 3
+    assert _equal(out, want)
+    if n_layers > 1:  # a ring's hits show where the window misses
+        assert not _equal(want, far_frame_plain(layers[:1], inside, bg, out_u8))
+
+
+def _grazing_rays(size, n, seed):
+    """Rays from outside and inside the box [0, size)^3 with starts about
+    their exit distance: up to 2e-3 before it (where the clip to tmax - 1e-3
+    binds), at it and past it, and zero; rays that skim a face."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5 * size, 1.5 * size, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 4, 1] = rng.uniform(-1e-4, 1e-4, n // 4).astype(np.float32)  # skim y faces
+    o[: n // 4, 1] = np.float32(size) * rng.choice([0.0, 1.0], n // 4).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    S = np.float32(size)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_lo, t_hi = (np.float32(0) - o) / d, (S - o) / d
+    tmax = np.fmin(np.fmin(np.fmax(t_lo, t_hi)[:, 0], np.fmax(t_lo, t_hi)[:, 1]),
+                   np.fmax(t_lo, t_hi)[:, 2])
+    k = rng.integers(0, 4, n)
+    u = rng.uniform(0, 2e-3, n).astype(np.float32)
+    start = np.where(k == 0, tmax - u, np.where(k == 1, tmax, np.where(k == 2, tmax + u, 0)))
+    start = np.nan_to_num(start.astype(np.float32), posinf=1e9, neginf=0)
+    return torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(start.astype(np.float32))
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("with_start", [True, False])
+def test_init_source_equals_plain_at_the_start_clip(host_lib, size, density, with_start):
+    """traverse.cuh's init from start_t, and without it, on rays whose
+    start sits at their exit: point, active and sectant bit for bit."""
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, trace_params
+    from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+
+    tree = _tree(size, density)
+    o, d, start = _grazing_rays(size, 4000, seed=size)
+    trace = make_bitgrid_tracer(len(tree["bases"]), size, **KERNEL_CONFIG)
+    want = trace.init(tree, o, d, start if with_start else None)
+    n = o.shape[0]
+    point, active, tsect = torch.zeros((n, 3)), torch.zeros(n, dtype=torch.int32), \
+        torch.zeros(n, dtype=torch.int32)
+    host_lib.host_init(o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
+                       trace_params(tree), start.data_ptr() if with_start else None, n,
+                       point.data_ptr(), active.data_ptr(), tsect.data_ptr())
+    assert _equal(point, want["point"])
+    assert _equal(active.bool(), want["active"]) and _equal(tsect, want["tsect"])
+    if with_start:
+        assert 0 < int(want["active"].sum()) < n

@@ -11,18 +11,21 @@ It imports neither JAX nor the reference package.  Layout:
   the bencode format and versioned checkpoints; :mod:`.native` builds and
   binds its host library (``host/rasterize.cpp``);
 * :mod:`.render` — camera and rays, the BitGrid and its plain tracer,
-  plain shading, the renderer (:func:`.render.fastest_renderer`);
+  plain shading, the renderer (:func:`.render.fastest_renderer`), the
+  streaming view over a world larger than the card's window and its far
+  field (:mod:`.render.streaming`);
 * :mod:`.diff` — differentiable rendering: the soft-occupancy renderer,
   the albedo renderer and their offline trainers;
 * :mod:`.ops` — the CUDA kernels' wrappers (the frame, the batched
-  frames, traversal, shading, the training steps' kernels) and the
-  ``nvcc`` build of ``csrc/``;
+  frames, traversal, shading, the training steps' kernels, the streaming
+  window's updates and its far-field frame) and the ``nvcc`` build of
+  ``csrc/``;
 * :mod:`.convert` — a reference BitGrid's or FlatTree's fields, params and
   Adam state to the port's.
 
 The reference's top-level names that the port has load lazily::
 
-    from voxelhex_tpu_torch import BoxTree, Albedo, fastest_renderer, orbit_camera
+    from voxelhex_tpu_torch import BoxTree, Albedo, StreamingView, fastest_renderer
 """
 
 __version__ = "0.1.0"
@@ -39,7 +42,6 @@ from voxelhex_tpu_torch.constants import (  # noqa: F401
 # ROADMAP.md item that ports each
 NOT_PORTED = {
     "NativeEditTree": "queue 1 item 4 (the edit engine)",
-    "StreamingView": "queue 1 item 7 (streaming)",
     "RenderService": "queue 1 item 10 (serving)",
 }
 
@@ -62,6 +64,8 @@ def __getattr__(name):
         return getattr(importlib.import_module("voxelhex_tpu_torch.io.checkpoint"), name)
     if name == "bencode":
         return importlib.import_module("voxelhex_tpu_torch.io.bencode")
+    if name == "StreamingView":
+        return importlib.import_module("voxelhex_tpu_torch.render.streaming").StreamingView
     if name == "SoftRenderer":
         return importlib.import_module("voxelhex_tpu_torch.diff.soft").SoftRenderer
     if name in NOT_PORTED:
@@ -92,5 +96,6 @@ __all__ = [
     "save_flat",
     "save_tree",
     "SoftRenderer",
+    "StreamingView",
     "__version__",
 ]

@@ -90,6 +90,12 @@ __device__ __forceinline__ float xla_max(float a, float b) {
     return b;
 }
 
+// XLA min: NaN propagates, -0 < +0
+__device__ __forceinline__ float xla_min(float a, float b) {
+    if (a != a || a < b || (a == b && signbit(a))) return a;
+    return b;
+}
+
 // jnp.fmin / jnp.fmax: NaN loses, a tie takes the second operand
 __device__ __forceinline__ float fmin_nan(float a, float b) {
     return (a < b || b != b) ? a : b;
@@ -298,7 +304,13 @@ constexpr int MOVE_LATERAL = 4;
 constexpr int MOVE_ADVANCE = 5;
 
 // Clip the ray (o, d) to the world box and enter it at the top level.
-__device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g) {
+// With kStart, the ray starts at least `start_t` along, clipped to just
+// inside its exit, and a ray that starts at or beyond its exit is inactive
+// from the start: the reference's `start_t` (bitgrid.py init), in its
+// order.  Without it the code is the form that every kernel but far.cu runs.
+template <bool kStart = false>
+__device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g,
+                                     float start_t = 0.f) {
     const float S = (float)g.size;
     const int top = g.n_levels - 1;
     const float top_block = pow4(top) * 4.f;
@@ -331,8 +343,15 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
     const float tmax_r = fmin_nan(fmin_nan(pmax[0], pmax[1]), pmax[2]);
     m.active = !((tmax_r < 0.f) || (tmin_r > tmax_r));
     m.hit = false;
-    const float enter = xla_max(tmin_r, 0.f);
-    // the reference fuses this multiply-add on x and y, not on z
+    float enter = xla_max(tmin_r, 0.f);
+    if constexpr (kStart) {
+        // clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
+        m.active = m.active && start_t < tmax_r;
+        enter = xla_min(xla_max(0.f, xla_max(enter, start_t)),
+                        xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
+    }
+    // the reference fuses this multiply-add on x and y, not on z (with
+    // start_t too)
     m.p[0] = __fmaf_rn(d[0], enter, o[0]);
     m.p[1] = __fmaf_rn(d[1], enter, o[1]);
     m.p[2] = __fadd_rn(o[2], __fmul_rn(d[2], enter));
@@ -560,15 +579,17 @@ struct Hit {
     float normal[3];
 };
 
-// March the ray (o, d) through the pyramid: the reference's `trace` of one ray.
+// March the ray (o, d) through the pyramid: the reference's `trace` of one
+// ray; with kStart, from `start_t` on (init).
+template <bool kStart = false>
 __device__ __forceinline__ Hit march(const float o[3], const float d[3],
                                      const uint2* __restrict__ occ,
                                      const unsigned short* __restrict__ colors,
                                      const int2* levels, int n_levels, int size, int n_blocks,
-                                     int max_iters) {
+                                     int max_iters, float start_t = 0.f) {
     const Grid g{occ, levels, n_levels, size, n_blocks};
     March m;
-    init(m, o, d, g);
+    init<kStart>(m, o, d, g, start_t);
     StopAtHit stop;
     run(m, g, max_iters, stop);
 

@@ -46,6 +46,13 @@ def maximum(a, b):
     )
 
 
+def minimum(a, b):
+    """XLA ``min``: NaN propagates and -0 < +0."""
+    return torch.where(
+        torch.isnan(a) | (a < b) | ((a == b) & torch.signbit(a)), a, b
+    )
+
+
 def sqrt32(x):
     """Correctly rounded f32 square root.  PyTorch's CPU ``sqrt`` of f32 is
     not always correctly rounded; the f64 root rounded once to f32 is."""

@@ -13,9 +13,14 @@
 //    a node key or brick index out of range fails the call.
 //  * pack_level: fold a dense cell grid into the 64-bit occupancy words of
 //    its 4x4x4 blocks (bit s = cx + 4*cy + 16*cz) and the next grid up.
+//  * rasterize_window / rasterize_regions: the streaming view's paging.
+//    Paint one window of the world (walking only the nodes that overlap
+//    it), or K region windows in one call, each also folded into its 4^3
+//    blocks' occupancy words (pack_level's bits, blocks x fastest).
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <utility>
 #include <vector>
 
@@ -23,6 +28,7 @@ namespace {
 
 constexpr int32_t EMPTY_DESC = -1;
 constexpr int32_t SOLID_FLAG = 1 << 30;
+constexpr uint16_t COLOR_EMPTY = 0xFFFF;
 constexpr uint16_t COLOR_NONE = 0xFFFE;
 
 // rasterize_flat's results (voxelhex_tpu_torch/native.py names them)
@@ -220,6 +226,129 @@ void bulk_group_fill(const uint32_t* packed, const int64_t* keys_sorted, const i
         }
     }
     if (m >= 0) solid[m] = all_equal && count == d3;
+}
+
+// Paint the window [wx, wx + wsize) x [wy, ..) x [wz, ..) of a FlatTree into
+// dense occ (u8) and colors (u16) grids of wsize^3 entries, x fastest; the
+// caller fills occ with 0 and colors with 0xFFFF.  Nodes that miss the
+// window are not walked.  Returns rasterize_flat's codes.
+int32_t rasterize_window(const uint32_t* node_meta, const int32_t* node_children,
+                         const int32_t* bricks, int32_t n_nodes, int32_t n_bricks,
+                         int32_t brick_dim, int32_t S, int32_t wx, int32_t wy, int32_t wz,
+                         int32_t wsize, uint8_t* occ, uint16_t* colors) {
+    const int64_t W2 = (int64_t)wsize * wsize;
+    const int d = brick_dim;
+    // paint one descriptor spanning `extent` voxels, clipped to the window
+    auto paint = [&](int32_t desc, int x0, int y0, int z0, int extent) -> int32_t {
+        if (desc == EMPTY_DESC) return RASTER_OK;
+        const int lx = std::max(x0, wx), hx = std::min(x0 + extent, wx + wsize);
+        const int ly = std::max(y0, wy), hy = std::min(y0 + extent, wy + wsize);
+        const int lz = std::max(z0, wz), hz = std::min(z0 + extent, wz + wsize);
+        if (lx >= hx || ly >= hy || lz >= hz) return RASTER_OK;
+        const bool solid = desc & SOLID_FLAG;
+        const int32_t* brick = nullptr;
+        if (!solid) {
+            if (desc < 0 || desc >= n_bricks) return RASTER_BAD_BRICK;
+            brick = bricks + (int64_t)desc * d * d * d;
+        }
+        const uint16_t sc = solid ? color_of(desc & (SOLID_FLAG - 1)) : 0;
+        // a cell at least a brick wide stretches each voxel f times; a
+        // smaller one takes the brick's low corner
+        const int f = extent >= d ? extent / d : 1;
+        for (int z = lz; z < hz; ++z)
+            for (int y = ly; y < hy; ++y)
+                for (int x = lx; x < hx; ++x) {
+                    const int64_t di =
+                        (int64_t)(x - wx) + (int64_t)(y - wy) * wsize + (int64_t)(z - wz) * W2;
+                    if (solid) {
+                        occ[di] = 1;
+                        colors[di] = sc;
+                        continue;
+                    }
+                    const int32_t v =
+                        brick[(x - x0) / f + ((y - y0) / f) * d + ((z - z0) / f) * d * d];
+                    if (v == EMPTY_DESC) continue;
+                    occ[di] = 1;
+                    colors[di] = color_of(v);
+                }
+        return RASTER_OK;
+    };
+    std::vector<Frame> stack;
+    stack.push_back({0, 0, 0, 0, S});
+    while (!stack.empty()) {
+        const Frame f = stack.back();
+        stack.pop_back();
+        if (f.key >= n_nodes) return RASTER_BAD_NODE;
+        if (f.size < 1) return RASTER_TOO_DEEP;
+        if (f.x >= wx + wsize || f.y >= wy + wsize || f.z >= wz + wsize ||
+            f.x + f.size <= wx || f.y + f.size <= wy || f.z + f.size <= wz)
+            continue;
+        const uint32_t meta = node_meta[f.key];
+        const int cell = f.size / 4;
+        const int32_t* row = node_children + (int64_t)f.key * 64;
+        if (meta & 2) {  // uniform: one brick over the whole node
+            const int32_t r = paint(row[0], f.x, f.y, f.z, f.size);
+            if (r != RASTER_OK) return r;
+            continue;
+        }
+        for (int s = 0; s < 64; ++s) {
+            const int x = f.x + (s % 4) * cell, y = f.y + ((s / 4) % 4) * cell,
+                      z = f.z + (s / 16) * cell;
+            if (meta & 1) {  // leaf: 64 bricks
+                const int32_t r = paint(row[s], x, y, z, cell);
+                if (r != RASTER_OK) return r;
+            } else if (row[s] >= 0) {  // internal
+                stack.push_back({row[s], x, y, z, cell});
+            }
+        }
+    }
+    return RASTER_OK;
+}
+
+// K windows of rsize^3 at `corners` (int32 [K, 3], world voxels) in one
+// call: each one's dense grids (occ [K, rsize^3], colors [K, rsize^3], x
+// fastest, filled here) and its (rsize/4)^3 blocks' (lo, hi) occupancy
+// words ([K, (rsize/4)^3], blocks x fastest).  A window whose corner lies
+// outside the world stays empty.  Returns the first fault, as above.
+int32_t rasterize_regions(const uint32_t* node_meta, const int32_t* node_children,
+                          const int32_t* bricks, int32_t n_nodes, int32_t n_bricks,
+                          int32_t brick_dim, int32_t S, const int32_t* corners, int32_t k,
+                          int32_t rsize, uint8_t* occ, uint16_t* colors, uint32_t* lo,
+                          uint32_t* hi) {
+    const int64_t r3 = (int64_t)rsize * rsize * rsize;
+    const int32_t n = rsize / 4;
+    const int64_t n3 = (int64_t)n * n * n;
+    for (int32_t i = 0; i < k; ++i) {
+        uint8_t* o = occ + i * r3;
+        uint16_t* c = colors + i * r3;
+        std::memset(o, 0, (size_t)r3);
+        std::fill(c, c + r3, COLOR_EMPTY);
+        const int32_t* cr = corners + 3 * i;
+        if (cr[0] < S && cr[1] < S && cr[2] < S) {
+            const int32_t r = rasterize_window(node_meta, node_children, bricks, n_nodes,
+                                               n_bricks, brick_dim, S, cr[0], cr[1], cr[2],
+                                               rsize, o, c);
+            if (r != RASTER_OK) return r;
+        }
+        uint32_t* pl = lo + i * n3;
+        uint32_t* ph = hi + i * n3;
+        std::memset(pl, 0, (size_t)n3 * 4);
+        std::memset(ph, 0, (size_t)n3 * 4);
+        for (int32_t z = 0; z < rsize; ++z)
+            for (int32_t y = 0; y < rsize; ++y) {
+                const uint8_t* row = o + (int64_t)y * rsize + (int64_t)z * rsize * rsize;
+                const int64_t wbase = (int64_t)(y >> 2) * n + (int64_t)(z >> 2) * n * n;
+                const int sbase = 4 * (y & 3) + 16 * (z & 3);
+                for (int32_t x = 0; x < rsize; ++x) {
+                    if (!row[x]) continue;
+                    const int s = (x & 3) + sbase;
+                    const int64_t w = (x >> 2) + wbase;
+                    if (s < 32) pl[w] |= 1u << s;
+                    else ph[w] |= 1u << (s - 32);
+                }
+            }
+    }
+    return RASTER_OK;
 }
 
 }  // extern "C"

@@ -95,12 +95,18 @@ def library() -> types.SimpleNamespace:
                 "bulk_group_fill": [ptr(np.uint32), ptr(np.int64), ptr(np.int64), i64, i32, u32,
                                     ptr(np.int64), ptr(np.uint32), ptr(np.uint64),
                                     ptr(np.uint8)],
+                "rasterize_window": [ptr(np.uint32), ptr(np.int32), ptr(np.int32), i32, i32,
+                                     i32, i32, i32, i32, i32, i32, ptr(np.uint8),
+                                     ptr(np.uint16)],
+                "rasterize_regions": [ptr(np.uint32), ptr(np.int32), ptr(np.int32), i32, i32,
+                                      i32, i32, ptr(np.int32), i32, i32, ptr(np.uint8),
+                                      ptr(np.uint16), ptr(np.uint32), ptr(np.uint32)],
             }
             fns = {}
             for name, argtypes in signatures.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int32 if name == "rasterize_flat" else None
+                fn.restype = ctypes.c_int32 if name.startswith("rasterize") else None
                 fns[name] = fn
             _lib = types.SimpleNamespace(dll=dll, **fns)
         return _lib
@@ -136,9 +142,26 @@ def bulk_group(positions: np.ndarray, packed: np.ndarray, size: int, d: int,
     return uniq_cells, bricks, occ, solid.astype(bool)
 
 
-# rasterize_flat's faults, by the codes host/rasterize.cpp returns
+# the rasterizers' faults, by the codes host/rasterize.cpp returns
 RASTER_FAULTS = {1: "a node key out of range", 2: "a brick descriptor out of range",
                  3: "a node below the voxel level"}
+
+
+def _flat_arrays(flat):
+    """A FlatTree's ``(meta, children, bricks)`` as the library reads them."""
+    meta = np.ascontiguousarray(flat.node_meta, dtype=np.uint32)
+    children = np.ascontiguousarray(flat.node_children, dtype=np.int32)
+    bricks = np.ascontiguousarray(flat.bricks, dtype=np.int32)
+    d = int(flat.brick_dim)
+    if children.shape != (meta.shape[0], 64) or bricks.shape[1:] != (d**3,):
+        raise ValueError(f"FlatTree arrays of shapes {meta.shape}, {children.shape}, "
+                         f"{bricks.shape} for brick_dim {d}")
+    return meta, children, bricks
+
+
+def _check_fault(fault: int) -> None:
+    if fault:
+        raise ValueError(f"malformed FlatTree: {RASTER_FAULTS[fault]}")
 
 
 def rasterize_flat(flat):
@@ -147,20 +170,51 @@ def rasterize_flat(flat):
     ``ValueError``, as ``render.bitgrid._dense_from_flat`` does."""
     lib = library()
     S = int(flat.size)
-    meta = np.ascontiguousarray(flat.node_meta, dtype=np.uint32)
-    children = np.ascontiguousarray(flat.node_children, dtype=np.int32)
-    bricks = np.ascontiguousarray(flat.bricks, dtype=np.int32)
-    d = int(flat.brick_dim)
-    if children.shape != (meta.shape[0], 64) or bricks.shape[1:] != (d**3,):
-        raise ValueError(f"FlatTree arrays of shapes {meta.shape}, {children.shape}, "
-                         f"{bricks.shape} for brick_dim {d}")
+    meta, children, bricks = _flat_arrays(flat)
     occ = np.zeros(S * S * S, dtype=np.uint8)
     colors = np.full(S * S * S, 0xFFFF, dtype=np.uint16)
-    fault = lib.rasterize_flat(meta, children, bricks, meta.shape[0], bricks.shape[0], d, S,
-                               occ, colors)
-    if fault:
-        raise ValueError(f"malformed FlatTree: {RASTER_FAULTS[fault]}")
+    _check_fault(lib.rasterize_flat(meta, children, bricks, meta.shape[0], bricks.shape[0],
+                                    int(flat.brick_dim), S, occ, colors))
     return occ, colors
+
+
+def rasterize_window(flat, wx: int, wy: int, wz: int, wsize: int):
+    """The dense ``(occ u8 [wsize^3], colors u16 [wsize^3])`` grids, x
+    fastest, of the world window ``[wx, wx + wsize) x [wy, ..) x [wz, ..)``
+    of a FlatTree, walking only the nodes that overlap it; an empty voxel
+    has color 0xFFFF.  A malformed FlatTree raises ``ValueError``."""
+    lib = library()
+    meta, children, bricks = _flat_arrays(flat)
+    n = int(wsize) ** 3
+    occ = np.zeros(n, dtype=np.uint8)
+    colors = np.full(n, 0xFFFF, dtype=np.uint16)
+    _check_fault(lib.rasterize_window(meta, children, bricks, meta.shape[0], bricks.shape[0],
+                                      int(flat.brick_dim), int(flat.size), int(wx), int(wy),
+                                      int(wz), int(wsize), occ, colors))
+    return occ, colors
+
+
+def rasterize_regions(flat, corners: np.ndarray, rsize: int):
+    """K windows of ``rsize^3`` at ``corners`` (int [K, 3] world voxels),
+    each painted and packed into its 4^3 blocks' occupancy words in one
+    call: ``(occ u8 [K, r^3], colors u16 [K, r^3], lo u32 [K, (r/4)^3],
+    hi u32 [K, (r/4)^3])``, the grids x fastest, the words those of
+    ``render.bitgrid._pack_bits`` (blocks x fastest).  A malformed FlatTree
+    raises ``ValueError``."""
+    lib = library()
+    meta, children, bricks = _flat_arrays(flat)
+    corners = np.ascontiguousarray(corners, dtype=np.int32).reshape(-1, 3)
+    K = corners.shape[0]
+    r3 = int(rsize) ** 3
+    n3 = (int(rsize) // 4) ** 3
+    occ = np.empty(K * r3, dtype=np.uint8)
+    colors = np.empty(K * r3, dtype=np.uint16)
+    lo = np.empty(K * n3, dtype=np.uint32)
+    hi = np.empty(K * n3, dtype=np.uint32)
+    _check_fault(lib.rasterize_regions(meta, children, bricks, meta.shape[0], bricks.shape[0],
+                                       int(flat.brick_dim), int(flat.size),
+                                       corners.reshape(-1), K, int(rsize), occ, colors, lo, hi))
+    return occ.reshape(K, r3), colors.reshape(K, r3), lo.reshape(K, n3), hi.reshape(K, n3)
 
 
 def pack_pyramid(occ_flat: np.ndarray, S: int):

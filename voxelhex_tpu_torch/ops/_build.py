@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
 SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "frames.cu", "multihit.cu", "composite.cu",
-           "adam.cu", "albedo.cu")
+           "adam.cu", "albedo.cu", "stream.cu", "far.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -35,6 +35,7 @@ FLAGS = (
 BUILD_TIMEOUT_S = 600
 MAX_LEVELS = 12  # VHX_MAX_LEVELS in traverse.cuh
 KMAX = 32  # VHX_KMAX in frames.cu: cameras a launch
+FAR_MAX_LAYERS = 8  # VHX_FAR_MAX_LAYERS in far.cu: the window and its rings
 
 _lock = threading.Lock()
 _lib = None
@@ -95,6 +96,39 @@ class FramesParams(ctypes.Structure):
         ("h", ctypes.c_int),
         ("n_frames", ctypes.c_int),
         ("cams", FrameCam * KMAX),
+    ]
+
+
+class FarLayer(ctypes.Structure):
+    """Mirror of ``struct FarLayer`` in far.cu."""
+
+    _fields_ = [
+        ("trace", TraceParams),
+        ("occ", ctypes.c_void_p),
+        ("colors", ctypes.c_void_p),
+        ("palette", ctypes.c_void_p),
+        ("n_colors", ctypes.c_int),
+        ("factor", ctypes.c_float),
+        ("origin", ctypes.c_float * 3),
+        ("right", ctypes.c_float * 3),
+        ("up", ctypes.c_float * 3),
+        ("forward", ctypes.c_float * 3),
+        ("scale", ctypes.c_float * 2),
+    ]
+
+
+class FarParams(ctypes.Structure):
+    """Mirror of ``struct FarParams`` in far.cu."""
+
+    _fields_ = [
+        ("cw", ctypes.c_float),
+        ("ch", ctypes.c_float),
+        ("bg", ctypes.c_float * 3),
+        ("w", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("inside", ctypes.c_int),
+        ("n_layers", ctypes.c_int),
+        ("layers", FarLayer * FAR_MAX_LAYERS),
     ]
 
 
@@ -203,7 +237,8 @@ def library() -> types.SimpleNamespace:
     """The kernels' C entry points (``vhx_traverse``, ``vhx_shade``,
     ``vhx_render_frame``, ``vhx_render_frames``, ``vhx_multihit``, ``vhx_composite_forward``,
     ``vhx_composite_backward``, ``vhx_adam``, ``vhx_albedo_forward``,
-    ``vhx_albedo_backward``), built first if needed."""
+    ``vhx_albedo_backward``, ``vhx_region_scatter``, ``vhx_coarse_rebuild``,
+    ``vhx_window_shift``, ``vhx_render_far``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -232,6 +267,12 @@ def library() -> types.SimpleNamespace:
                     "vhx_albedo_forward": [p, p, p, p, p, i, i, i, f3, p, i, p],
                     "vhx_albedo_backward": [p, p, p, p, p, i, i, i, p, i, p],
                 },
+                "stream.cu": {
+                    "vhx_region_scatter": [p, p, p, p, p, i, i, i, i, p],
+                    "vhx_coarse_rebuild": [p, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p],
+                    "vhx_window_shift": [p, p, p, p, i, i, i, i, i, i, p],
+                },
+                "far.cu": {"vhx_render_far": [ctypes.POINTER(FarParams), p, p, i, p]},
             }
             fns = {}
             for source, entries in signatures.items():
@@ -243,6 +284,7 @@ def library() -> types.SimpleNamespace:
                                          ("multihit.cu", "vhx_multihit_params_size", TraceParams),
                                          ("frame.cu", "vhx_frame_params_size", FrameParams),
                                          ("frames.cu", "vhx_frames_params_size", FramesParams),
+                                         ("far.cu", "vhx_far_params_size", FarParams),
                                          ("adam.cu", "vhx_adam_params_size", AdamParams)):
                 fn = getattr(dlls[source], name)
                 fn.argtypes, fn.restype = [], i
@@ -253,6 +295,11 @@ def library() -> types.SimpleNamespace:
             kmax.argtypes, kmax.restype = [], i
             if kmax() != KMAX:
                 raise RuntimeError(f"VHX_KMAX is {kmax()} in C, KMAX {KMAX} in ctypes")
+            layers = dlls["far.cu"].vhx_far_max_layers
+            layers.argtypes, layers.restype = [], i
+            if layers() != FAR_MAX_LAYERS:
+                raise RuntimeError(f"VHX_FAR_MAX_LAYERS is {layers()} in C, FAR_MAX_LAYERS "
+                                   f"{FAR_MAX_LAYERS} in ctypes")
             _lib = types.SimpleNamespace(dlls=dlls, **fns)
         return _lib
 

@@ -7,6 +7,9 @@
   single frames, batches, and batches that fetch only what changed.
 * :mod:`voxelhex_tpu_torch.render.pipeline` — ``FramePipeline``, frames
   whose copies to the host overlap the next frames' rendering.
+* :mod:`voxelhex_tpu_torch.render.streaming` — ``StreamingView``, a
+  camera-following window paged from a large host tree, with the coarse
+  LOD rings of its far field (``FarField``, ``FarTier``).
 """
 
 

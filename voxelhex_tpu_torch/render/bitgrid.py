@@ -33,7 +33,7 @@ from voxelhex_tpu_torch.constants import (
     OOB,
     SOLID_FLAG,
 )
-from voxelhex_tpu_torch.fp import fma32, fmax_nan, fmin_nan, maximum, sqrt32
+from voxelhex_tpu_torch.fp import fma32, fmax_nan, fmin_nan, maximum, minimum, sqrt32
 from voxelhex_tpu_torch.tree.boxtree import BoxTree
 from voxelhex_tpu_torch.tree.flat import META_LEAF, META_UNIFORM, FlatTree, flatten
 from voxelhex_tpu_torch.render.wavefront import (
@@ -122,6 +122,24 @@ def _pack_pyramid(occ_xyz: np.ndarray):
     for i in range(1, len(levels_lo)):
         bases[i] = bases[i - 1] + len(levels_lo[i - 1])
     return levels_lo, levels_hi, bases
+
+
+def _pack_bits_batch(occs):
+    """:func:`_pack_bits` of K grids of one size at once: bool [K, c, c, c]
+    (x, y, z), c a multiple of 4 -> (lo, hi) u32 [K, (c/4)^3], each grid's
+    blocks x fastest (the streaming view packs a batch of regions in one
+    pass)."""
+    K, c = occs.shape[0], occs.shape[1]
+    n = c // 4
+    g = occs.reshape(K, n, 4, n, 4, n, 4)  # [K, bx, x, by, y, bz, z]
+    g = g.transpose(0, 1, 3, 5, 6, 4, 2)  # [K, bx, by, bz, z, y, x]
+    bits = g.reshape(K, n, n, n, 64)
+    weights = np.uint64(1) << np.arange(64, dtype=np.uint64)
+    words = (bits.astype(np.uint64) * weights).sum(axis=-1, dtype=np.uint64)
+    flat = words.transpose(0, 3, 2, 1).reshape(K, -1)  # x fastest
+    lo = (flat & np.uint64(U32_MASK)).astype(np.uint32)
+    hi = (flat >> np.uint64(32)).astype(np.uint32)
+    return lo, hi
 
 
 def bitgrid_from_grids(occ_xyz: np.ndarray, colors: np.ndarray,
@@ -340,7 +358,11 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     cell_sizes = [float(4**l) for l in range(n_levels)]
     top_block = cell_sizes[top_level] * 4.0
 
-    def init(tree, o, dirv):
+    def init(tree, o, dirv, start_t=None):
+        """The state of rays (o, dirv) at their entry into the world box.
+        ``start_t`` (f32 [R]): each ray starts at least that far along,
+        clipped to just inside its exit; a ray that starts at or beyond its
+        exit is inactive from the start (the reference's ``start_t``)."""
         R = o.shape[0]
         dev = o.device
         size = torch.tensor(float(tree["size"]), dtype=torch.float32, device=dev)
@@ -361,7 +383,13 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         tmin_r = fmax_nan(fmax_nan(per_min[:, 0], per_min[:, 1]), per_min[:, 2])
         tmax_r = fmin_nan(fmin_nan(per_max[:, 0], per_max[:, 1]), per_max[:, 2])
         root_hit = ~((tmax_r < 0.0) | (tmin_r > tmax_r))
-        enter = maximum(tmin_r, torch.zeros_like(tmin_r))
+        zero = torch.zeros_like(tmin_r)
+        enter = maximum(tmin_r, zero)
+        if start_t is not None:
+            # the reference's order: clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
+            root_hit = root_hit & (start_t < tmax_r)
+            enter = minimum(maximum(zero, maximum(enter, start_t)),
+                            maximum(tmax_r - 1e-3, zero))
         # XLA's vector loop fuses the multiply-add on x and y but not on z
         step = dirv * enter[:, None]
         point = torch.cat(

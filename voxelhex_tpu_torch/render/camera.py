@@ -1,7 +1,7 @@
 """Pinhole camera and ray generation.
 
-A copy of the reference camera (``Camera``, ``orbit_camera``) and its
-device ray generator.  Rays come out as f32 ``[h*w, 3]`` tensors, bit-equal
+A copy of the reference camera (``Camera``, ``orbit_camera``,
+``Viewport``) and its device ray generator.  Rays come out as f32 ``[h*w, 3]`` tensors, bit-equal
 to the reference's ``device_rays`` on XLA:CPU: the same constant folding
 (``x / w * 2`` is ``x * (2/w)``), the same fused multiply-adds and the same
 reduction order for the norm.
@@ -86,6 +86,49 @@ def orbit_camera(
         resolution=resolution,
         fov_y_deg=fov_y_deg,
     )
+
+
+@dataclass
+class Viewport:
+    """The viewport state around a :class:`Camera` that the streaming layer
+    reads: the frustum (near plane's half extents and far distance) and the
+    origin movement accumulated between updates, which a caller takes to
+    decide when to re-page (the reference's ``Viewport``)."""
+
+    camera: Camera
+    frustum: np.ndarray = field(
+        default_factory=lambda: np.array([2.0, 2.0, 4096.0], dtype=np.float32)
+    )
+    origin_delta: np.ndarray = field(default_factory=lambda: np.zeros(3, dtype=np.float32))
+
+    @property
+    def origin(self) -> np.ndarray:
+        return np.asarray(self.camera.origin, dtype=np.float32)
+
+    @property
+    def direction(self) -> np.ndarray:
+        f, _r, _u = self.camera.basis()
+        return f
+
+    def move_viewport(self, delta) -> None:
+        """Move the camera and its target by ``delta``."""
+        d = np.asarray(delta, dtype=np.float32)
+        self.camera.origin = np.asarray(self.camera.origin) + d
+        self.camera.target = np.asarray(self.camera.target) + d
+        self.origin_delta = self.origin_delta + d
+
+    def set_viewport_origin(self, origin) -> None:
+        """Put the camera at ``origin``, its target moved with it."""
+        o = np.asarray(origin, dtype=np.float32)
+        self.origin_delta = self.origin_delta + (o - self.origin)
+        self.camera.target = np.asarray(self.camera.target) + o - np.asarray(self.camera.origin)
+        self.camera.origin = o
+
+    def take_origin_delta(self) -> np.ndarray:
+        """The movement accumulated since the last call, then zero."""
+        d = self.origin_delta
+        self.origin_delta = np.zeros(3, dtype=np.float32)
+        return d
 
 
 def camera_params(camera: Camera):

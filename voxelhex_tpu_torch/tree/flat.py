@@ -1,6 +1,8 @@
 """Flat arrays of a boxtree (NumPy): the snapshot that the BitGrid is built
 from, the port's copy of ``FlatTree`` and ``flatten`` of the reference's
-``voxelhex_tpu/tree/flat.py``.
+``voxelhex_tpu/tree/flat.py``, with its far-field helpers
+(``sample_coarse``, ``coarse_candidate_cells``) that the streaming view's
+placeholders and LOD rings read.
 
 * ``node_meta     uint32[N]``     — bit 0: is-leaf, bit 1: is-uniform
 * ``node_children int32[N, 64]``  — internal: child node key (-1 none);
@@ -174,3 +176,314 @@ def flatten(tree: BoxTree) -> FlatTree:
         palette=palette,
         brick_ocbits=brick_ocbits,
     )
+
+
+def sample_coarse(flat: FlatTree, pts: np.ndarray, granularity: int | None = None):
+    """Vectorized coarse LOD sample: occupancy + representative color for
+    cells of edge ``granularity`` containing each query point.
+
+    The host-side analog of the reference's MIP probe for not-yet-streamed
+    data (reference: viewport_render.wgsl:328-364 ``probe_MIP`` — when a
+    brick is absent but the occupancy bit is set, the node's MIP brick
+    supplies a coarse color).  Here the streaming layer calls it to fill
+    not-yet-paged window regions with coarse placeholder content.
+
+    Returns ``(occupied [M] bool, color [M] int32)`` where color is a flat
+    voxel value (palette index, NO_COLOR_HIT, or EMPTY_DESC when the cell is
+    empty or colorless).  Sources, best first:
+
+    * the deepest covering node's MIP brick texel (texel size =
+      node_size / brick_dim — equals ``granularity`` when the descent
+      bottoms out at node_size = granularity * brick_dim);
+    * leaf/uniform brick data (solid value, or a point sample of the brick
+      voxel at the query point);
+    * for MIP-less internal nodes: a representative color from the
+      occupied subtree (lowest-occupied-branch walk — the bottom-up
+      analog of the reference's *BD MIP filters); NO_COLOR_HIT only when
+      the subtree holds colorless/informative-only data.
+    """
+    pts = np.asarray(pts, dtype=np.int64).reshape(-1, 3)
+    M = pts.shape[0]
+    g = int(granularity) if granularity else int(flat.brick_dim)
+    d = int(flat.brick_dim)
+
+    key = np.zeros(M, dtype=np.int64)
+    node_min = np.zeros((M, 3), dtype=np.int64)
+    node_size = np.full(M, flat.size, dtype=np.int64)
+    done = np.zeros(M, dtype=bool)
+
+    # descend to the deepest internal node whose MIP texels are >= g
+    while True:
+        is_leaf = (flat.node_meta[key] & META_LEAF) != 0
+        can = ~done & ~is_leaf & (node_size > g * d)
+        if not can.any():
+            break
+        cell = node_size // 4
+        rel = np.clip((pts - node_min) // cell[:, None], 0, 3)
+        sect = rel[:, 0] + rel[:, 1] * 4 + rel[:, 2] * 16
+        child = flat.node_children[key, sect].astype(np.int64)
+        step = can & (child >= 0)
+        done |= can & (child < 0)
+        if not step.any():
+            break
+        node_min = np.where(step[:, None], node_min + rel * cell[:, None], node_min)
+        node_size = np.where(step, cell, node_size)
+        key = np.where(step, child, key)
+
+    # per-point cell within the final node
+    cell = node_size // 4
+    rel = np.clip((pts - node_min) // cell[:, None], 0, 3)
+    sect = rel[:, 0] + rel[:, 1] * 4 + rel[:, 2] * 16
+    oc_lo = flat.node_ocbits[key, 0].astype(np.uint64)
+    oc_hi = flat.node_ocbits[key, 1].astype(np.uint64)
+    occ64 = oc_lo | (oc_hi << np.uint64(32))
+    bit_occupied = (occ64 >> sect.astype(np.uint64)) & np.uint64(1) != 0
+
+    occupied = bit_occupied.copy()
+    color = np.full(M, EMPTY_DESC, dtype=np.int32)
+
+    def _texel_sample(mask, desc, bmin, bsize, block=False):
+        """Sample brick descriptors (solid or pool index) at the query pts.
+
+        ``block``: for REAL voxel bricks whose texels are finer than the
+        query granularity (bsize > g, i.e. the g-cell covers a k^3 texel
+        sub-block with k = g*d/bsize > 1), a point sample UNDER-reports
+        thin content — a 3-voxel terrain crust probed at F=4 cell centers
+        through brick_dim-8 leaves rendered as dotted holes in the
+        midfield ring (found by the round-4 showcase).  The sub-block
+        pass replaces it with any-voxel occupancy + first non-empty
+        color over the cell's texel block (the bsize <= g case is already
+        handled by the whole-brick fallback below)."""
+        if not mask.any():
+            return
+        solid = mask & ((desc & SOLID_FLAG) != 0)
+        color[solid] = (desc[solid] & ~SOLID_FLAG).astype(np.int32)
+        occupied[solid] = color[solid] != EMPTY_DESC
+        parted = mask & ((desc & SOLID_FLAG) == 0) & (desc != EMPTY_DESC)
+        if parted.any():
+            t = np.clip((pts[parted] - bmin[parted]) * d // bsize[parted, None], 0, d - 1)
+            fi = t[:, 0] + t[:, 1] * d + t[:, 2] * d * d
+            v = flat.bricks[desc[parted], fi]
+            color[parted] = v
+            occupied[parted] = v != EMPTY_DESC
+            if block:
+                kvals = np.where(
+                    bsize[parted] > g, g * d // bsize[parted], 1
+                )
+                pidx = np.flatnonzero(parted)
+                for kk in np.unique(kvals):
+                    if kk <= 1:
+                        continue
+                    mm = kvals == kk
+                    rows = pidx[mm]
+                    base = (t[mm] // kk) * kk  # cell's texel-block corner
+                    off = np.stack(
+                        np.meshgrid(*[np.arange(kk)] * 3, indexing="ij"),
+                        axis=-1,
+                    ).reshape(-1, 3)
+                    tt = base[:, None, :] + off[None, :, :]
+                    fi2 = tt[..., 0] + tt[..., 1] * d + tt[..., 2] * d * d
+                    vox = flat.bricks[desc[rows][:, None], fi2]
+                    nonempty = vox != EMPTY_DESC
+                    anyo = nonempty.any(axis=1)
+                    first = np.argmax(nonempty, axis=1)
+                    occupied[rows] = anyo
+                    cc = color[rows]
+                    cc[anyo] = vox[np.arange(vox.shape[0]), first][anyo]
+                    color[rows] = cc
+        empty = mask & (desc == EMPTY_DESC)
+        occupied[empty] = False
+
+    # 1) MIP brick texels (span the whole node)
+    mip = flat.node_mips[key].astype(np.int64)
+    has_mip = mip != EMPTY_DESC
+    _texel_sample(has_mip, mip, node_min, node_size)
+
+    # 2) leaf/uniform brick data where no MIP exists
+    is_leaf = (flat.node_meta[key] & META_LEAF) != 0
+    is_uniform = (flat.node_meta[key] & META_UNIFORM) != 0
+    leaf_only = ~has_mip & is_leaf
+    if leaf_only.any():
+        desc = flat.node_children[key, np.where(is_uniform, 0, sect)].astype(np.int64)
+        # uniform bricks span the node; leaf bricks span the sectant cell
+        bmin = np.where(is_uniform[:, None], node_min, node_min + rel * cell[:, None])
+        bsize = np.where(is_uniform, node_size, cell)
+        _texel_sample(leaf_only, desc, bmin, bsize, block=True)
+        # a point sample under-reports a cell covered by exactly one brick:
+        # fall back to any-voxel occupancy + the brick's first non-empty color
+        missed = (
+            leaf_only
+            & ~occupied
+            & ((desc & SOLID_FLAG) == 0)
+            & (desc != EMPTY_DESC)
+            & (bsize <= g)
+        )
+        if missed.any():
+            vox = flat.bricks[desc[missed]]  # [K, d^3]
+            nonempty = vox != EMPTY_DESC
+            any_occ = nonempty.any(axis=1)
+            first = np.argmax(nonempty, axis=1)
+            occupied[missed] = any_occ
+            cm = color[missed]
+            cm[any_occ] = vox[np.arange(vox.shape[0]), first][any_occ]
+            color[missed] = cm
+
+    # 3) internal node without MIP: descend the occupied subtree for a
+    # representative color — the bottom-up analog of the reference's *BD
+    # MIP filters (mipmap.rs "BD" = from-the-bottom resampling).  Without
+    # this, content smaller than the coarse texel under a MIP-less
+    # internal node sampled NO_COLOR_HIT and far-field LOD rings rendered
+    # it as hit-but-black silhouettes (found at 1024^3: a 16^3 block in a
+    # factor-16 ring shaded to zero).
+    bit_only = ~has_mip & ~is_leaf & bit_occupied
+    if bit_only.any():
+        color[bit_only] = _first_descendant_color(
+            flat, key[bit_only], sect[bit_only]
+        )
+    return occupied, color
+
+
+def _first_brick_color(flat: FlatTree, desc: np.ndarray) -> np.ndarray:
+    """First non-empty voxel color per brick descriptor (solid value or a
+    scan of the brick's pool row); NO_COLOR_HIT when nothing is found."""
+    res = np.full(desc.shape[0], NO_COLOR_HIT, dtype=np.int32)
+    solid = (desc & SOLID_FLAG) != 0
+    res[solid] = (desc[solid] & ~SOLID_FLAG).astype(np.int32)
+    parted = ~solid & (desc != EMPTY_DESC)
+    if parted.any():
+        vox = flat.bricks[desc[parted]]  # [K, d^3]
+        nonempty = vox != EMPTY_DESC
+        any_occ = nonempty.any(axis=1)
+        first = np.argmax(nonempty, axis=1)
+        r = res[parted]
+        r[any_occ] = vox[np.arange(vox.shape[0]), first][any_occ].astype(
+            np.int32
+        )
+        res[parted] = r
+    return res
+
+
+def _first_descendant_color(flat: FlatTree, key: np.ndarray,
+                            sect: np.ndarray) -> np.ndarray:
+    """Representative color for the subtree under (internal node ``key``,
+    sectant ``sect``): vectorized descent along the lowest occupied branch
+    to the first non-empty MIP texel, solid value, or brick voxel."""
+    M = key.shape[0]
+    out = np.full(M, NO_COLOR_HIT, dtype=np.int32)
+    cur = flat.node_children[key, sect].astype(np.int64)  # child node keys
+    alive = cur >= 0
+    for _ in range(32):  # depth is log4(size)-bounded
+        if not alive.any():
+            break
+        idx = np.where(alive)[0]
+        k = cur[idx]
+        meta = flat.node_meta[k]
+        leaf = (meta & META_LEAF) != 0
+        unif = (meta & META_UNIFORM) != 0
+        mip = flat.node_mips[k].astype(np.int64)
+        has_mip = mip != EMPTY_DESC
+
+        done_mip = has_mip
+        if done_mip.any():
+            out[idx[done_mip]] = _first_brick_color(flat, mip[done_mip])
+
+        use_leaf = ~has_mip & leaf
+        if use_leaf.any():
+            rows = flat.node_children[k[use_leaf]].astype(np.int64)  # [K,64]
+            rows = np.where(unif[use_leaf, None], rows[:, :1], rows)
+            ne = rows != EMPTY_DESC
+            first = np.argmax(ne, axis=1)
+            desc = rows[np.arange(rows.shape[0]), first]
+            desc = np.where(ne.any(axis=1), desc, EMPTY_DESC)
+            out[idx[use_leaf]] = _first_brick_color(flat, desc)
+
+        nxt = np.full(M, -1, dtype=np.int64)
+        use_int = ~has_mip & ~leaf
+        if use_int.any():
+            ki = k[use_int]
+            occ64 = flat.node_ocbits[ki, 0].astype(np.uint64) | (
+                flat.node_ocbits[ki, 1].astype(np.uint64) << np.uint64(32)
+            )
+            isolated = occ64 & (~occ64 + np.uint64(1))
+            # exact for single-bit values: float64 represents 2^k exactly
+            low = np.where(
+                occ64 != 0,
+                np.round(np.log2(isolated.astype(np.float64) + (occ64 == 0))),
+                0,
+            ).astype(np.int64)
+            child = flat.node_children[ki, low].astype(np.int64)
+            nxt[idx[use_int]] = np.where(occ64 != 0, child, -1)
+        cur = nxt
+        alive = cur >= 0
+    return out
+
+
+def coarse_candidate_cells(flat: FlatTree, g: int, lo, hi):
+    """Conservative candidate OCCUPIED cells of edge ``g`` within the world
+    box [lo, hi): unique [N, 3] int64 cell indices (world // g) from a
+    vectorized occupancy-bit node walk.
+
+    Cost is O(occupied nodes + emitted candidates) — NOT O(volume / g^3) —
+    so whole-world coarse grids build in time proportional to content (the
+    reference's upload queue likewise walks tree nodes out to per-level
+    inclusion distances rather than scanning space,
+    src/raytracing/bevy/streaming/upload_queue.rs:150-207).
+
+    Every truly occupied cell is included (occupancy bits are maintained
+    for the whole subtree); some candidates may be empty — callers filter
+    with :func:`sample_coarse` on the candidate centers.
+    """
+    lo = np.asarray(lo, dtype=np.int64)
+    hi = np.asarray(hi, dtype=np.int64)
+    g = int(g)
+    keys = np.zeros(1, dtype=np.int64)
+    mins = np.zeros((1, 3), dtype=np.int64)
+    sizes = np.full(1, int(flat.size), dtype=np.int64)
+    sect = np.arange(64, dtype=np.int64)
+    soff = np.stack([sect % 4, (sect // 4) % 4, sect // 16], axis=-1)
+
+    box_min = []
+    box_size = []
+    while keys.size:
+        oc = flat.node_ocbits[keys]
+        occ64 = oc[:, 0].astype(np.uint64) | (
+            oc[:, 1].astype(np.uint64) << np.uint64(32)
+        )
+        bits = ((occ64[:, None] >> sect.astype(np.uint64)[None, :])
+                & np.uint64(1)).astype(bool)
+        cell = sizes // 4  # [K]
+        cmin = mins[:, None, :] + soff[None, :, :] * cell[:, None, None]
+        keep = bits
+        keep &= np.all(cmin + cell[:, None, None] > lo, axis=-1)
+        keep &= np.all(cmin < hi, axis=-1)
+        child = flat.node_children[keys].astype(np.int64)
+        is_leaf = (flat.node_meta[keys] & META_LEAF) != 0
+        descend = keep & ~is_leaf[:, None] & (child >= 0) & (cell[:, None] > g)
+        emit = keep & ~descend
+        em = emit.reshape(-1)
+        if em.any():
+            box_min.append(cmin.reshape(-1, 3)[em])
+            box_size.append(np.repeat(cell, 64)[em])
+        de = descend.reshape(-1)
+        keys = child.reshape(-1)[de]
+        mins = cmin.reshape(-1, 3)[de]
+        sizes = np.repeat(cell, 64)[de]
+
+    if not box_min:
+        return np.zeros((0, 3), dtype=np.int64)
+    bm = np.concatenate(box_min)
+    bs = np.concatenate(box_size)
+    c0 = np.maximum(bm, lo) // g
+    c1 = (np.minimum(bm + bs[:, None], hi) + g - 1) // g  # exclusive
+    ext = c1 - c0
+    one = np.all(ext <= 1, axis=1)
+    cells = [c0[one]]
+    for i in np.nonzero(~one)[0]:  # boxes spanning many cells (large
+        # uniform leaves / unsubdivided occupied sectants) — rare, and the
+        # expansion cost IS the candidate count
+        ax = [np.arange(c0[i, a], c1[i, a]) for a in range(3)]
+        cells.append(
+            np.stack(np.meshgrid(*ax, indexing="ij"), axis=-1).reshape(-1, 3)
+        )
+    out = np.concatenate(cells)
+    return np.unique(out, axis=0)
