@@ -76,7 +76,8 @@ profile of the steps.
 Phase 12 runs streaming over phase 10's 1024 terrain (the fly-over of
 ``benches/ab_flyover.py``): (a) ``StreamingView(tree, view_size=256,
 regions_per_update=8192)`` follows ``flight_cam`` for 8 frames at
-1920x1080, one window shift a frame and a whole-world ring at factor 4;
+1920x1080, one window shift a frame and a whole-world ring at factor 4,
+one coarse rebuild an update after the first (its launches counted);
 each launch of the region scatter, coarse rebuild and window shift
 (``csrc/stream.cu``) is held to its plain version on the same inputs, the
 window on the card to the host's BitGrid after every update, each frame
@@ -90,9 +91,10 @@ factor 4 and the world at 16), two frames against the plain version; (c)
 an ``insert_at_lod`` that pages through the partial scatter, to a new
 view's frame; (f) the four kernels' device times in turns beside their
 bounds, plain versions, ``index_copy_`` and ``torch.roll``, the far frame
-beside ``frame.cu`` at the same window and pose, and the fly-over's frames
-by host clock, split into the update (placeholders, rasterize, the rest),
-the far refresh and the device.  The last line is ``{"ok": true,
+and the same launch on the window alone beside ``frame.cu`` at the same
+window and pose, each fly-over layer's rays and steps, and the fly-over's
+frames by host clock, split into the update (placeholders, rasterize, the
+rest), the far refresh and the device.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -507,7 +509,8 @@ def main():
                                      ("frames.cu", "frames_kernel", None),
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
-                                     ("far.cu", "far_kernel", None)):
+                                     ("far.cu", "far_kernel", None),
+                                     ("stream.cu", "coarse_kernel", None)):
         usage = ptxas_usage(_build.build_log(source), kernel)
         log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
             f"spill stores, {usage[3]} B spill loads")
@@ -2391,13 +2394,15 @@ def streaming_slice(dev, card, tree):
     10's tree) on the card.  (a) the fly-over, the main path: 8 frames at
     1920x1080 through a 256 window and its whole-world ring, each update's
     device grids held to the plain scatter, rebuild and shift and to the
-    host's BitGrid, each frame's far-frame kernel to ``far_frame_plain`` on
-    every pixel and to the reference digest; (b) paging 64 regions an update
-    with placeholders and occlusion pruning until settled; (d) worker
+    host's BitGrid, one rebuild an update, each frame's far-frame kernel to
+    ``far_frame_plain`` on every pixel and to the reference digest; (b)
+    paging 64 regions an update with placeholders and occlusion pruning
+    until settled; (d) worker
     threads (``async_uploads``, ``async_far``); (e) the ring ladder of a 64
     window; (c) an edit through the partial scatter; (f) each kernel's
     device time beside its bound, plain version and library call, the far
-    frame beside ``frame.cu``, and a fly-over's frames by host clock.
+    frame and the window-only far frame beside ``frame.cu``, each layer's
+    rays and steps, and a fly-over's frames by host clock.
     Returns the four kernels' entries of the ``kernels`` line."""
     from voxelhex_tpu_torch.ops import stream
     from voxelhex_tpu_torch.ops.far import render_far
@@ -2420,7 +2425,7 @@ def streaming_slice(dev, card, tree):
     # (a) the fly-over, the main path
     t0 = time.time()
     checks = CheckedUpdates()
-    far_err, fly_frames = 0.0, []
+    far_err, fly_frames, fly_layers = 0.0, [], []
     with checks:
         view = StreamingView(tree, view_size=FLY_VIEW, regions_per_update=8192)
         for f in counters:
@@ -2430,7 +2435,9 @@ def streaming_slice(dev, card, tree):
             frame = view.render(cam, out_u8=True, out_device=True)
             # the plain versions launch nothing: the counts stay the path's
             check_window(view, f"fly-over frame {i}")
-            far_err = max(far_err, check_far_frame(view, cam, frame, f"fly-over frame {i}")[1])
+            stats, err, _ms = check_far_frame(view, cam, frame, f"fly-over frame {i}")
+            far_err = max(far_err, err)
+            fly_layers.append([(s["rays"], int(s["iters"].sum())) for s in stats])
             digest = sha(frame)
             log(f"  fly-over frame {i}: window at {tuple(int(v) for v in view.origin)}, "
                 f"{view.uploads} regions paged, settled {view.settled()}; sha256 {digest} "
@@ -2444,11 +2451,12 @@ def streaming_slice(dev, card, tree):
         f"the ring (factor, cells, origin) {ring}; a frame's scatter takes "
         f"{checks.last['region_scatter'][0].shape[0]} regions, its shift "
         f"{checks.last['window_shift']}")
+    # frame 0 uploads the whole window; each later frame moves it and pages
+    # the exposed regions through the partial scatter, then rebuilds once
     want = {"region_scatter": FLY_FRAMES - 1, "window_shift": FLY_FRAMES - 1,
-            "render_far": FLY_FRAMES, "render_frame": 0}
-    if (any(launches[k] != n for k, n in want.items()) or launches["coarse_rebuild"] == 0
-            or any(checks.calls[k] != launches[k] for k in checks.calls
-                   if k != "coarse_rebuild")):
+            "coarse_rebuild": FLY_FRAMES - 1, "render_far": FLY_FRAMES, "render_frame": 0}
+    if (any(launches[k] != n for k, n in want.items())
+            or any(checks.calls[k] != launches[k] for k in checks.calls)):
         raise AssertionError(f"fly-over: launches {launches}, want {want}")
     fly_inputs = dict(checks.last)  # a fly-over frame's scatter and shift
     log(f"phase 12 (a) fly-over: {time.time() - t0:.1f} s")
@@ -2578,6 +2586,7 @@ def streaming_slice(dev, card, tree):
             torch.roll(work["occ_pairs"][: nb**3].view(nb, nb, nb, 2),
                        (-shift[2] // 4, -shift[1] // 4, -shift[0] // 4), (0, 1, 2))), 5),
         "far frame": lambda: warm_ms(lambda: render_far(layers, inside), 10),
+        "window-only far frame": lambda: warm_ms(lambda: render_far(layers[:1], inside), 10),
         "frame.cu": lambda: warm_ms(lambda: render_frame(window, cam_local), 10),
     }
     turns = {name: [] for name in timers}
@@ -2596,11 +2605,10 @@ def streaming_slice(dev, card, tree):
     }
     n_pairs = window["occ_pairs"].shape[0]
     wide = col_vals.element_size()
-    up = sum(d**3 for d in window["dims"][1:])
     bounds = {
         "region_scatter": bound(K * (12 + 4096 * wide + 64 * 8) + K * (4096 * 2 + 64 * 8), 0),
-        "coarse_rebuild": bound((n_pairs - up) * 8 + sum(d**3 for d in window["dims"][1:-1]) * 8
-                                + up * 8, 0),
+        # level 0 read, every level above written
+        "coarse_rebuild": bound(n_pairs * 8, 0),
         "window_shift": bound(2 * (S**3 * 2 + n_pairs * 8), 0),
         "far frame": far_bound(view, cam, edit_stats),
     }
@@ -2609,8 +2617,15 @@ def streaming_slice(dev, card, tree):
         log(f"{name}: {ms[name]:.4f} ms device time, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}), plain version {plain[name]:.3f} ms (host clock)"
             + (f", {lib} {ms[lib]:.4f} ms" if lib else "") + f" {host_tag}")
+    for i, per_layer in enumerate(fly_layers):
+        log(f"  fly-over frame {i}, each layer's march (rays, steps): {per_layer}")
     log(f"far frame {ms['far frame']:.4f} ms against frame.cu {ms['frame.cu']:.4f} ms at the "
-        f"same {FLY_VIEW} window and pose ({ms['far frame'] / ms['frame.cu']:.2f} times) {host_tag}")
+        f"same {FLY_VIEW} window and pose ({ms['far frame'] / ms['frame.cu']:.2f} times), "
+        f"{ms['far frame'] / bounds['far frame'][0]:.1f} times its bound; on the window alone "
+        f"{ms['window-only far frame']:.4f} ms "
+        f"({ms['window-only far frame'] / ms['frame.cu']:.2f} times frame.cu) {host_tag}")
+    log(f"coarse rebuild {ms['coarse_rebuild']:.4f} ms, one launch, "
+        f"{ms['coarse_rebuild'] / bounds['coarse_rebuild'][0]:.1f} times its bound {host_tag}")
     del work, widened
 
     # a fly-over's frames by host clock: the update and its stages, the far

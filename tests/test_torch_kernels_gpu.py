@@ -606,8 +606,45 @@ def test_coarse_rebuild_kernel_equals_plain(cuda, S):
     n0 = coarse_rebuild.launches
     coarse_rebuild(tree)
     torch.cuda.synchronize()
-    assert coarse_rebuild.launches == n0 + len(tree["bases"]) - 1
+    assert coarse_rebuild.launches == n0 + 1
     assert _equal(tree["occ_pairs"], want)
+
+
+def _pyramid(S, cuda):
+    """A window's level table and zero word pairs, without its colors."""
+    from voxelhex_tpu_torch.render.bitgrid import level_dims
+
+    n = 1
+    while level_dims(S, n)[-1] > 1:
+        n += 1
+    dims = level_dims(S, n)
+    bases = [sum(d**3 for d in dims[:i]) for i in range(n)]
+    return {"occ_pairs": torch.zeros((sum(d**3 for d in dims), 2), dtype=torch.int32,
+                                     device=cuda), "bases": bases, "dims": dims}
+
+
+@pytest.mark.parametrize("S", [16, 256, 1024])
+def test_coarse_rebuild_kernel_twice_in_a_row(cuda, S):
+    """Two rebuilds on one stream, level 0 changed between them, each one
+    launch equal to the plain version: the ticket counter is back at 0
+    after the first (at 1024: 4,096 blocks, levels 3 and 4 made by the last
+    block; at 16 a pyramid of two levels)."""
+    from voxelhex_tpu_torch.ops.stream import coarse_rebuild, coarse_rebuild_plain
+
+    tree = _pyramid(S, cuda)
+    nb = tree["dims"][0]
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    for share in (0.01, 0.3):
+        words = torch.randint(1, 2**31 - 1, (nb**3, 2), generator=gen, device=cuda,
+                              dtype=torch.int32)
+        keep = torch.rand((nb**3, 2), generator=gen, device=cuda) < share
+        tree["occ_pairs"][: nb**3] = torch.where(keep, words, torch.zeros_like(words))
+        want = coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"], tree["dims"])
+        n0 = coarse_rebuild.launches
+        coarse_rebuild(tree)
+        torch.cuda.synchronize()
+        assert coarse_rebuild.launches == n0 + 1
+        assert _equal(tree["occ_pairs"], want)
 
 
 @pytest.mark.parametrize("shift", [(96, 0, 16), (-80, -16, 0), (32, -48, 16), (256, 0, 0),
@@ -654,6 +691,43 @@ def test_far_kernel_equals_plain(cuda, n_layers, inside):
         torch.cuda.synchronize()
         assert render_far.launches == n0 + 1
         assert _equal(k, far_frame_plain(layers, inside, (0.1, 0.2, 0.3), out_u8))
+
+
+@pytest.mark.parametrize("res", [(61, 43), (1917, 1077)])
+def test_far_kernel_blocks_that_go_on_to_the_ring(cuda, res):
+    """The camera inside a window whose voxels are a floor: blocks where
+    none, some and all of the pixels go on to the ring, ragged edges that
+    cut blocks and warps; u8 and f32 equal to the plain version."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    rng = np.random.default_rng(4)
+    occ = rng.random((16, 16, 16)) < 0.6
+    occ[:, 5:] = False
+    window = bitgrid_from_occupancy(occ, palette=rng.random((5, 4)))
+    window.colors = np.ascontiguousarray(np.where(occ, rng.integers(0, 5, occ.shape), 0xFFFF)
+                                         .astype(np.uint16).transpose(2, 1, 0)).ravel()
+    eye = np.array([8.0, 7.0, 2.5], dtype=np.float32)
+    target = np.array([9.0, 6.0, 40.0], dtype=np.float32)
+    cam = Camera(origin=eye, target=target, resolution=res, fov_y_deg=70.0)
+    ring_cam = Camera(origin=eye / np.float32(2), target=target / np.float32(2), resolution=res,
+                      fov_y_deg=70.0)
+    layers = [(device_bitgrid(window, cuda), cam, 1),
+              (device_bitgrid(_grid(32, seed=3, density=0.03), cuda), ring_cam, 2)]
+    for out_u8 in (True, False):
+        n0 = render_far.launches
+        k = render_far(layers, True, (0.1, 0.2, 0.3), out_u8)
+        torch.cuda.synchronize()
+        assert render_far.launches == n0 + 1
+        stats = []
+        assert _equal(k, far_frame_plain(layers, True, (0.1, 0.2, 0.3), out_u8, stats=stats))
+    w, h = res
+    go = torch.zeros((-(-h // 8) * 8, -(-w // 16) * 16), dtype=torch.bool)
+    go[:h, :w] = ~stats[0]["hit"].reshape(h, w).cpu()
+    per_block = go.reshape(go.shape[0] // 8, 8, go.shape[1] // 16, 16).sum(dim=(1, 3))
+    assert bool((per_block == 0).any()) and bool((per_block == 128).any())
+    assert bool(((per_block > 0) & (per_block < 128)).any())
 
 
 def test_streaming_view_on_the_card_equals_cpu(cuda):

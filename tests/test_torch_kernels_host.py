@@ -9,13 +9,17 @@ add, ...; no contraction of multiply-adds), and a loop runs every thread of
 every block in turn; for the albedo kernels, whose backward merges runs in
 a warp, each warp's 32 lanes run as threads that meet in each warp
 intrinsic (``__shfl_sync``, ``__match_any_sync``, ...), so the merging
-runs as on the card, with atomics taken one at a time.  That
+runs as on the card, with atomics taken one at a time; and for the coarse
+rebuild and the far frame, whose threads share shared memory, a block's
+threads run as threads that meet at each ``__syncthreads`` (the blocks in
+turn, the last first), each warp's lanes in its intrinsics.  That
 checks the kernels' logic (pixel tiles, ragged edges, the level table, the
 reciprocal multiplications, ray generation, shading, the batched kernel's
 frames, chunks and row digests, the multi-hit march's one loop per ray,
 the composite's recurrence, the optimizer's order of operations, the
 albedo gather and shading, the albedo backward's chunks, runs and warp
-merging at any input alignment) on grids of 2, 3 and 4 pyramid levels,
+merging at any input alignment, the rebuild's ballots and its last block's
+ticket, the far frame's layers) on grids of 2, 3 and 4 pyramid levels,
 and the automaton's step count where ``max_iters`` cuts rays at their
 first steps or inside an ADVANCE, on rays built to take every move.
 The outputs equal the plain versions bit for bit, except where a sigmoid's
@@ -44,6 +48,7 @@ SHIM = r"""
 #pragma once
 #include <cmath>
 #include <cstdint>
+#include <atomic>
 #include <condition_variable>
 #include <cstdlib>
 #include <cstring>
@@ -125,7 +130,8 @@ struct VhxWarp {
         return out;
     }
 };
-extern VhxWarp* vhx_warp;
+// the warp of this thread (vhx_host_warp_launch, vhx_host_block_launch)
+extern thread_local VhxWarp* vhx_warp;
 template <class T>
 inline T vhx_lane_value(T v, int src) {
     const uint64_t bits = vhx_warp->meet(v, [&](const uint64_t* s) { return s[src]; });
@@ -159,9 +165,53 @@ template <class T> inline unsigned __match_any_sync(unsigned, T v) {
         return mask;
     });
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+    return vhx_warp->meet(pred != 0, [](const uint64_t* s) {
+        unsigned ballot = 0;
+        for (int i = 0; i < 32; ++i) ballot |= (unsigned)(s[i] != 0) << i;
+        return ballot;
+    });
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
-inline int atomicAdd(int* p, int v) { int old = *p; *p = old + v; return old; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int atomicAdd(int* p, int v) {
+    std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
+    int old = *p;
+    *p = old + v;
+    return old;
+}
 inline int atomicOr(int* p, int v) { int old = *p; *p = old | v; return old; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+// a block: vhx_host_block_launch runs its threads as threads, which meet at
+// each __syncthreads.  A thread that leaves the kernel while others wait at
+// a barrier, or before one, aborts: on the card every thread of the block
+// has to reach each barrier.
+struct VhxBlock {
+    std::mutex m;
+    std::condition_variable cv;
+    int n, arrived = 0, exited = 0;
+    unsigned long long generation = 0;
+    explicit VhxBlock(int threads) : n(threads) {}
+    void sync() {
+        std::unique_lock<std::mutex> hold(m);
+        if (exited) std::abort();
+        const unsigned long long g = generation;
+        if (++arrived == n) {
+            arrived = 0;
+            ++generation;
+            cv.notify_all();
+        } else {
+            cv.wait(hold, [&] { return generation != g || exited; });
+            if (generation == g) std::abort();
+        }
+    }
+    void exit() {
+        std::lock_guard<std::mutex> hold(m);
+        ++exited;
+        cv.notify_all();
+    }
+};
+extern thread_local VhxBlock* vhx_block;
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -173,7 +223,12 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 template <class T> inline T __ldg(const T* p) { return *p; }
-inline void __syncthreads() {}
+template <class T> inline T __ldcg(const T* p) { return *p; }
+// a barrier of the block under vhx_host_block_launch; elsewhere the threads
+// run one after another and share only what thread 0 writes before it
+inline void __syncthreads() {
+    if (vhx_block) vhx_block->sync();
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -215,20 +270,50 @@ inline void vhx_host_warp_launch(dim3 grid, unsigned threads, int, cudaStream_t,
                 lanes.emplace_back([&, t] {
                     blockIdx = dim3(bx);
                     threadIdx = dim3(t);
+                    vhx_warp = &warp;
                     kernel();
                 });
             for (auto& lane : lanes) lane.join();
         }
 }
+// a launch of a kernel whose threads meet at __syncthreads, rewritten into
+// this call: the blocks of the 2-D grid in turn, last block first (a kernel
+// must not depend on the order of its blocks), each block's threads as
+// threads (VhxBlock), each warp's lanes meeting in the warp intrinsics
+// (VhxWarp); blocks of whole warps only
+template <class F>
+inline void vhx_host_block_launch(dim3 grid, unsigned threads, int, cudaStream_t, F kernel) {
+    if (threads % 32) std::abort();
+    blockDim = dim3(threads);
+    gridDim = grid;
+    const unsigned n = grid.x * grid.y;
+    for (unsigned i = 0; i < n; ++i) {
+        const unsigned b = n - 1 - i;
+        VhxBlock block(threads);
+        std::vector<VhxWarp> warps(threads / 32);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < threads; ++t)
+            ts.emplace_back([&, t] {
+                blockIdx = dim3(b % grid.x, b / grid.x);
+                threadIdx = dim3(t);
+                vhx_warp = &warps[t / 32];
+                vhx_block = &block;
+                kernel();
+                block.exit();
+                vhx_block = nullptr;
+            });
+        for (auto& t : ts) t.join();
+    }
+}
 """
 
-# every thread of every block in turn; __syncthreads is a no-op, which is
-# right for kernels whose threads share only what thread 0 writes before it
+# the kernels and the host's entries to them
 HARNESS = r"""
 #include "cuda_runtime.h"
 thread_local dim3 threadIdx, blockIdx;
 dim3 blockDim, gridDim;
-VhxWarp* vhx_warp = nullptr;
+thread_local VhxWarp* vhx_warp = nullptr;
+thread_local VhxBlock* vhx_block = nullptr;
 std::mutex vhx_host_atomic_lock;
 long long vhx_host_atomics = 0;
 extern "C" long long host_atomics() { return vhx_host_atomics; }
@@ -406,14 +491,24 @@ def host_lib(tmp_path_factory):
     # loop over the grid (vhx_host_launch): the test drives the entry, its
     # checks and its memset as the wrapper does; and so do the albedo
     # kernels', whose launches run a warp's lanes as threads
-    # (vhx_host_warp_launch) for the backward's warp intrinsics
+    # (vhx_host_warp_launch) for the backward's warp intrinsics, and the
+    # coarse rebuild's and the far frame's, whose launches run a block's
+    # threads as threads that meet at its barriers (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
+    block_kernels = ("coarse_kernel", "far_kernel")
+
+    def launcher_of(default):
+        def sub(m):
+            launcher = "vhx_host_block_launch" if m.group(1) in block_kernels else default
+            return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
+        return sub
+
     for name, launcher, n_launches in (("frames", "vhx_host_launch", 1),
                                        ("albedo", "vhx_host_warp_launch", 2),
                                        ("stream", "vhx_host_launch", 5),
                                        ("far", "vhx_host_launch", 1)):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
-            src, n = entry.subn(launcher + r"(\2, [&] { \1(\3); });", f.read())
+            src, n = entry.subn(launcher_of(launcher), f.read())
         assert n == n_launches
         (d / f"{name}_host.cu").write_text(src)
     for name in ("traverse", "shade", "multihit", "composite", "adam"):
@@ -451,7 +546,7 @@ def host_lib(tmp_path_factory):
     lib.vhx_albedo_backward.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
     lib.host_atomics.restype = ctypes.c_longlong
     lib.vhx_region_scatter.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.vhx_coarse_rebuild.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p]
+    lib.vhx_coarse_rebuild.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p]
     lib.vhx_window_shift.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.vhx_render_far.argtypes = [ctypes.POINTER(_build.FarParams), p, p, i, p]
     lib.vhx_far_params_size.restype = i
@@ -1147,10 +1242,61 @@ def test_coarse_rebuild_kernel_source_equals_plain(host_lib, S):
         .astype(np.int32))
     want = coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"], tree["dims"])
     got = tree["occ_pairs"].clone()
+    tickets = torch.zeros(1, dtype=torch.int32)
     assert host_lib.vhx_coarse_rebuild(got.data_ptr(), _ints(tree["bases"]),
-                                       _ints(tree["dims"]), len(tree["bases"]), 0, None) == 0
+                                       _ints(tree["dims"]), len(tree["bases"]),
+                                       tickets.data_ptr(), 0, None) == 0
     assert not _equal(want, tree["occ_pairs"])
     assert _equal(got, want)
+
+
+def _random_level0(tree, rng, share):
+    """Level 0 of ``tree`` set to random words, ``share`` of them not zero."""
+    nb = int(tree["dims"][0])
+    tree["occ_pairs"][: nb**3] = torch.from_numpy(
+        (rng.random((nb**3, 2)) < share).astype(np.int32)
+        * rng.integers(1, 2**31, (nb**3, 2)).astype(np.int32))
+
+
+@pytest.mark.parametrize("S", [16, 128])
+def test_coarse_rebuild_kernel_source_twice_in_a_row(host_lib, S):
+    """Two rebuilds through one ticket counter, level 0 changed between
+    them: the last block of the first sets the counter back to 0, so the
+    second's last block is found again (at 128: 8 blocks, level 3 made by
+    the last; at 16 a pyramid of two levels, one block, no ticket)."""
+    from voxelhex_tpu_torch.ops.stream import _ints, coarse_rebuild_plain
+
+    tree = _window(S, 0.002, seed=S + 1)
+    rng = np.random.default_rng(S + 1)
+    tickets = torch.zeros(1, dtype=torch.int32)
+    got = tree["occ_pairs"].clone()
+    for share in (0.02, 0.3):
+        _random_level0(tree, rng, share)
+        got[: int(tree["dims"][0]) ** 3] = tree["occ_pairs"][: int(tree["dims"][0]) ** 3]
+        want = coarse_rebuild_plain(tree["occ_pairs"].clone(), tree["bases"], tree["dims"])
+        assert host_lib.vhx_coarse_rebuild(got.data_ptr(), _ints(tree["bases"]),
+                                           _ints(tree["dims"]), len(tree["bases"]),
+                                           tickets.data_ptr(), 0, None) == 0
+        assert _equal(got, want) and int(tickets) == 0
+
+
+def test_coarse_rebuild_kernel_entry_rejects_bad_levels(host_lib):
+    """The C entry refuses a level table whose dims are not each a quarter
+    of the level's below, rounded up, and more levels than the table holds;
+    a pyramid of one level has nothing to rebuild."""
+    from voxelhex_tpu_torch.ops.stream import _ints
+
+    pairs = torch.zeros((64 + 1, 2), dtype=torch.int32)
+    tickets = torch.zeros(1, dtype=torch.int32)
+
+    def call(bases, dims):
+        return host_lib.vhx_coarse_rebuild(pairs.data_ptr(), _ints(bases), _ints(dims),
+                                           len(bases), tickets.data_ptr(), 0, None)
+
+    assert call([0, 64], [4, 1]) == 0
+    assert call([0], [4]) == 0
+    assert call([0, 64], [4, 2]) != 0
+    assert call([0] * 13, [1] * 13) != 0
 
 
 @pytest.mark.parametrize("shift", [(16, 0, 32), (-16, -48, 0), (32, -16, 16), (64, 0, 0),
@@ -1215,6 +1361,54 @@ def test_far_kernel_source_equals_plain(host_lib, n_layers, inside, out_u8):
     assert _equal(out, want)
     if n_layers > 1:  # a ring's hits show where the window misses
         assert not _equal(want, far_frame_plain(layers[:1], inside, bg, out_u8))
+
+
+def _floor_case(res):
+    """The camera inside a 16 window whose voxels are a floor (y < 5) and a
+    ring of 32 cells at factor 2 around it, looking level: the frame's upper
+    rows see the sky in the window and go on to the ring, its lower rows hit
+    the floor, and the rows between mix."""
+    from dataclasses import replace
+
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    rng = np.random.default_rng(4)
+    occ = rng.random((16, 16, 16)) < 0.6
+    occ[:, 5:] = False
+    window = bitgrid_from_occupancy(occ, palette=rng.random((5, 4)))
+    window.colors = np.ascontiguousarray(np.where(occ, rng.integers(0, 5, occ.shape), 0xFFFF)
+                                         .astype(np.uint16).transpose(2, 1, 0)).ravel()
+    eye = np.array([8.0, 7.0, 2.5], dtype=np.float32)
+    target = np.array([9.0, 6.0, 40.0], dtype=np.float32)
+    cam = Camera(origin=eye, target=target, resolution=res, fov_y_deg=70.0)
+    ring_cam = replace(cam, origin=eye / np.float32(2), target=target / np.float32(2))
+    return [(device_bitgrid(window, "cpu"), cam, 1), (_tree(32, 0.03), ring_cam, 2)]
+
+
+@pytest.mark.parametrize("out_u8", [True, False])
+def test_far_kernel_source_blocks_that_go_on_to_the_ring(host_lib, out_u8):
+    """With the camera inside, blocks where none, some and all of the pixels
+    go on to the ring, and a ragged edge that cuts blocks and warps (61 x
+    43), equal to the plain version bit for bit."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params
+
+    w, h = 61, 43
+    layers = _floor_case((w, h))
+    stats = []
+    want = far_frame_plain(layers, True, (0.1, 0.2, 0.3), out_u8, stats=stats)
+    go = np.zeros((-(-h // 8) * 8, -(-w // 16) * 16), bool)
+    go[:h, :w] = ~stats[0]["hit"].reshape(h, w).numpy()
+    per_block = go.reshape(go.shape[0] // 8, 8, go.shape[1] // 16, 16).sum(axis=(1, 3))
+    inner = per_block[:h // 8, :w // 16]
+    assert (inner == 0).any() and (inner == 128).any() and ((inner > 0) & (inner < 128)).any()
+    assert stats[1]["rays"] == int(go.sum())
+    out = torch.full((h, w, 3), 7, dtype=torch.uint8 if out_u8 else torch.float32)
+    assert host_lib.vhx_render_far(far_params(layers, True, (0.1, 0.2, 0.3)),
+                                   None if out_u8 else out.data_ptr(),
+                                   out.data_ptr() if out_u8 else None, 0, None) == 0
+    assert _equal(out, want)
+    assert not _equal(want, far_frame_plain(layers[:1], True, (0.1, 0.2, 0.3), out_u8))
 
 
 def _grazing_rays(size, n, seed):

@@ -229,6 +229,32 @@ def test_window_only_frames_equal_reference():
             assert view.far is None and np.array_equal(a, b)
 
 
+def test_update_rebuilds_the_levels_once(monkeypatch):
+    """An update that shifts the window and pages the exposed regions
+    through the partial scatter writes level 0 twice and rebuilds the
+    levels above once, after both; the full upload of the first update
+    rebuilds none.  Each update's state equals the reference's."""
+    ref_view, view = views(terrain_trees(), view_size=VIEW, regions_per_update=8192,
+                           far_field=False)
+    calls = {"coarse_rebuild": 0, "window_shift": 0, "region_scatter": 0}
+
+    def counted(name):
+        fn = getattr(streaming, name)
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(streaming, name, counted(name))
+    for i, want in ((0, (0, 0, 0)), (1, (1, 1, 1))):
+        before = dict(calls)
+        render_both(ref_view, view, flight_camera(i), True)
+        assert tuple(calls[k] - before[k] for k in calls) == want
+        assert_state_equal(state(ref_view, True), state(view, False))
+
+
 def test_budgeted_paging_with_placeholders_equals_reference(flight):
     """Eight regions an update with the camera's frustum order, after a
     jump that leaves the whole window to page: placeholder content where

@@ -1,0 +1,262 @@
+"""The streaming view's far frame and coarse rebuild against another tree's.
+
+    python3 tools/stream_ab.py [--parent DIR] [--far-variant NAME=FLAGS ...] [--rounds N]
+                               [--frames N]
+
+Follows ``chip_smoke.py``'s fly-over (phase 12 (a)): the 1024 terrain
+through ``StreamingView(tree, view_size=256, regions_per_update=8192)``
+along ``flight_cam`` at 1920x1080.  At each frame's pose it prints each
+layer's march from ``far_frame_plain(..., stats=[])``: the rays that
+start it, their automaton steps (sum and most), and the share of
+lane-steps that do work when a warp takes a 4 x 8 pixel tile (the kernel
+of one pixel a thread) and when a block's rays that go on to a ring are
+packed into its first warps in tile order (a block of 4 or 8 warps).
+Then it times by device time (``chip_smoke.device_ms``), in turns:
+
+* the far frame (``render_far``) and the same launch on the window alone
+  (``layers[:1]``), beside ``frame.cu`` at the same window and pose;
+* the coarse rebuild of the window's levels above level 0 (``coarse_rebuild``
+  on a copy of the window).
+
+``--parent DIR``: ``DIR`` is another commit's tree (e.g. unpacked with
+``git archive`` under ``build/parent``); its kernels are built with its
+own ``_build``, held equal to this tree's on every output, and timed in the
+same turns: parent, change, change, parent, ``--rounds`` times (``--name``
+names the other tree in the output).
+``--far-variant NAME=FLAGS`` (repeated) adds this tree's ``far.cu`` built
+with the extra nvcc ``FLAGS`` as another contender, e.g.
+``r48=-maxrregcount=48``.  Prints ``far_kernel``'s registers, stack and
+spills of each build.
+
+Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, ROOT)
+
+FAR_REPS = 10
+REBUILD_REPS = 20
+
+
+def lane_shares(iters, go, warps, tile=(4, 8)):
+    """``(tile, packed)``: the share of lane-steps that do work for the
+    per-ray steps ``iters`` [h, w] of the rays ``go`` [h, w] that march,
+    with a warp on each 4 x 8 tile, and with each block's (``warps`` tiles
+    side by side) marching rays packed into its first warps in thread
+    order."""
+    import torch
+
+    tw, th = tile
+    h, w = iters.shape
+    bw = tw * warps
+    H, W = -(-h // th) * th, -(-w // bw) * bw
+    it = torch.zeros((H, W), dtype=torch.float64)
+    g = torch.zeros((H, W), dtype=torch.bool)
+    it[:h, :w] = iters.double().cpu()
+    g[:h, :w] = go.cpu()
+    it = torch.where(g, it, torch.zeros_like(it))
+    # [block row, lane row, block col, warp, lane col] -> blocks of threads in order
+    def blocks(x):
+        x = x.reshape(H // th, th, W // bw, warps, tw).permute(0, 2, 3, 1, 4)
+        return x.reshape(-1, 32 * warps)
+    ib, gb = blocks(it), blocks(g)
+    work = float(ib.sum())
+    if work == 0:
+        return 1.0, 1.0
+    tiled = float(ib.reshape(-1, 32).max(dim=1).values.sum()) * 32
+    order = torch.argsort((~gb).to(torch.int8), dim=1, stable=True)
+    packed = torch.gather(ib, 1, order)
+    packed_cost = float(packed.reshape(-1, 32).max(dim=1).values.sum()) * 32
+    return work / tiled, work / packed_cost
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of another tree's copy")
+    ap.add_argument("--name", default="parent", help="what to call the other tree")
+    ap.add_argument("--far-variant", action="append", default=[], metavar="NAME=FLAGS",
+                    help="also time this tree's far.cu built with these nvcc flags")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--frames", type=int, default=8, help="fly-over frames (at most 8)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stream_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from automaton_ab import load_build
+
+    chip_smoke.faulthandler.cancel_dump_traceback_later()
+    from voxelhex_tpu_torch.ops import _build, stream
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params, render_far
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import terrain_points
+    from voxelhex_tpu_torch.tree.build import from_voxels
+
+    card = chip_smoke.card_line()
+    tag = f"[{card}]"
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda", 0)
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    t0 = time.time()
+    _build.library()
+    contenders = {"change": None}
+    builds = {"change": _build}
+    if args.parent:
+        parent = load_build(os.path.abspath(args.parent), "parent_build")
+        parent.library()
+        builds[args.name] = parent
+        contenders[args.name] = parent
+    for variant in args.far_variant:
+        name, _, flags = variant.partition("=")
+        out = os.path.join(ROOT, "build", "stream_ab", f"libfar_{name}.so")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        run = subprocess.run([_build._nvcc(), *_build.FLAGS, *flags.split(), "-o", out,
+                              os.path.join(_build.CSRC, "far.cu")],
+                             capture_output=True, text=True, timeout=_build.BUILD_TIMEOUT_S)
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc far.cu {flags}:\n{run.stdout}{run.stderr}")
+        usage = chip_smoke.ptxas_usage(run.stdout + run.stderr, "far_kernel")
+        print(f"  change {name} ({flags}) far_kernel: {usage[0]} registers, {usage[1]} B stack, "
+              f"{usage[2]} B spill stores, {usage[3]} B spill loads", flush=True)
+        contenders[f"change {name}"] = ctypes.CDLL(out)
+    print(f"built in {time.time() - t0:.1f} s", flush=True)
+    for name, b in builds.items():
+        usage = chip_smoke.ptxas_usage(b.build_log("far.cu"), "far_kernel")
+        print(f"  {name} far_kernel: {usage[0]} registers, {usage[1]} B stack, {usage[2]} B "
+              f"spill stores, {usage[3]} B spill loads", flush=True)
+
+    def far_fn(name):
+        """One far frame of ``name``'s kernel: ``fn(layers, inside)``."""
+        if name == "change":
+            return lambda layers, inside: render_far(layers, inside)
+        lib = contenders[name]
+        if isinstance(lib, ctypes.CDLL):
+            entry = lib.vhx_render_far
+        else:
+            entry = lib.library().vhx_render_far
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+
+        def call(layers, inside):
+            p = far_params(layers, inside)
+            out = torch.empty((p.h, p.w, 3), dtype=torch.uint8, device=dev)
+            _build.check(entry(ctypes.addressof(p), None, out.data_ptr(), 0, cuda_stream),
+                         f"{name} far frame")
+            return out
+        return call
+
+    def rebuild_fn(name):
+        """One coarse rebuild of ``name``'s kernel on a window ``tree``."""
+        if name == "change":
+            return stream.coarse_rebuild
+        entry = builds[name].library().vhx_coarse_rebuild
+        if len(entry.argtypes) == 6:  # one launch a level: no ticket counter
+            return lambda tree: _build.check(entry(
+                tree["occ_pairs"].data_ptr(), stream._ints(tree["bases"]),
+                stream._ints(tree["dims"]), len(tree["bases"]), 0, cuda_stream),
+                f"{name} rebuild")
+        tickets = torch.zeros(1, dtype=torch.int32, device=dev)
+        return lambda tree: _build.check(entry(
+            tree["occ_pairs"].data_ptr(), stream._ints(tree["bases"]),
+            stream._ints(tree["dims"]), len(tree["bases"]), tickets.data_ptr(), 0, cuda_stream),
+            f"{name} rebuild")
+
+    fars = {name: far_fn(name) for name in contenders}
+    rebuilds = {name: rebuild_fn(name) for name in builds}
+    other = ([n for n in contenders if n != "change"] or ["change"])[0]
+
+    t0 = time.time()
+    pts, cols = terrain_points(chip_smoke.TERRAIN_WORLD)
+    tree = from_voxels(pts, cols, size=chip_smoke.TERRAIN_WORLD, brick_dim=4)
+    del pts, cols
+    view = StreamingView(tree, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192)
+    print(f"terrain and view: {time.time() - t0:.1f} s", flush=True)
+    sums = {}
+    for i in range(min(args.frames, chip_smoke.FLY_FRAMES)):
+        cam = chip_smoke.flight_cam(i)
+        frame = view.render(cam, out_u8=True, out_device=True)
+        layers, inside = view.layers(cam), view.camera_inside(cam)
+        stats = []
+        plain = far_frame_plain(layers, inside, stats=stats)
+        if not bool((plain == frame).all()):
+            raise AssertionError(f"frame {i}: render() differs from far_frame_plain")
+        h, w = plain.shape[:2]
+        print(f"frame {i}: camera inside the window {inside}", flush=True)
+        for li, s in enumerate(stats):
+            iters = s["iters"].reshape(h, w)
+            go = iters > 0 if li and inside else torch.ones_like(iters, dtype=torch.bool)
+            shares = [lane_shares(iters, go, warps) for warps in (4, 8)]
+            print(f"  layer {li}: {s['rays']} rays, {int(s['iters'].sum())} steps, most "
+                  f"{int(s['iters'].max())}; working lane-steps: 4 x 8 tile {shares[0][0]:.4f}, "
+                  f"packed in a block of 4 warps {shares[0][1]:.4f}, of 8 warps "
+                  f"{shares[1][1]:.4f}", flush=True)
+        window_plain = far_frame_plain(layers[:1], inside)
+        for name, fn in fars.items():
+            for lay, want in ((layers, plain), (layers[:1], window_plain)):
+                if not bool((fn(lay, inside) == want).all()):
+                    raise AssertionError(f"frame {i}: {name}'s far frame ({len(lay)} layers) "
+                                         "differs from far_frame_plain")
+        window = layers[0][0]
+        work = dict(window, occ_pairs=window["occ_pairs"].clone())
+        want = stream.coarse_rebuild_plain(window["occ_pairs"].clone(), window["bases"],
+                                           window["dims"])
+        for name, fn in rebuilds.items():
+            work["occ_pairs"].zero_()
+            work["occ_pairs"][: window["dims"][0] ** 3] = window["occ_pairs"][
+                : window["dims"][0] ** 3]
+            fn(work)
+            if not bool((work["occ_pairs"] == want).all()):
+                raise AssertionError(f"frame {i}: {name}'s rebuild differs from the plain one")
+
+        timers = {}
+        for name, fn in fars.items():
+            timers[f"far {name}"] = (lambda fn=fn: fn(layers, inside), FAR_REPS)
+            timers[f"window-only far {name}"] = (lambda fn=fn: fn(layers[:1], inside), FAR_REPS)
+        timers["frame.cu"] = (lambda: render_frame(window, layers[0][1]), FAR_REPS)
+        for name, fn in rebuilds.items():
+            timers[f"rebuild {name}"] = (lambda fn=fn: fn(work), REBUILD_REPS)
+        for fn, _reps in timers.values():
+            fn()
+            fn()
+        got = {k: [] for k in timers}
+        rest = [n for n in contenders if n != other]
+        turn = [other] + rest + rest[::-1] + [other] if rest else [other, other]
+        for _ in range(args.rounds):
+            for name in turn:
+                for key in [k for k in timers if k.endswith(" " + name)]:
+                    fn, reps = timers[key]
+                    got[key].append(chip_smoke.device_ms(fn, reps))
+            fn, reps = timers["frame.cu"]
+            got["frame.cu"].append(chip_smoke.device_ms(fn, reps))
+        for key, t in got.items():
+            if not t:
+                continue
+            mean = sum(t) / len(t)
+            sums.setdefault(key, []).append(mean)
+            print(f"  {key}: turns " + ", ".join(f"{x:.4f}" for x in t)
+                  + f" ms; mean {mean:.4f} ms {tag}", flush=True)
+    print("means over the frames:", flush=True)
+    for key, v in sums.items():
+        print(f"  {key}: {sum(v) / len(v):.4f} ms ({', '.join(f'{x:.4f}' for x in v)}) {tag}",
+              flush=True)
+    view.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,9 @@
 // (`_hit_dist`, :183) and the nearest-hit composite (`_far_accum`, :160),
 // all XLA programs, on the path of the two ported TPU kernels (the
 // traversal of voxelhex_tpu/ops/traverse_pallas.py and the shading of
-// ops/shade_pallas.py).  Each thread takes one pixel through every layer
-// in turn (the window, then rings 0 .. n - 1, each a BitGrid with its own
-// camera params, level table and palette, passed by value):
+// ops/shade_pallas.py).  Each pixel goes through every layer in turn (the
+// window, then rings 0 .. n - 1, each a BitGrid with its own camera
+// params, level table and palette, passed by value):
 //   prologue  the pixel's ray in the layer's frame (frame.cuh pixel_ray);
 //   body      the automaton (traverse.cuh): the window's march as frame.cu
 //             runs it; a ring's from start_t = 0 when the camera is inside
@@ -27,9 +27,23 @@
 //
 // What bounds it on the H100: the automaton's instructions, as in frame.cu
 // (the layers' pyramids are L2-resident: 2.1 MB at a 256 window, as much
-// again for a 256-cell ring).  A pixel marches once a layer it reaches;
-// the 4 x 8 warp tile (frame.cuh) keeps a warp's lanes on neighbouring rays,
-// which end in the same layer more often than not.
+// again for a 256-cell ring).  At a fly-over pose the window's march takes
+// about 70% of the frame and the ring's march the rest, in proportion to
+// its steps; the layer loop itself costs nothing measurable.  So the design
+// keeps the march's code small and its registers free (PERF.md):
+//   * one automaton: each layer picks init's form at run time (the start
+//     clip for a ring when the camera is inside) and runs one `run` and one
+//     hit epilogue, so the automaton's loop is compiled once, not once a
+//     form;
+//   * what a pixel holds between layers (hit, world distance, color: 17 B)
+//     lives in the block's shared memory, one entry a thread: held in
+//     registers across the march instead, it made the same launch 7%
+//     slower;
+//   * the level tables of all layers are filled by the block's threads at
+//     once.
+// Packing the rays that go on to a ring into a block's first warps at each
+// layer boundary bought less than its barriers cost: the ring's rays are
+// the sky and the far terrain, which fill whole warps already.
 
 #include "frame.cuh"
 
@@ -65,6 +79,23 @@ constexpr int THREADS = vhx::FRAME_THREADS;
 constexpr int WARP_H = vhx::WARP_H;
 constexpr int BLOCK_W = vhx::BLOCK_W;
 
+// What the block's pixels hold between layers, one entry a thread
+struct Pixels {
+    float rgb[3][THREADS];
+    float dist[THREADS];
+    unsigned char hit[THREADS];
+};
+
+// The pixel (x, y) of thread t of this block (frame.cuh's tile_pixel).  The
+// march's loop computes it again from t rather than keep it from the top: in
+// that form the kernel compiled to the fastest of the shapes timed (PERF.md,
+// §6), which differed by up to 1.6% with the same arithmetic.
+__device__ __forceinline__ void thread_pixel(int t, int& x, int& y) {
+    const int lane = t & 31;
+    x = blockIdx.x * BLOCK_W + (t >> 5) * vhx::WARP_W + lane % vhx::WARP_W;
+    y = blockIdx.y * WARP_H + lane / vhx::WARP_W;
+}
+
 // |point - o| as XLA:CPU computes the reference's jnp.linalg.norm of a
 // 3-vector there: the squares summed in order, unfused
 __device__ __forceinline__ float ray_length(const float p[3], const float o[3]) {
@@ -76,44 +107,60 @@ __global__ void __launch_bounds__(THREADS)
 far_kernel(const __grid_constant__ FarParams P, float* __restrict__ rgb_out,
            unsigned char* __restrict__ u8_out) {
     __shared__ int2 levels[VHX_FAR_MAX_LAYERS * VHX_MAX_LEVELS];
-    if (threadIdx.x == 0) {
-        for (int l = 0; l < P.n_layers; ++l)
-            for (int i = 0; i < VHX_MAX_LEVELS; ++i)
-                levels[l * VHX_MAX_LEVELS + i] =
-                    make_int2(P.layers[l].trace.bases[i], P.layers[l].trace.dims[i]);
+    __shared__ Pixels px;
+    const int t = threadIdx.x;
+    for (int e = t; e < P.n_layers * VHX_MAX_LEVELS; e += THREADS) {
+        const TraceParams& T = P.layers[e / VHX_MAX_LEVELS].trace;
+        levels[e] = make_int2(T.bases[e % VHX_MAX_LEVELS], T.dims[e % VHX_MAX_LEVELS]);
     }
-    __syncthreads();
     int x, y;
-    vhx::tile_pixel(x, y);
-    if (x >= P.w || y >= P.h) return;
+    thread_pixel(t, x, y);
+    const bool valid = x < P.w && y < P.h;
+    px.hit[t] = 0;
+    px.dist[t] = INFINITY;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) px.rgb[k][t] = P.bg[k];
+    __syncthreads();
 
-    bool hit = false;
-    float dist = INFINITY, rgb[3] = {P.bg[0], P.bg[1], P.bg[2]};
     for (int l = 0; l < P.n_layers; ++l) {
-        const FarLayer& L = P.layers[l];
-        const bool ring = l > 0;
-        if (ring && P.inside && hit) continue;  // the reference's start_t = 1e9
-        float o[3], d[3];
-        vhx::pixel_ray(L.origin, L.right, L.up, L.forward, L.scale, P.cw, P.ch, x, y, o, d);
-        const int2* lv = levels + l * VHX_MAX_LEVELS;
-        const vhx::Hit h =
-            ring && P.inside
-                ? vhx::march<true>(o, d, L.occ, L.colors, lv, L.trace.n_levels, L.trace.size,
-                                   L.trace.n_blocks, L.trace.max_iters, 0.f)
-                : vhx::march(o, d, L.occ, L.colors, lv, L.trace.n_levels, L.trace.size,
-                             L.trace.n_blocks, L.trace.max_iters);
-        if (!h.hit) continue;
-        const float hd = __fmul_rn(ray_length(h.point, o), L.factor);
-        if (hit && !(hd < dist)) continue;
-        vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
-        hit = true;
-        dist = hd;
+        // a ray that hit already skips a ring when the camera is inside (the
+        // reference's start_t = 1e9)
+        bool go = valid;
+        if (l > 0 && P.inside) go = valid && !px.hit[t];
+        if (go) {
+            const FarLayer& L = P.layers[l];
+            int sx, sy;
+            thread_pixel(t, sx, sy);
+            float o[3], d[3];
+            vhx::pixel_ray(L.origin, L.right, L.up, L.forward, L.scale, P.cw, P.ch, sx, sy, o, d);
+            const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels, L.trace.size,
+                              L.trace.n_blocks};
+            vhx::March m;
+            // a ring's rays start at the camera (start_t = 0) when it is inside
+            vhx::init<true>(m, o, d, g, 0.f, l > 0 && P.inside);
+            vhx::StopAtHit stop;
+            vhx::run(m, g, L.trace.max_iters, stop);
+            if (m.hit) {
+                const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
+                const float hd = __fmul_rn(ray_length(h.point, o), L.factor);
+                // the nearest hit in world voxels; a tie keeps the finer layer's
+                if (!px.hit[t] || hd < px.dist[t]) {
+                    float rgb[3];
+                    vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
+                    px.hit[t] = 1;
+                    px.dist[t] = hd;
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
+                }
+            }
+        }
     }
+    if (!valid) return;
     const long long r = (long long)y * P.w + x;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-        if (rgb_out) rgb_out[3 * r + k] = rgb[k];
-        if (u8_out) u8_out[3 * r + k] = vhx::to_u8(rgb[k]);
+        if (rgb_out) rgb_out[3 * r + k] = px.rgb[k][t];
+        if (u8_out) u8_out[3 * r + k] = vhx::to_u8(px.rgb[k][t]);
     }
 }
 

@@ -13,12 +13,20 @@
 //                    fastest).  The u8 wire's 255 and 254 widen to the u16
 //                    sentinels 0xFFFF (empty) and 0xFFFE (no color).
 //   coarse_rebuild   replaces `_make_coarse_rebuild` (:114) with
-//                    `_jnp_pack_bits` (:89): pyramid level l + 1 from level
-//                    l, one launch a level (64^3 -> 16^3 -> 4^3 -> 1 blocks
-//                    at S = 256).  Bit s = cx + 4 cy + 16 cz of a word is set
-//                    when its child block's pair is not zero; children past
-//                    the edge of a level whose blocks an axis are not a
-//                    multiple of 4 count as empty (the reference's pad).
+//                    `_jnp_pack_bits` (:89): every pyramid level above level
+//                    0 from level 0 (64^3 -> 16^3 -> 4^3 -> 1 blocks at S =
+//                    256), in one launch.  Bit s = cx + 4 cy + 16 cz of a
+//                    word is set when its child block's pair is not zero;
+//                    children past the edge of a level whose blocks an axis
+//                    are not a multiple of 4 count as empty (the reference's
+//                    pad).  A warp makes a word: lane l reads children l and
+//                    l + 32 (four lanes a 32 B row of pairs), and the
+//                    ballots of "not zero" are the word's two halves.  A
+//                    block makes the 64 level-1 words under one level-2
+//                    word, then that word from shared memory; the last block
+//                    to finish (a ticket: a fence, then an atomic add on a
+//                    counter that it sets back to 0) makes the levels above
+//                    from the level-2 words.
 //   window_shift     replaces `roll_zero` in `_shift_device` (:1073): the
 //                    window's colors [S, S, S] move by -shift and its level-0
 //                    pairs [S/4, S/4, S/4] by -shift / 4, the exposed slab
@@ -31,9 +39,12 @@
 // pairs and shifts 33.5 MB of colors: each is a copy with arithmetic
 // addresses, and the threads of a warp take consecutive x so that their
 // writes (the scatter's, the shift's: 16 B of 8 colors a thread) or reads
-// (the rebuild's children of one word are a 4 x 4 x 4 cube, read as four
-// rows of 4) fall on a few sectors.  The scatter's wire rows are z fastest, so a warp's reads fall
-// 256 B apart; its stores, twice the bytes, are the side kept contiguous.
+// (the rebuild's children of one word are a 4 x 4 x 4 cube, read as rows of
+// 4) fall on a few sectors.  The scatter's wire rows are z fastest, so a
+// warp's reads fall 256 B apart; its stores, twice the bytes, are the side
+// kept contiguous.  The rebuild's work is a few microseconds' of reads, less
+// than a launch: it is one launch, and each thread issues all of its
+// level-0 loads before its first ballot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,33 +85,102 @@ region_scatter_kernel(unsigned short* __restrict__ colors, uint2* __restrict__ p
     }
 }
 
-// One word pair of level l + 1 a thread, from the 64 pairs of its child
-// blocks at level l (`child` holds c^3 of them, the parent level n^3).
-__global__ void __launch_bounds__(THREADS)
-coarse_level_kernel(uint2* __restrict__ pairs, int child_base, int c, int parent_base, int n) {
-    const int b = blockIdx.x * THREADS + threadIdx.x;
-    if (b >= n * n * n) return;
-    const int bx = b % n, by = (b / n) % n, bz = b / (n * n);
-    uint32_t lo = 0u, hi = 0u;
-#pragma unroll 1
-    for (int cz = 0; cz < 4; ++cz) {
-        const int z = 4 * bz + cz;
+constexpr int MAX_LEVELS = 12;  // VHX_MAX_LEVELS in traverse.cuh
+constexpr int REBUILD_THREADS = 256;
+constexpr int REBUILD_WARPS = REBUILD_THREADS / 32;
+constexpr int WORDS_A_WARP = 64 / REBUILD_WARPS;  // level-1 words a warp makes
+constexpr unsigned FULL = 0xffffffffu;
+
+// A pyramid's level table: word-pair offset and blocks an axis of each level
+struct Pyramid {
+    int n_levels;
+    int bases[MAX_LEVELS];
+    int dims[MAX_LEVELS];
+};
+
+// Whether child s = lane + 32 h (h = 0, 1) of the parent block (bx, by, bz)
+// is not zero, at a level of c^3 blocks from `child`; past the edge, empty.
+__device__ __forceinline__ bool child_set(const uint2* child, int c, int bx, int by, int bz,
+                                          int lane, int h) {
+    const int x = 4 * bx + (lane & 3), y = 4 * by + ((lane >> 2) & 3),
+              z = 4 * bz + (lane >> 4) + 2 * h;
+    if (x >= c || y >= c || z >= c) return false;
+    const uint2 w = __ldcg(&child[x + (long long)y * c + (long long)z * c * c]);
+    return (w.x | w.y) != 0u;
+}
+
+// The word pair of the parent block (bx, by, bz) over a child level of c^3
+// blocks, made by the whole warp: bit s is lane s's ballot (s < 32, the low
+// word) or lane s - 32's (the high word).
+__device__ __forceinline__ uint2 parent_word(const uint2* child, int c, int bx, int by, int bz,
+                                             int lane) {
+    const bool lo = child_set(child, c, bx, by, bz, lane, 0);
+    const bool hi = child_set(child, c, bx, by, bz, lane, 1);
+    return make_uint2(__ballot_sync(FULL, lo), __ballot_sync(FULL, hi));
+}
+
+// Block q makes the level-1 words under level-2 word q (a pyramid of two
+// levels: the one level-1 word, one block) and word q itself; the last
+// block to finish makes levels 3 .. n_levels - 1.  `tickets` is 0 before
+// the launch and after it.
+__global__ void __launch_bounds__(REBUILD_THREADS)
+coarse_kernel(uint2* __restrict__ pairs, const __grid_constant__ Pyramid P,
+              int* __restrict__ tickets) {
+    __shared__ unsigned char set[64];  // the block's level-1 words that are not zero
+    __shared__ bool last;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n2 = P.n_levels > 2 ? P.dims[2] : 1;
+    const int q = blockIdx.x;
+    const int qx = q % n2, qy = q / n2 % n2, qz = q / (n2 * n2);
+    const int c0 = P.dims[0], c1 = P.dims[1];
+    const uint2* level0 = pairs + P.bases[0];
+    // level 1: word s of the 64 under q is made by warp s % REBUILD_WARPS in
+    // turn s / REBUILD_WARPS; every load first, then the ballots
+    bool lo[WORDS_A_WARP], hi[WORDS_A_WARP];
 #pragma unroll
-        for (int cy = 0; cy < 4; ++cy) {
-            const int y = 4 * by + cy;
+    for (int k = 0; k < WORDS_A_WARP; ++k) {
+        const int s = warp + REBUILD_WARPS * k;
+        const int bx = 4 * qx + (s & 3), by = 4 * qy + (s >> 2 & 3), bz = 4 * qz + (s >> 4);
+        const bool in = bx < c1 && by < c1 && bz < c1;
+        lo[k] = in && child_set(level0, c0, bx, by, bz, lane, 0);
+        hi[k] = in && child_set(level0, c0, bx, by, bz, lane, 1);
+    }
 #pragma unroll
-            for (int cx = 0; cx < 4; ++cx) {
-                const int x = 4 * bx + cx;
-                if (x >= c || y >= c || z >= c) continue;
-                const uint2 w = pairs[child_base + x + y * c + (long long)z * c * c];
-                if ((w.x | w.y) == 0u) continue;
-                const int s = cx + 4 * cy + 16 * cz;
-                if (s < 32) lo |= 1u << s;
-                else hi |= 1u << (s - 32);
-            }
+    for (int k = 0; k < WORDS_A_WARP; ++k) {
+        const int s = warp + REBUILD_WARPS * k;
+        const int bx = 4 * qx + (s & 3), by = 4 * qy + (s >> 2 & 3), bz = 4 * qz + (s >> 4);
+        const uint2 w = make_uint2(__ballot_sync(FULL, lo[k]), __ballot_sync(FULL, hi[k]));
+        if (lane == 0) {
+            if (bx < c1 && by < c1 && bz < c1)
+                pairs[P.bases[1] + bx + (long long)by * c1 + (long long)bz * c1 * c1] = w;
+            set[s] = (w.x | w.y) != 0u;
         }
     }
-    pairs[parent_base + b] = make_uint2(lo, hi);
+    __syncthreads();
+    if (P.n_levels <= 2) return;
+    if (warp == 0) {  // level 2: word q from the 64 below it
+        const uint2 w =
+            make_uint2(__ballot_sync(FULL, set[lane]), __ballot_sync(FULL, set[lane + 32]));
+        if (lane == 0) {
+            pairs[P.bases[2] + q] = w;
+            __threadfence();  // word q is seen before the ticket
+            last = atomicAdd(tickets, 1) == (int)gridDim.x - 1;
+        }
+    }
+    __syncthreads();
+    if (!last) return;
+    // the last block: every level-2 word is written; the levels above
+    __threadfence();
+    for (int L = 3; L < P.n_levels; ++L) {
+        const int n = P.dims[L], c = P.dims[L - 1];
+        for (int b = warp; b < n * n * n; b += REBUILD_WARPS) {
+            const uint2 w = parent_word(pairs + P.bases[L - 1], c, b % n, b / n % n, b / (n * n),
+                                        lane);
+            if (lane == 0) pairs[P.bases[L] + b] = w;
+        }
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) *tickets = 0;
 }
 
 // in moved by -(sx, sy, sz) into out, for an n^3 grid x fastest: the index
@@ -170,23 +250,31 @@ extern "C" cudaError_t vhx_region_scatter(void* colors, void* pairs, const int* 
     return cudaGetLastError();
 }
 
-// Levels 1 .. n_levels - 1 of `pairs` from level 0, one launch a level, in
-// turn; `bases` and `dims` are the pyramid's word-pair offsets and blocks an
-// axis (traverse.cuh's level table).
+// Levels 1 .. n_levels - 1 of `pairs` from level 0 in one launch; `bases`
+// and `dims` are the pyramid's word-pair offsets and blocks an axis
+// (traverse.cuh's level table), each level's dims ceil(dims below / 4);
+// `tickets` is one int, 0, that the launch leaves at 0 (launches that share
+// it are ordered on one stream).
 extern "C" cudaError_t vhx_coarse_rebuild(void* pairs, const int* bases, const int* dims,
-                                          int n_levels, int device, cudaStream_t stream) {
-    if (n_levels < 1) return cudaErrorInvalidValue;
+                                          int n_levels, int* tickets, int device,
+                                          cudaStream_t stream) {
+    if (n_levels < 1 || n_levels > MAX_LEVELS) return cudaErrorInvalidValue;
+    Pyramid P;
+    P.n_levels = n_levels;
+    for (int l = 0; l < n_levels; ++l) {
+        if (dims[l] < 1 || (l > 0 && dims[l] != (dims[l - 1] + 3) / 4))
+            return cudaErrorInvalidValue;
+        P.bases[l] = bases[l];
+        P.dims[l] = dims[l];
+    }
+    if (n_levels == 1) return cudaSuccess;
+    const long long n2 = n_levels > 2 ? dims[2] : 1;
+    if (n2 * n2 * n2 > 0x7fffffffLL) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    for (int l = 0; l + 1 < n_levels; ++l) {
-        const int n = dims[l + 1];
-        const int blocks = (n * n * n + THREADS - 1) / THREADS;
-        coarse_level_kernel<<<blocks, THREADS, 0, stream>>>(static_cast<uint2*>(pairs), bases[l],
-                                                           dims[l], bases[l + 1], n);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-    }
-    return cudaSuccess;
+    const int blocks = (int)(n2 * n2 * n2);
+    coarse_kernel<<<blocks, REBUILD_THREADS, 0, stream>>>(static_cast<uint2*>(pairs), P, tickets);
+    return cudaGetLastError();
 }
 
 // The window moved by (sx, sy, sz) voxels, multiples of 4: its colors [S^3]

@@ -304,13 +304,15 @@ constexpr int MOVE_LATERAL = 4;
 constexpr int MOVE_ADVANCE = 5;
 
 // Clip the ray (o, d) to the world box and enter it at the top level.
-// With kStart, the ray starts at least `start_t` along, clipped to just
-// inside its exit, and a ray that starts at or beyond its exit is inactive
-// from the start: the reference's `start_t` (bitgrid.py init), in its
-// order.  Without it the code is the form that every kernel but far.cu runs.
+// With kStart and `use_start`, the ray starts at least `start_t` along,
+// clipped to just inside its exit, and a ray that starts at or beyond its
+// exit is inactive from the start: the reference's `start_t` (bitgrid.py
+// init), in its order.  Without kStart the code is the form that every
+// kernel but far.cu runs; far.cu picks the form of each layer at run time
+// (`use_start`), so that one copy of the automaton serves both.
 template <bool kStart = false>
 __device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g,
-                                     float start_t = 0.f) {
+                                     float start_t = 0.f, bool use_start = true) {
     const float S = (float)g.size;
     const int top = g.n_levels - 1;
     const float top_block = pow4(top) * 4.f;
@@ -345,10 +347,12 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
     m.hit = false;
     float enter = xla_max(tmin_r, 0.f);
     if constexpr (kStart) {
-        // clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
-        m.active = m.active && start_t < tmax_r;
-        enter = xla_min(xla_max(0.f, xla_max(enter, start_t)),
-                        xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
+        if (use_start) {
+            // clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
+            m.active = m.active && start_t < tmax_r;
+            enter = xla_min(xla_max(0.f, xla_max(enter, start_t)),
+                            xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
+        }
     }
     // the reference fuses this multiply-add on x and y, not on z (with
     // start_t too)
@@ -579,20 +583,10 @@ struct Hit {
     float normal[3];
 };
 
-// March the ray (o, d) through the pyramid: the reference's `trace` of one
-// ray; with kStart, from `start_t` on (init).
-template <bool kStart = false>
-__device__ __forceinline__ Hit march(const float o[3], const float d[3],
-                                     const uint2* __restrict__ occ,
-                                     const unsigned short* __restrict__ colors,
-                                     const int2* levels, int n_levels, int size, int n_blocks,
-                                     int max_iters, float start_t = 0.f) {
-    const Grid g{occ, levels, n_levels, size, n_blocks};
-    March m;
-    init<kStart>(m, o, d, g, start_t);
-    StopAtHit stop;
-    run(m, g, max_iters, stop);
-
+// What the single-hit march `m` ends with: on a hit, the hit voxel, its
+// impact normal and color (`colors` of the world of edge `size`).
+__device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __restrict__ colors,
+                                      int size) {
     Hit out;
     out.hit = m.hit;
     out.hvox[0] = out.hvox[1] = out.hvox[2] = 0;
@@ -614,6 +608,21 @@ __device__ __forceinline__ Hit march(const float o[3], const float d[3],
         out.voxel = cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
     }
     return out;
+}
+
+// March the ray (o, d) through the pyramid: the reference's `trace` of one
+// ray.
+__device__ __forceinline__ Hit march(const float o[3], const float d[3],
+                                     const uint2* __restrict__ occ,
+                                     const unsigned short* __restrict__ colors,
+                                     const int2* levels, int n_levels, int size, int n_blocks,
+                                     int max_iters) {
+    const Grid g{occ, levels, n_levels, size, n_blocks};
+    March m;
+    init(m, o, d, g);
+    StopAtHit stop;
+    run(m, g, max_iters, stop);
+    return hit_of(m, colors, size);
 }
 
 }  // namespace vhx

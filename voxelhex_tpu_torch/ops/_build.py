@@ -269,7 +269,7 @@ def library() -> types.SimpleNamespace:
                 },
                 "stream.cu": {
                     "vhx_region_scatter": [p, p, p, p, p, i, i, i, i, p],
-                    "vhx_coarse_rebuild": [p, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p],
+                    "vhx_coarse_rebuild": [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p],
                     "vhx_window_shift": [p, p, p, p, i, i, i, i, i, i, p],
                 },
                 "far.cu": {"vhx_render_far": [ctypes.POINTER(FarParams), p, p, i, p]},

@@ -134,13 +134,25 @@ def coarse_rebuild_plain(pairs, bases, dims):
     return pairs
 
 
+# the coarse rebuild's ticket counters, one int32 a (device, stream), 0
+# between launches: launches on one stream are ordered
+_tickets = {}
+
+
+def _ticket_counter(dev):
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
 def coarse_rebuild(tree):
     """Rebuild every pyramid level above level 0 of the window ``tree`` in
     place from its level-0 word pairs: a bit of a level-(l + 1) word is set
     where its child block's pair at level l is not zero.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, once
-    a level above level 0."""
+    for all the levels above level 0 (none for a pyramid of one level)."""
     pairs, bases, dims = tree["occ_pairs"], tree["bases"], tree["dims"]
     dev = pairs.device
     if dev.type == "cpu":
@@ -153,11 +165,14 @@ def coarse_rebuild(tree):
     if not 1 <= n <= _build.MAX_LEVELS or bases[-1] + dims[-1] ** 3 != pairs.shape[0]:
         raise ValueError(f"a pyramid of {n} levels, bases {bases}, dims {dims} over "
                          f"{pairs.shape[0]} word pairs")
+    if n == 1:
+        return
     lib = _build.library()
-    err = lib.vhx_coarse_rebuild(pairs.data_ptr(), _ints(bases), _ints(dims), n, dev.index or 0,
+    err = lib.vhx_coarse_rebuild(pairs.data_ptr(), _ints(bases), _ints(dims), n,
+                                 _ticket_counter(dev).data_ptr(), dev.index or 0,
                                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "coarse rebuild launch")
-    coarse_rebuild.launches += n - 1
+    coarse_rebuild.launches += 1
 
 
 coarse_rebuild.launches = 0

@@ -409,6 +409,9 @@ class StreamingView:
         self.uploads = 0  # regions paged so far
         self._flat = None
         self._dev_palette_count = -1
+        # the device window's level 0 changed since its levels above were
+        # built: `update` rebuilds them once, after its last level-0 write
+        self._levels_stale = False
 
         tree.update_triggers.append(self._on_tree_update)
         self.renderer: BitGridRenderer | None = None
@@ -511,8 +514,10 @@ class StreamingView:
 
     def update(self, camera_origin, camera=None) -> int:
         """Move the window if needed and page up to ``regions_per_update``
-        dirty regions (frustum first when ``camera`` is given).  Returns the
-        number of regions still dirty."""
+        dirty regions (frustum first when ``camera`` is given); the device
+        window's upper levels are rebuilt once, after the last level-0 write
+        (none after a full upload).  Returns the number of regions still
+        dirty."""
         new_origin = self._desired_origin(camera_origin)
         if not np.array_equal(new_origin, self.origin):
             shift = new_origin - self.origin
@@ -565,6 +570,9 @@ class StreamingView:
                 self._rebuild_device()
         elif touched:
             self._update_device_partial(touched, packed=packed)
+        if self._levels_stale:
+            coarse_rebuild(self.renderer.tree)
+            self._levels_stale = False
         return len(self._dirty)
 
     def _region_slice(self, region):
@@ -716,16 +724,16 @@ class StreamingView:
     def _shift_device(self, shift):
         """The window moved by ``shift`` (world voxels, multiples of
         ``REGION``): move the device grids by -shift (the window shift
-        kernel, into new buffers), rebuild their upper levels (the coarse
-        rebuild), and move the host pyramid's level 0 likewise, its upper
-        levels re-derived from it.  The exposed slab pages in as its regions
-        rasterize."""
+        kernel, into new buffers; their upper levels wait for the update's
+        one coarse rebuild), and move the host pyramid's level 0 likewise,
+        its upper levels re-derived from it.  The exposed slab pages in as
+        its regions rasterize."""
         S = self.view_size
         nb = S // 4
         bg = self.renderer.bitgrid
         tree_dev = self.renderer.tree
         tree_dev["colors"], tree_dev["occ_pairs"] = window_shift(tree_dev, shift)
-        coarse_rebuild(tree_dev)
+        self._levels_stale = True
 
         sb = [int(v) // 4 for v in shift]
         lo0, hi0 = (moved_grid(torch.from_numpy(w[: nb**3].view(np.int32).reshape(nb, nb, nb)),
@@ -790,8 +798,8 @@ class StreamingView:
     def _update_device_partial(self, regions, packed=None):
         """Page the changed regions into the device grids: their corners and
         wire rows (colors u8, or u16 past 254 palette colors, and level-0
-        word pairs) go to the region scatter, then the coarse rebuild
-        re-derives the upper levels; the host pyramid follows.  ``packed``
+        word pairs) go to the region scatter (the update's coarse rebuild
+        then re-derives the upper levels); the host pyramid follows.  ``packed``
         holds the host library's wire rows of freshly rasterized regions;
         the others (placeholders, the NumPy route) are packed from the
         mirrors here."""
@@ -848,11 +856,12 @@ class StreamingView:
         region_scatter(tree_dev, torch.from_numpy(corners).to(dev),
                        torch.from_numpy(np.ascontiguousarray(wire)).to(dev),
                        torch.from_numpy(np.ascontiguousarray(blk)).to(dev))
-        coarse_rebuild(tree_dev)
+        self._levels_stale = True
         self.renderer.invalidate_beam()
 
     def _rebuild_device(self):
         """Pack the whole pyramid on the host and upload the window."""
+        self._levels_stale = False
         levels_lo, levels_hi, bases = _pack_pyramid(self._occ)
         self._dev_palette_count = len(self.tree.color_palette)
         bg = BitGrid(size=self.view_size, n_levels=len(levels_lo), level_bases=bases,
