@@ -90,7 +90,9 @@ the reference digests; (e) a 64 window (W/S = 16: an anchored ring at
 factor 4 and the world at 16), two frames against the plain version; (c)
 an ``insert_at_lod`` that pages through the partial scatter, to a new
 view's frame; (f) the four kernels' device times in turns beside their
-bounds, plain versions, ``index_copy_`` and ``torch.roll``, the far frame
+bounds, plain versions, ``index_copy_`` and ``torch.roll``, the region
+scatter also with the L2 flushed before each launch and beside the host
+clock of its wire's three copies to the card, the far frame
 and the same launch on the window alone beside ``frame.cu`` at the same
 window and pose, each fly-over layer's rays and steps, and the fly-over's
 frames by host clock, split into the update (placeholders, rasterize, the
@@ -359,6 +361,13 @@ def ptxas_lines(log):
     return [line.strip() for line in log.splitlines() if any(k in line for k in keys)]
 
 
+def kernel_names(log, kernel):
+    """The mangled names of the entry functions in an ``nvcc -Xptxas -v``
+    log whose names hold ``kernel`` (one for each template instance)."""
+    return [chunk.split("'")[1] for chunk in log.split("Compiling entry function")[1:]
+            if kernel in chunk.splitlines()[0]]
+
+
 def ptxas_usage(log, kernel):
     """``(registers, stack B, spill stores B, spill loads B)`` of the entry
     function whose name holds ``kernel``, from an ``nvcc -Xptxas -v`` log."""
@@ -510,13 +519,16 @@ def main():
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
                                      ("far.cu", "far_kernel", None),
-                                     ("stream.cu", "coarse_kernel", None)):
-        usage = ptxas_usage(_build.build_log(source), kernel)
-        log(f"  ptxas {kernel}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
-            f"spill stores, {usage[3]} B spill loads")
-        if usage[1:] != (0, 0, 0) or (max_regs is not None and usage[0] > max_regs):
-            raise AssertionError(f"{kernel}: {usage[0]} registers (at most {max_regs}), "
-                                 f"{usage[1:]} B of stack and spills")
+                                     ("stream.cu", "coarse_kernel", None),
+                                     ("stream.cu", "region_scatter_kernel", None)):
+        build_log = _build.build_log(source)
+        for name in kernel_names(build_log, kernel) or [kernel]:  # each template instance
+            usage = ptxas_usage(build_log, name)
+            log(f"  ptxas {name}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} "
+                f"B spill stores, {usage[3]} B spill loads")
+            if usage[1:] != (0, 0, 0) or (max_regs is not None and usage[0] > max_regs):
+                raise AssertionError(f"{name}: {usage[0]} registers (at most {max_regs}), "
+                                     f"{usage[1:]} B of stack and spills")
 
     # ---- phase 2: each kernel against its plain version, bench pose
     t0 = time.time()
@@ -2626,6 +2638,31 @@ def streaming_slice(dev, card, tree):
         f"({ms['window-only far frame'] / ms['frame.cu']:.2f} times frame.cu) {host_tag}")
     log(f"coarse rebuild {ms['coarse_rebuild']:.4f} ms, one launch, "
         f"{ms['coarse_rebuild'] / bounds['coarse_rebuild'][0]:.1f} times its bound {host_tag}")
+    # the scatter as an update meets it: its wire has just crossed from the
+    # host, so it is timed with the L2 flushed before each launch too, beside
+    # the host clock of the wire's three copies to the card (pageable NumPy
+    # rows, as StreamingView sends them, each followed by a synchronize)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cold = device_ms_each(lambda: stream.region_scatter(work, corners, col_vals, blk_vals), 20,
+                          before=flush.zero_)
+    del flush
+    cold_ms = sum(cold) / len(cold)
+    log(f"region_scatter: {ms['region_scatter']:.4f} ms warm "
+        f"({bounds['region_scatter'][0] / ms['region_scatter']:.1%} of its bound), "
+        f"{cold_ms:.4f} ms with the L2 flushed before each launch "
+        f"({bounds['region_scatter'][0] / cold_ms:.1%}; each "
+        + ", ".join(f"{x:.4f}" for x in cold) + f") {host_tag}")
+    wire = {name: t.cpu().numpy() for name, t in (("corners", corners), ("colors", col_vals),
+                                                   ("word pairs", blk_vals))}
+    copy_ms = {name: host_ms(lambda a=a: torch.from_numpy(a).to(dev), 20)
+               for name, a in wire.items()}
+    copy_ms["the three"] = host_ms(lambda: [torch.from_numpy(a).to(dev) for a in wire.values()],
+                                   20)
+    log("the scatter's wire to the card, host clock: " + ", ".join(
+        f"{name} {copy_ms[name]:.4f} ms ({a.nbytes} B)" for name, a in wire.items())
+        + f"; the three {copy_ms['the three']:.4f} ms "
+        f"({sum(a.nbytes for a in wire.values())} B), "
+        f"{copy_ms['the three'] / ms['region_scatter']:.1f} times the kernel warm {host_tag}")
     del work, widened
 
     # a fly-over's frames by host clock: the update and its stages, the far

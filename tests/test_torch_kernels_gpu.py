@@ -566,10 +566,13 @@ def _window(S, cuda, density=0.05, seed=0, n_colors=300):
 
 
 @pytest.mark.parametrize("wide", [False, True])
-def test_region_scatter_kernel_equals_plain(cuda, wide):
+@pytest.mark.parametrize("S", [256, 208])
+def test_region_scatter_kernel_equals_plain(cuda, wide, S):
+    """The fly-over's window (256) and one whose edge is a multiple of 16
+    but not a power of two (208), 1,500 regions."""
     from voxelhex_tpu_torch.ops.stream import region_scatter, region_scatter_plain
 
-    S, K = 256, 1500
+    K = 1500
     tree = _window(S, cuda)
     rng = np.random.default_rng(11)
     n = S // 16

@@ -9,10 +9,11 @@ add, ...; no contraction of multiply-adds), and a loop runs every thread of
 every block in turn; for the albedo kernels, whose backward merges runs in
 a warp, each warp's 32 lanes run as threads that meet in each warp
 intrinsic (``__shfl_sync``, ``__match_any_sync``, ...), so the merging
-runs as on the card, with atomics taken one at a time; and for the coarse
-rebuild and the far frame, whose threads share shared memory, a block's
-threads run as threads that meet at each ``__syncthreads`` (the blocks in
-turn, the last first), each warp's lanes in its intrinsics.  That
+runs as on the card, with atomics taken one at a time; and for the region
+scatter, the coarse rebuild and the far frame, whose threads share shared
+memory, a block's threads run as threads that meet at each
+``__syncthreads`` (the blocks in turn, the last first), each warp's lanes
+in its intrinsics.  That
 checks the kernels' logic (pixel tiles, ragged edges, the level table, the
 reciprocal multiplications, ray generation, shading, the batched kernel's
 frames, chunks and row digests, the multi-hit march's one loop per ray,
@@ -215,6 +216,9 @@ extern thread_local VhxBlock* vhx_block;
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+    return {a, b, c, d};
+}
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -224,6 +228,7 @@ inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline void __stwb(T* p, T v) { *p = v; }
 // a barrier of the block under vhx_host_block_launch; elsewhere the threads
 // run one after another and share only what thread 0 writes before it
 inline void __syncthreads() {
@@ -492,14 +497,16 @@ def host_lib(tmp_path_factory):
     # checks and its memset as the wrapper does; and so do the albedo
     # kernels', whose launches run a warp's lanes as threads
     # (vhx_host_warp_launch) for the backward's warp intrinsics, and the
-    # coarse rebuild's and the far frame's, whose launches run a block's
-    # threads as threads that meet at its barriers (vhx_host_block_launch)
+    # region scatter's, the coarse rebuild's and the far frame's, whose
+    # launches run a block's threads as threads that meet at its barriers
+    # (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    block_kernels = ("coarse_kernel", "far_kernel")
+    block_kernels = ("coarse_kernel", "far_kernel", "region_scatter_kernel")
 
     def launcher_of(default):
         def sub(m):
-            launcher = "vhx_host_block_launch" if m.group(1) in block_kernels else default
+            kernel = m.group(1).split("<")[0]
+            launcher = "vhx_host_block_launch" if kernel in block_kernels else default
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
@@ -1226,6 +1233,98 @@ def test_region_scatter_kernel_source_equals_plain(host_lib, wide):
     assert host_lib.vhx_region_scatter(got["colors"].data_ptr(), got["occ_pairs"].data_ptr(),
                                        corners.data_ptr(), vals.data_ptr(), blk.data_ptr(), 9,
                                        S + 8, int(wide), 0, None) != 0
+
+
+def _wire(rng, K, wide):
+    """K regions' wire colors with both sentinels in every (y, z) row."""
+    if wide:
+        vals = rng.integers(0, 2**16, (K, 16, 256)).astype(np.uint16)
+        sentinels = (0xFFFF, 0xFFFE)
+    else:
+        vals = rng.integers(0, 254, (K, 16, 256)).astype(np.uint8)
+        sentinels = (255, 254)
+    rows = np.arange(256)
+    for k in range(K):
+        x = rng.permutation(16)
+        vals[k, x[rows % 16], rows] = sentinels[0]  # the wire is [x, (y, z)]
+        vals[k, x[(rows + 5) % 16], rows] = sentinels[1]
+    vals = vals.reshape(K, 4096)
+    return torch.from_numpy(vals.view(np.int16) if wide else vals)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("case", ["far corner", "far x", "far y", "far z", "one region",
+                                  "every region"])
+def test_region_scatter_kernel_source_edges(host_lib, wide, case):
+    """A window of 48 (a multiple of 16, not a power of two): one region at
+    the far corner, at the far edge S - 16 of one axis, or anywhere, and
+    every region of the window (27 blocks); both wires, sentinels in every
+    row.  The regions' voxels and pairs equal the plain scatter's and every
+    other voxel and pair of the window is left as it was."""
+    from voxelhex_tpu_torch.ops.stream import region_scatter_plain
+
+    S = 48
+    tree = _window(S, 0.05, seed=11)
+    rng = np.random.default_rng(len(case) + wide)
+    n = S // 16
+    far = S - 16
+    corners = {"far corner": [[far, far, far]], "far x": [[far, 16, 0]],
+               "far y": [[0, far, 16]], "far z": [[16, 0, far]],
+               "one region": [[16, 16, 16]],
+               "every region": [[x, y, z] for x, y, z in
+                                rng.permutation(np.stack(np.meshgrid(*[np.arange(n) * 16] * 3,
+                                                                     indexing="ij"), -1)
+                                                .reshape(-1, 3))]}[case]
+    corners = torch.tensor(corners, dtype=torch.int32)
+    K = corners.shape[0]
+    vals = _wire(rng, K, wide)
+    blk = torch.from_numpy(rng.integers(0, 2**32, (K, 64, 2), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32))
+    want = _clone(tree)
+    region_scatter_plain(want["colors"], want["occ_pairs"], corners, vals, blk, S)
+    got = _clone(tree)
+    assert host_lib.vhx_region_scatter(got["colors"].data_ptr(), got["occ_pairs"].data_ptr(),
+                                       corners.data_ptr(), vals.data_ptr(), blk.data_ptr(), K,
+                                       S, int(wide), 0, None) == 0
+    assert _equal(got["colors"], want["colors"]) and _equal(got["occ_pairs"], want["occ_pairs"])
+    # the regions' voxels and pairs hold the wire; the rest is as it was
+    inside = torch.zeros((S, S, S), dtype=torch.bool)  # [z, y, x]
+    inside_pairs = torch.zeros(got["occ_pairs"].shape[0], dtype=torch.bool)
+    nb = S // 4
+    for x, y, z in corners.tolist():
+        inside[z:z + 16, y:y + 16, x:x + 16] = True
+        blocks = torch.zeros((nb, nb, nb), dtype=torch.bool)
+        blocks[z // 4:z // 4 + 4, y // 4:y // 4 + 4, x // 4:x // 4 + 4] = True
+        inside_pairs[: nb**3] |= blocks.reshape(-1)
+    inside = inside.reshape(-1)
+    assert _equal(got["colors"][~inside], tree["colors"][~inside])
+    assert _equal(got["occ_pairs"][~inside_pairs], tree["occ_pairs"][~inside_pairs])
+    assert int(inside.sum()) == K * 4096 and int(inside_pairs.sum()) == K * 64
+    u16 = got["colors"][inside].numpy().view(np.uint16)
+    assert (u16 == 0xFFFF).sum() >= K * 256 and (u16 == 0xFFFE).sum() >= K * 256
+
+
+def test_region_scatter_kernel_entry_rejects_misaligned(host_lib):
+    """The C entry refuses grids, wire or pairs that are not 16 B aligned
+    (its 16 B stores and loads), and a window whose edge is not a multiple
+    of 16."""
+    S = 32
+    tree = _window(S, 0.05)
+    corners = torch.zeros((1, 3), dtype=torch.int32)
+    vals = torch.zeros(2 * 4096 + 16, dtype=torch.uint8)
+    blk = torch.zeros(2 * 128 + 4, dtype=torch.int32)
+    colors, pairs = tree["colors"], tree["occ_pairs"]
+
+    def call(c, p, v, b, size=S):
+        return host_lib.vhx_region_scatter(c, p, corners.data_ptr(), v, b, 1, size, 0, 0, None)
+
+    args = [colors.data_ptr(), pairs.data_ptr(), vals.data_ptr(), blk.data_ptr()]
+    assert all(a % 16 == 0 for a in args) and call(*args) == 0
+    for i, step in enumerate((2, 8, 1, 4)):
+        bad = list(args)
+        bad[i] += step
+        assert call(*bad) != 0
+    assert call(*args, size=40) != 0
 
 
 @pytest.mark.parametrize("S", [48, 64, 128])

@@ -122,6 +122,38 @@ def test_region_scatter_plain_equals_reference(wide):
     assert np.array_equal(got_p.numpy().view(np.uint32), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("corner", [(8, 0, 0), (0, -16, 0), (0, 0, 64), (48, 48, 52),
+                                    (64, 64, 64)])
+def test_region_corners_off_the_contract_raise(corner):
+    """A corner that is not a multiple of 16 in [0, S - 16] raises
+    ``ValueError`` on the CPU route and in ``StreamingView``'s partial
+    update, before anything is written (the reference's scatter would drop
+    such writes, PyTorch's indexing wrap or raise, the kernel write outside
+    the window)."""
+    from voxelhex_tpu_torch.ops.stream import region_scatter
+
+    S = 64
+    tree = BoxTree(S, 4)
+    tree.insert_at_lod((3, 4, 5), 1, Albedo(200, 10, 10, 255))
+    view = streaming.StreamingView(tree, view_size=S, device="cpu")
+    view.render(cameras((-20.0, 30.0, -25.0), (32.0, 32.0, 32.0), res=(16, 12))[1])
+    window = view.renderer.tree
+    before = {k: window[k].clone() for k in ("colors", "occ_pairs")}
+    host = (view.renderer.bitgrid.colors.copy(), view.renderer.bitgrid.occ_lo.copy())
+    good = [16, 32, 0]
+    corners = torch.tensor([good, list(corner)], dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiples of 16 in \\[0, 48\\]"):
+        region_scatter(window, corners, torch.zeros((2, 4096), dtype=torch.uint8),
+                       torch.zeros((2, 64, 2), dtype=torch.int32))
+    if all(c % 16 == 0 for c in corner):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            view._update_device_partial([tuple(c // 16 for c in good),
+                                         tuple(c // 16 for c in corner)])
+    assert all(torch.equal(window[k], before[k]) for k in before)
+    assert np.array_equal(view.renderer.bitgrid.colors, host[0])
+    assert np.array_equal(view.renderer.bitgrid.occ_lo, host[1])
+
+
 @pytest.mark.parametrize("S", [48, 64, 128])
 def test_coarse_rebuild_plain_equals_reference(S):
     """At 48 and 128 a level's blocks an axis are not a multiple of 4."""

@@ -1,4 +1,5 @@
-"""The streaming view's far frame and coarse rebuild against another tree's.
+"""The streaming view's far frame, coarse rebuild and region scatter against
+another tree's.
 
     python3 tools/stream_ab.py [--parent DIR] [--far-variant NAME=FLAGS ...] [--rounds N]
                                [--frames N]
@@ -16,7 +17,11 @@ Then it times by device time (``chip_smoke.device_ms``), in turns:
 * the far frame (``render_far``) and the same launch on the window alone
   (``layers[:1]``), beside ``frame.cu`` at the same window and pose;
 * the coarse rebuild of the window's levels above level 0 (``coarse_rebuild``
-  on a copy of the window).
+  on a copy of the window);
+* the region scatter of the update that led to the frame (every frame after
+  the first: the regions the move exposed, as ``region_scatter`` got them),
+  on a copy of the window, each tree's kernel first held to
+  ``region_scatter_plain`` bit for bit.
 
 ``--parent DIR``: ``DIR`` is another commit's tree (e.g. unpacked with
 ``git archive`` under ``build/parent``); its kernels are built with its
@@ -26,7 +31,10 @@ names the other tree in the output).
 ``--far-variant NAME=FLAGS`` (repeated) adds this tree's ``far.cu`` built
 with the extra nvcc ``FLAGS`` as another contender, e.g.
 ``r48=-maxrregcount=48``.  Prints ``far_kernel``'s registers, stack and
-spills of each build.
+spills of each build.  Each tree's ``region_scatter_kernel`` instances are
+listed with their registers, SASS instructions and global stores by kind
+(``cuobjdump``): a 16 B store that the compiler splits into 4 B ones shows
+there.
 
 Needs one CUDA card.
 """
@@ -39,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -46,6 +55,7 @@ sys.path.insert(0, ROOT)
 
 FAR_REPS = 10
 REBUILD_REPS = 20
+SCATTER_REPS = 20
 
 
 def lane_shares(iters, go, warps, tile=(4, 8)):
@@ -96,12 +106,13 @@ def main():
         print("stream_ab: needs a CUDA card", file=sys.stderr)
         return 2
     import chip_smoke
-    from automaton_ab import load_build
+    from automaton_ab import _cuobjdump, load_build, sass_functions
 
     chip_smoke.faulthandler.cancel_dump_traceback_later()
     from voxelhex_tpu_torch.ops import _build, stream
     from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params, render_far
     from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.render import streaming
     from voxelhex_tpu_torch.render.streaming import StreamingView
     from voxelhex_tpu_torch.scene import terrain_points
     from voxelhex_tpu_torch.tree.build import from_voxels
@@ -135,9 +146,20 @@ def main():
         contenders[f"change {name}"] = ctypes.CDLL(out)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     for name, b in builds.items():
-        usage = chip_smoke.ptxas_usage(b.build_log("far.cu"), "far_kernel")
-        print(f"  {name} far_kernel: {usage[0]} registers, {usage[1]} B stack, {usage[2]} B "
-              f"spill stores, {usage[3]} B spill loads", flush=True)
+        text = subprocess.run([_cuobjdump(_build._nvcc()), "-sass",
+                               os.path.join(b.library_dir(), "libstream.so")],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+        for fn, ops in sass_functions(text).items():
+            if "region_scatter_kernel" in fn:
+                stores = Counter(op for op in ops if op.startswith("STG"))
+                print(f"  {name} {fn}: {len(ops)} SASS instructions, global stores "
+                      f"{dict(sorted(stores.items()))}", flush=True)
+        for source, kernel in (("far.cu", "far_kernel"), ("stream.cu", "region_scatter_kernel")):
+            log = b.build_log(source)
+            for k in chip_smoke.kernel_names(log, kernel):
+                usage = chip_smoke.ptxas_usage(log, k)
+                print(f"  {name} {k}: {usage[0]} registers, {usage[1]} B stack, {usage[2]} B "
+                      f"spill stores, {usage[3]} B spill loads", flush=True)
 
     def far_fn(name):
         """One far frame of ``name``'s kernel: ``fn(layers, inside)``."""
@@ -176,8 +198,24 @@ def main():
             stream._ints(tree["dims"]), len(tree["bases"]), tickets.data_ptr(), 0, cuda_stream),
             f"{name} rebuild")
 
+    def scatter_fn(name):
+        """One region scatter of ``name``'s kernel: ``fn(tree, corners,
+        col_vals, blk_vals)``."""
+        if name == "change":
+            return stream.region_scatter
+        entry = builds[name].library().vhx_region_scatter
+
+        def call(tree, corners, col_vals, blk_vals):
+            _build.check(entry(tree["colors"].data_ptr(), tree["occ_pairs"].data_ptr(),
+                               corners.data_ptr(), col_vals.data_ptr(), blk_vals.data_ptr(),
+                               corners.shape[0], int(tree["size"]),
+                               int(col_vals.dtype == torch.int16), 0, cuda_stream),
+                         f"{name} scatter")
+        return call
+
     fars = {name: far_fn(name) for name in contenders}
     rebuilds = {name: rebuild_fn(name) for name in builds}
+    scatters = {name: scatter_fn(name) for name in builds}
     other = ([n for n in contenders if n != "change"] or ["change"])[0]
 
     t0 = time.time()
@@ -187,9 +225,20 @@ def main():
     view = StreamingView(tree, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192)
     print(f"terrain and view: {time.time() - t0:.1f} s", flush=True)
     sums = {}
+    paged = []  # the update's scatter inputs
+
+    def capture(window, *inputs):
+        paged.append(inputs)
+        stream.region_scatter(window, *inputs)
+
     for i in range(min(args.frames, chip_smoke.FLY_FRAMES)):
         cam = chip_smoke.flight_cam(i)
-        frame = view.render(cam, out_u8=True, out_device=True)
+        paged.clear()
+        streaming.region_scatter = capture
+        try:
+            frame = view.render(cam, out_u8=True, out_device=True)
+        finally:
+            streaming.region_scatter = stream.region_scatter
         layers, inside = view.layers(cam), view.camera_inside(cam)
         stats = []
         plain = far_frame_plain(layers, inside, stats=stats)
@@ -223,6 +272,24 @@ def main():
             if not bool((work["occ_pairs"] == want).all()):
                 raise AssertionError(f"frame {i}: {name}'s rebuild differs from the plain one")
 
+        scatter_work = None
+        if paged:
+            corners, col_vals, blk_vals = paged[-1]
+            S = int(window["size"])
+            scatter_work = dict(window, colors=window["colors"].clone(),
+                                occ_pairs=window["occ_pairs"].clone())
+            want = (scatter_work["colors"].clone(), scatter_work["occ_pairs"].clone())
+            stream.region_scatter_plain(*want, corners, col_vals, blk_vals, S)
+            for name, fn in scatters.items():
+                scatter_work["colors"].copy_(window["colors"])
+                scatter_work["occ_pairs"].copy_(window["occ_pairs"])
+                fn(scatter_work, corners, col_vals, blk_vals)
+                if not (bool((scatter_work["colors"] == want[0]).all())
+                        and bool((scatter_work["occ_pairs"] == want[1]).all())):
+                    raise AssertionError(f"frame {i}: {name}'s scatter differs from the plain one")
+            print(f"  scatter: {corners.shape[0]} regions, {col_vals.dtype} wire, every tree's "
+                  "kernel equal to region_scatter_plain", flush=True)
+
         timers = {}
         for name, fn in fars.items():
             timers[f"far {name}"] = (lambda fn=fn: fn(layers, inside), FAR_REPS)
@@ -230,6 +297,10 @@ def main():
         timers["frame.cu"] = (lambda: render_frame(window, layers[0][1]), FAR_REPS)
         for name, fn in rebuilds.items():
             timers[f"rebuild {name}"] = (lambda fn=fn: fn(work), REBUILD_REPS)
+        if scatter_work is not None:
+            for name, fn in scatters.items():
+                timers[f"scatter {name}"] = (
+                    lambda fn=fn: fn(scatter_work, corners, col_vals, blk_vals), SCATTER_REPS)
         for fn, _reps in timers.values():
             fn()
             fn()

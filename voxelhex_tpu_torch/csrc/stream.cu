@@ -37,13 +37,15 @@
 // What bounds them on the H100: bytes.  A fly-over update pages about 1,500
 // regions (6 MB of u8 colors in, 12 MB out), rebuilds from 2 MB of level-0
 // pairs and shifts 33.5 MB of colors: each is a copy with arithmetic
-// addresses, and the threads of a warp take consecutive x so that their
-// writes (the scatter's, the shift's: 16 B of 8 colors a thread) or reads
-// (the rebuild's children of one word are a 4 x 4 x 4 cube, read as rows of
-// 4) fall on a few sectors.  The scatter's wire rows are z fastest, so a
-// warp's reads fall 256 B apart; its stores, twice the bytes, are the side
-// kept contiguous.  The rebuild's work is a few microseconds' of reads, less
-// than a launch: it is one launch, and each thread issues all of its
+// addresses, laid out so that a warp's loads and stores fall on few
+// sectors, each used whole.  The scatter is a block a region (one wave of
+// blocks for a fly-over update), a thread a (y, z) row of it: the wire is z
+// fastest, so for one x a warp's 32 threads read 32 consecutive wire values,
+// and the row's 16 colors, x fastest in the window, leave as one 32 B
+// sector; the region's word pairs leave as 16 B words.  The shift moves
+// 16 B of 8 colors a thread.  The rebuild's children of one word are a 4 x
+// 4 x 4 cube, read as rows of 4; its work is a few microseconds' of reads,
+// less than a launch: it is one launch, and each thread issues all of its
 // level-0 loads before its first ballot.
 
 #include <cuda_runtime.h>
@@ -56,32 +58,82 @@ constexpr int RN = REGION / 4;                   // blocks a region edge
 constexpr int REGION_VOXELS = REGION * REGION * REGION;
 constexpr int REGION_BLOCKS = RN * RN * RN;
 constexpr int THREADS = 256;
-constexpr int COLOR_BLOCKS = REGION_VOXELS / THREADS;  // blocks a region's colors take
 
-// One region a blockIdx.y: blocks 0..COLOR_BLOCKS-1 of it write its colors,
-// voxel x fastest along the threads; the last one its word pairs.
+constexpr int SCATTER_THREADS = 128;                  // threads a region (a block)
+constexpr int ROWS = REGION * REGION;                  // (y, z) rows a region
+constexpr int ROWS_A_THREAD = ROWS / SCATTER_THREADS;
+constexpr unsigned FULL = 0xffffffffu;
+
+// A wire color as the window's u16: the u8 wire's 255 and 254 widen to the
+// sentinels 0xFFFF and 0xFFFE, every other value is itself.
+__device__ __forceinline__ unsigned widen(unsigned v, bool wide) {
+    return wide || v < 254u ? v : 0xFF00u | v;
+}
+
+// One region a block (a fly-over update's 1,536 blocks are one wave).  The
+// region's wire is staged in shared memory by 16 B loads.  Thread t then
+// takes the (y, z) rows 16 y + z = t + j SCATTER_THREADS: it reads the row's
+// 16 colors x = 0..15 (for one x a warp reads 32 consecutive wire values:
+// no bank conflicts) and widens them.  A row is 32 B of the window's
+// x-fastest colors, one sector (the corner's x and S are multiples of 16).
+// Lanes 2i and 2i + 1 hold rows z and z + 1; they trade halves, and each
+// stores 16 B of both rows, so that a store instruction writes 16 whole
+// sectors (a thread storing its own row in two halves writes 32 half
+// sectors an instruction: 1.7 times the kernel's time).  The
+// first 32 threads store the region's 64 word pairs, two a thread as one
+// 16 B word (a block row of 4 pairs is 32 B, as cx / 4 is a multiple of 4).
+// Every address comes from the corner, which the caller keeps to multiples
+// of 16 in [0, S - 16] (ops/stream.py checks it).
 template <class Wire>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SCATTER_THREADS)
 region_scatter_kernel(unsigned short* __restrict__ colors, uint2* __restrict__ pairs,
                       const int* __restrict__ corners, const Wire* __restrict__ col_vals,
                       const uint2* __restrict__ blk_vals, int S) {
-    const int k = blockIdx.y;
-    const int cx = corners[3 * k], cy = corners[3 * k + 1], cz = corners[3 * k + 2];
-    const int t = threadIdx.x;
-    if (blockIdx.x < COLOR_BLOCKS) {
-        const int r = blockIdx.x * THREADS + t;  // x + 16 y + 256 z in the region
-        const int x = r % REGION, y = (r / REGION) % REGION, z = r / (REGION * REGION);
-        // the wire row is the region's [x, y, z] grid, z fastest
-        const unsigned v = col_vals[(long long)k * REGION_VOXELS + x * REGION * REGION +
-                                    y * REGION + z];
-        unsigned short c = (unsigned short)v;
-        if (sizeof(Wire) == 1) c = v == 255u ? 0xFFFFu : (v == 254u ? 0xFFFEu : c);
-        colors[(long long)(cx + x) + (long long)(cy + y) * S + (long long)(cz + z) * S * S] = c;
-    } else if (t < REGION_BLOCKS) {
+    constexpr bool wide = sizeof(Wire) == 2;
+    constexpr int WORDS = REGION_VOXELS * (int)sizeof(Wire) / 16;  // the wire's 16 B words
+    static_assert(WORDS % SCATTER_THREADS == 0 && ROWS % SCATTER_THREADS == 0, "whole words");
+    __shared__ uint4 stage[WORDS];
+    const int k = blockIdx.x, t = threadIdx.x;
+    const uint4* wire = reinterpret_cast<const uint4*>(col_vals) + (long long)k * WORDS;
+#pragma unroll
+    for (int i = 0; i < WORDS / SCATTER_THREADS; ++i)
+        stage[t + i * SCATTER_THREADS] = __ldg(wire + t + i * SCATTER_THREADS);
+    const int cx = __ldg(corners + 3 * k), cy = __ldg(corners + 3 * k + 1),
+              cz = __ldg(corners + 3 * k + 2);
+    if (t < REGION_BLOCKS / 2) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(blk_vals) + k * REGION_BLOCKS / 2 + t);
         const int nb = S / 4;
-        const int bx = t % RN, by = (t / RN) % RN, bz = t / (RN * RN);
-        pairs[(cx / 4 + bx) + (cy / 4 + by) * nb + (long long)(cz / 4 + bz) * nb * nb] =
-            blk_vals[k * REGION_BLOCKS + t];
+        const int bx = 2 * (t & 1), by = (t >> 1) % RN, bz = t / (2 * RN);
+        *reinterpret_cast<uint4*>(pairs + (cx / 4 + bx) + (long long)(cy / 4 + by) * nb +
+                                  (long long)(cz / 4 + bz) * nb * nb) = w;
+    }
+    __syncthreads();
+    const Wire* from = reinterpret_cast<const Wire*>(stage);
+    const bool odd = t & 1;
+#pragma unroll
+    for (int j = 0; j < ROWS_A_THREAD; ++j) {
+        const int row = t + j * SCATTER_THREADS, y = row / REGION, z = row % REGION;
+        unsigned w[REGION / 2];
+#pragma unroll
+        for (int i = 0; i < REGION / 2; ++i)
+            w[i] = widen(from[2 * i * ROWS + row], wide) |
+                   widen(from[(2 * i + 1) * ROWS + row], wide) << 16;
+        // the even lane stores the first halves of rows z and z + 1, the odd
+        // lane the second halves: each gives the other the half it stores
+        unsigned got[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            got[i] = __shfl_sync(FULL, odd ? w[i] : w[4 + i], (t & 31) ^ 1);
+        unsigned short* row_z = colors + cx + 8 * odd + (long long)(cy + y) * S +
+                                (long long)(cz + (z & ~1)) * S * S;
+        const uint4 mine = odd ? make_uint4(w[4], w[5], w[6], w[7])
+                               : make_uint4(w[0], w[1], w[2], w[3]);
+        const uint4 theirs = make_uint4(got[0], got[1], got[2], got[3]);
+        // __stwb keeps each a 16 B store: a plain assignment of the select
+        // was compiled into a 16 B store in half the lanes and four 4 B
+        // stores in the other half, at 3.8 times the kernel's time
+        __stwb(reinterpret_cast<uint4*>(row_z), odd ? theirs : mine);
+        __stwb(reinterpret_cast<uint4*>(row_z + (long long)S * S), odd ? mine : theirs);
     }
 }
 
@@ -89,7 +141,6 @@ constexpr int MAX_LEVELS = 12;  // VHX_MAX_LEVELS in traverse.cuh
 constexpr int REBUILD_THREADS = 256;
 constexpr int REBUILD_WARPS = REBUILD_THREADS / 32;
 constexpr int WORDS_A_WARP = 64 / REBUILD_WARPS;  // level-1 words a warp makes
-constexpr unsigned FULL = 0xffffffffu;
 
 // A pyramid's level table: word-pair offset and blocks an axis of each level
 struct Pyramid {
@@ -230,21 +281,26 @@ window_shift_kernel(const unsigned short* __restrict__ colors,
 
 }  // namespace
 
-// K regions into the resident grids; `wide` says the colors are u16 (else u8).
+// K regions into the resident grids; `wide` says the colors are u16 (else
+// u8).  The grids, the wire and the pairs are 16 B aligned; each corner is
+// a multiple of 16 in [0, S - 16] on every axis, which the kernel relies on
+// and does not check (the caller does, before the corners reach the card).
 extern "C" cudaError_t vhx_region_scatter(void* colors, void* pairs, const int* corners,
                                           const void* col_vals, const void* blk_vals, int K,
                                           int S, int wide, int device, cudaStream_t stream) {
-    if (K < 0 || K > 65535 || S < REGION || S % REGION) return cudaErrorInvalidValue;
+    const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16; };
+    if (K < 0 || S < REGION || S % REGION || misaligned(colors) || misaligned(pairs) ||
+        misaligned(col_vals) || misaligned(blk_vals))
+        return cudaErrorInvalidValue;
     if (K == 0) return cudaSuccess;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const dim3 grid(COLOR_BLOCKS + 1, K);
     if (wide)
-        region_scatter_kernel<unsigned short><<<grid, THREADS, 0, stream>>>(
+        region_scatter_kernel<unsigned short><<<K, SCATTER_THREADS, 0, stream>>>(
             static_cast<unsigned short*>(colors), static_cast<uint2*>(pairs), corners,
             static_cast<const unsigned short*>(col_vals), static_cast<const uint2*>(blk_vals), S);
     else
-        region_scatter_kernel<unsigned char><<<grid, THREADS, 0, stream>>>(
+        region_scatter_kernel<unsigned char><<<K, SCATTER_THREADS, 0, stream>>>(
             static_cast<unsigned short*>(colors), static_cast<uint2*>(pairs), corners,
             static_cast<const unsigned char*>(col_vals), static_cast<const uint2*>(blk_vals), S);
     return cudaGetLastError();

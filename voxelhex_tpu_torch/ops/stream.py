@@ -39,8 +39,22 @@ def _as_i16(values):
     return torch.where(values >= 2**15, values - 2**16, values).to(torch.int16)
 
 
+def check_corners(corners, S: int):
+    """Raise ``ValueError`` unless each region corner of ``corners`` [K, 3]
+    (NumPy or a tensor, read on the host) is a multiple of 16 in [0, S - 16]
+    on every axis, so that its region lies inside the window of edge S."""
+    c = (corners.cpu().numpy() if torch.is_tensor(corners) else np.asarray(corners))
+    c = c.astype(np.int64).reshape(-1, 3)
+    bad = ((c % REGION != 0) | (c < 0) | (c > S - REGION)).any(axis=1)
+    if bad.any():
+        raise ValueError(f"region corner {c[bad.argmax()].tolist()}: corners are multiples of "
+                         f"{REGION} in [0, {S - REGION}] in a window of {S}")
+
+
 def region_scatter_plain(colors, pairs, corners, col_vals, blk_vals, S: int):
-    """The plain scatter (see :func:`region_scatter`), in place."""
+    """The plain scatter (see :func:`region_scatter`), in place; checks the
+    corners first (:func:`check_corners`)."""
+    check_corners(corners, S)
     K = corners.shape[0]
     c = corners.long()
     r = torch.arange(REGION, dtype=torch.int64, device=corners.device)
@@ -72,7 +86,12 @@ def region_scatter(tree, corners, col_vals, blk_vals):
     bit patterns), rows of its [x, y, z] grid, and ``blk_vals`` int32 [K,
     64, 2] its level-0 word pairs, rows of its [bz, by, bx] blocks.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version, which raises ``ValueError`` for a
+    corner off that contract (:func:`check_corners`).  CUDA tensors launch
+    the kernel, which relies on the contract and does not check it (that
+    would read the corners back to the host): the caller checks its corners
+    before they are copied to the card, as ``StreamingView`` does.  The
+    kernel also needs every tensor 16 B aligned."""
     colors, pairs, S = tree["colors"], tree["occ_pairs"], int(tree["size"])
     dev = colors.device
     if dev.type == "cpu":

@@ -36,6 +36,7 @@ from voxelhex_tpu_torch import native
 from voxelhex_tpu_torch.constants import COLOR_EMPTY, EMPTY_DESC, NO_COLOR_HIT
 from voxelhex_tpu_torch.ops.far import render_far
 from voxelhex_tpu_torch.ops.stream import (
+    check_corners,
     coarse_rebuild,
     moved_grid,
     region_scatter,
@@ -810,6 +811,7 @@ class StreamingView:
         n = REGION // 4
         K = len(regions)
         corners = np.asarray(regions, dtype=np.int32) * REGION
+        check_corners(corners, S)  # the kernel does not: it would read them back
         x0s, y0s, z0s = corners[:, 0], corners[:, 1], corners[:, 2]
         r = np.arange(REGION)
         xi = x0s[:, None, None, None] + r[None, :, None, None]
