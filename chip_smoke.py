@@ -96,7 +96,28 @@ clock of its wire's three copies to the card, the far frame
 and the same launch on the window alone beside ``frame.cu`` at the same
 window and pose, each fly-over layer's rays and steps, and the fly-over's
 frames by host clock, split into the update (placeholders, rasterize, the
-rest), the far refresh and the device.  The last line is ``{"ok": true,
+rest), the far refresh and the device.
+
+Phase 13 serves over HTTP (``RenderService``, ``make_server``) at
+1920x1080, each reply's PNG decoded with zlib and every reply held to 200:
+(a) the bench tree's three poses, one batched-kernel launch and no
+frame-kernel launch a request, to the reference digests; (b) the bench
+pose four times more, fetched as digests only and pose-validated from the
+second; (c) ``POST /edit`` of phase 10's block and of its clear, each next
+frame one row band equal to a fresh ``render()``, the renderer kept; (d)
+``POST /view`` of a 128 window served until settled, equal to a
+synchronous view's frame, then switches 128 -> 0 -> 128 -> 0 that leave
+the tree's triggers and the card's allocated memory as they were; (e)
+phase 12's terrain through a 256 window with ``async_far``, three fly-over
+poses each served until settled to the reference digests, the same pose
+again from the idle cache with no launch, and an edit that re-renders it;
+(f) ``POST /load`` of a ``.vox`` equal to ``fastest_renderer`` of the
+file's tree, the second upload read from the bencode cache; (g)
+``NativeEditTree`` and the BoxTree after the same 2,000 seeded ops,
+rendered equal on the card, and both engines' host us a voxel; (h) host
+times in turns of ``service.render``, ``encode_png`` and the whole ``GET
+/frame`` for a new and a repeated dense pose, an idle-cache and a moved
+streamed pose, and of ``POST /edit``.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -117,7 +138,11 @@ import re  # noqa: E402
 import struct  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import time  # noqa: E402
+import urllib.error  # noqa: E402
+import urllib.request  # noqa: E402
+import zlib  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -200,6 +225,18 @@ FLY_BUDGET = 64
 FLY_EDIT = ((816, 80, 400), 16, (250, 40, 40, 255))
 # the ring ladder of phase 12 (e): a 64 window in the 1024 world (W/S = 16)
 LADDER_VIEW = 64
+
+# ---- phase 13, serving: RenderService over HTTP on the bench tree and on
+# phase 12's terrain through a 256 window, at 1920x1080
+# an edit of (e): insert_at_lod of this block into the terrain, inside the
+# window of flight_cam(2) and in its view (phase 12's FLY_EDIT, already in
+# the terrain, lies outside the view of flight_cam(0..2))
+SERVE_EDIT = ((368, 96, 400), 16, (40, 40, 250, 255))
+SERVE_FLY = (0, 1, 2)  # the fly-over poses served in (e)
+SERVE_MAX_REQUESTS = 400  # requests a pose may take to settle
+EDIT_ENGINE_OPS = 2000  # the seeded random ops of (g)
+EDIT_TIMED_OPS = 2000  # ops a single-op timing of (g)
+SERVE_TIMED = 4  # requests a case a turn in (h)
 
 # ---- the training slice: bench.py's SoftRenderer(tree, max_hits=2,
 # max_iters=2048) with optax.adam(0.05), on the bench pose at 1920x1080
@@ -763,6 +800,13 @@ def main():
     kernels += entries
     torch.cuda.empty_cache()
     kernels += streaming_slice(dev, card, terrain)
+    torch.cuda.empty_cache()
+    served = serving_slice(dev, card, terrain)
+    by_name = {k["name"]: k for k in kernels}
+    for counter, name in (("frames", "frames"), ("frame", "frame"), ("far", "far_frame"),
+                          ("scatter", "region_scatter"), ("rebuild", "coarse_rebuild"),
+                          ("shift", "window_shift")):
+        by_name[name]["launches"] += served[counter]
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -772,7 +816,10 @@ def main():
 
 
 def sha(frame):
-    return hashlib.sha256(frame.cpu().contiguous().numpy().tobytes()).hexdigest()
+    """sha256 of a frame's bytes, a tensor on any device or a NumPy array."""
+    if isinstance(frame, torch.Tensor):
+        frame = frame.cpu().contiguous().numpy()
+    return hashlib.sha256(np.ascontiguousarray(frame).tobytes()).hexdigest()
 
 
 def device_ms_each(fn, reps, before=None):
@@ -2430,10 +2477,6 @@ def streaming_slice(dev, card, tree):
     def counts():
         return {f.__name__: f.launches for f in counters}
 
-    def detach(view):
-        view.close()
-        tree.update_triggers.remove(view._on_tree_update)
-
     # (a) the fly-over, the main path
     t0 = time.time()
     checks = CheckedUpdates()
@@ -2490,7 +2533,7 @@ def streaming_slice(dev, card, tree):
             f"sha256 {digest} {'==' if digest == FLYOVER_SHA256[-1] else '!='} reference")
         if not budget.settled() or not bool((frame == fly_frames[-1]).all()):
             raise AssertionError("the budgeted view's settled frame differs from the fly-over's")
-        detach(budget)
+        budget.close()
         del budget
         log(f"phase 12 (b) budgeted paging: {time.time() - t0:.1f} s")
 
@@ -2504,7 +2547,7 @@ def streaming_slice(dev, card, tree):
                 f"{'==' if digest == FLYOVER_SHA256[i] else '!='} reference")
             if digest != FLYOVER_SHA256[i]:
                 raise AssertionError(f"worker threads: frame {i} differs from the reference")
-        detach(workers)
+        workers.close()
         del workers
         log(f"phase 12 (d) worker threads: {time.time() - t0:.1f} s")
 
@@ -2521,7 +2564,7 @@ def streaming_slice(dev, card, tree):
         log(f"  ring ladder: rings (factor, cells, origin) {rings}")
         if len(rings) != 2:
             raise AssertionError(f"the ring ladder has rings {rings}")
-        detach(ladder)
+        ladder.close()
         del ladder
         log(f"phase 12 (e) ring ladder: {time.time() - t0:.1f} s")
 
@@ -2546,7 +2589,7 @@ def streaming_slice(dev, card, tree):
         if not partial or not n_moved or not bool((edited == fresh).all()):
             raise AssertionError("the edit: no partial scatter, no change, or a frame that "
                                  "differs from a new view's")
-        detach(fresh_view)
+        fresh_view.close()
         del fresh_view, fresh
         log(f"phase 12 (c) edit: {time.time() - t0:.1f} s")
 
@@ -2685,7 +2728,7 @@ def streaming_slice(dev, card, tree):
                 spent[key] = spent.get(key, 0.0) + time.perf_counter() - t1
         return call
 
-    detach(view)
+    view.close()
     del view
     try:
         for (cls, name), fn in zip(wrapped, originals):
@@ -2709,7 +2752,7 @@ def streaming_slice(dev, card, tree):
     finally:
         for (cls, name), fn in zip(wrapped, originals):
             setattr(cls, name, fn)
-    detach(timed_view)
+    timed_view.close()
     del timed_view
     log(f"phase 12 (f) timing: {time.time() - t0:.1f} s")
     log(f"phase 12 streaming: {time.time() - t_all:.1f} s, launches {launches}")
@@ -2727,6 +2770,461 @@ def streaming_slice(dev, card, tree):
              "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
              "library_ms": ms[lib] if lib else None}
             for name, source, line, key, lib in rows]
+
+
+def png_pixels(data):
+    """The ``[h, w, 3]`` u8 pixels of a PNG of 8-bit RGB rows with filter 0
+    (what ``utils.png.encode_png`` writes), decoded with zlib; each chunk's
+    CRC is checked."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("the reply is not a PNG")
+    pos, ihdr, idat = 8, None, []
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos: pos + 8])
+        body = data[pos + 8: pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n: pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"PNG chunk {tag!r}: bad CRC")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype = ihdr[:4]
+    if (depth, ctype) != (8, 2):
+        raise AssertionError(f"PNG of depth {depth}, color type {ctype}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError("PNG rows filtered other than by 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+class Client:
+    """A ``make_server`` of ``service`` on a daemon thread, and requests to
+    it through an opener with no proxy; any reply but 200 raises with its
+    body."""
+
+    def __init__(self, service):
+        from voxelhex_tpu_torch.serve import make_server
+
+        self.service = service
+        self.srv = make_server(service, port=0)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.base = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def _open(self, req):
+        try:
+            with self.opener.open(req, timeout=600) as reply:
+                if reply.status != 200:
+                    raise AssertionError(f"{req.full_url}: HTTP {reply.status}")
+                return reply.read()
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"{req.full_url}: HTTP {e.code}: {e.read()[:2000]!r}") from e
+
+    def get(self, path):
+        return self._open(urllib.request.Request(self.base + path))
+
+    def post(self, path, body):
+        if not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+        return self._open(urllib.request.Request(self.base + path, data=body, method="POST"))
+
+    def stats(self):
+        return json.loads(self.get("/stats"))
+
+    def frame(self, cam):
+        """``(pixels, png)`` of ``GET /frame`` at ``cam``, its origin, target
+        and fov written with ``repr``."""
+        names = ("ox", "oy", "oz", "tx", "ty", "tz")
+        values = [*np.asarray(cam.origin).tolist(), *np.asarray(cam.target).tolist()]
+        query = "&".join(f"{k}={float(v)!r}" for k, v in zip(names, values))
+        w, h = cam.resolution
+        png = self.get(f"/frame?{query}&w={w}&h={h}&fov={float(cam.fov_y_deg)!r}")
+        return png_pixels(png), png
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def random_edit_ops(rng, n, size):
+    """``n`` seeded edits ``(method, args)`` at random voxels of a ``size``
+    world: insert, update and clear, and insert_at_lod and clear_at_lod at
+    2, 4 and 8; one color in seven transparent."""
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
+
+    ops = []
+    for _ in range(n):
+        p = tuple(int(v) for v in rng.integers(0, size, 3))
+        c = [int(v) for v in rng.integers(0, 256, 4)]
+        if rng.random() < 0.15:
+            c[3] = 0
+        r = rng.random()
+        if r < 0.45:
+            ops.append(("insert", (p, Albedo(*c))))
+        elif r < 0.6:
+            ops.append(("update", (p, Albedo(*c))))
+        elif r < 0.8:
+            ops.append(("clear", (p,)))
+        elif r < 0.9:
+            ops.append(("insert_at_lod", (p, int(rng.choice([2, 4, 8])), Albedo(*c))))
+        else:
+            ops.append(("clear_at_lod", (p, int(rng.choice([2, 4, 8])))))
+    return ops
+
+
+def serving_slice(dev, card, terrain):
+    """Phase 13: the port's ``RenderService`` on the card, over HTTP.  (a)
+    the bench tree's three poses, one batched-kernel launch a request, to
+    the reference digests; (b) the bench pose again, fetched as digests only
+    and pose-validated; (c) an edit and its clear, each frame one row band,
+    equal to a fresh render; (d) a 128 window until settled, equal to a
+    synchronous view's frame, then switches that leave no view and no device
+    memory behind; (e) the terrain through a 256 window (``async_far``) at
+    three fly-over poses until settled, to the reference digests, an
+    idle-cache hit that launches nothing and an edit; (f) a ``.vox`` upload
+    and its bencode cache; (g) the native edit engine against the BoxTree
+    after the same 2,000 ops, rendered on the card, and both engines' host
+    us per op; (h) host times of the requests in turns.  Returns the
+    launches of the batched and far-frame kernels on the main path."""
+    import gc
+
+    from voxelhex_tpu_torch.io import vox
+    from voxelhex_tpu_torch.ops import stream
+    from voxelhex_tpu_torch.ops.far import render_far
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.ops.frames import render_frames
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import build_scene_tree
+    from voxelhex_tpu_torch.serve import RenderService
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
+    from voxelhex_tpu_torch.tree.build import insert_many
+    from voxelhex_tpu_torch.tree.native_edit import NativeEditTree
+    from voxelhex_tpu_torch.utils.png import encode_png
+
+    t_all = time.time()
+    cpu = host_cpu()
+    host_tag = f"[{card}; host {cpu}]"
+    counters = {"frames": render_frames, "frame": render_frame, "far": render_far,
+                "scatter": stream.region_scatter, "rebuild": stream.coarse_rebuild,
+                "shift": stream.window_shift}
+    served = dict.fromkeys(counters, 0)
+
+    def request(fn):
+        """``fn()`` on the main path, every count set to 0 just before it
+        and read just after: ``(its result, its launches)``."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        n = {k: c.launches for k, c in counters.items()}
+        for k, v in n.items():
+            served[k] += v
+        return out, n
+
+    def only(n, **want):
+        return all(v == want.get(k, 0) for k, v in n.items())
+
+    bench_cams = {yaw: orbit_camera(128.0, yaw_deg=yaw, resolution=RES) for yaw in YAWS}
+    cam = bench_cams[YAWS[0]]
+
+    # (a) the bench tree's three poses
+    t0 = time.time()
+    bench = build_scene_tree(4)
+    service = RenderService(bench, device=dev)
+    client = Client(service)
+    for yaw, c in bench_cams.items():
+        (px, png), n = request(lambda c=c: client.frame(c))
+        d = sha(px)
+        log(f"  GET /frame yaw {yaw}: {len(png)} B of PNG, launches {n}, sha256 {d} "
+            f"{'==' if d == REFERENCE_SHA256[yaw] else '!='} reference")
+        if d != REFERENCE_SHA256[yaw] or px.shape != (RES[1], RES[0], 3):
+            raise AssertionError(f"served frame yaw {yaw} differs from the reference digest")
+        if not only(n, frames=1):
+            raise AssertionError(f"a dense request launched {n}, want one batched kernel")
+    log(f"phase 13 (a) dense poses: {time.time() - t0:.1f} s")
+
+    # (b) the bench pose again: digests only, pose-validated from the second
+    t0 = time.time()
+    validated = service.pose_validated_frames
+    first = None
+    for k in range(4):
+        (px, _png), n = request(lambda: client.frame(cam))
+        trace = client.stats()["last_trace"]
+        first = px if first is None else first
+        log(f"  repeat {k}: launches {n}, last_trace {trace}")
+        if not only(n, frames=1) or not np.array_equal(px, first):
+            raise AssertionError(f"repeat {k}: launches {n}, or a frame that changed")
+        if k and (trace["delta_fetched"] != 0 or not trace["pose_validated"]):
+            raise AssertionError(f"repeat {k} fetched a frame or was not pose-validated")
+    if sha(first) != REFERENCE_SHA256[YAWS[0]]:
+        raise AssertionError("the repeated frame differs from the reference digest")
+    grew = service.pose_validated_frames - validated
+    log(f"  pose_validated_frames grew by {grew} over 4 repeats (the port's rule: 3)")
+    if grew != 3:
+        raise AssertionError(f"pose_validated_frames grew by {grew}, want 3")
+    log(f"phase 13 (b) repeated pose: {time.time() - t0:.1f} s")
+
+    # (c) an edit and its clear through /edit
+    t0 = time.time()
+    renderer = service.renderer
+    pos, lod, rgba = EDIT
+    for op in ({"op": "insert", "pos": list(pos), "size": lod, "color": list(rgba)},
+               {"op": "clear", "pos": list(pos), "size": lod}):
+        reply, n = request(lambda op=op: client.post("/edit", op))
+        if json.loads(reply) != {"applied": 1} or not only(n):
+            raise AssertionError(f"/edit {op}: {reply!r}, launches {n}")
+        (px, _png), n = request(lambda: client.frame(cam))
+        trace = dict(service.renderer.last_stats)
+        fresh = fastest_renderer(bench, device=dev).render(cam, out_u8=True)
+        log(f"  /edit {op['op']}: the next frame launches {n}, fetched "
+            f"{trace['delta_fetched']} frame, {trace['delta_rows_fetched']} rows; equal to a "
+            f"fresh render() {np.array_equal(px, fresh)}")
+        if (not np.array_equal(px, fresh) or not only(n, frames=1)
+                or trace["delta_fetched"] != 1 or not 0 < trace["delta_rows_fetched"] < 540
+                or service.renderer is not renderer):
+            raise AssertionError(f"/edit {op['op']}: the frame after it is not one row band "
+                                 "equal to a fresh render, or the renderer was replaced")
+    log(f"phase 13 (c) edits: {time.time() - t0:.1f} s")
+
+    # (d) a 128 window until settled, then switches that leave nothing behind
+    t0 = time.time()
+    triggers = len(bench.update_triggers)
+    stats = json.loads(client.post("/view", {"view_size": 128}))
+    if not stats["streaming"] or stats["view_size"] != 128:
+        raise AssertionError(f"/view 128: {stats}")
+    for k in range(1, SERVE_MAX_REQUESTS + 1):
+        (px, _png), n = request(lambda: client.frame(cam))
+        if service.view.settled():
+            break
+    else:
+        raise AssertionError("the 128 window did not settle")
+    sync = StreamingView(bench, view_size=128, regions_per_update=8192, device=dev)
+    want = sync.render(cam, out_u8=True)
+    sync.close()
+    del sync
+    log(f"  /view 128: settled after {k} requests, far tiers {client.stats().get('far_tiers')}; "
+        f"equal to a synchronous view's frame {np.array_equal(px, want)}")
+    if not np.array_equal(px, want):
+        raise AssertionError("the served 128 window differs from a synchronous view's frame")
+    levels = []
+    for size in (0, 128, 0):
+        client.post("/view", {"view_size": size})
+        request(lambda: client.frame(cam))
+        if size == 0:
+            gc.collect()
+            torch.cuda.synchronize()
+            levels.append(torch.cuda.memory_allocated())
+    log(f"  switches 128 -> 0 -> 128 -> 0: tree triggers {len(bench.update_triggers)} (before "
+        f"{triggers}), memory_allocated after the first and last switch to dense {levels} B")
+    if len(bench.update_triggers) != triggers or abs(levels[1] - levels[0]) > 2**20:
+        raise AssertionError("a replaced view stayed on the tree or on the card")
+    log(f"phase 13 (d) view distance: {time.time() - t0:.1f} s")
+
+    # (e) the terrain through a 256 window, its rings built off the render path
+    t0 = time.time()
+    tservice = RenderService(terrain, view_size=FLY_VIEW, async_far=True, device=dev)
+    tclient = Client(tservice)
+    for i in SERVE_FLY:
+        fcam = flight_cam(i)
+        for k in range(1, SERVE_MAX_REQUESTS + 1):
+            (px, png), n = request(lambda: tclient.frame(fcam))
+            if tservice.view.settled():
+                break
+        else:
+            raise AssertionError(f"fly-over pose {i} did not settle")
+        d = sha(px)
+        log(f"  fly-over pose {i}: settled after {k} requests ({tservice.view.uploads} regions "
+            f"paged), {len(png)} B of PNG, sha256 {d} "
+            f"{'==' if d == FLYOVER_SHA256[i] else '!='} reference")
+        if d != FLYOVER_SHA256[i]:
+            raise AssertionError(f"served fly-over pose {i} differs from the reference digest")
+    hits = tservice.stream_cache_hits
+    (again, _png), n = request(lambda: tclient.frame(fcam))
+    log(f"  the same pose again: launches {n}, idle-cache hits {hits} -> "
+        f"{tservice.stream_cache_hits}")
+    if tservice.stream_cache_hits != hits + 1 or not only(n) or not np.array_equal(again, px):
+        raise AssertionError("the settled pose was not served from the idle cache alone")
+    pos, lod, rgba = SERVE_EDIT
+    request(lambda: tclient.post("/edit", {"op": "insert", "pos": list(pos), "size": lod,
+                                           "color": list(rgba)}))
+    (edited, _png), n = request(lambda: tclient.frame(fcam))
+    n_moved = int((edited != px).any(axis=-1).sum())
+    log(f"  /edit insert_at_lod{SERVE_EDIT}: the pose re-renders with launches {n}, "
+        f"{n_moved} pixels changed")
+    if n["far"] != 1 or not n_moved:
+        raise AssertionError("the edit did not re-render the pose, or changed no pixel")
+    log(f"phase 13 (e) streamed terrain: {time.time() - t0:.1f} s")
+
+    # (f) a .vox upload and its bencode cache
+    t0 = time.time()
+    parsed = []
+    load_vox_tree = vox.load_vox_tree
+    vox.load_vox_tree = lambda *a, **k: parsed.append(a) or load_vox_tree(*a, **k)
+    saved_tmp = tempfile.tempdir
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tempfile.tempdir = tmp  # where load_vox_bytes keeps its cache
+            data = vox_file_bytes()
+            path = os.path.join(tmp, "smoke.vox")
+            with open(path, "wb") as f:
+                f.write(data)
+            want_tree = load_vox_tree(path, brick_dim=4)
+            vcam = orbit_camera(float(want_tree.size), resolution=RES)
+            want = fastest_renderer(want_tree, device=dev).render(vcam, out_u8=True)
+            for k in range(2):
+                reply, _n = request(lambda: client.post("/load?name=smoke.vox", data))
+                (px, _png), n = request(lambda: client.frame(vcam))
+                log(f"  POST /load {k}: {reply!r}, .vox parses so far {len(parsed)}, frame "
+                    f"launches {n}, equal to fastest_renderer(load_vox_tree) "
+                    f"{np.array_equal(px, want)}")
+                if (len(parsed) != 1 or not np.array_equal(px, want)
+                        or json.loads(reply) != {"loaded": True, "size": want_tree.size}):
+                    raise AssertionError(f"upload {k}: the served scene differs from the "
+                                         "file's, or the cache was not read")
+    finally:
+        tempfile.tempdir = saved_tmp
+        vox.load_vox_tree = load_vox_tree
+    log(f"phase 13 (f) upload: {time.time() - t0:.1f} s")
+
+    # (g) the native edit engine on the card's host
+    t0 = time.time()
+    py = build_scene_tree(4)
+    nat = NativeEditTree.from_boxtree(py)
+    ops = random_edit_ops(np.random.default_rng(13), EDIT_ENGINE_OPS, py.size)
+    spent = {}
+    for name, tree in (("BoxTree", py), ("NativeEditTree", nat)):
+        t1 = time.perf_counter()
+        for method, args in ops:
+            getattr(tree, method)(*args)
+        spent[name] = (time.perf_counter() - t1) / len(ops) * 1e6
+    conv = nat.to_boxtree()
+    a = fastest_renderer(py, device=dev).render(cam, out_u8=True, out_device=True)
+    b = fastest_renderer(conv, device=dev).render(cam, out_u8=True, out_device=True)
+    log(f"  {len(ops)} seeded ops: BoxTree {spent['BoxTree']:.1f} us/op, NativeEditTree "
+        f"{spent['NativeEditTree']:.1f} us/op; nodes {py.node_count} and {conv.node_count}; "
+        f"bench-pose frames equal {bool((a == b).all())} {host_tag}")
+    if py.node_count != conv.node_count or not bool((a == b).all()):
+        raise AssertionError("the edit engine's tree renders differently from the BoxTree's")
+    rng = np.random.default_rng(14)
+    pts = rng.integers(0, py.size, (EDIT_TIMED_OPS, 3))
+    cols = rng.integers(1, 256, (EDIT_TIMED_OPS, 4)).astype(np.uint8)
+    cols[:, 3] = 255
+    albedos = [Albedo(*(int(v) for v in c)) for c in cols]
+    us = {}
+    for name in ("BoxTree", "NativeEditTree"):
+        fresh = build_scene_tree(4)
+        tree = fresh if name == "BoxTree" else NativeEditTree.from_boxtree(fresh)
+        for op, run in (
+                ("insert", lambda: [tree.insert(tuple(p), c) for p, c in zip(pts.tolist(),
+                                                                             albedos)]),
+                ("clear", lambda: [tree.clear(tuple(p)) for p in pts.tolist()]),
+                ("insert_at_lod 4", lambda: [tree.insert_at_lod(tuple(p), 4, c)
+                                             for p, c in zip(pts.tolist(), albedos)]),
+                ("batch insert", lambda: (insert_many(tree, pts, cols) if name == "BoxTree"
+                                          else tree.insert_batch(pts, cols)))):
+            t1 = time.perf_counter()
+            run()
+            us[name, op] = (time.perf_counter() - t1) / EDIT_TIMED_OPS * 1e6
+    for op in ("insert", "clear", "insert_at_lod 4", "batch insert"):
+        log(f"edit engines, {op} ({EDIT_TIMED_OPS} random voxels of the bench tree): BoxTree "
+            f"{us['BoxTree', op]:.2f} us a voxel, NativeEditTree {us['NativeEditTree', op]:.2f} "
+            f"us a voxel ({us['BoxTree', op] / us['NativeEditTree', op]:.1f} times) {host_tag}")
+    del py, nat, conv, a, b
+    log(f"phase 13 (g) edit engine: {time.time() - t0:.1f} s")
+
+    # (h) host times in turns at 1080p: the service's render, the PNG
+    # encode, the whole GET /frame and the PNG's size of each case, and
+    # the whole POST /edit of the dense scene (its BitGrid rebuilt and
+    # uploaded)
+    t0 = time.time()
+    dense = RenderService(build_scene_tree(4), device=dev)
+    dclient = Client(dense)
+    near, far_cam = flight_cam(1), flight_cam(2)
+    state = {"yaw": 0, "move": 0, "edit": 0}
+
+    def next_yaw():
+        state["yaw"] ^= 1
+        return bench_cams[YAWS[state["yaw"]]]
+
+    def next_move():
+        state["move"] ^= 1
+        return near if state["move"] else far_cam
+
+    cases = {
+        "dense, a new pose": (dense, dclient, next_yaw),
+        "dense, the same pose": (dense, dclient, lambda: cam),
+        "streamed, the idle cache": (tservice, tclient, lambda: far_cam),
+        "streamed, after a move": (tservice, tclient, next_move),
+    }
+    times = {name: {"render": [], "encode": [], "get": [], "bytes": []} for name in cases}
+    edit_ms = []
+
+    def one_edit():
+        pos, lod, rgba = EDIT
+        op = ({"op": "insert", "pos": list(pos), "size": lod, "color": list(rgba)}
+              if state["edit"] == 0 else {"op": "clear", "pos": list(pos), "size": lod})
+        state["edit"] ^= 1
+        t1 = time.perf_counter()
+        dclient.post("/edit", op)
+        edit_ms.append((time.perf_counter() - t1) * 1e3)
+
+    def settle_service(svc, c):
+        """Serve ``c`` until the view has settled and its frame is cached."""
+        for _ in range(SERVE_MAX_REQUESTS):
+            svc.render(c.origin, c.target, c.resolution, c.fov_y_deg)
+            if svc.view.settled() and svc._stream_cache is not None:
+                return
+        raise AssertionError("the terrain window did not settle for the timing")
+
+    for name in list(cases) + list(cases)[::-1]:
+        svc, cl, pose = cases[name]
+        c = pose()
+        if name == "streamed, the idle cache":
+            settle_service(svc, c)
+        else:
+            svc.render(c.origin, c.target, c.resolution, c.fov_y_deg)  # the turn's start
+        t = times[name]
+        for _ in range(SERVE_TIMED):
+            c = pose()
+            t1 = time.perf_counter()
+            rgb = svc.render(c.origin, c.target, c.resolution, c.fov_y_deg)
+            t2 = time.perf_counter()
+            png = encode_png(rgb)
+            t3 = time.perf_counter()
+            c = pose()
+            t4 = time.perf_counter()
+            cl.frame(c)
+            t5 = time.perf_counter()
+            t["render"].append((t2 - t1) * 1e3)
+            t["encode"].append((t3 - t2) * 1e3)
+            t["get"].append((t5 - t4) * 1e3)
+            t["bytes"].append(len(png))
+        log(f"  turn {name}: service.render " + ", ".join(f"{v:.2f}" for v in
+                                                          t["render"][-SERVE_TIMED:])
+            + " ms; encode_png " + ", ".join(f"{v:.2f}" for v in t["encode"][-SERVE_TIMED:])
+            + " ms; GET /frame " + ", ".join(f"{v:.2f}" for v in t["get"][-SERVE_TIMED:])
+            + f" ms {host_tag}")
+        one_edit()
+    for name, t in times.items():
+        log(f"served 1920x1080, {name}: service.render {np.mean(t['render']):.2f} ms, "
+            f"encode_png {np.mean(t['encode']):.2f} ms, GET /frame {np.mean(t['get']):.2f} ms "
+            f"(medians {np.median(t['render']):.2f}, {np.median(t['encode']):.2f}, "
+            f"{np.median(t['get']):.2f}), PNG {int(np.mean(t['bytes']))} B {host_tag}")
+    log("POST /edit of the dense bench tree (flatten, build_bitgrid, upload): "
+        + ", ".join(f"{v:.1f}" for v in edit_ms) + f" ms, mean {np.mean(edit_ms):.1f} ms "
+        f"{host_tag}")
+    log(f"phase 13 (h) timing: {time.time() - t0:.1f} s")
+
+    for c in (client, tclient, dclient):
+        c.close()
+    for svc in (service, tservice, dense):
+        if svc.view is not None:
+            svc.view.close()
+    log(f"phase 13 serving: {time.time() - t_all:.1f} s, main-path launches {served}")
+    return served
 
 
 if __name__ == "__main__":

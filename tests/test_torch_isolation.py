@@ -43,24 +43,26 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 def test_scene_model_stands_alone():
-    """The scene model's modules are the port's own: they import no JAX and
-    nothing of the reference (the package-wide check above), no port file
-    names the repo's ``native/`` directory or its library, and the host
-    library's wrapper has no ``try`` that could route a failed build to
-    NumPy."""
+    """The scene model's, the server's and the edit engine's modules are the
+    port's own: they import no JAX and nothing of the reference (the
+    package-wide check above), no port file names the repo's ``native/``
+    directory, the edit engine builds and loads the port's own
+    ``host/tree_edit.cpp``, and the host libraries' wrapper has no ``try``
+    that could route a failed build to NumPy."""
     files = _port_files()
     for mod in ("constants.py", "native.py", os.path.join("spatial", "math.py"),
                 os.path.join("spatial", "luts.py"), os.path.join("tree", "boxtree.py"),
                 os.path.join("tree", "mipmap.py"), os.path.join("tree", "build.py"),
                 os.path.join("tree", "flat.py"), os.path.join("tree", "invariants.py"),
-                os.path.join("io", "vox.py"), os.path.join("io", "bencode.py")):
+                os.path.join("io", "vox.py"), os.path.join("io", "bencode.py"), "serve.py",
+                os.path.join("utils", "png.py"), os.path.join("tree", "native_edit.py")):
         assert os.path.join(PKG, mod) in files, mod
-    sources = files + [os.path.join(PKG, "host", "rasterize.cpp")]
+    sources = files + [os.path.join(PKG, "host", name)
+                       for name in ("rasterize.cpp", "tree_edit.cpp")]
     for path in sources:
         with open(path) as f:
             text = f.read()
-        for needle in ("native/", "tree_edit"):
-            assert needle not in text, (path, needle)
+        assert "native/" not in text, path
         if path.endswith(".py"):
             for node in ast.walk(ast.parse(text)):
                 if isinstance(node, ast.Constant) and node.value == "native":
@@ -68,6 +70,15 @@ def test_scene_model_stands_alone():
     with open(os.path.join(PKG, "native.py")) as f:
         tree = ast.parse(f.read())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+    from voxelhex_tpu_torch import native
+    from voxelhex_tpu_torch.tree.native_edit import NativeEditTree
+
+    assert native.EDIT_SOURCE == os.path.join(PKG, "host", "tree_edit.cpp")
+    NativeEditTree(16, 4)
+    loaded = native.edit_library()._name
+    assert loaded == native.library_path(native.EDIT_SOURCE)
+    assert loaded.startswith(os.path.join(ROOT, "build", "voxelhex_tpu_torch", "host-"))
 
 
 def test_a_failed_host_build_raises(monkeypatch, tmp_path):
@@ -137,6 +148,14 @@ def test_import_builds_nothing():
     assert albedo.albedo_forward.launches >= 0 and albedo.albedo_backward.launches >= 0
     assert stream.region_scatter.launches >= 0 and stream.coarse_rebuild.launches >= 0
     assert stream.window_shift.launches >= 0 and far.render_far.launches >= 0
+    from voxelhex_tpu_torch import native
+
+    built = native._edit_lib
+    from voxelhex_tpu_torch import serve  # noqa: F401
+    from voxelhex_tpu_torch.tree import native_edit  # noqa: F401
+    from voxelhex_tpu_torch.utils import png  # noqa: F401
+
+    assert native._edit_lib is built
 
 
 def test_batched_paths_raise_on_the_card_path_without_a_fallback(monkeypatch):
@@ -207,9 +226,10 @@ def test_offline_trainers_need_cuda_by_default(monkeypatch):
 
 def test_offline_slice_stands_alone():
     """The slice's modules are the port's own (the package-wide import check
-    above covers them), the package's top-level names load lazily (the
-    streaming view's too), and the names not ported yet say which ROADMAP
-    item ports them."""
+    above covers them), the package's top-level names load lazily, and
+    every name of the reference's ``__all__`` resolves in the port, from
+    the port's own modules."""
+    import voxelhex_tpu as ref
     import voxelhex_tpu_torch as vt
 
     files = _port_files()
@@ -228,9 +248,16 @@ def test_offline_slice_stands_alone():
     from voxelhex_tpu_torch.render.streaming import StreamingView
 
     assert vt.StreamingView is StreamingView
-    for name, item in (("NativeEditTree", "item 4"), ("RenderService", "item 10")):
-        with pytest.raises(AttributeError, match=f"ROADMAP.md queue 1 {item}"):
-            getattr(vt, name)
+    from voxelhex_tpu_torch.serve import RenderService
+    from voxelhex_tpu_torch.tree.native_edit import NativeEditTree
+
+    assert vt.RenderService is RenderService and vt.NativeEditTree is NativeEditTree
+    assert vt.__all__ == ref.__all__
+    for name in ref.__all__:
+        got = getattr(vt, name)
+        assert got is not None, name
+        home = getattr(got, "__module__", None) or getattr(got, "__name__", None)
+        assert home is None or home.startswith("voxelhex_tpu_torch"), (name, home)
     with pytest.raises(AttributeError):
         vt.no_such_name  # noqa: B018
 

@@ -753,3 +753,43 @@ def test_streaming_view_on_the_card_equals_cpu(cuda):
         ta, tb = views[cuda].renderer.tree, views["cpu"].renderer.tree
         assert _equal(ta["colors"].cpu(), tb["colors"]) and _equal(ta["occ_pairs"].cpu(),
                                                                    tb["occ_pairs"])
+
+
+def test_render_service_on_the_card_equals_cpu(cuda):
+    """The server's main paths on the card: dense frames (the batched
+    kernel), an edit refreshed in place, and a switch to a 64 window with
+    its ring (the far-frame and paging kernels), each frame equal to the
+    same service's on the CPU."""
+    from voxelhex_tpu_torch.scene import terrain_points
+    from voxelhex_tpu_torch.serve import RenderService
+    from voxelhex_tpu_torch.tree.build import from_voxels
+
+    pts, cols = terrain_points(256)
+    # async_far=False: each frame's rings are built on the render thread, so
+    # the two services' frames do not depend on their workers' timing
+    services = {dev: RenderService(from_voxels(pts, cols, size=256, brick_dim=4),
+                                   async_far=False, device=dev) for dev in (cuda, "cpu")}
+    poses = [([-40.0, 90.0, -40.0], [128.0, 10.0, 128.0]), ([60.0, 40.0, 20.0],
+                                                             [100.0, 12.0, 90.0])]
+    edit = {"op": "insert", "pos": [96, 8, 96], "size": 16, "color": [250, 40, 40, 255]}
+
+    def frames():
+        out = {dev: [s.render(o, t, (320, 180), 55.0) for o, t in poses + poses[:1]]
+               for dev, s in services.items()}
+        for a, b in zip(out[cuda], out["cpu"]):
+            assert np.array_equal(a, b)
+        return out["cpu"]
+
+    dense = frames()
+    assert services[cuda].renderer.last_stats["pose_validated"] is False
+    for s in services.values():
+        assert s.apply_edits(edit) == 1
+    edited = frames()
+    assert not np.array_equal(dense[0], edited[0])
+    for s in services.values():
+        s.set_view_size(64)
+    streamed = frames()
+    assert services[cuda].view.renderer.tree["colors"].is_cuda
+    for s in services.values():
+        s.set_view_size(0)
+    assert np.array_equal(frames()[0], edited[0]) and streamed[0].any()

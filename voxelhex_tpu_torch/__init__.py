@@ -9,7 +9,7 @@ It imports neither JAX nor the reference package.  Layout:
 * :mod:`.spatial`, :mod:`.tree`, :mod:`.io` — the scene model on the host:
   the boxtree (edits, MIP maps, bulk build, flat arrays), ``.vox`` import,
   the bencode format and versioned checkpoints; :mod:`.native` builds and
-  binds its host library (``host/rasterize.cpp``);
+  binds its host libraries (``host/rasterize.cpp``, ``host/tree_edit.cpp``);
 * :mod:`.render` — camera and rays, the BitGrid and its plain tracer,
   plain shading, the renderer (:func:`.render.fastest_renderer`), the
   streaming view over a world larger than the card's window and its far
@@ -21,11 +21,16 @@ It imports neither JAX nor the reference package.  Layout:
   window's updates and its far-field frame) and the ``nvcc`` build of
   ``csrc/``;
 * :mod:`.convert` — a reference BitGrid's or FlatTree's fields, params and
-  Adam state to the port's.
+  Adam state to the port's;
+* :mod:`.serve` — the render/edit server (``RenderService``, its HTTP
+  server and CLI, ``python -m voxelhex_tpu_torch.serve``), with
+  :mod:`.utils.png`'s encoder;
+* :mod:`.tree.native_edit` — the native edit engine (``NativeEditTree``,
+  over the host library ``host/tree_edit.cpp``).
 
-The reference's top-level names that the port has load lazily::
+The reference's top-level names load lazily::
 
-    from voxelhex_tpu_torch import BoxTree, Albedo, StreamingView, fastest_renderer
+    from voxelhex_tpu_torch import BoxTree, Albedo, RenderService, fastest_renderer
 """
 
 __version__ = "0.1.0"
@@ -37,13 +42,6 @@ from voxelhex_tpu_torch.constants import (  # noqa: F401
     EMPTY_U32,
     EMPTY_VOXEL,
 )
-
-# the reference's top-level names the port does not have yet, with the
-# ROADMAP.md item that ports each
-NOT_PORTED = {
-    "NativeEditTree": "queue 1 item 4 (the edit engine)",
-    "RenderService": "queue 1 item 10 (serving)",
-}
 
 
 def __getattr__(name):
@@ -68,9 +66,10 @@ def __getattr__(name):
         return importlib.import_module("voxelhex_tpu_torch.render.streaming").StreamingView
     if name == "SoftRenderer":
         return importlib.import_module("voxelhex_tpu_torch.diff.soft").SoftRenderer
-    if name in NOT_PORTED:
-        raise AttributeError(f"voxelhex_tpu_torch.{name} is not ported yet: ROADMAP.md "
-                             f"{NOT_PORTED[name]}")
+    if name == "NativeEditTree":
+        return importlib.import_module("voxelhex_tpu_torch.tree.native_edit").NativeEditTree
+    if name == "RenderService":
+        return importlib.import_module("voxelhex_tpu_torch.serve").RenderService
     raise AttributeError(f"module 'voxelhex_tpu_torch' has no attribute '{name}'")
 
 
@@ -92,7 +91,9 @@ __all__ = [
     "load_vox_scene",
     "load_vox_tree",
     "load_vox_tree_cached",
+    "NativeEditTree",
     "orbit_camera",
+    "RenderService",
     "save_flat",
     "save_tree",
     "SoftRenderer",

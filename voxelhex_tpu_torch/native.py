@@ -1,13 +1,15 @@
-"""The scene model's host library: ``host/rasterize.cpp`` built with g++
-at first use and bound with ``ctypes``.
+"""The port's host libraries, each built with g++ at first use and bound
+with ``ctypes``: the scene model's ``host/rasterize.cpp`` (:func:`library`)
+and the edit engine's ``host/tree_edit.cpp`` (:func:`edit_library`, under
+:class:`~voxelhex_tpu_torch.tree.native_edit.NativeEditTree`).
 
-The library is ``build/voxelhex_tpu_torch/host-<hash>/librasterize.so``
-beside the package, where the hash covers the source, the flags, the
+A library is ``build/voxelhex_tpu_torch/host-<hash>/lib<source>.so``
+beside the package, where the hash covers its source, the flags, the
 compiler (path and version) and this module; it is compiled under a
 temporary name and moved into place with ``os.replace``, so processes that
 build it at once each leave a whole library.  A failed build raises: the
-NumPy versions run only where a caller asks for them (``native=False``).
-Importing this module builds nothing.
+NumPy versions run only where a caller asks for them (``native=False``),
+and the edit engine has none.  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "host", "rasterize.cpp")
+EDIT_SOURCE = os.path.join(_PKG, "host", "tree_edit.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
 _lock = threading.Lock()
 _lib = None
+_edit_lib = None
 
 
 def _compiler() -> str:
@@ -47,60 +51,66 @@ def _compiler_id() -> bytes:
     return cxx.encode() + b"\0" + out.stdout
 
 
-def library_path() -> str:
-    """Where the library of this source, these flags, this compiler and this
-    module lives."""
+def library_path(source: str | None = None) -> str:
+    """Where the library of ``source`` (``SOURCE`` by default), these flags,
+    this compiler and this module lives."""
+    source = SOURCE if source is None else source
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update(_compiler_id())
-    for path in (SOURCE, os.path.abspath(__file__)):
+    for path in (source, os.path.abspath(__file__)):
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"host-{h.hexdigest()[:16]}", "librasterize.so")
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"host-{h.hexdigest()[:16]}", f"lib{name}.so")
 
 
-def _build(so: str) -> None:
+def _build(source: str, so: str) -> None:
     os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    out = subprocess.run([_compiler(), *FLAGS, SOURCE, "-o", tmp], capture_output=True,
+    out = subprocess.run([_compiler(), *FLAGS, source, "-o", tmp], capture_output=True,
                          text=True, timeout=BUILD_TIMEOUT_S)
     if out.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"g++ {os.path.basename(SOURCE)} failed ({out.returncode}):\n"
+        raise RuntimeError(f"g++ {os.path.basename(source)} failed ({out.returncode}):\n"
                            f"{out.stdout}{out.stderr}")
     os.replace(tmp, so)
 
 
+def _load(source: str) -> ctypes.CDLL:
+    so = library_path(source)
+    if not os.path.exists(so):
+        _build(source, so)
+    return ctypes.CDLL(so)
+
+
+def _ptr(dtype):
+    return np.ctypeslib.ndpointer(dtype, flags="C_CONTIGUOUS")
+
+
 def library() -> types.SimpleNamespace:
-    """The library's entry points, built first if needed."""
+    """The scene model library's entry points, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not os.path.exists(so):
-                _build(so)
-            dll = ctypes.CDLL(so)
-
-            def ptr(dtype):
-                return np.ctypeslib.ndpointer(dtype, flags="C_CONTIGUOUS")
-
+            dll = _load(SOURCE)
             i32, i64, u32 = ctypes.c_int32, ctypes.c_int64, ctypes.c_uint32
             signatures = {
-                "rasterize_flat": [ptr(np.uint32), ptr(np.int32), ptr(np.int32), i32, i32, i32,
-                                   i32, ptr(np.uint8), ptr(np.uint16)],
-                "pack_level": [ptr(np.uint8), i32, ptr(np.uint32), ptr(np.uint32),
-                               ptr(np.uint8)],
-                "bulk_group_sort": [ptr(np.int64), i64, i32, i32, ptr(np.int64),
-                                    ptr(np.int64), ptr(np.int64)],
-                "bulk_group_fill": [ptr(np.uint32), ptr(np.int64), ptr(np.int64), i64, i32, u32,
-                                    ptr(np.int64), ptr(np.uint32), ptr(np.uint64),
-                                    ptr(np.uint8)],
-                "rasterize_window": [ptr(np.uint32), ptr(np.int32), ptr(np.int32), i32, i32,
-                                     i32, i32, i32, i32, i32, i32, ptr(np.uint8),
-                                     ptr(np.uint16)],
-                "rasterize_regions": [ptr(np.uint32), ptr(np.int32), ptr(np.int32), i32, i32,
-                                      i32, i32, ptr(np.int32), i32, i32, ptr(np.uint8),
-                                      ptr(np.uint16), ptr(np.uint32), ptr(np.uint32)],
+                "rasterize_flat": [_ptr(np.uint32), _ptr(np.int32), _ptr(np.int32), i32, i32, i32,
+                                   i32, _ptr(np.uint8), _ptr(np.uint16)],
+                "pack_level": [_ptr(np.uint8), i32, _ptr(np.uint32), _ptr(np.uint32),
+                               _ptr(np.uint8)],
+                "bulk_group_sort": [_ptr(np.int64), i64, i32, i32, _ptr(np.int64),
+                                    _ptr(np.int64), _ptr(np.int64)],
+                "bulk_group_fill": [_ptr(np.uint32), _ptr(np.int64), _ptr(np.int64), i64, i32, u32,
+                                    _ptr(np.int64), _ptr(np.uint32), _ptr(np.uint64),
+                                    _ptr(np.uint8)],
+                "rasterize_window": [_ptr(np.uint32), _ptr(np.int32), _ptr(np.int32), i32, i32,
+                                     i32, i32, i32, i32, i32, i32, _ptr(np.uint8),
+                                     _ptr(np.uint16)],
+                "rasterize_regions": [_ptr(np.uint32), _ptr(np.int32), _ptr(np.int32), i32, i32,
+                                      i32, i32, _ptr(np.int32), i32, i32, _ptr(np.uint8),
+                                      _ptr(np.uint16), _ptr(np.uint32), _ptr(np.uint32)],
             }
             fns = {}
             for name, argtypes in signatures.items():
@@ -110,6 +120,46 @@ def library() -> types.SimpleNamespace:
                 fns[name] = fn
             _lib = types.SimpleNamespace(dll=dll, **fns)
         return _lib
+
+
+def edit_library() -> ctypes.CDLL:
+    """The edit engine's library with its entry points' signatures set,
+    built first if needed."""
+    global _edit_lib
+    with _lock:
+        if _edit_lib is None:
+            dll = _load(EDIT_SOURCE)
+            i64, i32, u32, u8 = ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32, ctypes.c_uint8
+            p, u64 = ctypes.c_void_p, ctypes.c_uint64
+            u8p, u32p, i32p, i64p = (_ptr(t) for t in (np.uint8, np.uint32, np.int32, np.int64))
+            signatures = {
+                "edit_tree_new": ([i64, i32, i32], p),
+                "edit_tree_free": ([p], None),
+                "edit_tree_set_palette": ([p, u8p, i64, u8p, i64], None),
+                "edit_tree_insert": ([p, i64, i64, i64, i64, u32, i32], i32),
+                "edit_tree_clear": ([p, i64, i64, i64, i64], i32),
+                "edit_tree_get": ([p, i64, i64, i64], u32),
+                "edit_tree_insert_batch": ([p, i64p, u32p, i64, i32], i64),
+                "edit_tree_clear_batch": ([p, i64p, i64], i64),
+                "edit_tree_get_batch": ([p, i64p, i64, u32p], None),
+                "edit_tree_node_count": ([p], i64),
+                "edit_tree_slot_count": ([p], i64),
+                "edit_tree_node_info": ([p, i32, ctypes.POINTER(u8), ctypes.POINTER(u64),
+                                         ctypes.POINTER(u8), i32p], i32),
+                "edit_tree_node_brick": ([p, i32, i32, u32p], i32),
+                "edit_tree_load_reserve": ([p, i32], None),
+                "edit_tree_load_node": ([p, i32, u8, u64, u8, i32p], None),
+                "edit_tree_load_brick": ([p, i32, i32, i32, u32p], None),
+                "edit_tree_load_finish": ([p], None),
+                "edit_tree_last_stack": ([p, i32p, i32], i32),
+                "edit_tree_last_sectants": ([p, i32p, i32], i32),
+            }
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _edit_lib = dll
+        return _edit_lib
 
 
 def bulk_group(positions: np.ndarray, packed: np.ndarray, size: int, d: int,

@@ -109,6 +109,10 @@ class BitGridRenderer:
         # checked against a full fetch
         self._delta_state = None
         self._delta_validated = None
+        # render_delta_many's pose token of the batch before (pose_validated),
+        # and the content version that invalidate_beam moves on
+        self._pose_token = None
+        self._content_version = 0
         self.last_stats: dict = {}
 
     def trace(self, origins, dirs):
@@ -148,7 +152,9 @@ class BitGridRenderer:
         checks that the new tree is on the renderer's device and matches the
         BitGrid.  The delta baseline survives, as in the reference: it is
         only a diff base, so the next :meth:`render_delta_many` fetches just
-        the rows that the change moved."""
+        the rows that the change moved; the content version moves on, so the
+        next batch is not ``pose_validated``."""
+        self._content_version += 1
         t, bg = self.tree, self.bitgrid
         if t["occ_pairs"].device.type != self.device.type:
             raise ValueError(f"renderer.tree is on {t['occ_pairs'].device}, the renderer on "
@@ -207,7 +213,13 @@ class BitGridRenderer:
         The first batch of each key also fetches its last frame in full and
         checks the reconstruction against it; a mismatch raises
         ``AssertionError``.  ``last_stats`` holds the reference's keys and
-        ``host_reads``, the blocking reads of the batch."""
+        ``host_reads``, the blocking reads of the batch.
+
+        ``last_stats["pose_validated"]`` is the reference's rule: the batch's
+        token equals the batch before's.  The token is the key (with
+        ``bg``), the device tree (its tensors' identity and the content
+        version that :meth:`invalidate_beam` moves on), and each camera's
+        origin, target and up as f32 and its fov."""
         cameras = list(cameras)
         res = self._batch_resolution(cameras, beam_prepass)
         if res is None:
@@ -216,7 +228,16 @@ class BitGridRenderer:
         K = len(cameras)
         key = (w, h, tuple(float(v) for v in np.asarray(bg, dtype=np.float32).reshape(3)),
                self.max_iters)
+        t = self.tree
+        token = (key, id(t["occ_pairs"]), id(t["colors"]), id(t["palette"]),
+                 self._content_version,
+                 tuple((tuple(np.asarray(c.origin, dtype=np.float32)),
+                        tuple(np.asarray(c.target, dtype=np.float32)),
+                        tuple(np.asarray(c.up, dtype=np.float32)), float(c.fov_y_deg))
+                       for c in cameras))
         with self._render_lock:
+            pose_validated = token == self._pose_token
+            self._pose_token = None  # until this batch has delivered its frames
             state = self._delta_state
             if state is None or state[0] != key:
                 prev_dev = torch.zeros((h, w, 3), dtype=torch.uint8, device=self.device)
@@ -251,9 +272,10 @@ class BitGridRenderer:
                 self._delta_validated = key
             # a copy: a view of the last frame would keep the whole batch alive
             self._delta_state = (key, frames_dev[-1].clone(), frames[-1])
+            self._pose_token = token
             self.last_stats = {"rays": w * h * K, "batched_frames": K, "delta": True,
                                "delta_fetched": fetched, "delta_rows_fetched": rows_fetched,
-                               "host_reads": reads}
+                               "pose_validated": pose_validated, "host_reads": reads}
         return frames
 
 

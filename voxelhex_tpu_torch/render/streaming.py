@@ -716,11 +716,16 @@ class StreamingView:
         return done, packed
 
     def close(self):
-        """Stop the worker threads."""
+        """Stop the worker threads (a job that runs is waited for, the queued
+        ones dropped) and take the view off its tree's ``update_triggers``,
+        so that nothing the tree or a worker holds keeps the closed view and
+        its device window alive.  A second call does nothing."""
         if self._pool is not None:
-            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool.shutdown(wait=True, cancel_futures=True)
         if self._far_pool is not None:
-            self._far_pool.shutdown(wait=False, cancel_futures=True)
+            self._far_pool.shutdown(wait=True, cancel_futures=True)
+        if self._on_tree_update in self.tree.update_triggers:
+            self.tree.update_triggers.remove(self._on_tree_update)
 
     def _shift_device(self, shift):
         """The window moved by ``shift`` (world voxels, multiples of
