@@ -117,7 +117,25 @@ file's tree, the second upload read from the bencode cache; (g)
 rendered equal on the card, and both engines' host us a voxel; (h) host
 times in turns of ``service.render``, ``encode_png`` and the whole ``GET
 /frame`` for a new and a repeated dense pose, an idle-cache and a moved
-streamed pose, and of ``POST /edit``.  The last line is ``{"ok": true,
+streamed pose, and of ``POST /edit``.
+
+Phase 14 runs the frame's start prepasses at 1920x1080: (a) the bench
+pose's beam, splat and ``prepass_levels=2`` frames through ``render`` (each
+its prepass's launches, then one ``frame.cu`` launch) to the reference
+digests, ``render_delta_many([cam] * 16, beam_prepass=True)`` twice (one
+``beam.cu`` and one ``frames.cu`` launch a batch; one frame fetched, then
+none) and a fly-over frame of ``StreamingView(beam_prepass=True)`` (one
+beam and one ``far.cu`` launch); (b) ``beam.cu`` on every tile at the
+bench, terrain and fly-over window poses, ``splat.cu`` on every texel and
+``prepass.cu`` on every texel of each level against their plain versions,
+and the frame kernels from each start map; (c) the beam frame against the
+plain frame in ppm; (d) the dead tiles, the steps a ray with the beam's
+start and without, and device times in turns of the plain frame against
+beam + frame and of the plain delta batch against the beam's, at the bench
+pose and the terrain, and ``far.cu`` with the window's start; (e) the frame
+kernels' registers without a start; (f) each new kernel's time, plain
+version, bound and library call (``scatter_reduce_`` for the splat's
+scatter, beside a profile of its two passes).  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -196,6 +214,28 @@ TRAVERSE_OPS_PER_STEP = 100
 # f32 operations per pixel of the frame kernel's ray generation (prologue)
 # and shading with the u8 step (epilogue), counted low from frame.cu
 FRAME_OPS_PER_PIXEL = 40
+
+# ---- phase 14, the start prepasses at 1920x1080: sha256 of the reference
+# package's u8 frames at the bench pose, made on the CPU with
+#   fastest_renderer(flatten(bench.build_scene())).render(
+#       orbit_camera(128.0, resolution=(1920, 1080)), out_u8=True, beam_prepass=True)
+# (and splat_prepass=True: the plain frame's), and with
+#   BitGridRenderer(flatten(bench.build_scene()), prepass=True,
+#                   prepass_levels=2).render(..., out_u8=True)
+BEAM_SHA256 = "e03c4c5d73642621d75e302ca0d13af7a59004054dad5e7ddc377ade677114f0"
+SPLAT_SHA256 = "d91c061522544beaaef401931cfee12625ddee1e3771ce0d108ac062208fca62"
+PREPASS_SHA256 = "589c5f2f4855efe247da4d150687b74b1048da875b02200d55abdf41de73d2da"
+PREPASS_LEVELS = 2
+# tests/test_beam_fuzz.py's bound on the pixels of a beam frame that differ
+# from the plain frame (re-seeded edge-grazing rays), in ppm
+BEAM_PPM_BOUND = 64
+# operations a center of the splat's point pass and a texel of its texel
+# pass, counted low from splat.cu (projection and distance; the 5 x 5 min
+# and the blockers' 3 x 3 cells)
+SPLAT_OPS_PER_POINT = 40
+SPLAT_OPS_PER_TEXEL = 60
+# ptxas's registers of the frame kernels before they took a start map
+FRAME_REGISTERS = {"frame_kernel": 40, "frames_kernel": 55}
 
 # ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
 # (examples/terrain.py's StreamingView, BASELINE.json's config 4): the
@@ -552,7 +592,13 @@ def main():
         for line in ptxas_lines(_build.build_log(source)):
             log(f"  ptxas {source}: {line}")
     for source, kernel, max_regs in (("frame.cu", "frame_kernel", 47),
+                                     ("frame.cu", "frame_start_kernel", None),
                                      ("frames.cu", "frames_kernel", None),
+                                     ("frames.cu", "frames_start_kernel", None),
+                                     ("beam.cu", "beam_kernel", None),
+                                     ("splat.cu", "splat_", None),
+                                     ("prepass.cu", "prepass_kernel", None),
+                                     ("prepass.cu", "depth_start_kernel", None),
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
                                      ("far.cu", "far_kernel", None),
@@ -807,6 +853,11 @@ def main():
                           ("scatter", "region_scatter"), ("rebuild", "coarse_rebuild"),
                           ("shift", "window_shift")):
         by_name[name]["launches"] += served[counter]
+    torch.cuda.empty_cache()
+    entries, counts = prepass_slice(dev, card, terrain, frame_ms)
+    for counter, name in (("frame", "frame"), ("frames", "frames"), ("far", "far_frame")):
+        by_name[name]["launches"] += counts[counter]
+    kernels += entries
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3225,6 +3276,360 @@ def serving_slice(dev, card, terrain):
             svc.view.close()
     log(f"phase 13 serving: {time.time() - t_all:.1f} s, main-path launches {served}")
     return served
+
+
+def beam_bound(stats, tiles):
+    """The beam's bound from the plain march's record: the distinct word
+    pairs it fetches and a start written a tile, its parameters; its steps
+    and each tile's ray generation."""
+    from voxelhex_tpu_torch.ops import _build
+
+    n_bytes = int(stats["reads"].sum()) * 8 + tiles * 4 + ctypes.sizeof(_build.BeamParams)
+    return bound(n_bytes, int(stats["iters"].sum()) * TRAVERSE_OPS_PER_STEP
+                 + tiles * FRAME_OPS_PER_PIXEL)
+
+
+def prepass_slice(dev, card, terrain, phase4_frame_ms):
+    """Phase 14: the frame's start prepasses on the card at 1920x1080.  (a)
+    the main path: the bench pose's beam, splat and ``prepass_levels=2``
+    frames through ``render``, each its prepass's launches and one
+    ``frame.cu`` launch, to the JAX digests; ``render_delta_many([cam] * 16,
+    beam_prepass=True)`` twice, one beam and one ``frames.cu`` launch a
+    batch; a fly-over frame of ``StreamingView(beam_prepass=True)``, one
+    beam and one ``far.cu`` launch; (b) each kernel against its plain
+    version: ``beam.cu`` on every tile at the bench pose, the terrain pose
+    and the fly-over window pose, ``splat.cu`` on every texel and the frame
+    from it on every ray at the bench pose, ``prepass.cu`` on every texel
+    of each level, the frame kernels from each start map; (c) the beam
+    frame against the port's plain frame, in ppm; (d) what the beam buys:
+    dead tiles, steps a ray with its start and without, device times in
+    turns of the plain frame against beam + frame and of the plain delta
+    batch against the beam's, at the bench pose and at the terrain; (e) the
+    frame kernels without a start: ptxas registers and times beside phase
+    4's; (f) each new kernel's time, plain version, bound and library call.
+    Returns the three kernels' entries and the main path's launches of
+    ``frame.cu``, ``frames.cu`` and ``far.cu``."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.beam import beam_tiles, beam_tiles_plain
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+    from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_digest
+    from voxelhex_tpu_torch.ops.prepass import (depth_start, depth_start_plain, level_camera,
+                                                level_depth, level_depth_plain, prepass_start)
+    from voxelhex_tpu_torch.ops.splat import project, splat_tiles, splat_tiles_plain
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import build_scene
+
+    t_all = time.time()
+    tag = f"[{card}]"
+    counters = (beam_tiles, splat_tiles, level_depth, depth_start, render_frame, render_frames,
+                render_far)
+
+    def counts():
+        return {f.__name__: f.launches for f in counters if f.launches}
+
+    # (a) the main path
+    t0 = time.time()
+    scene = build_scene()
+    bench = fastest_renderer(scene)
+    deep = fastest_renderer(scene, prepass=True, prepass_levels=PREPASS_LEVELS)
+    cam = orbit_camera(128.0, resolution=RES)
+    tree = bench.tree
+    for f in counters:
+        f.launches = 0
+    main, total = {}, {}
+    for name, r, kw, want_sha, want in (
+            ("beam", bench, {"beam_prepass": True}, BEAM_SHA256,
+             {"beam_tiles": 1, "render_frame": 1}),
+            ("splat", bench, {"splat_prepass": True}, SPLAT_SHA256,
+             {"splat_tiles": 1, "render_frame": 1}),
+            ("depth", deep, {}, PREPASS_SHA256,
+             {"level_depth": PREPASS_LEVELS, "depth_start": 1, "render_frame": 1})):
+        before = counts()
+        frame = r.render(cam, out_u8=True, out_device=True, **kw)
+        torch.cuda.synchronize()
+        got = {k: n - before.get(k, 0) for k, n in counts().items() if n - before.get(k, 0)}
+        digest = sha(frame)
+        log(f"  {name} frame: launches {got}, last_stats {r.last_stats}, sha256 {digest} "
+            f"{'==' if digest == want_sha else '!='} reference")
+        if got != want or r.last_stats["prepass"] != name:
+            raise AssertionError(f"{name} frame: launches {got}, want {want}")
+        if digest != want_sha:
+            raise AssertionError(f"the {name} frame differs from the JAX digest")
+        main[name] = frame
+    delta = fastest_renderer(scene)
+    stats = []
+    for _ in range(2):
+        before = counts()
+        frames = delta.render_delta_many([cam] * BATCH, beam_prepass=True)
+        got = {k: n - before.get(k, 0) for k, n in counts().items() if n - before.get(k, 0)}
+        stats.append(dict(delta.last_stats))
+        log(f"  beam delta batch of {BATCH}: launches {got}, stats {stats[-1]}")
+        if got != {"beam_tiles": 1, "render_frames": 1}:
+            raise AssertionError(f"beam delta batch: launches {got}")
+        if sha(frames[0]) != BEAM_SHA256 or any(f is not frames[0] for f in frames):
+            raise AssertionError("beam delta batch: frames differ from the beam frame")
+    if ((stats[0]["delta_fetched"], stats[1]["delta_fetched"], stats[1]["host_reads"])
+            != (1, 0, 1) or not stats[1]["pose_validated"] or not stats[1]["beam_fused"]):
+        raise AssertionError(f"beam delta batches fetched {stats}, want phase 4b's 1 then 0")
+    view = StreamingView(terrain, view_size=FLY_VIEW, regions_per_update=8192,
+                         beam_prepass=True)
+    fcam = flight_cam(0)
+    before = counts()
+    fly = view.render(fcam, out_u8=True, out_device=True)
+    torch.cuda.synchronize()
+    got = {k: n - before.get(k, 0) for k, n in counts().items() if n - before.get(k, 0)}
+    log(f"  fly-over frame 0 with the window's beam: launches {got}, settled {view.settled()}")
+    if got != {"beam_tiles": 1, "render_far": 1} or not view.settled():
+        raise AssertionError(f"fly-over beam frame: launches {got}")
+    launches = counts()
+    log(f"phase 14 (a) main path: {time.time() - t0:.1f} s, launches {launches}")
+
+    # (b) each kernel against its plain version
+    t0 = time.time()
+    beam_err, beams = 0.0, {}
+    terrain_r = fastest_renderer(terrain)
+    tcam = orbit_camera(float(TERRAIN_WORLD), resolution=RES)
+    layers = view.layers(fcam)
+    for pose, r, c in (("bench", bench, cam), ("terrain", terrain_r, tcam),
+                       ("fly-over window", view.renderer, layers[0][1])):
+        spec = r._beam_spec(c)
+        if spec is None:
+            raise AssertionError(f"{pose}: no beam level")
+        k = beam_tiles([(*spec, c)], r.beam_tile, dev)[0]
+        st = {}
+        t1 = time.perf_counter()
+        p = beam_tiles_plain(spec[0], spec[1], c, r.beam_tile, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        n_bad = int((~same(k, p)).sum())
+        beam_err = max(beam_err, max_abs_err(k, p))
+        L = int(round(math.log(spec[1], 4)))
+        dead = float((p == 1e8).float().mean())
+        log(f"  beam at the {pose} pose: L = {L}, {spec[0]['size']}^3 cells, {p.numel()} tiles, "
+            f"{n_bad} differ from the plain beams; dead {dead:.4f}, start 0 "
+            f"{float((p == 0).float().mean()):.4f}; beam steps {int(st['iters'].sum())}, "
+            f"most {int(st['iters'].max())}; plain {plain_ms:.1f} ms (host clock)")
+        if n_bad:
+            raise AssertionError(f"beam.cu differs from its plain version at the {pose} pose")
+        beams[pose] = (spec, k, st, plain_ms, dead)
+    window_start = beams["fly-over window"][1]
+    stats_far = []
+    want = far_frame_plain(layers, view.camera_inside(fcam), stats=stats_far,
+                           start=window_start, start_tile=view.renderer.beam_tile)
+    n_bad = int((~same(fly, want)).any(dim=-1).sum())
+    # the terrain carries phases 12 and 13's edits here, so the frame without
+    # a start is not phase 12's digest: it is compared with the beam frame only
+    no_start = far_frame_plain(layers, view.camera_inside(fcam))
+    log(f"  fly-over beam frame against far_frame_plain from the same start: {n_bad} pixels "
+        f"differ; it differs from the plain far frame without a start on "
+        f"{int((fly != no_start).any(dim=-1).sum())} pixels")
+    del want, no_start
+    if n_bad:
+        raise AssertionError("far.cu from the window's start map differs from its plain version")
+    pts = bench._splat_points()
+    k = splat_tiles(pts, cam)
+    t1 = time.perf_counter()
+    p = splat_tiles_plain(pts, cam)
+    torch.cuda.synchronize()
+    splat_plain_ms = (time.perf_counter() - t1) * 1e3
+    n_bad = int((~same(k, p)).sum())
+    splat_err = max_abs_err(k, p)
+    w2, h2 = RES[0] // 2, RES[1] // 2
+    z, u, v, dist, f_tex, _sref = project(pts, cam, w2, h2)
+    reliable = ((z > 0.0) & (f_tex <= 2.0) & (u >= -3.0) & (u < w2 + 3.0) & (v >= -3.0)
+                & (v < h2 + 3.0))
+    log(f"  splat at the bench pose: {pts.shape[0]} centers, {int(reliable.sum())} reliable, "
+        f"{int(((z > 0) & (f_tex > 2.0)).sum())} blockers; {n_bad} of {p.numel()} texels differ "
+        f"from the plain version; start 0 on {float((p == 0).float().mean()):.4f}")
+    if n_bad:
+        raise AssertionError("splat.cu differs from its plain version")
+    splat_map = k
+    depth_k, depth_p, prepass_err, level_stats = None, None, 0.0, []
+    t1 = time.perf_counter()
+    for i in range(PREPASS_LEVELS, 0, -1):
+        cam_i = level_camera(cam, i)
+        k = level_depth(tree, cam_i, depth_k)
+        st = {}
+        p = level_depth_plain(tree, cam_i, depth_k, stats=st)  # the kernel's inputs
+        level_stats.append(st)
+        n_bad = int((~same(k, p)).sum())
+        prepass_err = max(prepass_err, max_abs_err(k, p))
+        log(f"  depth prepass level {i} ({cam_i.resolution[0]}x{cam_i.resolution[1]}): "
+            f"{n_bad} texels differ from the plain version; misses "
+            f"{float((p == 1e8).float().mean()):.4f}, steps {int(st['iters'].sum())}")
+        if n_bad:
+            raise AssertionError(f"prepass.cu level {i} differs from its plain version")
+        depth_k = k
+    k = depth_start(depth_k)
+    p = depth_start_plain(depth_k)
+    torch.cuda.synchronize()
+    prepass_plain_ms = (time.perf_counter() - t1) * 1e3
+    if not bool(same(k, p).all()):
+        raise AssertionError("prepass.cu's start map differs from its plain version")
+    depth_map = k
+    beam_map = beams["bench"][1]
+    for name, start, tile in (("beam", beam_map, 8), ("splat", splat_map, 2),
+                              ("depth", depth_map, 2)):
+        p = render_frame_plain(tree, cam, start=start, start_tile=tile)
+        n_bad = int((~same(main[name], p)).any(dim=-1).sum())
+        log(f"  frame_start_kernel from the {name} map: {n_bad} pixels differ from "
+            f"render_frame_plain from it")
+        if n_bad:
+            raise AssertionError(f"frame.cu from the {name} map differs from its plain version")
+    log(f"phase 14 (b) kernels == plain versions: {time.time() - t0:.1f} s")
+
+    # (c) the beam frame against the port's plain frame
+    plain = bench.render(cam, out_u8=True, out_device=True)
+    n_diff = int((main["beam"] != plain).any(dim=-1).sum())
+    ppm = n_diff / (RES[0] * RES[1]) * 1e6
+    log(f"  the beam frame differs from the plain frame on {n_diff} pixels ({ppm:.2f} ppm; "
+        f"bound {BEAM_PPM_BOUND} ppm)")
+    if ppm > BEAM_PPM_BOUND:
+        raise AssertionError(f"the beam frame differs from the plain one on {ppm:.2f} ppm")
+
+    # (d) what the beam buys: dead tiles, steps a ray, device times in turns
+    t0 = time.time()
+    for pose, r, c in (("bench", bench, cam), ("terrain", terrain_r, tcam)):
+        spec, bmap, bst, _ms, dead = beams[pose]
+        t = r.tree
+        o, d = device_rays(c, dev)
+        R = o.shape[0]
+        trace = make_bitgrid_tracer(len(t["bases"]), t["size"], max_iters=MAX_ITERS,
+                                    **KERNEL_CONFIG)
+        start = expand_start(bmap, 8, *RES)
+        plain_steps = int(trace.run(t, trace.init(t, o, d), MAX_ITERS)["iters"].sum())
+        beam_steps = int(trace.run(t, trace.init(t, o, d, start), MAX_ITERS)["iters"].sum())
+        log(f"  {pose}: dead tiles {100 * dead:.2f}%; steps a ray {plain_steps / R:.4f} without a "
+            f"start, {beam_steps / R:.4f} from the beam's, and the beams' "
+            f"{int(bst['iters'].sum()) / R:.4f} a ray more ({plain_steps}, {beam_steps}, "
+            f"{int(bst['iters'].sum())} steps)")
+        one = [(*spec, c)]
+        paths = {
+            "plain frame": lambda: render_frame(t, c),
+            "beam + frame": lambda: render_frame(t, c, start=beam_tiles(one, 8, dev)[0],
+                                                 start_tile=8),
+        }
+        prev = torch.zeros((RES[1], RES[0], 3), dtype=torch.uint8, device=dev)
+        many = [(*spec, c)] * BATCH
+        batch = {
+            "plain delta batch": lambda: render_frames_digest(t, [c] * BATCH, prev=prev),
+            "beam delta batch": lambda: render_frames_digest(
+                t, [c] * BATCH, prev=prev,
+                starts=(beam_tiles(many, 8, dev), 8, [True] * BATCH)),
+        }
+        for group in (paths, batch):
+            names = list(group)
+            for fn in group.values():
+                fn()
+            turns = {n: [] for n in names}
+            for n in (names[0], names[1], names[1], names[0]):
+                ms = device_ms(group[n], TIMED_FRAMES)
+                turns[n].append(ms)
+                log(f"  turn {pose} {n}: {ms:.4f} ms device time {tag}")
+            a, b = (sum(turns[n]) / 2 for n in names)
+            per = BATCH if group is batch else 1
+            log(f"{pose} {names[0]} {a / per:.4f} ms a frame, {names[1]} {b / per:.4f} ms a frame "
+                f"({100 * (b - a) / a:+.1f}%) {tag}")
+        frame_start_ms = device_ms(lambda: render_frame(t, c, start=bmap, start_tile=8),
+                                   TIMED_FRAMES)
+        beam_ms = device_ms(lambda: beam_tiles(one, 8, dev), TIMED_FRAMES)
+        frames_start_ms = device_ms(
+            lambda: render_frames_digest(t, [c] * BATCH, prev=prev,
+                                         starts=(bmap.expand(BATCH, *bmap.shape).contiguous(), 8,
+                                                 [True] * BATCH)), TIMED_FRAMES)
+        log(f"  {pose}: frame.cu from the beam's start {frame_start_ms:.4f} ms, beam.cu "
+            f"{beam_ms:.4f} ms, frames.cu from 16 start maps {frames_start_ms / BATCH:.4f} ms a "
+            f"frame {tag}")
+        beams[pose] += (beam_ms, frame_start_ms)
+        del o, d, start
+    # render_delta_many by host clock, each mode on a renderer of its own so
+    # that its baseline is its own last frame
+    delta_plain = fastest_renderer(scene)
+    modes = {"plain": lambda: delta_plain.render_delta_many([cam] * BATCH),
+             "beam": lambda: delta.render_delta_many([cam] * BATCH, beam_prepass=True)}
+    for fn in modes.values():
+        fn()
+    for n in ("plain", "beam", "beam", "plain"):
+        ms = host_ms(modes[n], TIMED_FRAMES)
+        log(f"  turn bench render_delta_many {n}: {ms / BATCH:.4f} ms a frame by host clock {tag}")
+    inside = view.camera_inside(fcam)
+    far_ms = device_ms(lambda: render_far(layers, inside), TIMED_FRAMES)
+    far_start_ms = device_ms(lambda: render_far(layers, inside, start=window_start,
+                                                start_tile=8), TIMED_FRAMES)
+    log(f"  fly-over pose 0: far.cu {far_ms:.4f} ms without a start, {far_start_ms:.4f} ms from "
+        f"the window's beam {tag}")
+    log(f"phase 14 (d) what the beam buys: {time.time() - t0:.1f} s")
+
+    # (e) the frame kernels without a start: registers and time
+    for source, kernel in (("frame.cu", "frame_kernel"), ("frames.cu", "frames_kernel")):
+        regs = ptxas_usage(_build.build_log(source), kernel)[0]
+        log(f"  {kernel}: {regs} registers ({FRAME_REGISTERS[kernel]} before the start maps)")
+        if regs != FRAME_REGISTERS[kernel]:
+            raise AssertionError(f"{kernel}: {regs} registers, {FRAME_REGISTERS[kernel]} before")
+    frame_ms = device_ms(lambda: render_frame(tree, cam), TIMED_FRAMES)
+    log(f"  frame.cu without a start {frame_ms:.4f} ms, phase 4's {phase4_frame_ms:.4f} ms {tag}")
+
+    # (f) each new kernel: its time, plain version, bound and library call
+    bspec, bmap, bst, beam_plain_ms, _dead, beam_ms, _fs = beams["bench"]
+    b_bound, b_by = beam_bound(bst, bmap.numel())
+    splat_ms = device_ms(lambda: splat_tiles(pts, cam), TIMED_FRAMES)
+    idx = ((v.clamp(0.0, h2 - 1.0).long() * w2 + u.clamp(0.0, w2 - 1.0).long())[reliable])
+    dvals = dist[reliable]
+    buf = torch.full((h2 * w2,), 1e8, dtype=torch.float32, device=dev)
+    lib_ms = device_ms(lambda: buf.scatter_reduce_(0, idx, dvals, "amin"), TIMED_FRAMES)
+    texels = w2 * h2
+    s_bound, s_by = bound(pts.numel() * 4 + texels * 4 + ctypes.sizeof(_build.SplatParams),
+                          pts.shape[0] * SPLAT_OPS_PER_POINT + texels * SPLAT_OPS_PER_TEXEL)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED_FRAMES):
+            splat_tiles(pts, cam)
+        torch.cuda.synchronize()
+    passes = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 / TIMED_FRAMES
+              for e in prof.key_averages() if "splat_" in e.key}
+    log(f"  splat.cu {splat_ms:.4f} ms (profiler, a call: "
+        + ", ".join(f"{k[:40]} {ms:.4f} ms" for k, ms in passes.items())
+        + f"); scatter_reduce_ amin of the {int(reliable.sum())} reliable centers "
+        f"{lib_ms:.4f} ms {tag}")
+    prepass_ms = device_ms(lambda: prepass_start(tree, cam, PREPASS_LEVELS), TIMED_FRAMES)
+    deep_ms = device_ms(lambda: deep.render(cam, out_u8=True, out_device=True), TIMED_FRAMES)
+    p_pixels = sum(level_camera(cam, i).resolution[0] * level_camera(cam, i).resolution[1]
+                   for i in range(PREPASS_LEVELS, 0, -1))
+    p_bytes = (sum(int(s["reads"].sum()) for s in level_stats) * 8 + p_pixels * 4 * 2
+               + ctypes.sizeof(_build.PrepassParams) * PREPASS_LEVELS)
+    p_bound, p_by = bound(p_bytes, sum(int(s["iters"].sum()) for s in level_stats)
+                          * TRAVERSE_OPS_PER_STEP + p_pixels * FRAME_OPS_PER_PIXEL)
+    log(f"  prepass.cu, {PREPASS_LEVELS} levels and the start map: {prepass_ms:.4f} ms; the "
+        f"whole prepass frame {deep_ms:.4f} ms against the plain frame {frame_ms:.4f} ms {tag}")
+    log(f"bounds: beam {b_bound:.4f} ms ({b_by}), splat {s_bound:.4f} ms ({s_by}), prepass "
+        f"{p_bound:.4f} ms ({p_by}) {tag}")
+    log(f"phase 14 prepasses: {time.time() - t_all:.1f} s")
+    src = "voxelhex_tpu_torch/csrc/"
+    entries = [
+        {"name": "beam", "route": "cuda", "source": src + "beam.cu",
+         "replaces": "voxelhex_tpu/render/bitgrid.py:1491", "launches": launches["beam_tiles"],
+         "max_abs_err": beam_err, "ms": beam_ms, "plain_ms": beam_plain_ms,
+         "bound_ms": b_bound, "bound_by": b_by, "library_ms": None},
+        {"name": "splat", "route": "cuda", "source": src + "splat.cu",
+         "replaces": "voxelhex_tpu/render/bitgrid.py:1262", "launches": launches["splat_tiles"],
+         "max_abs_err": splat_err, "ms": splat_ms, "plain_ms": splat_plain_ms,
+         "bound_ms": s_bound, "bound_by": s_by, "library_ms": lib_ms},
+        {"name": "prepass", "route": "cuda", "source": src + "prepass.cu",
+         "replaces": "voxelhex_tpu/render/bitgrid.py:1198",
+         "launches": launches["level_depth"] + launches["depth_start"],
+         "max_abs_err": prepass_err, "ms": prepass_ms, "plain_ms": prepass_plain_ms,
+         "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
+    ]
+    view.close()
+    return entries, {"frame": launches.get("render_frame", 0),
+                     "frames": launches.get("render_frames", 0),
+                     "far": launches.get("render_far", 0)}
 
 
 if __name__ == "__main__":

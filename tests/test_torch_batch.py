@@ -108,7 +108,7 @@ def check_render_many(ref, port, res, out_u8):
     else:
         assert set(np.argwhere(ref_own)[:, 2]) <= {res[0] // 2}
     assert port.last_stats == {"rays": res[0] * res[1] * len(cams),
-                               "batched_frames": len(cams)}
+                               "batched_frames": len(cams), "beam_fused": False}
     for k, cam in enumerate(cams):  # each frame is render()'s
         np.testing.assert_array_equal(got[k], port.render(cam, out_u8=out_u8))
     dev = port.render_many(cams, out_u8=out_u8, out_device=True)
@@ -116,8 +116,8 @@ def check_render_many(ref, port, res, out_u8):
 
 
 def test_batch_gates():
-    """An empty list and mixed resolutions return None, as the reference's
-    do; the beam prepass raises."""
+    """An empty list, mixed resolutions and the beam prepass where the first
+    camera has no beam level return None, as the reference's do."""
     from voxelhex_tpu_torch.render import fastest_renderer
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
@@ -126,8 +126,8 @@ def test_batch_gates():
     for fn in (port.render_many, port.render_delta_many):
         assert fn([]) is None
         assert fn(mixed) is None
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            fn(mixed[:1], beam_prepass=True)
+        assert port._beam_spec(mixed[0]) is None
+        assert fn(mixed[:1], beam_prepass=True) is None
     assert port._delta_state is None
 
 

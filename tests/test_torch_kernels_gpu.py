@@ -793,3 +793,92 @@ def test_render_service_on_the_card_equals_cpu(cuda):
     for s in services.values():
         s.set_view_size(0)
     assert np.array_equal(frames()[0], edited[0]) and streamed[0].any()
+
+
+# ---- the start prepasses
+
+
+def _scene_renderers(cuda, **kw):
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.scene import build_scene
+
+    scene = build_scene()
+    return fastest_renderer(scene, device=cuda, **kw), fastest_renderer(scene, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("dist", [1.8, 6.0])
+def test_beam_kernel_equals_plain(cuda, dist):
+    """beam.cu on every tile of the bench scene at 1080p (L = 1 and L = 3),
+    against the plain beams, and two cameras of different levels in one
+    launch."""
+    from voxelhex_tpu_torch.ops.beam import beam_tiles, beam_tiles_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    gpu, _cpu = _scene_renderers(cuda)
+    cams = [orbit_camera(128.0, distance_factor=d, resolution=(1920, 1080)) for d in (dist, 1.2)]
+    specs = [gpu._beam_spec(c) for c in cams]
+    assert all(s is not None for s in specs)
+    n0 = beam_tiles.launches
+    k = beam_tiles([(*s, c) for s, c in zip(specs, cams)], 8, cuda)
+    torch.cuda.synchronize()
+    assert beam_tiles.launches == n0 + 1
+    for i, (s, c) in enumerate(zip(specs, cams)):
+        p = beam_tiles_plain(*s, c, 8)
+        assert _equal(k[i], p)
+    assert (k == 1e8).any()
+
+
+def test_splat_kernel_equals_plain(cuda):
+    """splat.cu on every texel at the bench pose and at a distant pose
+    (reliable splats), against the plain version."""
+    from voxelhex_tpu_torch.ops.splat import splat_tiles, splat_tiles_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    gpu, _cpu = _scene_renderers(cuda)
+    pts = gpu._splat_points()
+    for dist in (1.8, 5.0):
+        cam = orbit_camera(128.0, distance_factor=dist, resolution=(1920, 1080))
+        n0 = splat_tiles.launches
+        k = splat_tiles(pts, cam)
+        torch.cuda.synchronize()
+        assert splat_tiles.launches == n0 + 1
+        assert _equal(k, splat_tiles_plain(pts, cam))
+
+
+def test_prepass_kernels_equal_plain(cuda):
+    """prepass.cu's levels and start map at the bench pose, 1080p, against
+    the plain versions on the same inputs."""
+    from voxelhex_tpu_torch.ops.prepass import (depth_start, depth_start_plain, level_camera,
+                                                level_depth, level_depth_plain)
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    gpu, _cpu = _scene_renderers(cuda)
+    cam = orbit_camera(128.0, resolution=(1920, 1080))
+    depth = None
+    for i in (2, 1):
+        k = level_depth(gpu.tree, level_camera(cam, i), depth)
+        assert _equal(k, level_depth_plain(gpu.tree, level_camera(cam, i), depth))
+        depth = k
+    assert _equal(depth_start(depth), depth_start_plain(depth))
+
+
+@pytest.mark.parametrize("kw", [{"beam_prepass": True}, {"splat_prepass": True}, "depth"])
+def test_prepass_frames_on_the_card_equal_cpu(cuda, kw):
+    """The renderer's frames with each prepass on the card against the same
+    renderer on the CPU at 320 x 176, in u8 and f32, and the beam batch."""
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    extra = {"prepass": True, "prepass_levels": 2} if kw == "depth" else {}
+    kw = {} if kw == "depth" else kw
+    gpu, cpu = _scene_renderers(cuda, **extra)
+    cams = [orbit_camera(128.0, yaw_deg=y, resolution=(320, 176)) for y in (40.0, 130.0)]
+    for u8 in (True, False):
+        for cam in cams:
+            a = gpu.render(cam, out_u8=u8, **kw)
+            np.testing.assert_array_equal(a, cpu.render(cam, out_u8=u8, **kw))
+            assert gpu.last_stats["prepass"] == cpu.last_stats["prepass"] is not None
+    if kw.get("beam_prepass"):
+        got = gpu.render_delta_many(cams, beam_prepass=True)
+        want = cpu.render_delta_many(cams, beam_prepass=True)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)

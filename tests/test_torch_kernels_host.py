@@ -57,6 +57,7 @@ SHIM = r"""
 #include <thread>
 #include <vector>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __global__
 #define __launch_bounds__(...)
@@ -182,6 +183,22 @@ inline int atomicAdd(int* p, int v) {
     return old;
 }
 inline int atomicOr(int* p, int v) { int old = *p; *p = old | v; return old; }
+// the int min and max of the splat prepass: one at a time, counted
+inline int atomicMin(int* p, int v) {
+    std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
+    ++vhx_host_atomics;
+    int old = *p;
+    *p = v < old ? v : old;
+    return old;
+}
+inline int atomicMax(int* p, int v) {
+    std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
+    ++vhx_host_atomics;
+    int old = *p;
+    *p = v > old ? v : old;
+    return old;
+}
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 // a block: vhx_host_block_launch runs its threads as threads, which meet at
 // each __syncthreads.  A thread that leaves the kernel while others wait at
@@ -350,6 +367,31 @@ namespace strm {
 namespace farn {
 #include "far_host.cu"
 }
+namespace bm {
+#include "beam_host.cu"
+}
+namespace spl {
+#include "splat_host.cu"
+}
+namespace pre {
+#include "prepass_host.cu"
+}
+
+// frame.cu's frame from a start map, every thread of every block in turn
+extern "C" void host_frame_start(const void* occ, const void* colors, const float* palette,
+                                 int n_colors, const FrameParams* P, const float* start,
+                                 int tile, float* rgb, unsigned char* u8) {
+    blockDim = dim3(THREADS);
+    for (unsigned by = 0; by < (unsigned)(P->h + WARP_H - 1) / WARP_H; ++by)
+        for (unsigned bx = 0; bx < (unsigned)(P->w + BLOCK_W - 1) / BLOCK_W; ++bx)
+            for (unsigned t = 0; t < (unsigned)THREADS; ++t) {
+                blockIdx = dim3(bx, by);
+                threadIdx = dim3(t);
+                frame_start_kernel((const uint2*)occ, (const unsigned short*)colors,
+                                   (const float4*)palette, n_colors, *P, start, tile,
+                                   (P->w + tile - 1) / tile, rgb, u8);
+            }
+}
 
 // traverse.cuh's init of each ray, from `start` (kStart) or without it
 extern "C" void host_init(const float* o, const float* d, const void* occ, const TraceParams* P,
@@ -510,10 +552,13 @@ def host_lib(tmp_path_factory):
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
-    for name, launcher, n_launches in (("frames", "vhx_host_launch", 1),
+    for name, launcher, n_launches in (("frames", "vhx_host_launch", 2),
                                        ("albedo", "vhx_host_warp_launch", 2),
                                        ("stream", "vhx_host_launch", 5),
-                                       ("far", "vhx_host_launch", 1)):
+                                       ("far", "vhx_host_launch", 1),
+                                       ("beam", "vhx_host_launch", 1),
+                                       ("splat", "vhx_host_launch", 2),
+                                       ("prepass", "vhx_host_launch", 2)):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src, n = entry.subn(launcher_of(launcher), f.read())
         assert n == n_launches
@@ -556,10 +601,25 @@ def host_lib(tmp_path_factory):
     lib.vhx_coarse_rebuild.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p]
     lib.vhx_window_shift.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.vhx_render_far.argtypes = [ctypes.POINTER(_build.FarParams), p, p, i, p]
+    lib.vhx_render_far_start.argtypes = [ctypes.POINTER(_build.FarParams), p, i, p, p, i, p]
+    lib.vhx_render_frames_start.argtypes = [p, p, p, i, ctypes.POINTER(_build.FramesParams),
+                                            p, i, ctypes.c_uint, p, p, p, p, i, p]
+    lib.host_frame_start.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), p, i, p,
+                                     p]
+    lib.vhx_beam.argtypes = [ctypes.POINTER(_build.BeamParams), p, i, p]
+    lib.vhx_splat.argtypes = [p, ctypes.POINTER(_build.SplatParams), p, p, p, i, p]
+    lib.vhx_splat_block_words.argtypes = [i, i]
+    lib.vhx_prepass_level.argtypes = [p, ctypes.POINTER(_build.PrepassParams), p, p, i, p]
+    lib.vhx_depth_start.argtypes = [p, i, i, p, i, p]
+    for name in ("vhx_beam_params_size", "vhx_beam_max_grids", "vhx_splat_params_size",
+                 "vhx_prepass_params_size"):
+        getattr(lib, name).restype = i
     lib.vhx_far_params_size.restype = i
     lib.vhx_far_max_layers.restype = i
     for name in ("vhx_region_scatter", "vhx_coarse_rebuild", "vhx_window_shift",
-                 "vhx_render_far"):
+                 "vhx_render_far", "vhx_render_far_start", "vhx_render_frames_start",
+                 "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_prepass_level",
+                 "vhx_depth_start"):
         getattr(lib, name).restype = i
     lib.host_init.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), p, i, p, p, p]
     lib.host_warp_probe.argtypes = [p, p, i]
@@ -1555,3 +1615,237 @@ def test_init_source_equals_plain_at_the_start_clip(host_lib, size, density, wit
     assert _equal(active.bool(), want["active"]) and _equal(tsect, want["tsect"])
     if with_start:
         assert 0 < int(want["active"].sum()) < n
+
+
+# ---- the start prepasses: beam.cu, splat.cu, prepass.cu, and the frame
+# kernels' start maps
+
+
+def _beam_world(size):
+    """A random grid whose beam world at L = 1 has size / 4 + 2 cells a
+    side (66 at size 256: not a power of 4, its top block padded), packed
+    by the renderer's own steps."""
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+    from voxelhex_tpu_torch.render.starts import beam_occupancy
+
+    rng = np.random.default_rng(size)
+    occ = np.zeros((size, size, size), dtype=bool)
+    occ[:, : size // 8] = rng.random((size, size // 8, size)) < 0.02  # a sparse floor
+    occ[size // 4: size // 2, : size // 2, size // 4: size // 2] |= (
+        rng.random((size // 4, size // 2, size // 4)) < 0.01)
+    bg = bitgrid_from_occupancy(occ)
+    return bg, device_bitgrid(bitgrid_from_occupancy(beam_occupancy(bg, 1)), "cpu")
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_beam_kernel_source_equals_plain(host_lib, size):
+    """beam.cu's C entry against the plain beams, bit for bit: three
+    cameras in one launch, two on the L = 1 grid and one with no grid (0s),
+    over a beam world of size / 4 + 2 cells (66 at 256), with beams that
+    hit, leave the world and run out of steps."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.beam import beam_params, beam_tiles_plain
+    from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+
+    assert host_lib.vhx_beam_params_size() == ctypes.sizeof(_build.BeamParams)
+    assert host_lib.vhx_beam_max_grids() == _build.BEAM_MAX_GRIDS
+    _bg, grid = _beam_world(size)
+    assert grid["size"] == size // 4 + 2
+    res = (96, 64)
+    cams = [orbit_camera(float(size), yaw_deg=30.0, resolution=res),
+            Camera(origin=np.array([0.3, 0.2, 0.4]) * size, target=np.array([0.9, 0.1, 0.8]) * size,
+                   resolution=res, fov_y_deg=70.0),
+            orbit_camera(float(size), yaw_deg=200.0, resolution=res)]
+    beams = [(grid, 4.0, cams[0]), (grid, 4.0, cams[1]), (None, 1.0, cams[2])]
+    out = torch.full((3, 8, 12), 7.0)
+    assert host_lib.vhx_beam(beam_params(beams, 8), out.data_ptr(), 0, None) == 0
+    stats = {}
+    want = [beam_tiles_plain(grid, 4.0, c, 8, stats if k == 0 else None)
+            for k, c in enumerate(cams[:2])]
+    assert _equal(out[0], want[0]) and _equal(out[1], want[1])
+    assert not out[2].any()
+    starts = torch.cat([w.reshape(-1) for w in want])
+    assert (starts == 1e8).any() and ((starts > 0) & (starts < 1e8)).any()
+    assert stats["hit"].any() and not stats["hit"].all()
+
+
+def _splat_case(camera_kind):
+    from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+    from voxelhex_tpu_torch.render.starts import splat_points
+
+    bg = _beam_world(64)[0]
+    pts = torch.from_numpy(splat_points(bg))
+    res = (62, 46)
+    if camera_kind == "far":
+        cam = orbit_camera(64.0, distance_factor=3.0, resolution=res)
+    elif camera_kind == "near":  # the floor's nearest voxels 5 to 12 away
+        cam = Camera(origin=np.array([32.0, 5.0, -5.0]), target=np.array([32.0, 3.0, 30.0]),
+                     resolution=res)
+    elif camera_kind == "behind":  # the far camera and one more center 1 behind its eye
+        cam = orbit_camera(64.0, distance_factor=3.0, resolution=res)
+        forward = cam.basis()[0]
+        behind = np.asarray(cam.origin, dtype=np.float32) - forward.astype(np.float32)
+        pts = torch.cat([pts, torch.from_numpy(behind.astype(np.float32))[None]])
+    else:
+        cam = Camera(origin=np.array([20.0, 6.0, 22.0]), target=np.array([50.0, 2.0, 40.0]),
+                     resolution=res)
+    return pts, cam
+
+
+@pytest.mark.parametrize("camera_kind", ["far", "near", "inside", "behind"])
+def test_splat_kernel_source_equals_plain(host_lib, camera_kind):
+    """splat.cu's two passes through its C entry against the plain splat
+    starts, bit for bit, with their atomics counted: one a reliable
+    center, and one a blocker or global flag that a center sets; behind
+    the eye, a center sets the global flag alone."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.splat import project, splat_params, splat_tiles_plain
+
+    assert host_lib.vhx_splat_params_size() == ctypes.sizeof(_build.SplatParams)
+    pts, cam = _splat_case(camera_kind)
+    w2, h2 = cam.resolution[0] // 2, cam.resolution[1] // 2
+    depth = torch.zeros(h2 * w2, dtype=torch.int32)
+    flags = torch.zeros(host_lib.vhx_splat_block_words(w2, h2), dtype=torch.int32)
+    out = torch.full((h2, w2), 7.0)
+    before = host_lib.host_atomics()
+    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0]), depth.data_ptr(),
+                              flags.data_ptr(), out.data_ptr(), 0, None) == 0
+    want = splat_tiles_plain(pts, cam)
+    assert _equal(out, want)
+    z, u, v, d, f_tex, sref = project(pts, cam, w2, h2)
+    reliable = ((z > 0.0) & (f_tex <= 2.0) & (u >= -3.0) & (u < w2 + 3.0) & (v >= -3.0)
+                & (v < h2 + 3.0))
+    near = (z > 0.0) & (f_tex > 2.0) & (f_tex <= 64.0)
+    eye = ((z > 0.0) & (f_tex > 64.0)) | (d < torch.clamp(sref / 64.0, min=3.0))
+    in_grid = torch.ones_like(near)
+    for c in (4, 16, 64):
+        band = (f_tex > {4: 2.0, 16: 3.0, 64: 16.0}[c]) & (f_tex <= {4: 3.0, 16: 16.0, 64: 64.0}[c])
+        gu, gv = torch.floor(u / c) + 2, torch.floor(v / c) + 2
+        ok = (gu >= 0) & (gu < (w2 + c - 1) // c + 4) & (gv >= 0) & (gv < (h2 + c - 1) // c + 4)
+        in_grid = torch.where(band, ok, in_grid)
+    n = int(reliable.sum()) + int((near & in_grid).sum()) + int(eye.sum())
+    assert host_lib.host_atomics() - before == n
+    if camera_kind == "far":  # splats, and texels that start past the entry
+        assert reliable.any() and (want > 0).any() and (want == 0).any()
+        assert not near.any() and not eye.any()
+    elif camera_kind == "near":  # blocker flags, no global one
+        assert near.any() and not eye.any()
+    else:  # voxels at the eye block the whole frame
+        assert eye.any() and not want.any()
+    if camera_kind == "behind":  # no blocker flag: the global flag alone zeroes the map
+        assert not (near & in_grid).any() and reliable.any() and int(eye.sum()) == 1
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_prepass_kernel_sources_equal_plain(host_lib, levels):
+    """prepass.cu's level kernel and its start kernel through their C
+    entries against the plain depth prepass, level by level, and the
+    frame from the last start map (frame.cu's frame_start_kernel) against
+    the plain frame from it, bit for bit, at a resolution whose coarse
+    levels are ragged in the 4 x 8 warp tiles."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_params)
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    assert host_lib.vhx_prepass_params_size() == ctypes.sizeof(_build.PrepassParams)
+    tree = _tree(64, 0.02)
+    cam = orbit_camera(64.0, yaw_deg=25.0, resolution=(100, 44))
+    depth = want = None
+    for i in range(levels, 0, -1):
+        cam_i = level_camera(cam, i)
+        w, h = cam_i.resolution
+        got = torch.full((h, w), 7.0)
+        assert host_lib.vhx_prepass_level(
+            tree["occ_pairs"].data_ptr(), prepass_params(tree, cam_i),
+            None if depth is None else depth.data_ptr(), got.data_ptr(), 0, None) == 0
+        want = level_depth_plain(tree, cam_i, want)
+        assert _equal(got, want)
+        assert (want == 1e8).any() and (want < 1e8).any()
+        depth = got
+    start = torch.full_like(depth, 7.0)
+    h, w = depth.shape
+    assert host_lib.vhx_depth_start(depth.data_ptr(), w, h, start.data_ptr(), 0, None) == 0
+    assert _equal(start, depth_start_plain(depth))
+    out = torch.full((44, 100, 3), 7, dtype=torch.uint8)
+    host_lib.host_frame_start(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                              tree["palette"].data_ptr(), tree["palette"].shape[0],
+                              frame_params(tree, cam), start.data_ptr(), 2, None,
+                              out.data_ptr())
+    assert _equal(out, render_frame_plain(tree, cam, start=start, start_tile=2))
+
+
+def _start_map(w, h, tile, seed):
+    """A start map of every kind a prepass gives: 0, dead (1e8), and starts
+    inside the world, some past the nearest voxels."""
+    rng = np.random.default_rng(seed)
+    shape = (-(-h // tile), -(-w // tile))
+    k = rng.integers(0, 3, shape)
+    vals = np.where(k == 0, 0.0, np.where(k == 1, 1e8, rng.uniform(0, 60, shape)))
+    return torch.from_numpy(vals.astype(np.float32))
+
+
+@pytest.mark.parametrize("tile", [1, 2, 8])
+@pytest.mark.parametrize("out_u8", [True, False])
+def test_frame_kernel_source_from_a_start_map(host_lib, tile, out_u8):
+    """frame.cu's frame_start_kernel against the plain frame from the same
+    start map, bit for bit, at a ragged 67 x 41 (the map's last tile cut);
+    the map changes the frame."""
+    from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(64, 0.02)
+    cam = orbit_camera(64.0, yaw_deg=35.0, resolution=(67, 41))
+    start = _start_map(67, 41, tile, seed=tile)
+    out = torch.full((41, 67, 3), 7, dtype=torch.uint8 if out_u8 else torch.float32)
+    host_lib.host_frame_start(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                              tree["palette"].data_ptr(), tree["palette"].shape[0],
+                              frame_params(tree, cam), start.data_ptr(), tile,
+                              None if out_u8 else out.data_ptr(), out.data_ptr() if out_u8 else None)
+    want = render_frame_plain(tree, cam, out_u8=out_u8, start=start, start_tile=tile)
+    assert _equal(out, want)
+    assert not _equal(want, render_frame_plain(tree, cam, out_u8=out_u8))
+
+
+def test_frames_kernel_source_from_start_maps(host_lib):
+    """frames.cu's frames_start_kernel through its C entry, as the wrapper
+    calls it, against the plain frames and digests: 35 cameras (two
+    launches), each frame from its start map where its flag is set and
+    from its entry where not."""
+    from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(16, 0.05)
+    res = (24, 16)
+    cams = [orbit_camera(16.0, yaw_deg=10.0 * k, resolution=res) for k in range(35)]
+    maps = torch.stack([_start_map(*res, 8, seed=k) for k in range(35)])
+    use = [k % 3 != 1 for k in range(35)]
+    prev = torch.zeros((16, 24, 3), dtype=torch.uint8)
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames_start, tree, cams,
+                                             (0.1, 0.2, 0.3), True, 2048, prev,
+                                             starts=(maps, 8, use))
+    want, nrows, flags = render_frames_plain(tree, cams, (0.1, 0.2, 0.3), True, 2048, prev,
+                                             starts=(maps, 8, use))
+    assert launches == 2 and _equal(frames, want)
+    assert _equal(digest[:, 0], nrows) and _equal(digest[:, 1:], flags)
+    plain = render_frames_plain(tree, cams, (0.1, 0.2, 0.3), True)[0]
+    differs = [not _equal(want[k], plain[k]) for k in range(35)]
+    assert any(differs) and not any(d for d, u in zip(differs, use) if not u)
+
+
+@pytest.mark.parametrize("inside", [True, False])
+def test_far_kernel_source_from_a_window_start_map(host_lib, inside):
+    """far.cu with the window's start map against the plain far frame from
+    it, bit for bit: the window's rays start from the map, the rings keep
+    their own starts."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params
+
+    layers = _far_case(2, inside)
+    start = _start_map(37, 21, 8, seed=3)
+    out = torch.full((21, 37, 3), 7, dtype=torch.uint8)
+    assert host_lib.vhx_render_far_start(far_params(layers, inside), start.data_ptr(), 8, None,
+                                         out.data_ptr(), 0, None) == 0
+    want = far_frame_plain(layers, inside, start=start, start_tile=8)
+    assert _equal(out, want)
+    assert not _equal(want, far_frame_plain(layers, inside))

@@ -68,9 +68,13 @@ def test_render_defaults_are_the_references():
     np.testing.assert_array_equal(t.numpy(), r.render(cam, out_u8=True, compact=False,
                                                       defer_validation=True))
     assert len(np.unique(f.reshape(-1, 3), axis=0)) > 2
-    for kw in ({"beam_prepass": True}, {"splat_prepass": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 items 3 and 11"):
-            r.render(cam, **kw)
+    # the conservative prepasses run as the reference's choose them (no beam
+    # level here: the plain frame; the splat prepass at an even resolution)
+    # and change no pixel; the reference's frames: test_torch_beam.py and
+    # test_torch_splat.py
+    for kw, ran in (({"beam_prepass": True}, None), ({"splat_prepass": True}, "splat")):
+        np.testing.assert_array_equal(r.render(cam, **kw), f)
+        assert r.last_stats["prepass"] == ran
 
 
 def test_fastest_renderer_takes_the_references_keywords():
@@ -87,7 +91,11 @@ def test_fastest_renderer_takes_the_references_keywords():
     # max_iters is the kernels' step limit: one step reaches no voxel
     short = fastest_renderer(bg, device="cpu", max_iters=1).render(cam)
     assert not short.any() and want.any()
-    for kw in ({"prepass": True}, {"lateral_step": False}, {"advance_substeps": 2},
+    # prepass=True runs the depth prepass (test_torch_prepass.py)
+    deep = fastest_renderer(bg, device="cpu", prepass=True)
+    deep.render(cam)
+    assert deep.last_stats["prepass"] == "depth"
+    for kw in ({"lateral_step": False}, {"advance_substeps": 2},
                {"tracer": "skip"}, {"parent_skip": True}, {"color_u8": True}):
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             fastest_renderer(bg, device="cpu", **kw)

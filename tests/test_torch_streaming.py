@@ -261,6 +261,24 @@ def test_window_only_frames_equal_reference():
             assert view.far is None and np.array_equal(a, b)
 
 
+@pytest.mark.parametrize("far_field", [True, False])
+def test_beam_prepass_frames_equal_reference(far_field):
+    """``StreamingView(beam_prepass=True)`` over a short flight, with its
+    far field and without: the window's rays start from the window
+    renderer's beam (re-derived after each update), frames equal to the
+    reference's: u8 at the first pose, then u8 with the rings and f32
+    without them at the second."""
+    ref_view, view = views(terrain_trees(), view_size=VIEW, regions_per_update=8192,
+                           far_field=far_field, beam_prepass=True)
+    for i in (0, 1):
+        a, b = render_both(ref_view, view, flight_camera(i), far_field or i == 0)
+        assert np.array_equal(a, b)
+        cam_local = view.layers(flight_camera(i)[1])[0][1]
+        assert view.renderer._beam_spec(cam_local) is not None
+        assert (view.far is not None) == far_field
+    assert view.renderer._beam_grids  # the beam ran on the window's content
+
+
 def test_update_rebuilds_the_levels_once(monkeypatch):
     """An update that shifts the window and pages the exposed regions
     through the partial scatter writes level 0 twice and rebuilds the
@@ -448,10 +466,11 @@ def test_options_and_device(monkeypatch):
         streaming.StreamingView(tree, view_size=32)
     with pytest.raises(NotImplementedError, match="item 11"):
         streaming.StreamingView(tree, view_size=32, tracer="skip", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        streaming.StreamingView(tree, view_size=32, prepass=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        streaming.StreamingView(tree, view_size=32, beam_prepass=True, device="cpu")
+    # the reference's view keeps `prepass` and never reads it; the beam
+    # prepass runs (test_beam_prepass_frames_equal_reference)
+    assert streaming.StreamingView(tree, view_size=32, prepass=True, device="cpu")
+    assert streaming.StreamingView(tree, view_size=32, beam_prepass=True,
+                                   device="cpu").beam_prepass
     view = streaming.StreamingView(tree, 32, 64, False, True, fuse_plan=True, device="cpu")
     assert view.regions_per_update == 64 and not view._async and view.placeholder_lod
 

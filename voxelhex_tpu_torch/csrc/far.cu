@@ -12,8 +12,11 @@
 // params, level table and palette, passed by value):
 //   prologue  the pixel's ray in the layer's frame (frame.cuh pixel_ray);
 //   body      the automaton (traverse.cuh): the window's march as frame.cu
-//             runs it; a ring's from start_t = 0 when the camera is inside
-//             the window, as the reference's, and from its entry otherwise;
+//             runs it, from a start map when the window renderer's beam
+//             prepass gives one (the reference's `trace_compacted(...,
+//             beam=...)` of the window); a ring's from start_t = 0 when the
+//             camera is inside the window, as the reference's, and from its
+//             entry otherwise;
 //   epilogue  shading (frame.cuh shade_hit), the distance |point - o| * F
 //             in world voxels (the squares summed in order, unfused, as
 //             XLA:CPU sums the reference's norm), and the fold: the ring's
@@ -96,15 +99,9 @@ __device__ __forceinline__ void thread_pixel(int t, int& x, int& y) {
     y = blockIdx.y * WARP_H + lane / vhx::WARP_W;
 }
 
-// |point - o| as XLA:CPU computes the reference's jnp.linalg.norm of a
-// 3-vector there: the squares summed in order, unfused
-__device__ __forceinline__ float ray_length(const float p[3], const float o[3]) {
-    const float x = __fsub_rn(p[0], o[0]), y = __fsub_rn(p[1], o[1]), z = __fsub_rn(p[2], o[2]);
-    return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
-}
-
 __global__ void __launch_bounds__(THREADS)
-far_kernel(const __grid_constant__ FarParams P, float* __restrict__ rgb_out,
+far_kernel(const __grid_constant__ FarParams P, const float* __restrict__ start,
+           int start_tile, int start_stride, float* __restrict__ rgb_out,
            unsigned char* __restrict__ u8_out) {
     __shared__ int2 levels[VHX_FAR_MAX_LAYERS * VHX_MAX_LEVELS];
     __shared__ Pixels px;
@@ -136,13 +133,20 @@ far_kernel(const __grid_constant__ FarParams P, float* __restrict__ rgb_out,
             const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels, L.trace.size,
                               L.trace.n_blocks};
             vhx::March m;
-            // a ring's rays start at the camera (start_t = 0) when it is inside
-            vhx::init<true>(m, o, d, g, 0.f, l > 0 && P.inside);
+            // a ring's rays start at the camera (start_t = 0) when it is
+            // inside; the window's from its start map when there is one
+            float start_t = 0.f;
+            bool use_start = l > 0 && P.inside;
+            if (l == 0 && start) {
+                start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
+                use_start = true;
+            }
+            vhx::init<true>(m, o, d, g, start_t, use_start);
             vhx::StopAtHit stop;
             vhx::run(m, g, L.trace.max_iters, stop);
             if (m.hit) {
                 const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
-                const float hd = __fmul_rn(ray_length(h.point, o), L.factor);
+                const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
                 // the nearest hit in world voxels; a tie keeps the finer layer's
                 if (!px.hit[t] || hd < px.dist[t]) {
                     float rgb[3];
@@ -169,10 +173,16 @@ far_kernel(const __grid_constant__ FarParams P, float* __restrict__ rgb_out,
 extern "C" int vhx_far_params_size() { return (int)sizeof(FarParams); }
 extern "C" int vhx_far_max_layers() { return VHX_FAR_MAX_LAYERS; }
 
-extern "C" cudaError_t vhx_render_far(const FarParams* params, float* rgb, void* u8, int device,
-                                      cudaStream_t stream) {
+// The frame into rgb (f32 [h, w, 3]) or u8.  With `start` (f32, one value a
+// `start_tile` x `start_tile` tile of pixels, ceil(w / start_tile) a row),
+// the window's rays start at least their tile's value along (the window
+// renderer's beam prepass); the rings keep their own starts.
+extern "C" cudaError_t vhx_render_far_start(const FarParams* params, const float* start,
+                                            int start_tile, float* rgb, void* u8, int device,
+                                            cudaStream_t stream) {
     const FarParams& P = *params;
-    if (P.n_layers < 1 || P.n_layers > VHX_FAR_MAX_LAYERS || P.w < 1 || P.h < 1)
+    if (P.n_layers < 1 || P.n_layers > VHX_FAR_MAX_LAYERS || P.w < 1 || P.h < 1 ||
+        (start && start_tile < 1))
         return cudaErrorInvalidValue;
     for (int l = 0; l < P.n_layers; ++l)
         if (P.layers[l].trace.n_levels < 1 || P.layers[l].trace.n_levels > VHX_MAX_LEVELS ||
@@ -182,6 +192,13 @@ extern "C" cudaError_t vhx_render_far(const FarParams* params, float* rgb, void*
     if (grid.y > 65535) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    far_kernel<<<grid, THREADS, 0, stream>>>(P, rgb, static_cast<unsigned char*>(u8));
+    far_kernel<<<grid, THREADS, 0, stream>>>(P, start, start_tile,
+                                             (P.w + start_tile - 1) / start_tile, rgb,
+                                             static_cast<unsigned char*>(u8));
     return cudaGetLastError();
+}
+
+extern "C" cudaError_t vhx_render_far(const FarParams* params, float* rgb, void* u8, int device,
+                                      cudaStream_t stream) {
+    return vhx_render_far_start(params, nullptr, 1, rgb, u8, device, stream);
 }

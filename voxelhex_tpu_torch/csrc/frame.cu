@@ -23,6 +23,11 @@
 // (frame.cuh).  The ragged right and bottom edges are masked; the output
 // stays row-major [h, w, 3].  The prologue, the tile and the epilogue are
 // frame.cuh's, shared with the batched kernel (frames.cu).
+//
+// `frame_start_kernel` is the same frame from a prepass's start map (the
+// reference's `start_t`): each ray starts at least its pixel tile's value
+// along.  It is its own instance, so the frame without a start compiles as
+// it did.
 
 #include "frame.cuh"
 
@@ -44,12 +49,17 @@ constexpr int WARP_H = vhx::WARP_H;
 constexpr int THREADS = vhx::FRAME_THREADS;
 constexpr int BLOCK_W = vhx::BLOCK_W;
 
-__global__ void __launch_bounds__(THREADS)
-frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
-             const float4* __restrict__ palette, int n_colors, const FrameParams P,
-             float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
-    __shared__ int2 levels[VHX_MAX_LEVELS];
-    vhx::load_levels(P.trace, levels);
+// One pixel's frame.  With kStart the ray starts at least `start_t` along
+// (traverse.cuh init's start form): a prepass's start map, one value for
+// each `start_tile` x `start_tile` pixels, `start_stride` tiles a row.
+template <bool kStart>
+__device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
+                                            const unsigned short* __restrict__ colors,
+                                            const float4* __restrict__ palette, int n_colors,
+                                            const FrameParams& P, const int2* levels,
+                                            const float* __restrict__ start, int start_tile,
+                                            int start_stride, float* __restrict__ rgb_out,
+                                            unsigned char* __restrict__ u8_out) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -59,8 +69,11 @@ frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ c
     vhx::pixel_ray(P.origin, P.right, P.up, P.forward, P.scale, P.cw, P.ch, x, y, o, d);
 
     // ---- the ray
-    const vhx::Hit h = vhx::march(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
-                                  P.trace.n_blocks, P.trace.max_iters);
+    float start_t = 0.f;
+    if constexpr (kStart) start_t = start[(y / start_tile) * start_stride + x / start_tile];
+    const vhx::Hit h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels,
+                                          P.trace.size, P.trace.n_blocks, P.trace.max_iters,
+                                          start_t);
 
     // ---- epilogue: albedo x Lambert, the background on a miss, u8
     float rgb[3];
@@ -73,25 +86,65 @@ frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ c
     }
 }
 
+__global__ void __launch_bounds__(THREADS)
+frame_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+             const float4* __restrict__ palette, int n_colors, const FrameParams P,
+             float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    frame_pixel<false>(occ, colors, palette, n_colors, P, levels, nullptr, 1, 0, rgb_out,
+                       u8_out);
+}
+
+// The frame from a prepass's start map (beam.cu, splat.cu, prepass.cu)
+__global__ void __launch_bounds__(THREADS)
+frame_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+                   const float4* __restrict__ palette, int n_colors, const FrameParams P,
+                   const float* __restrict__ start, int start_tile, int start_stride,
+                   float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    frame_pixel<true>(occ, colors, palette, n_colors, P, levels, start, start_tile,
+                      start_stride, rgb_out, u8_out);
+}
+
 }  // namespace
 
 extern "C" int vhx_frame_params_size() { return (int)sizeof(FrameParams); }
 
-extern "C" cudaError_t vhx_render_frame(const void* occ_pairs, const void* colors,
-                                        const float* palette, int n_colors,
-                                        const FrameParams* params, float* rgb, void* u8,
-                                        int device, cudaStream_t stream) {
+// The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,
+// one value a `start_tile` x `start_tile` tile of pixels, ceil(w /
+// start_tile) a row), each ray starts at least its tile's value along.
+extern "C" cudaError_t vhx_render_frame_start(const void* occ_pairs, const void* colors,
+                                              const float* palette, int n_colors,
+                                              const FrameParams* params, const float* start,
+                                              int start_tile, float* rgb, void* u8, int device,
+                                              cudaStream_t stream) {
     const FrameParams& P = *params;
     if (P.trace.n_levels < 1 || P.trace.n_levels > VHX_MAX_LEVELS || n_colors < 1 || P.w < 1 ||
-        P.h < 1)
+        P.h < 1 || (start && start_tile < 1))
         return cudaErrorInvalidValue;
     const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
     if (grid.y > 65535) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    frame_kernel<<<grid, THREADS, 0, stream>>>(
-        static_cast<const uint2*>(occ_pairs), static_cast<const unsigned short*>(colors),
-        reinterpret_cast<const float4*>(palette), n_colors, P, rgb,
-        static_cast<unsigned char*>(u8));
+    const auto* occ = static_cast<const uint2*>(occ_pairs);
+    const auto* col = static_cast<const unsigned short*>(colors);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto* out = static_cast<unsigned char*>(u8);
+    if (start)
+        frame_start_kernel<<<grid, THREADS, 0, stream>>>(
+            occ, col, pal, n_colors, P, start, start_tile,
+            (P.w + start_tile - 1) / start_tile, rgb, out);
+    else
+        frame_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, rgb, out);
     return cudaGetLastError();
+}
+
+extern "C" cudaError_t vhx_render_frame(const void* occ_pairs, const void* colors,
+                                        const float* palette, int n_colors,
+                                        const FrameParams* params, float* rgb, void* u8,
+                                        int device, cudaStream_t stream) {
+    return vhx_render_frame_start(occ_pairs, colors, palette, n_colors, params, nullptr, 1, rgb,
+                                  u8, device, stream);
 }

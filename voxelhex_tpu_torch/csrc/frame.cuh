@@ -8,6 +8,15 @@
 
 #include "traverse.cuh"
 
+// What ray generation reads of one camera (frames.cu, beam.cu)
+struct FrameCam {
+    float origin[3];
+    float right[3];
+    float up[3];
+    float forward[3];
+    float scale[2];  // (tan(fov_y / 2) * w / h, tan(fov_y / 2))
+};
+
 namespace vhx {
 
 // Each warp covers a 4-column x 8-row pixel tile rather than 32 pixels of a
@@ -76,6 +85,14 @@ __device__ __forceinline__ void shade_hit(const Hit& h, const float4* __restrict
         rgb[1] = __fmul_rn(albedo.y, lambert);
         rgb[2] = __fmul_rn(albedo.z, lambert);
     }
+}
+
+// |p - o| as XLA:CPU computes the reference's jnp.linalg.norm of a 3-vector
+// in the far frame and the depth prepass: the squares summed in order,
+// unfused (far.cu, prepass.cu)
+__device__ __forceinline__ float ray_length(const float p[3], const float o[3]) {
+    const float x = __fsub_rn(p[0], o[0]), y = __fsub_rn(p[1], o[1]), z = __fsub_rn(p[2], o[2]);
+    return __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
 }
 
 // clip(round(v * 255), 0, 255), half to even; NaN -> 0 as the reference's

@@ -38,19 +38,14 @@
 // the lanes share, so a warp whose lanes ascend, step sideways and advance
 // in one step runs the DDA steps of its longest ADVANCE, not one more
 // for each other move.
+//
+// `frames_start_kernel` is the same batch from each frame's start map (the
+// beam prepass of beam.cu, one map a camera): its own instance, so the
+// batch without a start compiles as it did.
 
 #include "frame.cuh"
 
 #define VHX_KMAX 32
-
-// What ray generation reads of one camera
-struct FrameCam {
-    float origin[3];
-    float right[3];
-    float up[3];
-    float forward[3];
-    float scale[2];  // (tan(fov_y / 2) * w / h, tan(fov_y / 2))
-};
 
 struct FramesParams {
     TraceParams trace;
@@ -65,14 +60,27 @@ namespace {
 
 constexpr int THREADS = vhx::FRAME_THREADS;
 
-__global__ void __launch_bounds__(THREADS)
-frames_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
-              const float4* __restrict__ palette, int n_colors,
-              const __grid_constant__ FramesParams P, float* __restrict__ rgb_out,
-              unsigned char* __restrict__ u8_out, const unsigned char* __restrict__ prev,
-              int* __restrict__ digest) {
-    __shared__ int2 levels[VHX_MAX_LEVELS];
-    vhx::load_levels(P.trace, levels);
+// Where a batch's rays start (kStart): frame k's start map at `map + k *
+// frame_stride`, one value for each `tile` x `tile` pixels, `stride` tiles a
+// row, read where bit k of `mask` is set; a frame whose bit is clear marches
+// from its entry, as without a start.
+struct StartMaps {
+    const float* __restrict__ map;
+    long long frame_stride;
+    int tile;
+    int stride;
+    unsigned mask;
+};
+
+template <bool kStart>
+__device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
+                                            const unsigned short* __restrict__ colors,
+                                            const float4* __restrict__ palette, int n_colors,
+                                            const FramesParams& P, const int2* levels,
+                                            const StartMaps& S, float* __restrict__ rgb_out,
+                                            unsigned char* __restrict__ u8_out,
+                                            const unsigned char* __restrict__ prev,
+                                            int* __restrict__ digest) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -85,14 +93,23 @@ frames_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ 
 #pragma unroll
         for (int c = 0; c < 3; ++c) last[c] = prev[3 * r + c];
     }
+    long long start_at = 0;
+    if constexpr (kStart) start_at = (long long)(y / S.tile) * S.stride + x / S.tile;
 
     for (int k = 0; k < P.n_frames; ++k) {
         const FrameCam& cam = P.cams[k];
         float o[3], d[3];
         vhx::pixel_ray(cam.origin, cam.right, cam.up, cam.forward, cam.scale, P.cw, P.ch, x, y,
                        o, d);
-        const vhx::Hit h = vhx::march(o, d, occ, colors, levels, P.trace.n_levels,
-                                      P.trace.size, P.trace.n_blocks, P.trace.max_iters);
+        float start_t = 0.f;
+        bool use_start = false;
+        if constexpr (kStart) {
+            use_start = ((S.mask >> k) & 1u) != 0u;
+            if (use_start) start_t = S.map[k * S.frame_stride + start_at];
+        }
+        const vhx::Hit h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels,
+                                              P.trace.size, P.trace.n_blocks, P.trace.max_iters,
+                                              start_t, use_start);
         float rgb[3];
         vhx::shade_hit(h, palette, n_colors, P.bg, rgb);
         const long long px = 3 * (k * frame_px + r);
@@ -121,6 +138,46 @@ frames_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ 
     }
 }
 
+__global__ void __launch_bounds__(THREADS)
+frames_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+              const float4* __restrict__ palette, int n_colors,
+              const __grid_constant__ FramesParams P, float* __restrict__ rgb_out,
+              unsigned char* __restrict__ u8_out, const unsigned char* __restrict__ prev,
+              int* __restrict__ digest) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    const StartMaps none{nullptr, 0, 1, 0, 0u};
+    frames_body<false>(occ, colors, palette, n_colors, P, levels, none, rgb_out, u8_out, prev,
+                       digest);
+}
+
+// The batch from each frame's start map (beam.cu)
+__global__ void __launch_bounds__(THREADS)
+frames_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+                    const float4* __restrict__ palette, int n_colors,
+                    const __grid_constant__ FramesParams P, const StartMaps S,
+                    float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out,
+                    const unsigned char* __restrict__ prev, int* __restrict__ digest) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    frames_body<true>(occ, colors, palette, n_colors, P, levels, S, rgb_out, u8_out, prev,
+                      digest);
+}
+
+template <bool kStart>
+cudaError_t launch(dim3 grid, const uint2* occ, const unsigned short* colors,
+                   const float4* palette, int n_colors, const FramesParams& P,
+                   const StartMaps& S, float* rgb, unsigned char* u8,
+                   const unsigned char* prev, int* digest, cudaStream_t stream) {
+    if constexpr (kStart)
+        frames_start_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, S,
+                                                          rgb, u8, prev, digest);
+    else
+        frames_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, rgb, u8,
+                                                    prev, digest);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vhx_frames_params_size() { return (int)sizeof(FramesParams); }
@@ -129,16 +186,20 @@ extern "C" int vhx_frames_kmax() { return VHX_KMAX; }
 
 // Render params->n_frames frames into rgb (f32 [K, h, w, 3]) or u8
 // ([K, h, w, 3]).  With `digest` (int32 [K, 1 + ceil(h / 8)], u8 only),
-// also each frame's digest, frame 0's against `prev` (u8 [h, w, 3]).
-extern "C" cudaError_t vhx_render_frames(const void* occ_pairs, const void* colors,
-                                         const float* palette, int n_colors,
-                                         const FramesParams* params, float* rgb, void* u8,
-                                         const void* prev, int* digest, int device,
-                                         cudaStream_t stream) {
+// also each frame's digest, frame 0's against `prev` (u8 [h, w, 3]).  With
+// `start`, frame k whose bit of `start_mask` is set starts each ray at
+// least its tile's value of start map k along (f32 [K, ceil(h / tile),
+// ceil(w / tile)], `start_tile` x `start_tile` pixels a value).
+extern "C" cudaError_t vhx_render_frames_start(const void* occ_pairs, const void* colors,
+                                               const float* palette, int n_colors,
+                                               const FramesParams* params, const float* start,
+                                               int start_tile, unsigned start_mask, float* rgb,
+                                               void* u8, const void* prev, int* digest,
+                                               int device, cudaStream_t stream) {
     const FramesParams& P = *params;
     if (P.trace.n_levels < 1 || P.trace.n_levels > VHX_MAX_LEVELS || n_colors < 1 || P.w < 1 ||
         P.h < 1 || P.n_frames < 1 || P.n_frames > VHX_KMAX || (!rgb) == (!u8) ||
-        (digest && (!u8 || !prev)))
+        (digest && (!u8 || !prev)) || (start && start_tile < 1))
         return cudaErrorInvalidValue;
     const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
                     (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
@@ -150,9 +211,24 @@ extern "C" cudaError_t vhx_render_frames(const void* occ_pairs, const void* colo
         err = cudaMemsetAsync(digest, 0, words * sizeof(int), stream);
         if (err != cudaSuccess) return err;
     }
-    frames_kernel<<<grid, THREADS, 0, stream>>>(
-        static_cast<const uint2*>(occ_pairs), static_cast<const unsigned short*>(colors),
-        reinterpret_cast<const float4*>(palette), n_colors, P, rgb,
-        static_cast<unsigned char*>(u8), static_cast<const unsigned char*>(prev), digest);
-    return cudaGetLastError();
+    const auto* occ = static_cast<const uint2*>(occ_pairs);
+    const auto* col = static_cast<const unsigned short*>(colors);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto* out = static_cast<unsigned char*>(u8);
+    const auto* base = static_cast<const unsigned char*>(prev);
+    if (!start) return launch<false>(grid, occ, col, pal, n_colors, P, StartMaps{}, rgb, out,
+                                     base, digest, stream);
+    const int stride = (P.w + start_tile - 1) / start_tile;
+    const StartMaps S{start, (long long)stride * ((P.h + start_tile - 1) / start_tile),
+                      start_tile, stride, start_mask};
+    return launch<true>(grid, occ, col, pal, n_colors, P, S, rgb, out, base, digest, stream);
+}
+
+extern "C" cudaError_t vhx_render_frames(const void* occ_pairs, const void* colors,
+                                         const float* palette, int n_colors,
+                                         const FramesParams* params, float* rgb, void* u8,
+                                         const void* prev, int* digest, int device,
+                                         cudaStream_t stream) {
+    return vhx_render_frames_start(occ_pairs, colors, palette, n_colors, params, nullptr, 1, 0u,
+                                   rgb, u8, prev, digest, device, stream);
 }

@@ -44,8 +44,10 @@
 //
 // The tracer settings are those of the reference renderer
 // (BitGridRenderer.__init__): lateral steps on, MAX_RESTARTS restarts,
-// ADVANCE_SUBSTEPS DDA substeps per ADVANCE.  They are fixed here; only
-// `max_iters` is a launch parameter.
+// ADVANCE_SUBSTEPS DDA substeps per ADVANCE.  `max_iters` is a launch
+// parameter; the substeps are a template parameter of `run`, ADVANCE_SUBSTEPS
+// unless a kernel asks for another count (beam.cu marches the reference's
+// `make_bitgrid_tracer` default of 2).
 //
 // The per-level table (word-pair base, blocks per axis) is read with a
 // per-thread level.  Indexed that way inside the launch parameters it would
@@ -309,8 +311,11 @@ constexpr int MOVE_ADVANCE = 5;
 // exit is inactive from the start: the reference's `start_t` (bitgrid.py
 // init), in its order.  Without kStart the code is the form that every
 // kernel but far.cu runs; far.cu picks the form of each layer at run time
-// (`use_start`), so that one copy of the automaton serves both.
-template <bool kStart = false>
+// (`use_start`), so that one copy of the automaton serves both.  Bit c of
+// kEntryFma fuses the entry point's multiply-add on axis c, as XLA:CPU
+// compiles the reference program being matched: x and y in the renderer's
+// frame, z alone in the beam prepass (beam.cu).
+template <bool kStart = false, int kEntryFma = 3>
 __device__ __forceinline__ void init(March& m, const float o[3], const float d[3], const Grid& g,
                                      float start_t = 0.f, bool use_start = true) {
     const float S = (float)g.size;
@@ -354,11 +359,12 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
                             xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
         }
     }
-    // the reference fuses this multiply-add on x and y, not on z (with
-    // start_t too)
-    m.p[0] = __fmaf_rn(d[0], enter, o[0]);
-    m.p[1] = __fmaf_rn(d[1], enter, o[1]);
-    m.p[2] = __fadd_rn(o[2], __fmul_rn(d[2], enter));
+    // the reference's frame fuses this multiply-add on x and y, not on z
+    // (with start_t too)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        m.p[c] = ((kEntryFma >> c) & 1) ? __fmaf_rn(d[c], enter, o[c])
+                                        : __fadd_rn(o[c], __fmul_rn(d[c], enter));
 
     m.level = top;  // the cell edge tsize is 4^level throughout
 #pragma unroll
@@ -420,7 +426,9 @@ __device__ __forceinline__ void move_dda(const March& m, int move, float np[3], 
 }
 
 // An ADVANCE substep to the DDA's point; `m.sub` is 0 again when the step
-// ends: the cell left the block or is occupied, or the substeps are spent.
+// ends: the cell left the block or is occupied, or the `kSubsteps` substeps
+// are spent.
+template <int kSubsteps = ADVANCE_SUBSTEPS>
 __device__ __forceinline__ void advance_tail(March& m, const float np[3], const float st[3]) {
     const int s_ts = step_sectant(m.tsect, st);
 #pragma unroll
@@ -430,7 +438,7 @@ __device__ __forceinline__ void advance_tail(March& m, const float np[3], const 
     }
     m.tsect = s_ts;
     m.sub += 1;
-    if (m.sub == ADVANCE_SUBSTEPS || s_ts >= OOB || occ_bit(m.lo, m.hi, s_ts)) m.sub = 0;
+    if (m.sub == kSubsteps || s_ts >= OOB || occ_bit(m.lo, m.hi, s_ts)) m.sub = 0;
 }
 
 // ASCEND to the parent block, derived arithmetically
@@ -519,8 +527,9 @@ __device__ __forceinline__ bool lateral_tail(March& m, const float np[3], const 
 // Each turn of a step's DDA loop moves the ray by one DDA step, shared by
 // the warp's lanes (the header's note).  A step is counted when it starts,
 // and `max_steps` is tested only there: an ADVANCE's substeps belong to the
-// step that began them, as in the reference, whose step runs all of them.
-template <class Policy>
+// step that began them, as in the reference, whose step runs all of them
+// (`kSubsteps` of them at most).
+template <class Policy, int kSubsteps = ADVANCE_SUBSTEPS>
 __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Policy& pol) {
     const int top = g.n_levels - 1;
     while (m.active && m.steps < max_steps) {
@@ -544,7 +553,7 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Poli
             do {
                 move_dda(m, move, np, st);
                 if (move != MOVE_ADVANCE) break;
-                advance_tail(m, np, st);
+                advance_tail<kSubsteps>(m, np, st);
             } while (m.sub != 0);
             if (move != MOVE_ADVANCE) {
                 bool on;
@@ -611,15 +620,16 @@ __device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __re
 }
 
 // March the ray (o, d) through the pyramid: the reference's `trace` of one
-// ray.
+// ray; with kStart, from `start_t` where `use_start` (init's start form).
+template <bool kStart = false>
 __device__ __forceinline__ Hit march(const float o[3], const float d[3],
                                      const uint2* __restrict__ occ,
                                      const unsigned short* __restrict__ colors,
                                      const int2* levels, int n_levels, int size, int n_blocks,
-                                     int max_iters) {
+                                     int max_iters, float start_t = 0.f, bool use_start = true) {
     const Grid g{occ, levels, n_levels, size, n_blocks};
     March m;
-    init(m, o, d, g);
+    init<kStart>(m, o, d, g, start_t, use_start);
     StopAtHit stop;
     run(m, g, max_iters, stop);
     return hit_of(m, colors, size);

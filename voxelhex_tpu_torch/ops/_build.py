@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
 SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "frames.cu", "multihit.cu", "composite.cu",
-           "adam.cu", "albedo.cu", "stream.cu", "far.cu")
+           "adam.cu", "albedo.cu", "stream.cu", "far.cu", "beam.cu", "splat.cu", "prepass.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -36,6 +36,7 @@ BUILD_TIMEOUT_S = 600
 MAX_LEVELS = 12  # VHX_MAX_LEVELS in traverse.cuh
 KMAX = 32  # VHX_KMAX in frames.cu: cameras a launch
 FAR_MAX_LAYERS = 8  # VHX_FAR_MAX_LAYERS in far.cu: the window and its rings
+BEAM_MAX_GRIDS = 8  # VHX_BEAM_MAX_GRIDS in beam.cu: beam levels a launch
 
 _lock = threading.Lock()
 _lib = None
@@ -73,7 +74,7 @@ class FrameParams(ctypes.Structure):
 
 
 class FrameCam(ctypes.Structure):
-    """Mirror of ``struct FrameCam`` in frames.cu."""
+    """Mirror of ``struct FrameCam`` in frame.cuh."""
 
     _fields_ = [
         ("origin", ctypes.c_float * 3),
@@ -129,6 +130,62 @@ class FarParams(ctypes.Structure):
         ("inside", ctypes.c_int),
         ("n_layers", ctypes.c_int),
         ("layers", FarLayer * FAR_MAX_LAYERS),
+    ]
+
+
+class BeamGrid(ctypes.Structure):
+    """Mirror of ``struct BeamGrid`` in beam.cu."""
+
+    _fields_ = [
+        ("trace", TraceParams),
+        ("occ", ctypes.c_void_p),
+        ("cell", ctypes.c_float),
+        ("inv_cell", ctypes.c_float),
+    ]
+
+
+class BeamParams(ctypes.Structure):
+    """Mirror of ``struct BeamParams`` in beam.cu."""
+
+    _fields_ = [
+        ("cw", ctypes.c_float),
+        ("ch", ctypes.c_float),
+        ("tw", ctypes.c_int),
+        ("th", ctypes.c_int),
+        ("n_frames", ctypes.c_int),
+        ("n_grids", ctypes.c_int),
+        ("grid_of", ctypes.c_int * KMAX),
+        ("grids", BeamGrid * BEAM_MAX_GRIDS),
+        ("cams", FrameCam * KMAX),
+    ]
+
+
+class SplatParams(ctypes.Structure):
+    """Mirror of ``struct SplatParams`` in splat.cu."""
+
+    _fields_ = [
+        ("origin", ctypes.c_float * 3),
+        ("right", ctypes.c_float * 3),
+        ("up", ctypes.c_float * 3),
+        ("forward", ctypes.c_float * 3),
+        ("scale", ctypes.c_float * 2),
+        ("margin", ctypes.c_float),
+        ("w2", ctypes.c_int),
+        ("h2", ctypes.c_int),
+        ("n_points", ctypes.c_int),
+    ]
+
+
+class PrepassParams(ctypes.Structure):
+    """Mirror of ``struct PrepassParams`` in prepass.cu."""
+
+    _fields_ = [
+        ("trace", TraceParams),
+        ("cam", FrameCam),
+        ("cw", ctypes.c_float),
+        ("ch", ctypes.c_float),
+        ("w", ctypes.c_int),
+        ("h", ctypes.c_int),
     ]
 
 
@@ -238,7 +295,10 @@ def library() -> types.SimpleNamespace:
     ``vhx_render_frame``, ``vhx_render_frames``, ``vhx_multihit``, ``vhx_composite_forward``,
     ``vhx_composite_backward``, ``vhx_adam``, ``vhx_albedo_forward``,
     ``vhx_albedo_backward``, ``vhx_region_scatter``, ``vhx_coarse_rebuild``,
-    ``vhx_window_shift``, ``vhx_render_far``), built first if needed."""
+    ``vhx_window_shift``, ``vhx_render_far``, their forms with a start map
+    ``vhx_render_frame_start``, ``vhx_render_frames_start`` and
+    ``vhx_render_far_start``, ``vhx_beam``, ``vhx_splat``,
+    ``vhx_prepass_level``, ``vhx_depth_start``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -252,10 +312,17 @@ def library() -> types.SimpleNamespace:
             signatures = {
                 "traverse.cu": {"vhx_traverse": [p, p, p, p, trace_p, i, p, p, p, p, p, i, p]},
                 "shade.cu": {"vhx_shade": [p, p, p, p, i, f, f, f, i, p, p, i, p]},
-                "frame.cu": {"vhx_render_frame": [p, p, p, i, ctypes.POINTER(FrameParams), p,
-                                                  p, i, p]},
-                "frames.cu": {"vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p,
-                                                    p, p, p, i, p]},
+                "frame.cu": {
+                    "vhx_render_frame": [p, p, p, i, ctypes.POINTER(FrameParams), p, p, i, p],
+                    "vhx_render_frame_start": [p, p, p, i, ctypes.POINTER(FrameParams), p, i, p,
+                                               p, i, p],
+                },
+                "frames.cu": {
+                    "vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p, p, p, p,
+                                          i, p],
+                    "vhx_render_frames_start": [p, p, p, i, ctypes.POINTER(FramesParams), p, i,
+                                                ctypes.c_uint, p, p, p, p, i, p],
+                },
                 "multihit.cu": {"vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p]},
                 "composite.cu": {
                     "vhx_composite_forward": [p, p, p, i, i, i, f3, p, i, p],
@@ -272,7 +339,19 @@ def library() -> types.SimpleNamespace:
                     "vhx_coarse_rebuild": [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p],
                     "vhx_window_shift": [p, p, p, p, i, i, i, i, i, i, p],
                 },
-                "far.cu": {"vhx_render_far": [ctypes.POINTER(FarParams), p, p, i, p]},
+                "far.cu": {
+                    "vhx_render_far": [ctypes.POINTER(FarParams), p, p, i, p],
+                    "vhx_render_far_start": [ctypes.POINTER(FarParams), p, i, p, p, i, p],
+                },
+                "beam.cu": {"vhx_beam": [ctypes.POINTER(BeamParams), p, i, p]},
+                "splat.cu": {
+                    "vhx_splat": [p, ctypes.POINTER(SplatParams), p, p, p, i, p],
+                    "vhx_splat_block_words": [i, i],
+                },
+                "prepass.cu": {
+                    "vhx_prepass_level": [p, ctypes.POINTER(PrepassParams), p, p, i, p],
+                    "vhx_depth_start": [p, i, i, p, i, p],
+                },
             }
             fns = {}
             for source, entries in signatures.items():
@@ -285,6 +364,10 @@ def library() -> types.SimpleNamespace:
                                          ("frame.cu", "vhx_frame_params_size", FrameParams),
                                          ("frames.cu", "vhx_frames_params_size", FramesParams),
                                          ("far.cu", "vhx_far_params_size", FarParams),
+                                         ("beam.cu", "vhx_beam_params_size", BeamParams),
+                                         ("splat.cu", "vhx_splat_params_size", SplatParams),
+                                         ("prepass.cu", "vhx_prepass_params_size",
+                                          PrepassParams),
                                          ("adam.cu", "vhx_adam_params_size", AdamParams)):
                 fn = getattr(dlls[source], name)
                 fn.argtypes, fn.restype = [], i
@@ -300,6 +383,11 @@ def library() -> types.SimpleNamespace:
             if layers() != FAR_MAX_LAYERS:
                 raise RuntimeError(f"VHX_FAR_MAX_LAYERS is {layers()} in C, FAR_MAX_LAYERS "
                                    f"{FAR_MAX_LAYERS} in ctypes")
+            grids = dlls["beam.cu"].vhx_beam_max_grids
+            grids.argtypes, grids.restype = [], i
+            if grids() != BEAM_MAX_GRIDS:
+                raise RuntimeError(f"VHX_BEAM_MAX_GRIDS is {grids()} in C, BEAM_MAX_GRIDS "
+                                   f"{BEAM_MAX_GRIDS} in ctypes")
             _lib = types.SimpleNamespace(dlls=dlls, **fns)
         return _lib
 

@@ -13,6 +13,11 @@ A layer is ``(tree, camera, factor)``: a BitGrid on the device
 (:func:`~voxelhex_tpu_torch.render.bitgrid.device_bitgrid`), the camera in
 the layer's frame (voxels of the layer, origin at its min corner) and the
 world voxels a voxel of the layer spans (1 for the window).
+
+The window's rays may start from a start map (the window renderer's beam
+prepass, ``ops/beam.py``), one value a ``start_tile`` x ``start_tile``
+pixel tile, as the reference's ``trace_compacted(..., beam=...)`` of the
+window; the rings keep their own starts.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 
 from voxelhex_tpu_torch.fp import sqrt32
 from voxelhex_tpu_torch.ops import _build
-from voxelhex_tpu_torch.ops.frame import frame_cam, _pixel_steps
+from voxelhex_tpu_torch.ops.frame import _pixel_steps, check_start, expand_start, frame_cam
 from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
 from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
 from voxelhex_tpu_torch.render.camera import device_rays
@@ -44,7 +49,7 @@ def hit_dist(hit, point, o, factor):
 
 
 def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
-                    max_iters=MAX_ITERS, stats=None):
+                    max_iters=MAX_ITERS, stats=None, start=None, start_tile=1):
     """The plain frame (see :func:`render_far`).  With a list ``stats``,
     each layer's march is appended to it: ``{"rays"``: the rays that start
     it, ``"iters"``: each ray's automaton steps (int32 [h * w]), ``"hit"``,
@@ -59,17 +64,20 @@ def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
         o, d = device_rays(cam, dev)
         trace = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
                                     **KERNEL_CONFIG)
-        start = None
+        start_t = None
+        if i == 0 and start is not None:
+            start_t = expand_start(start, start_tile, w, h)
         if i > 0 and inside:
-            start = torch.where(acc[0], torch.full_like(acc[1], KILL_T),
-                                torch.zeros_like(acc[1]))
+            start_t = torch.where(acc[0], torch.full_like(acc[1], KILL_T),
+                                  torch.zeros_like(acc[1]))
         reads = None
         if stats is not None:
             reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
-        st = trace.run(tree, trace.init(tree, o, d, start), max_iters, reads=reads)
+        st = trace.run(tree, trace.init(tree, o, d, start_t), max_iters, reads=reads)
         hit = st["hit"]
         if stats is not None:
-            stats.append({"rays": o.shape[0] if start is None else int((start == 0).sum()),
+            stats.append({"rays": o.shape[0] if i == 0 or not inside
+                          else int((start_t == 0).sum()),
                           "iters": st["iters"], "hit": hit, "hvox": st["hvox"], "reads": reads})
         voxel = trace.resolve_color(tree, hit, st["hvox"])
         rgb = shade(tree["palette"], hit, voxel, st["hnormal"], bgt)
@@ -113,20 +121,27 @@ def far_params(layers, inside: bool, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
     return p
 
 
-def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS):
+def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
+               start=None, start_tile=1):
     """The frame of the window and its rings: ``layers`` is the window's
     ``(tree, camera, 1)``, then each ring's ``(tree, camera, factor)``
     inside-out, cameras of one resolution; each pixel's ray runs through
     each layer (at most ``max_iters`` steps a layer) and keeps the nearest
     hit in world voxels, ``bg`` where every layer misses.  With ``inside``
     (the camera inside the window), a ring's rays start at the camera
-    (``start_t`` 0) and a ray that hit already skips it.  ``[h, w, 3]`` u8,
-    or f32 when ``out_u8`` is false.
+    (``start_t`` 0) and a ray that hit already skips it.  With ``start``
+    (f32 [ceil(h / start_tile), ceil(w / start_tile)]), the window's rays
+    start at least their tile's value along.  ``[h, w, 3]`` u8, or f32 when
+    ``out_u8`` is false.
 
     CPU trees run the plain version; CUDA trees launch the kernel."""
     dev = layers[0][0]["occ_pairs"].device
+    if start is not None:
+        w, h = layers[0][1].resolution
+        check_start(start, start_tile, w, h, dev)
     if dev.type == "cpu":
-        return far_frame_plain(layers, inside, bg, out_u8, max_iters)
+        return far_frame_plain(layers, inside, bg, out_u8, max_iters, start=start,
+                               start_tile=start_tile)
     if dev.type != "cuda":
         raise ValueError(f"render_far runs on cuda or cpu tensors, not {dev}")
     for tree, _cam, _f in layers:
@@ -142,8 +157,9 @@ def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=
     lib = _build.library()
     out = torch.empty((h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     rgb_ptr, u8_ptr = (None, out.data_ptr()) if out_u8 else (out.data_ptr(), None)
-    err = lib.vhx_render_far(params, rgb_ptr, u8_ptr, dev.index or 0,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.vhx_render_far_start(params, None if start is None else start.data_ptr(),
+                                   int(start_tile), rgb_ptr, u8_ptr, dev.index or 0,
+                                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "far frame kernel launch")
     render_far.launches += 1
     return out

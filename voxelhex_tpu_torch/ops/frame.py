@@ -8,6 +8,11 @@ camera params passed by value: it fuses ray generation, the traversal kernel
 (``ops/shade.py``, replacing ``_shade_kernel`` / ``pallas_shade`` of
 ``voxelhex_tpu/ops/shade_pallas.py``).  :func:`render_frame_plain` is the
 plain PyTorch version: the plain ray generation, tracer and shading in turn.
+
+With a start map (the beam, splat or depth prepass: ``ops/beam.py``,
+``ops/splat.py``, ``ops/prepass.py``), each ray starts at least its pixel
+tile's value along, the reference's ``start_t``: ``frame_start_kernel``,
+its own instance of the same code.
 """
 
 from __future__ import annotations
@@ -21,17 +26,31 @@ import torch
 
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.shade import shade_plain
-from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params, traverse_plain
+from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
+from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
 
+def expand_start(start, tile, w, h):
+    """A start map of one value a ``tile`` x ``tile`` pixel tile, ``[ceil(h
+    / tile), ceil(w / tile)]``, as one value a pixel of a ``w`` x ``h``
+    frame, flattened: the reference's ``start_t``."""
+    full = start.repeat_interleave(tile, 0).repeat_interleave(tile, 1)
+    return full[:h, :w].reshape(-1)
+
+
 def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
-                       max_iters=MAX_ITERS):
+                       max_iters=MAX_ITERS, start=None, start_tile=1):
     """The plain PyTorch frame (see :func:`render_frame`)."""
     w, h = camera.resolution
     o, d = device_rays(camera, tree["occ_pairs"].device)
-    hit, voxel, _hvox, _point, hnormal = traverse_plain(tree, o, d, max_iters)
-    return shade_plain(hit, voxel, hnormal, tree["palette"], bg, out_u8).reshape(h, w, 3)
+    trace = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
+                                **KERNEL_CONFIG)
+    st0 = None if start is None else expand_start(start, start_tile, w, h)
+    st = trace.run(tree, trace.init(tree, o, d, st0), max_iters)
+    voxel = trace.resolve_color(tree, st["hit"], st["hvox"])
+    return shade_plain(st["hit"], voxel, st["hnormal"], tree["palette"], bg,
+                       out_u8).reshape(h, w, 3)
 
 
 # the camera params of recent poses, as bytes: frame_cam's cache
@@ -92,16 +111,32 @@ def frame_params(tree, camera: Camera, bg=(0.0, 0.0, 0.0),
     return p
 
 
-def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS):
+def check_start(start, start_tile, w, h, dev):
+    """Raise unless ``start`` is a contiguous f32 start map of one value a
+    ``start_tile`` x ``start_tile`` tile of a ``w`` x ``h`` frame on
+    ``dev``."""
+    if start_tile < 1:
+        raise ValueError(f"start_tile {start_tile}")
+    shape = (-(-h // start_tile), -(-w // start_tile))
+    _build.check_inputs(dev, (("start", start, torch.float32, shape),))
+
+
+def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
+                 start=None, start_tile=1):
     """The frame of ``camera`` over the BitGrid ``tree``
     (:func:`device_bitgrid`) with the reference renderer's tracer settings,
     each ray for at most ``max_iters`` steps: ``[h, w, 3]`` u8, or f32 when
-    ``out_u8`` is false, ``bg`` on a miss.
+    ``out_u8`` is false, ``bg`` on a miss.  With ``start`` (f32 [ceil(h /
+    start_tile), ceil(w / start_tile)] on the tree's device), each ray
+    starts at least its tile's value along.
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel."""
     dev = tree["occ_pairs"].device
+    w, h = camera.resolution
+    if start is not None:
+        check_start(start, start_tile, w, h, dev)
     if dev.type == "cpu":
-        return render_frame_plain(tree, camera, bg, out_u8, max_iters)
+        return render_frame_plain(tree, camera, bg, out_u8, max_iters, start, start_tile)
     if dev.type != "cuda":
         raise ValueError(f"render_frame runs on cuda or cpu tensors, not {dev}")
     _build.check_inputs(dev, (
@@ -112,7 +147,6 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
     n_colors = tree["palette"].shape[0]
     if n_colors < 1:
         raise ValueError("empty palette")
-    w, h = camera.resolution
     if w < 1 or h < 1:
         raise ValueError(f"resolution {camera.resolution}")
     params = frame_params(tree, camera, bg, max_iters)
@@ -120,9 +154,10 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
     out = torch.empty((h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     rgb_ptr, u8_ptr = (None, out.data_ptr()) if out_u8 else (out.data_ptr(), None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vhx_render_frame(
+    err = lib.vhx_render_frame_start(
         tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(), tree["palette"].data_ptr(),
-        n_colors, params, rgb_ptr, u8_ptr, dev.index or 0, stream,
+        n_colors, params, None if start is None else start.data_ptr(), int(start_tile),
+        rgb_ptr, u8_ptr, dev.index or 0, stream,
     )
     _build.check(err, "frame kernel launch")
     render_frame.launches += 1

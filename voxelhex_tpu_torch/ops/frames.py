@@ -16,6 +16,12 @@ from frame k - 1 (frame 0: from the baseline ``prev``), and for each group
 of 8 rows a word whose bit r is set when row 8 g + r changed; a group is
 flagged when its word is non-zero.  The reference's ``ndiff`` counts the
 same rows, and its ``rowflags`` are these words' ``!= 0``.
+
+A batch may start its rays from start maps, one a camera (the beam prepass
+of ``ops/beam.py``): ``starts = (maps f32 [K, ceil(h / tile), ceil(w /
+tile)], tile, use)``, where frame k reads map k if ``use[k]`` and marches
+from its entry otherwise.  It runs ``frames_start_kernel``, its own
+instance of the same code.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 
 from voxelhex_tpu_torch.ops import _build
-from voxelhex_tpu_torch.ops.frame import _pixel_steps, frame_cam, render_frame_plain
+from voxelhex_tpu_torch.ops.frame import _pixel_steps, check_start, frame_cam, render_frame_plain
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
 
 ROW_GROUP = 8  # rows a digest flag covers
@@ -47,10 +53,13 @@ def digest_plain(frames, prev):
 
 
 def render_frames_plain(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                        prev=None):
+                        prev=None, starts=None):
     """The plain PyTorch version of :func:`render_frames`."""
     cameras = _check_cameras(cameras)
-    frames = torch.stack([render_frame_plain(tree, c, bg, out_u8, max_iters) for c in cameras])
+    maps, tile, use = starts if starts is not None else (None, 1, [False] * len(cameras))
+    frames = torch.stack([
+        render_frame_plain(tree, c, bg, out_u8, max_iters, maps[k] if use[k] else None, tile)
+        for k, c in enumerate(cameras)])
     if prev is None:
         return frames, None, None
     _check_prev(prev, frames.shape[1:], out_u8)
@@ -100,13 +109,24 @@ def frames_params(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
     return chunks
 
 
+def _check_starts(starts, cameras, dev):
+    maps, tile, use = starts
+    w, h = cameras[0].resolution
+    if len(use) != len(cameras) or maps.shape[0] != len(cameras):
+        raise ValueError(f"{maps.shape[0]} start maps and {len(use)} flags for "
+                         f"{len(cameras)} cameras")
+    for k in range(len(cameras)):
+        check_start(maps[k], tile, w, h, dev)
+
+
 def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_index=0,
-                  stream=None):
+                  stream=None, starts=None):
     """Allocate the outputs on the tree's device and call ``entry`` (the
-    signature of ``vhx_render_frames``) once for each chunk of up to
-    ``KMAX`` frames: ``(frames, digest int32 [K, 1 + G] or None,
-    launches)``.  Chunk c > 0 compares its frame 0 with chunk c - 1's last
-    frame, which the launch before it wrote on the same stream."""
+    signature of ``vhx_render_frames``, or with ``starts`` that of
+    ``vhx_render_frames_start``) once for each chunk of up to ``KMAX``
+    frames: ``(frames, digest int32 [K, 1 + G] or None, launches)``.  Chunk
+    c > 0 compares its frame 0 with chunk c - 1's last frame, which the
+    launch before it wrote on the same stream."""
     dev = tree["occ_pairs"].device
     w, h = cameras[0].resolution
     K = len(cameras)
@@ -120,30 +140,37 @@ def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_i
         k0 = i * _build.KMAX
         out = frames[k0:k0 + p.n_frames].data_ptr()
         base = None if prev is None else (prev if k0 == 0 else frames[k0 - 1]).data_ptr()
-        err = entry(
-            tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(), tree["palette"].data_ptr(),
-            n_colors, p, None if out_u8 else out, out if out_u8 else None, base,
-            None if digest is None else digest[k0].data_ptr(), device_index, stream,
-        )
+        head = (tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                tree["palette"].data_ptr(), n_colors, p)
+        if starts is not None:
+            maps, tile, use = starts
+            mask = sum(1 << k for k in range(p.n_frames) if use[k0 + k])
+            head += (maps[k0].data_ptr(), int(tile), mask)
+        err = entry(*head, None if out_u8 else out, out if out_u8 else None, base,
+                    None if digest is None else digest[k0].data_ptr(), device_index, stream)
         _build.check(err, "frames kernel launch")
         launches += 1
     return frames, digest, launches
 
 
-def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS, prev=None):
+def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS, prev=None,
+                         starts=None):
     """:func:`render_frames` of u8 frames with the digest packed in one
     int32 tensor ``[K, 1 + G]`` (column 0 ``nrows_changed``, then
     ``rowflags``), or ``None`` without ``prev``: ``(frames, digest)``.  One
     copy reads the packed digest."""
     cameras = _check_cameras(cameras)
     dev = tree["occ_pairs"].device
+    if starts is not None:
+        _check_starts(starts, cameras, dev)
     if dev.type == "cpu":
-        frames, nrows, flags = render_frames_plain(tree, cameras, bg, True, max_iters, prev)
+        frames, nrows, flags = render_frames_plain(tree, cameras, bg, True, max_iters, prev,
+                                                   starts)
         return frames, None if prev is None else torch.cat([nrows[:, None], flags], dim=1)
-    return _launch(tree, cameras, bg, True, max_iters, prev)
+    return _launch(tree, cameras, bg, True, max_iters, prev, starts)
 
 
-def _launch(tree, cameras, bg, out_u8, max_iters, prev):
+def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts):
     dev = tree["occ_pairs"].device
     if dev.type != "cuda":
         raise ValueError(f"render_frames runs on cuda or cpu tensors, not {dev}")
@@ -159,28 +186,34 @@ def _launch(tree, cameras, bg, out_u8, max_iters, prev):
     _build.check_inputs(dev, specs)
     if tree["palette"].shape[0] < 1:
         raise ValueError("empty palette")
+    lib = _build.library()
     frames, digest, n = launch_frames(
-        _build.library().vhx_render_frames, tree, cameras, bg, out_u8, max_iters, prev,
-        device_index=dev.index or 0, stream=torch.cuda.current_stream(dev).cuda_stream)
+        lib.vhx_render_frames if starts is None else lib.vhx_render_frames_start, tree,
+        cameras, bg, out_u8, max_iters, prev, device_index=dev.index or 0,
+        stream=torch.cuda.current_stream(dev).cuda_stream, starts=starts)
     render_frames.launches += n
     return frames, digest
 
 
 def render_frames(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                  prev=None):
+                  prev=None, starts=None):
     """The frames of ``cameras`` (one resolution) over the BitGrid ``tree``
     (:func:`device_bitgrid`), as :func:`render_frame` draws each:
     ``(frames [K, h, w, 3], nrows_changed, rowflags)``, u8 or f32.  With
     ``prev`` (u8 [h, w, 3], and ``out_u8``), the digests of the u8 frames
     (module docstring), frame 0's against ``prev``; without it, ``None``
-    and ``None``.
+    and ``None``.  With ``starts``, each frame's rays start from its start
+    map (module docstring).
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel,
     once for each ``KMAX`` cameras."""
     cameras = _check_cameras(cameras)
-    if tree["occ_pairs"].device.type == "cpu":
-        return render_frames_plain(tree, cameras, bg, out_u8, max_iters, prev)
-    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev)
+    dev = tree["occ_pairs"].device
+    if starts is not None:
+        _check_starts(starts, cameras, dev)
+    if dev.type == "cpu":
+        return render_frames_plain(tree, cameras, bg, out_u8, max_iters, prev, starts)
+    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev, starts)
     if digest is None:
         return frames, None, None
     return frames, digest[:, 0], digest[:, 1:]

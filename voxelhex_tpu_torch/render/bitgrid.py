@@ -343,7 +343,7 @@ def _fetch_words(tree, tables, level, bmin):
 
 def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
                         max_restarts: int = 4, lateral_step: bool = True,
-                        advance_substeps: int = 2):
+                        advance_substeps: int = 2, entry_fma=(True, True, False)):
     """Plain PyTorch tracer over a pyramid of ``n_levels`` levels and world
     extent ``size``: ``trace(tree, origins, dirs) -> (hit, voxel, hvox,
     point, hnormal)`` over the tensors of :func:`device_bitgrid`.
@@ -352,7 +352,10 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     neighbor block instead of POP + re-PUSH.  ``advance_substeps``: DDA
     steps inside the current block per iteration.  Each ray stops on a hit,
     on leaving the world after ``max_restarts`` re-entries, or after
-    ``max_iters`` iterations."""
+    ``max_iters`` iterations.  ``entry_fma``: on which axes the entry point
+    ``o + d * enter`` is one fused multiply-add, as XLA:CPU compiles the
+    reference program being matched (the renderer's frame: x and y; the
+    beam prepass: none)."""
     top_level = n_levels - 1
     Si = int(size)
     cell_sizes = [float(4**l) for l in range(n_levels)]
@@ -390,11 +393,12 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
             root_hit = root_hit & (start_t < tmax_r)
             enter = minimum(maximum(zero, maximum(enter, start_t)),
                             maximum(tmax_r - 1e-3, zero))
-        # XLA's vector loop fuses the multiply-add on x and y but not on z
+        # XLA's vector loop of the renderer's frame fuses the multiply-add on
+        # x and y but not on z (entry_fma)
         step = dirv * enter[:, None]
-        point = torch.cat(
-            [fma32(dirv[:, :2], enter[:, None], o[:, :2]), o[:, 2:] + step[:, 2:]], dim=1
-        )
+        point = torch.stack(
+            [fma32(dirv[:, c], enter, o[:, c]) if entry_fma[c] else o[:, c] + step[:, c]
+             for c in range(3)], dim=1)
 
         level = torch.full((R,), top_level, dtype=torch.int32, device=dev)
         lo, hi = _fetch_words(tree, _level_tables(tree, dev), level, torch.zeros_like(o))

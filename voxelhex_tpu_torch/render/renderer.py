@@ -1,10 +1,19 @@
 """Whole-frame renderer over the BitGrid (the reference's
-``BitGridRenderer`` in ``render/bitgrid.py``, without compaction or beam
-prepass: one thread per ray already stops each ray on its own, and the
-frame is the same).  A frame is one launch of the frame kernel
+``BitGridRenderer`` in ``render/bitgrid.py``, without compaction: one
+thread per ray already stops each ray on its own, and the frame is the
+same).  A frame is one launch of the frame kernel
 (:func:`voxelhex_tpu_torch.ops.frame.render_frame`); a batch of up to
 ``KMAX`` frames is one launch of the batched kernel
-(:func:`voxelhex_tpu_torch.ops.frames.render_frames`)."""
+(:func:`voxelhex_tpu_torch.ops.frames.render_frames`).
+
+The reference's three start prepasses run before the frame, each its own
+kernel, and give the frame a start map: the beam prepass
+(``beam_prepass=True``, :mod:`~voxelhex_tpu_torch.ops.beam`; a batch runs
+one beam launch, then one batched-kernel launch), the splat prepass
+(``splat_prepass=True``, :mod:`~voxelhex_tpu_torch.ops.splat`) and the
+depth prepass (``prepass=True``, :mod:`~voxelhex_tpu_torch.ops.prepass`).
+Which one runs follows the reference's ``_render_impl``
+(:meth:`BitGridRenderer.render`)."""
 
 from __future__ import annotations
 
@@ -13,25 +22,35 @@ import threading
 import numpy as np
 import torch
 
-from voxelhex_tpu_torch.ops.frame import render_frame
+from voxelhex_tpu_torch.ops.beam import beam_tiles
+from voxelhex_tpu_torch.ops.frame import expand_start, render_frame
 from voxelhex_tpu_torch.ops.frames import ROW_GROUP, render_frames, render_frames_digest
+from voxelhex_tpu_torch.ops.prepass import prepass_start
+from voxelhex_tpu_torch.ops.splat import splat_tiles
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, traverse
-from voxelhex_tpu_torch.render.bitgrid import BitGrid, build_bitgrid, device_bitgrid
+from voxelhex_tpu_torch.render.bitgrid import (
+    BitGrid,
+    bitgrid_from_occupancy,
+    build_bitgrid,
+    device_bitgrid,
+)
 from voxelhex_tpu_torch.render.camera import Camera
+from voxelhex_tpu_torch.render.starts import BEAM_TILE, beam_level, beam_occupancy, splat_points
 from voxelhex_tpu_torch.tree.boxtree import BoxTree
 from voxelhex_tpu_torch.tree.flat import FlatTree
 
-# The reference renderer's options that change no result here, each with the
-# values the kernels accept (csrc/traverse.cuh fixes the tracer settings);
-# None accepts any value.  The frame is the same whatever plan, fusion or
-# color storage the reference would pick; `prepass_levels` and
-# `skip_substeps` are read only with `prepass=True` and `tracer="skip"`.
+# The reference renderer's options, each with the values the kernels accept
+# (csrc/traverse.cuh fixes the tracer settings); None accepts any value.
+# The frame is the same whatever plan, fusion or color storage the
+# reference would pick; `prepass` runs the depth prepass of
+# `prepass_levels` levels, and `skip_substeps` is read only with
+# `tracer="skip"`.
 RESULT_NEUTRAL = {
     "fuse_plan": None,
     "auto_plan": None,
     "prepass_levels": None,
     "skip_substeps": None,
-    "prepass": (False,),
+    "prepass": None,
     "lateral_step": (True,),
     "advance_substeps": (4,),
     "tracer": ("stack",),
@@ -82,9 +101,10 @@ class BitGridRenderer:
     a BoxTree or a FlatTree (:func:`check_source`).
 
     Takes the reference ``BitGridRenderer``'s parameters in its order:
-    ``max_iters`` is the kernels' step limit per ray; the options of
-    ``RESULT_NEUTRAL`` are accepted at the values the kernels fix; any other
-    value raises.  ``device`` is keyword-only."""
+    ``max_iters`` is the kernels' step limit per ray; ``prepass`` runs the
+    depth prepass of ``prepass_levels`` levels before each frame; the
+    options of ``RESULT_NEUTRAL`` are accepted at the values the kernels
+    fix; any other value raises.  ``device`` is keyword-only."""
 
     def __init__(self, source, max_iters: int = MAX_ITERS, prepass: bool = False,
                  prepass_levels: int = 2, lateral_step: bool = True, parent_skip: bool = False,
@@ -99,7 +119,17 @@ class BitGridRenderer:
         self.device = resolve_device(device)
         self.bitgrid = check_source(source)
         self.max_iters = int(max_iters)
+        self.prepass = bool(prepass)
+        self.prepass_levels = int(prepass_levels)
+        if self.prepass_levels < 0:
+            raise ValueError(f"prepass_levels {prepass_levels}")
         self.tree = device_bitgrid(self.bitgrid, self.device)
+        # the beam prepass's tile, and what the prepasses derive from the
+        # content until invalidate_beam: the dilated grid of each beam level
+        # on the device, and the splat prepass's surface centers
+        self.beam_tile = BEAM_TILE
+        self._beam_grids: dict = {}
+        self._splat_pts = None
         # render, render_many and render_delta_many hold it, as the
         # reference's do: the delta baseline and last_stats are shared by
         # every thread that renders with this renderer
@@ -120,6 +150,92 @@ class BitGridRenderer:
         renderer's device, with the reference renderer's tracer settings."""
         return traverse(self.tree, origins, dirs, self.max_iters)
 
+    # ---- the start prepasses
+
+    def _beam_grid(self, L: int) -> dict:
+        """The dilated level-``L`` grid of the beam prepass on the device
+        (:func:`~voxelhex_tpu_torch.render.starts.beam_occupancy`), built
+        at first use after each content change."""
+        grid = self._beam_grids.get(L)
+        if grid is None:
+            occ = beam_occupancy(self.bitgrid, L)
+            grid = self._beam_grids[L] = device_bitgrid(bitgrid_from_occupancy(occ), self.device)
+        return grid
+
+    def _beam_spec(self, camera: Camera, tile: int | None = None):
+        """``(grid, cell)`` of ``camera``'s beam level, or None where the
+        reference has no beam spec: the tile does not divide the
+        resolution, or no level keeps the bound (``beam_level``)."""
+        tile = tile or self.beam_tile
+        w, h = camera.resolution
+        if w % tile or h % tile:
+            return None
+        L = beam_level(self.bitgrid.size, camera, tile)
+        if L is None:
+            return None
+        return self._beam_grid(L), float(4**L)
+
+    def beam_map(self, camera: Camera, tile: int | None = None):
+        """The beam prepass's start map of ``camera``, f32 ``[h / tile, w /
+        tile]`` on the renderer's device (one beam launch), or None where
+        the camera has no beam level."""
+        tile = tile or self.beam_tile
+        spec = self._beam_spec(camera, tile)
+        if spec is None:
+            return None
+        return beam_tiles([(*spec, camera)], tile, self.device)[0]
+
+    def beam_start(self, camera: Camera, tile: int | None = None):
+        """Each ray's conservative start from the beam prepass, f32 ``[h *
+        w]`` on the renderer's device, or None where the camera has no beam
+        level (the reference's ``beam_start``)."""
+        tile = tile or self.beam_tile
+        w, h = camera.resolution
+        with self._render_lock:
+            starts = self.beam_map(camera, tile)
+            return None if starts is None else expand_start(starts, tile, w, h)
+
+    def _splat_points(self) -> torch.Tensor:
+        """The surface voxels' centers on the device, f32 [N, 3]
+        (:func:`~voxelhex_tpu_torch.render.starts.splat_points`), kept
+        until the content changes (:meth:`invalidate_beam`)."""
+        if self._splat_pts is None:
+            self._splat_pts = torch.from_numpy(splat_points(self.bitgrid)).to(self.device)
+        return self._splat_pts
+
+    def splat_start(self, camera: Camera, margin: float = 3.0):
+        """Each ray's conservative start from the splat prepass, f32 ``[h *
+        w]`` on the renderer's device (the reference's ``splat_start``); the
+        resolution must be even."""
+        w, h = camera.resolution
+        with self._render_lock:
+            return expand_start(splat_tiles(self._splat_points(), camera, margin), 2, w, h)
+
+    def _frame_start(self, camera: Camera, compact: bool, splat_prepass: bool,
+                     beam_prepass: bool):
+        """``(start map, tile, prepass)`` of a frame as the reference's
+        ``_render_impl`` picks its prepass, or ``(None, 1, None)`` for the
+        plain frame: the depth prepass when ``prepass`` leaves levels
+        (``prepass_levels``, less while 2^levels does not divide the
+        resolution); else, with ``compact`` only, the beam prepass when the
+        camera has a beam level, else the splat prepass at an even
+        resolution."""
+        w, h = camera.resolution
+        levels = self.prepass_levels if self.prepass else 0
+        while levels and (h % (2**levels) or w % (2**levels)):
+            levels -= 1
+        if levels:
+            return prepass_start(self.tree, camera, levels, self.max_iters), 2, "depth"
+        if not compact:
+            return None, 1, None
+        if beam_prepass:
+            starts = self.beam_map(camera)
+            if starts is not None:
+                return starts, self.beam_tile, "beam"
+        if splat_prepass and h % 2 == 0 and w % 2 == 0:
+            return splat_tiles(self._splat_points(), camera), 2, "splat"
+        return None, 1, None
+
     def render(self, camera: Camera, bg=(0.0, 0.0, 0.0), compact: bool = True,
                out_u8: bool = False, out_device: bool = False,
                splat_prepass: bool = False, beam_prepass: bool = False,
@@ -127,34 +243,41 @@ class BitGridRenderer:
         """A ``[h, w, 3]`` frame, with the reference's keywords and defaults:
         f32, or u8 when ``out_u8``; a NumPy array, or the tensor on the
         renderer's device when ``out_device``.  On the card it is one launch
-        of the frame kernel, from the camera params to the pixels.
+        of the frame kernel, from the camera params to the pixels, after
+        the launches of the prepass that :meth:`_frame_start` picks: the
+        frame starts its rays from the prepass's start map, with no host
+        read between them.  ``last_stats["prepass"]`` names the prepass
+        that ran (``"beam"``, ``"splat"``, ``"depth"`` or None) and
+        ``last_stats["beam_fused"]`` whether the beam ran.
 
-        ``compact`` and ``defer_validation`` change no result here: one
-        thread per ray stops each ray on its own, and a frame has no plan to
-        validate.  The beam and splat prepasses are not ported (ROADMAP.md
-        queue 1 items 3 and 11)."""
-        del compact, defer_validation
-        if beam_prepass or splat_prepass:
-            raise NotImplementedError(
-                "beam_prepass and splat_prepass are not ported (ROADMAP.md queue 1 items 3 "
-                "and 11)"
-            )
+        ``compact=False`` renders as the reference's does without
+        compaction: the depth prepass, never the beam or splat prepass.
+        ``defer_validation`` changes no result here: a frame has no plan to
+        validate."""
+        del defer_validation
+        w, h = camera.resolution
         with self._render_lock:
-            out = render_frame(self.tree, camera, bg, out_u8, self.max_iters)
+            start, tile, kind = self._frame_start(camera, compact, splat_prepass, beam_prepass)
+            out = render_frame(self.tree, camera, bg, out_u8, self.max_iters, start, tile)
+            self.last_stats = {"rays": w * h, "prepass": kind, "beam_fused": kind == "beam"}
         return out if out_device else out.cpu().numpy()
 
     def invalidate_beam(self):
         """The content-change hook of the reference's edit pattern: swap
         ``renderer.bitgrid`` and ``renderer.tree`` (``device_bitgrid`` of
-        the new BitGrid on the renderer's device), then call this.  The port
-        keeps nothing derived from the content between calls (no beam grids,
-        no validated pose: every launch reads ``self.tree``), so the hook
-        checks that the new tree is on the renderer's device and matches the
-        BitGrid.  The delta baseline survives, as in the reference: it is
-        only a diff base, so the next :meth:`render_delta_many` fetches just
-        the rows that the change moved; the content version moves on, so the
-        next batch is not ``pose_validated``."""
+        the new BitGrid on the renderer's device), then call this.  It drops
+        what the prepasses derived from the old content: the beam grids and
+        the splat prepass's surface centers (the reference keeps its splat
+        centers, so that its splat starts go on from the old surface:
+        ROADMAP.md queue 3).  It checks that the new tree is on the
+        renderer's device and matches the BitGrid.  The delta baseline
+        survives, as in the reference: it is only a diff base, so the next
+        :meth:`render_delta_many` fetches just the rows that the change
+        moved; the content version moves on, so the next batch is not
+        ``pose_validated``."""
         self._content_version += 1
+        self._beam_grids.clear()
+        self._splat_pts = None
         t, bg = self.tree, self.bitgrid
         if t["occ_pairs"].device.type != self.device.type:
             raise ValueError(f"renderer.tree is on {t['occ_pairs'].device}, the renderer on "
@@ -163,33 +286,58 @@ class BitGridRenderer:
             raise ValueError("renderer.tree does not match renderer.bitgrid")
 
     @staticmethod
-    def _batch_resolution(cameras, beam_prepass):
+    def _batch_resolution(cameras):
         """The batch's one resolution, or None for an empty list or mixed
         resolutions (the reference's gates)."""
-        if beam_prepass:
-            raise NotImplementedError("beam_prepass is not ported (ROADMAP.md queue 1 item 3)")
         if not cameras:
             return None
         res = tuple(cameras[0].resolution)
         return res if all(tuple(c.resolution) == res for c in cameras) else None
+
+    def _batch_beams(self, cameras):
+        """The batch's beam start maps ``(maps, tile, use)``
+        (:mod:`~voxelhex_tpu_torch.ops.frames`), one beam launch a ``KMAX``
+        cameras, or None when ``cameras[0]`` has no beam spec (the
+        reference's gate).  Each camera marches its own beam level; a
+        camera with none takes the plain march, so each frame is
+        :meth:`render`'s of its camera with ``beam_prepass=True`` (the
+        reference takes ``cameras[0]``'s level for the whole batch:
+        ROADMAP.md queue 3)."""
+        first = self._beam_spec(cameras[0])
+        if first is None:
+            return None
+        # a pose repeated in the batch is looked up once
+        by_id = {id(cameras[0]): first}
+        for c in cameras[1:]:
+            if id(c) not in by_id:
+                by_id[id(c)] = self._beam_spec(c)
+        specs = [by_id[id(c)] for c in cameras]
+        beams = [(None, 1.0, c) if s is None else (*s, c) for s, c in zip(specs, cameras)]
+        maps = beam_tiles(beams, self.beam_tile, self.device)
+        return maps, self.beam_tile, [s is not None for s in specs]
 
     def render_many(self, cameras, bg=(0.0, 0.0, 0.0), out_u8: bool = False,
                     beam_prepass: bool = False, out_device: bool = False):
         """K frames of one resolution: ``[K, h, w, 3]``, f32 or u8, a NumPy
         array or the device tensor with ``out_device``; each equals
         :meth:`render`'s frame of its camera.  On the card it is one launch
-        of the batched kernel for each ``KMAX`` cameras.  ``None`` for an
-        empty list or mixed resolutions, as the reference returns; the port
-        has no plan to wait for.  The beam prepass raises (ROADMAP.md queue
-        1 item 3)."""
+        of the batched kernel for each ``KMAX`` cameras, after one launch of
+        the beam kernel with ``beam_prepass`` (:meth:`_batch_beams`).
+        ``None`` for an empty list, mixed resolutions, or ``beam_prepass``
+        where ``cameras[0]`` has no beam spec, as the reference returns; the
+        port has no plan to wait for."""
         cameras = list(cameras)
-        res = self._batch_resolution(cameras, beam_prepass)
+        res = self._batch_resolution(cameras)
         if res is None:
             return None
         with self._render_lock:
-            frames, _n, _f = render_frames(self.tree, cameras, bg, out_u8, self.max_iters)
+            starts = self._batch_beams(cameras) if beam_prepass else None
+            if beam_prepass and starts is None:
+                return None
+            frames, _n, _f = render_frames(self.tree, cameras, bg, out_u8, self.max_iters,
+                                           starts=starts)
             self.last_stats = {"rays": res[0] * res[1] * len(cameras),
-                               "batched_frames": len(cameras)}
+                               "batched_frames": len(cameras), "beam_fused": bool(beam_prepass)}
         return frames if out_device else frames.cpu().numpy()
 
     def render_delta_many(self, cameras, bg=(0.0, 0.0, 0.0), beam_prepass: bool = False):
@@ -205,7 +353,10 @@ class BitGridRenderer:
         the host.  A frame whose rows did not change is the frame before it;
         a change inside one contiguous band of flagged row groups covering
         less than half the rows fetches that band and patches it into a copy
-        of the frame before; any other change fetches the frame.
+        of the frame before; any other change fetches the frame.  With
+        ``beam_prepass`` the batch's beams run first, one launch
+        (:meth:`_batch_beams`), and the call returns None where
+        ``cameras[0]`` has no beam spec.
 
         The baseline is keyed on (w, h, bg, max_iters), not on the content,
         so it survives an edit (:meth:`invalidate_beam`).  It starts as an
@@ -218,10 +369,11 @@ class BitGridRenderer:
         ``last_stats["pose_validated"]`` is the reference's rule: the batch's
         token equals the batch before's.  The token is the key (with
         ``bg``), the device tree (its tensors' identity and the content
-        version that :meth:`invalidate_beam` moves on), and each camera's
-        origin, target and up as f32 and its fov."""
+        version that :meth:`invalidate_beam` moves on), whether the beam
+        prepass runs, and each camera's origin, target and up as f32 and
+        its fov."""
         cameras = list(cameras)
-        res = self._batch_resolution(cameras, beam_prepass)
+        res = self._batch_resolution(cameras)
         if res is None:
             return None
         w, h = res
@@ -230,12 +382,15 @@ class BitGridRenderer:
                self.max_iters)
         t = self.tree
         token = (key, id(t["occ_pairs"]), id(t["colors"]), id(t["palette"]),
-                 self._content_version,
+                 self._content_version, bool(beam_prepass),
                  tuple((tuple(np.asarray(c.origin, dtype=np.float32)),
                         tuple(np.asarray(c.target, dtype=np.float32)),
                         tuple(np.asarray(c.up, dtype=np.float32)), float(c.fov_y_deg))
                        for c in cameras))
         with self._render_lock:
+            starts = self._batch_beams(cameras) if beam_prepass else None
+            if beam_prepass and starts is None:
+                return None
             pose_validated = token == self._pose_token
             self._pose_token = None  # until this batch has delivered its frames
             state = self._delta_state
@@ -245,7 +400,7 @@ class BitGridRenderer:
             else:
                 _key, prev_dev, prev_host = state
             frames_dev, digest = render_frames_digest(self.tree, cameras, bg, self.max_iters,
-                                                      prev=prev_dev)
+                                                      prev=prev_dev, starts=starts)
             digest = _read(digest)  # the batch's one blocking read of the digests
             nrows, flags = digest[:, 0], digest[:, 1:]
             frames, cur, fetched, rows_fetched, reads = [], prev_host, 0, 0, 1
@@ -275,7 +430,8 @@ class BitGridRenderer:
             self._pose_token = token
             self.last_stats = {"rays": w * h * K, "batched_frames": K, "delta": True,
                                "delta_fetched": fetched, "delta_rows_fetched": rows_fetched,
-                               "pose_validated": pose_validated, "host_reads": reads}
+                               "pose_validated": pose_validated, "host_reads": reads,
+                               "beam_fused": bool(beam_prepass)}
         return frames
 
 

@@ -357,8 +357,11 @@ class StreamingView:
     library, :mod:`voxelhex_tpu_torch.native`, whose failed build raises;
     ``False`` fills them one voxel at a time from the tree and packs them
     in NumPy, the same content).  ``fuse_plan`` changes no result and is
-    accepted; ``prepass=True``, ``tracer="skip"`` and ``beam_prepass=True``
-    raise ``NotImplementedError`` (ROADMAP.md queue 1 item 11)."""
+    accepted, and so is ``prepass``, which the reference's view keeps and
+    never reads; ``beam_prepass`` starts the window's rays from the window
+    renderer's beam prepass (:mod:`~voxelhex_tpu_torch.ops.beam`), as the
+    reference's does; ``tracer="skip"`` raises ``NotImplementedError``
+    (ROADMAP.md queue 1 item 11)."""
 
     _ASYNC_CHUNK = 64  # regions a worker job
 
@@ -370,10 +373,7 @@ class StreamingView:
                  native: bool = True):
         if view_size % REGION:
             raise ValueError(f"view_size {view_size} is not a multiple of {REGION}")
-        check_options({"prepass": prepass, "tracer": tracer, "fuse_plan": fuse_plan})
-        if beam_prepass:
-            raise NotImplementedError("beam_prepass is not ported (ROADMAP.md queue 1 item 11, "
-                                      "with item 3)")
+        check_options({"tracer": tracer, "fuse_plan": fuse_plan})
         self.device = resolve_device(device)
         self.native = bool(native)
         self.tree = tree
@@ -383,6 +383,9 @@ class StreamingView:
         self._want_far = bool(far_field) and int(tree.size) > int(view_size)
         self.async_far = bool(async_far)
         self._far_pool = ThreadPoolExecutor(max_workers=1) if self.async_far else None
+        # the window's rays start from the window renderer's beam prepass; its
+        # grids follow the window's content (invalidate_beam after each change)
+        self.beam_prepass = bool(beam_prepass)
         self.view_size = int(view_size)
         self.regions_per_update = int(regions_per_update)
         self.placeholder_lod = bool(placeholder_lod)
@@ -933,17 +936,23 @@ class StreamingView:
         view's device with ``out_device``.  With the far field (a world
         larger than the window) the frame is one launch of the far-frame
         kernel, rays that miss in the window running on through the rings;
-        without it, one launch of the frame kernel."""
+        without it, one launch of the frame kernel.  With ``beam_prepass``,
+        the window renderer's beam over the camera in the window's frame
+        runs first (one launch) where the camera has a beam level, and the
+        window's rays start from it."""
         self.update(np.asarray(camera.target, dtype=np.float64), camera=camera)
         if not self._want_far:
             cam_local = self.layers(camera)[0][1]
-            return self.renderer.render(cam_local, bg=bg, out_u8=out_u8, out_device=out_device)
+            return self.renderer.render(cam_local, bg=bg, out_u8=out_u8, out_device=out_device,
+                                        beam_prepass=self.beam_prepass)
         if self.far is None:
             self.far = FarField(self)
         if self.async_far:
             self.far.refresh_async(self._far_pool)
         else:
             self.far.refresh()
-        frame = render_far(self.layers(camera), self.camera_inside(camera), bg, out_u8,
-                           self.renderer.max_iters)
+        layers = self.layers(camera)
+        start = self.renderer.beam_map(layers[0][1]) if self.beam_prepass else None
+        frame = render_far(layers, self.camera_inside(camera), bg, out_u8,
+                           self.renderer.max_iters, start, self.renderer.beam_tile)
         return frame if out_device else frame.cpu().numpy()
