@@ -602,6 +602,7 @@ def main():
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
                                      ("far.cu", "far_kernel", None),
+                                     ("far.cu", "far_start_kernel", None),
                                      ("stream.cu", "coarse_kernel", None),
                                      ("stream.cu", "region_scatter_kernel", None)):
         build_log = _build.build_log(source)

@@ -1,8 +1,9 @@
 """The port's beam prepass (plain versions, on the CPU) against the
 reference renderer's, bit for bit: ``beam_start`` at beam levels 1 and 2,
 the beam frames of ``render``, ``render_many`` and ``render_delta_many``
-in u8 and f32, the cameras with no beam level, and the reference's batch
-trap (one beam level for every camera of a batch).
+in u8 and f32, and the cameras with no beam level.  The reference's batch
+trap (one beam level for every camera of a batch) is in
+``test_torch_beam_batch.py``.
 
 Both packages render the same seeded 64^3 scene at 160 x 120 (20 x 15
 beam tiles): a camera inside the world takes level 1, one orbiting it
@@ -131,34 +132,6 @@ def test_beam_batches_equal_reference_frames(renderers):
     no_level = [cams[1], cams[0]]
     assert port.render_many(no_level, beam_prepass=True) is None
     assert port.render_delta_many(no_level, beam_prepass=True) is None
-
-
-def test_reference_batch_takes_one_beam_level(renderers):
-    """The reference's batch programs trace the beam of ``cameras[0]``'s
-    level for every camera (``_fused_batch_fn``, ``_fused_delta_fn``).  For
-    a later camera that needs level 2, its one-level beam (the reference's
-    own ``_beam_fn`` of ``cameras[0]``'s key on that camera's beam rays, as
-    the batch program traces it) declares tiles dead that hold voxels: its
-    frame loses pixels that the reference's ``render`` of the camera keeps.
-    The port marches each camera's own level, so its batch frame is its
-    ``render``'s, and the reference's."""
-    import jax.numpy as jnp
-    from voxelhex_tpu.render.camera import device_rays
-
-    ref, port = renderers
-    (ref0, cam0), (ref1, cam1) = camera_pair("inside"), camera_pair(FAR)
-    s0, s1 = ref._beam_spec(ref0), ref._beam_spec(ref1)
-    assert (s0["key"][0], s1["key"][0]) == (1, 2)
-    one_level = ref._beam_fn(*s0["key"])(s0["tree_b"], s1["o_b"], s1["d_b"])
-    o, d = device_rays(ref1)
-    bg = jnp.zeros(3)
-    trap = np.asarray(ref._to_u8(ref.trace_compacted(o, d, start_t=one_level, shade_bg=bg)[5]))
-    want = np.asarray(ref.render(ref1, out_u8=True, beam_prepass=True))
-    lost = int((trap.reshape(want.shape) != want).any(axis=-1).sum())
-    assert lost > 0
-    got = port.render_many([cam0, cam1], out_u8=True, beam_prepass=True)
-    np.testing.assert_array_equal(got[1], want)
-    np.testing.assert_array_equal(got[1], port.render(cam1, out_u8=True, beam_prepass=True))
 
 
 def test_beam_spec_gates(renderers):

@@ -543,7 +543,7 @@ def host_lib(tmp_path_factory):
     # launches run a block's threads as threads that meet at its barriers
     # (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    block_kernels = ("coarse_kernel", "far_kernel", "region_scatter_kernel")
+    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel")
 
     def launcher_of(default):
         def sub(m):
@@ -555,7 +555,7 @@ def host_lib(tmp_path_factory):
     for name, launcher, n_launches in (("frames", "vhx_host_launch", 2),
                                        ("albedo", "vhx_host_warp_launch", 2),
                                        ("stream", "vhx_host_launch", 5),
-                                       ("far", "vhx_host_launch", 1),
+                                       ("far", "vhx_host_launch", 2),
                                        ("beam", "vhx_host_launch", 1),
                                        ("splat", "vhx_host_launch", 2),
                                        ("prepass", "vhx_host_launch", 2)):
@@ -708,7 +708,7 @@ def test_frames_kernel_source_equals_plain(host_lib, K, res):
     w, h = res
     prev = render_frame_plain(tree, cams[0], bg, True).clone()
     prev[h // 2, w // 3, 1] ^= 1
-    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams, bg, True,
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames_start, tree, cams, bg, True,
                                              MAX_ITERS, prev)
     assert launches == -(-K // _build.KMAX)
     want, nrows, flags = render_frames_plain(tree, cams, bg, True, MAX_ITERS, prev)
@@ -725,7 +725,7 @@ def test_frames_kernel_source_f32_without_digest(host_lib):
 
     tree = _tree(16, 0.05)
     cams = _frames_case(3, (37, 21))
-    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams,
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames_start, tree, cams,
                                              (0.1, 0.2, 0.3), False, MAX_ITERS, None)
     assert digest is None and launches == 1 and frames.dtype == torch.float32
     assert _equal(frames, render_frames_plain(tree, cams, (0.1, 0.2, 0.3), False)[0])
@@ -923,7 +923,7 @@ def test_frames_kernel_source_cut_steps(host_lib, max_iters, res):
     cams = _cut_cameras(tree, res)
     bg = (0.1, 0.2, 0.3)
     prev = render_frame_plain(tree, cams[-1], bg, True, max_iters)
-    frames, digest, launches = launch_frames(host_lib.vhx_render_frames, tree, cams, bg, True,
+    frames, digest, launches = launch_frames(host_lib.vhx_render_frames_start, tree, cams, bg, True,
                                              max_iters, prev)
     want, nrows, flags = render_frames_plain(tree, cams, bg, True, max_iters, prev)
     assert launches == 1 and _equal(frames, want)

@@ -1,9 +1,10 @@
 """The port's depth prepass (plain versions, on the CPU) against the
 reference renderer's, bit for bit: frames of ``BitGridRenderer(prepass=True,
 prepass_levels=k)`` at k = 1 and 2 in u8 and f32; resolutions that force
-the levels down and ``compact=False``; the prepasses' precedence (the
-reference's ``_render_impl``); ``FramePipeline`` passing the prepass
-keywords through."""
+the levels down; ``FramePipeline`` passing the prepass keywords through.
+``compact=False`` and the prepasses' precedence are in
+``test_torch_prepass_uncompacted.py``, whose reference program
+(``_prepass_fn``) compiles apart."""
 
 import numpy as np
 import pytest
@@ -87,9 +88,10 @@ def test_prepass_frames_equal_reference(scenes, deep, levels):
     starts are not conservative)."""
     ref, port = with_levels(deep, levels)
     ref_cam, cam = camera_pair()
-    for out_u8 in (True, False):
+    for out_u8 in (False, True):
         want = np.asarray(ref.render(ref_cam, out_u8=out_u8))
-        np.testing.assert_array_equal(port.render(cam, out_u8=out_u8), want)
+        got = port.render(cam, out_u8=out_u8)
+        np.testing.assert_array_equal(got, want)
         assert port.last_stats["prepass"] == "depth"
     if levels == 2:
         from voxelhex_tpu_torch.render import fastest_renderer
@@ -100,41 +102,7 @@ def test_prepass_frames_equal_reference(scenes, deep, levels):
             c = camera_pair(res)[1]
             np.testing.assert_array_equal(port.render(c, out_u8=True), other.render(c, out_u8=True))
         assert port.last_stats["prepass"] is None
-        assert (plain.render(cam, out_u8=True) != port.render(cam, out_u8=True)).any()
-
-
-def test_prepass_without_compaction(deep):
-    """``compact=False``: the depth prepass runs, the beam keyword is
-    ignored (the reference's ``_render_impl`` takes its one-program level
-    loop, ``_prepass_fn``, which traces the same starts)."""
-    _ref, port = with_levels(deep, 2)
-    cam = camera_pair((96, 72), yaw=130.0)[1]
-    want = port.render(cam, out_u8=True)
-    np.testing.assert_array_equal(port.render(cam, out_u8=True, compact=False,
-                                              beam_prepass=True), want)
-    assert port.last_stats["prepass"] == "depth"
-
-
-def test_prepass_precedence(scenes, deep):
-    """The reference's order: the depth prepass when it has levels (the beam
-    and splat keywords then change nothing); else the beam when the camera
-    has a level; else the splat at an even resolution; ``compact=False``
-    runs neither the beam nor the splat."""
-    from voxelhex_tpu_torch.render import fastest_renderer
-
-    _ref, two = with_levels(deep, 2)
-    port = fastest_renderer(scenes[1], device="cpu")
-    cam = camera_pair((96, 72))[1]  # a beam level at this resolution
-    depth = two.render(cam, out_u8=True)
-    np.testing.assert_array_equal(two.render(cam, out_u8=True, beam_prepass=True,
-                                             splat_prepass=True), depth)
-    assert two.last_stats["prepass"] == "depth"
-    for kw, ran in (({"beam_prepass": True, "splat_prepass": True}, "beam"),
-                    ({"splat_prepass": True}, "splat")):
-        port.render(cam, out_u8=True, **kw)
-        assert port.last_stats["prepass"] == ran
-    port.render(cam, out_u8=True, compact=False, beam_prepass=True, splat_prepass=True)
-    assert port.last_stats["prepass"] is None
+        assert (plain.render(cam, out_u8=True) != got).any()
 
 
 def test_frame_pipeline_passes_the_prepass_keywords(scenes):

@@ -1,9 +1,9 @@
 """The port's splat prepass (plain versions, on the CPU) against the
 reference renderer's, bit for bit: ``splat_start`` and the splat frames in
-u8 and f32 on the cases of the reference's ``test_splat_prepass_exact``
-(an orbit, a close-up and cameras inside the scene) and a distant camera
-whose splats are reliable, and the reference's stale-centers trap: after
-an edit, its splat prepass starts rays from the old surface."""
+u8 (and f32 on one orbit) on the cases of the reference's
+``test_splat_prepass_exact`` (an orbit, a close-up and cameras inside the
+scene) and a distant camera whose splats are reliable.  Odd resolutions
+and the reference's stale-centers trap are in ``test_torch_splat_edit.py``."""
 
 import numpy as np
 import pytest
@@ -77,7 +77,7 @@ def test_splat_points_equal_reference(renderers):
 @pytest.mark.parametrize("case", range(7))
 def test_splat_start_and_frames_equal_reference(renderers, case):
     """``splat_start`` bit for bit, and the frames in u8 (and f32 for the
-    orbits)."""
+    first orbit)."""
     ref, port = renderers
     ref_cam, cam = camera_pairs()[case]
     want = np.asarray(ref.splat_start(ref_cam))
@@ -86,81 +86,8 @@ def test_splat_start_and_frames_equal_reference(renderers, case):
     np.testing.assert_array_equal(got.numpy(), want)
     if case in (0, 2):  # texels that splats reached, and texels that they did not
         assert (want > 0).any() and (want == 0).any()
-    for out_u8 in (True, False) if case in (0, 2) else (True,):
+    for out_u8 in (True, False) if case == 0 else (True,):
         frame = port.render(cam, out_u8=out_u8, splat_prepass=True)
         assert port.last_stats["prepass"] == "splat"
         np.testing.assert_array_equal(
             frame, np.asarray(ref.render(ref_cam, out_u8=out_u8, splat_prepass=True)))
-
-
-def test_splat_needs_an_even_resolution(renderers):
-    """At an odd resolution ``render`` gives the plain frame, as the
-    reference's; ``splat_start`` raises."""
-    from voxelhex_tpu_torch.render.camera import orbit_camera
-
-    _ref, port = renderers
-    cam = orbit_camera(64.0, resolution=(63, 48))
-    frame = port.render(cam, out_u8=True, splat_prepass=True)
-    assert port.last_stats["prepass"] is None
-    np.testing.assert_array_equal(frame, port.render(cam, out_u8=True))
-    with pytest.raises(ValueError, match="even resolution"):
-        port.splat_start(cam)
-
-
-def wall_scene(package):
-    """A 64 world holding one wall (z in [48, 52)), in the reference's or
-    the port's BoxTree."""
-    import importlib
-
-    boxtree = importlib.import_module(f"{package}.tree.boxtree")
-    tree = boxtree.BoxTree(64, 4, auto_simplify=False)
-    for x in range(0, 64, 4):
-        for y in range(0, 64, 4):
-            tree.insert_at_lod((x, y, 48), 4, boxtree.Albedo(200, 200, 200, 255))
-    return tree
-
-
-def edit(renderer, tree, build_bitgrid, device_bitgrid, **kw):
-    """The reference's edit pattern: swap the BitGrid and its device tree in,
-    then ``invalidate_beam``."""
-    renderer.bitgrid = build_bitgrid(tree)
-    renderer.tree = device_bitgrid(renderer.bitgrid, **kw)
-    renderer.invalidate_beam()
-
-
-def test_splat_after_an_edit(renderers):
-    """A block inserted in front of a wall, then the splat frame: the
-    reference's ``invalidate_beam`` keeps its splat centers, so its rays
-    start at the old wall and the block does not show; the port drops them
-    with the content, and its splat frame is the plain frame, the block in
-    it.  (The module's renderers take the wall by the same edit pattern;
-    the reference's centers are dropped by hand first, as a new renderer
-    would start.)"""
-    from voxelhex_tpu.render.bitgrid import build_bitgrid, device_bitgrid
-    from voxelhex_tpu.render.camera import Camera as RefCamera
-    from voxelhex_tpu.tree.boxtree import Albedo as RefAlbedo
-    from voxelhex_tpu_torch.render import bitgrid as port_bitgrid
-    from voxelhex_tpu_torch.render.camera import Camera
-    from voxelhex_tpu_torch.tree.boxtree import Albedo
-
-    ref, port = renderers
-    ref_tree, tree = wall_scene("voxelhex_tpu"), wall_scene("voxelhex_tpu_torch")
-    eye, target = np.array([32.0, 32.0, -40.0]), np.array([32.0, 32.0, 32.0])
-    ref_cam = RefCamera(origin=eye, target=target, resolution=RES)
-    cam = Camera(origin=eye, target=target, resolution=RES)
-    for step in ("wall", "block"):
-        if step == "block":
-            ref_tree.insert_at_lod((24, 24, 8), 8, RefAlbedo(0, 0, 255, 255))
-            tree.insert_at_lod((24, 24, 8), 8, Albedo(0, 0, 255, 255))
-        edit(ref, ref_tree, build_bitgrid, device_bitgrid)
-        edit(port, tree, port_bitgrid.build_bitgrid, port_bitgrid.device_bitgrid, device="cpu")
-        if step == "wall":
-            ref._splat_pts = None
-        ref_splat = np.asarray(ref.render(ref_cam, out_u8=True, splat_prepass=True))
-        got = port.render(cam, out_u8=True, splat_prepass=True)
-    plain = port.render(cam, out_u8=True)
-    np.testing.assert_array_equal(got, plain)
-    blue = (plain[..., 2] > 0) & (plain[..., 0] == 0)
-    assert blue.sum() > 16  # the block shows in the plain frame
-    # and not in the reference's splat frame
-    assert ((ref_splat != plain).any(axis=-1) & blue).sum() == blue.sum()

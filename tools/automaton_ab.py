@@ -267,8 +267,13 @@ def ab(build, parent, card, rounds, other="parent"):
     libs = {other: entries(parent), "change": entries(build)}
 
     def frames(lib):
-        return launch_frames(lib["vhx_render_frames"], tree, bench, (0.0, 0.0, 0.0), True,
-                             MAX_ITERS, prev, stream=stream)[:2]
+        # the entry without start maps, which every tree has, called with
+        # the arguments of vhx_render_frames_start less the start map's three
+        def entry(*args):
+            return lib["vhx_render_frames"](*args[:5], *args[8:])
+
+        return launch_frames(entry, tree, bench, (0.0, 0.0, 0.0), True, MAX_ITERS, prev,
+                             stream=stream)[:2]
 
     def frame(lib):
         out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)

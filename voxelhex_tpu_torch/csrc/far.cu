@@ -99,10 +99,15 @@ __device__ __forceinline__ void thread_pixel(int t, int& x, int& y) {
     y = blockIdx.y * WARP_H + lane / vhx::WARP_W;
 }
 
-__global__ void __launch_bounds__(THREADS)
-far_kernel(const __grid_constant__ FarParams P, const float* __restrict__ start,
-           int start_tile, int start_stride, float* __restrict__ rgb_out,
-           unsigned char* __restrict__ u8_out) {
+// The frame of this block's pixels.  With kStart the window's rays start at
+// least their tile's value of a start map along: one value a `start_tile` x
+// `start_tile` tile of pixels, `start_stride` tiles a row.  Without it the
+// window's rays start at their entry.
+template <bool kStart>
+__device__ __forceinline__ void far_frame(const FarParams& P, const float* __restrict__ start,
+                                          int start_tile, int start_stride,
+                                          float* __restrict__ rgb_out,
+                                          unsigned char* __restrict__ u8_out) {
     __shared__ int2 levels[VHX_FAR_MAX_LAYERS * VHX_MAX_LEVELS];
     __shared__ Pixels px;
     const int t = threadIdx.x;
@@ -137,9 +142,11 @@ far_kernel(const __grid_constant__ FarParams P, const float* __restrict__ start,
             // inside; the window's from its start map when there is one
             float start_t = 0.f;
             bool use_start = l > 0 && P.inside;
-            if (l == 0 && start) {
-                start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
-                use_start = true;
+            if constexpr (kStart) {
+                if (l == 0) {
+                    start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
+                    use_start = true;
+                }
             }
             vhx::init<true>(m, o, d, g, start_t, use_start);
             vhx::StopAtHit stop;
@@ -168,6 +175,20 @@ far_kernel(const __grid_constant__ FarParams P, const float* __restrict__ start,
     }
 }
 
+__global__ void __launch_bounds__(THREADS)
+far_kernel(const __grid_constant__ FarParams P, float* __restrict__ rgb_out,
+           unsigned char* __restrict__ u8_out) {
+    far_frame<false>(P, nullptr, 1, 0, rgb_out, u8_out);
+}
+
+// The frame whose window starts from the window renderer's beam (beam.cu)
+__global__ void __launch_bounds__(THREADS)
+far_start_kernel(const __grid_constant__ FarParams P, const float* __restrict__ start,
+                 int start_tile, int start_stride, float* __restrict__ rgb_out,
+                 unsigned char* __restrict__ u8_out) {
+    far_frame<true>(P, start, start_tile, start_stride, rgb_out, u8_out);
+}
+
 }  // namespace
 
 extern "C" int vhx_far_params_size() { return (int)sizeof(FarParams); }
@@ -192,9 +213,13 @@ extern "C" cudaError_t vhx_render_far_start(const FarParams* params, const float
     if (grid.y > 65535) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    far_kernel<<<grid, THREADS, 0, stream>>>(P, start, start_tile,
-                                             (P.w + start_tile - 1) / start_tile, rgb,
-                                             static_cast<unsigned char*>(u8));
+    auto* out = static_cast<unsigned char*>(u8);
+    if (start)
+        far_start_kernel<<<grid, THREADS, 0, stream>>>(P, start, start_tile,
+                                                       (P.w + start_tile - 1) / start_tile, rgb,
+                                                       out);
+    else
+        far_kernel<<<grid, THREADS, 0, stream>>>(P, rgb, out);
     return cudaGetLastError();
 }
 

@@ -122,11 +122,11 @@ def _check_starts(starts, cameras, dev):
 def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_index=0,
                   stream=None, starts=None):
     """Allocate the outputs on the tree's device and call ``entry`` (the
-    signature of ``vhx_render_frames``, or with ``starts`` that of
-    ``vhx_render_frames_start``) once for each chunk of up to ``KMAX``
-    frames: ``(frames, digest int32 [K, 1 + G] or None, launches)``.  Chunk
-    c > 0 compares its frame 0 with chunk c - 1's last frame, which the
-    launch before it wrote on the same stream."""
+    signature of ``vhx_render_frames_start``: no start map without
+    ``starts``) once for each chunk of up to ``KMAX`` frames: ``(frames,
+    digest int32 [K, 1 + G] or None, launches)``.  Chunk c > 0 compares its
+    frame 0 with chunk c - 1's last frame, which the launch before it wrote
+    on the same stream."""
     dev = tree["occ_pairs"].device
     w, h = cameras[0].resolution
     K = len(cameras)
@@ -140,13 +140,14 @@ def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_i
         k0 = i * _build.KMAX
         out = frames[k0:k0 + p.n_frames].data_ptr()
         base = None if prev is None else (prev if k0 == 0 else frames[k0 - 1]).data_ptr()
-        head = (tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
-                tree["palette"].data_ptr(), n_colors, p)
+        start, tile, mask = None, 1, 0
         if starts is not None:
             maps, tile, use = starts
+            start, tile = maps[k0].data_ptr(), int(tile)
             mask = sum(1 << k for k in range(p.n_frames) if use[k0 + k])
-            head += (maps[k0].data_ptr(), int(tile), mask)
-        err = entry(*head, None if out_u8 else out, out if out_u8 else None, base,
+        err = entry(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                    tree["palette"].data_ptr(), n_colors, p, start, tile, mask,
+                    None if out_u8 else out, out if out_u8 else None, base,
                     None if digest is None else digest[k0].data_ptr(), device_index, stream)
         _build.check(err, "frames kernel launch")
         launches += 1
@@ -188,8 +189,8 @@ def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts):
         raise ValueError("empty palette")
     lib = _build.library()
     frames, digest, n = launch_frames(
-        lib.vhx_render_frames if starts is None else lib.vhx_render_frames_start, tree,
-        cameras, bg, out_u8, max_iters, prev, device_index=dev.index or 0,
+        lib.vhx_render_frames_start, tree, cameras, bg, out_u8, max_iters, prev,
+        device_index=dev.index or 0,
         stream=torch.cuda.current_stream(dev).cuda_stream, starts=starts)
     render_frames.launches += n
     return frames, digest

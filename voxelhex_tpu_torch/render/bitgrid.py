@@ -355,7 +355,7 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     ``max_iters`` iterations.  ``entry_fma``: on which axes the entry point
     ``o + d * enter`` is one fused multiply-add, as XLA:CPU compiles the
     reference program being matched (the renderer's frame: x and y; the
-    beam prepass: none)."""
+    beam prepass: z alone)."""
     top_level = n_levels - 1
     Si = int(size)
     cell_sizes = [float(4**l) for l in range(n_levels)]
