@@ -135,7 +135,33 @@ beam + frame and of the plain delta batch against the beam's, at the bench
 pose and the terrain, and ``far.cu`` with the window's start; (e) the frame
 kernels' registers without a start; (f) each new kernel's time, plain
 version, bound and library call (``scatter_reduce_`` for the splat's
-scatter, beside a profile of its two passes).  The last line is ``{"ok": true,
+scatter, beside a profile of its two passes).
+
+Phase 15 runs the skip tracer and the training step's beam at 1920x1080:
+(a) the main path: the bench pose's frames of ``BitGridRenderer(tracer=
+"skip")`` plain, with the beam and with ``prepass_levels=2`` (one skip
+instance of ``frame.cu`` each, after the prepass's launches) to the
+reference's skip digests, ``render_delta_many([cam] * 16)`` twice (one
+skip ``frames.cu`` launch a batch), its ``trace`` of the bench rays, the
+soft renderer's ``trace_hits(beam=beam_spec(cam))`` (one beam and one
+``multihit.cu`` start launch), four training steps with the beam on the
+constant target to the reference's losses and param sums (phase 8's), a
+``train_steps_fused(16, beam=spec)`` chain (one beam launch, then four
+launches a step, no host read) and ``SoftRenderer(tracer="skip")``'s march
+with and without the beam; (b) each new instance against its plain version
+on every ray or pixel: the skip trace, frames from no start and from the
+beam's, a 3-pose skip batch, the skip prepass's levels, the multi-hit
+march's start, skip and skip-with-start forms; (c) the 1024 terrain's skip
+frame (640 MiB of rows) against its plain version and its stack frame;
+(d) the beam march's counts and voxels against the plain march's; (e) the
+skip march's against the stack's; (f) device times in turns of the skip
+frame against the stack frame (bench and terrain), of the skip multi-hit
+march against the stack's, of beam + start march against the plain march,
+of a training step (device time, CUDA events around the calls, host
+clock) and of a 16-step chain (CUDA events, host clock) with the beam
+against without, and the mode ``bench.py`` would keep, the
+body iterations and row fetches a ray against the stack's moves, and each
+new instance's time, plain version and bound.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -236,6 +262,43 @@ SPLAT_OPS_PER_POINT = 40
 SPLAT_OPS_PER_TEXEL = 60
 # ptxas's registers of the frame kernels before they took a start map
 FRAME_REGISTERS = {"frame_kernel": 40, "frames_kernel": 55}
+
+# ---- phase 15, the skip tracer and the soft beam at 1920x1080: sha256 of the
+# reference package's u8 frames at the bench pose under tracer="skip", made
+# on the CPU with
+#   fastest_renderer(flatten(bench.build_scene()), tracer="skip").render(
+#       orbit_camera(128.0, resolution=(1920, 1080)), out_u8=True)
+# (and beam_prepass=True), and with BitGridRenderer(flatten(...), prepass=True,
+# prepass_levels=2, tracer="skip"): the last is the stack renderer's digest
+SKIP_SHA256 = "abf17fcbfdb47d611f4e7276a09e7dfcc2c0e8fb654448e5d2bbcd89003242f0"
+SKIP_BEAM_SHA256 = "87e347f29872e1812e4a38ecef20ca670e2ef6d1c39f4560fb992335abf1082f"
+SKIP_PREPASS_SHA256 = PREPASS_SHA256
+# the pixels where the reference's skip frame at the bench pose differs from
+# its stack frame (REFERENCE_SHA256[40.0]): rays that graze a voxel's edge,
+# where the two tracers' float chains part
+SKIP_STACK_PIXELS = 3
+# sha256 of count (int32 [R]) then voxels (int32 [R, 2, 3]) of the reference
+# package's soft march at the bench pose (as HITS_SHA256), with the beam
+#   SoftRenderer(flatten(bench.build_scene()), max_hits=2, max_iters=2048)
+#   .trace_hits(o, d, compact=True, beam=soft.beam_spec(cam))
+# and with tracer="skip", without and with the beam; and the rays on which
+# each differs from the plain stack march (HITS_SHA256) in counts or voxels:
+# a start or the other tracer moves a ray's float path, and a ray that
+# grazes a voxel's edge can find another voxel
+BEAM_HITS_SHA256 = "40d3df51ef8459cae5922bbf405a5a4d4f7d7b549a6a83c6ce5c96e239525052"
+SKIP_HITS_SHA256 = "1d5353b4672cbd2afa4fa3f64a7ca7df8391ec3254f6450a0778a012d58c2942"
+SKIP_BEAM_HITS_SHA256 = "4bd8b23a96b3b4f088975b26b54589adbe3343d2e77409965967d12a258061b5"
+BEAM_HITS_RAYS, SKIP_HITS_RAYS, SKIP_BEAM_HITS_RAYS = 5, 2, 6
+# on the other rays, the distance slots outside the reference's tolerance of a
+# start (START_DIST_TOL: rtol 1e-6, atol 1e-5, tests/test_soft_diff.py) in
+# the reference's own run: one slot 0.000351 apart with the beam, none without
+START_DIST_TOL = (1e-6, 1e-5)
+BEAM_DIST_SLOTS, SKIP_DIST_SLOTS, SKIP_BEAM_DIST_SLOTS = 1, 0, 1
+SKIP_SUBSTEPS = 3  # the reference's skip_substeps default
+# f32 and int32 operations of one body iteration of the skip tracer, counted
+# low from skip.cuh: one substep's level tests (about 8 a level) and its DDA
+# step, and the row fetch's address
+SKIP_OPS_PER_BODY = 60
 
 # ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
 # (examples/terrain.py's StreamingView, BASELINE.json's config 4): the
@@ -601,6 +664,10 @@ def main():
                                      ("prepass.cu", "depth_start_kernel", None),
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
+                                     ("frame.cu", "frame_skip_kernel", None),
+                                     ("frames.cu", "frames_skip_kernel", None),
+                                     ("traverse.cu", "traverse_skip_kernel", None),
+                                     ("multihit.cu", "multihit_form_kernel", None),
                                      ("far.cu", "far_kernel", None),
                                      ("far.cu", "far_start_kernel", None),
                                      ("stream.cu", "coarse_kernel", None),
@@ -858,6 +925,12 @@ def main():
     entries, counts = prepass_slice(dev, card, terrain, frame_ms)
     for counter, name in (("frame", "frame"), ("frames", "frames"), ("far", "far_frame")):
         by_name[name]["launches"] += counts[counter]
+    kernels += entries
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    entries, counts = skip_slice(dev, card, terrain)
+    for name, n in counts.items():
+        by_name[name]["launches"] += n
     kernels += entries
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3631,6 +3704,442 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     return entries, {"frame": launches.get("render_frame", 0),
                      "frames": launches.get("render_frames", 0),
                      "far": launches.get("render_far", 0)}
+
+
+def skip_slice(dev, card, terrain):
+    """Phase 15: the skip tracer and the training step's beam on the card at
+    1920x1080 (module docstring).  Returns the entries of the new kernel
+    instances and the main path's launches of the earlier kernels (beam,
+    composite forward and backward, Adam)."""
+    from voxelhex_tpu_torch.diff.optim import adam
+    from voxelhex_tpu_torch.diff.soft import SoftRenderer
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops import adam as adam_ops
+    from voxelhex_tpu_torch.ops.beam import beam_tiles
+    from voxelhex_tpu_torch.ops.composite import composite_backward, composite_forward
+    from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.ops.prepass import (depth_start, level_camera, level_depth,
+                                                level_depth_plain, prepass_start)
+    from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
+    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import (build_bitgrid, make_bitgrid_tracer,
+                                                   make_multihit_tracer, make_skip_tracer)
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.scene import build_scene
+
+    t_all = time.time()
+    tag = f"[{card}]"
+    S3 = SKIP_SUBSTEPS
+    K = MAX_HITS
+    # (wrapper, its counter): each kernel instance's launches
+    counters = {"skip_frame": (render_frame, "skip_launches"),
+                "skip_frames": (render_frames, "skip_launches"),
+                "skip_prepass": (level_depth, "skip_launches"),
+                "skip_traverse": (trace_skip, "launches"),
+                "multihit_start": (multihit, "start_launches"),
+                "multihit_skip": (multihit, "skip_launches"),
+                "multihit": (multihit, "launches"),
+                "frame": (render_frame, "launches"),
+                "frames": (render_frames, "launches"),
+                "prepass": (level_depth, "launches"),
+                "depth_start": (depth_start, "launches"),
+                "beam": (beam_tiles, "launches"),
+                "composite_forward": (composite_forward, "launches"),
+                "composite_backward": (composite_backward, "launches"),
+                "adam": (adam_ops.adam_update, "launches")}
+
+    def counts():
+        return {k: getattr(f, a) for k, (f, a) in counters.items()}
+
+    def launched(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: n - before[k] for k, n in counts().items() if n - before[k]}
+
+    def expect(what, got, want):
+        log(f"  {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, want {want}")
+
+    # (a) the main path, the counts zeroed just before it and read just after
+    t0 = time.time()
+    scene = build_scene()
+    skip = fastest_renderer(scene, tracer="skip")
+    deep = fastest_renderer(scene, tracer="skip", prepass=True, prepass_levels=PREPASS_LEVELS)
+    stack = fastest_renderer(scene)
+    cam = orbit_camera(128.0, resolution=RES)
+    o, d = device_rays(cam, dev)
+    R = o.shape[0]
+    soft = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, device=dev)
+    soft_skip = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, tracer="skip", device=dev)
+    spec = soft.beam_spec(cam)
+    if spec is None:
+        raise AssertionError("the bench pose has no beam level for the soft renderer")
+    opt = adam(LR)
+    target = torch.tensor(CONST_TARGET, dtype=torch.float32, device=dev).expand(R, 3).contiguous()
+    torch.cuda.synchronize()
+    for f, a in counters.values():
+        setattr(f, a, 0)
+    main = {}
+    for name, r, kw, want_sha, want in (
+            ("skip", skip, {}, SKIP_SHA256, {"skip_frame": 1}),
+            ("skip + beam", skip, {"beam_prepass": True}, SKIP_BEAM_SHA256,
+             {"beam": 1, "skip_frame": 1}),
+            ("skip + depth prepass", deep, {}, SKIP_PREPASS_SHA256,
+             {"skip_prepass": PREPASS_LEVELS, "depth_start": 1, "skip_frame": 1})):
+        frame, got = launched(lambda: r.render(cam, out_u8=True, out_device=True, **kw))
+        digest = sha(frame)
+        log(f"  {name} frame: launches {got}, prepass {r.last_stats['prepass']}, sha256 "
+            f"{digest} {'==' if digest == want_sha else '!='} reference")
+        if got != want:
+            raise AssertionError(f"{name} frame: launches {got}, want {want}")
+        if digest != want_sha:
+            raise AssertionError(f"the {name} frame differs from the JAX digest")
+        main[name] = frame
+    delta = fastest_renderer(scene, tracer="skip")
+    stats = []
+    for _ in range(2):
+        frames, got = launched(lambda: delta.render_delta_many([cam] * BATCH))
+        stats.append(dict(delta.last_stats))
+        expect(f"skip delta batch of {BATCH}", got, {"skip_frames": 1})
+        if sha(frames[0]) != SKIP_SHA256 or any(f is not frames[0] for f in frames):
+            raise AssertionError("skip delta batch: frames differ from the skip frame")
+    if (stats[0]["delta_fetched"], stats[1]["delta_fetched"], stats[1]["host_reads"]) != (1, 0, 1):
+        raise AssertionError(f"skip delta batches fetched {stats}, want phase 4b's 1 then 0")
+    k_trace, got = launched(lambda: skip.trace(o, d))
+    expect("skip trace of the bench rays", got, {"skip_traverse": 1})
+    k_beam_hits, got = launched(lambda: soft.trace_hits(o, d, beam=spec))
+    expect("soft trace_hits(beam=spec)", got, {"beam": 1, "multihit_start": 1})
+    params = soft.init_params()
+    sums0 = {k: float(v.double().sum()) for k, v in params.items()}
+    state = opt.init(params)
+    losses, sums = [], {k: [] for k in sums0}
+    before = counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.set_sync_debug_mode("error")  # a step that reads the host raises
+        try:
+            params, state, loss = soft.train_step_fused(params, state, opt, o, d, target,
+                                                        beam=spec)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(float(loss))
+        for k in sums:
+            sums[k].append(float(params[k].double().sum()))
+    got = {k: n - before[k] for k, n in counts().items() if n - before[k]}
+    step4 = {"beam": TRAIN_STEPS, "multihit_start": TRAIN_STEPS, "composite_forward": TRAIN_STEPS,
+             "composite_backward": TRAIN_STEPS, "adam": TRAIN_STEPS}
+    expect(f"{TRAIN_STEPS} training steps with the beam", got, step4)
+    bad = []
+    for i in range(TRAIN_STEPS):
+        rel = abs(losses[i] - REF_LOSSES[i]) / REF_LOSSES[i]
+        line = f"  step {i} with the beam: loss {losses[i]!r} (rel err {rel:.3g} to phase 8's)"
+        if rel > LOSS_RTOL:
+            bad.append(f"loss {i}")
+        for k in sums:
+            gotk, ref = sums[k][i] - sums0[k], REF_SUMS[k][i] - REF_SUM0[k]
+            line += f"; {k} sum change {gotk!r} (reference {ref!r})"
+            if abs(gotk - ref) > SUM_RTOL * abs(ref) + SUM_ATOL:
+                bad.append(f"{k} sum {i}")
+        log(line)
+    if bad:
+        raise AssertionError(f"the training steps with the beam differ from phase 8's: {bad}")
+    before = counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, chain_losses = soft.train_steps_fused(params, state, opt, o, d, target,
+                                                             CHAIN, beam=spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {k: n - before[k] for k, n in counts().items() if n - before[k]}
+    expect(f"train_steps_fused({CHAIN}, beam=spec), no host read", got,
+           {"beam": 1, "multihit_start": CHAIN, "composite_forward": CHAIN,
+            "composite_backward": CHAIN, "adam": CHAIN})
+    if not bool(torch.isfinite(chain_losses).all()):
+        raise AssertionError("the chain's losses are not finite")
+    k_skip_hits, got = launched(lambda: soft_skip.trace_hits(o, d))
+    expect("SoftRenderer(tracer='skip').trace_hits", got, {"multihit_skip": 1})
+    k_skip_beam_hits, got = launched(lambda: soft_skip.trace_hits(o, d, beam=spec))
+    expect("SoftRenderer(tracer='skip').trace_hits(beam=spec)", got,
+           {"beam": 1, "multihit_skip": 1})
+    launches = counts()
+    log(f"phase 15 (a) main path: {time.time() - t0:.1f} s, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    missing = [k for k in ("skip_frame", "skip_frames", "skip_prepass", "skip_traverse",
+                           "multihit_start", "multihit_skip") if not launches[k]]
+    if missing:
+        raise AssertionError(f"the main path launched no {missing}")
+
+    # (b) each new instance against its plain version, every ray or pixel
+    t0 = time.time()
+    errs, plain_ms, stats = {}, {}, {}
+
+    def check(name, k, p, what):
+        n_bad = sum(int((~same(a, b)).reshape(a.shape[0], -1).any(dim=1).sum())
+                    for a, b in zip(k, p))
+        errs[name] = max(errs.get(name, 0.0), max(max_abs_err(a, b) for a, b in zip(k, p)))
+        log(f"  {what}: {n_bad} rows differ from the plain version")
+        if n_bad:
+            raise AssertionError(f"{what} differs from its plain version")
+
+    def plain_timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t1) * 1e3
+        return out
+
+    tree = skip.tree
+    tracer = make_skip_tracer(len(tree["bases"]), tree["size"], MAX_ITERS, S3)
+    reads = torch.zeros(tree["skip_rows"].shape[0], dtype=torch.bool, device=dev)
+    st = tracer.run(tree, tracer.init(tree, o, d), MAX_ITERS, reads=reads)
+    stats["bench"] = (st["iters"], st["fetches"], st["hit"], st["hvox"], reads)
+    p_trace = plain_timed("skip_traverse", lambda: trace_skip_plain(tree, o, d, MAX_ITERS, S3))
+    check("skip_traverse", k_trace, p_trace, "skip trace of the bench rays")
+    p_frame = plain_timed("skip_frame", lambda: render_frame_plain(tree, cam,
+                                                                   skip_substeps=S3))
+    check("skip_frame", [main["skip"]], [p_frame], "skip frame (no start)")
+    bmap = skip.beam_map(cam)
+    check("skip_frame", [main["skip + beam"]],
+          [render_frame_plain(tree, cam, start=bmap, start_tile=8, skip_substeps=S3)],
+          "skip frame from the beam's start map")
+    cams3 = [orbit_camera(128.0, yaw_deg=y, resolution=RES) for y in YAWS]
+    prev = torch.zeros((RES[1], RES[0], 3), dtype=torch.uint8, device=dev)
+    k3 = render_frames(tree, cams3, prev=prev, skip_substeps=S3)
+    p3 = plain_timed("skip_frames", lambda: render_frames_plain(tree, cams3, prev=prev,
+                                                                skip_substeps=S3))
+    check("skip_frames", k3, p3, f"skip batch of {len(cams3)} poses, frames and digests")
+    depth_k, prepass_stats = None, []
+    t1 = time.perf_counter()
+    for i in range(PREPASS_LEVELS, 0, -1):
+        cam_i = level_camera(cam, i)
+        k = level_depth(tree, cam_i, depth_k, skip_substeps=S3)
+        st_i = {}
+        p = level_depth_plain(tree, cam_i, depth_k, stats=st_i, skip_substeps=S3)
+        prepass_stats.append(st_i)
+        check("skip_prepass", [k], [p], f"skip prepass level {i}")
+        depth_k = k
+    torch.cuda.synchronize()
+    plain_ms["skip_prepass"] = (time.perf_counter() - t1) * 1e3
+    soft_map = soft.beam_starts(spec, R)  # the renderer's beam map, from the soft renderer
+    if not bool(same(soft_map[0], bmap).all()):
+        raise AssertionError("the soft renderer's beam starts differ from the renderer's")
+    mh_stack = make_multihit_tracer(len(tree["bases"]), tree["size"], K, MAX_ITERS,
+                                    **KERNEL_CONFIG)
+    for name, kw, k in (("multihit_start", {"start": soft_map}, k_beam_hits),
+                        ("multihit_skip", {"skip_substeps": S3}, k_skip_hits),
+                        ("multihit_skip", {"skip_substeps": S3, "start": soft_map},
+                         k_skip_beam_hits)):
+        t_tree = soft_skip.tree if "skip_substeps" in kw else soft.tree
+        p = (plain_timed(name, lambda: multihit_plain(t_tree, o, d, K, **kw))
+             if name not in plain_ms else multihit_plain(t_tree, o, d, K, **kw))
+        check(name, k, p, f"multihit {'skip' if 'skip_substeps' in kw else 'stack'} "
+              f"{'with' if 'start' in kw else 'without'} the beam's start")
+    del p_trace, p_frame, p3
+    log(f"phase 15 (b) kernels == plain versions: {time.time() - t0:.1f} s")
+
+    # (c) the terrain's skip frame
+    t0 = time.time()
+    tgrid = build_bitgrid(terrain)
+    t_stack = fastest_renderer(tgrid)
+    t_skip = fastest_renderer(tgrid, tracer="skip")
+    del tgrid
+    tcam = orbit_camera(float(TERRAIN_WORLD), resolution=RES)
+    rows_mib = t_skip.tree["skip_rows"].numel() * 4 / 2**20
+    tf_skip = t_skip.render(tcam, out_u8=True, out_device=True)
+    tf_stack = t_stack.render(tcam, out_u8=True, out_device=True)
+    check("skip_frame", [tf_skip], [render_frame_plain(t_skip.tree, tcam, skip_substeps=S3)],
+          "terrain skip frame")
+    n_diff = int((tf_skip != tf_stack).any(dim=-1).sum())
+    log(f"  terrain ({TERRAIN_WORLD}^3, {len(t_skip.tree['bases'])} levels, {rows_mib:.0f} MiB of "
+        f"skip rows): the skip frame differs from the stack frame on {n_diff} pixels")
+    if n_diff / (RES[0] * RES[1]) * 1e6 > BEAM_PPM_BOUND:
+        raise AssertionError(f"the terrain's skip frame differs from its stack frame on "
+                             f"{n_diff} pixels")
+    tt = t_skip.tree
+    to, td = device_rays(tcam, dev)
+    t_tracer = make_skip_tracer(len(tt["bases"]), tt["size"], MAX_ITERS, S3)
+    st = t_tracer.run(tt, t_tracer.init(tt, to, td), MAX_ITERS)
+    stats["terrain"] = (st["iters"], st["fetches"])
+    del st, to, td
+    log(f"phase 15 (c) terrain: {time.time() - t0:.1f} s")
+
+    # (d) the beam march against the plain march; (e) the skip march against the stack's
+    k_plain_hits = multihit(soft.tree, o, d, K)
+    tol = START_DIST_TOL
+    for what, k, want_sha, want_rays, want_slots in (
+            ("beam march", k_beam_hits, BEAM_HITS_SHA256, BEAM_HITS_RAYS, BEAM_DIST_SLOTS),
+            ("skip march", k_skip_hits, SKIP_HITS_SHA256, SKIP_HITS_RAYS, SKIP_DIST_SLOTS),
+            ("skip march with the beam", k_skip_beam_hits, SKIP_BEAM_HITS_SHA256,
+             SKIP_BEAM_HITS_RAYS, SKIP_BEAM_DIST_SLOTS)):
+        digest = hashlib.sha256(k[0].cpu().numpy().tobytes()
+                                + k[1].cpu().numpy().tobytes()).hexdigest()
+        rays = (k[0] != k_plain_hits[0]) | (k[1] != k_plain_hits[1]).reshape(R, -1).any(dim=1)
+        n_bad = int(rays.sum())
+        ka, pa = k[2][~rays], k_plain_hits[2][~rays]
+        fin = torch.isfinite(pa)
+        far = int((~torch.isclose(ka[fin], pa[fin], rtol=tol[0], atol=tol[1])).sum())
+        dmax = float((ka[fin].double() - pa[fin].double()).abs().max()) if fin.any() else 0.0
+        log(f"  {what}: count+voxels sha256 {digest} "
+            f"{'==' if digest == want_sha else '!='} reference; against the plain stack march "
+            f"{n_bad} rays differ in counts or voxels (the reference's: {want_rays}); on the "
+            f"others the dists' largest difference {dmax:.3g}, {far} slots outside rtol "
+            f"{tol[0]}, atol {tol[1]} (the reference's: {want_slots})")
+        if digest != want_sha or n_bad != want_rays or far != want_slots or not bool(
+                same(ka[~fin], pa[~fin]).all()):
+            raise AssertionError(f"the {what} differs from the reference's")
+    n_diff = int((main["skip"] != stack.render(cam, out_u8=True, out_device=True))
+                 .any(dim=-1).sum())
+    log(f"  the bench pose's skip frame differs from the stack frame on {n_diff} pixels "
+        f"(the reference's: {SKIP_STACK_PIXELS})")
+    if n_diff != SKIP_STACK_PIXELS:
+        raise AssertionError(f"the skip frame differs from the stack frame on {n_diff} pixels, "
+                             f"the reference's on {SKIP_STACK_PIXELS}")
+
+    # (f) timings in turns, device ms by CUDA events
+    t0 = time.time()
+    ttree = t_stack.tree
+
+    def turns(what, group, per=1, timer=device_ms, reps=TIMED_FRAMES, unit="device time"):
+        names = list(group)
+        for fn in group.values():
+            fn()
+        torch.cuda.synchronize()
+        got = {n: [] for n in names}
+        for n in (names[0], names[1], names[1], names[0]):
+            ms = timer(group[n], reps) / per
+            got[n].append(ms)
+            log(f"  turn {what} {n}: {ms:.4f} ms {unit} {tag}")
+        a, b = (sum(got[n]) / 2 for n in names)
+        log(f"{what}: {names[0]} {a:.4f} ms, {names[1]} {b:.4f} ms ({100 * (b - a) / a:+.1f}%) "
+            f"{unit} {tag}")
+        return a, b
+
+    turns("bench frame", {"stack": lambda: render_frame(stack.tree, cam),
+                          "skip": lambda: render_frame(tree, cam, skip_substeps=S3)})
+    turns("terrain frame", {"stack": lambda: render_frame(ttree, tcam),
+                            "skip": lambda: render_frame(tt, tcam, skip_substeps=S3)})
+    turns("multi-hit march", {
+        "stack": lambda: multihit(soft.tree, o, d, K),
+        "skip": lambda: multihit(soft_skip.tree, o, d, K, skip_substeps=S3)})
+    turns("multi-hit march and the beam", {
+        "plain": lambda: multihit(soft.tree, o, d, K),
+        "beam + start": lambda: multihit(soft.tree, o, d, K, start=soft.beam_starts(spec, R))})
+    params = soft.init_params()
+    state = opt.init(params)
+
+    def step(beam):
+        return lambda: soft.train_step_fused(params, state, opt, o, d, target, beam=beam)
+
+    def chain(beam):
+        return lambda: soft.train_steps_fused(params, state, opt, o, d, target, CHAIN, beam=beam)
+
+    # the step's device time alone (5 steps queue behind the GPU-side wait),
+    # then by CUDA events around the calls (host gaps included) and by host
+    # clock, as bench.py times it
+    turns("training step", {"plain": step(None), "beam": step(spec)}, reps=5,
+          unit="a step of device time")
+    ev = turns("training step", {"plain": step(None), "beam": step(spec)}, timer=timed,
+               unit="a step by CUDA events")
+    ho = turns("training step", {"plain": step(None), "beam": step(spec)}, timer=host_ms,
+               unit="a step by host clock")
+    cev = turns(f"{CHAIN}-step chain", {"plain": chain(None), "beam": chain(spec)}, per=CHAIN,
+                timer=timed, reps=2, unit="a step by CUDA events")
+    cho = turns(f"{CHAIN}-step chain", {"plain": chain(None), "beam": chain(spec)}, per=CHAIN,
+                timer=host_ms, reps=2, unit="a step by host clock")
+    log(f"  bench.py's fwdbwd select by host clock: {'beam' if ho[1] < ho[0] else 'plain'} "
+        f"(steps), {'beam' if cho[1] < cho[0] else 'plain'} (chains); by CUDA events: "
+        f"{'beam' if ev[1] < ev[0] else 'plain'}, {'beam' if cev[1] < cev[0] else 'plain'} {tag}")
+    for pose, t_st, c in (("bench", stack.tree, cam), ("terrain", ttree, tcam)):
+        ro, rd = device_rays(c, dev)
+        trace = make_bitgrid_tracer(len(t_st["bases"]), t_st["size"], max_iters=MAX_ITERS,
+                                    **KERNEL_CONFIG)
+        moves = trace.run(t_st, trace.init(t_st, ro, rd), MAX_ITERS)["iters"]
+        bodies, fetches = stats[pose][:2]
+        n = ro.shape[0]
+        log(f"  {pose}: the stack tracer's moves {int(moves.sum()) / n:.4f} a ray (most "
+            f"{int(moves.max())}); the skip tracer's body iterations {int(bodies.sum()) / n:.4f} "
+            f"a ray (most {int(bodies.max())}) and row fetches {int(fetches.sum()) / n:.4f} a ray")
+        del ro, rd, moves
+    log(f"phase 15 (f) timings: {time.time() - t0:.1f} s")
+
+    # each new instance's time and bound
+    iters, fetches, hit, hvox, reads = stats["bench"]
+    row_b = 8 * len(tree["bases"])
+    n_rows = int(reads.sum())
+    v = hvox[hit].long()
+    S = tree["size"]
+    n_colors = int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S).numel())
+    bodies = int(iters.sum())
+    read_b = n_rows * row_b + n_colors * 2
+    frame_ms = device_ms(lambda: render_frame(tree, cam, skip_substeps=S3), TIMED_FRAMES)
+    trav_ms = device_ms(lambda: trace_skip(tree, o, d, MAX_ITERS, S3), TIMED_FRAMES)
+    bprev = render_frame(tree, cam, skip_substeps=S3)
+    frames_ms = device_ms(lambda: render_frames(tree, [cam] * BATCH, prev=bprev,
+                                                skip_substeps=S3), TIMED_FRAMES)
+    prepass_ms = device_ms(lambda: prepass_start(tree, cam, PREPASS_LEVELS, MAX_ITERS, S3),
+                           TIMED_FRAMES)
+    start_ms = device_ms(lambda: multihit(soft.tree, o, d, K, start=soft_map), TIMED_FRAMES)
+    mh_skip_ms = device_ms(lambda: multihit(soft_skip.tree, o, d, K, skip_substeps=S3),
+                           TIMED_FRAMES)
+    pal_b = tree["palette"].shape[0] * 16
+    frame_bound = bound(read_b + pal_b + ctypes.sizeof(_build.FrameParams) + R * 3,
+                        bodies * SKIP_OPS_PER_BODY + R * FRAME_OPS_PER_PIXEL)
+    trav_bound = bound(R * 24 + read_b + R * 41, bodies * SKIP_OPS_PER_BODY)
+    frames_bound = bound(read_b + pal_b + R * 3 + BATCH * R * 3,
+                         BATCH * (bodies * SKIP_OPS_PER_BODY + R * FRAME_OPS_PER_PIXEL))
+    p_pixels = sum(level_camera(cam, i).resolution[0] * level_camera(cam, i).resolution[1]
+                   for i in range(PREPASS_LEVELS, 0, -1))
+    prepass_bound = bound(n_rows * row_b + p_pixels * 8,
+                          sum(int(s["iters"].sum()) for s in prepass_stats) * SKIP_OPS_PER_BODY
+                          + p_pixels * FRAME_OPS_PER_PIXEL)
+    mh_reads = torch.zeros(soft.tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+    *_h, mh_steps = mh_stack(soft.tree, o, d, start_t=expand_start(soft_map[0], 8, *RES),
+                             with_steps=True, reads=mh_reads)
+    start_bound = bound(R * 24 + soft_map[0].numel() * 4 + int(mh_reads.sum()) * 8
+                        + R * (4 + 16 * K), int(mh_steps.sum()) * TRAVERSE_OPS_PER_STEP)
+    mh_skip = make_multihit_tracer(len(tree["bases"]), tree["size"], K, MAX_ITERS,
+                                   skip_substeps=S3)
+    skip_reads = torch.zeros(tree["skip_rows"].shape[0], dtype=torch.bool, device=dev)
+    *_h, skip_bodies = mh_skip(soft_skip.tree, o, d, with_steps=True, reads=skip_reads)
+    mh_skip_bound = bound(R * 24 + int(skip_reads.sum()) * row_b + R * (4 + 16 * K),
+                          int(skip_bodies.sum()) * SKIP_OPS_PER_BODY)
+    log(f"  the skip march at the bench pose reads {n_rows} rows of {row_b} B and {n_colors} "
+        f"colors; {bodies} body iterations")
+    log(f"skip instances: frame.cu {frame_ms:.4f} ms (bound {frame_bound[0]:.4f}, "
+        f"{frame_bound[1]}), traverse.cu {trav_ms:.4f} ms ({trav_bound[0]:.4f}), frames.cu "
+        f"{frames_ms:.4f} ms a {BATCH}-frame launch ({frames_bound[0]:.4f}), prepass.cu "
+        f"{PREPASS_LEVELS} levels and the start map {prepass_ms:.4f} ms ({prepass_bound[0]:.4f}), "
+        f"multihit.cu start {start_ms:.4f} ms ({start_bound[0]:.4f}), skip {mh_skip_ms:.4f} ms "
+        f"({mh_skip_bound[0]:.4f}) {tag}")
+    for source, kernel in (("frame.cu", "frame_skip_kernel"), ("frames.cu", "frames_skip_kernel"),
+                           ("prepass.cu", "prepass_kernel"), ("traverse.cu", "traverse_skip"),
+                           ("multihit.cu", "multihit_form_kernel")):
+        blog = _build.build_log(source)
+        for name in kernel_names(blog, kernel):
+            log(f"  ptxas {name}: {ptxas_usage(blog, name)[0]} registers")
+    log(f"phase 15 skip tracer and soft beam: {time.time() - t_all:.1f} s")
+    src = "voxelhex_tpu_torch/csrc/"
+    skip_ref = "voxelhex_tpu/render/bitgrid.py:859"
+    rows = [("skip_traverse", "traverse.cu", skip_ref, trav_ms, trav_bound),
+            ("skip_frame", "frame.cu", skip_ref, frame_ms, frame_bound),
+            ("skip_frames", "frames.cu", skip_ref, frames_ms, frames_bound),
+            ("skip_prepass", "prepass.cu", skip_ref, prepass_ms, prepass_bound),
+            ("multihit_start", "multihit.cu", "voxelhex_tpu/diff/soft.py:404", start_ms,
+             start_bound),
+            ("multihit_skip", "multihit.cu", "voxelhex_tpu/diff/soft.py:204", mh_skip_ms,
+             mh_skip_bound)]
+    entries = [{"name": name, "route": "cuda", "source": src + source, "replaces": ref,
+                "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                "plain_ms": plain_ms[name], "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": None} for name, source, ref, ms, b in rows]
+    return entries, {"beam": launches["beam"], "composite_forward": launches["composite_forward"],
+                     "composite_backward": launches["composite_backward"],
+                     "adam": launches["adam"]}
 
 
 if __name__ == "__main__":

@@ -199,8 +199,10 @@ def test_soft_renderer_needs_cuda_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SoftRenderer(bg)
     assert SoftRenderer(bg, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SoftRenderer(bg, device="cpu", tracer="skip")
+    skip = SoftRenderer(bg, device="cpu", tracer="skip")  # ported now: test_torch_soft_skip.py
+    assert skip.tracer == "skip" and skip.tree["skip_rows"].device.type == "cpu"
+    with pytest.raises(ValueError, match="tracer"):
+        SoftRenderer(bg, device="cpu", tracer="wavefront")
     assert not SoftRenderer(bg, device="cpu", flat_params=False).flat_params  # ported now
 
 

@@ -882,3 +882,71 @@ def test_prepass_frames_on_the_card_equal_cpu(cuda, kw):
         want = cpu.render_delta_many(cams, beam_prepass=True)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+# ---- the skip tracer and the multi-hit march's start form
+
+
+def test_skip_traverse_kernel_equals_plain(cuda):
+    """traverse.cu's skip instance against the plain skip tracer, every
+    output, at substeps 1 and 3."""
+    from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(), cuda, skip_rows=True)
+    o, d = (t.to(cuda) for t in _rays(5000, 64, 1))
+    for substeps in (1, 3):
+        n0 = trace_skip.launches
+        k = trace_skip(tree, o, d, substeps=substeps)
+        torch.cuda.synchronize()
+        assert trace_skip.launches == n0 + 1
+        for a, b in zip(k, trace_skip_plain(tree, o, d, substeps=substeps)):
+            assert _equal(a, b)
+    assert int(k[0].sum()) > 1000
+
+
+@pytest.mark.parametrize("kw", [{}, {"beam_prepass": True}, {"splat_prepass": True}, "depth"])
+def test_skip_frames_on_the_card_equal_cpu(cuda, kw):
+    """The skip renderer's frames on the card (frame.cu's, frames.cu's and
+    prepass.cu's skip instances) against the same renderer on the CPU at
+    320 x 176, in u8 and f32, and a delta batch."""
+    from voxelhex_tpu_torch.ops.frame import render_frame
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    extra = {"prepass": True, "prepass_levels": 2} if kw == "depth" else {}
+    kw = {} if kw == "depth" else kw
+    gpu, cpu = _scene_renderers(cuda, tracer="skip", **extra)
+    cams = [orbit_camera(128.0, yaw_deg=y, resolution=(320, 176)) for y in (40.0, 130.0)]
+    n0 = render_frame.skip_launches
+    for u8 in (True, False):
+        for cam in cams:
+            np.testing.assert_array_equal(gpu.render(cam, out_u8=u8, **kw),
+                                          cpu.render(cam, out_u8=u8, **kw))
+    assert render_frame.skip_launches == n0 + 4
+    bkw = {"beam_prepass": True} if kw.get("beam_prepass") else {}
+    for a, b in zip(gpu.render_delta_many(cams, **bkw), cpu.render_delta_many(cams, **bkw)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["start", "skip", "skip+start"])
+def test_multihit_forms_equal_plain(cuda, form):
+    """multihit.cu's start and skip forms against the plain march, K = 3,
+    from a start map over the rays as a 100-wide frame."""
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    tree = device_bitgrid(_grid(), cuda, skip_rows=True)
+    o, d = (t.to(cuda) for t in _rays(5000, 64, 2))
+    rng = np.random.default_rng(3)
+    smap = torch.from_numpy(np.where(rng.random((7, 13)) < 0.3, 1e8, rng.uniform(0, 40, (7, 13)))
+                            .astype(np.float32)).to(cuda)
+    start = None if form == "skip" else (smap, 8, 100)
+    substeps = 3 if "skip" in form else None
+    counter = "skip_launches" if substeps else "start_launches"
+    n0 = getattr(multihit, counter)
+    k = multihit(tree, o, d, 3, start=start, skip_substeps=substeps)
+    torch.cuda.synchronize()
+    assert getattr(multihit, counter) == n0 + 1
+    for a, b in zip(k, multihit_plain(tree, o, d, 3, start=start, skip_substeps=substeps)):
+        assert _equal(a, b)
+    assert int((k[0] >= 2).sum()) > 100

@@ -393,6 +393,48 @@ extern "C" void host_frame_start(const void* occ, const void* colors, const floa
             }
 }
 
+// frame.cu's skip frame, from a start map or without it, every thread of
+// every block in turn
+extern "C" void host_frame_skip(const void* rows, const void* colors, const float* palette,
+                                int n_colors, const FrameParams* P, int substeps,
+                                const float* start, int tile, float* rgb, unsigned char* u8) {
+    blockDim = dim3(THREADS);
+    for (unsigned by = 0; by < (unsigned)(P->h + WARP_H - 1) / WARP_H; ++by)
+        for (unsigned bx = 0; bx < (unsigned)(P->w + BLOCK_W - 1) / BLOCK_W; ++bx)
+            for (unsigned t = 0; t < (unsigned)THREADS; ++t) {
+                blockIdx = dim3(bx, by);
+                threadIdx = dim3(t);
+                if (start)
+                    frame_skip_kernel<true>((const uint2*)rows, (const unsigned short*)colors,
+                                            (const float4*)palette, n_colors, *P, substeps,
+                                            start, tile, (P->w + tile - 1) / tile, rgb, u8);
+                else
+                    frame_skip_kernel<false>((const uint2*)rows, (const unsigned short*)colors,
+                                             (const float4*)palette, n_colors, *P, substeps,
+                                             nullptr, 1, 0, rgb, u8);
+            }
+}
+
+// traverse.cu's and multihit.cu's C entries, their launches loops over the
+// grid
+extern "C" int host_traverse_skip(const float* o, const float* d, const void* rows,
+                                  const void* colors, const TraceParams* P, int R, int substeps,
+                                  void* hit, int* voxel, int* hvox, float* point,
+                                  float* hnormal) {
+    return trav::vhx_traverse_skip(o, d, rows, colors, P, R, substeps, hit, voxel, hvox, point,
+                                   hnormal, 0, nullptr);
+}
+extern "C" int host_multihit_start(const float* o, const float* d, const void* words,
+                                   const TraceParams* P, int R, int K, const float* start,
+                                   int tile, int w, int substeps, int* count, int* voxels,
+                                   float* dists) {
+    if (substeps)
+        return mh::vhx_multihit_skip(o, d, words, P, R, K, substeps, start, tile, w, count,
+                                     voxels, dists, 0, nullptr);
+    return mh::vhx_multihit_start(o, d, words, P, R, K, start, tile, w, count, voxels, dists, 0,
+                                  nullptr);
+}
+
 // traverse.cuh's init of each ray, from `start` (kStart) or without it
 extern "C" void host_init(const float* o, const float* d, const void* occ, const TraceParams* P,
                           const float* start, int R, float* point, int* active, int* tsect) {
@@ -529,7 +571,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs a C++ compiler")
     d = tmp_path_factory.mktemp("kernels_host")
     (d / "cuda_runtime.h").write_text(SHIM)
-    for header in ("traverse.cuh", "frame.cuh"):
+    for header in ("traverse.cuh", "frame.cuh", "skip.cuh"):
         shutil.copy(os.path.join(CSRC, header), d)
     launch = re.compile(r"<<<[^>]*>>>")  # a launch becomes a call of one thread
     with open(os.path.join(CSRC, "frame.cu")) as f:
@@ -542,7 +584,7 @@ def host_lib(tmp_path_factory):
     # region scatter's, the coarse rebuild's and the far frame's, whose
     # launches run a block's threads as threads that meet at its barriers
     # (vhx_host_block_launch)
-    entry = re.compile(r"(\w+(?:<[\w ]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
+    entry = re.compile(r"(\w+(?:<[\w ,]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
     block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel")
 
     def launcher_of(default):
@@ -552,7 +594,9 @@ def host_lib(tmp_path_factory):
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
-    for name, launcher, n_launches in (("frames", "vhx_host_launch", 2),
+    for name, launcher, n_launches in (("traverse", "vhx_host_launch", 2),
+                                       ("multihit", "vhx_host_launch", 2),
+                                       ("frames", "vhx_host_launch", 3),
                                        ("albedo", "vhx_host_warp_launch", 2),
                                        ("stream", "vhx_host_launch", 5),
                                        ("far", "vhx_host_launch", 2),
@@ -562,8 +606,10 @@ def host_lib(tmp_path_factory):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src, n = entry.subn(launcher_of(launcher), f.read())
         assert n == n_launches
+        if name in ("traverse", "multihit"):  # included in a namespace of the harness
+            src = src.replace('extern "C" ', "")
         (d / f"{name}_host.cu").write_text(src)
-    for name in ("traverse", "shade", "multihit", "composite", "adam"):
+    for name in ("shade", "composite", "adam"):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             (d / f"{name}_host.cu").write_text(
                 launch.sub("", f.read()).replace('extern "C" ', ""))
@@ -622,15 +668,29 @@ def host_lib(tmp_path_factory):
                  "vhx_depth_start"):
         getattr(lib, name).restype = i
     lib.host_init.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), p, i, p, p, p]
+    lib.host_frame_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), i, p, i, p,
+                                    p]
+    lib.host_traverse_skip.argtypes = [p, p, p, p, ctypes.POINTER(_build.TraceParams), i, i,
+                                       p, p, p, p, p]
+    lib.host_multihit_start.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), i, i, p,
+                                        i, i, i, p, p, p]
+    lib.vhx_render_frames_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FramesParams), i,
+                                           p, i, ctypes.c_uint, p, p, p, p, i, p]
+    lib.vhx_prepass_level_skip.argtypes = [p, ctypes.POINTER(_build.PrepassParams), i, p, p, i,
+                                           p]
+    for name in ("host_traverse_skip", "host_multihit_start", "vhx_render_frames_skip",
+                 "vhx_prepass_level_skip"):
+        getattr(lib, name).restype = i
     lib.host_warp_probe.argtypes = [p, p, i]
     lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
                               p, ctypes.POINTER(_build.AdamParams), i]
     return lib
 
 
-def _tree(size, density, half=False):
+def _tree(size, density, half=False, skip=False):
     """A random grid; with ``half``, the voxels at x >= size / 2 are empty,
-    so that rays there ascend past the top level."""
+    so that rays there ascend past the top level; with ``skip``, with its
+    skip rows."""
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
 
     rng = np.random.default_rng(size)
@@ -640,7 +700,7 @@ def _tree(size, density, half=False):
     colors = np.where(occ, rng.integers(0, 5, occ.shape), 0xFFFF).astype(np.uint16)
     bg = bitgrid_from_occupancy(occ, palette=rng.random((5, 4)))
     bg.colors = np.ascontiguousarray(colors.transpose(2, 1, 0)).ravel()
-    return device_bitgrid(bg, "cpu")
+    return device_bitgrid(bg, "cpu", skip_rows=skip)
 
 
 def _equal(a, b):
@@ -1849,3 +1909,193 @@ def test_far_kernel_source_from_a_window_start_map(host_lib, inside):
     want = far_frame_plain(layers, inside, start=start, start_tile=8)
     assert _equal(out, want)
     assert not _equal(want, far_frame_plain(layers, inside))
+
+
+# ---------------------------------------------------------------------------
+# the skip tracer's instances (skip.cuh) and the multi-hit march's start form
+# ---------------------------------------------------------------------------
+
+
+def _outs(n, K=None):
+    """Outputs that start as garbage, so that a slot a kernel does not
+    write shows."""
+    if K is None:
+        return [torch.full((n,), 7, dtype=torch.bool), torch.full((n,), 7, dtype=torch.int32),
+                torch.full((n, 3), 7, dtype=torch.int32), torch.full((n, 3), 7.0),
+                torch.full((n, 3), 7.0)]
+    return [torch.full((n,), 7, dtype=torch.int32), torch.full((n, K, 3), 7, dtype=torch.int32),
+            torch.full((n, K), 7.0)]
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("substeps", [1, 3])
+def test_skip_traverse_kernel_source_equals_plain(host_lib, size, density, substeps):
+    """traverse.cu's skip instance through its C entry against the plain
+    skip tracer, every output bit for bit, on random and grazing rays and on
+    rays cut at 1, 2 and 7 body iterations."""
+    from voxelhex_tpu_torch.ops.skip import trace_skip_plain
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+
+    tree = _tree(size, density, skip=True)
+    o1, d1 = _rays_into(size, 1500, seed=size)
+    o2, d2, _s = _grazing_rays(size, 500, seed=size + 1)
+    o, d = torch.cat([o1, o2]), torch.cat([d1, d2])
+    for max_iters in (1, 2, 7, 2048):
+        out = _outs(o.shape[0])
+        assert host_lib.host_traverse_skip(
+            o.data_ptr(), d.data_ptr(), tree["skip_rows"].data_ptr(), tree["colors"].data_ptr(),
+            trace_params(tree, max_iters), o.shape[0], substeps,
+            *[t.data_ptr() for t in out]) == 0
+        want = trace_skip_plain(tree, o, d, max_iters, substeps)
+        for g, w in zip(out, want):
+            assert _equal(g, w)
+    assert want[0].sum() > 100
+
+
+@pytest.mark.parametrize("start_tile", [None, 2])
+@pytest.mark.parametrize("out_u8", [True, False])
+def test_skip_frame_kernel_source_equals_plain(host_lib, start_tile, out_u8):
+    """frame.cu's skip instances, with and without a start map, against the
+    plain skip frame at a ragged 67 x 41, bit for bit."""
+    from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(64, 0.02, skip=True)
+    cam = orbit_camera(64.0, yaw_deg=35.0, resolution=(67, 41))
+    start = None if start_tile is None else _start_map(67, 41, start_tile, seed=4)
+    out = torch.full((41, 67, 3), 7, dtype=torch.uint8 if out_u8 else torch.float32)
+    host_lib.host_frame_skip(tree["skip_rows"].data_ptr(), tree["colors"].data_ptr(),
+                             tree["palette"].data_ptr(), tree["palette"].shape[0],
+                             frame_params(tree, cam), 2,
+                             None if start is None else start.data_ptr(), start_tile or 1,
+                             None if out_u8 else out.data_ptr(), out.data_ptr() if out_u8 else None)
+    want = render_frame_plain(tree, cam, out_u8=out_u8, start=start, start_tile=start_tile or 1,
+                              skip_substeps=2)
+    assert _equal(out, want)
+    if out_u8 and start is None:  # the skip frame is the stack frame here
+        assert _equal(out, render_frame_plain(tree, cam))
+
+
+def test_skip_frames_kernel_source_equals_plain(host_lib):
+    """frames.cu's skip instance through its C entry, as the wrapper calls
+    it: 35 cameras (two launches) with start maps where their flag is set,
+    frames and digests against the plain versions; and without maps."""
+    from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(16, 0.05, skip=True)
+    res = (24, 16)
+    cams = [orbit_camera(16.0, yaw_deg=10.0 * k, resolution=res) for k in range(35)]
+    maps = torch.stack([_start_map(*res, 8, seed=k) for k in range(35)])
+    use = [k % 3 != 1 for k in range(35)]
+    prev = torch.zeros((16, 24, 3), dtype=torch.uint8)
+
+    def entry(rows, colors, palette, n_colors, p, *rest):
+        return host_lib.vhx_render_frames_skip(rows, colors, palette, n_colors, p, 3, *rest)
+
+    for starts in ((maps, 8, use), None):
+        frames, digest, launches = launch_frames(entry, tree, cams, (0.1, 0.2, 0.3), True, 2048,
+                                                 prev, starts=starts, words=tree["skip_rows"])
+        want, nrows, flags = render_frames_plain(tree, cams, (0.1, 0.2, 0.3), True, 2048, prev,
+                                                 starts=starts, skip_substeps=3)
+        assert launches == 2 and _equal(frames, want)
+        assert _equal(digest[:, 0], nrows) and _equal(digest[:, 1:], flags)
+    p = launch_frames.__globals__["frames_params"](tree, cams[:1])[0]
+    assert host_lib.vhx_render_frames_skip(tree["skip_rows"].data_ptr(),
+                                           tree["colors"].data_ptr(),
+                                           tree["palette"].data_ptr(), 5, p, 0, None, 1, 0,
+                                           None, frames.data_ptr(), None, None, 0, None) != 0
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_skip_prepass_kernel_source_equals_plain(host_lib, levels):
+    """prepass.cu's skip level kernel through its C entry against the plain
+    depth prepass of the skip tracer, level by level, bit for bit."""
+    from voxelhex_tpu_torch.ops.prepass import level_camera, level_depth_plain, prepass_params
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(64, 0.02, skip=True)
+    cam = orbit_camera(64.0, yaw_deg=25.0, resolution=(100, 44))
+    depth = want = None
+    for i in range(levels, 0, -1):
+        cam_i = level_camera(cam, i)
+        w, h = cam_i.resolution
+        got = torch.full((h, w), 7.0)
+        assert host_lib.vhx_prepass_level_skip(
+            tree["skip_rows"].data_ptr(), prepass_params(tree, cam_i), 3,
+            None if depth is None else depth.data_ptr(), got.data_ptr(), 0, None) == 0
+        want = level_depth_plain(tree, cam_i, want, skip_substeps=3)
+        assert _equal(got, want)
+        assert (want == 1e8).any() and (want < 1e8).any()
+        depth = got
+
+
+def _host_multihit_form(host_lib, tree, o, d, K, start, substeps, max_iters=2048):
+    from voxelhex_tpu_torch.ops.multihit import _start_parts
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+
+    n = o.shape[0]
+    out = _outs(n, K)
+    smap, tile, w = (None, 1, 1) if start is None else _start_parts(start, n)
+    words = tree["skip_rows"] if substeps else tree["occ_pairs"]
+    assert host_lib.host_multihit_start(
+        o.data_ptr(), d.data_ptr(), words.data_ptr(), trace_params(tree, max_iters), n, K,
+        None if smap is None else smap.data_ptr(), tile, w, substeps,
+        *[t.data_ptr() for t in out]) == 0
+    return out
+
+
+@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("form", ["start", "skip", "skip+start"])
+def test_multihit_forms_kernel_source_equal_plain(host_lib, size, density, form):
+    """multihit.cu's start and skip forms through its C entry against the
+    plain multi-hit march, K = 3, every slot bit for bit; the start a
+    per-ray start at each ray's exit (``_grazing_rays``: some kill their
+    ray), and on the smallest grid also a start map over the rays as a
+    40-wide frame (its tiles index the same way on every grid)."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+
+    tree = _tree(size, density, skip=True)
+    o1, d1 = _rays_into(size, 1200, seed=size)
+    o2, d2, s2 = _grazing_rays(size, 400, seed=size + 2)
+    o, d = torch.cat([o1, o2]), torch.cat([d1, d2])
+    substeps = 3 if "skip" in form else 0
+    starts = [None] if form == "skip" else [torch.cat([torch.zeros(1200), s2])]
+    if form != "skip" and (size, density) == GRIDS[0]:
+        starts.append((_start_map(40, 40, 8, seed=size), 8, 40))
+    for start in starts:
+        got = _host_multihit_form(host_lib, tree, o, d, 3, start, substeps)
+        want = multihit_plain(tree, o, d, 3, start=start, skip_substeps=substeps or None)
+        for g, w in zip(got, want):
+            assert _equal(g, w)
+        assert int((want[0] >= 2).sum()) > 10
+    if form != "skip":
+        dead = (s2 >= 1e8) | (want[0][1200:] == 0)
+        assert dead.any()
+
+
+def test_multihit_skip_hits_after_a_row_refetch(host_lib):
+    """Rays along x through a row of voxels: three hits in one level-0
+    block (each found after the row fetch that ends the body of the hit
+    before, and its clear), and a hit in the next block; a start past the
+    row's exit kills a ray, one inside the row starts it mid-row."""
+    from voxelhex_tpu_torch.ops.multihit import multihit_plain
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+
+    occ = np.zeros((16, 16, 16), dtype=bool)
+    occ[4:9, 5, 5] = True  # x = 4..7 in one block, 8 in the next
+    tree = device_bitgrid(bitgrid_from_occupancy(occ), "cpu", skip_rows=True)
+    o = torch.tensor([[-3.0, 5.5, 5.5], [-3.0, 5.5, 5.5], [-3.0, 5.5, 5.5], [-3.0, 5.3, 5.6]])
+    d = torch.tensor([[1.0, 0.0, 0.0]] * 3 + [[1.0, 1e-3, 0.0]])
+    start = torch.tensor([0.0, 100.0, 9.5, 0.0])
+    for substeps in (1, 3):
+        for st in (None, start):
+            got = _host_multihit_form(host_lib, tree, o, d, 4, st, substeps)
+            want = multihit_plain(tree, o, d, 4, start=st, skip_substeps=substeps)
+            for g, w in zip(got, want):
+                assert _equal(g, w)
+    assert want[0].tolist() == [4, 0, 3, 4]
+    assert want[1][0, :, 0].tolist() == [4, 5, 6, 7]
+    assert want[1][2, :3, 0].tolist() == [6, 7, 8]
+    got = _host_multihit_form(host_lib, tree, o, d, 5, None, 3)
+    assert got[1][0, :, 0].tolist() == [4, 5, 6, 7, 8]

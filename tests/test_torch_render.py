@@ -95,8 +95,12 @@ def test_fastest_renderer_takes_the_references_keywords():
     deep = fastest_renderer(bg, device="cpu", prepass=True)
     deep.render(cam)
     assert deep.last_stats["prepass"] == "depth"
+    # tracer="skip" runs the skip tracer (test_torch_skip.py): the same u8 frame
+    skip = fastest_renderer(bg, device="cpu", tracer="skip", skip_substeps=2)
+    np.testing.assert_array_equal(skip.render(cam, out_u8=True),
+                                  fastest_renderer(bg, device="cpu").render(cam, out_u8=True))
     for kw in ({"lateral_step": False}, {"advance_substeps": 2},
-               {"tracer": "skip"}, {"parent_skip": True}, {"color_u8": True}):
+               {"parent_skip": True}, {"color_u8": True}):
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             fastest_renderer(bg, device="cpu", **kw)
     with pytest.raises(TypeError, match="unexpected keyword"):

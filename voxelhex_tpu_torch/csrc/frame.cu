@@ -27,9 +27,12 @@
 // `frame_start_kernel` is the same frame from a prepass's start map (the
 // reference's `start_t`): each ray starts at least its pixel tile's value
 // along.  It is its own instance, so the frame without a start compiles as
-// it did.
+// it did.  `frame_skip_kernel<kStart>` is the frame of the skip tracer
+// (skip.cuh, the reference renderer's `tracer="skip"`) over the grid's skip
+// rows, with and without a start map: the same prologue and epilogue.
 
 #include "frame.cuh"
+#include "skip.cuh"
 
 struct FrameParams {
     TraceParams trace;
@@ -52,14 +55,17 @@ constexpr int BLOCK_W = vhx::BLOCK_W;
 // One pixel's frame.  With kStart the ray starts at least `start_t` along
 // (traverse.cuh init's start form): a prepass's start map, one value for
 // each `start_tile` x `start_tile` pixels, `start_stride` tiles a row.
-template <bool kStart>
+// With kSkip, `occ` holds the skip rows and the ray marches the skip
+// tracer, `substeps` substeps a body iteration.
+template <bool kStart, bool kSkip = false>
 __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
                                             const unsigned short* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
                                             const FrameParams& P, const int2* levels,
                                             const float* __restrict__ start, int start_tile,
                                             int start_stride, float* __restrict__ rgb_out,
-                                            unsigned char* __restrict__ u8_out) {
+                                            unsigned char* __restrict__ u8_out,
+                                            int substeps = 0) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -71,9 +77,14 @@ __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
     // ---- the ray
     float start_t = 0.f;
     if constexpr (kStart) start_t = start[(y / start_tile) * start_stride + x / start_tile];
-    const vhx::Hit h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels,
-                                          P.trace.size, P.trace.n_blocks, P.trace.max_iters,
-                                          start_t);
+    vhx::Hit h;
+    if constexpr (kSkip)
+        h = vhx::skip_march<kStart>(
+            o, d, vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps), colors,
+            P.trace.max_iters, start_t);
+    else
+        h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
+                               P.trace.n_blocks, P.trace.max_iters, start_t);
 
     // ---- epilogue: albedo x Lambert, the background on a miss, u8
     float rgb[3];
@@ -108,9 +119,57 @@ frame_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restri
                       start_stride, rgb_out, u8_out);
 }
 
+// The skip tracer's frame, from a start map with kStart
+template <bool kStart>
+__global__ void __launch_bounds__(THREADS)
+frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
+                  const float4* __restrict__ palette, int n_colors, const FrameParams P,
+                  int substeps, const float* __restrict__ start, int start_tile,
+                  int start_stride, float* __restrict__ rgb_out,
+                  unsigned char* __restrict__ u8_out) {
+    frame_pixel<kStart, true>(rows, colors, palette, n_colors, P, nullptr, start, start_tile,
+                              start_stride, rgb_out, u8_out, substeps);
+}
+
+bool bad_frame(const FrameParams& P, int n_colors, const float* start, int start_tile,
+               int max_levels) {
+    return P.trace.n_levels < 1 || P.trace.n_levels > max_levels || n_colors < 1 || P.w < 1 ||
+           P.h < 1 || (start && start_tile < 1) || (P.h + WARP_H - 1) / WARP_H > 65535;
+}
+
 }  // namespace
 
 extern "C" int vhx_frame_params_size() { return (int)sizeof(FrameParams); }
+
+// The skip tracer's frame: as vhx_render_frame_start, over `rows` (the
+// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1
+// substeps a body iteration and params->trace.max_iters body iterations a
+// ray.
+extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* colors,
+                                             const float* palette, int n_colors,
+                                             const FrameParams* params, int substeps,
+                                             const float* start, int start_tile, float* rgb,
+                                             void* u8, int device, cudaStream_t stream) {
+    const FrameParams& P = *params;
+    if (bad_frame(P, n_colors, start, start_tile, VHX_SKIP_MAX_LEVELS) || substeps < 1)
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
+    const auto* rw = static_cast<const uint2*>(rows);
+    const auto* col = static_cast<const unsigned short*>(colors);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto* out = static_cast<unsigned char*>(u8);
+    if (start)
+        frame_skip_kernel<true><<<grid, THREADS, 0, stream>>>(
+            rw, col, pal, n_colors, P, substeps, start, start_tile,
+            (P.w + start_tile - 1) / start_tile, rgb, out);
+    else
+        frame_skip_kernel<false><<<grid, THREADS, 0, stream>>>(rw, col, pal, n_colors, P,
+                                                               substeps, nullptr, 1, 0, rgb,
+                                                               out);
+    return cudaGetLastError();
+}
 
 // The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,
 // one value a `start_tile` x `start_tile` tile of pixels, ceil(w /
@@ -121,11 +180,8 @@ extern "C" cudaError_t vhx_render_frame_start(const void* occ_pairs, const void*
                                               int start_tile, float* rgb, void* u8, int device,
                                               cudaStream_t stream) {
     const FrameParams& P = *params;
-    if (P.trace.n_levels < 1 || P.trace.n_levels > VHX_MAX_LEVELS || n_colors < 1 || P.w < 1 ||
-        P.h < 1 || (start && start_tile < 1))
-        return cudaErrorInvalidValue;
+    if (bad_frame(P, n_colors, start, start_tile, VHX_MAX_LEVELS)) return cudaErrorInvalidValue;
     const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const auto* occ = static_cast<const uint2*>(occ_pairs);

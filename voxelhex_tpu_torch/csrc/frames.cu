@@ -41,9 +41,12 @@
 //
 // `frames_start_kernel` is the same batch from each frame's start map (the
 // beam prepass of beam.cu, one map a camera): its own instance, so the
-// batch without a start compiles as it did.
+// batch without a start compiles as it did.  `frames_skip_kernel<kStart>`
+// is the batch of the skip tracer (skip.cuh, the reference renderer's
+// `tracer="skip"`) over the grid's skip rows, with and without start maps.
 
 #include "frame.cuh"
+#include "skip.cuh"
 
 #define VHX_KMAX 32
 
@@ -72,7 +75,9 @@ struct StartMaps {
     unsigned mask;
 };
 
-template <bool kStart>
+// With kSkip, `occ` holds the skip rows and each ray marches the skip
+// tracer, `substeps` substeps a body iteration.
+template <bool kStart, bool kSkip = false>
 __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
                                             const unsigned short* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
@@ -80,7 +85,7 @@ __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
                                             const StartMaps& S, float* __restrict__ rgb_out,
                                             unsigned char* __restrict__ u8_out,
                                             const unsigned char* __restrict__ prev,
-                                            int* __restrict__ digest) {
+                                            int* __restrict__ digest, int substeps = 0) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -107,9 +112,14 @@ __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
             use_start = ((S.mask >> k) & 1u) != 0u;
             if (use_start) start_t = S.map[k * S.frame_stride + start_at];
         }
-        const vhx::Hit h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels,
-                                              P.trace.size, P.trace.n_blocks, P.trace.max_iters,
-                                              start_t, use_start);
+        vhx::Hit h;
+        if constexpr (kSkip)
+            h = vhx::skip_march<kStart>(
+                o, d, vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps), colors,
+                P.trace.max_iters, start_t, use_start);
+        else
+            h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
+                                   P.trace.n_blocks, P.trace.max_iters, start_t, use_start);
         float rgb[3];
         vhx::shade_hit(h, palette, n_colors, P.bg, rgb);
         const long long px = 3 * (k * frame_px + r);
@@ -164,18 +174,78 @@ frames_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restr
                       digest);
 }
 
+// The skip tracer's batch, from start maps with kStart
 template <bool kStart>
+__global__ void __launch_bounds__(THREADS)
+frames_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
+                   const float4* __restrict__ palette, int n_colors,
+                   const __grid_constant__ FramesParams P, const StartMaps S, int substeps,
+                   float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out,
+                   const unsigned char* __restrict__ prev, int* __restrict__ digest) {
+    frames_body<kStart, true>(rows, colors, palette, n_colors, P, nullptr, S, rgb_out, u8_out,
+                              prev, digest, substeps);
+}
+
+template <bool kStart, bool kSkip>
 cudaError_t launch(dim3 grid, const uint2* occ, const unsigned short* colors,
                    const float4* palette, int n_colors, const FramesParams& P,
-                   const StartMaps& S, float* rgb, unsigned char* u8,
+                   const StartMaps& S, int substeps, float* rgb, unsigned char* u8,
                    const unsigned char* prev, int* digest, cudaStream_t stream) {
-    if constexpr (kStart)
+    if constexpr (kSkip)
+        frames_skip_kernel<kStart><<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors,
+                                                                 P, S, substeps, rgb, u8, prev,
+                                                                 digest);
+    else if constexpr (kStart)
         frames_start_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, S,
                                                           rgb, u8, prev, digest);
     else
         frames_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, rgb, u8,
                                                     prev, digest);
     return cudaGetLastError();
+}
+
+// The batch of either tracer: the stack automaton over the pyramid's word
+// pairs with `substeps` 0, else the skip tracer over the skip rows
+cudaError_t render(const void* grid_words, const void* colors, const float* palette,
+                   int n_colors, const FramesParams* params, int substeps, const float* start,
+                   int start_tile, unsigned start_mask, float* rgb, void* u8, const void* prev,
+                   int* digest, int device, cudaStream_t stream) {
+    const FramesParams& P = *params;
+    const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
+    if (P.trace.n_levels < 1 || P.trace.n_levels > max_levels || n_colors < 1 || P.w < 1 ||
+        P.h < 1 || P.n_frames < 1 || P.n_frames > VHX_KMAX || (!rgb) == (!u8) ||
+        (digest && (!u8 || !prev)) || (start && start_tile < 1) || substeps < 0)
+        return cudaErrorInvalidValue;
+    const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
+                    (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (digest) {
+        const size_t words = (size_t)P.n_frames * (1 + grid.y);
+        err = cudaMemsetAsync(digest, 0, words * sizeof(int), stream);
+        if (err != cudaSuccess) return err;
+    }
+    const auto* occ = static_cast<const uint2*>(grid_words);
+    const auto* col = static_cast<const unsigned short*>(colors);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto* out = static_cast<unsigned char*>(u8);
+    const auto* base = static_cast<const unsigned char*>(prev);
+    StartMaps S{};
+    if (start) {
+        const int stride = (P.w + start_tile - 1) / start_tile;
+        S = StartMaps{start, (long long)stride * ((P.h + start_tile - 1) / start_tile),
+                      start_tile, stride, start_mask};
+    }
+    if (substeps)
+        return start ? launch<true, true>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
+                                          out, base, digest, stream)
+                     : launch<false, true>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
+                                           out, base, digest, stream);
+    return start ? launch<true, false>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
+                                       digest, stream)
+                 : launch<false, false>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
+                                        digest, stream);
 }
 
 }  // namespace
@@ -196,32 +266,24 @@ extern "C" cudaError_t vhx_render_frames_start(const void* occ_pairs, const void
                                                int start_tile, unsigned start_mask, float* rgb,
                                                void* u8, const void* prev, int* digest,
                                                int device, cudaStream_t stream) {
-    const FramesParams& P = *params;
-    if (P.trace.n_levels < 1 || P.trace.n_levels > VHX_MAX_LEVELS || n_colors < 1 || P.w < 1 ||
-        P.h < 1 || P.n_frames < 1 || P.n_frames > VHX_KMAX || (!rgb) == (!u8) ||
-        (digest && (!u8 || !prev)) || (start && start_tile < 1))
-        return cudaErrorInvalidValue;
-    const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
-                    (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (digest) {
-        const size_t words = (size_t)P.n_frames * (1 + grid.y);
-        err = cudaMemsetAsync(digest, 0, words * sizeof(int), stream);
-        if (err != cudaSuccess) return err;
-    }
-    const auto* occ = static_cast<const uint2*>(occ_pairs);
-    const auto* col = static_cast<const unsigned short*>(colors);
-    const auto* pal = reinterpret_cast<const float4*>(palette);
-    auto* out = static_cast<unsigned char*>(u8);
-    const auto* base = static_cast<const unsigned char*>(prev);
-    if (!start) return launch<false>(grid, occ, col, pal, n_colors, P, StartMaps{}, rgb, out,
-                                     base, digest, stream);
-    const int stride = (P.w + start_tile - 1) / start_tile;
-    const StartMaps S{start, (long long)stride * ((P.h + start_tile - 1) / start_tile),
-                      start_tile, stride, start_mask};
-    return launch<true>(grid, occ, col, pal, n_colors, P, S, rgb, out, base, digest, stream);
+    return render(occ_pairs, colors, palette, n_colors, params, 0, start, start_tile, start_mask,
+                  rgb, u8, prev, digest, device, stream);
+}
+
+// The skip tracer's batch: as vhx_render_frames_start, over `rows` (the
+// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1
+// substeps a body iteration and params->trace.max_iters body iterations a
+// ray.
+extern "C" cudaError_t vhx_render_frames_skip(const void* rows, const void* colors,
+                                              const float* palette, int n_colors,
+                                              const FramesParams* params, int substeps,
+                                              const float* start, int start_tile,
+                                              unsigned start_mask, float* rgb, void* u8,
+                                              const void* prev, int* digest, int device,
+                                              cudaStream_t stream) {
+    if (substeps < 1) return cudaErrorInvalidValue;
+    return render(rows, colors, palette, n_colors, params, substeps, start, start_tile,
+                  start_mask, rgb, u8, prev, digest, device, stream);
 }
 
 extern "C" cudaError_t vhx_render_frames(const void* occ_pairs, const void* colors,

@@ -24,8 +24,14 @@
 //
 // What bounds it: the levels' marches, a quarter and a sixteenth of the
 // frame's rays at two levels, each its own launch.
+//
+// Under the reference renderer's `tracer="skip"` its levels march the skip
+// tracer (`self._trace`, bitgrid.py:1578, :1597), so a level's depths are
+// those of the skip tracer's hit points: `prepass_kernel<kStart, true>`
+// over the grid's skip rows (skip.cuh).
 
 #include "frame.cuh"
+#include "skip.cuh"
 
 struct PrepassParams {
     TraceParams trace;
@@ -50,12 +56,14 @@ __device__ __forceinline__ float start_from(const float* __restrict__ d, int w, 
     return vhx::xla_max(__fsub_rn(vhx::xla_min(a, b), MARGIN), 0.f);
 }
 
-template <bool kStart>
+// With kSkip, `occ` holds the skip rows and the rays march the skip
+// tracer, `substeps` substeps a body iteration.
+template <bool kStart, bool kSkip>
 __global__ void __launch_bounds__(THREADS)
 prepass_kernel(const uint2* __restrict__ occ, const PrepassParams P,
-               const float* __restrict__ coarser, float* __restrict__ depth) {
+               const float* __restrict__ coarser, float* __restrict__ depth, int substeps) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
-    vhx::load_levels(P.trace, levels);
+    if constexpr (!kSkip) vhx::load_levels(P.trace, levels);
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -64,12 +72,21 @@ prepass_kernel(const uint2* __restrict__ occ, const PrepassParams P,
                    x, y, o, d);
     float start_t = 0.f;
     if constexpr (kStart) start_t = start_from(coarser, P.w / 2, P.h / 2, x / 2, y / 2);
-    const vhx::Grid g{occ, levels, P.trace.n_levels, P.trace.size, P.trace.n_blocks};
-    vhx::March m;
-    vhx::init<kStart>(m, o, d, g, start_t);
-    vhx::StopAtHit stop;
-    vhx::run(m, g, P.trace.max_iters, stop);
-    depth[y * P.w + x] = m.hit ? vhx::ray_length(m.p, o) : MISS_DEPTH;
+    if constexpr (kSkip) {
+        const vhx::SkipGrid g = vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps);
+        vhx::Skip m;
+        vhx::skip_init<kStart>(m, o, d, g, start_t);
+        vhx::SkipStopAtHit stop;
+        vhx::skip_run(m, g, P.trace.max_iters, stop);
+        depth[y * P.w + x] = m.hit ? vhx::ray_length(m.p, o) : MISS_DEPTH;
+    } else {
+        const vhx::Grid g{occ, levels, P.trace.n_levels, P.trace.size, P.trace.n_blocks};
+        vhx::March m;
+        vhx::init<kStart>(m, o, d, g, start_t);
+        vhx::StopAtHit stop;
+        vhx::run(m, g, P.trace.max_iters, stop);
+        depth[y * P.w + x] = m.hit ? vhx::ray_length(m.p, o) : MISS_DEPTH;
+    }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -80,11 +97,33 @@ depth_start_kernel(const float* __restrict__ depth, int w, int h, float* __restr
     start[i] = start_from(depth, w, h, x, y);
 }
 
-template <bool kStart>
+template <bool kStart, bool kSkip>
 cudaError_t launch(dim3 grid, const uint2* occ, const PrepassParams& P, const float* coarser,
-                   float* depth, cudaStream_t stream) {
-    prepass_kernel<kStart><<<grid, THREADS, 0, stream>>>(occ, P, coarser, depth);
+                   float* depth, int substeps, cudaStream_t stream) {
+    prepass_kernel<kStart, kSkip><<<grid, THREADS, 0, stream>>>(occ, P, coarser, depth, substeps);
     return cudaGetLastError();
+}
+
+// One level of either tracer: the stack automaton over the pyramid's word
+// pairs with `substeps` 0, else the skip tracer over the skip rows
+cudaError_t level(const void* grid_words, const PrepassParams* params, int substeps,
+                  const float* coarser, float* depth, int device, cudaStream_t stream) {
+    const PrepassParams& P = *params;
+    const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
+    if (P.trace.n_levels < 1 || P.trace.n_levels > max_levels || P.w < 1 || P.h < 1 ||
+        (coarser && (P.w % 2 || P.h % 2)) || !depth || substeps < 0)
+        return cudaErrorInvalidValue;
+    const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
+                    (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const auto* occ = static_cast<const uint2*>(grid_words);
+    if (substeps)
+        return coarser ? launch<true, true>(grid, occ, P, coarser, depth, substeps, stream)
+                       : launch<false, true>(grid, occ, P, nullptr, depth, substeps, stream);
+    return coarser ? launch<true, false>(grid, occ, P, coarser, depth, 0, stream)
+                   : launch<false, false>(grid, occ, P, nullptr, depth, 0, stream);
 }
 
 }  // namespace
@@ -97,18 +136,17 @@ extern "C" int vhx_prepass_params_size() { return (int)sizeof(PrepassParams); }
 extern "C" cudaError_t vhx_prepass_level(const void* occ_pairs, const PrepassParams* params,
                                          const float* coarser, float* depth, int device,
                                          cudaStream_t stream) {
-    const PrepassParams& P = *params;
-    if (P.trace.n_levels < 1 || P.trace.n_levels > VHX_MAX_LEVELS || P.w < 1 || P.h < 1 ||
-        (coarser && (P.w % 2 || P.h % 2)) || !depth)
-        return cudaErrorInvalidValue;
-    const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
-                    (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const auto* occ = static_cast<const uint2*>(occ_pairs);
-    return coarser ? launch<true>(grid, occ, P, coarser, depth, stream)
-                   : launch<false>(grid, occ, P, nullptr, depth, stream);
+    return level(occ_pairs, params, 0, coarser, depth, device, stream);
+}
+
+// The skip tracer's level: as vhx_prepass_level, over `rows` (the grid's
+// skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1 substeps a
+// body iteration and params->trace.max_iters body iterations a ray.
+extern "C" cudaError_t vhx_prepass_level_skip(const void* rows, const PrepassParams* params,
+                                              int substeps, const float* coarser, float* depth,
+                                              int device, cudaStream_t stream) {
+    if (substeps < 1) return cudaErrorInvalidValue;
+    return level(rows, params, substeps, coarser, depth, device, stream);
 }
 
 // The start map, f32 [h, w], of the level finer than `depth` (f32 [h, w]).

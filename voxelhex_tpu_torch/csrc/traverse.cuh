@@ -174,6 +174,10 @@ __device__ __forceinline__ void reach_mask(int t, int octant, uint32_t& m_lo, ui
 // csize * max(sg, 0) - sg * (p - cmin), takes csize * 1 = csize where
 // sg = 1 and csize * +0 = +0 where sg is -1 or +-0; where sg is NaN (so is
 // d) the distance is BIG either way, as it is where d = +-0 (sg = +-0).
+// Bit c of kFma fuses the new point's multiply-add on axis c, as XLA:CPU
+// compiles the reference program being matched: all three in the stack
+// tracer, x and y in the skip tracer (skip.cuh).
+template <int kFma = 7>
 __device__ __forceinline__ void dda_step(const float d[3], const float sg[3], const float sf[3],
                                          const float p[3], const float cmin[3], float csize,
                                          float new_p[3], float step[3]) {
@@ -189,7 +193,8 @@ __device__ __forceinline__ void dda_step(const float d[3], const float sg[3], co
     float m = fminf(fminf(dist[0], dist[1]), dist[2]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-        new_p[c] = __fmaf_rn(d[c], m, p[c]);
+        new_p[c] = ((kFma >> c) & 1) ? __fmaf_rn(d[c], m, p[c])
+                                     : __fadd_rn(p[c], __fmul_rn(d[c], m));
         step[c] = dist[c] == m ? sg[c] : 0.f;
     }
 }
@@ -305,6 +310,54 @@ constexpr int MOVE_ASCEND = 3;
 constexpr int MOVE_LATERAL = 4;
 constexpr int MOVE_ADVANCE = 5;
 
+// The path lengths `sf` of the direction d across a unit of each axis, as
+// the reference computes them; shared with the skip tracer (skip.cuh).
+__device__ __forceinline__ void path_lengths(const float d[3], float sf[3]) {
+    float a = __fdiv_rn(d[2], d[0]), b = __fdiv_rn(d[1], d[0]);
+    sf[0] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
+    a = __fdiv_rn(d[0], d[1]);
+    b = __fdiv_rn(d[2], d[1]);
+    sf[1] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
+    a = __fdiv_rn(d[0], d[2]);
+    b = __fdiv_rn(d[1], d[2]);
+    sf[2] = __fsqrt_rn(__fadd_rn(__fmaf_rn(a, a, __fmul_rn(b, b)), 1.f));
+}
+
+// The clip of init, shared with the skip tracer's (skip.cuh): the entry
+// point `p` of the ray (o, d) into the world box [0, S)^3, and whether the
+// ray meets the box (from `start_t` on, with kStart and `use_start`).
+template <bool kStart, int kEntryFma>
+__device__ __forceinline__ bool enter_box(const float o[3], const float d[3], float S, float p[3],
+                                          float start_t, bool use_start) {
+    float pmin[3], pmax[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        float t_lo = __fdiv_rn(__fsub_rn(0.f, o[c]), d[c]);
+        float t_hi = __fdiv_rn(__fsub_rn(S, o[c]), d[c]);
+        pmin[c] = fmin_nan(t_lo, t_hi);
+        pmax[c] = fmax_nan(t_lo, t_hi);
+    }
+    const float tmin_r = fmax_nan(fmax_nan(pmin[0], pmin[1]), pmin[2]);
+    const float tmax_r = fmin_nan(fmin_nan(pmax[0], pmax[1]), pmax[2]);
+    bool active = !((tmax_r < 0.f) || (tmin_r > tmax_r));
+    float enter = xla_max(tmin_r, 0.f);
+    if constexpr (kStart) {
+        if (use_start) {
+            // clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
+            active = active && start_t < tmax_r;
+            enter = xla_min(xla_max(0.f, xla_max(enter, start_t)),
+                            xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
+        }
+    }
+    // the reference's frame fuses this multiply-add on x and y, not on z
+    // (with start_t too)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        p[c] = ((kEntryFma >> c) & 1) ? __fmaf_rn(d[c], enter, o[c])
+                                      : __fadd_rn(o[c], __fmul_rn(d[c], enter));
+    return active;
+}
+
 // Clip the ray (o, d) to the world box and enter it at the top level.
 // With kStart and `use_start`, the ray starts at least `start_t` along,
 // clipped to just inside its exit, and a ray that starts at or beyond its
@@ -327,44 +380,10 @@ __device__ __forceinline__ void init(March& m, const float o[3], const float d[3
         m.d[c] = d[c];
         m.sg[c] = sgn(d[c]);
     }
-    {
-        float a = __fdiv_rn(d[2], d[0]), b = __fdiv_rn(d[1], d[0]);
-        m.sf[0] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
-        a = __fdiv_rn(d[0], d[1]);
-        b = __fdiv_rn(d[2], d[1]);
-        m.sf[1] = __fsqrt_rn(__fmaf_rn(b, b, __fmaf_rn(a, a, 1.f)));
-        a = __fdiv_rn(d[0], d[2]);
-        b = __fdiv_rn(d[1], d[2]);
-        m.sf[2] = __fsqrt_rn(__fadd_rn(__fmaf_rn(a, a, __fmul_rn(b, b)), 1.f));
-    }
+    path_lengths(d, m.sf);
     m.octant = (d[0] >= 0.f ? 1 : 0) + (d[2] >= 0.f ? 2 : 0) + (d[1] >= 0.f ? 4 : 0);
-    float pmin[3], pmax[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        float t_lo = __fdiv_rn(__fsub_rn(0.f, o[c]), d[c]);
-        float t_hi = __fdiv_rn(__fsub_rn(S, o[c]), d[c]);
-        pmin[c] = fmin_nan(t_lo, t_hi);
-        pmax[c] = fmax_nan(t_lo, t_hi);
-    }
-    const float tmin_r = fmax_nan(fmax_nan(pmin[0], pmin[1]), pmin[2]);
-    const float tmax_r = fmin_nan(fmin_nan(pmax[0], pmax[1]), pmax[2]);
-    m.active = !((tmax_r < 0.f) || (tmin_r > tmax_r));
+    m.active = enter_box<kStart, kEntryFma>(o, d, S, m.p, start_t, use_start);
     m.hit = false;
-    float enter = xla_max(tmin_r, 0.f);
-    if constexpr (kStart) {
-        if (use_start) {
-            // clip(max(enter, start_t), 0, max(tmax_r - 1e-3, 0))
-            m.active = m.active && start_t < tmax_r;
-            enter = xla_min(xla_max(0.f, xla_max(enter, start_t)),
-                            xla_max(__fsub_rn(tmax_r, 1e-3f), 0.f));
-        }
-    }
-    // the reference's frame fuses this multiply-add on x and y, not on z
-    // (with start_t too)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-        m.p[c] = ((kEntryFma >> c) & 1) ? __fmaf_rn(d[c], enter, o[c])
-                                        : __fadd_rn(o[c], __fmul_rn(d[c], enter));
 
     m.level = top;  // the cell edge tsize is 4^level throughout
 #pragma unroll

@@ -11,7 +11,11 @@ f32 [S^3] (or, with ``flat_params=False``, albedo rows [S^3, 3]).  Pixel
 gradients flow into the albedo and the opacity of every recorded voxel.  On
 the card a training step is four kernel launches: the march
 (``ops/multihit.py``), the composite forward and backward
-(``ops/composite.py``) and the Adam update (``ops/adam.py``).
+(``ops/composite.py``) and the Adam update (``ops/adam.py``).  With a beam
+(``beam_spec``, the reference's beam prepass on the multi-hit march) a step
+is one launch of the beam kernel (``ops/beam.py``) more, and the march
+starts each ray from its tile's beam start; a chain of steps
+(``train_steps_fused``) runs the beam once.
 
 Around the renderer: :func:`fit_soft`, the offline trainer (one march, then
 the composite and the update each step); :func:`with_candidates`, a
@@ -27,15 +31,18 @@ import torch
 
 from voxelhex_tpu_torch.constants import COLOR_EMPTY
 from voxelhex_tpu_torch.diff.optim import adam, resume, run_steps
+from voxelhex_tpu_torch.ops.beam import beam_tiles
 from voxelhex_tpu_torch.ops.composite import MAX_HITS, composite as _composite
 from voxelhex_tpu_torch.ops.multihit import multihit
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
 from voxelhex_tpu_torch.render.bitgrid import BitGrid, _pack_pyramid, device_bitgrid
-from voxelhex_tpu_torch.render.renderer import check_source, resolve_device
+from voxelhex_tpu_torch.render.renderer import beam_spec_of, check_source, resolve_device
+from voxelhex_tpu_torch.render.starts import BEAM_TILE
 from voxelhex_tpu_torch.tree.build import from_voxels
 
 # the param clamps of the reference's step (`_apply_update`)
 CLAMPS = ((0.0, 1.0), (-12.0, 12.0))  # albedo, logits
+SKIP_SUBSTEPS = 3  # the reference's skip_substeps default, which its soft renderer takes
 
 
 class SoftRenderer:
@@ -55,20 +62,27 @@ class SoftRenderer:
     gradients, moments and ``init_params`` keep the layout.
     ``flat_albedo_bwd`` is accepted at both values and changes nothing.
 
-    Not ported (ROADMAP.md): ``tracer="skip"`` and the beam prepass
-    (``beam=``)."""
+    ``tracer="skip"`` uploads the grid's skip rows and marches the skip
+    tracer (``skip_substeps`` 3, the reference's default), as the
+    reference's compacted march (``trace_hits_compacted``) does; its
+    non-compacted route marches the stack tracer whatever ``tracer`` says
+    (ROADMAP.md queue 3), and the port has the one route."""
 
     def __init__(self, source, max_hits: int = 4, max_iters: int = MAX_ITERS,
                  tracer: str = "stack", flat_albedo_bwd: bool = True, flat_params: bool = True,
                  *, device="cuda"):
-        if tracer != "stack":
-            raise NotImplementedError(f"tracer={tracer!r}: the skip tracer is ROADMAP.md "
-                                      "queue 1 item 11")
+        if tracer not in ("stack", "skip"):
+            raise ValueError(f"tracer {tracer!r}: 'stack' or 'skip'")
         if not 1 <= int(max_hits) <= MAX_HITS:
             raise ValueError(f"max_hits {max_hits}: the kernels take 1..{MAX_HITS}")
         self.device = resolve_device(device)
         self.bitgrid = check_source(source)
-        self.tree = device_bitgrid(self.bitgrid, self.device)
+        self.tracer = tracer
+        # the march's tracer, as the wrappers take it: None for the stack
+        self._skip_substeps = SKIP_SUBSTEPS if tracer == "skip" else None
+        self.tree = device_bitgrid(self.bitgrid, self.device, skip_rows=tracer == "skip")
+        # the beam prepass's dilated grids, one a level (beam_spec)
+        self._beam_grids: dict = {}
         self.size = int(self.bitgrid.size)
         self.max_hits = int(max_hits)
         self.max_iters = int(max_iters)
@@ -96,16 +110,57 @@ class SoftRenderer:
     def _rays(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device).reshape(-1, 3)
 
+    def beam_spec(self, camera):
+        """The beam prepass of ``camera`` for :meth:`trace_hits` and the
+        training steps (``beam=``), or None where the reference's is: the
+        tile does not divide the resolution, or no level keeps the beam
+        bound.  The beam reads the occupancy of this renderer's pyramid (a
+        dilated candidate grid's too) through the stack automaton on its
+        dilated level-L grid, whatever the tracer, as the reference's; it
+        proves no occupied voxel lies before each tile's start, so the first
+        K hits are unchanged, but on rays that graze a voxel's edge, whose
+        float path the start moves (5 of the bench pose's 2,073,600 rays, as
+        in the reference).  The spec holds the camera, its beam grid and
+        cell, the tile, and the reference's ``key`` ``(L, h / tile, w /
+        tile, tile)``; the rays that go with it are the camera's ``h * w``
+        rays in row order."""
+        spec = beam_spec_of(self.bitgrid, self._beam_grids, self.device, camera, BEAM_TILE)
+        if spec is None:
+            return None
+        grid, cell = spec
+        w, h = camera.resolution
+        L = int(cell).bit_length() // 2  # cell = 4^L
+        return {"key": (L, h // BEAM_TILE, w // BEAM_TILE, BEAM_TILE), "grid": grid,
+                "cell": cell, "camera": camera, "tile": BEAM_TILE}
+
+    def beam_starts(self, beam, n_rays: int):
+        """The start map of the beam spec ``beam`` (:meth:`beam_spec`) for
+        ``n_rays`` rays, ``(map f32 [h / tile, w / tile], tile, w)`` on the
+        device: one launch of the beam kernel.  The rays must be the spec
+        camera's ``h * w`` rays in row order; another count raises
+        ``ValueError`` (the reference fails there on a shape mismatch)."""
+        cam, tile = beam["camera"], beam["tile"]
+        w, h = cam.resolution
+        if n_rays != w * h:
+            raise ValueError(f"a beam for {w}x{h} = {w * h} rays, not {n_rays}: trace the "
+                             "beam camera's rays in row order")
+        starts = beam_tiles([(beam["grid"], beam["cell"], cam)], tile, self.device)[0]
+        return starts, tile, w
+
+    def _march(self, origins, dirs, start=None):
+        return multihit(self.tree, origins, dirs, self.max_hits, self.max_iters, start,
+                        self._skip_substeps)
+
     def trace_hits(self, origins, dirs, compact=None, beam=None):
         """``(count int32 [R], voxels int32 [R, K, 3], dists f32 [R, K])``:
         the first K occupied voxels along each ray, -1 / inf in empty slots.
-        ``compact`` changes nothing (every ray stops on its own); ``beam``
-        is not ported (ROADMAP.md queue 1 item 3)."""
+        ``compact`` changes nothing (every ray stops on its own).  With
+        ``beam`` (:meth:`beam_spec`), one launch of the beam kernel, then the
+        march from each ray's beam start (:meth:`beam_starts`)."""
         del compact
-        if beam is not None:
-            raise NotImplementedError("the beam prepass is ROADMAP.md queue 1 item 3")
-        return multihit(self.tree, self._rays(origins), self._rays(dirs), self.max_hits,
-                        self.max_iters)
+        o, d = self._rays(origins), self._rays(dirs)
+        start = None if beam is None else self.beam_starts(beam, o.shape[0])
+        return self._march(o, d, start)
 
     def composite(self, params, voxels, bg_color=None):
         """Differentiable transmittance compositing over recorded voxels:
@@ -164,11 +219,11 @@ class SoftRenderer:
 
     def train_step_fused(self, params, opt_state, opt, origins, dirs, target, beam=None,
                          opacity_l1: float = 0.0, fit_albedo: bool = True, validate=None):
-        """One training step: the march, then :meth:`fit_step`.  Returns
-        ``(params, opt_state, loss)`` with ``loss`` a device scalar.
-        Nothing is read back to the host, so steps queue back to back;
-        ``validate`` is accepted for the reference's signature and has
-        nothing to check."""
+        """One training step: the march (after the beam, with ``beam``), then
+        :meth:`fit_step`.  Returns ``(params, opt_state, loss)`` with
+        ``loss`` a device scalar.  Nothing is read back to the host, so
+        steps queue back to back; ``validate`` is accepted for the
+        reference's signature and has nothing to check."""
         del validate
         _count, voxels, _dists = self.trace_hits(origins, dirs, beam=beam)
         return self.fit_step(params, opt_state, opt, voxels, target, opacity_l1, fit_albedo)
@@ -177,13 +232,18 @@ class SoftRenderer:
                           beam=None, opacity_l1: float = 0.0, fit_albedo: bool = True,
                           validate=None):
         """``n_steps`` of :meth:`train_step_fused`: ``(params, opt_state,
-        losses f32 [n_steps])`` on the device."""
+        losses f32 [n_steps])`` on the device.  With ``beam`` the beam runs
+        once, before the first step, and every step's march starts from its
+        starts, as the reference's chain program does (the scene does not
+        change within a chain)."""
+        del validate
         origins, dirs, target = self._rays(origins), self._rays(dirs), self._rays(target)
+        start = None if beam is None else self.beam_starts(beam, origins.shape[0])
         losses = []
         for _ in range(int(n_steps)):
-            params, opt_state, loss = self.train_step_fused(
-                params, opt_state, opt, origins, dirs, target, beam=beam,
-                opacity_l1=opacity_l1, fit_albedo=fit_albedo, validate=validate)
+            _count, voxels, _dists = self._march(origins, dirs, start)
+            params, opt_state, loss = self.fit_step(params, opt_state, opt, voxels, target,
+                                                    opacity_l1, fit_albedo)
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 

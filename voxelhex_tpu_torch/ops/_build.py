@@ -298,7 +298,12 @@ def library() -> types.SimpleNamespace:
     ``vhx_window_shift``, ``vhx_render_far``, their forms with a start map
     ``vhx_render_frame_start``, ``vhx_render_frames_start`` and
     ``vhx_render_far_start``, ``vhx_beam``, ``vhx_splat``,
-    ``vhx_prepass_level``, ``vhx_depth_start``), built first if needed."""
+    ``vhx_prepass_level``, ``vhx_depth_start``, the skip tracer's instances
+    ``vhx_traverse_skip``, ``vhx_render_frame_skip``,
+    ``vhx_render_frames_skip``, ``vhx_prepass_level_skip``, and the
+    multi-hit march's start and skip forms ``vhx_multihit_start`` and
+    ``vhx_multihit_skip``), built
+    first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -310,20 +315,31 @@ def library() -> types.SimpleNamespace:
             p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
             trace_p, f3 = ctypes.POINTER(TraceParams), ctypes.POINTER(ctypes.c_float)
             signatures = {
-                "traverse.cu": {"vhx_traverse": [p, p, p, p, trace_p, i, p, p, p, p, p, i, p]},
+                "traverse.cu": {
+                    "vhx_traverse": [p, p, p, p, trace_p, i, p, p, p, p, p, i, p],
+                    "vhx_traverse_skip": [p, p, p, p, trace_p, i, i, p, p, p, p, p, i, p],
+                },
                 "shade.cu": {"vhx_shade": [p, p, p, p, i, f, f, f, i, p, p, i, p]},
                 "frame.cu": {
                     "vhx_render_frame": [p, p, p, i, ctypes.POINTER(FrameParams), p, p, i, p],
                     "vhx_render_frame_start": [p, p, p, i, ctypes.POINTER(FrameParams), p, i, p,
                                                p, i, p],
+                    "vhx_render_frame_skip": [p, p, p, i, ctypes.POINTER(FrameParams), i, p, i,
+                                              p, p, i, p],
                 },
                 "frames.cu": {
                     "vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p, p, p, p,
                                           i, p],
                     "vhx_render_frames_start": [p, p, p, i, ctypes.POINTER(FramesParams), p, i,
                                                 ctypes.c_uint, p, p, p, p, i, p],
+                    "vhx_render_frames_skip": [p, p, p, i, ctypes.POINTER(FramesParams), i, p, i,
+                                               ctypes.c_uint, p, p, p, p, i, p],
                 },
-                "multihit.cu": {"vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p]},
+                "multihit.cu": {
+                    "vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p],
+                    "vhx_multihit_start": [p, p, p, trace_p, i, i, p, i, i, p, p, p, i, p],
+                    "vhx_multihit_skip": [p, p, p, trace_p, i, i, i, p, i, i, p, p, p, i, p],
+                },
                 "composite.cu": {
                     "vhx_composite_forward": [p, p, p, i, i, i, f3, p, i, p],
                     "vhx_composite_backward": [p, p, p, p, i, i, i, f3, p, p, i, p],
@@ -350,6 +366,7 @@ def library() -> types.SimpleNamespace:
                 },
                 "prepass.cu": {
                     "vhx_prepass_level": [p, ctypes.POINTER(PrepassParams), p, p, i, p],
+                    "vhx_prepass_level_skip": [p, ctypes.POINTER(PrepassParams), i, p, p, i, p],
                     "vhx_depth_start": [p, i, i, p, i, p],
                 },
             }

@@ -12,7 +12,9 @@ plain PyTorch version: the plain ray generation, tracer and shading in turn.
 With a start map (the beam, splat or depth prepass: ``ops/beam.py``,
 ``ops/splat.py``, ``ops/prepass.py``), each ray starts at least its pixel
 tile's value along, the reference's ``start_t``: ``frame_start_kernel``,
-its own instance of the same code.
+its own instance of the same code.  With ``skip_substeps`` the rays march
+the skip tracer (``ops/skip.py``) over the grid's skip rows:
+``frame_skip_kernel``, with or without a start map.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.shade import shade_plain
-from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
-from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
+from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
 
@@ -40,12 +42,11 @@ def expand_start(start, tile, w, h):
 
 
 def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
-                       max_iters=MAX_ITERS, start=None, start_tile=1):
+                       max_iters=MAX_ITERS, start=None, start_tile=1, skip_substeps=None):
     """The plain PyTorch frame (see :func:`render_frame`)."""
     w, h = camera.resolution
     o, d = device_rays(camera, tree["occ_pairs"].device)
-    trace = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
-                                **KERNEL_CONFIG)
+    trace = plain_tracer(tree, max_iters, skip_substeps)
     st0 = None if start is None else expand_start(start, start_tile, w, h)
     st = trace.run(tree, trace.init(tree, o, d, st0), max_iters)
     voxel = trace.resolve_color(tree, st["hit"], st["hvox"])
@@ -122,21 +123,26 @@ def check_start(start, start_tile, w, h, dev):
 
 
 def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                 start=None, start_tile=1):
+                 start=None, start_tile=1, skip_substeps=None):
     """The frame of ``camera`` over the BitGrid ``tree``
     (:func:`device_bitgrid`) with the reference renderer's tracer settings,
     each ray for at most ``max_iters`` steps: ``[h, w, 3]`` u8, or f32 when
     ``out_u8`` is false, ``bg`` on a miss.  With ``start`` (f32 [ceil(h /
     start_tile), ceil(w / start_tile)] on the tree's device), each ray
-    starts at least its tile's value along.
+    starts at least its tile's value along.  With ``skip_substeps``, the
+    rays march the skip tracer over ``tree["skip_rows"]``, at most
+    ``max_iters`` body iterations a ray.
 
-    A CPU tree runs the plain version; a CUDA tree launches the kernel."""
+    A CPU tree runs the plain version; a CUDA tree launches the kernel
+    (``render_frame.launches`` counts the stack frames,
+    ``render_frame.skip_launches`` the skip frames)."""
     dev = tree["occ_pairs"].device
     w, h = camera.resolution
     if start is not None:
         check_start(start, start_tile, w, h, dev)
     if dev.type == "cpu":
-        return render_frame_plain(tree, camera, bg, out_u8, max_iters, start, start_tile)
+        return render_frame_plain(tree, camera, bg, out_u8, max_iters, start, start_tile,
+                                  skip_substeps)
     if dev.type != "cuda":
         raise ValueError(f"render_frame runs on cuda or cpu tensors, not {dev}")
     _build.check_inputs(dev, (
@@ -144,6 +150,8 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
         ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
         ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
     ))
+    if skip_substeps is not None:
+        check_skip(tree, skip_substeps)
     n_colors = tree["palette"].shape[0]
     if n_colors < 1:
         raise ValueError("empty palette")
@@ -154,14 +162,22 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
     out = torch.empty((h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     rgb_ptr, u8_ptr = (None, out.data_ptr()) if out_u8 else (out.data_ptr(), None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vhx_render_frame_start(
-        tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(), tree["palette"].data_ptr(),
-        n_colors, params, None if start is None else start.data_ptr(), int(start_tile),
-        rgb_ptr, u8_ptr, dev.index or 0, stream,
-    )
-    _build.check(err, "frame kernel launch")
-    render_frame.launches += 1
+    start_ptr = None if start is None else start.data_ptr()
+    colors, palette = tree["colors"].data_ptr(), tree["palette"].data_ptr()
+    if skip_substeps is None:
+        err = lib.vhx_render_frame_start(
+            tree["occ_pairs"].data_ptr(), colors, palette, n_colors, params, start_ptr,
+            int(start_tile), rgb_ptr, u8_ptr, dev.index or 0, stream)
+        _build.check(err, "frame kernel launch")
+        render_frame.launches += 1
+    else:
+        err = lib.vhx_render_frame_skip(
+            tree["skip_rows"].data_ptr(), colors, palette, n_colors, params, int(skip_substeps),
+            start_ptr, int(start_tile), rgb_ptr, u8_ptr, dev.index or 0, stream)
+        _build.check(err, "skip frame kernel launch")
+        render_frame.skip_launches += 1
     return out
 
 
 render_frame.launches = 0
+render_frame.skip_launches = 0

@@ -21,7 +21,9 @@ A batch may start its rays from start maps, one a camera (the beam prepass
 of ``ops/beam.py``): ``starts = (maps f32 [K, ceil(h / tile), ceil(w /
 tile)], tile, use)``, where frame k reads map k if ``use[k]`` and marches
 from its entry otherwise.  It runs ``frames_start_kernel``, its own
-instance of the same code.
+instance of the same code.  With ``skip_substeps`` the rays march the skip
+tracer (``ops/skip.py``) over the grid's skip rows: ``frames_skip_kernel``,
+with or without start maps.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.frame import _pixel_steps, check_start, frame_cam, render_frame_plain
+from voxelhex_tpu_torch.ops.skip import check_skip
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
 
 ROW_GROUP = 8  # rows a digest flag covers
@@ -53,12 +56,13 @@ def digest_plain(frames, prev):
 
 
 def render_frames_plain(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                        prev=None, starts=None):
+                        prev=None, starts=None, skip_substeps=None):
     """The plain PyTorch version of :func:`render_frames`."""
     cameras = _check_cameras(cameras)
     maps, tile, use = starts if starts is not None else (None, 1, [False] * len(cameras))
     frames = torch.stack([
-        render_frame_plain(tree, c, bg, out_u8, max_iters, maps[k] if use[k] else None, tile)
+        render_frame_plain(tree, c, bg, out_u8, max_iters, maps[k] if use[k] else None, tile,
+                           skip_substeps)
         for k, c in enumerate(cameras)])
     if prev is None:
         return frames, None, None
@@ -120,13 +124,14 @@ def _check_starts(starts, cameras, dev):
 
 
 def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_index=0,
-                  stream=None, starts=None):
+                  stream=None, starts=None, words=None):
     """Allocate the outputs on the tree's device and call ``entry`` (the
     signature of ``vhx_render_frames_start``: no start map without
     ``starts``) once for each chunk of up to ``KMAX`` frames: ``(frames,
     digest int32 [K, 1 + G] or None, launches)``.  Chunk c > 0 compares its
     frame 0 with chunk c - 1's last frame, which the launch before it wrote
-    on the same stream."""
+    on the same stream.  ``words``: what the march reads (the skip rows),
+    if not the tree's word pairs."""
     dev = tree["occ_pairs"].device
     w, h = cameras[0].resolution
     K = len(cameras)
@@ -145,7 +150,8 @@ def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_i
             maps, tile, use = starts
             start, tile = maps[k0].data_ptr(), int(tile)
             mask = sum(1 << k for k in range(p.n_frames) if use[k0 + k])
-        err = entry(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+        err = entry((tree["occ_pairs"] if words is None else words).data_ptr(),
+                    tree["colors"].data_ptr(),
                     tree["palette"].data_ptr(), n_colors, p, start, tile, mask,
                     None if out_u8 else out, out if out_u8 else None, base,
                     None if digest is None else digest[k0].data_ptr(), device_index, stream)
@@ -155,7 +161,7 @@ def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_i
 
 
 def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS, prev=None,
-                         starts=None):
+                         starts=None, skip_substeps=None):
     """:func:`render_frames` of u8 frames with the digest packed in one
     int32 tensor ``[K, 1 + G]`` (column 0 ``nrows_changed``, then
     ``rowflags``), or ``None`` without ``prev``: ``(frames, digest)``.  One
@@ -166,12 +172,12 @@ def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS,
         _check_starts(starts, cameras, dev)
     if dev.type == "cpu":
         frames, nrows, flags = render_frames_plain(tree, cameras, bg, True, max_iters, prev,
-                                                   starts)
+                                                   starts, skip_substeps)
         return frames, None if prev is None else torch.cat([nrows[:, None], flags], dim=1)
-    return _launch(tree, cameras, bg, True, max_iters, prev, starts)
+    return _launch(tree, cameras, bg, True, max_iters, prev, starts, skip_substeps)
 
 
-def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts):
+def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps):
     dev = tree["occ_pairs"].device
     if dev.type != "cuda":
         raise ValueError(f"render_frames runs on cuda or cpu tensors, not {dev}")
@@ -188,36 +194,52 @@ def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts):
     if tree["palette"].shape[0] < 1:
         raise ValueError("empty palette")
     lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if skip_substeps is None:
+        frames, digest, n = launch_frames(
+            lib.vhx_render_frames_start, tree, cameras, bg, out_u8, max_iters, prev,
+            device_index=dev.index or 0, stream=stream, starts=starts)
+        render_frames.launches += n
+        return frames, digest
+    check_skip(tree, skip_substeps)
+    substeps = int(skip_substeps)
+
+    def entry(rows, colors, palette, n_colors, p, *rest):
+        return lib.vhx_render_frames_skip(rows, colors, palette, n_colors, p, substeps, *rest)
+
     frames, digest, n = launch_frames(
-        lib.vhx_render_frames_start, tree, cameras, bg, out_u8, max_iters, prev,
-        device_index=dev.index or 0,
-        stream=torch.cuda.current_stream(dev).cuda_stream, starts=starts)
-    render_frames.launches += n
+        entry, tree, cameras, bg, out_u8, max_iters, prev, device_index=dev.index or 0,
+        stream=stream, starts=starts, words=tree["skip_rows"])
+    render_frames.skip_launches += n
     return frames, digest
 
 
 def render_frames(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                  prev=None, starts=None):
+                  prev=None, starts=None, skip_substeps=None):
     """The frames of ``cameras`` (one resolution) over the BitGrid ``tree``
     (:func:`device_bitgrid`), as :func:`render_frame` draws each:
     ``(frames [K, h, w, 3], nrows_changed, rowflags)``, u8 or f32.  With
     ``prev`` (u8 [h, w, 3], and ``out_u8``), the digests of the u8 frames
     (module docstring), frame 0's against ``prev``; without it, ``None``
     and ``None``.  With ``starts``, each frame's rays start from its start
-    map (module docstring).
+    map (module docstring).  With ``skip_substeps``, the rays march the skip
+    tracer.
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel,
-    once for each ``KMAX`` cameras."""
+    once for each ``KMAX`` cameras (``render_frames.launches`` counts the
+    stack launches, ``render_frames.skip_launches`` the skip launches)."""
     cameras = _check_cameras(cameras)
     dev = tree["occ_pairs"].device
     if starts is not None:
         _check_starts(starts, cameras, dev)
     if dev.type == "cpu":
-        return render_frames_plain(tree, cameras, bg, out_u8, max_iters, prev, starts)
-    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev, starts)
+        return render_frames_plain(tree, cameras, bg, out_u8, max_iters, prev, starts,
+                                   skip_substeps)
+    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps)
     if digest is None:
         return frames, None, None
     return frames, digest[:, 0], digest[:, 1:]
 
 
 render_frames.launches = 0
+render_frames.skip_launches = 0

@@ -13,7 +13,9 @@ and splat starts these are not conservative: the frame may differ from the
 plain one, by design, as the reference's does.
 
 :func:`level_depth_plain` and :func:`depth_start_plain` are the plain
-PyTorch versions of the two kernels.
+PyTorch versions of the two kernels.  Under ``tracer="skip"`` the levels
+march the skip tracer, as the reference's do (its ``self._trace``):
+``skip_substeps``, the skip instance of ``prepass_kernel``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ import torch
 from voxelhex_tpu_torch.fp import maximum, minimum, sqrt32
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.frame import _pixel_steps, expand_start, frame_cam
-from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
-from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
+from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
 from voxelhex_tpu_torch.render.camera import device_rays
 
 MISS_DEPTH = 1e8
@@ -59,7 +61,8 @@ def ray_depth(hit, point, o):
     return torch.where(hit, d, torch.full_like(d, MISS_DEPTH))
 
 
-def level_depth_plain(tree, camera, coarser=None, max_iters=MAX_ITERS, stats=None):
+def level_depth_plain(tree, camera, coarser=None, max_iters=MAX_ITERS, stats=None,
+                      skip_substeps=None):
     """The plain version of :func:`level_depth`.  With a dict ``stats``,
     the level's march goes into it (``"iters"``, and ``"reads"``: the word
     pairs it fetches, bool over ``occ_pairs``)."""
@@ -67,8 +70,12 @@ def level_depth_plain(tree, camera, coarser=None, max_iters=MAX_ITERS, stats=Non
     dev = tree["occ_pairs"].device
     o, d = device_rays(camera, dev)
     start = None if coarser is None else expand_start(depth_start_plain(coarser), 2, w, h)
-    trace = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
-                                **KERNEL_CONFIG)
+    trace = plain_tracer(tree, max_iters, skip_substeps)
+    if skip_substeps is not None:
+        st = trace.run(tree, trace.init(tree, o, d, start), max_iters)
+        if stats is not None:
+            stats.update(iters=st["iters"])
+        return ray_depth(st["hit"], st["point"], o).reshape(h, w)
     reads = None
     if stats is not None:
         reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
@@ -95,29 +102,42 @@ def _check(tree, dev):
                                (tree["occ_pairs"].shape[0], 2)),))
 
 
-def level_depth(tree, camera, coarser=None, max_iters=MAX_ITERS):
+def level_depth(tree, camera, coarser=None, max_iters=MAX_ITERS, skip_substeps=None):
     """One level of the depth prepass at ``camera``'s resolution: f32 [h,
     w] depths, each ray started from the start map of ``coarser`` (the
     level before, [h / 2, w / 2]; None for the coarsest level, which
-    starts at the world's entry).
+    starts at the world's entry).  With ``skip_substeps``, the rays march
+    the skip tracer over ``tree["skip_rows"]``.
 
-    A CPU tree runs the plain version; a CUDA tree launches the kernel."""
+    A CPU tree runs the plain version; a CUDA tree launches the kernel
+    (``level_depth.launches`` counts the stack levels,
+    ``level_depth.skip_launches`` the skip levels)."""
     dev = tree["occ_pairs"].device
     w, h = camera.resolution
     if coarser is not None and tuple(coarser.shape) != (h // 2, w // 2):
         raise ValueError(f"coarser depth {tuple(coarser.shape)}, want {(h // 2, w // 2)}")
     if dev.type == "cpu":
-        return level_depth_plain(tree, camera, coarser, max_iters)
+        return level_depth_plain(tree, camera, coarser, max_iters, skip_substeps=skip_substeps)
     _check(tree, dev)
     if coarser is not None:
         _build.check_inputs(dev, (("coarser", coarser, torch.float32, (h // 2, w // 2)),))
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    err = _build.library().vhx_prepass_level(
-        tree["occ_pairs"].data_ptr(), prepass_params(tree, camera, max_iters),
-        None if coarser is None else coarser.data_ptr(), out.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "prepass kernel launch")
-    level_depth.launches += 1
+    params = prepass_params(tree, camera, max_iters)
+    coarser_ptr = None if coarser is None else coarser.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if skip_substeps is None:
+        err = _build.library().vhx_prepass_level(
+            tree["occ_pairs"].data_ptr(), params, coarser_ptr, out.data_ptr(), dev.index or 0,
+            stream)
+        _build.check(err, "prepass kernel launch")
+        level_depth.launches += 1
+    else:
+        check_skip(tree, skip_substeps)
+        err = _build.library().vhx_prepass_level_skip(
+            tree["skip_rows"].data_ptr(), params, int(skip_substeps), coarser_ptr,
+            out.data_ptr(), dev.index or 0, stream)
+        _build.check(err, "skip prepass kernel launch")
+        level_depth.skip_launches += 1
     return out
 
 
@@ -143,14 +163,15 @@ def depth_start(depth):
 
 
 level_depth.launches = 0
+level_depth.skip_launches = 0
 depth_start.launches = 0
 
 
-def prepass_start(tree, camera, levels, max_iters=MAX_ITERS):
+def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None):
     """The start map of ``camera``'s full-resolution frame after ``levels``
     levels of the depth prepass (``levels`` >= 1, 2^levels dividing the
     resolution): f32 [h / 2, w / 2], one value a 2 x 2 tile."""
     depth = None
     for i in range(levels, 0, -1):
-        depth = level_depth(tree, level_camera(camera, i), depth, max_iters)
+        depth = level_depth(tree, level_camera(camera, i), depth, max_iters, skip_substeps)
     return depth_start(depth)

@@ -9,7 +9,11 @@ Color resolves after the march with one gather from a dense u16 grid.
 
 On the card the tracer is the CUDA kernel of :mod:`voxelhex_tpu_torch.ops.
 traverse`; :func:`make_bitgrid_tracer` here is its plain PyTorch version,
-bit-equal to the reference's ``make_bitgrid_tracer``.
+bit-equal to the reference's ``make_bitgrid_tracer``.  The reference's
+other tracer, the skip tracer, marches the skip rows
+(:func:`build_skip_rows`: every level's word pair over a level-0 block in
+one row); :func:`make_skip_tracer` is its plain version, of the skip
+instances of the kernels (:mod:`voxelhex_tpu_torch.ops.skip`).
 
 :func:`build_bitgrid` makes the BitGrid of a BoxTree or FlatTree on the
 host, in the host library or in NumPy, equal to the reference's field for
@@ -46,6 +50,10 @@ from voxelhex_tpu_torch.render.wavefront import (
 )
 
 U32_MASK = 0xFFFFFFFF
+# on which axes XLA:CPU fuses the skip tracer's entry point o + d * enter
+# and its DDA step point + d * t (the stack tracer's DDA: all three)
+SKIP_ENTRY_FMA = (True, True, False)
+SKIP_DDA_FMA = (True, True, False)
 
 # The moves of the move record (``make_bitgrid_tracer``'s ``run(...,
 # moves=...)``): a step that ascends past the top level (to restart or to
@@ -260,17 +268,20 @@ def bitgrid_from_occupancy(occ_xyz: np.ndarray, palette=None) -> BitGrid:
     return bitgrid_from_grids(occ_xyz, colors, pal)
 
 
-def device_bitgrid(bg: BitGrid, device="cuda") -> dict:
+def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False) -> dict:
     """The tensors the tracer and the shader read, on ``device``:
 
     * ``occ_pairs`` int32 [B, 2]: the (lo, hi) u32 words as bit patterns
       (read them back with ``& 0xFFFFFFFF`` after widening);
     * ``colors`` int16 [S^3]: the u16 color indices as bit patterns;
     * ``palette`` f32 [P, 4];
-    * ``size`` and the pyramid's ``bases`` and ``dims`` as Python ints.
+    * ``size`` and the pyramid's ``bases`` and ``dims`` as Python ints;
+    * with ``skip_rows``, ``skip_rows`` int32 [n0^3, 2L]: the skip tracer's
+      rows (:func:`build_skip_rows`) as bit patterns, as the reference's
+      ``device_bitgrid(..., skip_rows=True)`` adds them.
     """
     pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).astype(np.uint32)
-    return {
+    out = {
         "occ_pairs": torch.from_numpy(pairs.view(np.int32)).to(device),
         "colors": torch.from_numpy(
             np.ascontiguousarray(bg.colors, dtype=np.uint16).view(np.int16)
@@ -280,6 +291,40 @@ def device_bitgrid(bg: BitGrid, device="cuda") -> dict:
         "bases": [int(b) for b in bg.level_bases],
         "dims": level_dims(bg.size, bg.n_levels),
     }
+    if skip_rows:
+        out["skip_rows"] = torch.from_numpy(build_skip_rows(bg).view(np.int32)).to(device)
+    return out
+
+
+def skip_row_index(bg: BitGrid) -> np.ndarray:
+    """int32 [n0^3, L], n0 = ceil(size / 4): for every level-0 block, the
+    index in the pyramid's word pairs of its ancestor at each level (the
+    reference's ``skip_row_index``)."""
+    n0 = max((int(bg.size) + 3) // 4, 1)
+    dims = level_dims(bg.size, bg.n_levels)
+    a = np.arange(n0**3)
+    ax, ay, az = a % n0, (a // n0) % n0, a // (n0 * n0)
+    idx = np.zeros((n0**3, bg.n_levels), dtype=np.int32)
+    for k in range(bg.n_levels):
+        kx, ky, kz = ax >> (2 * k), ay >> (2 * k), az >> (2 * k)
+        idx[:, k] = int(bg.level_bases[k]) + kx + ky * dims[k] + kz * dims[k] * dims[k]
+    return idx
+
+
+def skip_rows_from_pairs(pairs, idx):
+    """The skip rows ``[n0^3, 2L]`` from the word pairs ``[B, 2]`` and the
+    index of :func:`skip_row_index`: level k's pair in columns 2k and 2k+1
+    (the reference's ``skip_rows_from_pairs``; NumPy arrays or tensors)."""
+    return pairs[idx].reshape(idx.shape[0], 2 * idx.shape[1])
+
+
+def build_skip_rows(bg: BitGrid) -> np.ndarray:
+    """u32 [n0^3, 2L]: for every level-0 block, the occupancy word pairs of
+    the block and of all its ancestors, so that one row fetch holds every
+    level of the pyramid over a position (the reference's
+    ``build_skip_rows``)."""
+    pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).astype(np.uint32)
+    return skip_rows_from_pairs(pairs, skip_row_index(bg))
 
 
 def _reach_mask_v(tsect_c, octant):
@@ -595,13 +640,16 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
 
 
 def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters: int = 2048,
-                         **settings):
+                         skip_substeps: int | None = None, **settings):
     """Plain PyTorch multi-hit march over a pyramid of ``n_levels`` levels:
-    ``trace(tree, origins, dirs) -> (count int32 [R], voxels int32 [R, K, 3],
-    dists f32 [R, K])``, K = ``max_hits``; an empty slot holds voxel -1 and
-    distance inf.  With ``with_steps=True`` it also returns each ray's
-    automaton steps (int32 [R]); ``reads`` goes to the march's ``run``.
-    ``settings`` go to
+    ``trace(tree, origins, dirs, start_t=None) -> (count int32 [R], voxels
+    int32 [R, K, 3], dists f32 [R, K])``, K = ``max_hits``; an empty slot
+    holds voxel -1 and distance inf.  ``start_t`` (f32 [R]): each ray starts
+    at least that far along, and a ray whose start is at or past its box
+    exit has no hits (the tracers' start form).  With ``with_steps=True``
+    it also returns each ray's steps (int32 [R]: automaton steps, or the
+    skip tracer's body iterations); ``reads`` goes to the march's ``run``
+    (over the word pairs, or over the skip rows).  ``settings`` go to
     :func:`make_bitgrid_tracer`.
 
     Each ray marches with the single-hit automaton (``init`` / ``run``);
@@ -611,14 +659,28 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
     ``voxelhex_tpu/diff/soft.py:189``).  ``restarts`` carries across hits.
     A ray takes at most ``max_hits * max_iters`` steps in all, a hit's step
     included: the reference's global budget, which its lock-step rounds
-    spend the same way unless a ray comes near it."""
-    base = make_bitgrid_tracer(n_levels, size, max_iters=max_iters, **settings)
+    spend the same way unless a ray comes near it.
+
+    With ``skip_substeps`` (None: the stack automaton) it marches the skip
+    tracer (:func:`make_skip_tracer`, ``skip_substeps`` substeps) instead,
+    as ``_hit_step``'s skip branch
+    drives it: the hit ends its body iteration, whose end fetches the row
+    of the hit voxel, and then the voxel's bit is cleared in the row's
+    level-0 pair; ``max_hits * max_iters`` body iterations a ray."""
+    skip = skip_substeps is not None
+    if skip:
+        base = make_skip_tracer(n_levels, size, max_iters, skip_substeps)
+    else:
+        base = make_bitgrid_tracer(n_levels, size, max_iters=max_iters, **settings)
     K = int(max_hits)
 
-    def trace(tree, o, dirv, with_steps=False, reads=None):
+    def trace(tree, o, dirv, start_t=None, with_steps=False, reads=None):
         R = o.shape[0]
         dev = o.device
-        st = base.init(tree, o, dirv)
+        st = base.init(tree, o, dirv, start_t)
+        def run(s):
+            return base.run(tree, s, 1, reads=reads)
+
         voxels = torch.full((R, K, 3), -1, dtype=torch.int32, device=dev)
         dists = torch.full((R, K), float("inf"), dtype=torch.float32, device=dev)
         cursor = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -627,7 +689,7 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
         for _ in range(K * max_iters):
             if not bool(st["active"].any()):
                 break
-            st = base.run(tree, st, 1, reads=reads)
+            st = run(st)
             idx = torch.nonzero(st["hit"]).squeeze(1)
             if idx.numel() == 0:
                 continue
@@ -640,16 +702,188 @@ def make_multihit_tracer(n_levels: int, size: int, max_hits: int = 4, max_iters:
             cursor[idx] = k + 1
             st["hit"][idx] = False
             more = idx[k + 1 < K]
-            s = st["tsect"][more].clamp(0, 63).long()
+            if skip:
+                w = st["v"][more].long() & 3
+                s = w[:, 0] + w[:, 1] * 4 + w[:, 2] * 16
+                lo, hi = st["rows"][more, 0], st["rows"][more, 1]
+            else:
+                s = st["tsect"][more].clamp(0, 63).long()
+                lo, hi = st["lo"][more], st["hi"][more]
             bit = torch.ones_like(s) << (s % 32)
             low = s < 32
-            st["lo"][more] = torch.where(low, st["lo"][more] & ~bit, st["lo"][more])
-            st["hi"][more] = torch.where(low, st["hi"][more], st["hi"][more] & ~bit)
+            lo = torch.where(low, lo & ~bit, lo)
+            hi = torch.where(low, hi, hi & ~bit)
+            if skip:
+                st["rows"][more, 0], st["rows"][more, 1] = lo, hi
+            else:
+                st["lo"][more], st["hi"][more] = lo, hi
             st["active"][more] = True
         out = (cursor.int(), voxels, dists)
         return out + (st["iters"],) if with_steps else out
 
     return trace
+
+def _to_i32(x):
+    """``x.astype(int32)`` as XLA converts: toward zero, saturating at the
+    int32 range, NaN to 0."""
+    x = torch.nan_to_num(x.double(), nan=0.0).clamp(-2.0**31, 2.0**31 - 1)
+    return x.to(torch.int64).to(torch.int32)
+
+
+def make_skip_tracer(n_levels: int, size: int, max_iters: int = 2048, substeps: int = 3,
+                     entry_fma=SKIP_ENTRY_FMA):
+    """Plain PyTorch skip tracer over a pyramid of ``n_levels`` levels and
+    world extent ``size`` (the reference's ``make_skip_tracer``):
+    ``trace(tree, origins, dirs, start_t=None) -> (hit, voxel, hvox, point,
+    hnormal)`` over the tensors of :func:`device_bitgrid` with
+    ``skip_rows``.
+
+    The first occupied voxel along each ray, with no stack and no restart.
+    At the end of each body iteration a ray fetches the one row of its
+    level-0 block (:func:`build_skip_rows`), which holds that block's word
+    pair and every ancestor's.  Each of the body's ``substeps`` substeps
+    tests the voxel bit where the level-0 pair is valid (a hit); else it
+    takes the largest level whose pair is valid for the voxel (``blk == b0
+    >> 2k``) and whose cell is empty, and makes one DDA step across that
+    cell, in integer voxel coordinates.  A ray stops when it leaves ``[0,
+    S)``, and after ``max_iters`` body iterations.  ``entry_fma``: on which
+    axes XLA:CPU fuses the entry point's multiply-add in the reference's
+    program."""
+    L = int(n_levels)
+    Si = int(size)
+    n0 = max((Si + 3) // 4, 1)
+
+    def row_of(b0):
+        return b0[:, 0].long() + b0[:, 1].long() * n0 + b0[:, 2].long() * n0 * n0
+
+    def fetch(tree, v):
+        b0 = (v >> 2).clamp(0, n0 - 1)
+        return tree["skip_rows"][row_of(b0)].long() & U32_MASK, b0
+
+    def init(tree, o, dirv, start_t=None):
+        R = o.shape[0]
+        dev = o.device
+        S = torch.tensor(float(tree["size"]), dtype=torch.float32, device=dev)
+        dx, dy, dz = dirv[:, 0], dirv[:, 1], dirv[:, 2]
+        sq = [
+            fma32(dy / dx, dy / dx, fma32(dz / dx, dz / dx, 1.0)),
+            fma32(dz / dy, dz / dy, fma32(dx / dy, dx / dy, 1.0)),
+            fma32(dx / dz, dx / dz, (dy / dz) * (dy / dz)) + 1.0,
+        ]
+        sf = sqrt32(torch.stack(sq, dim=-1))
+        t_lo = (0.0 - o) / dirv
+        t_hi = (S - o) / dirv
+        per_min = fmin_nan(t_lo, t_hi)
+        per_max = fmax_nan(t_lo, t_hi)
+        tmin_r = fmax_nan(fmax_nan(per_min[:, 0], per_min[:, 1]), per_min[:, 2])
+        tmax_r = fmin_nan(fmin_nan(per_max[:, 0], per_max[:, 1]), per_max[:, 2])
+        root_hit = ~((tmax_r < 0.0) | (tmin_r > tmax_r))
+        zero = torch.zeros_like(tmin_r)
+        enter = maximum(tmin_r, zero)
+        if start_t is not None:
+            root_hit = root_hit & (start_t < tmax_r)
+            enter = minimum(maximum(zero, maximum(enter, start_t)),
+                            maximum(tmax_r - 1e-3, zero))
+        step = dirv * enter[:, None]
+        point = torch.stack(
+            [fma32(dirv[:, c], enter, o[:, c]) if entry_fma[c] else o[:, c] + step[:, c]
+             for c in range(3)], dim=1)
+        v = _to_i32(torch.floor(point)).clamp(0, Si - 1)
+        rows, b0 = fetch(tree, v)
+        return {
+            "point": point, "v": v, "rows": rows, "b0": b0, "dirv": dirv, "sf": sf,
+            "active": root_hit,
+            "hit": torch.zeros(R, dtype=torch.bool, device=dev),
+            "hvox": torch.zeros((R, 3), dtype=torch.int32, device=dev),
+            "hnormal": torch.zeros((R, 3), dtype=torch.float32, device=dev),
+            "iters": torch.zeros(R, dtype=torch.int32, device=dev),  # body iterations
+            # the row fetches of a march: at entry, and at the end of each
+            # body iteration after which the ray marches on
+            "fetches": root_hit.int(),
+        }
+
+    def body(tree, st):
+        """One body iteration of rays that are all active: ``substeps``
+        substeps, then the row fetch at the voxel reached."""
+        p, vv, act = st["point"], st["v"], st["active"]
+        rows, b0 = st["rows"], st["b0"]
+        dirv, sf = st["dirv"], st["sf"]
+        hit, hvox, hnormal = st["hit"], st["hvox"], st["hnormal"]
+        R = p.shape[0]
+        ones = torch.ones(R, dtype=torch.float32, device=p.device)
+        for _ in range(substeps):
+            valids, occs = [], []
+            for k in range(L):
+                cell = vv >> (2 * k)
+                valids.append(((cell >> 2) == (b0 >> (2 * k))).all(dim=-1))
+                w = cell & 3
+                s = w[:, 0] + w[:, 1] * 4 + w[:, 2] * 16
+                occs.append(_occ_bit_v(rows[:, 2 * k], rows[:, 2 * k + 1], s) != 0)
+            found = act & valids[0] & occs[0]
+            nrm = _impact_normal_v(vv.float(), ones, p)
+            hit = hit | found
+            hvox = torch.where(found[:, None], vv, hvox)
+            hnormal = torch.where(found[:, None], nrm, hnormal)
+            act = act & ~found
+            # the largest valid empty cell: the level to skip across
+            k_sel = torch.full((R,), -1, dtype=torch.int32, device=p.device)
+            for k in range(L):
+                k_sel = torch.where(valids[k] & ~occs[k], k, k_sel)
+            can_adv = act & (k_sel >= 0)  # else the row is stale: wait for the fetch
+            csz = (torch.ones_like(k_sel) << (2 * k_sel.clamp(min=0)))[:, None]
+            cmin = (vv // csz) * csz
+            new_p, stp = _dda_step_v(dirv, sf, p, cmin.float(), csz[:, 0].float(),
+                                     SKIP_DDA_FMA)
+            sti = _to_i32(stp)
+            v_cross = (cmin // csz + sti) * csz + torch.where(sti > 0, 0, csz - 1)
+            v_stay = torch.minimum(torch.maximum(_to_i32(torch.floor(new_p)), cmin),
+                                   cmin + csz - 1)
+            v_new = torch.where(sti != 0, v_cross, v_stay)
+            out = ((v_new < 0) | (v_new >= Si)).any(dim=-1)
+            act = act & ~(can_adv & out)
+            apply = can_adv & ~out
+            p = torch.where(apply[:, None], new_p, p)
+            vv = torch.where(apply[:, None], v_new, vv)
+        rows, b0 = fetch(tree, vv)
+        st.update(point=p, v=vv, rows=rows, b0=b0, active=act, hit=hit, hvox=hvox,
+                  hnormal=hnormal, iters=st["iters"] + 1, fetches=st["fetches"] + act.int())
+        return st
+
+    def run(tree, st, iters, reads=None):
+        """Up to ``iters`` body iterations of the active rays (inactive rays
+        are fixed points of the body).  With a bool tensor ``reads`` over
+        the skip rows, set the entry of each row that an active ray fetches:
+        the rows the march reads (off on every path, for measuring)."""
+        if reads is not None:
+            reads[row_of(st["b0"][st["active"]])] = True
+        for _ in range(iters):
+            idx = torch.nonzero(st["active"]).squeeze(1)
+            if idx.numel() == 0:
+                break
+            sub = body(tree, {k: v[idx] for k, v in st.items()})
+            if reads is not None:
+                reads[row_of(sub["b0"][sub["active"]])] = True
+            for k, v in sub.items():
+                st[k][idx] = v
+        return st
+
+    def resolve_color(tree, hit, hvox):
+        v = hvox.clamp(0, Si - 1).long()
+        caddr = v[:, 0] + v[:, 1] * Si + v[:, 2] * Si * Si
+        cidx = tree["colors"][caddr].int() & 0xFFFF
+        cidx = torch.where(cidx >= COLOR_NONE, torch.full_like(cidx, NO_COLOR_HIT), cidx)
+        return torch.where(hit, cidx, torch.full_like(cidx, EMPTY_DESC))
+
+    def trace(tree, o, dirv, start_t=None):
+        st = run(tree, init(tree, o, dirv, start_t), max_iters)
+        voxel = resolve_color(tree, st["hit"], st["hvox"])
+        return st["hit"], voxel, st["hvox"], st["point"], st["hnormal"]
+
+    trace.init = init
+    trace.run = run
+    trace.resolve_color = resolve_color
+    return trace
+
 
 def _floor_mod(x, y):
     """``jnp.mod`` on floats: the remainder takes the sign of ``y``."""

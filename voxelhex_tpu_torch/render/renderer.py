@@ -13,7 +13,15 @@ one beam launch, then one batched-kernel launch), the splat prepass
 (``splat_prepass=True``, :mod:`~voxelhex_tpu_torch.ops.splat`) and the
 depth prepass (``prepass=True``, :mod:`~voxelhex_tpu_torch.ops.prepass`).
 Which one runs follows the reference's ``_render_impl``
-(:meth:`BitGridRenderer.render`)."""
+(:meth:`BitGridRenderer.render`).
+
+``tracer="skip"`` marches the reference's other tracer, the skip tracer
+(:mod:`~voxelhex_tpu_torch.ops.skip`), over the grid's skip rows at every
+entry point: ``trace``, ``render`` with or without a prepass (the depth
+prepass's levels march it too, as the reference's do; the beam prepass
+marches the stack automaton on its dilated grid whatever the tracer),
+``render_many`` and ``render_delta_many``; each kernel has a skip
+instance."""
 
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from voxelhex_tpu_torch.ops.beam import beam_tiles
 from voxelhex_tpu_torch.ops.frame import expand_start, render_frame
 from voxelhex_tpu_torch.ops.frames import ROW_GROUP, render_frames, render_frames_digest
 from voxelhex_tpu_torch.ops.prepass import prepass_start
+from voxelhex_tpu_torch.ops.skip import trace_skip
 from voxelhex_tpu_torch.ops.splat import splat_tiles
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, traverse
 from voxelhex_tpu_torch.render.bitgrid import (
@@ -33,6 +42,8 @@ from voxelhex_tpu_torch.render.bitgrid import (
     bitgrid_from_occupancy,
     build_bitgrid,
     device_bitgrid,
+    skip_row_index,
+    skip_rows_from_pairs,
 )
 from voxelhex_tpu_torch.render.camera import Camera
 from voxelhex_tpu_torch.render.starts import BEAM_TILE, beam_level, beam_occupancy, splat_points
@@ -40,11 +51,12 @@ from voxelhex_tpu_torch.tree.boxtree import BoxTree
 from voxelhex_tpu_torch.tree.flat import FlatTree
 
 # The reference renderer's options, each with the values the kernels accept
-# (csrc/traverse.cuh fixes the tracer settings); None accepts any value.
-# The frame is the same whatever plan, fusion or color storage the
+# (csrc/traverse.cuh fixes the stack tracer's settings); None accepts any
+# value.  The frame is the same whatever plan, fusion or color storage the
 # reference would pick; `prepass` runs the depth prepass of
-# `prepass_levels` levels, and `skip_substeps` is read only with
-# `tracer="skip"`.
+# `prepass_levels` levels; `tracer="skip"` runs the skip tracer
+# (csrc/skip.cuh), with `skip_substeps` >= 1 substeps a body iteration,
+# which is read only with it.
 RESULT_NEUTRAL = {
     "fuse_plan": None,
     "auto_plan": None,
@@ -53,7 +65,7 @@ RESULT_NEUTRAL = {
     "prepass": None,
     "lateral_step": (True,),
     "advance_substeps": (4,),
-    "tracer": ("stack",),
+    "tracer": ("stack", "skip"),
     "parent_skip": (False,),
     "color_u8": (False,),
 }
@@ -96,6 +108,35 @@ def check_options(options: dict) -> None:
             )
 
 
+def beam_spec_of(bitgrid: BitGrid, grids: dict, device, camera: Camera, tile: int):
+    """``(grid, cell)`` of ``camera``'s beam level over ``bitgrid``, or
+    None where the reference has no beam spec: the tile does not divide the
+    resolution, or no level keeps the bound (``beam_level``).  The dilated
+    grid of each level (:func:`~voxelhex_tpu_torch.render.starts.
+    beam_occupancy`) is uploaded to ``device`` at first use and kept in
+    ``grids``, one a level, until the caller clears it."""
+    w, h = camera.resolution
+    if w % tile or h % tile:
+        return None
+    L = beam_level(bitgrid.size, camera, tile)
+    if L is None:
+        return None
+    grid = grids.get(L)
+    if grid is None:
+        occ = beam_occupancy(bitgrid, L)
+        grid = grids[L] = device_bitgrid(bitgrid_from_occupancy(occ), device)
+    return grid, float(4**L)
+
+
+def upload_skip_rows(tree: dict, bitgrid: BitGrid) -> None:
+    """Set ``tree["skip_rows"]`` to the skip rows of ``tree``'s word pairs
+    (``bitgrid``'s pyramid), derived on the tree's device: after a
+    re-upload of the content."""
+    pairs = tree["occ_pairs"]
+    idx = torch.from_numpy(skip_row_index(bitgrid)).to(pairs.device).long()
+    tree["skip_rows"] = skip_rows_from_pairs(pairs, idx).contiguous()
+
+
 class BitGridRenderer:
     """Renders frames of one BitGrid on one device; ``source`` is a BitGrid,
     a BoxTree or a FlatTree (:func:`check_source`).
@@ -104,7 +145,9 @@ class BitGridRenderer:
     ``max_iters`` is the kernels' step limit per ray; ``prepass`` runs the
     depth prepass of ``prepass_levels`` levels before each frame; the
     options of ``RESULT_NEUTRAL`` are accepted at the values the kernels
-    fix; any other value raises.  ``device`` is keyword-only."""
+    fix; any other value raises.  ``tracer="skip"`` uploads the grid's
+    skip rows and marches the skip tracer, ``skip_substeps`` substeps a
+    body iteration.  ``device`` is keyword-only."""
 
     def __init__(self, source, max_iters: int = MAX_ITERS, prepass: bool = False,
                  prepass_levels: int = 2, lateral_step: bool = True, parent_skip: bool = False,
@@ -123,7 +166,13 @@ class BitGridRenderer:
         self.prepass_levels = int(prepass_levels)
         if self.prepass_levels < 0:
             raise ValueError(f"prepass_levels {prepass_levels}")
-        self.tree = device_bitgrid(self.bitgrid, self.device)
+        self.tracer = tracer
+        # the skip tracer's substeps, None for the stack automaton: what the
+        # kernels' wrappers take
+        self.skip_substeps = int(skip_substeps) if tracer == "skip" else None
+        if self.skip_substeps is not None and self.skip_substeps < 1:
+            raise ValueError(f"skip_substeps {skip_substeps}: the skip tracer takes 1 or more")
+        self.tree = device_bitgrid(self.bitgrid, self.device, skip_rows=tracer == "skip")
         # the beam prepass's tile, and what the prepasses derive from the
         # content until invalidate_beam: the dilated grid of each beam level
         # on the device, and the splat prepass's surface centers
@@ -148,32 +197,18 @@ class BitGridRenderer:
     def trace(self, origins, dirs):
         """``(hit, voxel, hvox, point, hnormal)`` for f32 [R, 3] rays on the
         renderer's device, with the reference renderer's tracer settings."""
+        if self.skip_substeps is not None:
+            return trace_skip(self.tree, origins, dirs, self.max_iters, self.skip_substeps)
         return traverse(self.tree, origins, dirs, self.max_iters)
 
     # ---- the start prepasses
 
-    def _beam_grid(self, L: int) -> dict:
-        """The dilated level-``L`` grid of the beam prepass on the device
-        (:func:`~voxelhex_tpu_torch.render.starts.beam_occupancy`), built
-        at first use after each content change."""
-        grid = self._beam_grids.get(L)
-        if grid is None:
-            occ = beam_occupancy(self.bitgrid, L)
-            grid = self._beam_grids[L] = device_bitgrid(bitgrid_from_occupancy(occ), self.device)
-        return grid
-
     def _beam_spec(self, camera: Camera, tile: int | None = None):
         """``(grid, cell)`` of ``camera``'s beam level, or None where the
-        reference has no beam spec: the tile does not divide the
-        resolution, or no level keeps the bound (``beam_level``)."""
-        tile = tile or self.beam_tile
-        w, h = camera.resolution
-        if w % tile or h % tile:
-            return None
-        L = beam_level(self.bitgrid.size, camera, tile)
-        if L is None:
-            return None
-        return self._beam_grid(L), float(4**L)
+        reference has no beam spec (:func:`beam_spec_of`); the dilated grids
+        are kept until the content changes."""
+        return beam_spec_of(self.bitgrid, self._beam_grids, self.device, camera,
+                            tile or self.beam_tile)
 
     def beam_map(self, camera: Camera, tile: int | None = None):
         """The beam prepass's start map of ``camera``, f32 ``[h / tile, w /
@@ -225,7 +260,8 @@ class BitGridRenderer:
         while levels and (h % (2**levels) or w % (2**levels)):
             levels -= 1
         if levels:
-            return prepass_start(self.tree, camera, levels, self.max_iters), 2, "depth"
+            return prepass_start(self.tree, camera, levels, self.max_iters,
+                                 self.skip_substeps), 2, "depth"
         if not compact:
             return None, 1, None
         if beam_prepass:
@@ -258,7 +294,8 @@ class BitGridRenderer:
         w, h = camera.resolution
         with self._render_lock:
             start, tile, kind = self._frame_start(camera, compact, splat_prepass, beam_prepass)
-            out = render_frame(self.tree, camera, bg, out_u8, self.max_iters, start, tile)
+            out = render_frame(self.tree, camera, bg, out_u8, self.max_iters, start, tile,
+                               self.skip_substeps)
             self.last_stats = {"rays": w * h, "prepass": kind, "beam_fused": kind == "beam"}
         return out if out_device else out.cpu().numpy()
 
@@ -274,7 +311,8 @@ class BitGridRenderer:
         survives, as in the reference: it is only a diff base, so the next
         :meth:`render_delta_many` fetches just the rows that the change
         moved; the content version moves on, so the next batch is not
-        ``pose_validated``."""
+        ``pose_validated``.  Under ``tracer="skip"`` it derives the new
+        tree's skip rows from its word pairs, on the device."""
         self._content_version += 1
         self._beam_grids.clear()
         self._splat_pts = None
@@ -284,6 +322,8 @@ class BitGridRenderer:
                              f"{self.device}")
         if int(t["size"]) != bg.size or len(t["bases"]) != bg.n_levels:
             raise ValueError("renderer.tree does not match renderer.bitgrid")
+        if self.skip_substeps is not None:
+            upload_skip_rows(t, bg)
 
     @staticmethod
     def _batch_resolution(cameras):
@@ -335,7 +375,7 @@ class BitGridRenderer:
             if beam_prepass and starts is None:
                 return None
             frames, _n, _f = render_frames(self.tree, cameras, bg, out_u8, self.max_iters,
-                                           starts=starts)
+                                           starts=starts, skip_substeps=self.skip_substeps)
             self.last_stats = {"rays": res[0] * res[1] * len(cameras),
                                "batched_frames": len(cameras), "beam_fused": bool(beam_prepass)}
         return frames if out_device else frames.cpu().numpy()
@@ -400,7 +440,8 @@ class BitGridRenderer:
             else:
                 _key, prev_dev, prev_host = state
             frames_dev, digest = render_frames_digest(self.tree, cameras, bg, self.max_iters,
-                                                      prev=prev_dev, starts=starts)
+                                                      prev=prev_dev, starts=starts,
+                                                      skip_substeps=self.skip_substeps)
             digest = _read(digest)  # the batch's one blocking read of the digests
             nrows, flags = digest[:, 0], digest[:, 1:]
             frames, cur, fetched, rows_fetched, reads = [], prev_host, 0, 0, 1

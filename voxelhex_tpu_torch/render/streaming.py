@@ -374,6 +374,12 @@ class StreamingView:
         if view_size % REGION:
             raise ValueError(f"view_size {view_size} is not a multiple of {REGION}")
         check_options({"tracer": tracer, "fuse_plan": fuse_plan})
+        if tracer == "skip":
+            # the window and its rings march far.cu, which has no skip
+            # instance, and the skip rows would need refreshing after each
+            # update
+            raise NotImplementedError("tracer='skip' in the streaming view: ROADMAP.md queue 1 "
+                                      "item 11")
         self.device = resolve_device(device)
         self.native = bool(native)
         self.tree = tree

@@ -53,10 +53,13 @@ def _step_sectant_v(sectant, step):
     return torch.where(inside, x + y * 4 + z * 16, torch.full_like(x, OOB))
 
 
-def _dda_step_v(d, sf, point, cell_min, cell_size):
+def _dda_step_v(d, sf, point, cell_min, cell_size, fma_axes=(True, True, True)):
     """One DDA step to the nearest face of the cell: ``(new_point, step)``
     where ``step`` [R,3] holds the sign of the direction on the crossed
-    axes and zero elsewhere."""
+    axes and zero elsewhere.  ``fma_axes``: on which axes ``point + d *
+    min_step`` is one fused multiply-add, as XLA:CPU compiles the reference
+    program being matched (the stack tracer: all three; the skip tracer: x
+    and y)."""
     signum = sign(d)
     steps_needed = cell_size[:, None] * maximum(signum, torch.zeros_like(signum)) - (
         signum * (point - cell_min)
@@ -66,7 +69,13 @@ def _dda_step_v(d, sf, point, cell_min, cell_size):
     dists = torch.where(d == 0.0, big, dists)
     dists = torch.where(torch.isnan(dists), big, dists)
     min_step = dists.amin(dim=-1, keepdim=True)
-    new_point = fma32(d, min_step, point)
+    if all(fma_axes):
+        new_point = fma32(d, min_step, point)
+    else:
+        step_len = d * min_step
+        new_point = torch.stack(
+            [fma32(d[:, c], min_step[:, 0], point[:, c]) if fma_axes[c]
+             else point[:, c] + step_len[:, c] for c in range(3)], dim=1)
     step = torch.where(dists == min_step, signum, torch.zeros_like(signum))
     return new_point, step
 
