@@ -126,13 +126,18 @@ digests, ``render_delta_many([cam] * 16, beam_prepass=True)`` twice (one
 ``beam.cu`` and one ``frames.cu`` launch a batch; one frame fetched, then
 none) and a fly-over frame of ``StreamingView(beam_prepass=True)`` (one
 beam and one ``far.cu`` launch); (b) ``beam.cu`` on every tile at the
-bench, terrain and fly-over window poses, ``splat.cu`` on every texel and
-``prepass.cu`` on every texel of each level against their plain versions,
-and the frame kernels from each start map; (c) the beam frame against the
-plain frame in ppm; (d) the dead tiles, the steps a ray with the beam's
-start and without, and device times in turns of the plain frame against
-beam + frame and of the plain delta batch against the beam's, at the bench
-pose and the terrain, and ``far.cu`` with the window's start; (e) the frame
+bench, terrain, fly-over window and close terrain (a 258^3 beam world)
+poses, with each
+pose's beam steps (the most, how many beams reach 128 steps or pass their
+restarts), ``splat.cu`` on every texel and ``prepass.cu`` on every texel of
+each level against their plain versions, and the frame kernels from each
+start map; (c) the beam frame against the plain frame in ppm; (d) the dead
+tiles, the steps a ray with the beam's start and without, and device times
+in turns of the plain frame against beam + frame and of the plain delta
+batch against the beam's, at the bench pose and the terrain, ``beam.cu``
+alone for 1 and 16 frames and over an empty grid of the same size (its
+launch floor) at each of the four poses of (b), and
+``far.cu`` with the window's start; (e) the frame
 kernels' registers without a start; (f) each new kernel's time, plain
 version, bound and library call (``scatter_reduce_`` for the splat's
 scatter, beside a profile of its two passes).
@@ -155,8 +160,8 @@ march's start, skip and skip-with-start forms; (c) the 1024 terrain's skip
 frame (640 MiB of rows) against its plain version and its stack frame;
 (d) the beam march's counts and voxels against the plain march's; (e) the
 skip march's against the stack's; (f) device times in turns of the skip
-frame against the stack frame (bench and terrain), of the skip multi-hit
-march against the stack's, of beam + start march against the plain march,
+frame, 16-frame batch and multi-hit march against the stack's (bench and
+terrain), of beam + start march against the plain march,
 of a training step (device time, CUDA events around the calls, host
 clock) and of a 16-step chain (CUDA events, host clock) with the beam
 against without, and the mode ``bench.py`` would keep, the
@@ -262,6 +267,9 @@ SPLAT_OPS_PER_POINT = 40
 SPLAT_OPS_PER_TEXEL = 60
 # ptxas's registers of the frame kernels before they took a start map
 FRAME_REGISTERS = {"frame_kernel": 40, "frames_kernel": 55}
+# a terrain camera close enough for a beam level of 1 (fly-over pose 3 with
+# a narrower view): a beam world of 258^3 cells (2.2 MB of word pairs)
+CLOSE_POSE, CLOSE_FOV = 3, 25.0
 
 # ---- phase 15, the skip tracer and the soft beam at 1920x1080: sha256 of the
 # reference package's u8 frames at the bench pose under tracer="skip", made
@@ -3384,7 +3392,7 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     Returns the three kernels' entries and the main path's launches of
     ``frame.cu``, ``frames.cu`` and ``far.cu``."""
     from voxelhex_tpu_torch.ops import _build
-    from voxelhex_tpu_torch.ops.beam import beam_tiles, beam_tiles_plain
+    from voxelhex_tpu_torch.ops.beam import BEAM_CONFIG, BEAM_ITERS, beam_tiles, beam_tiles_plain
     from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
     from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_frame_plain
     from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_digest
@@ -3393,8 +3401,9 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     from voxelhex_tpu_torch.ops.splat import project, splat_tiles, splat_tiles_plain
     from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
     from voxelhex_tpu_torch.render import fastest_renderer
-    from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
-    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.render.bitgrid import (bitgrid_from_occupancy, device_bitgrid,
+                                                   make_bitgrid_tracer)
+    from voxelhex_tpu_torch.render.camera import Camera, device_rays, orbit_camera
     from voxelhex_tpu_torch.render.streaming import StreamingView
     from voxelhex_tpu_torch.scene import build_scene
 
@@ -3468,9 +3477,12 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     beam_err, beams = 0.0, {}
     terrain_r = fastest_renderer(terrain)
     tcam = orbit_camera(float(TERRAIN_WORLD), resolution=RES)
+    fc = flight_cam(CLOSE_POSE)
+    ccam = Camera(origin=fc.origin, target=fc.target, resolution=RES, fov_y_deg=CLOSE_FOV)
     layers = view.layers(fcam)
     for pose, r, c in (("bench", bench, cam), ("terrain", terrain_r, tcam),
-                       ("fly-over window", view.renderer, layers[0][1])):
+                       ("fly-over window", view.renderer, layers[0][1]),
+                       ("close terrain", terrain_r, ccam)):
         spec = r._beam_spec(c)
         if spec is None:
             raise AssertionError(f"{pose}: no beam level")
@@ -3484,13 +3496,21 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
         beam_err = max(beam_err, max_abs_err(k, p))
         L = int(round(math.log(spec[1], 4)))
         dead = float((p == 1e8).float().mean())
-        log(f"  beam at the {pose} pose: L = {L}, {spec[0]['size']}^3 cells, {p.numel()} tiles, "
-            f"{n_bad} differ from the plain beams; dead {dead:.4f}, start 0 "
-            f"{float((p == 0).float().mean()):.4f}; beam steps {int(st['iters'].sum())}, "
-            f"most {int(st['iters'].max())}; plain {plain_ms:.1f} ms (host clock)")
+        log(f"  beam at the {pose} pose: L = {L}, {spec[0]['size']}^3 cells "
+            f"({spec[0]['occ_pairs'].shape[0]} word pairs), {p.numel()} tiles: {n_bad} differ "
+            f"from the plain beams; dead {dead:.4f}, start 0 "
+            f"{float((p == 0).float().mean()):.4f}; plain {plain_ms:.1f} ms (host clock)")
+        it = st["iters"]
+        log(f"  beam steps at the {pose} pose: {int(it.sum())} in all, "
+            f"{int(it.sum()) / it.numel():.4f} a beam, most {int(it.max())}; beams at "
+            f"{BEAM_ITERS} steps {int((it >= BEAM_ITERS).sum())} (still active "
+            f"{int(st['active'].sum())}), past {BEAM_CONFIG['max_restarts']} restarts "
+            f"{int((st['restarts'] > BEAM_CONFIG['max_restarts']).sum())}; beams of more than "
+            f"16, 32, 64 steps {int((it > 16).sum())}, {int((it > 32).sum())}, "
+            f"{int((it > 64).sum())}")
         if n_bad:
             raise AssertionError(f"beam.cu differs from its plain version at the {pose} pose")
-        beams[pose] = (spec, k, st, plain_ms, dead)
+        beams[pose] = (spec, k, st, plain_ms, dead, c)
     window_start = beams["fly-over window"][1]
     stats_far = []
     want = far_frame_plain(layers, view.camera_inside(fcam), stats=stats_far,
@@ -3569,7 +3589,7 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     # (d) what the beam buys: dead tiles, steps a ray, device times in turns
     t0 = time.time()
     for pose, r, c in (("bench", bench, cam), ("terrain", terrain_r, tcam)):
-        spec, bmap, bst, _ms, dead = beams[pose]
+        spec, bmap, bst, _ms, dead, _c = beams[pose]
         t = r.tree
         o, d = device_rays(c, dev)
         R = o.shape[0]
@@ -3611,16 +3631,28 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
                 f"({100 * (b - a) / a:+.1f}%) {tag}")
         frame_start_ms = device_ms(lambda: render_frame(t, c, start=bmap, start_tile=8),
                                    TIMED_FRAMES)
-        beam_ms = device_ms(lambda: beam_tiles(one, 8, dev), TIMED_FRAMES)
         frames_start_ms = device_ms(
             lambda: render_frames_digest(t, [c] * BATCH, prev=prev,
                                          starts=(bmap.expand(BATCH, *bmap.shape).contiguous(), 8,
                                                  [True] * BATCH)), TIMED_FRAMES)
-        log(f"  {pose}: frame.cu from the beam's start {frame_start_ms:.4f} ms, beam.cu "
-            f"{beam_ms:.4f} ms, frames.cu from 16 start maps {frames_start_ms / BATCH:.4f} ms a "
-            f"frame {tag}")
-        beams[pose] += (beam_ms, frame_start_ms)
+        log(f"  {pose}: frame.cu from the beam's start {frame_start_ms:.4f} ms, frames.cu from "
+            f"16 start maps {frames_start_ms / BATCH:.4f} ms a frame {tag}")
         del o, d, start
+    # the beam alone at each pose, 1 frame and a batch of 16, and its launch
+    # floor: the same launch over an empty grid of the same size, which each
+    # beam leaves in a few steps
+    beam_only = {}
+    for pose, (spec, _k, _st, _ms, _dead, c) in beams.items():
+        n = spec[0]["size"]
+        empty = device_bitgrid(bitgrid_from_occupancy(np.zeros((n, n, n), dtype=bool)), dev)
+        ms = {name: device_ms(lambda: beam_tiles([(g, spec[1], c)] * k, 8, dev), TIMED_FRAMES)
+              for name, g, k in (("1", spec[0], 1), ("16", spec[0], BATCH),
+                                 ("floor 1", empty, 1), ("floor 16", empty, BATCH))}
+        log(f"  beam.cu at the {pose} pose: 1 frame {ms['1']:.4f} ms, {BATCH} frames "
+            f"{ms['16']:.4f} ms ({ms['16'] / BATCH:.4f} a frame); over an empty {n}^3 grid "
+            f"{ms['floor 1']:.4f} and {ms['floor 16']:.4f} ms {tag}")
+        beam_only[pose] = ms
+        del empty
     # render_delta_many by host clock, each mode on a renderer of its own so
     # that its baseline is its own last frame
     delta_plain = fastest_renderer(scene)
@@ -3649,8 +3681,9 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     log(f"  frame.cu without a start {frame_ms:.4f} ms, phase 4's {phase4_frame_ms:.4f} ms {tag}")
 
     # (f) each new kernel: its time, plain version, bound and library call
-    bspec, bmap, bst, beam_plain_ms, _dead, beam_ms, _fs = beams["bench"]
+    bspec, bmap, bst, beam_plain_ms, _dead, _c = beams["bench"]
     b_bound, b_by = beam_bound(bst, bmap.numel())
+    beam_ms = beam_only["bench"]["1"]
     splat_ms = device_ms(lambda: splat_tiles(pts, cam), TIMED_FRAMES)
     idx = ((v.clamp(0.0, h2 - 1.0).long() * w2 + u.clamp(0.0, w2 - 1.0).long())[reliable])
     dvals = dist[reliable]
@@ -4023,9 +4056,19 @@ def skip_slice(dev, card, terrain):
                           "skip": lambda: render_frame(tree, cam, skip_substeps=S3)})
     turns("terrain frame", {"stack": lambda: render_frame(ttree, tcam),
                             "skip": lambda: render_frame(tt, tcam, skip_substeps=S3)})
+    for where, t_st, t_sk, c in (("bench", stack.tree, tree, cam), ("terrain", ttree, tt, tcam)):
+        turns(f"{where} batch of {BATCH}, a frame", {
+            "stack": lambda: render_frames(t_st, [c] * BATCH, prev=prev),
+            "skip": lambda: render_frames(t_sk, [c] * BATCH, prev=prev, skip_substeps=S3)},
+            per=BATCH, reps=4)
     turns("multi-hit march", {
         "stack": lambda: multihit(soft.tree, o, d, K),
         "skip": lambda: multihit(soft_skip.tree, o, d, K, skip_substeps=S3)})
+    to, td = device_rays(tcam, dev)
+    turns("terrain multi-hit march", {
+        "stack": lambda: multihit(ttree, to, td, K),
+        "skip": lambda: multihit(tt, to, td, K, skip_substeps=S3)})
+    del to, td
     turns("multi-hit march and the beam", {
         "plain": lambda: multihit(soft.tree, o, d, K),
         "beam + start": lambda: multihit(soft.tree, o, d, K, start=soft.beam_starts(spec, R))})

@@ -22,7 +22,10 @@ def cuda():
 def _grid(size=64, seed=0, density=0.02):
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy
 
-    occ = np.random.default_rng(seed).random((size, size, size)) < density
+    rng = np.random.default_rng(seed)
+    occ = np.empty((size, size, size), dtype=bool)
+    for i in range(size):  # slab by slab: the values of one draw, a bool at a time
+        occ[i] = rng.random((size, size)) < density
     return bitgrid_from_occupancy(occ, palette=np.random.default_rng(seed).random((7, 4)))
 
 
@@ -806,17 +809,26 @@ def _scene_renderers(cuda, **kw):
     return fastest_renderer(scene, device=cuda, **kw), fastest_renderer(scene, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("dist", [1.8, 6.0])
+@pytest.mark.parametrize("dist", [1.8, 6.0, "258"])
 def test_beam_kernel_equals_plain(cuda, dist):
     """beam.cu on every tile of the bench scene at 1080p (L = 1 and L = 3),
     against the plain beams, and two cameras of different levels in one
-    launch."""
+    launch; with "258", two cameras over a random 258^3 beam world (the 1024
+    terrain's at L = 1, 2.2 MB of word pairs)."""
     from voxelhex_tpu_torch.ops.beam import beam_tiles, beam_tiles_plain
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    gpu, _cpu = _scene_renderers(cuda)
-    cams = [orbit_camera(128.0, distance_factor=d, resolution=(1920, 1080)) for d in (dist, 1.2)]
-    specs = [gpu._beam_spec(c) for c in cams]
+    if dist == "258":
+        grid = device_bitgrid(_grid(258, seed=5, density=0.002), cuda)
+        cams = [orbit_camera(1024.0, distance_factor=d, resolution=(1920, 1080))
+                for d in (1.8, 1.2)]
+        specs = [(grid, 4.0)] * 2
+    else:
+        gpu, _cpu = _scene_renderers(cuda)
+        cams = [orbit_camera(128.0, distance_factor=d, resolution=(1920, 1080))
+                for d in (dist, 1.2)]
+        specs = [gpu._beam_spec(c) for c in cams]
     assert all(s is not None for s in specs)
     n0 = beam_tiles.launches
     k = beam_tiles([(*s, c) for s, c in zip(specs, cams)], 8, cuda)
@@ -887,14 +899,24 @@ def test_prepass_frames_on_the_card_equal_cpu(cuda, kw):
 # ---- the skip tracer and the multi-hit march's start form
 
 
-def test_skip_traverse_kernel_equals_plain(cuda):
-    """traverse.cu's skip instance against the plain skip tracer, every
-    output, at substeps 1 and 3."""
+@pytest.mark.parametrize("size,density", [(4, 0.3), (16, 0.05), (64, 0.02), (128, 0.01),
+                                          (260, 0.002), (1028, 0.0005)])
+def test_skip_traverse_kernel_equals_plain(cuda, size, density):
+    """Each skip instance at the depth of a random grid of ``size`` (1 to 6
+    levels; 1028: 257^3 rows of 48 B, 815 MB) against its plain version:
+    traverse.cu's, every output, at substeps 1 and 3; frame.cu's and
+    frames.cu's frames, prepass.cu's level and multihit.cu's march (K = 3)
+    at 3."""
+    from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
+    from voxelhex_tpu_torch.ops.prepass import level_camera, level_depth, level_depth_plain
     from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
     from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    tree = device_bitgrid(_grid(), cuda, skip_rows=True)
-    o, d = (t.to(cuda) for t in _rays(5000, 64, 1))
+    tree = device_bitgrid(_grid(size, density=density), cuda, skip_rows=True)
+    o, d = (t.to(cuda) for t in _rays(5000, size, 1))
     for substeps in (1, 3):
         n0 = trace_skip.launches
         k = trace_skip(tree, o, d, substeps=substeps)
@@ -903,6 +925,19 @@ def test_skip_traverse_kernel_equals_plain(cuda):
         for a, b in zip(k, trace_skip_plain(tree, o, d, substeps=substeps)):
             assert _equal(a, b)
     assert int(k[0].sum()) > 1000
+    cams = [orbit_camera(float(size), yaw_deg=y, resolution=(320, 176)) for y in (40.0, 130.0)]
+    assert _equal(render_frame(tree, cams[0], skip_substeps=3),
+                  render_frame_plain(tree, cams[0], skip_substeps=3))
+    prev = torch.zeros((176, 320, 3), dtype=torch.uint8, device=cuda)
+    for a, b in zip(render_frames(tree, cams, prev=prev, skip_substeps=3),
+                    render_frames_plain(tree, cams, prev=prev, skip_substeps=3)):
+        assert _equal(a, b)
+    cam1 = level_camera(cams[0], 1)
+    assert _equal(level_depth(tree, cam1, None, skip_substeps=3),
+                  level_depth_plain(tree, cam1, None, skip_substeps=3))
+    for a, b in zip(multihit(tree, o, d, 3, skip_substeps=3),
+                    multihit_plain(tree, o, d, 3, skip_substeps=3)):
+        assert _equal(a, b)
 
 
 @pytest.mark.parametrize("kw", [{}, {"beam_prepass": True}, {"splat_prepass": True}, "depth"])

@@ -32,6 +32,7 @@ check on the card.  Skips where there is no C++ compiler.
 """
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -175,6 +176,7 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     });
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* p, int v) {
     std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
@@ -262,18 +264,19 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 }
 using std::signbit;
 // a launch that the test rewrites into this call: every thread of every
-// block of the 2-D grid in turn
+// block of the 3-D grid in turn
 template <class F>
 inline void vhx_host_launch(dim3 grid, unsigned threads, int, cudaStream_t, F kernel) {
     blockDim = dim3(threads);
     gridDim = grid;
-    for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx)
-            for (unsigned t = 0; t < threads; ++t) {
-                blockIdx = dim3(bx, by);
-                threadIdx = dim3(t);
-                kernel();
-            }
+    for (unsigned bz = 0; bz < grid.z; ++bz)
+        for (unsigned by = 0; by < grid.y; ++by)
+            for (unsigned bx = 0; bx < grid.x; ++bx)
+                for (unsigned t = 0; t < threads; ++t) {
+                    blockIdx = dim3(bx, by, bz);
+                    threadIdx = dim3(t);
+                    kernel();
+                }
 }
 // a launch of a kernel with warp intrinsics, rewritten into this call: the
 // blocks in turn and their warps in turn, a warp's 32 lanes as threads
@@ -393,27 +396,6 @@ extern "C" void host_frame_start(const void* occ, const void* colors, const floa
             }
 }
 
-// frame.cu's skip frame, from a start map or without it, every thread of
-// every block in turn
-extern "C" void host_frame_skip(const void* rows, const void* colors, const float* palette,
-                                int n_colors, const FrameParams* P, int substeps,
-                                const float* start, int tile, float* rgb, unsigned char* u8) {
-    blockDim = dim3(THREADS);
-    for (unsigned by = 0; by < (unsigned)(P->h + WARP_H - 1) / WARP_H; ++by)
-        for (unsigned bx = 0; bx < (unsigned)(P->w + BLOCK_W - 1) / BLOCK_W; ++bx)
-            for (unsigned t = 0; t < (unsigned)THREADS; ++t) {
-                blockIdx = dim3(bx, by);
-                threadIdx = dim3(t);
-                if (start)
-                    frame_skip_kernel<true>((const uint2*)rows, (const unsigned short*)colors,
-                                            (const float4*)palette, n_colors, *P, substeps,
-                                            start, tile, (P->w + tile - 1) / tile, rgb, u8);
-                else
-                    frame_skip_kernel<false>((const uint2*)rows, (const unsigned short*)colors,
-                                             (const float4*)palette, n_colors, *P, substeps,
-                                             nullptr, 1, 0, rgb, u8);
-            }
-}
 
 // traverse.cu's and multihit.cu's C entries, their launches loops over the
 // grid
@@ -574,8 +556,6 @@ def host_lib(tmp_path_factory):
     for header in ("traverse.cuh", "frame.cuh", "skip.cuh"):
         shutil.copy(os.path.join(CSRC, header), d)
     launch = re.compile(r"<<<[^>]*>>>")  # a launch becomes a call of one thread
-    with open(os.path.join(CSRC, "frame.cu")) as f:
-        (d / "frame_host.cu").write_text(launch.sub("", f.read()))
     # the batched kernel runs through its C entry, whose launch becomes a
     # loop over the grid (vhx_host_launch): the test drives the entry, its
     # checks and its memset as the wrapper does; and so do the albedo
@@ -594,7 +574,8 @@ def host_lib(tmp_path_factory):
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
-    for name, launcher, n_launches in (("traverse", "vhx_host_launch", 2),
+    for name, launcher, n_launches in (("frame", "vhx_host_launch", 4),
+                                       ("traverse", "vhx_host_launch", 2),
                                        ("multihit", "vhx_host_launch", 2),
                                        ("frames", "vhx_host_launch", 3),
                                        ("albedo", "vhx_host_warp_launch", 2),
@@ -668,8 +649,8 @@ def host_lib(tmp_path_factory):
                  "vhx_depth_start"):
         getattr(lib, name).restype = i
     lib.host_init.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), p, i, p, p, p]
-    lib.host_frame_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), i, p, i, p,
-                                    p]
+    lib.vhx_render_frame_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), i, p,
+                                          i, p, p, i, p]
     lib.host_traverse_skip.argtypes = [p, p, p, p, ctypes.POINTER(_build.TraceParams), i, i,
                                        p, p, p, p, p]
     lib.host_multihit_start.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), i, i, p,
@@ -679,7 +660,7 @@ def host_lib(tmp_path_factory):
     lib.vhx_prepass_level_skip.argtypes = [p, ctypes.POINTER(_build.PrepassParams), i, p, p, i,
                                            p]
     for name in ("host_traverse_skip", "host_multihit_start", "vhx_render_frames_skip",
-                 "vhx_prepass_level_skip"):
+                 "vhx_prepass_level_skip", "vhx_render_frame_skip"):
         getattr(lib, name).restype = i
     lib.host_warp_probe.argtypes = [p, p, i]
     lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
@@ -1697,35 +1678,60 @@ def _beam_world(size):
     return bg, device_bitgrid(bitgrid_from_occupancy(beam_occupancy(bg, 1)), "cpu")
 
 
-@pytest.mark.parametrize("size", [64, 256])
+def _beam_world_258():
+    """A random dilated grid of 258^3 cells built directly (the beam world of
+    a 1024 world at L = 1): 279,672 word pairs, 2.2 MB."""
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
+
+    rng = np.random.default_rng(258)
+    occ = np.zeros((258, 258, 258), dtype=bool)
+    occ[:, :24] = rng.random((258, 24, 258)) < 0.02
+    occ[64:128, :128, 64:128] |= rng.random((64, 128, 64)) < 0.01
+    return device_bitgrid(bitgrid_from_occupancy(occ), "cpu")
+
+
+@pytest.mark.parametrize("size", [64, 256, 1024])
 def test_beam_kernel_source_equals_plain(host_lib, size):
-    """beam.cu's C entry against the plain beams, bit for bit: three
-    cameras in one launch, two on the L = 1 grid and one with no grid (0s),
-    over a beam world of size / 4 + 2 cells (66 at 256), with beams that
-    hit, leave the world and run out of steps."""
+    """beam.cu's C entry against the plain beams, bit for bit, over a beam
+    world of size / 4 + 2 cells (18 and 66 at 64 and 256, beside the L = 2
+    world of 6 and 18 cells), and at 1024 over a 258^3 world (2.2 MB of word
+    pairs): four cameras in one launch, in grid order L = 1, none (0s),
+    L = 2, L = 1 (at 1024: L = 1, none, L = 1), at a beam resolution of 33 x
+    25 whose 4 x 8 warp patches are ragged on the right and at the bottom,
+    with beams that hit, leave the world and run out of steps."""
     from voxelhex_tpu_torch.ops import _build
     from voxelhex_tpu_torch.ops.beam import beam_params, beam_tiles_plain
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
     from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+    from voxelhex_tpu_torch.render.starts import beam_occupancy
 
     assert host_lib.vhx_beam_params_size() == ctypes.sizeof(_build.BeamParams)
     assert host_lib.vhx_beam_max_grids() == _build.BEAM_MAX_GRIDS
-    _bg, grid = _beam_world(size)
-    assert grid["size"] == size // 4 + 2
-    res = (96, 64)
+    res = (264, 200)
     cams = [orbit_camera(float(size), yaw_deg=30.0, resolution=res),
             Camera(origin=np.array([0.3, 0.2, 0.4]) * size, target=np.array([0.9, 0.1, 0.8]) * size,
                    resolution=res, fov_y_deg=70.0),
             orbit_camera(float(size), yaw_deg=200.0, resolution=res)]
-    beams = [(grid, 4.0, cams[0]), (grid, 4.0, cams[1]), (None, 1.0, cams[2])]
-    out = torch.full((3, 8, 12), 7.0)
+    if size == 1024:
+        grid = _beam_world_258()
+        beams = [(grid, 4.0, cams[0]), (None, 1.0, cams[2]), (grid, 4.0, cams[1])]
+    else:
+        bg, grid = _beam_world(size)
+        assert grid["size"] == size // 4 + 2
+        grid2 = device_bitgrid(bitgrid_from_occupancy(beam_occupancy(bg, 2)), "cpu")
+        beams = [(grid, 4.0, cams[0]), (None, 1.0, cams[2]), (grid2, 16.0, cams[1]),
+                 (grid, 4.0, cams[1])]
+    out = torch.full((len(beams), 25, 33), 7.0)
     assert host_lib.vhx_beam(beam_params(beams, 8), out.data_ptr(), 0, None) == 0
     stats = {}
-    want = [beam_tiles_plain(grid, 4.0, c, 8, stats if k == 0 else None)
-            for k, c in enumerate(cams[:2])]
-    assert _equal(out[0], want[0]) and _equal(out[1], want[1])
-    assert not out[2].any()
-    starts = torch.cat([w.reshape(-1) for w in want])
-    assert (starts == 1e8).any() and ((starts > 0) & (starts < 1e8)).any()
+    for k, (g, cell, cam) in enumerate(beams):
+        if g is None:
+            assert not out[k].any()
+            continue
+        want = beam_tiles_plain(g, cell, cam, 8, stats if k == 0 else None)
+        assert _equal(out[k], want)
+        if k == 0:
+            assert (want == 1e8).any() and ((want > 0) & (want < 1e8)).any()
     assert stats["hit"].any() and not stats["hit"].all()
 
 
@@ -1927,16 +1933,31 @@ def _outs(n, K=None):
             torch.full((n, K), 7.0)]
 
 
-@pytest.mark.parametrize("size,density", GRIDS)
+# grids of every depth the skip instances are tested at: 2, 3, 4 levels,
+# then 1 (size 4) and 5 (size 260: 65^3 rows of 40 B)
+SKIP_GRIDS = GRIDS + [(4, 0.3), (260, 0.002)]
+
+
+@functools.lru_cache(maxsize=None)
+def _skip_tree(size, density=None):
+    """``_tree(size, density, skip=True)``, built once a module (the skip
+    tests do not change it); ``density`` defaults to SKIP_GRIDS's."""
+    if density is None:
+        density = dict(SKIP_GRIDS)[size]
+    return _tree(size, density, skip=True)
+
+
+@pytest.mark.parametrize("size,density", SKIP_GRIDS)
 @pytest.mark.parametrize("substeps", [1, 3])
 def test_skip_traverse_kernel_source_equals_plain(host_lib, size, density, substeps):
-    """traverse.cu's skip instance through its C entry against the plain
-    skip tracer, every output bit for bit, on random and grazing rays and on
-    rays cut at 1, 2 and 7 body iterations."""
-    from voxelhex_tpu_torch.ops.skip import trace_skip_plain
+    """traverse.cu's skip instance of the grid's depth through its C entry
+    against the plain skip tracer, every output bit for bit, on random and
+    grazing rays and on rays cut at 1, 2 and 7 body iterations; at an odd
+    depth the rays fetch rows of both alignments (16 B and 8 B)."""
+    from voxelhex_tpu_torch.ops.skip import plain_tracer, trace_skip_plain
     from voxelhex_tpu_torch.ops.traverse import trace_params
 
-    tree = _tree(size, density, skip=True)
+    tree = _skip_tree(size, density)
     o1, d1 = _rays_into(size, 1500, seed=size)
     o2, d2, _s = _grazing_rays(size, 500, seed=size + 1)
     o, d = torch.cat([o1, o2]), torch.cat([d1, d2])
@@ -1950,44 +1971,120 @@ def test_skip_traverse_kernel_source_equals_plain(host_lib, size, density, subst
         for g, w in zip(out, want):
             assert _equal(g, w)
     assert want[0].sum() > 100
+    L = len(tree["bases"])
+    if L % 2 and L > 1:
+        tracer = plain_tracer(tree, 2048, substeps)
+        reads = torch.zeros(tree["skip_rows"].shape[0], dtype=torch.bool)
+        tracer.run(tree, tracer.init(tree, o, d), 2048, reads=reads)
+        rows = torch.nonzero(reads).ravel()
+        assert (rows % 2 == 0).any() and (rows % 2 == 1).any()
 
 
-@pytest.mark.parametrize("start_tile", [None, 2])
-@pytest.mark.parametrize("out_u8", [True, False])
-def test_skip_frame_kernel_source_equals_plain(host_lib, start_tile, out_u8):
-    """frame.cu's skip instances, with and without a start map, against the
-    plain skip frame at a ragged 67 x 41, bit for bit."""
+def test_skip_kernel_entries_reject_misaligned_rows(host_lib):
+    """The skip instances load a row as 16 B vectors: each C entry refuses
+    rows that do not start on 16 B."""
+    from voxelhex_tpu_torch.ops.frame import frame_params
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _skip_tree(16)
+    rows = tree["skip_rows"]
+    shifted = torch.zeros(rows.numel() + 2, dtype=torch.int32)
+    shifted[2:] = rows.ravel()
+    o, d = _rays_into(16, 8, seed=3)
+    out = _outs(8)
+    for r, want in ((rows.data_ptr(), 0), (shifted.data_ptr() + 8, 1)):
+        err = host_lib.host_traverse_skip(o.data_ptr(), d.data_ptr(), r,
+                                          tree["colors"].data_ptr(), trace_params(tree), 8, 3,
+                                          *[t.data_ptr() for t in out])
+        assert (err != 0) == want
+    frame = torch.zeros((4, 8, 3), dtype=torch.uint8)
+    assert host_lib.vhx_render_frame_skip(shifted.data_ptr() + 8, tree["colors"].data_ptr(),
+                                          tree["palette"].data_ptr(), tree["palette"].shape[0],
+                                          frame_params(tree, orbit_camera(16.0, resolution=(8, 4))),
+                                          3, None, 1, None, frame.data_ptr(), 0, None) != 0
+
+
+@pytest.mark.parametrize("n_levels", [7, 8])
+def test_skip_kernel_entries_reject_deep_pyramids(host_lib, n_levels):
+    """The skip kernels have an instance for each depth from 1 to
+    ``SKIP_KERNEL_MAX_LEVELS`` (6, worlds of up to 4096 a side, as
+    ``skip.cuh`` defines): the C entries refuse deeper pyramids, which the
+    plain skip tracer takes, and write nothing."""
+    from voxelhex_tpu_torch.ops.frame import frame_params
+    from voxelhex_tpu_torch.ops.skip import SKIP_KERNEL_MAX_LEVELS, SKIP_MAX_LEVELS
+    from voxelhex_tpu_torch.ops.traverse import trace_params
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    with open(os.path.join(CSRC, "skip.cuh")) as f:
+        header = re.search(r"#define VHX_SKIP_MAX_LEVELS (\d+)", f.read())
+    assert int(header.group(1)) == SKIP_KERNEL_MAX_LEVELS == 6 < n_levels <= SKIP_MAX_LEVELS
+    tree = _skip_tree(16)
+    o, d = _rays_into(16, 8, seed=3)
+    for depth, want in ((len(tree["bases"]), 0), (n_levels, 1)):
+        out = _outs(8)
+        p = trace_params(tree)
+        p.n_levels = depth
+        err = host_lib.host_traverse_skip(o.data_ptr(), d.data_ptr(),
+                                          tree["skip_rows"].data_ptr(), tree["colors"].data_ptr(),
+                                          p, 8, 3, *[t.data_ptr() for t in out])
+        assert (err != 0) == want
+        assert bool((out[1] == 7).all()) == want
+        fp = frame_params(tree, orbit_camera(16.0, resolution=(8, 4)))
+        fp.trace.n_levels = depth
+        frame = torch.full((4, 8, 3), 7, dtype=torch.uint8)
+        err = host_lib.vhx_render_frame_skip(tree["skip_rows"].data_ptr(),
+                                             tree["colors"].data_ptr(),
+                                             tree["palette"].data_ptr(),
+                                             tree["palette"].shape[0], fp, 3, None, 1, None,
+                                             frame.data_ptr(), 0, None)
+        assert (err != 0) == want
+        assert bool((frame == 7).all()) == want
+
+
+@pytest.mark.parametrize("size,start_tile,out_u8", [
+    pytest.param(64, start_tile, out_u8, id=f"{out_u8}-{start_tile}")
+    for out_u8 in (True, False) for start_tile in (None, 2)] + [
+    (size, start_tile, out_u8) for size, _d in SKIP_GRIDS if size != 64
+    for start_tile, out_u8 in ((None, True), (2, False))])
+def test_skip_frame_kernel_source_equals_plain(host_lib, size, start_tile, out_u8):
+    """frame.cu's skip instances, with and without a start map, through its
+    C entry against the plain skip frame at a ragged 67 x 41, bit for bit:
+    every form at 3 levels (size 64), two at each other tested depth."""
     from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    tree = _tree(64, 0.02, skip=True)
-    cam = orbit_camera(64.0, yaw_deg=35.0, resolution=(67, 41))
-    start = None if start_tile is None else _start_map(67, 41, start_tile, seed=4)
+    tree = _skip_tree(size)
+    cam = orbit_camera(float(size), yaw_deg=35.0, resolution=(67, 41))
+    start = None if start_tile is None else _start_map(67, 41, start_tile, seed=4) * (size / 64)
     out = torch.full((41, 67, 3), 7, dtype=torch.uint8 if out_u8 else torch.float32)
-    host_lib.host_frame_skip(tree["skip_rows"].data_ptr(), tree["colors"].data_ptr(),
-                             tree["palette"].data_ptr(), tree["palette"].shape[0],
-                             frame_params(tree, cam), 2,
-                             None if start is None else start.data_ptr(), start_tile or 1,
-                             None if out_u8 else out.data_ptr(), out.data_ptr() if out_u8 else None)
+    assert host_lib.vhx_render_frame_skip(
+        tree["skip_rows"].data_ptr(), tree["colors"].data_ptr(), tree["palette"].data_ptr(),
+        tree["palette"].shape[0], frame_params(tree, cam), 2,
+        None if start is None else start.data_ptr(), start_tile or 1,
+        None if out_u8 else out.data_ptr(), out.data_ptr() if out_u8 else None, 0, None) == 0
     want = render_frame_plain(tree, cam, out_u8=out_u8, start=start, start_tile=start_tile or 1,
                               skip_substeps=2)
     assert _equal(out, want)
-    if out_u8 and start is None:  # the skip frame is the stack frame here
+    if out_u8 and start is None and size == 64:  # the skip frame is the stack frame here
         assert _equal(out, render_frame_plain(tree, cam))
 
 
-def test_skip_frames_kernel_source_equals_plain(host_lib):
-    """frames.cu's skip instance through its C entry, as the wrapper calls
-    it: 35 cameras (two launches) with start maps where their flag is set,
-    frames and digests against the plain versions; and without maps."""
+@pytest.mark.parametrize("size", [s for s, _d in SKIP_GRIDS])
+def test_skip_frames_kernel_source_equals_plain(host_lib, size):
+    """frames.cu's skip instance of the grid's depth through its C entry,
+    as the wrapper calls it: 35 cameras (two launches; 3 and one launch at
+    the other depths) with start maps where their flag is set, frames and
+    digests against the plain versions; and without maps."""
     from voxelhex_tpu_torch.ops.frames import launch_frames, render_frames_plain
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    tree = _tree(16, 0.05, skip=True)
+    tree = _skip_tree(size)
     res = (24, 16)
-    cams = [orbit_camera(16.0, yaw_deg=10.0 * k, resolution=res) for k in range(35)]
-    maps = torch.stack([_start_map(*res, 8, seed=k) for k in range(35)])
-    use = [k % 3 != 1 for k in range(35)]
+    K = 35 if size == 16 else 3
+    cams = [orbit_camera(float(size), yaw_deg=10.0 * k, resolution=res) for k in range(K)]
+    maps = torch.stack([_start_map(*res, 8, seed=k) for k in range(K)]) * (size / 16)
+    use = [k % 3 != 1 for k in range(K)]
     prev = torch.zeros((16, 24, 3), dtype=torch.uint8)
 
     def entry(rows, colors, palette, n_colors, p, *rest):
@@ -1998,7 +2095,7 @@ def test_skip_frames_kernel_source_equals_plain(host_lib):
                                                  prev, starts=starts, words=tree["skip_rows"])
         want, nrows, flags = render_frames_plain(tree, cams, (0.1, 0.2, 0.3), True, 2048, prev,
                                                  starts=starts, skip_substeps=3)
-        assert launches == 2 and _equal(frames, want)
+        assert launches == (2 if K > 32 else 1) and _equal(frames, want)
         assert _equal(digest[:, 0], nrows) and _equal(digest[:, 1:], flags)
     p = launch_frames.__globals__["frames_params"](tree, cams[:1])[0]
     assert host_lib.vhx_render_frames_skip(tree["skip_rows"].data_ptr(),
@@ -2007,15 +2104,18 @@ def test_skip_frames_kernel_source_equals_plain(host_lib):
                                            None, frames.data_ptr(), None, None, 0, None) != 0
 
 
-@pytest.mark.parametrize("levels", [1, 2])
-def test_skip_prepass_kernel_source_equals_plain(host_lib, levels):
-    """prepass.cu's skip level kernel through its C entry against the plain
-    depth prepass of the skip tracer, level by level, bit for bit."""
+@pytest.mark.parametrize("levels,size", [
+    pytest.param(levels, size, id=str(levels) if size == 64 else f"{levels}-{size}")
+    for size, _d in SKIP_GRIDS for levels in (1, 2)])
+def test_skip_prepass_kernel_source_equals_plain(host_lib, levels, size):
+    """prepass.cu's skip level kernel of the grid's depth through its C
+    entry against the plain depth prepass of the skip tracer, level by
+    level, bit for bit."""
     from voxelhex_tpu_torch.ops.prepass import level_camera, level_depth_plain, prepass_params
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    tree = _tree(64, 0.02, skip=True)
-    cam = orbit_camera(64.0, yaw_deg=25.0, resolution=(100, 44))
+    tree = _skip_tree(size)
+    cam = orbit_camera(float(size), yaw_deg=25.0, resolution=(100, 44))
     depth = want = None
     for i in range(levels, 0, -1):
         cam_i = level_camera(cam, i)
@@ -2045,7 +2145,7 @@ def _host_multihit_form(host_lib, tree, o, d, K, start, substeps, max_iters=2048
     return out
 
 
-@pytest.mark.parametrize("size,density", GRIDS)
+@pytest.mark.parametrize("size,density", SKIP_GRIDS)
 @pytest.mark.parametrize("form", ["start", "skip", "skip+start"])
 def test_multihit_forms_kernel_source_equal_plain(host_lib, size, density, form):
     """multihit.cu's start and skip forms through its C entry against the
@@ -2055,7 +2155,7 @@ def test_multihit_forms_kernel_source_equal_plain(host_lib, size, density, form)
     40-wide frame (its tiles index the same way on every grid)."""
     from voxelhex_tpu_torch.ops.multihit import multihit_plain
 
-    tree = _tree(size, density, skip=True)
+    tree = _skip_tree(size, density)
     o1, d1 = _rays_into(size, 1200, seed=size)
     o2, d2, s2 = _grazing_rays(size, 400, seed=size + 2)
     o, d = torch.cat([o1, o2]), torch.cat([d1, d2])

@@ -1,4 +1,5 @@
-"""The automaton's kernels against another tree's, and their instructions.
+"""The automaton's kernels, the skip tracer's and the beam prepass's against
+another tree's, and their instructions.
 
     python3 tools/automaton_ab.py --sass [--moves] [--parent DIR] [--out DIR]
     python3 tools/automaton_ab.py --parent DIR [--rounds N]
@@ -11,20 +12,33 @@ four kernels that run the automaton (``traverse.cu``, ``frame.cu``,
 ``frames.cu``, ``multihit.cu``), their instructions and the DDA steps
 inlined in each (a DDA step selects the constant BIG = 1e30 once on each
 axis, and nothing else in those kernels uses it), for this tree and the one
-in ``--parent``.  The SASS goes to ``--out``.  ``--moves`` adds
-``chip_smoke.py``'s report of the automaton's moves at the bench pose
-(phase 4b (f)): what the warps of the frame kernels run under each shape
-of the loop.
+in ``--parent``; then the instructions, registers and shared and global
+loads of every instance of the skip tracer (``csrc/skip.cuh``: a kernel
+for each pyramid depth in ``traverse.cu``, ``frame.cu``, ``frames.cu``,
+``prepass.cu``, ``multihit.cu``) and of the beam prepass's kernels
+(``beam.cu``); and with ``--parent``, which of the parent's functions in
+the libraries of the stack automaton (``traverse.cu``, ``frame.cu``,
+``frames.cu``, ``multihit.cu``, ``far.cu``, ``prepass.cu``) this tree has
+byte for byte (its SASS, the function's name aside).  The SASS goes to
+``--out``.  ``--moves`` adds ``chip_smoke.py``'s report of the automaton's
+moves at the bench pose (phase 4b (f)): what the warps of the frame kernels
+run under each shape of the loop.
 
-``--parent DIR`` with no ``--sass`` times the four kernels of this tree
-against those of ``DIR`` (a copy of another commit, e.g. unpacked with
-``git archive``) in one process on one card: both are built from their own
+``--parent DIR`` with no ``--sass`` times the kernels of this tree against
+those of ``DIR`` (a copy of another commit, e.g. unpacked with ``git
+archive``) in one process on one card: both are built from their own
 sources, their outputs must be equal bit for bit, and then each kernel is
 timed in turns, parent, change, change, parent, ``--rounds`` times, by
 device time (``chip_smoke.device_ms``) at ``chip_smoke.py``'s shapes: a
 batch of 16 bench frames with digests (``frames.cu``), the bench frame
 (``frame.cu``), the bench pose's rays (``traverse.cu``) and its multi-hit
-march at K = 2 (``multihit.cu``).  Needs one CUDA card.
+march at K = 2 (``multihit.cu``); the skip instances of ``frame.cu``,
+``frames.cu`` (16 frames) and ``multihit.cu`` (K = 2) at the bench (4
+levels) and at the 1024 terrain (5 levels, ``orbit_camera(1024.0)``); and
+``beam.cu`` at the bench and terrain poses and in the window of fly-over
+frame 0 (``chip_smoke.py`` phase 14's poses), for one frame and a batch of
+16, and one frame over an empty grid of the bench's size (its launch
+floor).  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -46,6 +60,13 @@ sys.path.insert(0, ROOT)
 BIG = re.compile(r"1\.0000000150474662\d*e\+30")
 AUTOMATON = (("traverse.cu", "traverse_kernel"), ("frame.cu", "frame_kernel"),
              ("frames.cu", "frames_kernel"), ("multihit.cu", "multihit_kernel"))
+# the redesigned kernels: every instance of the skip tracer and the beam's
+REDESIGNED = (("traverse.cu", "traverse_skip_kernel"), ("frame.cu", "frame_skip_kernel"),
+              ("frames.cu", "frames_skip_kernel"), ("prepass.cu", "prepass_kernel"),
+              ("multihit.cu", "multihit_form_kernel"), ("beam.cu", "beam_kernel"))
+# the libraries of the stack automaton, whose stack instances keep their SASS
+STACK_SOURCES = ("traverse.cu", "frame.cu", "frames.cu", "multihit.cu", "far.cu", "prepass.cu")
+SKIP_SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS
 # what every probe has besides its piece: memory, constants, the frame
 SKIP = re.compile(r"^(LDG|STG|LD|ST|LDS|STS|LDC|ULDC|S2R|S2UR|CS2R|MOV|UMOV|IMAD\.MOV|EXIT|BRA|"
                   r"NOP|BAR|BSSY|BSYNC|WARPSYNC)\b")
@@ -87,6 +108,68 @@ def _cuobjdump(nvcc):
     return os.path.join(os.path.dirname(nvcc), "cuobjdump")
 
 
+def _library_sass(nvcc, build, source):
+    lib = os.path.join(build.library_dir(), f"lib{os.path.splitext(source)[0]}.so")
+    return subprocess.run([_cuobjdump(nvcc), "-sass", lib], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def function_bodies(text):
+    """``{function name: its SASS}`` of a ``cuobjdump -sass`` listing: the
+    instruction and encoding lines, the name aside."""
+    out = {}
+    for part in re.split(r"(?m)^\s*Function : ", text)[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = "\n".join(line.strip() for line in body.splitlines()
+                                       if line.strip().startswith("/*"))
+    return out
+
+
+def short_name(mangled):
+    """``frame_skip_kernel<1, 4>`` of a kernel's mangled name (its template
+    arguments as numbers)."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(m.start(), m.end()):  # a length follows any digits before it
+            word = mangled[m.end():m.end() + int(mangled[k:m.end()])]
+            if word.endswith("kernel") and re.fullmatch(r"\w+", word):
+                args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + len(word):])
+                if not args:
+                    return word
+                return f"{word}<{', '.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>"
+    return mangled
+
+
+def redesigned_report(nvcc, build, tag, out_dir):
+    """Instructions, registers and loads by kind of every skip instance and
+    beam kernel of ``build``."""
+    import chip_smoke
+
+    for source, kernel in REDESIGNED:
+        text = _library_sass(nvcc, build, source)
+        with open(os.path.join(out_dir, f"{tag}_lib{os.path.splitext(source)[0]}.sass"), "w") as f:
+            f.write(text)
+        log = build.build_log(source)
+        for name, ops in sorted(sass_functions(text).items(), key=lambda f: short_name(f[0])):
+            if kernel not in name or (source == "prepass.cu" and "depth_start" in name):
+                continue
+            regs = chip_smoke.ptxas_usage(log, name)[0]
+            loads = {kind: sum(1 for op in ops if op.split(".")[0] == kind)
+                     for kind in ("LDS", "LDG", "LD")}
+            print(f"  {tag} {source} {short_name(name)}: {len(ops)} instructions, {regs} "
+                  f"registers; loads {loads}")
+
+
+def stack_sass_kept(nvcc, build, parent_build):
+    """Which of the parent's functions in the stack automaton's libraries
+    this tree has byte for byte."""
+    for source in STACK_SOURCES:
+        change = set(function_bodies(_library_sass(nvcc, build, source)).values())
+        for name, body in sorted(function_bodies(_library_sass(nvcc, parent_build,
+                                                               source)).items()):
+            print(f"  {source} {short_name(name)} ({len(body.splitlines()) // 2} instructions): "
+                  f"{'kept byte for byte' if body in change else 'changed'}")
+
+
 def sass_report(build, parent_build, out_dir):
     import chip_smoke
 
@@ -112,9 +195,7 @@ def sass_report(build, parent_build, out_dir):
             continue
         b.library()
         for source, kernel in AUTOMATON:
-            lib = os.path.join(b.library_dir(), f"lib{os.path.splitext(source)[0]}.so")
-            text = subprocess.run([_cuobjdump(nvcc), "-sass", lib], check=True,
-                                  capture_output=True, text=True, timeout=120).stdout
+            text = _library_sass(nvcc, b, source)
             with open(os.path.join(out_dir, f"{tag}_{kernel}.sass"), "w") as f:
                 f.write(text)
             ops = _kernel(sass_functions(text), kernel)
@@ -123,6 +204,13 @@ def sass_report(build, parent_build, out_dir):
             print(f"  {tag} {kernel}: {len(ops)} instructions, {n_big} selects of BIG = "
                   f"{n_big / 3:g} DDA steps inlined; {regs} registers, {stack} B stack, "
                   f"{st_spill} B spill stores, {ld_spill} B spill loads")
+    print("the skip tracer's instances and the beam's kernels:")
+    for tag, b in (("change", build), ("parent", parent_build)):
+        if b is not None:
+            redesigned_report(nvcc, b, tag, out_dir)
+    if parent_build is not None:
+        print("the parent's functions in the stack automaton's libraries, in this tree:")
+        stack_sass_kept(nvcc, build, parent_build)
     return pieces
 
 
@@ -177,12 +265,14 @@ def _struct_pointer(t):
 
 
 def entries(build):
-    """The four entry points of a build, taking their params struct as an
+    """The entry points that ``ab`` times of a build, taking their params struct as an
     address (the two builds' ctypes structs are distinct classes of one
     layout)."""
     lib = build.library()
     out = {}
-    for name in ("vhx_traverse", "vhx_render_frame", "vhx_render_frames", "vhx_multihit"):
+    for name in ("vhx_traverse", "vhx_render_frame", "vhx_render_frames", "vhx_multihit",
+                 "vhx_render_frame_skip", "vhx_render_frames_skip", "vhx_multihit_skip",
+                 "vhx_beam"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p if _struct_pointer(t) else t for t in fn.argtypes]
 
@@ -239,71 +329,147 @@ def main():
     return ab(_build, parent, card, args.rounds, args.name)
 
 
+def terrain_grid(dev):
+    """The 1024 terrain of ``chip_smoke.py`` phase 10: its tree, and its grid
+    on ``dev`` with its skip rows (5 levels)."""
+    import chip_smoke
+    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid, device_bitgrid
+    from voxelhex_tpu_torch.scene import terrain_points
+    from voxelhex_tpu_torch.tree.build import from_voxels
+
+    pts, cols = terrain_points(chip_smoke.TERRAIN_WORLD)
+    tree = from_voxels(pts, cols, size=chip_smoke.TERRAIN_WORLD, brick_dim=4)
+    return tree, device_bitgrid(build_bitgrid(tree), dev, skip_rows=True)
+
+
 def ab(build, parent, card, rounds, other="parent"):
+    import numpy as np
     import torch
 
     import chip_smoke
+    from voxelhex_tpu_torch.ops.beam import beam_params
     from voxelhex_tpu_torch.ops.frame import frame_params
     from voxelhex_tpu_torch.ops.frames import launch_frames
     from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
-    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
     from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
     from voxelhex_tpu_torch.scene import build_scene
 
     dev = torch.device("cuda", 0)
-    tree = device_bitgrid(build_scene(), dev)
+    scene = build_scene()
+    tree = device_bitgrid(scene, dev, skip_rows=True)
     cam = orbit_camera(128.0, resolution=chip_smoke.RES)
     w, h = chip_smoke.RES
-    o, d = device_rays(cam, dev)
-    R = o.shape[0]
     K = chip_smoke.MAX_HITS
+    S3 = SKIP_SUBSTEPS
     stream = torch.cuda.current_stream(dev).cuda_stream
-    occ, colors, pal = tree["occ_pairs"], tree["colors"], tree["palette"]
-    n_colors = pal.shape[0]
     bench = [cam] * chip_smoke.BATCH
-    fparams = frame_params(tree, cam)
-    tparams = trace_params(tree)
     prev = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+    terrain, tgrid = terrain_grid(dev)
+    tcam = orbit_camera(float(chip_smoke.TERRAIN_WORLD), resolution=chip_smoke.RES)
+    scenes = {"bench": (tree, cam), "terrain": (tgrid, tcam)}
+    rays = {name: device_rays(c, dev) for name, (_t, c) in scenes.items()}
+    # the beam's (grid, cell, camera) at the bench and terrain poses and in
+    # the window of fly-over frame 0 (phase 14's poses)
+    view = StreamingView(terrain, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192,
+                         beam_prepass=True, device=dev)
+    fcam = chip_smoke.flight_cam(0)
+    view.render(fcam, out_u8=True, out_device=True)
+    wcam = view.layers(fcam)[0][1]
+    beams = {"bench": (*fastest_renderer(scene, device=dev)._beam_spec(cam), cam),
+             "terrain": (*fastest_renderer(terrain, device=dev)._beam_spec(tcam), tcam),
+             "fly-over window": (*view.renderer._beam_spec(wcam), wcam)}
+    # after the view's frame, which launches through the package's own
+    # bindings: entries() retypes the library's functions
     libs = {other: entries(parent), "change": entries(build)}
 
-    def frames(lib):
-        # the entry without start maps, which every tree has, called with
+    def frames(lib, where="bench", skip=False):
+        t, c = scenes[where]
+
+        # the entries without start maps, which every tree has, called with
         # the arguments of vhx_render_frames_start less the start map's three
         def entry(*args):
+            if skip:
+                return lib["vhx_render_frames_skip"](*args[:5], S3, *args[5:])
             return lib["vhx_render_frames"](*args[:5], *args[8:])
 
-        return launch_frames(entry, tree, bench, (0.0, 0.0, 0.0), True, MAX_ITERS, prev,
-                             stream=stream)[:2]
+        return launch_frames(entry, t, [c] * chip_smoke.BATCH, (0.0, 0.0, 0.0), True, MAX_ITERS,
+                             prev, stream=stream,
+                             words=t["skip_rows"] if skip else None)[:2]
 
-    def frame(lib):
+    def frame(lib, where="bench", skip=False):
+        t, c = scenes[where]
         out = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-        build.check(lib["vhx_render_frame"](occ.data_ptr(), colors.data_ptr(), pal.data_ptr(),
-                                            n_colors, fparams, None, out.data_ptr(), 0, stream),
-                    "frame")
+        args = (t["colors"].data_ptr(), t["palette"].data_ptr(), t["palette"].shape[0],
+                frame_params(t, c))
+        if skip:
+            err = lib["vhx_render_frame_skip"](t["skip_rows"].data_ptr(), *args, S3, None, 1,
+                                               None, out.data_ptr(), 0, stream)
+        else:
+            err = lib["vhx_render_frame"](t["occ_pairs"].data_ptr(), *args, None, out.data_ptr(),
+                                          0, stream)
+        build.check(err, "frame")
         return (out,)
 
     def traverse(lib):
+        o, d = rays["bench"]
+        R = o.shape[0]
         outs = [torch.empty(R, dtype=torch.bool, device=dev),
                 torch.empty(R, dtype=torch.int32, device=dev)] + [
             torch.empty((R, 3), dtype=t, device=dev)
             for t in (torch.int32, torch.float32, torch.float32)]
-        build.check(lib["vhx_traverse"](o.data_ptr(), d.data_ptr(), occ.data_ptr(),
-                                        colors.data_ptr(), tparams, R,
+        build.check(lib["vhx_traverse"](o.data_ptr(), d.data_ptr(), tree["occ_pairs"].data_ptr(),
+                                        tree["colors"].data_ptr(), trace_params(tree), R,
                                         *[t.data_ptr() for t in outs], 0, stream), "traverse")
         return outs
 
-    def multihit(lib):
+    def multihit(lib, where="bench", skip=False):
+        t, _c = scenes[where]
+        o, d = rays[where]
+        R = o.shape[0]
         outs = [torch.empty(R, dtype=torch.int32, device=dev),
                 torch.empty((R, K, 3), dtype=torch.int32, device=dev),
                 torch.empty((R, K), dtype=torch.float32, device=dev)]
-        build.check(lib["vhx_multihit"](o.data_ptr(), d.data_ptr(), occ.data_ptr(), tparams, R,
-                                        K, *[t.data_ptr() for t in outs], 0, stream),
-                    "multihit")
+        ptrs = [x.data_ptr() for x in outs]
+        if skip:
+            err = lib["vhx_multihit_skip"](o.data_ptr(), d.data_ptr(), t["skip_rows"].data_ptr(),
+                                           trace_params(t), R, K, S3, None, 1, 1, *ptrs, 0,
+                                           stream)
+        else:
+            err = lib["vhx_multihit"](o.data_ptr(), d.data_ptr(), t["occ_pairs"].data_ptr(),
+                                      trace_params(t), R, K, *ptrs, 0, stream)
+        build.check(err, "multihit")
         return outs
+
+    bench_grid = beams["bench"][0]
+    empty = device_bitgrid(bitgrid_from_occupancy(np.zeros((bench_grid["size"],) * 3,
+                                                           dtype=bool)), dev)
+
+    def beam(lib, pose="bench", n_frames=1, empty_grid=False):
+        grid, cell, c = beams[pose]
+        p = beam_params([(empty if empty_grid else grid, cell, c)] * n_frames, 8)
+        out = torch.empty((n_frames, h // 8, w // 8), dtype=torch.float32, device=dev)
+        build.check(lib["vhx_beam"](p, out.data_ptr(), 0, stream), "beam")
+        return (out,)
 
     kernels = {"frames.cu (K=16, a frame)": (frames, 4, chip_smoke.BATCH),
                "frame.cu": (frame, 16, 1), "traverse.cu": (traverse, 10, 1),
                "multihit.cu (K=2)": (multihit, 10, 1)}
+    for where, L in (("bench", 4), ("terrain", 5)):
+        kernels[f"skip frame.cu, {where} (L={L})"] = (
+            lambda lib, where=where: frame(lib, where, True), 16, 1)
+        kernels[f"skip frames.cu, {where} (L={L}, K=16, a frame)"] = (
+            lambda lib, where=where: frames(lib, where, True), 2, chip_smoke.BATCH)
+        kernels[f"skip multihit.cu, {where} (L={L}, K=2)"] = (
+            lambda lib, where=where: multihit(lib, where, True), 10, 1)
+    for pose in beams:
+        kernels[f"beam.cu, {pose} (1 frame)"] = (lambda lib, pose=pose: beam(lib, pose), 20, 1)
+        kernels[f"beam.cu, {pose} ({chip_smoke.BATCH} frames)"] = (
+            lambda lib, pose=pose: beam(lib, pose, chip_smoke.BATCH), 10, 1)
+    kernels["beam.cu over an empty grid (1 frame)"] = (
+        lambda lib: beam(lib, empty_grid=True), 20, 1)
     prev.copy_(frame(libs[other])[0])
     for name, (fn, _reps, _per) in kernels.items():
         a, b = fn(libs[other]), fn(libs["change"])

@@ -7,7 +7,8 @@
 // `beam_start` :1561), an XLA program with no Pallas source that runs the
 // production tracer (the ported `make_kernel` / `traverse_tiles` of
 // voxelhex_tpu/ops/traverse_pallas.py) over the beam grid.  Each thread is
-// one tile's beam (frame k, tile row ty, tile column tx):
+// one tile's beam (frame k, tile row ty, tile column tx), each warp a 4 x 8
+// patch of a frame's tiles (frame.cuh tile_pixel over the beam grid):
 //   prologue  the tile's ray: frame.cuh pixel_ray at the beam resolution
 //             (w / tile, h / tile), the plain raygen of the camera at that
 //             resolution, as the reference's `device_rays(cam_b)`; its
@@ -32,10 +33,16 @@
 // writes 0s that the frame kernel does not read: its frame marches from its
 // entry, with no start.
 //
-// What bounds it: at 1080p a frame has 32,400 beams, each at most 128 steps
-// through a small grid (66^3 cells at the bench pose): 254 blocks of 128
-// threads, fewer than the card's 132 SMs hold at once, so its launch and its
-// longest beams rather than bytes or operations (PERF.md).
+// What bounds it: not bytes or operations (0.3 us of them at 1080p) but its
+// launch and the chains of dependent steps of its longest beams: at the
+// bench pose 32,400 beams take 5.9 steps on average and at most 30, and a
+// warp steps as long as its longest lane, executing every move one of its
+// lanes takes.  The grid's word pairs are few (5,047 at 66^3 cells) and stay
+// in each SM's L1, so a fetch is not what a step waits on: staging the
+// grid in shared memory ran slower (PERF.md).  A warp covers a 4 x 8 patch
+// of beams, as the frame kernels' warps cover pixels: neighbouring beams
+// take similar steps and moves, where a row of 32 mixes dead tiles with
+// live ones.
 
 #include "frame.cuh"
 
@@ -64,7 +71,7 @@ struct BeamParams {
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = vhx::FRAME_THREADS;
 constexpr float DEAD = 1e8f;  // a clean miss: past every ray's exit
 
 // The entry point's multiply-add, fused on z alone (traverse.cuh init), as
@@ -93,10 +100,11 @@ beam_kernel(const __grid_constant__ BeamParams P, float* __restrict__ out) {
         }
     }
     __syncthreads();
-    const int per_frame = P.tw * P.th;
-    const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (i >= (long long)P.n_frames * per_frame) return;
-    const int k = (int)(i / per_frame), t = (int)(i % per_frame);
+    int tx, ty;
+    vhx::tile_pixel(tx, ty);
+    if (tx >= P.tw || ty >= P.th) return;
+    const int k = blockIdx.z;
+    const long long i = ((long long)k * P.th + ty) * P.tw + tx;
     const int gi = P.grid_of[k];
     if (gi < 0) {
         out[i] = 0.f;
@@ -105,8 +113,8 @@ beam_kernel(const __grid_constant__ BeamParams P, float* __restrict__ out) {
     const BeamGrid& G = P.grids[gi];
     const FrameCam& cam = P.cams[k];
     float o[3], d[3], ob[3];
-    vhx::pixel_ray(cam.origin, cam.right, cam.up, cam.forward, cam.scale, P.cw, P.ch, t % P.tw,
-                   t / P.tw, o, d);
+    vhx::pixel_ray(cam.origin, cam.right, cam.up, cam.forward, cam.scale, P.cw, P.ch, tx, ty, o,
+                   d);
 #pragma unroll
     for (int c = 0; c < 3; ++c) ob[c] = __fadd_rn(__fmul_rn(o[c], G.inv_cell), 1.f);
     const vhx::Grid g{G.occ, levels + gi * VHX_MAX_LEVELS, G.trace.n_levels, G.trace.size,
@@ -142,11 +150,11 @@ extern "C" cudaError_t vhx_beam(const BeamParams* params, float* out, int device
     for (int g = 0; g < P.n_grids; ++g)
         if (P.grids[g].trace.n_levels < 1 || P.grids[g].trace.n_levels > VHX_MAX_LEVELS)
             return cudaErrorInvalidValue;
-    const long long n = (long long)P.n_frames * P.tw * P.th;
-    const long long blocks = (n + THREADS - 1) / THREADS;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const dim3 grid((P.tw + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
+                    (P.th + vhx::WARP_H - 1) / vhx::WARP_H, P.n_frames);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    beam_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(P, out);
+    beam_kernel<<<grid, THREADS, 0, stream>>>(P, out);
     return cudaGetLastError();
 }

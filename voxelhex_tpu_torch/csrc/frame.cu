@@ -27,9 +27,10 @@
 // `frame_start_kernel` is the same frame from a prepass's start map (the
 // reference's `start_t`): each ray starts at least its pixel tile's value
 // along.  It is its own instance, so the frame without a start compiles as
-// it did.  `frame_skip_kernel<kStart>` is the frame of the skip tracer
-// (skip.cuh, the reference renderer's `tracer="skip"`) over the grid's skip
-// rows, with and without a start map: the same prologue and epilogue.
+// it did.  `frame_skip_kernel<kStart, L>` is the frame of the skip tracer
+// (skip.cuh, the reference renderer's `tracer="skip"`) over the skip rows
+// of a grid of L levels, with and without a start map: the same prologue
+// and epilogue.
 
 #include "frame.cuh"
 #include "skip.cuh"
@@ -55,9 +56,9 @@ constexpr int BLOCK_W = vhx::BLOCK_W;
 // One pixel's frame.  With kStart the ray starts at least `start_t` along
 // (traverse.cuh init's start form): a prepass's start map, one value for
 // each `start_tile` x `start_tile` pixels, `start_stride` tiles a row.
-// With kSkip, `occ` holds the skip rows and the ray marches the skip
-// tracer, `substeps` substeps a body iteration.
-template <bool kStart, bool kSkip = false>
+// With L >= 1, `occ` holds the skip rows of a grid of L levels and the ray
+// marches the skip tracer, `substeps` substeps a body iteration.
+template <bool kStart, int L = 0>
 __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
                                             const unsigned short* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
@@ -78,10 +79,9 @@ __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
     float start_t = 0.f;
     if constexpr (kStart) start_t = start[(y / start_tile) * start_stride + x / start_tile];
     vhx::Hit h;
-    if constexpr (kSkip)
-        h = vhx::skip_march<kStart>(
-            o, d, vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps), colors,
-            P.trace.max_iters, start_t);
+    if constexpr (L > 0)
+        h = vhx::skip_march<kStart, L>(o, d, vhx::skip_grid(occ, P.trace.size, substeps), colors,
+                                       P.trace.max_iters, start_t);
     else
         h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
                                P.trace.n_blocks, P.trace.max_iters, start_t);
@@ -119,15 +119,16 @@ frame_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restri
                       start_stride, rgb_out, u8_out);
 }
 
-// The skip tracer's frame, from a start map with kStart
-template <bool kStart>
+// The skip tracer's frame over a grid of L levels, from a start map with
+// kStart
+template <bool kStart, int L>
 __global__ void __launch_bounds__(THREADS)
 frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
                   const float4* __restrict__ palette, int n_colors, const FrameParams P,
                   int substeps, const float* __restrict__ start, int start_tile,
                   int start_stride, float* __restrict__ rgb_out,
                   unsigned char* __restrict__ u8_out) {
-    frame_pixel<kStart, true>(rows, colors, palette, n_colors, P, nullptr, start, start_tile,
+    frame_pixel<kStart, L>(rows, colors, palette, n_colors, P, nullptr, start, start_tile,
                               start_stride, rgb_out, u8_out, substeps);
 }
 
@@ -142,16 +143,17 @@ bool bad_frame(const FrameParams& P, int n_colors, const float* start, int start
 extern "C" int vhx_frame_params_size() { return (int)sizeof(FrameParams); }
 
 // The skip tracer's frame: as vhx_render_frame_start, over `rows` (the
-// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1
-// substeps a body iteration and params->trace.max_iters body iterations a
-// ray.
+// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned),
+// `substeps` >= 1 substeps a body iteration and params->trace.max_iters
+// body iterations a ray; the instance of the grid's depth.
 extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* colors,
                                              const float* palette, int n_colors,
                                              const FrameParams* params, int substeps,
                                              const float* start, int start_tile, float* rgb,
                                              void* u8, int device, cudaStream_t stream) {
     const FrameParams& P = *params;
-    if (bad_frame(P, n_colors, start, start_tile, VHX_SKIP_MAX_LEVELS) || substeps < 1)
+    if (bad_frame(P, n_colors, start, start_tile, VHX_SKIP_MAX_LEVELS) || substeps < 1 ||
+        !vhx::skip_rows_aligned(rows))
         return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
@@ -160,15 +162,17 @@ extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* color
     const auto* col = static_cast<const unsigned short*>(colors);
     const auto* pal = reinterpret_cast<const float4*>(palette);
     auto* out = static_cast<unsigned char*>(u8);
-    if (start)
-        frame_skip_kernel<true><<<grid, THREADS, 0, stream>>>(
-            rw, col, pal, n_colors, P, substeps, start, start_tile,
-            (P.w + start_tile - 1) / start_tile, rgb, out);
-    else
-        frame_skip_kernel<false><<<grid, THREADS, 0, stream>>>(rw, col, pal, n_colors, P,
-                                                               substeps, nullptr, 1, 0, rgb,
-                                                               out);
-    return cudaGetLastError();
+    const int stride = start ? (P.w + start_tile - 1) / start_tile : 0;
+    return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
+        constexpr int L = decltype(depth)::value;
+        if (start)
+            frame_skip_kernel<true, L><<<grid, THREADS, 0, stream>>>(
+                rw, col, pal, n_colors, P, substeps, start, start_tile, stride, rgb, out);
+        else
+            frame_skip_kernel<false, L><<<grid, THREADS, 0, stream>>>(
+                rw, col, pal, n_colors, P, substeps, nullptr, 1, 0, rgb, out);
+        return cudaGetLastError();
+    });
 }
 
 // The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,

@@ -41,9 +41,10 @@
 //
 // `frames_start_kernel` is the same batch from each frame's start map (the
 // beam prepass of beam.cu, one map a camera): its own instance, so the
-// batch without a start compiles as it did.  `frames_skip_kernel<kStart>`
-// is the batch of the skip tracer (skip.cuh, the reference renderer's
-// `tracer="skip"`) over the grid's skip rows, with and without start maps.
+// batch without a start compiles as it did.  `frames_skip_kernel<kStart,
+// L>` is the batch of the skip tracer (skip.cuh, the reference renderer's
+// `tracer="skip"`) over the skip rows of a grid of L levels, with and
+// without start maps.
 
 #include "frame.cuh"
 #include "skip.cuh"
@@ -75,9 +76,9 @@ struct StartMaps {
     unsigned mask;
 };
 
-// With kSkip, `occ` holds the skip rows and each ray marches the skip
-// tracer, `substeps` substeps a body iteration.
-template <bool kStart, bool kSkip = false>
+// With L >= 1, `occ` holds the skip rows of a grid of L levels and each ray
+// marches the skip tracer, `substeps` substeps a body iteration.
+template <bool kStart, int L = 0>
 __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
                                             const unsigned short* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
@@ -113,10 +114,9 @@ __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
             if (use_start) start_t = S.map[k * S.frame_stride + start_at];
         }
         vhx::Hit h;
-        if constexpr (kSkip)
-            h = vhx::skip_march<kStart>(
-                o, d, vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps), colors,
-                P.trace.max_iters, start_t, use_start);
+        if constexpr (L > 0)
+            h = vhx::skip_march<kStart, L>(o, d, vhx::skip_grid(occ, P.trace.size, substeps),
+                                           colors, P.trace.max_iters, start_t, use_start);
         else
             h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
                                    P.trace.n_blocks, P.trace.max_iters, start_t, use_start);
@@ -174,27 +174,30 @@ frames_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restr
                       digest);
 }
 
-// The skip tracer's batch, from start maps with kStart
-template <bool kStart>
+// The skip tracer's batch over a grid of L levels, from start maps with
+// kStart
+template <bool kStart, int L>
 __global__ void __launch_bounds__(THREADS)
 frames_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
                    const float4* __restrict__ palette, int n_colors,
                    const __grid_constant__ FramesParams P, const StartMaps S, int substeps,
                    float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out,
                    const unsigned char* __restrict__ prev, int* __restrict__ digest) {
-    frames_body<kStart, true>(rows, colors, palette, n_colors, P, nullptr, S, rgb_out, u8_out,
-                              prev, digest, substeps);
+    frames_body<kStart, L>(rows, colors, palette, n_colors, P, nullptr, S, rgb_out, u8_out, prev,
+                           digest, substeps);
 }
 
-template <bool kStart, bool kSkip>
+// The stack automaton's batch with L = 0, else the skip tracer's over a
+// grid of L levels
+template <bool kStart, int L>
 cudaError_t launch(dim3 grid, const uint2* occ, const unsigned short* colors,
                    const float4* palette, int n_colors, const FramesParams& P,
                    const StartMaps& S, int substeps, float* rgb, unsigned char* u8,
                    const unsigned char* prev, int* digest, cudaStream_t stream) {
-    if constexpr (kSkip)
-        frames_skip_kernel<kStart><<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors,
-                                                                 P, S, substeps, rgb, u8, prev,
-                                                                 digest);
+    if constexpr (L > 0)
+        frames_skip_kernel<kStart, L><<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors,
+                                                                    P, S, substeps, rgb, u8, prev,
+                                                                    digest);
     else if constexpr (kStart)
         frames_start_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, S,
                                                           rgb, u8, prev, digest);
@@ -214,7 +217,8 @@ cudaError_t render(const void* grid_words, const void* colors, const float* pale
     const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
     if (P.trace.n_levels < 1 || P.trace.n_levels > max_levels || n_colors < 1 || P.w < 1 ||
         P.h < 1 || P.n_frames < 1 || P.n_frames > VHX_KMAX || (!rgb) == (!u8) ||
-        (digest && (!u8 || !prev)) || (start && start_tile < 1) || substeps < 0)
+        (digest && (!u8 || !prev)) || (start && start_tile < 1) || substeps < 0 ||
+        (substeps && !vhx::skip_rows_aligned(grid_words)))
         return cudaErrorInvalidValue;
     const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
                     (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
@@ -238,14 +242,17 @@ cudaError_t render(const void* grid_words, const void* colors, const float* pale
                       start_tile, stride, start_mask};
     }
     if (substeps)
-        return start ? launch<true, true>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
-                                          out, base, digest, stream)
-                     : launch<false, true>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
-                                           out, base, digest, stream);
-    return start ? launch<true, false>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
-                                       digest, stream)
-                 : launch<false, false>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
-                                        digest, stream);
+        return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
+            constexpr int L = decltype(depth)::value;
+            return start ? launch<true, L>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
+                                           out, base, digest, stream)
+                         : launch<false, L>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
+                                            out, base, digest, stream);
+        });
+    return start ? launch<true, 0>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
+                                   digest, stream)
+                 : launch<false, 0>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
+                                    digest, stream);
 }
 
 }  // namespace
@@ -271,9 +278,9 @@ extern "C" cudaError_t vhx_render_frames_start(const void* occ_pairs, const void
 }
 
 // The skip tracer's batch: as vhx_render_frames_start, over `rows` (the
-// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1
-// substeps a body iteration and params->trace.max_iters body iterations a
-// ray.
+// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned),
+// `substeps` >= 1 substeps a body iteration and params->trace.max_iters
+// body iterations a ray; the instance of the grid's depth.
 extern "C" cudaError_t vhx_render_frames_skip(const void* rows, const void* colors,
                                               const float* palette, int n_colors,
                                               const FramesParams* params, int substeps,

@@ -41,13 +41,13 @@
 //          rays are the R rays in row order (soft.py `beam=`), or one a
 //          ray (tile 1, width R).  A ray whose start is at or past its box
 //          exit is dead, with no hits.
-//   skip   the skip tracer (skip.cuh) over the grid's skip rows, with or
-//          without a start, as `_hit_step`'s skip branch (soft.py:204-226)
-//          drives it: a hit ends its body iteration, the row of the hit
-//          voxel is fetched as every body's end fetches it, and only then
-//          is the voxel's bit cleared in the row's level-0 pair; the ray
-//          goes on from the hit voxel.  A ray has K * max_iters body
-//          iterations in all.
+//   skip   the skip tracer (skip.cuh) over the skip rows of a grid of L
+//          levels, an instance a depth, with or without a start, as
+//          `_hit_step`'s skip branch (soft.py:204-226) drives it: a hit
+//          ends its body iteration, the row of the hit voxel is fetched as
+//          every body's end fetches it, and only then is the voxel's bit
+//          cleared in the row's level-0 pair; the ray goes on from the hit
+//          voxel.  A ray has K * max_iters body iterations in all.
 
 #include "skip.cuh"
 
@@ -60,7 +60,8 @@ __device__ __forceinline__ void hit_voxel(const vhx::March& m, int v[3]) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = (int)m.tmin[c];
 }
-__device__ __forceinline__ void hit_voxel(const vhx::Skip& m, int v[3]) {
+template <int L>
+__device__ __forceinline__ void hit_voxel(const vhx::Skip<L>& m, int v[3]) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = m.v[c];
 }
@@ -69,7 +70,8 @@ __device__ __forceinline__ void hit_voxel(const vhx::Skip& m, int v[3]) {
 // clears the voxel's bit in its register words; the skip march clears it
 // after its row fetch (skip.cuh skip_run)
 __device__ __forceinline__ void after_record(vhx::March& m) { vhx::clear_hit_voxel(m); }
-__device__ __forceinline__ void after_record(vhx::Skip&) {}
+template <int L>
+__device__ __forceinline__ void after_record(vhx::Skip<L>&) {}
 
 // The multi-hit policy of `vhx::run` and `vhx::skip_run`: record each hit
 // at the ray's cursor; stop at the K-th, else step on (the stack march
@@ -108,10 +110,10 @@ struct RayStarts {
     int stride;
 };
 
-// One ray's march: the stack automaton over the pyramid's word pairs, or
-// with kSkip the skip tracer over the skip rows (`grid_words`); with
-// kStart, from its start.
-template <bool kStart, bool kSkip>
+// One ray's march: the stack automaton over the pyramid's word pairs with
+// L = 0, or the skip tracer over the skip rows (`grid_words`) of a grid of
+// L levels; with kStart, from its start.
+template <bool kStart, int L>
 __device__ __forceinline__ void multihit_ray(const float* __restrict__ origins,
                                              const float* __restrict__ dirs,
                                              const uint2* __restrict__ grid_words,
@@ -132,11 +134,11 @@ __device__ __forceinline__ void multihit_ray(const float* __restrict__ origins,
     int n;
     int* vox = voxels_out + (long long)r * K * 3;
     float* dist = dists_out + (long long)r * K;
-    if constexpr (kSkip) {
-        const vhx::SkipGrid g = vhx::skip_grid(grid_words, P.n_levels, P.size, substeps);
-        vhx::Skip m;
+    if constexpr (L > 0) {
+        const vhx::SkipGrid g = vhx::skip_grid(grid_words, P.size, substeps);
+        vhx::Skip<L> m;
         vhx::skip_init<kStart>(m, o, d, g, start_t);
-        RecordHits<vhx::Skip> rec{o, vox, dist, K, 0};
+        RecordHits<vhx::Skip<L>> rec{o, vox, dist, K, 0};
         vhx::skip_run(m, g, K * P.max_iters, rec);
         n = rec.n;
     } else {
@@ -163,12 +165,12 @@ multihit_kernel(const float* __restrict__ origins, const float* __restrict__ dir
     vhx::load_levels(P, levels);
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    multihit_ray<false, false>(origins, dirs, occ, P, levels, RayStarts{}, 0, r, K, count_out,
-                               voxels_out, dists_out);
+    multihit_ray<false, 0>(origins, dirs, occ, P, levels, RayStarts{}, 0, r, K, count_out,
+                           voxels_out, dists_out);
 }
 
-// The start and skip forms
-template <bool kStart, bool kSkip>
+// The start form (L = 0) and the skip forms (a grid of L levels)
+template <bool kStart, int L>
 __global__ void __launch_bounds__(THREADS)
 multihit_form_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                      const uint2* __restrict__ grid_words, const TraceParams P,
@@ -176,22 +178,22 @@ multihit_form_kernel(const float* __restrict__ origins, const float* __restrict_
                      int* __restrict__ count_out, int* __restrict__ voxels_out,
                      float* __restrict__ dists_out) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
-    if constexpr (!kSkip) vhx::load_levels(P, levels);
+    if constexpr (L == 0) vhx::load_levels(P, levels);
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= R) return;
-    multihit_ray<kStart, kSkip>(origins, dirs, grid_words, P, levels, st, substeps, r, K,
+    multihit_ray<kStart, L>(origins, dirs, grid_words, P, levels, st, substeps, r, K,
                                 count_out, voxels_out, dists_out);
 }
 
-template <bool kStart, bool kSkip>
+template <bool kStart, int L>
 cudaError_t launch(int blocks, const float* origins, const float* dirs, const uint2* words,
                    const TraceParams& P, const RayStarts& st, int substeps, int R, int K,
                    int* count, int* voxels, float* dists, cudaStream_t stream) {
-    if constexpr (!kStart && !kSkip)
+    if constexpr (!kStart && L == 0)
         multihit_kernel<<<blocks, THREADS, 0, stream>>>(origins, dirs, words, P, R, K, count,
                                                         voxels, dists);
     else
-        multihit_form_kernel<kStart, kSkip><<<blocks, THREADS, 0, stream>>>(
+        multihit_form_kernel<kStart, L><<<blocks, THREADS, 0, stream>>>(
             origins, dirs, words, P, st, substeps, R, K, count, voxels, dists);
     return cudaGetLastError();
 }
@@ -212,7 +214,8 @@ cudaError_t march_entry(const float* origins, const float* dirs, const void* gri
     const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
     if (params->n_levels < 1 || params->n_levels > max_levels || max_hits < 1 ||
         (long long)max_hits * params->max_iters > 0x7fffffff ||
-        (start && (start_tile < 1 || start_w < 1)))
+        (start && (start_tile < 1 || start_w < 1)) ||
+        (substeps && !vhx::skip_rows_aligned(grid_words)))
         return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
@@ -223,14 +226,17 @@ cudaError_t march_entry(const float* origins, const float* dirs, const void* gri
                        start ? (start_w + start_tile - 1) / start_tile : 0};
     const TraceParams& P = *params;
     if (substeps)
-        return start ? launch<true, true>(blocks, origins, dirs, words, P, st, substeps, n_rays,
-                                          max_hits, count, voxels, dists, stream)
-                     : launch<false, true>(blocks, origins, dirs, words, P, st, substeps, n_rays,
-                                           max_hits, count, voxels, dists, stream);
-    return start ? launch<true, false>(blocks, origins, dirs, words, P, st, 0, n_rays, max_hits,
-                                       count, voxels, dists, stream)
-                 : launch<false, false>(blocks, origins, dirs, words, P, st, 0, n_rays, max_hits,
-                                        count, voxels, dists, stream);
+        return vhx::skip_depth(P.n_levels, [&](auto depth) {
+            constexpr int L = decltype(depth)::value;
+            return start ? launch<true, L>(blocks, origins, dirs, words, P, st, substeps, n_rays,
+                                           max_hits, count, voxels, dists, stream)
+                         : launch<false, L>(blocks, origins, dirs, words, P, st, substeps, n_rays,
+                                            max_hits, count, voxels, dists, stream);
+        });
+    return start ? launch<true, 0>(blocks, origins, dirs, words, P, st, 0, n_rays, max_hits,
+                                   count, voxels, dists, stream)
+                 : launch<false, 0>(blocks, origins, dirs, words, P, st, 0, n_rays, max_hits,
+                                    count, voxels, dists, stream);
 }
 
 }  // namespace
@@ -249,8 +255,9 @@ extern "C" cudaError_t vhx_multihit_start(const float* origins, const float* dir
 }
 
 // The skip tracer's march: as vhx_multihit_start, over `rows` (the grid's
-// skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1 substeps a
-// body iteration and max_hits * params->max_iters body iterations a ray.
+// skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned), `substeps` >=
+// 1 substeps a body iteration and max_hits * params->max_iters body
+// iterations a ray; the instance of the grid's depth.
 extern "C" cudaError_t vhx_multihit_skip(const float* origins, const float* dirs,
                                          const void* rows, const TraceParams* params, int n_rays,
                                          int max_hits, int substeps, const float* start,

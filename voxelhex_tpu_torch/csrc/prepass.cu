@@ -27,8 +27,9 @@
 //
 // Under the reference renderer's `tracer="skip"` its levels march the skip
 // tracer (`self._trace`, bitgrid.py:1578, :1597), so a level's depths are
-// those of the skip tracer's hit points: `prepass_kernel<kStart, true>`
-// over the grid's skip rows (skip.cuh).
+// those of the skip tracer's hit points: `prepass_kernel<kStart, L>` over
+// the skip rows of a grid of L levels (skip.cuh); L = 0 is the stack
+// automaton's.
 
 #include "frame.cuh"
 #include "skip.cuh"
@@ -56,14 +57,14 @@ __device__ __forceinline__ float start_from(const float* __restrict__ d, int w, 
     return vhx::xla_max(__fsub_rn(vhx::xla_min(a, b), MARGIN), 0.f);
 }
 
-// With kSkip, `occ` holds the skip rows and the rays march the skip
-// tracer, `substeps` substeps a body iteration.
-template <bool kStart, bool kSkip>
+// With L >= 1, `occ` holds the skip rows of a grid of L levels and the
+// rays march the skip tracer, `substeps` substeps a body iteration.
+template <bool kStart, int L>
 __global__ void __launch_bounds__(THREADS)
 prepass_kernel(const uint2* __restrict__ occ, const PrepassParams P,
                const float* __restrict__ coarser, float* __restrict__ depth, int substeps) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
-    if constexpr (!kSkip) vhx::load_levels(P.trace, levels);
+    if constexpr (L == 0) vhx::load_levels(P.trace, levels);
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -72,9 +73,9 @@ prepass_kernel(const uint2* __restrict__ occ, const PrepassParams P,
                    x, y, o, d);
     float start_t = 0.f;
     if constexpr (kStart) start_t = start_from(coarser, P.w / 2, P.h / 2, x / 2, y / 2);
-    if constexpr (kSkip) {
-        const vhx::SkipGrid g = vhx::skip_grid(occ, P.trace.n_levels, P.trace.size, substeps);
-        vhx::Skip m;
+    if constexpr (L > 0) {
+        const vhx::SkipGrid g = vhx::skip_grid(occ, P.trace.size, substeps);
+        vhx::Skip<L> m;
         vhx::skip_init<kStart>(m, o, d, g, start_t);
         vhx::SkipStopAtHit stop;
         vhx::skip_run(m, g, P.trace.max_iters, stop);
@@ -97,10 +98,10 @@ depth_start_kernel(const float* __restrict__ depth, int w, int h, float* __restr
     start[i] = start_from(depth, w, h, x, y);
 }
 
-template <bool kStart, bool kSkip>
+template <bool kStart, int L>
 cudaError_t launch(dim3 grid, const uint2* occ, const PrepassParams& P, const float* coarser,
                    float* depth, int substeps, cudaStream_t stream) {
-    prepass_kernel<kStart, kSkip><<<grid, THREADS, 0, stream>>>(occ, P, coarser, depth, substeps);
+    prepass_kernel<kStart, L><<<grid, THREADS, 0, stream>>>(occ, P, coarser, depth, substeps);
     return cudaGetLastError();
 }
 
@@ -111,7 +112,8 @@ cudaError_t level(const void* grid_words, const PrepassParams* params, int subst
     const PrepassParams& P = *params;
     const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
     if (P.trace.n_levels < 1 || P.trace.n_levels > max_levels || P.w < 1 || P.h < 1 ||
-        (coarser && (P.w % 2 || P.h % 2)) || !depth || substeps < 0)
+        (coarser && (P.w % 2 || P.h % 2)) || !depth || substeps < 0 ||
+        (substeps && !vhx::skip_rows_aligned(grid_words)))
         return cudaErrorInvalidValue;
     const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
                     (P.h + vhx::WARP_H - 1) / vhx::WARP_H);
@@ -120,10 +122,13 @@ cudaError_t level(const void* grid_words, const PrepassParams* params, int subst
     if (err != cudaSuccess) return err;
     const auto* occ = static_cast<const uint2*>(grid_words);
     if (substeps)
-        return coarser ? launch<true, true>(grid, occ, P, coarser, depth, substeps, stream)
-                       : launch<false, true>(grid, occ, P, nullptr, depth, substeps, stream);
-    return coarser ? launch<true, false>(grid, occ, P, coarser, depth, 0, stream)
-                   : launch<false, false>(grid, occ, P, nullptr, depth, 0, stream);
+        return vhx::skip_depth(P.trace.n_levels, [&](auto depth_of) {
+            constexpr int L = decltype(depth_of)::value;
+            return coarser ? launch<true, L>(grid, occ, P, coarser, depth, substeps, stream)
+                           : launch<false, L>(grid, occ, P, nullptr, depth, substeps, stream);
+        });
+    return coarser ? launch<true, 0>(grid, occ, P, coarser, depth, 0, stream)
+                   : launch<false, 0>(grid, occ, P, nullptr, depth, 0, stream);
 }
 
 }  // namespace
@@ -140,8 +145,9 @@ extern "C" cudaError_t vhx_prepass_level(const void* occ_pairs, const PrepassPar
 }
 
 // The skip tracer's level: as vhx_prepass_level, over `rows` (the grid's
-// skip rows, u32 [ceil(S / 4)^3, 2 n_levels]), `substeps` >= 1 substeps a
-// body iteration and params->trace.max_iters body iterations a ray.
+// skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned), `substeps` >=
+// 1 substeps a body iteration and params->trace.max_iters body iterations
+// a ray; the instance of the grid's depth.
 extern "C" cudaError_t vhx_prepass_level_skip(const void* rows, const PrepassParams* params,
                                               int substeps, const float* coarser, float* depth,
                                               int device, cudaStream_t stream) {

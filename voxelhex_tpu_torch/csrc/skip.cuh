@@ -32,35 +32,71 @@
 // the impact normal are the stack tracer's.  Voxel coordinates are integers,
 // so the cell arithmetic is exact.
 //
-// The row is held in registers, one uint2 a level, for up to
-// VHX_SKIP_MAX_LEVELS levels (a world of up to 4^VHX_SKIP_MAX_LEVELS voxels
-// a side): every loop over the levels is unrolled to that bound and guarded
-// by the grid's depth, so no index into the row is dynamic.  At L = 5 a row
-// is 40 B and spans two 32 B sectors.
+// The row is held in registers, one uint2 a level, and the pyramid's depth
+// L is a template parameter: each depth from 1 to VHX_SKIP_MAX_LEVELS is an
+// instance of its own (`skip_depth` picks it in the C entries), so the row
+// is exactly L pairs and every loop over the levels is unrolled to L with
+// no guard and no dynamic index.  A fetch loads the row as 16 B vectors:
+// at even L every row starts on 16 B; at odd L the row of block a starts
+// on 16 B where a is even and on 8 B where it is odd, so one 8 B load
+// takes the unaligned end and 16 B loads the rest (the rows keep the
+// reference's [n0^3, 2L] layout, 16 B aligned at their start).  A substep
+// finds the lowest valid level with one __clz instead of testing each
+// level's validity: level k's pair is valid for v exactly when
+// ((v_c >> 2) ^ b0_c) >> 2k == 0 on every axis.
+//
+// What bounds it on the H100: neither bytes nor operations but each ray's
+// chain of body iterations, each up to `substeps` substeps of L bit reads,
+// a __clz and a DDA step, then a row fetch that the next body waits on (1
+// MiB of rows at the bench, 640 MiB at the 1024 terrain).
 
 #pragma once
 
+#include <type_traits>
+
 #include "traverse.cuh"
 
-#define VHX_SKIP_MAX_LEVELS 8
+// The deepest pyramid with an instance: L = 6 covers worlds up to 4096 a
+// side; a deeper world's colors alone (2 B a voxel, 137 GB at 4097^3) do
+// not fit the card.  The plain skip tracer takes up to 8 levels.
+#define VHX_SKIP_MAX_LEVELS 6
 
 namespace vhx {
 
 // What the skip march reads besides the ray: the rows [n0^3, L] of word
-// pairs, the pyramid's depth L, the world extent, the blocks a side of
-// level 0 (n0 = ceil(S / 4)) and the substeps of a body iteration.
+// pairs, the world extent, the blocks a side of level 0 (n0 = ceil(S /
+// 4)) and the substeps of a body iteration.
 struct SkipGrid {
     const uint2* rows;
-    int n_levels;
     int size;
     int n0;
     int substeps;
 };
 
-__device__ __forceinline__ SkipGrid skip_grid(const uint2* rows, int n_levels, int size,
-                                              int substeps) {
+__device__ __forceinline__ SkipGrid skip_grid(const uint2* rows, int size, int substeps) {
     const int n0 = (size + 3) / 4;
-    return SkipGrid{rows, n_levels, size, n0 < 1 ? 1 : n0, substeps};
+    return SkipGrid{rows, size, n0 < 1 ? 1 : n0, substeps};
+}
+
+// Call f(std::integral_constant<int, L>()) for the pyramid's depth L =
+// n_levels, each depth its own instance; cudaErrorInvalidValue outside
+// 1..VHX_SKIP_MAX_LEVELS
+template <class F>
+cudaError_t skip_depth(int n_levels, F&& f) {
+    switch (n_levels) {
+        case 1: return f(std::integral_constant<int, 1>());
+        case 2: return f(std::integral_constant<int, 2>());
+        case 3: return f(std::integral_constant<int, 3>());
+        case 4: return f(std::integral_constant<int, 4>());
+        case 5: return f(std::integral_constant<int, 5>());
+        case 6: return f(std::integral_constant<int, 6>());
+    }
+    return cudaErrorInvalidValue;
+}
+
+// Whether the skip rows start on 16 B, as the row fetch's vector loads need
+inline bool skip_rows_aligned(const void* rows) {
+    return (reinterpret_cast<uintptr_t>(rows) & 15) == 0;
 }
 
 // x.astype(int32) as XLA converts: toward zero, saturating, NaN to 0
@@ -71,7 +107,9 @@ __device__ __forceinline__ int sat_int(float x) {
     return (int)x;
 }
 
-// One ray's skip march between body iterations, in registers.
+// One ray's skip march between body iterations, in registers, over a
+// pyramid of L levels.
+template <int L>
 struct Skip {
     float d[3];
     float sg[3];  // sgn(d)
@@ -79,14 +117,18 @@ struct Skip {
     float p[3];   // the current point
     int v[3];     // the current voxel
     int b0[3];    // the level-0 block whose row is held
-    uint2 row[VHX_SKIP_MAX_LEVELS];
+    uint2 row[L];
     int iters;    // body iterations taken
     bool active;  // still marching
     bool hit;     // stopped on an occupied voxel (v)
 };
 
+__device__ __forceinline__ uint2 lo_pair(const uint4& w) { return make_uint2(w.x, w.y); }
+__device__ __forceinline__ uint2 hi_pair(const uint4& w) { return make_uint2(w.z, w.w); }
+
 // Fetch the row of the level-0 block of the ray's voxel.
-__device__ __forceinline__ void skip_fetch(Skip& m, const SkipGrid& g) {
+template <int L>
+__device__ __forceinline__ void skip_fetch(Skip<L>& m, const SkipGrid& g) {
     long long addr = 0, scale = 1;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -96,17 +138,41 @@ __device__ __forceinline__ void skip_fetch(Skip& m, const SkipGrid& g) {
         addr += (long long)b * scale;
         scale *= g.n0;
     }
-    const uint2* row = g.rows + addr * g.n_levels;
+    const uint2* row = g.rows + addr * L;
+    if constexpr (L == 1) {
+        m.row[0] = __ldg(row);
+    } else if constexpr (L % 2 == 0) {
+        const uint4* q = reinterpret_cast<const uint4*>(row);
 #pragma unroll
-    for (int k = 0; k < VHX_SKIP_MAX_LEVELS; ++k)
-        if (k < g.n_levels) m.row[k] = __ldg(&row[k]);
+        for (int i = 0; i < L / 2; ++i) {
+            const uint4 w = __ldg(&q[i]);
+            m.row[2 * i] = lo_pair(w);
+            m.row[2 * i + 1] = hi_pair(w);
+        }
+    } else {
+        // the 8 B end that is off 16 B: the first pair of an odd block's
+        // row, the last of an even one's
+        const bool odd = (addr & 1) != 0;
+        const uint4* q = reinterpret_cast<const uint4*>(row + (odd ? 1 : 0));
+        const uint2 end = __ldg(row + (odd ? 0 : L - 1));
+        uint4 w[L / 2];
+#pragma unroll
+        for (int i = 0; i < L / 2; ++i) w[i] = __ldg(&q[i]);
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+            const uint2 even_k = k == L - 1 ? end : (k % 2 ? hi_pair(w[k / 2]) : lo_pair(w[k / 2]));
+            const uint2 odd_k =
+                k == 0 ? end : ((k - 1) % 2 ? hi_pair(w[(k - 1) / 2]) : lo_pair(w[(k - 1) / 2]));
+            m.row[k] = odd ? odd_k : even_k;
+        }
+    }
 }
 
 // Clip the ray (o, d) to the world box and fetch the row of its entry
 // voxel; with kStart and `use_start`, from `start_t` on (init's start form,
 // bitgrid.py:907-913).
-template <bool kStart = false>
-__device__ __forceinline__ void skip_init(Skip& m, const float o[3], const float d[3],
+template <bool kStart = false, int L>
+__device__ __forceinline__ void skip_init(Skip<L>& m, const float o[3], const float d[3],
                                           const SkipGrid& g, float start_t = 0.f,
                                           bool use_start = true) {
 #pragma unroll
@@ -126,39 +192,34 @@ __device__ __forceinline__ void skip_init(Skip& m, const float o[3], const float
     skip_fetch(m, g);
 }
 
-// The bit of voxel v in the row's level-k pair, and whether that pair is
-// valid for v
-__device__ __forceinline__ void skip_level(const Skip& m, int k, bool& valid, bool& occupied) {
-    valid = true;
-    int s = 0;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-        valid = valid && (m.v[c] >> (2 * k + 2)) == (m.b0[c] >> (2 * k));
-        s += ((m.v[c] >> (2 * k)) & 3) << (2 * c);
-    }
-    const uint32_t word = s < 32 ? m.row[k].x : m.row[k].y;
-    occupied = ((word >> (s & 31)) & 1u) != 0u;
-}
-
 // One substep: true if the ray stepped to the next cell, false if it hit
-// (m.hit), left the world (inactive) or waits for the fetch.
-__device__ __forceinline__ bool skip_substep(Skip& m, const SkipGrid& g) {
-    int ksel = -1;
+// (m.hit), left the world (inactive) or waits for the fetch.  The valid
+// levels are [kmin, L): kmin is half the bit length of the three axes'
+// (v >> 2) ^ b0, rounded up.
+template <int L>
+__device__ __forceinline__ bool skip_substep(Skip<L>& m, const SkipGrid& g) {
+    const int x = ((m.v[0] >> 2) ^ m.b0[0]) | ((m.v[1] >> 2) ^ m.b0[1]) | ((m.v[2] >> 2) ^ m.b0[2]);
+    const int kmin = (33 - __clz(x)) >> 1;
+    // bit k of `empty`: v's cell of level k is empty in the row
+    unsigned empty = 0u;
+    bool occupied0 = false;
 #pragma unroll
-    for (int k = 0; k < VHX_SKIP_MAX_LEVELS; ++k) {
-        if (k < g.n_levels) {
-            bool valid, occupied;
-            skip_level(m, k, valid, occupied);
-            if (k == 0 && valid && occupied) {
-                m.hit = true;
-                m.active = false;
-                return false;
-            }
-            if (valid && !occupied) ksel = k;
-        }
+    for (int k = 0; k < L; ++k) {
+        const int s = ((m.v[0] >> (2 * k)) & 3) | (((m.v[1] >> (2 * k)) & 3) << 2)
+                    | (((m.v[2] >> (2 * k)) & 3) << 4);
+        const uint32_t word = s < 32 ? m.row[k].x : m.row[k].y;
+        const unsigned bit = (word >> (s & 31)) & 1u;
+        if (k == 0) occupied0 = bit != 0u;
+        empty |= (bit ^ 1u) << k;
     }
-    if (ksel < 0) return false;
-    const int shift = 2 * ksel;
+    if (kmin == 0 && occupied0) {
+        m.hit = true;
+        m.active = false;
+        return false;
+    }
+    empty &= ~0u << kmin;  // kmin <= 16
+    if (empty == 0u) return false;
+    const int shift = 2 * (31 - __clz((int)empty));  // the largest valid empty level
     const int csz = 1 << shift;
     int cmin[3];
     float cminf[3], np[3], st[3];
@@ -195,13 +256,15 @@ __device__ __forceinline__ bool skip_substep(Skip& m, const SkipGrid& g) {
 
 // The policy of the single-hit skip march: stop on the first hit.
 struct SkipStopAtHit {
-    __device__ __forceinline__ bool on_hit(Skip&) const { return true; }
+    template <int L>
+    __device__ __forceinline__ bool on_hit(Skip<L>&) const { return true; }
 };
 
 // Clear the bit of the ray's voxel in the level-0 pair of its row, so that
 // the march steps on past it (soft.py `_hit_step`'s skip branch).  Only the
 // register row changes; the next fetch reads the bit again.
-__device__ __forceinline__ void skip_clear_hit_voxel(Skip& m) {
+template <int L>
+__device__ __forceinline__ void skip_clear_hit_voxel(Skip<L>& m) {
     const int s = (m.v[0] & 3) + (m.v[1] & 3) * 4 + (m.v[2] & 3) * 16;
     if (s < 32) m.row[0].x &= ~(1u << s);
     else m.row[0].y &= ~(1u << (s - 32));
@@ -213,8 +276,9 @@ __device__ __forceinline__ void skip_clear_hit_voxel(Skip& m) {
 // inactive), or returns false: then, as the reference's rounds do, the row
 // of the hit voxel is fetched at the end of the body, the voxel's bit is
 // cleared in it, and the march goes on from that voxel.
-template <class Policy>
-__device__ __forceinline__ void skip_run(Skip& m, const SkipGrid& g, int max_iters, Policy& pol) {
+template <int L, class Policy>
+__device__ __forceinline__ void skip_run(Skip<L>& m, const SkipGrid& g, int max_iters,
+                                         Policy& pol) {
     while (m.active && m.iters < max_iters) {
         m.iters += 1;
 #pragma unroll 1
@@ -245,8 +309,9 @@ __device__ __forceinline__ int voxel_color(const int hvox[3],
 
 // What the single-hit skip march `m` ends with: on a hit, the hit voxel,
 // its impact normal (the unit cell at v) and color.
-__device__ __forceinline__ Hit skip_hit_of(const Skip& m, const unsigned short* __restrict__ colors,
-                                           int size) {
+template <int L>
+__device__ __forceinline__ Hit skip_hit_of(const Skip<L>& m,
+                                           const unsigned short* __restrict__ colors, int size) {
     Hit out;
     out.hit = m.hit;
     out.hvox[0] = out.hvox[1] = out.hvox[2] = 0;
@@ -267,14 +332,15 @@ __device__ __forceinline__ Hit skip_hit_of(const Skip& m, const unsigned short* 
     return out;
 }
 
-// March the ray (o, d) over the skip rows: the reference skip tracer's
-// `trace` of one ray; with kStart, from `start_t` where `use_start`.
-template <bool kStart = false>
+// March the ray (o, d) over the skip rows of a pyramid of L levels: the
+// reference skip tracer's `trace` of one ray; with kStart, from `start_t`
+// where `use_start`.
+template <bool kStart, int L>
 __device__ __forceinline__ Hit skip_march(const float o[3], const float d[3], const SkipGrid& g,
                                           const unsigned short* __restrict__ colors,
                                           int max_iters, float start_t = 0.f,
                                           bool use_start = true) {
-    Skip m;
+    Skip<L> m;
     skip_init<kStart>(m, o, d, g, start_t, use_start);
     SkipStopAtHit stop;
     skip_run(m, g, max_iters, stop);

@@ -18,10 +18,10 @@
 // memory, and lets every ray stop on its own (no lock-step rounds, so no
 // compaction pass is needed).
 //
-// `traverse_skip_kernel` traces the same rays with the skip tracer
+// `traverse_skip_kernel<L>` traces the same rays with the skip tracer
 // (skip.cuh: `make_skip_tracer`, voxelhex_tpu/render/bitgrid.py:859) over
-// the grid's skip rows, `substeps` substeps a body iteration: the
-// reference renderer's `trace` under `tracer="skip"`.
+// the skip rows of a grid of L levels, `substeps` substeps a body
+// iteration: the reference renderer's `trace` under `tracer="skip"`.
 
 #include "skip.cuh"
 
@@ -56,6 +56,7 @@ traverse_kernel(const float* __restrict__ origins, const float* __restrict__ dir
     }
 }
 
+template <int L>
 __global__ void __launch_bounds__(128)
 traverse_skip_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                      const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
@@ -71,8 +72,8 @@ traverse_skip_kernel(const float* __restrict__ origins, const float* __restrict_
         o[c] = origins[3 * r + c];
         d[c] = dirs[3 * r + c];
     }
-    const vhx::SkipGrid g = vhx::skip_grid(rows, P.n_levels, P.size, substeps);
-    const vhx::Hit h = vhx::skip_march(o, d, g, colors, P.max_iters);
+    const vhx::SkipGrid g = vhx::skip_grid(rows, P.size, substeps);
+    const vhx::Hit h = vhx::skip_march<false, L>(o, d, g, colors, P.max_iters);
     hit_out[r] = h.hit ? 1 : 0;
     voxel_out[r] = h.voxel;
 #pragma unroll
@@ -106,22 +107,28 @@ extern "C" cudaError_t vhx_traverse(const float* origins, const float* dirs,
 }
 
 // The skip tracer's rays: `rows` the grid's skip rows (u32 [ceil(S / 4)^3,
-// 2 n_levels]), `substeps` >= 1 substeps a body iteration, and
-// params->max_iters body iterations a ray.
+// 2 n_levels], 16 B aligned), `substeps` >= 1 substeps a body iteration,
+// and params->max_iters body iterations a ray; the instance of the grid's
+// depth.
 extern "C" cudaError_t vhx_traverse_skip(const float* origins, const float* dirs,
                                          const void* rows, const void* colors,
                                          const TraceParams* params, int n_rays, int substeps,
                                          void* hit, int* voxel, int* hvox, float* point,
                                          float* hnormal, int device, cudaStream_t stream) {
-    if (params->n_levels < 1 || params->n_levels > VHX_SKIP_MAX_LEVELS || substeps < 1)
+    if (params->n_levels < 1 || params->n_levels > VHX_SKIP_MAX_LEVELS || substeps < 1 ||
+        !vhx::skip_rows_aligned(rows))
         return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     if (n_rays <= 0) return cudaSuccess;
     const int threads = 128;
     const int blocks = (n_rays + threads - 1) / threads;
-    traverse_skip_kernel<<<blocks, threads, 0, stream>>>(
-        origins, dirs, static_cast<const uint2*>(rows), static_cast<const unsigned short*>(colors),
-        *params, substeps, n_rays, static_cast<unsigned char*>(hit), voxel, hvox, point, hnormal);
-    return cudaGetLastError();
+    return vhx::skip_depth(params->n_levels, [&](auto depth) {
+        constexpr int L = decltype(depth)::value;
+        traverse_skip_kernel<L><<<blocks, threads, 0, stream>>>(
+            origins, dirs, static_cast<const uint2*>(rows),
+            static_cast<const unsigned short*>(colors), *params, substeps, n_rays,
+            static_cast<unsigned char*>(hit), voxel, hvox, point, hnormal);
+        return cudaGetLastError();
+    });
 }

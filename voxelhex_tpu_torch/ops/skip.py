@@ -22,7 +22,8 @@ from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
 from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer, make_skip_tracer
 
-SKIP_MAX_LEVELS = 8  # VHX_SKIP_MAX_LEVELS in skip.cuh: the rows a register row holds
+SKIP_MAX_LEVELS = 8  # the deepest pyramid of the plain skip tracer
+SKIP_KERNEL_MAX_LEVELS = 6  # VHX_SKIP_MAX_LEVELS in skip.cuh: the deepest with an instance
 
 
 def plain_tracer(tree, max_iters=MAX_ITERS, skip_substeps=None):
@@ -38,7 +39,8 @@ def plain_tracer(tree, max_iters=MAX_ITERS, skip_substeps=None):
 
 def check_skip(tree, skip_substeps) -> None:
     """Raise unless ``tree`` holds skip rows of its pyramid's shape, of at
-    most ``SKIP_MAX_LEVELS`` levels, and ``skip_substeps`` is at least 1."""
+    most ``SKIP_MAX_LEVELS`` levels (``SKIP_KERNEL_MAX_LEVELS`` for rows on
+    the card, which the kernels march), and ``skip_substeps`` is at least 1."""
     if int(skip_substeps) < 1:
         raise ValueError(f"skip_substeps {skip_substeps}: the skip tracer takes 1 or more")
     rows = tree.get("skip_rows")
@@ -46,8 +48,9 @@ def check_skip(tree, skip_substeps) -> None:
         raise ValueError("the skip tracer needs the grid's skip rows: "
                          "device_bitgrid(..., skip_rows=True)")
     L = len(tree["bases"])
-    if L > SKIP_MAX_LEVELS:
-        raise ValueError(f"{L} pyramid levels; the skip kernels take 1..{SKIP_MAX_LEVELS}")
+    most = SKIP_KERNEL_MAX_LEVELS if rows.device.type == "cuda" else SKIP_MAX_LEVELS
+    if L > most:
+        raise ValueError(f"{L} pyramid levels; the skip tracer takes 1..{most} on {rows.device}")
     n0 = max((int(tree["size"]) + 3) // 4, 1)
     _build.check_inputs(rows.device, (("skip_rows", rows, torch.int32, (n0**3, 2 * L)),))
 
