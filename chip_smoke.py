@@ -121,26 +121,29 @@ streamed pose, and of ``POST /edit``.
 
 Phase 14 runs the frame's start prepasses at 1920x1080: (a) the bench
 pose's beam, splat and ``prepass_levels=2`` frames through ``render`` (each
-its prepass's launches, then one ``frame.cu`` launch) to the reference
+its prepass's launch, then one ``frame.cu`` launch) to the reference
 digests, ``render_delta_many([cam] * 16, beam_prepass=True)`` twice (one
 ``beam.cu`` and one ``frames.cu`` launch a batch; one frame fetched, then
 none) and a fly-over frame of ``StreamingView(beam_prepass=True)`` (one
 beam and one ``far.cu`` launch); (b) ``beam.cu`` on every tile at the
 bench, terrain, fly-over window and close terrain (a 258^3 beam world)
-poses, with each
-pose's beam steps (the most, how many beams reach 128 steps or pass their
-restarts), ``splat.cu`` on every texel and ``prepass.cu`` on every texel of
-each level against their plain versions, and the frame kernels from each
-start map; (c) the beam frame against the plain frame in ppm; (d) the dead
+poses, with each pose's beam steps (the most, how many beams reach 128
+steps or pass their restarts), ``splat.cu`` on every texel (twice: the
+second call's scratch holds the first's words) and ``prepass.cu``'s one
+launch on every texel of each level and of the start map, at the bench
+pose and at a ragged 1000x520 frame of 3 levels, against their plain
+versions, and the frame kernels from each start map; (c) the beam frame against the plain frame in ppm; (d) the dead
 tiles, the steps a ray with the beam's start and without, and device times
 in turns of the plain frame against beam + frame and of the plain delta
 batch against the beam's, at the bench pose and the terrain, ``beam.cu``
 alone for 1 and 16 frames and over an empty grid of the same size (its
-launch floor) at each of the four poses of (b), and
-``far.cu`` with the window's start; (e) the frame
-kernels' registers without a start; (f) each new kernel's time, plain
-version, bound and library call (``scatter_reduce_`` for the splat's
-scatter, beside a profile of its two passes).
+launch floor) at each of the four poses of (b), and ``far.cu`` with the
+window's start; (e) the frame kernels' registers without a start; (f) each
+new kernel's time, plain version, bound and library call
+(``scatter_reduce_`` for the splat's scatter); the depth prepass's
+levels' longest 4 x 8 warps in steps, and the prepass frame against the
+plain frame in turns.  Each launch's own time by the profiler:
+``tools/automaton_ab.py --profile``.
 
 Phase 15 runs the skip tracer and the training step's beam at 1920x1080:
 (a) the main path: the bench pose's frames of ``BitGridRenderer(tracer=
@@ -668,8 +671,7 @@ def main():
                                      ("frames.cu", "frames_start_kernel", None),
                                      ("beam.cu", "beam_kernel", None),
                                      ("splat.cu", "splat_", None),
-                                     ("prepass.cu", "prepass_kernel", None),
-                                     ("prepass.cu", "depth_start_kernel", None),
+                                     ("prepass.cu", "prepass_frame_kernel", None),
                                      ("traverse.cu", "traverse_kernel", None),
                                      ("multihit.cu", "multihit_kernel", None),
                                      ("frame.cu", "frame_skip_kernel", None),
@@ -3396,8 +3398,8 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
     from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_frame_plain
     from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_digest
-    from voxelhex_tpu_torch.ops.prepass import (depth_start, depth_start_plain, level_camera,
-                                                level_depth, level_depth_plain, prepass_start)
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_start)
     from voxelhex_tpu_torch.ops.splat import project, splat_tiles, splat_tiles_plain
     from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
     from voxelhex_tpu_torch.render import fastest_renderer
@@ -3409,8 +3411,7 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
 
     t_all = time.time()
     tag = f"[{card}]"
-    counters = (beam_tiles, splat_tiles, level_depth, depth_start, render_frame, render_frames,
-                render_far)
+    counters = (beam_tiles, splat_tiles, prepass_start, render_frame, render_frames, render_far)
 
     def counts():
         return {f.__name__: f.launches for f in counters if f.launches}
@@ -3430,8 +3431,7 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
              {"beam_tiles": 1, "render_frame": 1}),
             ("splat", bench, {"splat_prepass": True}, SPLAT_SHA256,
              {"splat_tiles": 1, "render_frame": 1}),
-            ("depth", deep, {}, PREPASS_SHA256,
-             {"level_depth": PREPASS_LEVELS, "depth_start": 1, "render_frame": 1})):
+            ("depth", deep, {}, PREPASS_SHA256, {"prepass_start": 1, "render_frame": 1})):
         before = counts()
         frame = r.render(cam, out_u8=True, out_device=True, **kw)
         torch.cuda.synchronize()
@@ -3531,40 +3531,58 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     p = splat_tiles_plain(pts, cam)
     torch.cuda.synchronize()
     splat_plain_ms = (time.perf_counter() - t1) * 1e3
-    n_bad = int((~same(k, p)).sum())
+    # the second call starts from the first's words in the scratch
+    n_bad = int((~same(k, p)).sum()) + int((~same(splat_tiles(pts, cam), p)).sum())
     splat_err = max_abs_err(k, p)
     w2, h2 = RES[0] // 2, RES[1] // 2
     z, u, v, dist, f_tex, _sref = project(pts, cam, w2, h2)
     reliable = ((z > 0.0) & (f_tex <= 2.0) & (u >= -3.0) & (u < w2 + 3.0) & (v >= -3.0)
                 & (v < h2 + 3.0))
     log(f"  splat at the bench pose: {pts.shape[0]} centers, {int(reliable.sum())} reliable, "
-        f"{int(((z > 0) & (f_tex > 2.0)).sum())} blockers; {n_bad} of {p.numel()} texels differ "
-        f"from the plain version; start 0 on {float((p == 0).float().mean()):.4f}")
+        f"{int(((z > 0) & (f_tex > 2.0)).sum())} blockers; {n_bad} of {2 * p.numel()} texels of "
+        f"two calls differ from the plain version; start 0 on "
+        f"{float((p == 0).float().mean()):.4f}")
     if n_bad:
         raise AssertionError("splat.cu differs from its plain version")
     splat_map = k
-    depth_k, depth_p, prepass_err, level_stats = None, None, 0.0, []
+    prepass_err, level_stats = 0.0, []
     t1 = time.perf_counter()
-    for i in range(PREPASS_LEVELS, 0, -1):
+    depths = []
+    k = prepass_start(tree, cam, PREPASS_LEVELS, depths=depths)
+    for i, depth_k in zip(range(PREPASS_LEVELS, 0, -1), depths):
+        # the plain level from the kernel's own coarser level
+        coarser = depths[PREPASS_LEVELS - i - 1] if i < PREPASS_LEVELS else None
         cam_i = level_camera(cam, i)
-        k = level_depth(tree, cam_i, depth_k)
         st = {}
-        p = level_depth_plain(tree, cam_i, depth_k, stats=st)  # the kernel's inputs
+        p = level_depth_plain(tree, cam_i, coarser, stats=st)
         level_stats.append(st)
-        n_bad = int((~same(k, p)).sum())
-        prepass_err = max(prepass_err, max_abs_err(k, p))
+        n_bad = int((~same(depth_k, p)).sum())
+        prepass_err = max(prepass_err, max_abs_err(depth_k, p))
         log(f"  depth prepass level {i} ({cam_i.resolution[0]}x{cam_i.resolution[1]}): "
-            f"{n_bad} texels differ from the plain version; misses "
+            f"{n_bad} texels of the one launch differ from the plain version; misses "
             f"{float((p == 1e8).float().mean()):.4f}, steps {int(st['iters'].sum())}")
         if n_bad:
             raise AssertionError(f"prepass.cu level {i} differs from its plain version")
-        depth_k = k
-    k = depth_start(depth_k)
-    p = depth_start_plain(depth_k)
+    p = depth_start_plain(depths[-1])
     torch.cuda.synchronize()
     prepass_plain_ms = (time.perf_counter() - t1) * 1e3
     if not bool(same(k, p).all()):
         raise AssertionError("prepass.cu's start map differs from its plain version")
+    # a ragged frame of 3 levels: 500x260, 250x130, 125x65, none a whole
+    # number of tiles
+    rcam = orbit_camera(128.0, yaw_deg=70.0, resolution=(1000, 520))
+    rdepths = []
+    rk = prepass_start(tree, rcam, 3, depths=rdepths)
+    rp, coarser = [], None
+    for i in (3, 2, 1):
+        coarser = level_depth_plain(tree, level_camera(rcam, i), coarser)
+        rp.append(coarser)
+    n_bad = sum(int((~same(a, b)).sum()) for a, b in zip(rdepths + [rk],
+                                                         rp + [depth_start_plain(rp[-1])]))
+    log(f"  depth prepass of 3 levels at 1000x520: {n_bad} texels differ from the plain version")
+    if n_bad:
+        raise AssertionError("prepass.cu differs from its plain version at 3 levels")
+    del rdepths, rk, rp
     depth_map = k
     beam_map = beams["bench"][1]
     for name, start, tile in (("beam", beam_map, 8), ("splat", splat_map, 2),
@@ -3692,20 +3710,34 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
     texels = w2 * h2
     s_bound, s_by = bound(pts.numel() * 4 + texels * 4 + ctypes.sizeof(_build.SplatParams),
                           pts.shape[0] * SPLAT_OPS_PER_POINT + texels * SPLAT_OPS_PER_TEXEL)
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIMED_FRAMES):
-            splat_tiles(pts, cam)
-        torch.cuda.synchronize()
-    passes = {e.key: getattr(e, "device_time_total", 0.0) / 1e3 / TIMED_FRAMES
-              for e in prof.key_averages() if "splat_" in e.key}
-    log(f"  splat.cu {splat_ms:.4f} ms (profiler, a call: "
-        + ", ".join(f"{k[:40]} {ms:.4f} ms" for k, ms in passes.items())
-        + f"); scatter_reduce_ amin of the {int(reliable.sum())} reliable centers "
-        f"{lib_ms:.4f} ms {tag}")
+    # each launch's own time: tools/automaton_ab.py --profile, in a process
+    # of its own (this one's profiler, after the profiles of phases 4b to
+    # 11, recorded a fraction of these launches or none)
+    log(f"  splat.cu {splat_ms:.4f} ms; scatter_reduce_ amin of the {int(reliable.sum())} "
+        f"reliable centers {lib_ms:.4f} ms {tag}")
     prepass_ms = device_ms(lambda: prepass_start(tree, cam, PREPASS_LEVELS), TIMED_FRAMES)
     deep_ms = device_ms(lambda: deep.render(cam, out_u8=True, out_device=True), TIMED_FRAMES)
+    log(f"  prepass.cu in one launch: {prepass_ms:.4f} ms {tag}")
+    for i, st in zip(range(PREPASS_LEVELS, 0, -1), level_stats):
+        cam_i = level_camera(cam, i)
+        it = st["iters"].reshape(cam_i.resolution[1], cam_i.resolution[0])
+        h_i, w_i = it.shape
+        pad = torch.zeros(-(-h_i // 8) * 8, -(-w_i // 4) * 4, dtype=it.dtype, device=it.device)
+        pad[:h_i, :w_i] = it
+        warps = pad.reshape(pad.shape[0] // 8, 8, pad.shape[1] // 4, 4).amax(dim=(1, 3))
+        log(f"  depth prepass level {i}: the longest ray {int(it.max())} steps, the longest 4 x 8 "
+            f"warp {int(warps.max())}, warps of more than 16 and 32 steps "
+            f"{int((warps > 16).sum())} and {int((warps > 32).sum())} of {warps.numel()}")
+    frame_fns = {"plain frame": lambda: render_frame(tree, cam),
+                 "prepass frame": lambda: deep.render(cam, out_u8=True, out_device=True)}
+    turns = {n: [] for n in frame_fns}
+    for n in ("plain frame", "prepass frame", "prepass frame", "plain frame"):
+        ms = device_ms(frame_fns[n], TIMED_FRAMES)
+        turns[n].append(ms)
+        log(f"  turn bench {n}: {ms:.4f} ms device time {tag}")
+    a, b = (sum(turns[n]) / 2 for n in turns)
+    log(f"bench plain frame {a:.4f} ms, prepass frame {b:.4f} ms ({100 * (b - a) / a:+.1f}%) {tag}")
     p_pixels = sum(level_camera(cam, i).resolution[0] * level_camera(cam, i).resolution[1]
                    for i in range(PREPASS_LEVELS, 0, -1))
     p_bytes = (sum(int(s["reads"].sum()) for s in level_stats) * 8 + p_pixels * 4 * 2
@@ -3728,8 +3760,7 @@ def prepass_slice(dev, card, terrain, phase4_frame_ms):
          "max_abs_err": splat_err, "ms": splat_ms, "plain_ms": splat_plain_ms,
          "bound_ms": s_bound, "bound_by": s_by, "library_ms": lib_ms},
         {"name": "prepass", "route": "cuda", "source": src + "prepass.cu",
-         "replaces": "voxelhex_tpu/render/bitgrid.py:1198",
-         "launches": launches["level_depth"] + launches["depth_start"],
+         "replaces": "voxelhex_tpu/render/bitgrid.py:1198", "launches": launches["prepass_start"],
          "max_abs_err": prepass_err, "ms": prepass_ms, "plain_ms": prepass_plain_ms,
          "bound_ms": p_bound, "bound_by": p_by, "library_ms": None},
     ]
@@ -3753,7 +3784,7 @@ def skip_slice(dev, card, terrain):
     from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_frame_plain
     from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
     from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
-    from voxelhex_tpu_torch.ops.prepass import (depth_start, level_camera, level_depth,
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
                                                 level_depth_plain, prepass_start)
     from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
     from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
@@ -3770,15 +3801,14 @@ def skip_slice(dev, card, terrain):
     # (wrapper, its counter): each kernel instance's launches
     counters = {"skip_frame": (render_frame, "skip_launches"),
                 "skip_frames": (render_frames, "skip_launches"),
-                "skip_prepass": (level_depth, "skip_launches"),
+                "skip_prepass": (prepass_start, "skip_launches"),
                 "skip_traverse": (trace_skip, "launches"),
                 "multihit_start": (multihit, "start_launches"),
                 "multihit_skip": (multihit, "skip_launches"),
                 "multihit": (multihit, "launches"),
                 "frame": (render_frame, "launches"),
                 "frames": (render_frames, "launches"),
-                "prepass": (level_depth, "launches"),
-                "depth_start": (depth_start, "launches"),
+                "prepass": (prepass_start, "launches"),
                 "beam": (beam_tiles, "launches"),
                 "composite_forward": (composite_forward, "launches"),
                 "composite_backward": (composite_backward, "launches"),
@@ -3823,7 +3853,7 @@ def skip_slice(dev, card, terrain):
             ("skip + beam", skip, {"beam_prepass": True}, SKIP_BEAM_SHA256,
              {"beam": 1, "skip_frame": 1}),
             ("skip + depth prepass", deep, {}, SKIP_PREPASS_SHA256,
-             {"skip_prepass": PREPASS_LEVELS, "depth_start": 1, "skip_frame": 1})):
+             {"skip_prepass": 1, "skip_frame": 1})):
         frame, got = launched(lambda: r.render(cam, out_u8=True, out_device=True, **kw))
         digest = sha(frame)
         log(f"  {name} frame: launches {got}, prepass {r.last_stats['prepass']}, sha256 "
@@ -3946,16 +3976,18 @@ def skip_slice(dev, card, terrain):
     p3 = plain_timed("skip_frames", lambda: render_frames_plain(tree, cams3, prev=prev,
                                                                 skip_substeps=S3))
     check("skip_frames", k3, p3, f"skip batch of {len(cams3)} poses, frames and digests")
-    depth_k, prepass_stats = None, []
+    prepass_stats, depths = [], []
     t1 = time.perf_counter()
-    for i in range(PREPASS_LEVELS, 0, -1):
+    k_start = prepass_start(tree, cam, PREPASS_LEVELS, MAX_ITERS, S3, depths=depths)
+    for i, k in zip(range(PREPASS_LEVELS, 0, -1), depths):
+        # the plain level from the kernel's own coarser level
+        coarser = depths[PREPASS_LEVELS - i - 1] if i < PREPASS_LEVELS else None
         cam_i = level_camera(cam, i)
-        k = level_depth(tree, cam_i, depth_k, skip_substeps=S3)
         st_i = {}
-        p = level_depth_plain(tree, cam_i, depth_k, stats=st_i, skip_substeps=S3)
+        p = level_depth_plain(tree, cam_i, coarser, stats=st_i, skip_substeps=S3)
         prepass_stats.append(st_i)
         check("skip_prepass", [k], [p], f"skip prepass level {i}")
-        depth_k = k
+    check("skip_prepass", [k_start], [depth_start_plain(depths[-1])], "skip prepass start map")
     torch.cuda.synchronize()
     plain_ms["skip_prepass"] = (time.perf_counter() - t1) * 1e3
     soft_map = soft.beam_starts(spec, R)  # the renderer's beam map, from the soft renderer
@@ -4160,7 +4192,8 @@ def skip_slice(dev, card, terrain):
         f"multihit.cu start {start_ms:.4f} ms ({start_bound[0]:.4f}), skip {mh_skip_ms:.4f} ms "
         f"({mh_skip_bound[0]:.4f}) {tag}")
     for source, kernel in (("frame.cu", "frame_skip_kernel"), ("frames.cu", "frames_skip_kernel"),
-                           ("prepass.cu", "prepass_kernel"), ("traverse.cu", "traverse_skip"),
+                           ("prepass.cu", "prepass_frame_kernel"),
+                           ("traverse.cu", "traverse_skip"),
                            ("multihit.cu", "multihit_form_kernel")):
         blog = _build.build_log(source)
         for name in kernel_names(blog, kernel):

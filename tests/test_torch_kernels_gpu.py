@@ -842,48 +842,63 @@ def test_beam_kernel_equals_plain(cuda, dist):
 
 def test_splat_kernel_equals_plain(cuda):
     """splat.cu on every texel at the bench pose and at a distant pose
-    (reliable splats), against the plain version."""
+    (reliable splats), at 1080p and at 1000x522 (a 500 x 261 buffer, ragged
+    in the texel pass's 32 x 16 tiles), against the plain version, each
+    call on the scratch of the calls before it."""
     from voxelhex_tpu_torch.ops.splat import splat_tiles, splat_tiles_plain
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
     gpu, _cpu = _scene_renderers(cuda)
     pts = gpu._splat_points()
-    for dist in (1.8, 5.0):
-        cam = orbit_camera(128.0, distance_factor=dist, resolution=(1920, 1080))
-        n0 = splat_tiles.launches
-        k = splat_tiles(pts, cam)
-        torch.cuda.synchronize()
-        assert splat_tiles.launches == n0 + 1
-        assert _equal(k, splat_tiles_plain(pts, cam))
+    for res in ((1920, 1080), (1000, 522)):
+        for dist in (1.8, 5.0):
+            cam = orbit_camera(128.0, distance_factor=dist, resolution=res)
+            n0 = splat_tiles.launches
+            k = splat_tiles(pts, cam)
+            torch.cuda.synchronize()
+            assert splat_tiles.launches == n0 + 1
+            assert _equal(k, splat_tiles_plain(pts, cam))
 
 
-def test_prepass_kernels_equal_plain(cuda):
-    """prepass.cu's levels and start map at the bench pose, 1080p, against
-    the plain versions on the same inputs."""
-    from voxelhex_tpu_torch.ops.prepass import (depth_start, depth_start_plain, level_camera,
-                                                level_depth, level_depth_plain)
+@pytest.mark.parametrize("levels,res", [(2, (1920, 1080)), (3, (1000, 520)), (1, (1000, 522))])
+def test_prepass_kernels_equal_plain(cuda, levels, res):
+    """prepass.cu's one launch (every level's depths and the start map) at
+    the bench pose, 1080p with 2 levels and ragged frames of 3 levels and
+    of 1, against the plain versions on the same inputs."""
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_start)
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
     gpu, _cpu = _scene_renderers(cuda)
-    cam = orbit_camera(128.0, resolution=(1920, 1080))
-    depth = None
-    for i in (2, 1):
-        k = level_depth(gpu.tree, level_camera(cam, i), depth)
-        assert _equal(k, level_depth_plain(gpu.tree, level_camera(cam, i), depth))
-        depth = k
-    assert _equal(depth_start(depth), depth_start_plain(depth))
+    cam = orbit_camera(128.0, resolution=res)
+    depths = []
+    n0 = prepass_start.launches
+    start = prepass_start(gpu.tree, cam, levels, depths=depths)
+    torch.cuda.synchronize()
+    assert prepass_start.launches == n0 + 1 and len(depths) == levels
+    coarser = None
+    for i, k in zip(range(levels, 0, -1), depths):
+        want = level_depth_plain(gpu.tree, level_camera(cam, i), coarser)
+        assert _equal(k, want)
+        coarser = k
+    assert _equal(start, depth_start_plain(coarser))
 
 
-@pytest.mark.parametrize("kw", [{"beam_prepass": True}, {"splat_prepass": True}, "depth"])
+@pytest.mark.parametrize("kw", [{"beam_prepass": True}, {"splat_prepass": True}, "depth",
+                                "depth3"])
 def test_prepass_frames_on_the_card_equal_cpu(cuda, kw):
     """The renderer's frames with each prepass on the card against the same
-    renderer on the CPU at 320 x 176, in u8 and f32, and the beam batch."""
+    renderer on the CPU at 320 x 176, in u8 and f32, and the beam batch;
+    the depth prepass also at 3 levels of a 328 x 184 frame, whose levels
+    (164 x 92, 82 x 46, 41 x 23) are ragged in the kernel's tiles."""
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
-    extra = {"prepass": True, "prepass_levels": 2} if kw == "depth" else {}
-    kw = {} if kw == "depth" else kw
+    levels = {"depth": 2, "depth3": 3}.get(kw) if isinstance(kw, str) else None
+    extra = {"prepass": True, "prepass_levels": levels} if levels else {}
+    res = (328, 184) if kw == "depth3" else (320, 176)
+    kw = {} if levels else kw
     gpu, cpu = _scene_renderers(cuda, **extra)
-    cams = [orbit_camera(128.0, yaw_deg=y, resolution=(320, 176)) for y in (40.0, 130.0)]
+    cams = [orbit_camera(128.0, yaw_deg=y, resolution=res) for y in (40.0, 130.0)]
     for u8 in (True, False):
         for cam in cams:
             a = gpu.render(cam, out_u8=u8, **kw)
@@ -905,12 +920,13 @@ def test_skip_traverse_kernel_equals_plain(cuda, size, density):
     """Each skip instance at the depth of a random grid of ``size`` (1 to 6
     levels; 1028: 257^3 rows of 48 B, 815 MB) against its plain version:
     traverse.cu's, every output, at substeps 1 and 3; frame.cu's and
-    frames.cu's frames, prepass.cu's level and multihit.cu's march (K = 3)
-    at 3."""
+    frames.cu's frames, prepass.cu's one launch of 1 level and
+    multihit.cu's march (K = 3) at 3."""
     from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
     from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
     from voxelhex_tpu_torch.ops.multihit import multihit, multihit_plain
-    from voxelhex_tpu_torch.ops.prepass import level_camera, level_depth, level_depth_plain
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_start)
     from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
     from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
     from voxelhex_tpu_torch.render.camera import orbit_camera
@@ -932,9 +948,10 @@ def test_skip_traverse_kernel_equals_plain(cuda, size, density):
     for a, b in zip(render_frames(tree, cams, prev=prev, skip_substeps=3),
                     render_frames_plain(tree, cams, prev=prev, skip_substeps=3)):
         assert _equal(a, b)
-    cam1 = level_camera(cams[0], 1)
-    assert _equal(level_depth(tree, cam1, None, skip_substeps=3),
-                  level_depth_plain(tree, cam1, None, skip_substeps=3))
+    depths = []
+    start = prepass_start(tree, cams[0], 1, skip_substeps=3, depths=depths)
+    want = level_depth_plain(tree, level_camera(cams[0], 1), None, skip_substeps=3)
+    assert _equal(depths[0], want) and _equal(start, depth_start_plain(want))
     for a, b in zip(multihit(tree, o, d, 3, skip_substeps=3),
                     multihit_plain(tree, o, d, 3, skip_substeps=3)):
         assert _equal(a, b)

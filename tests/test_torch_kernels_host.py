@@ -51,9 +51,12 @@ SHIM = r"""
 #include <cmath>
 #include <cstdint>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdlib>
 #include <cstring>
+#include <map>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -185,6 +188,17 @@ inline int atomicAdd(int* p, int v) {
     return old;
 }
 inline int atomicOr(int* p, int v) { int old = *p; *p = old | v; return old; }
+// the flags that blocks poll are set by atomicExch, which wakes the
+// pollers (__nanosleep)
+extern std::condition_variable vhx_flag_cv;
+inline int atomicExch(int* p, int v) {
+    std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
+    int old = *p;
+    *p = v;
+    vhx_flag_cv.notify_all();
+    return old;
+}
+inline void __trap() { std::abort(); }
 // the int min and max of the splat prepass: one at a time, counted
 inline int atomicMin(int* p, int v) {
     std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
@@ -197,6 +211,13 @@ inline int atomicMax(int* p, int v) {
     std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
     ++vhx_host_atomics;
     int old = *p;
+    *p = v > old ? v : old;
+    return old;
+}
+inline unsigned long long atomicMax(unsigned long long* p, unsigned long long v) {
+    std::lock_guard<std::mutex> hold(vhx_host_atomic_lock);
+    ++vhx_host_atomics;
+    unsigned long long old = *p;
     *p = v > old ? v : old;
     return old;
 }
@@ -217,6 +238,11 @@ struct VhxBlock {
         if (exited) std::abort();
         const unsigned long long g = generation;
         if (++arrived == n) {
+            if (gated && !open) {
+                at_gate = true;
+                cv.notify_all();
+                cv.wait(hold, [&] { return open; });
+            }
             arrived = 0;
             ++generation;
             cv.notify_all();
@@ -230,8 +256,46 @@ struct VhxBlock {
         ++exited;
         cv.notify_all();
     }
+    // under vhx_host_grid_launch: the block waits at its first barrier
+    // until the launch opens it, and says when a thread first polls
+    bool gated = false, at_gate = false, open = false, polled = false;
+    void poll() {
+        std::lock_guard<std::mutex> hold(m);
+        polled = true;
+        cv.notify_all();
+    }
+    // the block's own shared variables (vhx_block_shared), zeroed
+    std::map<int, std::unique_ptr<unsigned char[]>> shared;
+    template <class T>
+    T& shared_var(int key) {
+        std::lock_guard<std::mutex> hold(m);
+        auto& bytes = shared[key];
+        if (!bytes) bytes.reset(new unsigned char[sizeof(T)]());
+        return *reinterpret_cast<T*>(bytes.get());
+    }
 };
 extern thread_local VhxBlock* vhx_block;
+// a __shared__ variable of a kernel under vhx_host_grid_launch, whose
+// blocks run at once: the test rewrites `__shared__ T name[N];` into
+// `auto& name = vhx_block_shared<T[N]>(__LINE__);`
+template <class T>
+inline T& vhx_block_shared(int key) { return vhx_block->shared_var<T>(key); }
+// a thread polling a flag: its block is marked as polling, and it sleeps
+// until a flag is set or 1 ms passes; a wait of two minutes aborts, as the
+// card's kernel traps (a new wait: over 100 ms since this thread last slept)
+extern long long vhx_host_polls;
+inline void __nanosleep(unsigned) {
+    using clock = std::chrono::steady_clock;
+    thread_local clock::time_point since, last;
+    const clock::time_point now = clock::now();
+    if (now - last > std::chrono::milliseconds(100)) since = now;
+    if (now - since > std::chrono::seconds(120)) std::abort();
+    if (vhx_block) vhx_block->poll();
+    std::unique_lock<std::mutex> hold(vhx_host_atomic_lock);
+    ++vhx_host_polls;
+    vhx_flag_cv.wait_for(hold, std::chrono::milliseconds(1));
+    last = clock::now();
+}
 inline int2 make_int2(int a, int b) { return {a, b}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -330,6 +394,53 @@ inline void vhx_host_block_launch(dim3 grid, unsigned threads, int, cudaStream_t
         for (auto& t : ts) t.join();
     }
 }
+// a launch of a kernel whose blocks wait for each other's flags, rewritten
+// into this call: every block at once, its threads as threads (VhxBlock),
+// its shared variables its own (vhx_block_shared).  The blocks start one
+// at a time, block 0 first, each held at its first barrier, so that what
+// a block takes before it (a ticket) follows the block's index; then they
+// go on from there in the reverse order, each once the block before has
+// ended or has begun to poll (__nanosleep).  So a later block runs as far
+// as it can before an earlier one starts: each of its waits polls, and a
+// missing wait reads what the earlier block has not yet written.
+template <class F>
+inline void vhx_host_grid_launch(dim3 grid, unsigned threads, int, cudaStream_t, F kernel) {
+    if (threads % 32) std::abort();
+    blockDim = dim3(threads);
+    gridDim = grid;
+    const unsigned n = grid.x * grid.y;
+    std::vector<std::unique_ptr<VhxBlock>> blocks;
+    std::vector<std::unique_ptr<VhxWarp[]>> warps;
+    std::vector<std::thread> ts;
+    const auto done = [&](VhxBlock& block) { return block.exited == (int)threads; };
+    for (unsigned b = 0; b < n; ++b) {
+        blocks.emplace_back(new VhxBlock(threads));
+        warps.emplace_back(new VhxWarp[threads / 32]);
+        VhxBlock& block = *blocks.back();
+        VhxWarp* ws = warps.back().get();
+        block.gated = true;
+        for (unsigned t = 0; t < threads; ++t)
+            ts.emplace_back([&, b, t, ws] {
+                blockIdx = dim3(b % grid.x, b / grid.x);
+                threadIdx = dim3(t);
+                vhx_warp = &ws[t / 32];
+                vhx_block = &block;
+                kernel();
+                block.exit();
+                vhx_block = nullptr;
+            });
+        std::unique_lock<std::mutex> hold(block.m);
+        block.cv.wait(hold, [&] { return block.at_gate || done(block); });
+    }
+    for (unsigned b = n; b-- > 0;) {
+        VhxBlock& block = *blocks[b];
+        std::unique_lock<std::mutex> hold(block.m);
+        block.open = true;
+        block.cv.notify_all();
+        block.cv.wait(hold, [&] { return block.polled || done(block); });
+    }
+    for (auto& t : ts) t.join();
+}
 """
 
 # the kernels and the host's entries to them
@@ -342,6 +453,9 @@ thread_local VhxBlock* vhx_block = nullptr;
 std::mutex vhx_host_atomic_lock;
 long long vhx_host_atomics = 0;
 extern "C" long long host_atomics() { return vhx_host_atomics; }
+std::condition_variable vhx_flag_cv;
+long long vhx_host_polls = 0;
+extern "C" long long host_polls() { return vhx_host_polls; }
 #include "frame_host.cu"
 namespace trav {
 #include "traverse_host.cu"
@@ -378,6 +492,19 @@ namespace spl {
 }
 namespace pre {
 #include "prepass_host.cu"
+}
+// prepass.cu with two of its waits cut when vhx_host_fault says so: bit 1
+// the left neighbour's (thread 0), bit 2 the first coarser tile's (thread
+// 3); a test shows that the launch's output then differs
+int vhx_host_fault = 0;
+extern "C" void host_set_fault(int fault) { vhx_host_fault = fault; }
+namespace prefault {
+#include "prepass_fault_host.cu"
+}
+extern "C" int host_prepass_fault(const void* words, const void* params, int n, int substeps,
+                                  float* const* depths, float* start, int* sync, int epoch) {
+    return prefault::vhx_prepass(words, static_cast<const prefault::PrepassParams*>(params), n,
+                                 substeps, depths, start, sync, epoch, 0, nullptr);
 }
 
 // frame.cu's frame from a start map, every thread of every block in turn
@@ -565,12 +692,19 @@ def host_lib(tmp_path_factory):
     # launches run a block's threads as threads that meet at its barriers
     # (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ,]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel")
+    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel",
+                     "splat_texel_kernel")
+    # and the depth prepass's, whose blocks wait for each other's flags: all
+    # its blocks at once, a later one running before an earlier one
+    # (vhx_host_grid_launch), each with shared variables of its own
+    grid_kernels = ("prepass_frame_kernel",)
+    shared = re.compile(r"__shared__ ([\w:]+) (\w+)((?:\[[^\]]+\])*);")
 
     def launcher_of(default):
         def sub(m):
             kernel = m.group(1).split("<")[0]
-            launcher = "vhx_host_block_launch" if kernel in block_kernels else default
+            launcher = ("vhx_host_block_launch" if kernel in block_kernels else
+                        "vhx_host_grid_launch" if kernel in grid_kernels else default)
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
@@ -583,12 +717,26 @@ def host_lib(tmp_path_factory):
                                        ("far", "vhx_host_launch", 2),
                                        ("beam", "vhx_host_launch", 1),
                                        ("splat", "vhx_host_launch", 2),
-                                       ("prepass", "vhx_host_launch", 2)):
+                                       ("prepass", "vhx_host_launch", 1)):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src, n = entry.subn(launcher_of(launcher), f.read())
         assert n == n_launches
         if name in ("traverse", "multihit"):  # included in a namespace of the harness
             src = src.replace('extern "C" ', "")
+        if name == "prepass":
+            src = shared.sub(r"auto& \2 = vhx_block_shared<\1\3>(__LINE__);", src)
+            fault = src.replace('extern "C" ', "")
+            # the stack instance alone: the copy refuses the skip tracer
+            skip = fault.index("    if (substeps)\n        return vhx::skip_depth(F.trace")
+            fault = (fault[:skip] + "    if (substeps) return cudaErrorInvalidValue;\n"
+                     + fault[fault.index("    return launch_frame<0>(", skip):])
+            for cut in ("if (tid == 0 && tx > 0", "if (tid >= 3 && tid < 7"):
+                assert fault.count(cut) == 1
+            fault = fault.replace("if (tid == 0 && tx > 0",
+                                  "if (tid == 0 && tx > 0 && !(vhx_host_fault & 1)")
+            fault = fault.replace("if (tid >= 3 && tid < 7",
+                                  "if (tid >= 3 && tid < 7 && !(vhx_host_fault & 2 && tid == 3)")
+            (d / "prepass_fault_host.cu").write_text(fault)
         (d / f"{name}_host.cu").write_text(src)
     for name in ("shade", "composite", "adam"):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
@@ -624,6 +772,11 @@ def host_lib(tmp_path_factory):
     lib.vhx_albedo_forward.argtypes = [p, p, p, p, p, i, i, i, ctypes.POINTER(f), p, i, p]
     lib.vhx_albedo_backward.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
     lib.host_atomics.restype = ctypes.c_longlong
+    lib.host_polls.restype = ctypes.c_longlong
+    lib.host_set_fault.argtypes = [i]
+    lib.host_prepass_fault.argtypes = [p, ctypes.POINTER(_build.PrepassParams), i, i,
+                                       ctypes.POINTER(p), p, p, i]
+    lib.host_prepass_fault.restype = i
     lib.vhx_region_scatter.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.vhx_coarse_rebuild.argtypes = [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p]
     lib.vhx_window_shift.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -634,19 +787,22 @@ def host_lib(tmp_path_factory):
     lib.host_frame_start.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), p, i, p,
                                      p]
     lib.vhx_beam.argtypes = [ctypes.POINTER(_build.BeamParams), p, i, p]
-    lib.vhx_splat.argtypes = [p, ctypes.POINTER(_build.SplatParams), p, p, p, i, p]
+    lib.vhx_splat.argtypes = [p, ctypes.POINTER(_build.SplatParams), p, i, p, i, p]
     lib.vhx_splat_block_words.argtypes = [i, i]
-    lib.vhx_prepass_level.argtypes = [p, ctypes.POINTER(_build.PrepassParams), p, p, i, p]
-    lib.vhx_depth_start.argtypes = [p, i, i, p, i, p]
+    lib.vhx_splat_scratch_words.argtypes = [i, i]
+    lib.vhx_prepass.argtypes = [p, ctypes.POINTER(_build.PrepassParams), i, i,
+                                ctypes.POINTER(p), p, p, i, i, p]
+    lib.vhx_prepass_sync_words.argtypes = [i, i, i]
+    for name in ("vhx_splat_scratch_words", "vhx_prepass_sync_words"):
+        getattr(lib, name).restype = ctypes.c_longlong
     for name in ("vhx_beam_params_size", "vhx_beam_max_grids", "vhx_splat_params_size",
-                 "vhx_prepass_params_size"):
+                 "vhx_prepass_params_size", "vhx_prepass_max_levels"):
         getattr(lib, name).restype = i
     lib.vhx_far_params_size.restype = i
     lib.vhx_far_max_layers.restype = i
     for name in ("vhx_region_scatter", "vhx_coarse_rebuild", "vhx_window_shift",
                  "vhx_render_far", "vhx_render_far_start", "vhx_render_frames_start",
-                 "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_prepass_level",
-                 "vhx_depth_start"):
+                 "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_prepass"):
         getattr(lib, name).restype = i
     lib.host_init.argtypes = [p, p, p, ctypes.POINTER(_build.TraceParams), p, i, p, p, p]
     lib.vhx_render_frame_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FrameParams), i, p,
@@ -657,10 +813,8 @@ def host_lib(tmp_path_factory):
                                         i, i, i, p, p, p]
     lib.vhx_render_frames_skip.argtypes = [p, p, p, i, ctypes.POINTER(_build.FramesParams), i,
                                            p, i, ctypes.c_uint, p, p, p, p, i, p]
-    lib.vhx_prepass_level_skip.argtypes = [p, ctypes.POINTER(_build.PrepassParams), i, p, p, i,
-                                           p]
     for name in ("host_traverse_skip", "host_multihit_start", "vhx_render_frames_skip",
-                 "vhx_prepass_level_skip", "vhx_render_frame_skip"):
+                 "vhx_render_frame_skip"):
         getattr(lib, name).restype = i
     lib.host_warp_probe.argtypes = [p, p, i]
     lib.host_adam.argtypes = [p, p, p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_longlong, p,
@@ -1770,12 +1924,11 @@ def test_splat_kernel_source_equals_plain(host_lib, camera_kind):
     assert host_lib.vhx_splat_params_size() == ctypes.sizeof(_build.SplatParams)
     pts, cam = _splat_case(camera_kind)
     w2, h2 = cam.resolution[0] // 2, cam.resolution[1] // 2
-    depth = torch.zeros(h2 * w2, dtype=torch.int32)
-    flags = torch.zeros(host_lib.vhx_splat_block_words(w2, h2), dtype=torch.int32)
+    scratch = torch.zeros(host_lib.vhx_splat_scratch_words(w2, h2), dtype=torch.int32)
     out = torch.full((h2, w2), 7.0)
     before = host_lib.host_atomics()
-    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0]), depth.data_ptr(),
-                              flags.data_ptr(), out.data_ptr(), 0, None) == 0
+    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0]),
+                              scratch.data_ptr(), 1, out.data_ptr(), 0, None) == 0
     want = splat_tiles_plain(pts, cam)
     assert _equal(out, want)
     z, u, v, d, f_tex, sref = project(pts, cam, w2, h2)
@@ -1804,42 +1957,273 @@ def test_splat_kernel_source_equals_plain(host_lib, camera_kind):
 
 @pytest.mark.parametrize("levels", [1, 2])
 def test_prepass_kernel_sources_equal_plain(host_lib, levels):
-    """prepass.cu's level kernel and its start kernel through their C
-    entries against the plain depth prepass, level by level, and the
-    frame from the last start map (frame.cu's frame_start_kernel) against
-    the plain frame from it, bit for bit, at a resolution whose coarse
-    levels are ragged in the 4 x 8 warp tiles."""
+    """prepass.cu's one launch through its C entry against the plain depth
+    prepass, level by level (each from the plain level before) and the
+    start map, and the frame from that start map (frame.cu's
+    frame_start_kernel) against the plain frame from it, bit for bit, at a
+    resolution whose coarse levels are ragged in the 4 x 8 warp tiles."""
     from voxelhex_tpu_torch.ops import _build
     from voxelhex_tpu_torch.ops.frame import frame_params, render_frame_plain
     from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
-                                                level_depth_plain, prepass_params)
+                                                level_depth_plain)
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
     assert host_lib.vhx_prepass_params_size() == ctypes.sizeof(_build.PrepassParams)
     tree = _tree(64, 0.02)
     cam = orbit_camera(64.0, yaw_deg=25.0, resolution=(100, 44))
-    depth = want = None
-    for i in range(levels, 0, -1):
-        cam_i = level_camera(cam, i)
-        w, h = cam_i.resolution
-        got = torch.full((h, w), 7.0)
-        assert host_lib.vhx_prepass_level(
-            tree["occ_pairs"].data_ptr(), prepass_params(tree, cam_i),
-            None if depth is None else depth.data_ptr(), got.data_ptr(), 0, None) == 0
-        want = level_depth_plain(tree, cam_i, want)
-        assert _equal(got, want)
+    sync = torch.zeros(host_lib.vhx_prepass_sync_words(50, 22, levels), dtype=torch.int32)
+    got, start = _host_prepass(host_lib, tree, cam, levels, 0, sync, 1)
+    want = None
+    for i, depth in zip(range(levels, 0, -1), got):
+        want = level_depth_plain(tree, level_camera(cam, i), want)
+        assert _equal(depth, want)
         assert (want == 1e8).any() and (want < 1e8).any()
-        depth = got
-    start = torch.full_like(depth, 7.0)
-    h, w = depth.shape
-    assert host_lib.vhx_depth_start(depth.data_ptr(), w, h, start.data_ptr(), 0, None) == 0
-    assert _equal(start, depth_start_plain(depth))
+    assert _equal(start, depth_start_plain(want))
     out = torch.full((44, 100, 3), 7, dtype=torch.uint8)
     host_lib.host_frame_start(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
                               tree["palette"].data_ptr(), tree["palette"].shape[0],
                               frame_params(tree, cam), start.data_ptr(), 2, None,
                               out.data_ptr())
     assert _equal(out, render_frame_plain(tree, cam, start=start, start_tile=2))
+
+
+def _host_prepass(host_lib, tree, cam, levels, substeps, sync, epoch, fill=7.0, fault=False):
+    """prepass.cu's one launch through its C entry (with ``fault``, the
+    copy whose waits ``host_set_fault`` cuts): each level's depths, the
+    coarsest first, and the start map, their buffers filled with ``fill``
+    before the launch."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.prepass import level_camera, prepass_params
+
+    cams = [level_camera(cam, i) for i in range(1, levels + 1)]
+    outs = [torch.full((c.resolution[1], c.resolution[0]), fill) for c in cams]
+    start = torch.full_like(outs[0], fill)
+    words = tree["skip_rows"] if substeps else tree["occ_pairs"]
+    params = (_build.PrepassParams * levels)(*(prepass_params(tree, c) for c in cams))
+    ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
+    args = (words.data_ptr(), params, levels, substeps, ptrs, start.data_ptr(), sync.data_ptr(),
+            epoch)
+    if fault:
+        assert host_lib.host_prepass_fault(*args) == 0
+    else:
+        assert host_lib.vhx_prepass(*args, 0, None) == 0
+    return outs[::-1], start
+
+
+# (levels, resolution): level 1 of 50 x 22 and 52 x 28 pixels, ragged in
+# the 16 x 8 level tiles and the 32 x 16 start tiles, its coarser levels
+# (25 x 11; 26 x 14, 13 x 7) ragged too, so that halo reads meet the
+# clamped edges of every level
+PREPASS_FRAMES = [(1, (100, 44)), (2, (100, 44)), (3, (104, 56))]
+
+
+@pytest.mark.parametrize("tracer", ["stack", "skip"])
+@pytest.mark.parametrize("levels,res", PREPASS_FRAMES)
+def test_prepass_frame_kernel_source_equals_plain(host_lib, levels, res, tracer):
+    """prepass.cu's whole prepass in one launch (prepass_frame_kernel, its
+    blocks all at once, a later ticket's block running before an earlier
+    one's, so that its waits poll; each block's threads meeting at its
+    barriers) through its C entry against the plain depth prepass: every
+    level's depths and the start map bit for bit, twice on one sync buffer
+    (epochs 1 and 2: the second launch starts from the first's flags and
+    its ticket counter, which the last ticket put back to 0)."""
+    from voxelhex_tpu_torch.ops.prepass import depth_start_plain, prepass_start
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    substeps = 3 if tracer == "skip" else 0
+    tree = _skip_tree(64) if substeps else _tree(64, 0.02)
+    cam = orbit_camera(64.0, yaw_deg=25.0, resolution=res)
+    want = []
+    start = prepass_start(tree, cam, levels, skip_substeps=substeps or None, depths=want)
+    assert _equal(start, depth_start_plain(want[-1]))
+    w1, h1 = res[0] // 2, res[1] // 2
+    sync = torch.zeros(host_lib.vhx_prepass_sync_words(w1, h1, levels), dtype=torch.int32)
+    for epoch in (1, 2):
+        got, got_start = _host_prepass(host_lib, tree, cam, levels, substeps, sync, epoch)
+        assert len(got) == levels
+        for g, w in zip(got, want):
+            assert _equal(g, w)
+        assert _equal(got_start, start)
+        assert int(sync[0]) == 0 and bool((sync[1:] == epoch).all())
+    assert (want[-1] == 1e8).any() and (want[-1] < 1e8).any()
+
+
+def test_prepass_frame_kernel_entry_rejects_bad_params(host_lib):
+    """vhx_prepass refuses levels out of 1..8, a level that is not twice
+    the next coarser one, levels of other trace params, epoch 0."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.prepass import level_camera, prepass_params
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(16, 0.05)
+    cam = orbit_camera(16.0, resolution=(64, 32))
+    assert host_lib.vhx_prepass_max_levels() == _build.PREPASS_MAX_LEVELS
+    assert host_lib.vhx_prepass_sync_words(32, 16, 0) == -1
+    assert host_lib.vhx_prepass_sync_words(32, 16, 9) == -1
+    assert host_lib.vhx_prepass_sync_words(32, 16, 2) == 2 * 2 + 1 * 1 + 1
+    sync = torch.zeros(16, dtype=torch.int32)
+    out = [torch.zeros(16, 32), torch.zeros(8, 16)]
+    ptrs = (ctypes.c_void_p * 2)(*(t.data_ptr() for t in out))
+
+    def entry(params, n=2, epoch=1):
+        return host_lib.vhx_prepass(tree["occ_pairs"].data_ptr(), params, n, 0, ptrs,
+                                    out[0].data_ptr(), sync.data_ptr(), epoch, 0, None)
+
+    good = [prepass_params(tree, level_camera(cam, i)) for i in (1, 2)]
+    assert entry((_build.PrepassParams * 2)(*good)) == 0
+    assert entry((_build.PrepassParams * 2)(*good), epoch=0) != 0
+    assert entry((_build.PrepassParams * 2)(*good), n=0) != 0
+    assert entry((_build.PrepassParams * 2)(*good), n=9) != 0
+    odd = prepass_params(tree, level_camera(orbit_camera(16.0, resolution=(64, 36)), 2))
+    assert entry((_build.PrepassParams * 2)(good[0], odd)) != 0
+    other = prepass_params(tree, level_camera(cam, 2), max_iters=7)
+    assert entry((_build.PrepassParams * 2)(good[0], other)) != 0
+    assert int(sync[0]) == 0
+
+
+def test_prepass_frame_kernel_source_sync_reused(host_lib):
+    """One sync buffer through frames of other sizes and levels in turn, as
+    the wrapper keeps it on a stream: each launch's tiles and flags lie
+    elsewhere in it than the last's, whose flags hold older epochs; every
+    level and start map bit for bit."""
+    from voxelhex_tpu_torch.ops.prepass import prepass_start
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(64, 0.02)
+    sync = torch.zeros(host_lib.vhx_prepass_sync_words(52, 28, 3), dtype=torch.int32)
+    for epoch, (levels, res) in enumerate([(3, (104, 56)), (2, (100, 44)), (1, (100, 44)),
+                                           (3, (104, 56))], start=1):
+        cam = orbit_camera(64.0, yaw_deg=25.0 + 10 * epoch, resolution=res)
+        want = []
+        start = prepass_start(tree, cam, levels, depths=want)
+        got, got_start = _host_prepass(host_lib, tree, cam, levels, 0, sync, epoch)
+        for g, w in zip(got, want):
+            assert _equal(g, w)
+        assert _equal(got_start, start) and int(sync[0]) == 0
+
+
+@pytest.mark.parametrize("fault,levels", [(0, 1), (0, 2), (1, 1), (2, 2)],
+                         ids=["every-wait-1", "every-wait-2", "no-left-wait", "no-coarser-wait"])
+def test_prepass_frame_kernel_source_waits(host_lib, fault, levels):
+    """prepass.cu's flag waits, on a copy of the source whose waits a switch
+    cuts, its blocks all at once and a later ticket's block running as far
+    as it can before an earlier one's: with every wait, the waits poll and
+    every level and the start map equal the plain versions; without the
+    left neighbour's wait (1 level: a tile of the top row takes its start
+    cells by atomicMin before its left neighbour sets them to +inf) or the
+    first coarser tile's (2 levels: a tile reads the coarser level's
+    depths before they are written, 1e8 there), some differ."""
+    from voxelhex_tpu_torch.ops.prepass import prepass_start
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    tree = _tree(64, 0.02)
+    cam = orbit_camera(64.0, yaw_deg=25.0, resolution=(100, 44))
+    want = []
+    start = prepass_start(tree, cam, levels, depths=want)
+    sync = torch.zeros(host_lib.vhx_prepass_sync_words(50, 22, levels), dtype=torch.int32)
+    polls = host_lib.host_polls()
+    host_lib.host_set_fault(fault)
+    try:
+        got, got_start = _host_prepass(host_lib, tree, cam, levels, 0, sync, 1, fill=1e8,
+                                       fault=True)
+    finally:
+        host_lib.host_set_fault(0)
+    equal = all(_equal(g, w) for g, w in zip(got, want)) and _equal(got_start, start)
+    assert equal == (fault == 0)
+    if fault == 0:
+        assert host_lib.host_polls() > polls
+    assert int(sync[0]) == 0 and bool((sync[1:] == 1).all())
+
+
+def _splat_border_case(kind):
+    """The far camera of ``_splat_case`` at 90 x 42 (a 45 x 21 buffer:
+    one whole 32 x 16 texel tile, ragged tiles right and below) and its
+    centers, with centers built at the corner of the texel tiles' border
+    (u, v) = (31.5, 15.5) and (32.5, 16.5): of footprint 2.5 texels (the
+    grid of 4-texel cells), 8 (16), 32 (64), 100 (the global flag), or
+    none."""
+    from voxelhex_tpu_torch.render.camera import camera_params, orbit_camera
+    from voxelhex_tpu_torch.render.starts import splat_points
+
+    pts = torch.from_numpy(splat_points(_beam_world(64)[0]))
+    cam = orbit_camera(64.0, distance_factor=3.0, resolution=(90, 42))
+    if kind == "none":
+        return pts, cam
+    f_tex = {"4": 2.5, "16": 8.0, "64": 32.0, "global": 100.0}[kind]
+    origin, right, up, forward, scale = (a.astype(np.float64) for a in camera_params(cam))
+    w2, h2 = 45, 21
+    sref = max(w2 / 2 / scale[0], h2 / 2 / scale[1])
+    z = sref / f_tex
+    extra = []
+    for u, v in ((31.5, 15.5), (32.5, 16.5)):
+        x = (u / w2 * 2 - 1) * z * scale[0]
+        y = (1 - v / h2 * 2) * z * scale[1]
+        extra.append(origin + forward * z + right * x + up * y)
+    return torch.cat([pts, torch.from_numpy(np.array(extra, dtype=np.float32))]), cam
+
+
+@pytest.mark.parametrize("kind", ["none", "4", "16", "64", "global"])
+def test_splat_kernel_source_tile_borders(host_lib, kind):
+    """splat.cu through its C entry against the plain splat starts, bit
+    for bit, on a buffer whose width and height are not multiples of the
+    texel pass's tile, with centers that flag a cell of each blocker grid,
+    or the global flag, at the corner where four tiles meet; then a second
+    call on the same scratch (epoch 2), whose words of the first call
+    count as empty."""
+    from voxelhex_tpu_torch.ops.splat import project, splat_params, splat_tiles_plain
+
+    pts, cam = _splat_border_case(kind)
+    w2, h2 = 45, 21
+    want = splat_tiles_plain(pts, cam)
+    scratch = torch.zeros(host_lib.vhx_splat_scratch_words(w2, h2), dtype=torch.int32)
+    out = torch.full((h2, w2), 7.0)
+    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0]),
+                              scratch.data_ptr(), 1, out.data_ptr(), 0, None) == 0
+    assert _equal(out, want)
+    z, u, v, d, f_tex, sref = project(pts, cam, w2, h2)
+    if kind == "none":  # splats and texels past the entry, no flag
+        assert (want > 0).any() and (want == 0).any() and not (f_tex > 2.0).any()
+    elif kind == "global":
+        assert not want.any()
+    else:  # the flagged cells, dilated, cover the border's texels and not the frame
+        assert (want[15:18, 31:34] == 0).all() and (f_tex[-2:] > 2.0).all()
+        if kind == "4":
+            assert (want > 0).any()
+    other = splat_tiles_plain(pts[: pts.shape[0] // 2], cam)
+    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0] // 2),
+                              scratch.data_ptr(), 2, out.data_ptr(), 0, None) == 0
+    assert _equal(out, other)
+
+
+@pytest.mark.parametrize("res", [(256, 160), (330, 118)])
+def test_splat_kernel_source_tiles_no_center_reached(host_lib, res):
+    """splat.cu through its C entry against the plain splat starts, bit for
+    bit, on buffers of 4 x 5 and 6 x 4 texel tiles (the second ragged)
+    where reliable centers reach some tiles and leave others, and tiles
+    next to none of them, which the texel pass fills without reading the
+    distances or the blocker grids."""
+    from voxelhex_tpu_torch.ops.splat import project, splat_params, splat_tiles_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.starts import splat_points
+
+    pts = torch.from_numpy(splat_points(_beam_world(64)[0]))
+    cam = orbit_camera(64.0, distance_factor=3.0, resolution=res)
+    w2, h2 = res[0] // 2, res[1] // 2
+    want = splat_tiles_plain(pts, cam)
+    scratch = torch.zeros(host_lib.vhx_splat_scratch_words(w2, h2), dtype=torch.int32)
+    out = torch.full((h2, w2), 7.0)
+    assert host_lib.vhx_splat(pts.data_ptr(), splat_params(cam, pts.shape[0]),
+                              scratch.data_ptr(), 3, out.data_ptr(), 0, None) == 0
+    assert _equal(out, want)
+    z, u, v, d, f_tex, _sref = project(pts, cam, w2, h2)
+    reliable = ((z > 0.0) & (f_tex <= 2.0) & (u >= -3.0) & (u < w2 + 3.0) & (v >= -3.0)
+                & (v < h2 + 3.0))
+    tiles = torch.zeros(-(-h2 // 16), -(-w2 // 32), dtype=torch.bool)
+    ui = u[reliable].clamp(0, w2 - 1).long() // 32
+    vi = v[reliable].clamp(0, h2 - 1).long() // 16
+    tiles[vi, ui] = True
+    near = torch.nn.functional.max_pool2d(tiles[None].float(), 3, 1, 1)[0] > 0
+    assert tiles.any() and not near.all()
 
 
 def _start_map(w, h, tile, seed):
@@ -2108,26 +2492,24 @@ def test_skip_frames_kernel_source_equals_plain(host_lib, size):
     pytest.param(levels, size, id=str(levels) if size == 64 else f"{levels}-{size}")
     for size, _d in SKIP_GRIDS for levels in (1, 2)])
 def test_skip_prepass_kernel_source_equals_plain(host_lib, levels, size):
-    """prepass.cu's skip level kernel of the grid's depth through its C
-    entry against the plain depth prepass of the skip tracer, level by
-    level, bit for bit."""
-    from voxelhex_tpu_torch.ops.prepass import level_camera, level_depth_plain, prepass_params
+    """prepass.cu's skip instance of the grid's depth, its one launch
+    through its C entry, against the plain depth prepass of the skip
+    tracer, level by level (each from the plain level before) and the
+    start map, bit for bit."""
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain)
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
     tree = _skip_tree(size)
     cam = orbit_camera(float(size), yaw_deg=25.0, resolution=(100, 44))
-    depth = want = None
-    for i in range(levels, 0, -1):
-        cam_i = level_camera(cam, i)
-        w, h = cam_i.resolution
-        got = torch.full((h, w), 7.0)
-        assert host_lib.vhx_prepass_level_skip(
-            tree["skip_rows"].data_ptr(), prepass_params(tree, cam_i), 3,
-            None if depth is None else depth.data_ptr(), got.data_ptr(), 0, None) == 0
-        want = level_depth_plain(tree, cam_i, want, skip_substeps=3)
-        assert _equal(got, want)
+    sync = torch.zeros(host_lib.vhx_prepass_sync_words(50, 22, levels), dtype=torch.int32)
+    got, start = _host_prepass(host_lib, tree, cam, levels, 3, sync, 1)
+    want = None
+    for i, depth in zip(range(levels, 0, -1), got):
+        want = level_depth_plain(tree, level_camera(cam, i), want, skip_substeps=3)
+        assert _equal(depth, want)
         assert (want == 1e8).any() and (want < 1e8).any()
-        depth = got
+    assert _equal(start, depth_start_plain(want))
 
 
 def _host_multihit_form(host_lib, tree, o, d, K, start, substeps, max_iters=2048):

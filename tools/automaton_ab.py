@@ -1,8 +1,9 @@
-"""The automaton's kernels, the skip tracer's and the beam prepass's against
-another tree's, and their instructions.
+"""The automaton's kernels, the skip tracer's and the start prepasses'
+against another tree's, and their instructions.
 
     python3 tools/automaton_ab.py --sass [--moves] [--parent DIR] [--out DIR]
-    python3 tools/automaton_ab.py --parent DIR [--rounds N]
+    python3 tools/automaton_ab.py --parent DIR [--rounds N] [--only WORDS] [--profile]
+                                  [--variant NAME=DIR[:FLAG,FLAG...] ...]
 
 ``--sass`` builds ``tools/automaton_probes.cu`` (one kernel for each piece
 of the loop of ``csrc/traverse.cuh``) with the kernels' nvcc flags and
@@ -15,11 +16,11 @@ axis, and nothing else in those kernels uses it), for this tree and the one
 in ``--parent``; then the instructions, registers and shared and global
 loads of every instance of the skip tracer (``csrc/skip.cuh``: a kernel
 for each pyramid depth in ``traverse.cu``, ``frame.cu``, ``frames.cu``,
-``prepass.cu``, ``multihit.cu``) and of the beam prepass's kernels
-(``beam.cu``); and with ``--parent``, which of the parent's functions in
-the libraries of the stack automaton (``traverse.cu``, ``frame.cu``,
-``frames.cu``, ``multihit.cu``, ``far.cu``, ``prepass.cu``) this tree has
-byte for byte (its SASS, the function's name aside).  The SASS goes to
+``prepass.cu``, ``multihit.cu``) and of the start prepasses' kernels
+(``beam.cu``, ``prepass.cu``'s one-launch prepass, ``splat.cu``'s two
+passes); and with ``--parent``, which of the parent's functions in every
+library this tree has byte for byte (its SASS, the function's name aside),
+and how many outside ``prepass.cu`` and ``splat.cu`` it does not.  The SASS goes to
 ``--out``.  ``--moves`` adds ``chip_smoke.py``'s report of the automaton's
 moves at the bench pose (phase 4b (f)): what the warps of the frame kernels
 run under each shape of the loop.
@@ -38,7 +39,20 @@ levels) and at the 1024 terrain (5 levels, ``orbit_camera(1024.0)``); and
 ``beam.cu`` at the bench and terrain poses and in the window of fly-over
 frame 0 (``chip_smoke.py`` phase 14's poses), for one frame and a batch of
 16, and one frame over an empty grid of the bench's size (its launch
-floor).  Needs one CUDA card.
+floor); the depth prepass at ``prepass_levels=2`` (both levels' depths and
+the start map, however many launches each tree makes), stack and skip, at
+the bench and terrain poses; and the splat prepass at the bench pose (its
+device operations as each tree's wrapper makes them); ``--only WORDS``
+keeps the kernels whose names hold one of the comma-separated words.
+``--variant NAME=DIR[:FLAGS]`` (repeatable) adds another tree copy to the
+turns, built from its own sources by its own ``_build.py`` with the extra
+comma-separated nvcc ``FLAGS`` (e.g. ``-DNAME=1,-maxrregcount=64``): a
+design tried against the parent and this tree, parent, change, variants,
+then back in reverse, each held to the parent's outputs bit for bit.
+``--profile`` first prints each tree's device time of each kernel and
+fill a call launches (``torch.profiler``), e.g. the parent's launch a
+level of the depth prepass beside this tree's one launch.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -60,12 +74,15 @@ sys.path.insert(0, ROOT)
 BIG = re.compile(r"1\.0000000150474662\d*e\+30")
 AUTOMATON = (("traverse.cu", "traverse_kernel"), ("frame.cu", "frame_kernel"),
              ("frames.cu", "frames_kernel"), ("multihit.cu", "multihit_kernel"))
-# the redesigned kernels: every instance of the skip tracer and the beam's
+# the redesigned kernels: every instance of the skip tracer and the start
+# prepasses'
 REDESIGNED = (("traverse.cu", "traverse_skip_kernel"), ("frame.cu", "frame_skip_kernel"),
               ("frames.cu", "frames_skip_kernel"), ("prepass.cu", "prepass_kernel"),
-              ("multihit.cu", "multihit_form_kernel"), ("beam.cu", "beam_kernel"))
-# the libraries of the stack automaton, whose stack instances keep their SASS
-STACK_SOURCES = ("traverse.cu", "frame.cu", "frames.cu", "multihit.cu", "far.cu", "prepass.cu")
+              ("prepass.cu", "prepass_frame_kernel"), ("multihit.cu", "multihit_form_kernel"),
+              ("beam.cu", "beam_kernel"), ("splat.cu", "splat_point_kernel"),
+              ("splat.cu", "splat_texel_kernel"))
+# the libraries whose functions may change: the depth and splat prepasses'
+REDESIGNED_SOURCES = ("prepass.cu", "splat.cu")
 SKIP_SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS
 # what every probe has besides its piece: memory, constants, the frame
 SKIP = re.compile(r"^(LDG|STG|LD|ST|LDS|STS|LDC|ULDC|S2R|S2UR|CS2R|MOV|UMOV|IMAD\.MOV|EXIT|BRA|"
@@ -150,7 +167,7 @@ def redesigned_report(nvcc, build, tag, out_dir):
             f.write(text)
         log = build.build_log(source)
         for name, ops in sorted(sass_functions(text).items(), key=lambda f: short_name(f[0])):
-            if kernel not in name or (source == "prepass.cu" and "depth_start" in name):
+            if kernel not in name:
                 continue
             regs = chip_smoke.ptxas_usage(log, name)[0]
             loads = {kind: sum(1 for op in ops if op.split(".")[0] == kind)
@@ -159,15 +176,19 @@ def redesigned_report(nvcc, build, tag, out_dir):
                   f"registers; loads {loads}")
 
 
-def stack_sass_kept(nvcc, build, parent_build):
-    """Which of the parent's functions in the stack automaton's libraries
-    this tree has byte for byte."""
-    for source in STACK_SOURCES:
+def sass_kept(nvcc, build, parent_build):
+    """Which of the parent's functions in each library this tree has byte
+    for byte; the number changed outside REDESIGNED_SOURCES."""
+    changed = 0
+    for source in parent_build.SOURCES:
         change = set(function_bodies(_library_sass(nvcc, build, source)).values())
         for name, body in sorted(function_bodies(_library_sass(nvcc, parent_build,
                                                                source)).items()):
+            kept = body in change
+            changed += not kept and source not in REDESIGNED_SOURCES
             print(f"  {source} {short_name(name)} ({len(body.splitlines()) // 2} instructions): "
-                  f"{'kept byte for byte' if body in change else 'changed'}")
+                  f"{'kept byte for byte' if kept else 'changed'}")
+    print(f"  the parent's functions changed outside {', '.join(REDESIGNED_SOURCES)}: {changed}")
 
 
 def sass_report(build, parent_build, out_dir):
@@ -204,13 +225,13 @@ def sass_report(build, parent_build, out_dir):
             print(f"  {tag} {kernel}: {len(ops)} instructions, {n_big} selects of BIG = "
                   f"{n_big / 3:g} DDA steps inlined; {regs} registers, {stack} B stack, "
                   f"{st_spill} B spill stores, {ld_spill} B spill loads")
-    print("the skip tracer's instances and the beam's kernels:")
+    print("the skip tracer's instances and the start prepasses' kernels:")
     for tag, b in (("change", build), ("parent", parent_build)):
         if b is not None:
             redesigned_report(nvcc, b, tag, out_dir)
     if parent_build is not None:
-        print("the parent's functions in the stack automaton's libraries, in this tree:")
-        stack_sass_kept(nvcc, build, parent_build)
+        print("the parent's functions in every library, in this tree:")
+        sass_kept(nvcc, build, parent_build)
     return pieces
 
 
@@ -272,8 +293,12 @@ def entries(build):
     out = {}
     for name in ("vhx_traverse", "vhx_render_frame", "vhx_render_frames", "vhx_multihit",
                  "vhx_render_frame_skip", "vhx_render_frames_skip", "vhx_multihit_skip",
-                 "vhx_beam"):
-        fn = getattr(lib, name)
+                 "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_splat_scratch_words",
+                 "vhx_prepass", "vhx_prepass_sync_words", "vhx_prepass_level",
+                 "vhx_prepass_level_skip", "vhx_depth_start"):
+        fn = getattr(lib, name, None)
+        if fn is None:  # an entry of one tree only
+            continue
         fn.argtypes = [ctypes.c_void_p if _struct_pointer(t) else t for t in fn.argtypes]
 
         def call(*args, _fn=fn):
@@ -291,6 +316,12 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "sass"))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--name", default="parent", help="what to call the other tree")
+    ap.add_argument("--only", help="time only the kernels whose names hold one of these "
+                                   "comma-separated words")
+    ap.add_argument("--profile", action="store_true",
+                    help="print each tree's device time of each launch of a call")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=DIR[:FLAG,FLAG...]: another tree copy timed in the turns")
     args = ap.parse_args()
 
     import torch
@@ -308,7 +339,13 @@ def main():
     parent = None if args.parent is None else load_build(os.path.abspath(args.parent),
                                                          "parent_build")
     t0 = time.time()
-    builds = [_build] + ([] if parent is None else [parent])
+    variants = {}
+    for spec in args.variant:
+        name, _, rest = spec.partition("=")
+        root, _, flags = rest.partition(":")
+        variants[name] = load_build(os.path.abspath(root), f"{name}_build")
+        variants[name].FLAGS = (*variants[name].FLAGS, *(f for f in flags.split(",") if f))
+    builds = [_build] + ([] if parent is None else [parent]) + list(variants.values())
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # both trees at once
         for _lib in pool.map(lambda b: b.library(), builds):
             pass
@@ -326,7 +363,8 @@ def main():
         return 0
     if parent is None:
         ap.error("--parent is needed to time")
-    return ab(_build, parent, card, args.rounds, args.name)
+    return ab(_build, parent, card, args.rounds, args.name,
+              None if args.only is None else args.only.split(","), variants, args.profile)
 
 
 def terrain_grid(dev):
@@ -342,7 +380,7 @@ def terrain_grid(dev):
     return tree, device_bitgrid(build_bitgrid(tree), dev, skip_rows=True)
 
 
-def ab(build, parent, card, rounds, other="parent"):
+def ab(build, parent, card, rounds, other="parent", only=None, variants=None, profile=False):
     import numpy as np
     import torch
 
@@ -350,6 +388,8 @@ def ab(build, parent, card, rounds, other="parent"):
     from voxelhex_tpu_torch.ops.beam import beam_params
     from voxelhex_tpu_torch.ops.frame import frame_params
     from voxelhex_tpu_torch.ops.frames import launch_frames
+    from voxelhex_tpu_torch.ops.prepass import level_camera, prepass_params
+    from voxelhex_tpu_torch.ops.splat import splat_params
     from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
     from voxelhex_tpu_torch.render import fastest_renderer
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy, device_bitgrid
@@ -383,7 +423,8 @@ def ab(build, parent, card, rounds, other="parent"):
              "fly-over window": (*view.renderer._beam_spec(wcam), wcam)}
     # after the view's frame, which launches through the package's own
     # bindings: entries() retypes the library's functions
-    libs = {other: entries(parent), "change": entries(build)}
+    libs = {other: entries(parent), "change": entries(build),
+            **{name: entries(b) for name, b in (variants or {}).items()}}
 
     def frames(lib, where="bench", skip=False):
         t, c = scenes[where]
@@ -454,6 +495,69 @@ def ab(build, parent, card, rounds, other="parent"):
         build.check(lib["vhx_beam"](p, out.data_ptr(), 0, stream), "beam")
         return (out,)
 
+    levels = chip_smoke.PREPASS_LEVELS
+    sync = build.StreamScratch()
+
+    def prepass(lib, where="bench", skip=False):
+        """Each level's depths, the coarsest first, and the start map: one
+        launch of vhx_prepass where the tree has it, else a launch a level
+        and one of the start map."""
+        t, c = scenes[where]
+        words = t["skip_rows"] if skip else t["occ_pairs"]
+        cams = [level_camera(c, i) for i in range(1, levels + 1)]  # level 1 first
+        outs = [torch.empty((ci.resolution[1], ci.resolution[0]), dtype=torch.float32,
+                            device=dev) for ci in cams]
+        start = torch.empty_like(outs[0])
+        params = [prepass_params(t, ci) for ci in cams]
+        if "vhx_prepass" in lib:
+            arr = (type(params[0]) * levels)(*params)
+            ptrs = (ctypes.c_void_p * levels)(*(x.data_ptr() for x in outs))
+            w1, h1 = cams[0].resolution
+            with sync.take(dev, lib["vhx_prepass_sync_words"](w1, h1, levels)) as (s, epoch):
+                err = lib["vhx_prepass"](words.data_ptr(), ctypes.addressof(arr), levels,
+                                         S3 if skip else 0, ptrs, start.data_ptr(), s.data_ptr(),
+                                         epoch, 0, stream)
+            build.check(err, "prepass")
+        else:
+            coarser = None
+            for p, x in zip(params[::-1], outs[::-1]):
+                cp = None if coarser is None else coarser.data_ptr()
+                if skip:
+                    err = lib["vhx_prepass_level_skip"](words.data_ptr(), p, S3, cp, x.data_ptr(),
+                                                        0, stream)
+                else:
+                    err = lib["vhx_prepass_level"](words.data_ptr(), p, cp, x.data_ptr(), 0,
+                                                   stream)
+                build.check(err, "prepass level")
+                coarser = x
+            w1, h1 = cams[0].resolution
+            build.check(lib["vhx_depth_start"](outs[0].data_ptr(), w1, h1, start.data_ptr(), 0,
+                                               stream), "depth start")
+        return (*outs[::-1], start)
+
+    pts = fastest_renderer(scene, device=dev)._splat_points()
+    scratch = build.StreamScratch()
+    w2, h2 = w // 2, h // 2
+
+    def splat(lib):
+        """The splat map as each tree's wrapper makes it: this tree's two
+        launches over scratch kept between calls, the parent's two fills
+        and two launches."""
+        p = splat_params(cam, pts.shape[0])
+        out = torch.empty((h2, w2), dtype=torch.float32, device=dev)
+        if "vhx_splat_scratch_words" in lib:
+            with scratch.take(dev, lib["vhx_splat_scratch_words"](w2, h2)) as (s, epoch):
+                err = lib["vhx_splat"](pts.data_ptr(), p, s.data_ptr(), epoch, out.data_ptr(), 0,
+                                       stream)
+        else:
+            depth = torch.empty(h2 * w2, dtype=torch.int32, device=dev)
+            flags = torch.empty(lib["vhx_splat_block_words"](w2, h2), dtype=torch.int32,
+                                device=dev)
+            err = lib["vhx_splat"](pts.data_ptr(), p, depth.data_ptr(), flags.data_ptr(),
+                                   out.data_ptr(), 0, stream)
+        build.check(err, "splat")
+        return (out,)
+
     kernels = {"frames.cu (K=16, a frame)": (frames, 4, chip_smoke.BATCH),
                "frame.cu": (frame, 16, 1), "traverse.cu": (traverse, 10, 1),
                "multihit.cu (K=2)": (multihit, 10, 1)}
@@ -470,28 +574,54 @@ def ab(build, parent, card, rounds, other="parent"):
             lambda lib, pose=pose: beam(lib, pose, chip_smoke.BATCH), 10, 1)
     kernels["beam.cu over an empty grid (1 frame)"] = (
         lambda lib: beam(lib, empty_grid=True), 20, 1)
+    for where in ("bench", "terrain"):
+        for skip in (False, True):
+            kernels[f"{'skip ' if skip else ''}prepass.cu, {where} ({levels} levels)"] = (
+                lambda lib, where=where, skip=skip: prepass(lib, where, skip), 20, 1)
+    kernels["splat.cu, bench"] = (splat, 20, 1)
+    if only is not None:
+        kernels = {k: v for k, v in kernels.items() if any(word in k for word in only)}
+    tags = [t for t in libs if t != other]  # change, then the variants
     prev.copy_(frame(libs[other])[0])
     for name, (fn, _reps, _per) in kernels.items():
-        a, b = fn(libs[other]), fn(libs["change"])
-        torch.cuda.synchronize()
-        bad = [i for i, (x, y) in enumerate(zip(a, b)) if not bool(chip_smoke.same(x, y).all())]
-        print(f"  {name}: change == {other} on every output: {not bad}", flush=True)
-        if bad:
-            raise AssertionError(f"{name}: outputs {bad} differ between {other} and change")
-    order = (other, "change", "change", other)
+        want = [x.clone() for x in fn(libs[other])]
+        for tag in tags:
+            got = fn(libs[tag])
+            torch.cuda.synchronize()
+            bad = [i for i, (x, y) in enumerate(zip(want, got))
+                   if not bool(chip_smoke.same(x, y).all())]
+            print(f"  {name}: {tag} == {other} on every output: {not bad}", flush=True)
+            if bad:
+                raise AssertionError(f"{name}: outputs {bad} differ between {other} and {tag}")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiled
+
+        for name, (fn, reps, _per) in kernels.items():
+            for tag in (other, *tags):
+                with profiled(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn(libs[tag])
+                    torch.cuda.synchronize()
+                rows = [f"{e.key[:48]} {e.device_time_total / 1e3 / reps:.4f}"
+                        for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+                        and not e.key.startswith(("aten::", "cuda"))]
+                print(f"profile {name} {tag}: {', '.join(rows)} ms a call [{card}]", flush=True)
+    order = (other, *tags, *tags[::-1], other)
     for name, (fn, reps, per) in kernels.items():
-        for tag in (other, "change"):
+        for tag in (other, *tags):
             for _ in range(2):
                 fn(libs[tag])
         turns = []
         for _ in range(rounds):
             for tag in order:
                 turns.append((tag, chip_smoke.device_ms(lambda: fn(libs[tag]), reps) / per))
-        p = [ms for tag, ms in turns if tag == other]
-        c = [ms for tag, ms in turns if tag == "change"]
+        mean = {t: sum(ms for tag, ms in turns if tag == t) / sum(tag == t for tag, _ in turns)
+                for t in (other, *tags)}
         print(f"{name}: turns " + ", ".join(f"{tag} {ms:.4f}" for tag, ms in turns)
-              + f" ms; means {other} {sum(p) / len(p):.4f}, change {sum(c) / len(c):.4f} ms, "
-              f"change / {other} {sum(c) / len(c) / (sum(p) / len(p)):.4f} [{card}]", flush=True)
+              + " ms; means " + ", ".join(f"{t} {m:.4f}" for t, m in mean.items())
+              + " ms; " + ", ".join(f"{t} / {other} {mean[t] / mean[other]:.4f}" for t in tags)
+              + f" [{card}]", flush=True)
     return 0
 
 

@@ -14,6 +14,7 @@ Importing this module builds nothing; only :func:`library` does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,6 +38,7 @@ MAX_LEVELS = 12  # VHX_MAX_LEVELS in traverse.cuh
 KMAX = 32  # VHX_KMAX in frames.cu: cameras a launch
 FAR_MAX_LAYERS = 8  # VHX_FAR_MAX_LAYERS in far.cu: the window and its rings
 BEAM_MAX_GRIDS = 8  # VHX_BEAM_MAX_GRIDS in beam.cu: beam levels a launch
+PREPASS_MAX_LEVELS = 8  # VHX_PREPASS_MAX_LEVELS in prepass.cu: levels a launch
 
 _lock = threading.Lock()
 _lib = None
@@ -298,12 +300,11 @@ def library() -> types.SimpleNamespace:
     ``vhx_window_shift``, ``vhx_render_far``, their forms with a start map
     ``vhx_render_frame_start``, ``vhx_render_frames_start`` and
     ``vhx_render_far_start``, ``vhx_beam``, ``vhx_splat``,
-    ``vhx_prepass_level``, ``vhx_depth_start``, the skip tracer's instances
-    ``vhx_traverse_skip``, ``vhx_render_frame_skip``,
-    ``vhx_render_frames_skip``, ``vhx_prepass_level_skip``, and the
+    ``vhx_splat_scratch_words``, ``vhx_prepass``, ``vhx_prepass_sync_words``,
+    the skip tracer's instances ``vhx_traverse_skip``,
+    ``vhx_render_frame_skip``, ``vhx_render_frames_skip``, and the
     multi-hit march's start and skip forms ``vhx_multihit_start`` and
-    ``vhx_multihit_skip``), built
-    first if needed."""
+    ``vhx_multihit_skip``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -361,13 +362,11 @@ def library() -> types.SimpleNamespace:
                 },
                 "beam.cu": {"vhx_beam": [ctypes.POINTER(BeamParams), p, i, p]},
                 "splat.cu": {
-                    "vhx_splat": [p, ctypes.POINTER(SplatParams), p, p, p, i, p],
-                    "vhx_splat_block_words": [i, i],
+                    "vhx_splat": [p, ctypes.POINTER(SplatParams), p, i, p, i, p],
                 },
                 "prepass.cu": {
-                    "vhx_prepass_level": [p, ctypes.POINTER(PrepassParams), p, p, i, p],
-                    "vhx_prepass_level_skip": [p, ctypes.POINTER(PrepassParams), i, p, p, i, p],
-                    "vhx_depth_start": [p, i, i, p, i, p],
+                    "vhx_prepass": [p, ctypes.POINTER(PrepassParams), i, i,
+                                    ctypes.POINTER(p), p, p, i, i, p],
                 },
             }
             fns = {}
@@ -400,6 +399,16 @@ def library() -> types.SimpleNamespace:
             if layers() != FAR_MAX_LAYERS:
                 raise RuntimeError(f"VHX_FAR_MAX_LAYERS is {layers()} in C, FAR_MAX_LAYERS "
                                    f"{FAR_MAX_LAYERS} in ctypes")
+            for source, name, args in (("splat.cu", "vhx_splat_scratch_words", [i, i]),
+                                       ("prepass.cu", "vhx_prepass_sync_words", [i, i, i])):
+                fn = getattr(dlls[source], name)
+                fn.argtypes, fn.restype = args, ll
+                fns[name] = fn
+            levels = dlls["prepass.cu"].vhx_prepass_max_levels
+            levels.argtypes, levels.restype = [], i
+            if levels() != PREPASS_MAX_LEVELS:
+                raise RuntimeError(f"VHX_PREPASS_MAX_LEVELS is {levels()} in C, "
+                                   f"PREPASS_MAX_LEVELS {PREPASS_MAX_LEVELS} in ctypes")
             grids = dlls["beam.cu"].vhx_beam_max_grids
             grids.argtypes, grids.restype = [], i
             if grids() != BEAM_MAX_GRIDS:
@@ -419,6 +428,34 @@ def check_inputs(dev, specs) -> None:
                 f"{name}: want contiguous {dtype} {tuple(shape)} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
+
+
+class StreamScratch:
+    """Int32 words on the card that a kernel keeps from launch to launch,
+    one buffer a (device, stream), zero when made or grown, and each
+    launch's epoch (1, 2, ...), which tags what the launch writes there, so
+    that no launch clears them first.  :meth:`take` holds a lock until the
+    launch is enqueued, so the epochs rise in the stream's order."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._buffers = {}
+
+    @contextlib.contextmanager
+    def take(self, dev, n_words):
+        """``(words, epoch)`` for one launch on ``dev``'s current stream:
+        at least ``n_words`` int32 words, 256 B aligned."""
+        import torch
+
+        key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        with self._lock:
+            words, epoch = self._buffers.get(key, (None, 0))
+            epoch += 1
+            if words is None or words.numel() < n_words or epoch >= 2**31:
+                n = n_words if words is None else max(n_words, words.numel())
+                words, epoch = torch.zeros(n, dtype=torch.int32, device=dev), 1
+            self._buffers[key] = (words, epoch)
+            yield words, epoch
 
 
 def check(err: int, what: str) -> None:

@@ -1,5 +1,5 @@
 """The depth prepass: the CUDA kernels of ``csrc/prepass.cu`` and their
-wrapper.
+wrappers.
 
 ``BitGridRenderer(prepass=True, prepass_levels=k)`` traces the frame at
 1 / 2^k of its resolution, then at each finer level up to 1 / 2: each
@@ -12,14 +12,17 @@ the reference's ``_depth_start`` and the level loop of ``_render_impl``
 and splat starts these are not conservative: the frame may differ from the
 plain one, by design, as the reference's does.
 
-:func:`level_depth_plain` and :func:`depth_start_plain` are the plain
-PyTorch versions of the two kernels.  Under ``tracer="skip"`` the levels
-march the skip tracer, as the reference's do (its ``self._trace``):
-``skip_substeps``, the skip instance of ``prepass_kernel``.
+:func:`prepass_start` is the whole prepass, one launch of
+``prepass_frame_kernel`` on the card; :func:`level_depth_plain` and
+:func:`depth_start_plain`, one level and the start map, are its plain
+PyTorch version.  Under ``tracer="skip"`` the levels march the skip
+tracer, as the reference's do (its ``self._trace``): ``skip_substeps``,
+the kernels' skip instances.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import replace
 
 import torch
@@ -63,7 +66,11 @@ def ray_depth(hit, point, o):
 
 def level_depth_plain(tree, camera, coarser=None, max_iters=MAX_ITERS, stats=None,
                       skip_substeps=None):
-    """The plain version of :func:`level_depth`.  With a dict ``stats``,
+    """One level of the depth prepass at ``camera``'s resolution: f32 [h,
+    w] depths, each ray started from the start map of ``coarser`` (the
+    level before, [h / 2, w / 2]; None for the coarsest level, which
+    starts at the world's entry).  With ``skip_substeps``, the rays march
+    the skip tracer over ``tree["skip_rows"]``.  With a dict ``stats``,
     the level's march goes into it (``"iters"``, and ``"reads"``: the word
     pairs it fetches, bool over ``occ_pairs``)."""
     w, h = camera.resolution
@@ -102,76 +109,58 @@ def _check(tree, dev):
                                (tree["occ_pairs"].shape[0], 2)),))
 
 
-def level_depth(tree, camera, coarser=None, max_iters=MAX_ITERS, skip_substeps=None):
-    """One level of the depth prepass at ``camera``'s resolution: f32 [h,
-    w] depths, each ray started from the start map of ``coarser`` (the
-    level before, [h / 2, w / 2]; None for the coarsest level, which
-    starts at the world's entry).  With ``skip_substeps``, the rays march
-    the skip tracer over ``tree["skip_rows"]``.
-
-    A CPU tree runs the plain version; a CUDA tree launches the kernel
-    (``level_depth.launches`` counts the stack levels,
-    ``level_depth.skip_launches`` the skip levels)."""
-    dev = tree["occ_pairs"].device
-    w, h = camera.resolution
-    if coarser is not None and tuple(coarser.shape) != (h // 2, w // 2):
-        raise ValueError(f"coarser depth {tuple(coarser.shape)}, want {(h // 2, w // 2)}")
-    if dev.type == "cpu":
-        return level_depth_plain(tree, camera, coarser, max_iters, skip_substeps=skip_substeps)
-    _check(tree, dev)
-    if coarser is not None:
-        _build.check_inputs(dev, (("coarser", coarser, torch.float32, (h // 2, w // 2)),))
-    out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    params = prepass_params(tree, camera, max_iters)
-    coarser_ptr = None if coarser is None else coarser.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if skip_substeps is None:
-        err = _build.library().vhx_prepass_level(
-            tree["occ_pairs"].data_ptr(), params, coarser_ptr, out.data_ptr(), dev.index or 0,
-            stream)
-        _build.check(err, "prepass kernel launch")
-        level_depth.launches += 1
-    else:
-        check_skip(tree, skip_substeps)
-        err = _build.library().vhx_prepass_level_skip(
-            tree["skip_rows"].data_ptr(), params, int(skip_substeps), coarser_ptr,
-            out.data_ptr(), dev.index or 0, stream)
-        _build.check(err, "skip prepass kernel launch")
-        level_depth.skip_launches += 1
-    return out
-
-
-def depth_start(depth):
-    """The start map of the next finer level from ``depth`` [h, w]
-    (:func:`depth_start_plain`): f32 [h, w], one value a 2 x 2 tile of the
-    finer level.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
-    dev = depth.device
-    if dev.type == "cpu":
-        return depth_start_plain(depth)
-    if dev.type != "cuda":
-        raise ValueError(f"depth_start runs on cuda or cpu tensors, not {dev}")
-    h, w = depth.shape
-    _build.check_inputs(dev, (("depth", depth, torch.float32, (h, w)),))
-    out = torch.empty_like(depth)
-    err = _build.library().vhx_depth_start(depth.data_ptr(), w, h, out.data_ptr(),
-                                           dev.index or 0,
-                                           torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "depth start kernel launch")
-    depth_start.launches += 1
-    return out
-
-
-level_depth.launches = 0
-level_depth.skip_launches = 0
-depth_start.launches = 0
-
-
-def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None):
+def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None, depths=None):
     """The start map of ``camera``'s full-resolution frame after ``levels``
-    levels of the depth prepass (``levels`` >= 1, 2^levels dividing the
-    resolution): f32 [h / 2, w / 2], one value a 2 x 2 tile."""
-    depth = None
-    for i in range(levels, 0, -1):
-        depth = level_depth(tree, level_camera(camera, i), depth, max_iters, skip_substeps)
-    return depth_start(depth)
+    levels of the depth prepass (``levels`` >= 1, each level's resolution
+    twice the next coarser one's): f32 [h / 2, w / 2], one value a 2 x 2
+    tile.  With a list ``depths``, each level's depths are appended to it,
+    the coarsest first.
+
+    A CPU tree runs the plain versions level by level; a CUDA tree makes
+    one launch of ``prepass_frame_kernel`` for every level and the start
+    map (``prepass_start.launches`` counts the stack launches,
+    ``prepass_start.skip_launches`` the skip ones)."""
+    cams = [level_camera(camera, i) for i in range(1, levels + 1)]  # level 1 first
+    if levels < 1 or any(fine.resolution != (2 * coarse.resolution[0], 2 * coarse.resolution[1])
+                         for fine, coarse in zip(cams, cams[1:])):
+        raise ValueError(f"{levels} prepass levels of a {camera.resolution} frame: each level's "
+                         "resolution must be twice the next coarser one's")
+    dev = tree["occ_pairs"].device
+    if dev.type == "cpu":
+        depth = None
+        for cam in reversed(cams):
+            depth = level_depth_plain(tree, cam, depth, max_iters, skip_substeps=skip_substeps)
+            if depths is not None:
+                depths.append(depth)
+        return depth_start_plain(depth)
+    _check(tree, dev)
+    if levels > _build.PREPASS_MAX_LEVELS:
+        raise ValueError(f"{levels} prepass levels, at most {_build.PREPASS_MAX_LEVELS} a launch")
+    words = tree["occ_pairs"]
+    if skip_substeps is not None:
+        check_skip(tree, skip_substeps)
+        words = tree["skip_rows"]
+    outs = [torch.empty((c.resolution[1], c.resolution[0]), dtype=torch.float32, device=dev)
+            for c in cams]
+    start = torch.empty_like(outs[0])
+    params = (_build.PrepassParams * levels)(*(prepass_params(tree, c, max_iters) for c in cams))
+    ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
+    w1, h1 = cams[0].resolution
+    lib = _build.library()
+    with _SYNC.take(dev, lib.vhx_prepass_sync_words(w1, h1, levels)) as (sync, epoch):
+        err = lib.vhx_prepass(words.data_ptr(), params, levels, int(skip_substeps or 0), ptrs,
+                              start.data_ptr(), sync.data_ptr(), epoch, dev.index or 0,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "prepass kernel launch")
+    if skip_substeps is None:
+        prepass_start.launches += 1
+    else:
+        prepass_start.skip_launches += 1
+    if depths is not None:
+        depths.extend(reversed(outs))
+    return start
+
+
+_SYNC = _build.StreamScratch()
+prepass_start.launches = 0
+prepass_start.skip_launches = 0

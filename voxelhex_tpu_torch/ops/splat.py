@@ -118,9 +118,11 @@ def splat_tiles(pts, camera, margin=3.0):
     must be even.
 
     On the CPU it runs the plain version; on the card two launches of
-    ``splat.cu``: the point pass (scatter-min of each reliable center's
-    distance as int bits, exact for non-negative floats; the blocker flags
-    and the global flag), then the texel pass."""
+    ``splat.cu`` and nothing else: the point pass (scatter-min of each
+    reliable center's distance, exact whatever the order; the blocker flags
+    and the global flag), then the texel pass, over scratch that stays
+    from call to call on the stream, each call's words tagged with its
+    epoch."""
     w, h = camera.resolution
     if w % 2 or h % 2:
         raise ValueError(f"the splat prepass needs an even resolution, not {w}x{h}")
@@ -133,15 +135,15 @@ def splat_tiles(pts, camera, margin=3.0):
     _build.check_inputs(dev, (("pts", pts, torch.float32, (n, 3)),))
     w2, h2 = w // 2, h // 2
     lib = _build.library()
-    depth = torch.empty(h2 * w2, dtype=torch.int32, device=dev)
-    flags = torch.empty(lib.vhx_splat_block_words(w2, h2), dtype=torch.int32, device=dev)
     out = torch.empty((h2, w2), dtype=torch.float32, device=dev)
-    err = lib.vhx_splat(pts.data_ptr(), splat_params(camera, n, margin), depth.data_ptr(),
-                        flags.data_ptr(), out.data_ptr(), dev.index or 0,
-                        torch.cuda.current_stream(dev).cuda_stream)
+    with _SCRATCH.take(dev, lib.vhx_splat_scratch_words(w2, h2)) as (scratch, epoch):
+        err = lib.vhx_splat(pts.data_ptr(), splat_params(camera, n, margin), scratch.data_ptr(),
+                            epoch, out.data_ptr(), dev.index or 0,
+                            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "splat kernel launch")
     splat_tiles.launches += 1
     return out
 
 
+_SCRATCH = _build.StreamScratch()
 splat_tiles.launches = 0
