@@ -169,7 +169,26 @@ of a training step (device time, CUDA events around the calls, host
 clock) and of a 16-step chain (CUDA events, host clock) with the beam
 against without, and the mode ``bench.py`` would keep, the
 body iterations and row fetches a ray against the stack's moves, and each
-new instance's time, plain version and bound.  The last line is ``{"ok": true,
+new instance's time, plain version and bound.
+
+Phase 16 runs the depth prepass past the 8 levels of one ``prepass.cu``
+launch, the streaming view under the skip tracer and ``render_lod``: (a)
+``prepass_levels`` 9 (stack and skip) at 512x512, 9 at a ragged 1536x1024
+and 10 at 1024x1024, each a chain of launches, every level and the start
+map against ``level_depth_plain`` and ``depth_start_plain``, the frame to
+the CPU route's digest; (b) phase 12's fly-over under
+``StreamingView(tracer="skip")`` over a new 1024 terrain: each update's
+device grids held to the plain updates, each refresh of the skip rows to
+``skip_rows_from_pairs`` and every layer's rows after each frame, each far
+frame to ``far_frame_plain``'s skip form on every pixel and to the JAX
+digests, one far launch a frame and two row refreshes an update (the
+window's, the ring's); then an edit, and frames with ``beam_prepass=True``;
+the skip far frame against the stack far frame on the same trees in turns,
+the rows refresh beside ``index_select``; (c) ``render_lod`` at the bench
+pose at ``lod_scale`` 0, 0.3 and 0.05 and in phase 10's 512 world at 0.3,
+each against ``render_lod_plain`` on every pixel and the JAX digests, the
+share of hits stopped above level 0, and ``frame_lod_kernel`` against the
+frame kernel's f32 frame in turns.  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -310,6 +329,60 @@ SKIP_SUBSTEPS = 3  # the reference's skip_substeps default
 # low from skip.cuh: one substep's level tests (about 8 a level) and its DDA
 # step, and the row fetch's address
 SKIP_OPS_PER_BODY = 60
+
+# ---- phase 16, the depth prepass past 8 levels, the streaming view under
+# the skip tracer, render_lod
+# (resolution, prepass_levels, tracer, sha256 of the port's CPU route's u8
+# frame): fastest_renderer(scene.build_scene(), device="cpu", prepass=True,
+# prepass_levels=levels, tracer=tracer).render(orbit_camera(128.0,
+# resolution=res), out_u8=True); 9 levels are two launches (1 + 8), 10 are
+# 2 + 8; 1536 x 1024's coarsest level is 3 x 2 pixels
+DEEP_PREPASS = (
+    ((512, 512), 9, "stack", "599c1bb5ffd4b87229a81958f33f1060821cd01cd7aa7ccafa0d862f4522f3f6"),
+    ((512, 512), 9, "skip", "599c1bb5ffd4b87229a81958f33f1060821cd01cd7aa7ccafa0d862f4522f3f6"),
+    ((1536, 1024), 9, "stack", "71305fb88f68894670d9ef87272e6704cd1dc8db1ba9c747309409bb616f8eb6"),
+    ((1024, 1024), 10, "stack", "bbd05cf6097ac9b1f89ea29d2542c1b7b67ee46848393895f5a9e43fa1f621e5"),
+)
+# sha256 of the reference package's u8 frames of phase 12's fly-over under
+# the skip tracer, made on the CPU with
+#   view = StreamingView(examples/terrain.build_terrain(1024), view_size=256,
+#                        regions_per_update=8192, tracer="skip")
+#   view.render(benches/ab_flyover.flight_cam(i, 8, (1920, 1080)), out_u8=True)
+# for i = 0 .. 7 in turn, then frame 7 after phase 12's edit (FLY_EDIT),
+# then frames 0 and 7 of a new view of the edited terrain with
+# beam_prepass=True
+SKIP_FLYOVER_SHA256 = (
+    "5a51a51a48e2a453bc1badacefd9a30d2945777974e602c90f3eba3d27ee4743",
+    "3c3070420784b3cb241e509764e35f233247d16426a38af3c17742a7c4ab9790",
+    "579d00bf94a30293592a3e0dc4a68d9eba3a1e39b32703b7b11f2d798d171411",
+    "a3691343cb5f9da9aa517334e5628f2049110ff13104717af027093f4ce7c0c5",
+    "c03116b972ccaddecf1781b771d510aec29c1ab229500e6653cc7420c5ff0a13",
+    "681923b309f4b23f35ec2b7705a945c33adc1362f5897289d23dafd643b5dd07",
+    "9c6dbf554c176f1caf252b1f2655819f0120ddb69feb51fa0039e09de34a0d94",
+    "3837642f4aa937673483deebb371859ad15ff7702482df6e914556e88567a5a1",
+)
+SKIP_FLY_EDIT_SHA256 = "204d4aaa0c9d532ca781432856dfaaf539febbf9baaac5b007ed4543bd10534b"
+SKIP_FLY_BEAM_SHA256 = {
+    0: "8f44928b96b15dac3bd1f5416e1b577aa60258651baec7152a2cc4d1a13bbb70",
+    7: "a8ccfe3bdc08baba6702a9a44ca7ce9aef7211048d548b18600c959ce6518d57",
+}
+# sha256 of the reference package's f32 render_lod frames' bytes at the
+# bench pose, made on the CPU with
+#   BitGridRenderer(flatten(bench.build_scene())).render_lod(
+#       orbit_camera(128.0, resolution=(1920, 1080)), lod_scale=scale)
+# and in phase 10's 512 world (from_voxels(..., size=512, brick_dim=32) of
+# the same points) at LOD_512_SCALE: the same frame as the 256 world's
+LOD_SCALES = (0.0, 0.3, 0.05)
+LOD_SHA256 = {
+    0.0: "a60d9c23bf322e52ba5b9bd4e1fcd0819e7f0bdbe4b98eddcbdb6dd7a82aabac",
+    0.3: "9116997ee342bfaf04eaec77d5082eaa6d836c1eb41fad9c0b11b7a88d62b27f",
+    0.05: "387c6ebdef11ddca74e13dc77674dbd5f7f040c57bb9ad6c094951ba2402cfbf",
+}
+LOD_512_SCALE = 0.3
+LOD_512_SHA256 = "9116997ee342bfaf04eaec77d5082eaa6d836c1eb41fad9c0b11b7a88d62b27f"
+# the LOD stop rule's operations a step, counted low from frame.cu: the
+# norm (6 and a sqrt), the multiply and the table's compares
+LOD_OPS_PER_STEP = 20
 
 # ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
 # (examples/terrain.py's StreamingView, BASELINE.json's config 4): the
@@ -466,21 +539,26 @@ def timed(fn, reps):
 def device_ms(fn, reps):
     """Mean device ms of ``fn()`` over ``reps`` back-to-back launches: the
     launches queue behind a GPU-side wait, so host time between them does
-    not count.  Fails if the wait ended before the host had enqueued them
-    all (the number would then hold host gaps)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPACER_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    behind = start.query()
-    torch.cuda.synchronize()
-    if behind:
-        raise AssertionError(f"the GPU-side wait ended before {reps} launches were enqueued: "
-                             "raise SPACER_CYCLES")
-    return start.elapsed_time(end) / reps
+    not count.  If the wait ended before the host had enqueued them all
+    (the number would then hold host gaps: the host stalled), the run is
+    measured again behind a wait 8 and then 64 times as long; fails if
+    that wait ends first too."""
+    for spacer in (SPACER_CYCLES, 8 * SPACER_CYCLES, 64 * SPACER_CYCLES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spacer)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        behind = start.query()
+        torch.cuda.synchronize()
+        if not behind:
+            return start.elapsed_time(end) / reps
+        log(f"  device_ms: the GPU-side wait of {spacer} cycles ended before {reps} launches "
+            "were enqueued; measured again behind a longer one")
+    raise AssertionError(f"the GPU-side wait ended before {reps} launches were enqueued: "
+                         "raise SPACER_CYCLES")
 
 
 def host_ms(fn, reps):
@@ -681,7 +759,10 @@ def main():
                                      ("far.cu", "far_kernel", None),
                                      ("far.cu", "far_start_kernel", None),
                                      ("stream.cu", "coarse_kernel", None),
-                                     ("stream.cu", "region_scatter_kernel", None)):
+                                     ("stream.cu", "region_scatter_kernel", None),
+                                     ("far.cu", "far_skip_kernel", None),
+                                     ("frame.cu", "frame_lod_kernel", None),
+                                     ("stream.cu", "skip_rows_kernel", None)):
         build_log = _build.build_log(source)
         for name in kernel_names(build_log, kernel) or [kernel]:  # each template instance
             usage = ptxas_usage(build_log, name)
@@ -939,6 +1020,13 @@ def main():
     torch.cuda.empty_cache()
     by_name = {k["name"]: k for k in kernels}
     entries, counts = skip_slice(dev, card, terrain)
+    for name, n in counts.items():
+        by_name[name]["launches"] += n
+    kernels += entries
+    del terrain
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    entries, counts = lod_skip_slice(dev, card)
     for name, n in counts.items():
         by_name[name]["launches"] += n
     kernels += entries
@@ -2131,6 +2219,36 @@ def offline_phases(dev, card, tmp):
     return entries, counts, errs
 
 
+def composite_backward_rows(grad_rgb, albedo, logits, voxels, size):
+    """The rows that the composite backward adds, as ``index_add_`` takes
+    them: ``((index, values) into the flat albedo gradient, (index, values)
+    into the logits gradient)`` over every hit slot, the contributions of
+    ``composite_backward_plain``'s recurrence computed here."""
+    from voxelhex_tpu_torch.ops.composite import _slots
+
+    valid, addr, a, c = _slots(albedo, logits, voxels, size)
+    K = voxels.shape[1]
+    f = (1.0 - a) + 1e-9
+    Tp = [torch.ones_like(a[:, 0])]
+    for k in range(1, K):
+        Tp.append(Tp[-1] * f[:, k - 1])
+    g, Q = grad_rgb, torch.zeros_like(a[:, 0])
+    ia, va, il, vl = [], [], [], []
+    for k in reversed(range(K)):
+        ok = valid[:, k]
+        ck = c[:, k]
+        dw = (g[:, 0] * ck[:, 0] + g[:, 1] * ck[:, 1]) + g[:, 2] * ck[:, 2]
+        da = Tp[k] * (dw - Q)
+        Q = torch.where(ok, dw * a[:, k] + f[:, k] * Q, Q)
+        idx = addr[ok, k]
+        ak = a[ok, k]
+        il.append(idx)
+        vl.append(da[ok] * (ak * (1.0 - ak)))
+        ia.append((idx[:, None] * 3 + torch.arange(3, device=idx.device)).reshape(-1))
+        va.append(((ak * Tp[k][ok])[:, None] * g[ok]).reshape(-1))
+    return (torch.cat(ia), torch.cat(va)), (torch.cat(il), torch.cat(vl))
+
+
 def training_slice(dev, scene, o, d, tag):
     """Phases 5-9: the training slice's kernels against their plain versions
     and the reference, the training path, its timing.  Returns the four
@@ -2376,6 +2494,18 @@ def training_slice(dev, scene, o, d, tag):
     # as the step calls it: the two dense gradients zeroed, then the scatter
     bwd_ms = device_ms(lambda: composite_backward(grad_rgb, alb, lgt, voxels, soft.size),
                        TIMED_FRAMES)
+    # the library yardstick: index_add_ of the same slots' rows into the two
+    # zeroed gradients, the contributions computed before the timing (it
+    # does not run the composite's recurrence)
+    lib_a, lib_l = composite_backward_rows(grad_rgb, alb, lgt, voxels, soft.size)
+    g_alb, g_lgt = torch.zeros_like(alb), torch.zeros_like(lgt)
+
+    def bwd_library():
+        g_alb.zero_().index_add_(0, *lib_a)
+        g_lgt.zero_().index_add_(0, *lib_l)
+
+    bwd_lib_ms = device_ms(bwd_library, TIMED_FRAMES)
+    del lib_a, lib_l, g_alb, g_lgt
     grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-4 for k, v in pk.items()}
 
     def adam_step():
@@ -2398,6 +2528,8 @@ def training_slice(dev, scene, o, d, tag):
     kernel_sum = mh_ms + fwd_ms + bwd_ms + adam_ms
     log(f"training step, 1920x1080, K={K}: {step_ms:.4f} ms/step back to back over {CHAIN} "
         f"steps by CUDA events, {step_host_ms:.4f} ms/step by host clock {tag}")
+    log(f"  composite backward {bwd_ms:.4f} ms against index_add_ of its rows into the zeroed "
+        f"gradients, the contributions computed before, {bwd_lib_ms:.4f} ms {tag}")
     log(f"  multihit {mh_ms:.4f} ms, composite forward {fwd_ms:.4f} ms, composite backward "
         f"{bwd_ms:.4f} ms, adam {adam_ms:.4f} ms device time per launch; the four kernels "
         f"{kernel_sum:.4f} ms = {kernel_sum / step_ms:.3f} of the step {tag}")
@@ -2438,7 +2570,7 @@ def training_slice(dev, scene, o, d, tag):
         {"name": "composite_backward", "route": "cuda", "source": src + "composite.cu",
          "replaces": "voxelhex_tpu/diff/soft.py:95", "launches": counts["composite_backward"],
          "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
-         "bound_by": bwd_by, "library_ms": None},
+         "bound_by": bwd_by, "library_ms": bwd_lib_ms},
         {"name": "adam", "route": "cuda", "source": src + "adam.cu",
          "replaces": "voxelhex_tpu/diff/soft.py:532", "launches": counts["adam_update"],
          "max_abs_err": adam_err, "ms": adam_ms, "plain_ms": adam_plain_ms,
@@ -2526,18 +2658,19 @@ def check_window(view, what):
         raise AssertionError(f"{what}: the window on the card differs from the host's BitGrid")
 
 
-def check_far_frame(view, cam, frame, what):
+def check_far_frame(view, cam, frame, what, skip_substeps=None):
     """A view's far frame (the kernel's) against ``far_frame_plain`` on every
-    pixel, with the plain march's steps: returns the plain march's record
-    (``far_frame_plain``'s ``stats``), the largest difference and the plain
-    frame's host-clock ms."""
+    pixel (its skip form with ``skip_substeps``), with the plain march's
+    steps: returns the plain march's record (``far_frame_plain``'s
+    ``stats``), the largest difference and the plain frame's host-clock
+    ms."""
     from voxelhex_tpu_torch.ops.far import far_frame_plain
     from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
 
     stats = []
     t0 = time.perf_counter()
     plain = far_frame_plain(view.layers(cam), view.camera_inside(cam), out_u8=frame.dtype ==
-                            torch.uint8, stats=stats)
+                            torch.uint8, stats=stats, skip_substeps=skip_substeps)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     n_bad = int((~same(frame, plain)).any(dim=-1).sum())
@@ -2551,10 +2684,11 @@ def check_far_frame(view, cam, frame, what):
     return stats, max_abs_err(frame, plain), plain_ms
 
 
-def far_bound(view, cam, stats):
+def far_bound(view, cam, stats, skip=False):
     """The far frame's bound from the plain march's record: the distinct
-    word pairs and hit colors each layer reads, its palette and parameters,
-    3 B a pixel written; each layer's steps and each ray it starts."""
+    word pairs (with ``skip``, skip rows of 8 B a level) and hit colors each
+    layer reads, its palette and parameters, 3 B a pixel written; each
+    layer's steps (body iterations) and each ray it starts."""
     from voxelhex_tpu_torch.ops import _build
 
     R = cam.resolution[0] * cam.resolution[1]
@@ -2563,8 +2697,10 @@ def far_bound(view, cam, stats):
         v = s["hvox"][s["hit"]].long()
         S = int(tree["size"])
         colors = int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S).numel())
-        n_bytes += int(s["reads"].sum()) * 8 + colors * 2 + tree["palette"].shape[0] * 16
-        n_ops += int(s["iters"].sum()) * TRAVERSE_OPS_PER_STEP + s["rays"] * FRAME_OPS_PER_PIXEL
+        word = 8 * len(tree["bases"]) if skip else 8
+        n_bytes += int(s["reads"].sum()) * word + colors * 2 + tree["palette"].shape[0] * 16
+        n_ops += (int(s["iters"].sum()) * (SKIP_OPS_PER_BODY if skip else TRAVERSE_OPS_PER_STEP)
+                  + s["rays"] * FRAME_OPS_PER_PIXEL)
     return bound(n_bytes, n_ops)
 
 
@@ -4216,6 +4352,362 @@ def skip_slice(dev, card, terrain):
     return entries, {"beam": launches["beam"], "composite_forward": launches["composite_forward"],
                      "composite_backward": launches["composite_backward"],
                      "adam": launches["adam"]}
+
+
+class CheckedRows:
+    """The skip rows' refresh held to its plain version on the same pairs,
+    bit for bit, at each call (installed where ``render/streaming.py`` and
+    ``render/renderer.py`` call it, for phase 16's checked runs); the plain
+    version launches nothing, so the wrapper's count holds the kernel's
+    launches alone."""
+
+    def __init__(self):
+        from voxelhex_tpu_torch.ops import stream
+        from voxelhex_tpu_torch.render import renderer, streaming
+
+        self.stream, self.modules = stream, (streaming, renderer)
+        self.calls = 0
+        self.last = None
+
+    def refresh_skip_rows(self, tree):
+        want = self.stream.skip_rows_plain(tree["occ_pairs"], tree["bases"], tree["dims"],
+                                           tree["size"])
+        self.stream.refresh_skip_rows(tree)
+        self.calls += 1
+        self.last = tree
+        if not bool(same(tree["skip_rows"], want).all()):
+            raise AssertionError("refresh_skip_rows: the kernel's rows differ from its plain "
+                                 "version's")
+
+    def __enter__(self):
+        for m in self.modules:
+            m.refresh_skip_rows = self.refresh_skip_rows
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.refresh_skip_rows = self.stream.refresh_skip_rows
+
+
+def check_rows(tree, what):
+    """A tree's skip rows on the card against the reference's gather of its
+    word pairs (``skip_rows_plain``)."""
+    from voxelhex_tpu_torch.ops.stream import skip_rows_plain
+
+    want = skip_rows_plain(tree["occ_pairs"], tree["bases"], tree["dims"], tree["size"])
+    if not bool(same(tree["skip_rows"], want).all()):
+        raise AssertionError(f"{what}: the skip rows differ from skip_rows_from_pairs")
+
+
+def lod_skip_slice(dev, card):
+    """Phase 16 (module docstring): the depth prepass past 8 levels, the
+    streaming view under the skip tracer and ``render_lod``.  Returns the
+    three new kernels' entries and the main path's launches of the earlier
+    kernels."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+    from voxelhex_tpu_torch.ops.frame import (lod_tracer, render_frame, render_lod,
+                                              render_lod_plain)
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_chunks, prepass_start)
+    from voxelhex_tpu_torch.ops.stream import refresh_skip_rows, skip_rows_plain
+    from voxelhex_tpu_torch.ops.beam import beam_tiles
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid, skip_row_index
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import build_scene, build_scene_tree, terrain_points
+    from voxelhex_tpu_torch.tree.boxtree import Albedo
+    from voxelhex_tpu_torch.tree.build import from_voxels
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    t_all = time.time()
+    tag = f"[{card}]"
+    S3 = SKIP_SUBSTEPS
+    launches = {"prepass": 0, "skip_prepass": 0, "frame": 0, "skip_frame": 0, "beam": 0}
+
+    # (a) the repair: the depth prepass past 8 levels, a chain of launches
+    t0 = time.time()
+    scene = build_scene()
+    if prepass_chunks(PREPASS_LEVELS) != [(1, PREPASS_LEVELS)]:
+        raise AssertionError("the bench's depth prepass is not one launch")
+    for res, levels, tracer, want_sha in DEEP_PREPASS:
+        r = fastest_renderer(scene, device=dev, prepass=True, prepass_levels=levels,
+                             tracer=tracer)
+        cam = orbit_camera(128.0, resolution=res)
+        sub = r.skip_substeps
+        name = "skip_prepass" if sub else "prepass"
+        counter = "skip_launches" if sub else "launches"
+        n0 = getattr(prepass_start, counter)
+        depths = []
+        start = prepass_start(r.tree, cam, levels, MAX_ITERS, sub, depths=depths)
+        torch.cuda.synchronize()
+        n = getattr(prepass_start, counter) - n0
+        n0 += n
+        coarser, n_bad = None, 0
+        for lv, k in zip(range(levels, 0, -1), depths):
+            want = level_depth_plain(r.tree, level_camera(cam, lv), coarser, MAX_ITERS,
+                                     skip_substeps=sub)
+            n_bad += int((~same(k, want)).sum())
+            coarser = k
+        n_bad += int((~same(start, depth_start_plain(coarser))).sum())
+        f0 = render_frame.launches + render_frame.skip_launches
+        frame = r.render(cam, out_u8=True, out_device=True)
+        torch.cuda.synchronize()
+        n_frame = render_frame.launches + render_frame.skip_launches - f0
+        n_render = getattr(prepass_start, counter) - n0  # the frame's own prepass
+        launches[name] += n_render
+        launches["skip_frame" if sub else "frame"] += n_frame
+        digest = sha(frame)
+        log(f"  {tracer} prepass_levels={levels} at {res[0]}x{res[1]}: {n} launches "
+            f"{prepass_chunks(levels)} (finest level, levels) each; {n_bad} texels of the levels "
+            f"and the start map differ from level_depth_plain and depth_start_plain; the frame's "
+            f"sha256 {digest} {'==' if digest == want_sha else '!='} the CPU route's")
+        if n != len(prepass_chunks(levels)) or n < 2 or n_bad or digest != want_sha or \
+                n_frame != 1 or n_render != n:
+            raise AssertionError(f"{tracer} prepass of {levels} levels at {res}: {n} launches, "
+                                 f"{n_bad} texels differ, the frame's digest, or {n_frame} "
+                                 "frame launches")
+    del r, depths, start, frame
+    log(f"phase 16 (a) the depth prepass past 8 levels: {time.time() - t0:.1f} s")
+
+    # (b) the fly-over under the skip tracer, the main path
+    t0 = time.time()
+    pts, cols = terrain_points(TERRAIN_WORLD)
+    terrain = from_voxels(pts, cols, size=TERRAIN_WORLD, brick_dim=4)
+    del pts, cols
+    far_err, rows_err, fly_stats = 0.0, 0.0, []
+    checks, stream_checks = CheckedRows(), CheckedUpdates()
+    far0, rows0 = render_far.skip_launches, refresh_skip_rows.launches
+    stack0 = render_far.launches
+    with checks, stream_checks:
+        view = StreamingView(terrain, view_size=FLY_VIEW, regions_per_update=8192,
+                             tracer="skip", device=dev)
+        poses = [(f"fly-over frame {i}", flight_cam(i), SKIP_FLYOVER_SHA256[i])
+                 for i in range(FLY_FRAMES)]
+        for k, (what, cam, want_sha) in enumerate(poses + [("edit", None, None)]):
+            if cam is None:
+                (x, y, z), size, rgba = FLY_EDIT
+                terrain.insert_at_lod((x, y, z), size, Albedo(*rgba))
+                what, cam, want_sha = ("frame 7 after the edit", flight_cam(FLY_FRAMES - 1),
+                                       SKIP_FLY_EDIT_SHA256)
+            f0, r0 = render_far.skip_launches, checks.calls
+            frame = view.render(cam, out_u8=True, out_device=True)
+            torch.cuda.synchronize()
+            n_far, n_rows = render_far.skip_launches - f0, checks.calls - r0
+            check_window(view, what)
+            for t in [view.renderer] + [tier.renderer for tier in view.far.tiers]:
+                check_rows(t.tree, what)
+            stats, err, plain_ms = check_far_frame(view, cam, frame, what, S3)
+            far_err = max(far_err, err)
+            fly_stats.append((cam, stats))
+            digest = sha(frame)
+            # frame 0 builds the window and its ring on the host; each later
+            # update refreshes the window's rows (after its rebuild) and the
+            # ring's (its hole moved, or the edit re-sampled it)
+            want_rows = 0 if k == 0 else 2
+            log(f"  skip {what}: window at {tuple(int(v) for v in view.origin)}, settled "
+                f"{view.settled()}; launches: far {n_far}, rows refresh {n_rows}; sha256 "
+                f"{digest} {'==' if digest == want_sha else '!='} reference")
+            if digest != want_sha or not view.settled() or n_far != 1 or n_rows != want_rows:
+                raise AssertionError(f"skip {what}: the digest, not settled, or launches far "
+                                     f"{n_far}, rows {n_rows} (want 1, {want_rows})")
+        n_fly_far = render_far.skip_launches - far0
+        n_fly_rows = refresh_skip_rows.launches - rows0
+        plain_far_ms = plain_ms
+        # the beam: the window's rays from the window renderer's beam
+        bview = StreamingView(terrain, view_size=FLY_VIEW, regions_per_update=8192,
+                              tracer="skip", beam_prepass=True, device=dev)
+        for i in (0, FLY_FRAMES - 1):
+            cam = flight_cam(i)
+            b0, f0 = beam_tiles.launches, render_far.skip_launches
+            frame = bview.render(cam, out_u8=True, out_device=True)
+            torch.cuda.synchronize()
+            n_beam, n_far = beam_tiles.launches - b0, render_far.skip_launches - f0
+            local = bview.layers(cam)[0][1]
+            start = bview.renderer.beam_map(local)
+            plain = far_frame_plain(bview.layers(cam), bview.camera_inside(cam), start=start,
+                                    start_tile=bview.renderer.beam_tile, skip_substeps=S3)
+            n_bad = int((~same(frame, plain)).any(dim=-1).sum())
+            far_err = max(far_err, max_abs_err(frame, plain))
+            digest = sha(frame)
+            launches["beam"] += n_beam
+            log(f"  skip fly-over frame {i} with the beam prepass: launches beam {n_beam}, far "
+                f"{n_far}; {n_bad} pixels differ from far_frame_plain from the same start map; "
+                f"sha256 {digest} {'==' if digest == SKIP_FLY_BEAM_SHA256[i] else '!='} "
+                f"reference")
+            if n_bad or digest != SKIP_FLY_BEAM_SHA256[i] or n_beam != 1 or n_far != 1:
+                raise AssertionError(f"skip fly-over frame {i} with the beam")
+        beam_far = render_far.skip_launches - far0 - n_fly_far
+    if render_far.launches != stack0:
+        raise AssertionError("the skip view launched the stack far frame")
+    rows_calls = checks.calls
+    log(f"  skip fly-over: far launches {n_fly_far} (+{beam_far} with the beam), rows "
+        f"refreshes {n_fly_rows}, each held to skip_rows_from_pairs ({rows_calls} checked); "
+        f"ring (factor, cells, origin) "
+        f"{[(t.factor, t.cells, tuple(int(v) for v in t.origin)) for t in view.far.tiers]}")
+    log(f"phase 16 (b) skip fly-over: {time.time() - t0:.1f} s")
+
+    # (b) timings: the skip far frame against the stack far frame at the same
+    # poses and trees; the rows refresh beside the library gather
+    t0 = time.time()
+
+    def turns(what, group, reps=TIMED_FRAMES):
+        names = list(group)
+        for fn in group.values():
+            fn()
+        torch.cuda.synchronize()
+        got = {n: [] for n in names}
+        for n in (names[0], names[1], names[1], names[0]):
+            ms = device_ms(group[n], reps)
+            got[n].append(ms)
+            log(f"  turn {what} {n}: {ms:.4f} ms device time {tag}")
+        a, b = (sum(got[n]) / 2 for n in names)
+        log(f"{what}: {names[0]} {a:.4f} ms, {names[1]} {b:.4f} ms ({100 * (b - a) / a:+.1f}%) "
+            f"device time {tag}")
+        return a, b
+
+    far_ms = []
+    for i in (0, FLY_FRAMES - 1):
+        cam = flight_cam(i)
+        view.render(cam, out_u8=True, out_device=True)  # the window at the pose
+        layers, inside = view.layers(cam), view.camera_inside(cam)
+        far_ms.append(turns(f"far frame, fly-over pose {i}", {
+            "stack": lambda: render_far(layers, inside),
+            "skip": lambda: render_far(layers, inside, skip_substeps=S3)}))
+    cam, stats = fly_stats[-1]  # pose 7 after the edit, as timed
+    far_skip_ms = far_ms[-1][1]
+    far_skip_bound = far_bound(view, cam, stats, skip=True)
+    layer_work = [(s["rays"], int(s["iters"].sum())) for s in stats]
+    wt = view.renderer.tree
+    rows_ms = device_ms(lambda: refresh_skip_rows(wt), TIMED_FRAMES)
+    idx = torch.from_numpy(skip_row_index(view.renderer.bitgrid)).to(dev).reshape(-1).long()
+    pairs = wt["occ_pairs"]
+    gathered = torch.empty((idx.numel(), 2), dtype=pairs.dtype, device=dev)
+    torch.index_select(pairs, 0, idx, out=gathered)
+    rows_lib_ms = device_ms(lambda: torch.index_select(pairs, 0, idx, out=gathered),
+                            TIMED_FRAMES)
+    t1 = time.perf_counter()
+    skip_rows_plain(pairs, wt["bases"], wt["dims"], wt["size"])
+    torch.cuda.synchronize()
+    rows_plain_ms = (time.perf_counter() - t1) * 1e3
+    rows_bytes = wt["skip_rows"].numel() * 4 + pairs.numel() * 4
+    rows_bound = bound(rows_bytes, 0)
+    del idx, gathered
+    log(f"  skip far frame at fly-over pose {FLY_FRAMES - 1}: each layer's (rays, body "
+        f"iterations) {layer_work}; bound {far_skip_bound[0]:.4f} ms ({far_skip_bound[1]}); "
+        f"plain {plain_far_ms:.1f} ms (host clock, one run) {tag}")
+    log(f"rows refresh of the {FLY_VIEW} window ({wt['skip_rows'].shape[0]} rows of "
+        f"{wt['skip_rows'].shape[1] * 4} B): {rows_ms:.4f} ms device time, the library gather "
+        f"(index_select of the pairs by the row index) {rows_lib_ms:.4f} ms, bound "
+        f"{rows_bound[0]:.4f} ms ({rows_bytes} B), plain {rows_plain_ms:.3f} ms (host clock) "
+        f"{tag}")
+    del view, bview, terrain, frame, plain, fly_stats, stats
+    torch.cuda.empty_cache()
+    log(f"phase 16 (b) timings: {time.time() - t0:.1f} s")
+
+    # (c) render_lod at the bench pose, and in phase 10's 512 world
+    t0 = time.time()
+    bench = fastest_renderer(scene, device=dev)
+    cam = orbit_camera(128.0, resolution=RES)
+    R = RES[0] * RES[1]
+    lod_err, n_lod, lod_plain_ms = 0.0, 0, None
+    for scale in LOD_SCALES:
+        n0 = render_lod.launches
+        got = bench.render_lod(cam, scale)
+        n = render_lod.launches - n0
+        n_lod += n
+        t1 = time.perf_counter()
+        plain = render_lod_plain(bench.tree, cam, scale)
+        torch.cuda.synchronize()
+        if scale == 0.3:
+            lod_plain_ms = (time.perf_counter() - t1) * 1e3
+        k = torch.from_numpy(got).to(dev)
+        n_bad = int((~same(k, plain)).any(dim=-1).sum())
+        lod_err = max(lod_err, max_abs_err(k, plain))
+        trace = lod_tracer(bench.tree, scale)
+        o, d = device_rays(cam, dev)
+        st = trace.run(bench.tree, trace.init(bench.tree, o, d), MAX_ITERS)
+        hit = st["hit"]
+        above = int((hit & (st.get("hlev", torch.zeros_like(st["iters"])) > 0)).sum())
+        digest = sha(got)
+        log(f"  render_lod bench pose, lod_scale {scale}: {n} launch, {n_bad} pixels differ from "
+            f"render_lod_plain; {above} of {int(hit.sum())} hits ({above / max(int(hit.sum()), 1):.4f}) "
+            f"stopped above level 0; {int(st['iters'].sum())} steps; sha256 {digest} "
+            f"{'==' if digest == LOD_SHA256[scale] else '!='} reference")
+        if n != 1 or n_bad or digest != LOD_SHA256[scale] or got.dtype != np.float32:
+            raise AssertionError(f"render_lod at lod_scale {scale}")
+        if scale == 0.3:
+            reads = torch.zeros(bench.tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+            st = trace.run(bench.tree, trace.init(bench.tree, o, d), MAX_ITERS, reads=reads)
+            lv = st["hlev"][st["hit"]]
+            hv = st["hvox"][st["hit"]].long()
+            cells = int(torch.unique(hv[:, 0] + (hv[:, 1] + hv[:, 2] * 4096) * 4096
+                                     + lv.long() * 4096**3).numel())
+            lod_bound = bound(int(reads.sum()) * 8 + cells * 12
+                              + bench.tree["palette"].shape[0] * 16
+                              + ctypes.sizeof(_build.FrameParams)
+                              + ctypes.sizeof(_build.LodParams) + R * 12,
+                              int(st["iters"].sum()) * (TRAVERSE_OPS_PER_STEP + LOD_OPS_PER_STEP)
+                              + R * FRAME_OPS_PER_PIXEL)
+        del o, d, st, trace, plain, k
+    tree32 = build_scene_tree(32)
+    w512 = fastest_renderer(build_bitgrid(flatten(tree32)), device=dev)
+    del tree32
+    n0 = render_lod.launches
+    t1 = time.perf_counter()
+    got = w512.render_lod(cam, LOD_512_SCALE)
+    mip_s = time.perf_counter() - t1
+    n = render_lod.launches - n0
+    n_lod += n
+    plain = render_lod_plain(w512.tree, cam, LOD_512_SCALE)
+    k = torch.from_numpy(got).to(dev)
+    n_bad = int((~same(k, plain)).any(dim=-1).sum())
+    lod_err = max(lod_err, max_abs_err(k, plain))
+    digest = sha(got)
+    want_sha = LOD_512_SHA256
+    log(f"  render_lod in the {w512.bitgrid.size} world, lod_scale {LOD_512_SCALE}: {n} launch "
+        f"({mip_s:.1f} s with the MIP colors' host build and upload), {n_bad} pixels differ "
+        f"from render_lod_plain; sha256 {digest} "
+        f"{'==' if digest == want_sha else '!='} reference")
+    if n != 1 or n_bad or (want_sha is not None and digest != want_sha):
+        raise AssertionError("render_lod in the 512 world")
+    del w512, plain, k
+    torch.cuda.empty_cache()
+    lod_ms = turns("frame kernel against the LOD frame, bench pose", {
+        "render_frame (f32)": lambda: render_frame(bench.tree, cam, out_u8=False),
+        "frame_lod_kernel, lod_scale 0.3": lambda: render_lod(bench.tree, cam, 0.3)})[1]
+    turns("frame kernel against the LOD frame at lod_scale 0, bench pose", {
+        "render_frame (f32)": lambda: render_frame(bench.tree, cam, out_u8=False),
+        "frame_lod_kernel, lod_scale 0": lambda: render_lod(bench.tree, cam, 0.0)})
+    log(f"frame_lod_kernel: {lod_ms:.4f} ms at lod_scale 0.3, bound {lod_bound[0]:.4f} ms "
+        f"({lod_bound[1]}), plain {lod_plain_ms:.1f} ms (host clock, one run) {tag}")
+    for source, kernel in (("far.cu", "far_skip_kernel"), ("frame.cu", "frame_lod_kernel"),
+                           ("stream.cu", "skip_rows_kernel")):
+        blog = _build.build_log(source)
+        for name in kernel_names(blog, kernel):
+            usage = ptxas_usage(blog, name)
+            log(f"  ptxas {name}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
+                f"spill stores, {usage[3]} B spill loads")
+    log(f"phase 16 (c) render_lod: {time.time() - t0:.1f} s")
+    log(f"phase 16 deep prepass, skip streaming, LOD: {time.time() - t_all:.1f} s")
+    src = "voxelhex_tpu_torch/csrc/"
+    entries = [
+        {"name": "far_skip", "route": "cuda", "source": src + "far.cu",
+         "replaces": "voxelhex_tpu/render/streaming.py:1479", "launches": n_fly_far + beam_far,
+         "max_abs_err": far_err, "ms": far_skip_ms, "plain_ms": plain_far_ms,
+         "bound_ms": far_skip_bound[0], "bound_by": far_skip_bound[1], "library_ms": None},
+        {"name": "skip_rows", "route": "cuda", "source": src + "stream.cu",
+         "replaces": "voxelhex_tpu/render/bitgrid.py:848", "launches": n_fly_rows,
+         "max_abs_err": rows_err, "ms": rows_ms, "plain_ms": rows_plain_ms,
+         "bound_ms": rows_bound[0], "bound_by": rows_bound[1], "library_ms": rows_lib_ms},
+        {"name": "lod_frame", "route": "cuda", "source": src + "frame.cu",
+         "replaces": "voxelhex_tpu/render/bitgrid.py:1627", "launches": n_lod,
+         "max_abs_err": lod_err, "ms": lod_ms, "plain_ms": lod_plain_ms,
+         "bound_ms": lod_bound[0], "bound_by": lod_bound[1], "library_ms": None},
+    ]
+    return entries, launches
 
 
 if __name__ == "__main__":

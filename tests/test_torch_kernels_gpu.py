@@ -1002,3 +1002,157 @@ def test_multihit_forms_equal_plain(cuda, form):
     for a, b in zip(k, multihit_plain(tree, o, d, 3, start=start, skip_substeps=substeps)):
         assert _equal(a, b)
     assert int((k[0] >= 2).sum()) > 100
+
+
+# ---- the chained depth prepass, the skip far frame, the skip rows' refresh,
+# the LOD frame
+
+
+@pytest.mark.parametrize("levels,tracer", [(9, "stack"), (9, "skip"), (10, "stack")])
+def test_prepass_chain_equals_plain(cuda, levels, tracer):
+    """Past 8 levels the depth prepass is a chain of launches (9: one level,
+    then 8; 10: two, then 8): every level's depths and the start map of a
+    512 x 512 frame (1024 x 1024 at 10) equal the plain versions, and a
+    renderer with ``prepass_levels`` 9 renders the CPU route's frame."""
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_chunks, prepass_start)
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    substeps = 3 if tracer == "skip" else None
+    kw = {"tracer": "skip"} if substeps else {}
+    gpu, cpu = _scene_renderers(cuda, prepass=True, prepass_levels=levels, **kw)
+    res = (2**levels,) * 2
+    cam = orbit_camera(128.0, resolution=res)
+    depths = []
+    counter = "skip_launches" if substeps else "launches"
+    n0 = getattr(prepass_start, counter)
+    start = prepass_start(gpu.tree, cam, levels, skip_substeps=substeps, depths=depths)
+    torch.cuda.synchronize()
+    assert getattr(prepass_start, counter) == n0 + len(prepass_chunks(levels)) > n0 + 1
+    coarser = None
+    for i, k in zip(range(levels, 0, -1), depths):
+        want = level_depth_plain(gpu.tree, level_camera(cam, i), coarser, skip_substeps=substeps)
+        assert _equal(k, want)
+        coarser = k
+    assert _equal(start, depth_start_plain(coarser))
+    if levels == 9:
+        np.testing.assert_array_equal(gpu.render(cam, out_u8=True), cpu.render(cam, out_u8=True))
+
+
+def _skip_layers(cuda, depths, inside, res=(1920, 1080)):
+    """A far frame whose window and rings have pyramids of ``depths``
+    levels (grids of 64 or 16 cells), with their skip rows."""
+    from dataclasses import replace
+
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+    from voxelhex_tpu_torch.render.camera import Camera
+
+    eye = np.array([30.5, 20.0, 25.5] if inside else [-200.0, 300.0, -250.0], dtype=np.float32)
+    target = np.array([300.0, 4.0, 500.0], dtype=np.float32)
+    cam = Camera(origin=eye, target=target, resolution=res, fov_y_deg=55.0)
+    layers = []
+    for i, (factor, origin) in enumerate([(1, (0, 0, 0)), (4, (-64, 0, -64)),
+                                          (16, (-512, 0, -512))][:len(depths)]):
+        o = np.asarray(origin, dtype=np.float32)
+        c = replace(cam, origin=(eye - o) / np.float32(factor),
+                    target=(target - o) / np.float32(factor))
+        size = {3: 64, 2: 16, 4: 128}[depths[i]]
+        grid = _grid(size, seed=i, density=0.01 if size > 16 else 0.05)
+        layers.append((device_bitgrid(grid, cuda, skip_rows=True), c, factor))
+    return layers
+
+
+@pytest.mark.parametrize("depths", [(3,), (3, 3), (3, 3, 2), (4, 3)])
+@pytest.mark.parametrize("inside", [True, False])
+def test_far_skip_kernel_equals_plain(cuda, depths, inside):
+    """far.cu's skip instance of the window's depth, with rings of its depth
+    and one level less, at 1920 x 1080, u8 and f32, with and without a
+    window start map, against the plain skip far frame; a ring two levels
+    shallower raises."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+
+    layers = _skip_layers(cuda, depths, inside)
+    rng = np.random.default_rng(7)
+    start = torch.from_numpy(rng.uniform(0, 60, (135, 240)).astype(np.float32)).to(cuda)
+    for out_u8, st in ((True, None), (False, None), (True, start)):
+        n0 = render_far.skip_launches
+        k = render_far(layers, inside, (0.1, 0.2, 0.3), out_u8, start=st, start_tile=8,
+                       skip_substeps=3)
+        torch.cuda.synchronize()
+        assert render_far.skip_launches == n0 + 1
+        assert _equal(k, far_frame_plain(layers, inside, (0.1, 0.2, 0.3), out_u8, start=st,
+                                         start_tile=8, skip_substeps=3))
+    if depths == (4, 3):
+        with pytest.raises(ValueError, match="levels"):
+            render_far(_skip_layers(cuda, (4, 2), inside), inside, skip_substeps=3)
+
+
+@pytest.mark.parametrize("S", [16, 48, 256, 1024])
+def test_skip_rows_refresh_equals_plain(cuda, S):
+    """refresh_skip_rows' kernel against the reference's gather
+    (``skip_rows_from_pairs``) on random pairs, twice, the second time in
+    place in the rows of the first."""
+    from voxelhex_tpu_torch.ops.stream import refresh_skip_rows, skip_rows_plain
+
+    tree = _pyramid(S, cuda)
+    tree["size"] = S
+    g = torch.Generator(device=cuda).manual_seed(S)
+    tree["occ_pairs"].random_(-2**31, 2**31 - 1, generator=g)
+    n0 = refresh_skip_rows.launches
+    refresh_skip_rows(tree)
+    rows = tree["skip_rows"]
+    refresh_skip_rows(tree)
+    torch.cuda.synchronize()
+    assert refresh_skip_rows.launches == n0 + 2 and tree["skip_rows"] is rows
+    want = skip_rows_plain(tree["occ_pairs"], tree["bases"], tree["dims"], S)
+    assert _equal(rows, want)
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.3, 0.05, 2.0])
+def test_lod_kernel_equals_plain(cuda, scale):
+    """frame_lod_kernel against render_lod_plain on every pixel of the bench
+    pose at 1920 x 1080 and of a ragged 1001 x 523 frame, and the renderer's
+    render_lod on the card against the CPU's."""
+    from voxelhex_tpu_torch.ops.frame import render_lod, render_lod_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    gpu, cpu = _scene_renderers(cuda)
+    for res in ((1920, 1080), (1001, 523)):
+        cam = orbit_camera(128.0, resolution=res)
+        n0 = render_lod.launches
+        a = gpu.render_lod(cam, scale, bg=(0.1, 0.2, 0.3))
+        torch.cuda.synchronize()
+        assert render_lod.launches == n0 + 1 and a.dtype == np.float32
+        assert _equal(torch.from_numpy(a), render_lod_plain(gpu.tree, cam, scale,
+                                                            (0.1, 0.2, 0.3)).cpu())
+        if res[0] < 1920:
+            np.testing.assert_array_equal(a, cpu.render_lod(cam, scale, bg=(0.1, 0.2, 0.3)))
+
+
+def test_streaming_skip_view_on_the_card_equals_cpu(cuda):
+    """The skip view over a short flight (a 256 terrain through a 64 window,
+    one ring), with the beam prepass: the card's frames, grids and skip rows
+    equal the CPU's; one far launch a frame."""
+    from voxelhex_tpu_torch.ops.far import render_far
+    from voxelhex_tpu_torch.render.camera import Camera
+    from voxelhex_tpu_torch.render.streaming import StreamingView
+    from voxelhex_tpu_torch.scene import terrain_points
+    from voxelhex_tpu_torch.tree.build import from_voxels
+
+    pts, cols = terrain_points(256)
+    views = {dev: StreamingView(from_voxels(pts, cols, size=256, brick_dim=4), view_size=64,
+                                regions_per_update=64, tracer="skip", beam_prepass=True,
+                                device=dev) for dev in (cuda, "cpu")}
+    for i in range(4):
+        cx = 256 * (0.2 + 0.2 * i)
+        cam = Camera(origin=np.array([cx - 20.0, 31.0, 72.0]),
+                     target=np.array([cx, 13.0, 102.0]), resolution=(320, 180), fov_y_deg=55.0)
+        n0 = render_far.skip_launches
+        a = views[cuda].render(cam, out_u8=True)
+        assert render_far.skip_launches == n0 + 1
+        np.testing.assert_array_equal(a, views["cpu"].render(cam, out_u8=True))
+        for ta, tb in ((views[cuda].renderer.tree, views["cpu"].renderer.tree),
+                       (views[cuda].far.tiers[0].renderer.tree,
+                        views["cpu"].far.tiers[0].renderer.tree)):
+            assert _equal(ta["skip_rows"].cpu(), tb["skip_rows"])
+            assert _equal(ta["occ_pairs"].cpu(), tb["occ_pairs"])

@@ -692,8 +692,8 @@ def host_lib(tmp_path_factory):
     # launches run a block's threads as threads that meet at its barriers
     # (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ,]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel",
-                     "splat_texel_kernel")
+    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "far_skip_kernel",
+                     "region_scatter_kernel", "splat_texel_kernel")
     # and the depth prepass's, whose blocks wait for each other's flags: all
     # its blocks at once, a later one running before an earlier one
     # (vhx_host_grid_launch), each with shared variables of its own
@@ -708,16 +708,16 @@ def host_lib(tmp_path_factory):
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
-    for name, launcher, n_launches in (("frame", "vhx_host_launch", 4),
+    for name, launcher, n_launches in (("frame", "vhx_host_launch", 5),
                                        ("traverse", "vhx_host_launch", 2),
                                        ("multihit", "vhx_host_launch", 2),
                                        ("frames", "vhx_host_launch", 3),
                                        ("albedo", "vhx_host_warp_launch", 2),
-                                       ("stream", "vhx_host_launch", 5),
-                                       ("far", "vhx_host_launch", 2),
+                                       ("stream", "vhx_host_launch", 6),
+                                       ("far", "vhx_host_launch", 4),
                                        ("beam", "vhx_host_launch", 1),
                                        ("splat", "vhx_host_launch", 2),
-                                       ("prepass", "vhx_host_launch", 1)):
+                                       ("prepass", "vhx_host_launch", 2)):
         with open(os.path.join(CSRC, f"{name}.cu")) as f:
             src, n = entry.subn(launcher_of(launcher), f.read())
         assert n == n_launches

@@ -464,8 +464,12 @@ def test_options_and_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         streaming.StreamingView(tree, view_size=32)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        streaming.StreamingView(tree, view_size=32, tracer="skip", device="cpu")
+    # the skip tracer runs (tests/test_torch_streaming_skip.py); other
+    # tracers raise
+    assert streaming.StreamingView(tree, view_size=32, tracer="skip", device="cpu").tracer == \
+        "skip"
+    with pytest.raises(NotImplementedError, match="tracer"):
+        streaming.StreamingView(tree, view_size=32, tracer="flat", device="cpu")
     # the reference's view keeps `prepass` and never reads it; the beam
     # prepass runs (test_beam_prepass_frames_equal_reference)
     assert streaming.StreamingView(tree, view_size=32, prepass=True, device="cpu")

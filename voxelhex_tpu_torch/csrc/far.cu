@@ -47,8 +47,25 @@
 // Packing the rays that go on to a ring into a block's first warps at each
 // layer boundary bought less than its barriers cost: the ring's rays are
 // the sky and the far terrain, which fill whole warps already.
+//
+// Under the reference view's `tracer="skip"` (its window renderer and each
+// ring's renderer take the view's tracer, streaming.py:396, :1407) every
+// layer marches the skip tracer (skip.cuh) over its skip rows (a layer's
+// `occ`): `far_skip_kernel<kStart, L>`, with and without the window's start
+// map.  Its shape is this one's; the march of a layer of L levels is
+// `skip_march<true, L>`, with init's start form picked at run time as
+// above (a ray that hit already starts past its exit, 1e9, and is inactive
+// from init on, as under the stack automaton).  The skip march is an
+// instance a pyramid depth, and a far frame's layers need not share one:
+// the window and every ring have `view_size` cells, but the outermost ring
+// of a world more than 4 times the window has W / F cells, fewer than the
+// window's and more than a quarter of them, so its pyramid is one level
+// shallower or as deep.  So an instance takes the window's depth L and
+// marches each layer of L or L - 1 levels with its own depth's march; the
+// C entry refuses other depths.  The stack instances do not change.
 
 #include "frame.cuh"
+#include "skip.cuh"
 
 #define VHX_FAR_MAX_LAYERS 8
 
@@ -99,21 +116,36 @@ __device__ __forceinline__ void thread_pixel(int t, int& x, int& y) {
     y = blockIdx.y * WARP_H + lane / vhx::WARP_W;
 }
 
+// The skip march of a layer whose `occ` holds the skip rows of a pyramid of
+// L levels
+template <int L>
+__device__ __forceinline__ vhx::Hit skip_layer(const FarLayer& Y, const float o[3],
+                                               const float d[3], int substeps, float start_t,
+                                               bool use_start) {
+    return vhx::skip_march<true, L>(o, d, vhx::skip_grid(Y.occ, Y.trace.size, substeps),
+                                    Y.colors, Y.trace.max_iters, start_t, use_start);
+}
+
 // The frame of this block's pixels.  With kStart the window's rays start at
 // least their tile's value of a start map along: one value a `start_tile` x
 // `start_tile` tile of pixels, `start_stride` tiles a row.  Without it the
-// window's rays start at their entry.
-template <bool kStart>
+// window's rays start at their entry.  kDepth 0 marches the stack
+// automaton; kDepth L >= 1 the skip tracer, `substeps` substeps a body
+// iteration, over layers of L or L - 1 levels.
+template <bool kStart, int kDepth = 0>
 __device__ __forceinline__ void far_frame(const FarParams& P, const float* __restrict__ start,
                                           int start_tile, int start_stride,
                                           float* __restrict__ rgb_out,
-                                          unsigned char* __restrict__ u8_out) {
+                                          unsigned char* __restrict__ u8_out,
+                                          int substeps = 0) {
     __shared__ int2 levels[VHX_FAR_MAX_LAYERS * VHX_MAX_LEVELS];
     __shared__ Pixels px;
     const int t = threadIdx.x;
-    for (int e = t; e < P.n_layers * VHX_MAX_LEVELS; e += THREADS) {
-        const TraceParams& T = P.layers[e / VHX_MAX_LEVELS].trace;
-        levels[e] = make_int2(T.bases[e % VHX_MAX_LEVELS], T.dims[e % VHX_MAX_LEVELS]);
+    if constexpr (kDepth == 0) {
+        for (int e = t; e < P.n_layers * VHX_MAX_LEVELS; e += THREADS) {
+            const TraceParams& T = P.layers[e / VHX_MAX_LEVELS].trace;
+            levels[e] = make_int2(T.bases[e % VHX_MAX_LEVELS], T.dims[e % VHX_MAX_LEVELS]);
+        }
     }
     int x, y;
     thread_pixel(t, x, y);
@@ -135,33 +167,65 @@ __device__ __forceinline__ void far_frame(const FarParams& P, const float* __res
             thread_pixel(t, sx, sy);
             float o[3], d[3];
             vhx::pixel_ray(L.origin, L.right, L.up, L.forward, L.scale, P.cw, P.ch, sx, sy, o, d);
-            const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels, L.trace.size,
-                              L.trace.n_blocks};
-            vhx::March m;
-            // a ring's rays start at the camera (start_t = 0) when it is
-            // inside; the window's from its start map when there is one
-            float start_t = 0.f;
-            bool use_start = l > 0 && P.inside;
-            if constexpr (kStart) {
-                if (l == 0) {
-                    start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
-                    use_start = true;
+            if constexpr (kDepth == 0) {
+                const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels,
+                                  L.trace.size, L.trace.n_blocks};
+                vhx::March m;
+                // a ring's rays start at the camera (start_t = 0) when it is
+                // inside; the window's from its start map when there is one
+                float start_t = 0.f;
+                bool use_start = l > 0 && P.inside;
+                if constexpr (kStart) {
+                    if (l == 0) {
+                        start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
+                        use_start = true;
+                    }
                 }
-            }
-            vhx::init<true>(m, o, d, g, start_t, use_start);
-            vhx::StopAtHit stop;
-            vhx::run(m, g, L.trace.max_iters, stop);
-            if (m.hit) {
-                const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
-                const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
-                // the nearest hit in world voxels; a tie keeps the finer layer's
-                if (!px.hit[t] || hd < px.dist[t]) {
-                    float rgb[3];
-                    vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
-                    px.hit[t] = 1;
-                    px.dist[t] = hd;
+                vhx::init<true>(m, o, d, g, start_t, use_start);
+                vhx::StopAtHit stop;
+                vhx::run(m, g, L.trace.max_iters, stop);
+                if (m.hit) {
+                    const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
+                    const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
+                    // the nearest hit in world voxels; a tie keeps the finer layer's
+                    if (!px.hit[t] || hd < px.dist[t]) {
+                        float rgb[3];
+                        vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
+                        px.hit[t] = 1;
+                        px.dist[t] = hd;
 #pragma unroll
-                    for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
+                        for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
+                    }
+                }
+            } else {
+                // the starts of the stack form above
+                float start_t = 0.f;
+                bool use_start = l > 0 && P.inside;
+                if constexpr (kStart) {
+                    if (l == 0) {
+                        start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
+                        use_start = true;
+                    }
+                }
+                vhx::Hit h;
+                if constexpr (kDepth > 1) {
+                    if (L.trace.n_levels == kDepth)
+                        h = skip_layer<kDepth>(L, o, d, substeps, start_t, use_start);
+                    else
+                        h = skip_layer<kDepth - 1>(L, o, d, substeps, start_t, use_start);
+                } else {
+                    h = skip_layer<kDepth>(L, o, d, substeps, start_t, use_start);
+                }
+                if (h.hit) {
+                    const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
+                    if (!px.hit[t] || hd < px.dist[t]) {
+                        float rgb[3];
+                        vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
+                        px.hit[t] = 1;
+                        px.dist[t] = hd;
+#pragma unroll
+                        for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
+                    }
                 }
             }
         }
@@ -189,9 +253,58 @@ far_start_kernel(const __grid_constant__ FarParams P, const float* __restrict__ 
     far_frame<true>(P, start, start_tile, start_stride, rgb_out, u8_out);
 }
 
+// The skip tracer's frame: layers of kDepth or kDepth - 1 levels, their
+// `occ` the skip rows, from the window's start map with kStart
+template <bool kStart, int kDepth>
+__global__ void __launch_bounds__(THREADS)
+far_skip_kernel(const __grid_constant__ FarParams P, int substeps,
+                const float* __restrict__ start, int start_tile, int start_stride,
+                float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
+    far_frame<kStart, kDepth>(P, start, start_tile, start_stride, rgb_out, u8_out, substeps);
+}
+
+bool bad_far(const FarParams& P, const float* start, int start_tile) {
+    return P.n_layers < 1 || P.n_layers > VHX_FAR_MAX_LAYERS || P.w < 1 || P.h < 1 ||
+           (start && start_tile < 1) || (P.h + WARP_H - 1) / WARP_H > 65535;
+}
+
 }  // namespace
 
 extern "C" int vhx_far_params_size() { return (int)sizeof(FarParams); }
+
+// The frame under the skip tracer, as vhx_render_far_start: each layer's
+// `occ` its skip rows (16 B aligned), `substeps` >= 1 substeps a body
+// iteration and its trace.max_iters body iterations a ray; the window's
+// pyramid of L levels (1 .. VHX_SKIP_MAX_LEVELS) picks the instance, and
+// every ring has L or L - 1 levels.
+extern "C" cudaError_t vhx_render_far_skip(const FarParams* params, int substeps,
+                                           const float* start, int start_tile, float* rgb,
+                                           void* u8, int device, cudaStream_t stream) {
+    const FarParams& P = *params;
+    if (bad_far(P, start, start_tile) || substeps < 1) return cudaErrorInvalidValue;
+    const int depth = P.layers[0].trace.n_levels;
+    for (int l = 0; l < P.n_layers; ++l) {
+        const int n = P.layers[l].trace.n_levels;
+        if ((n != depth && n != depth - 1) || n < 1 || P.layers[l].n_colors < 1 ||
+            !vhx::skip_rows_aligned(P.layers[l].occ))
+            return cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
+    auto* out = static_cast<unsigned char*>(u8);
+    const int stride = start ? (P.w + start_tile - 1) / start_tile : 0;
+    return vhx::skip_depth(depth, [&](auto depth_of) {
+        constexpr int L = decltype(depth_of)::value;
+        if (start)
+            far_skip_kernel<true, L><<<grid, THREADS, 0, stream>>>(P, substeps, start,
+                                                                   start_tile, stride, rgb, out);
+        else
+            far_skip_kernel<false, L><<<grid, THREADS, 0, stream>>>(P, substeps, nullptr, 1, 0,
+                                                                    rgb, out);
+        return cudaGetLastError();
+    });
+}
 extern "C" int vhx_far_max_layers() { return VHX_FAR_MAX_LAYERS; }
 
 // The frame into rgb (f32 [h, w, 3]) or u8.  With `start` (f32, one value a

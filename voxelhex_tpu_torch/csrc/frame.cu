@@ -31,9 +31,60 @@
 // (skip.cuh, the reference renderer's `tracer="skip"`) over the skip rows
 // of a grid of L levels, with and without a start map: the same prologue
 // and epilogue.
+//
+// `frame_lod_kernel` is the reference renderer's `render_lod` (bitgrid.py:
+// 1627): the tracer `make_bitgrid_tracer(..., lod_scale)` with its default
+// settings (2 DDA substeps an ADVANCE, lateral steps, 4 restarts) and its
+// `shade_lod`, an XLA program on the path of the two ported kernels.  The
+// same prologue; the automaton with the LOD stop rule (`LodStop`: an
+// occupied cell at or below the stop level is a hit, the level taken each
+// step from |p - o| * lod_scale through the launch's threshold table, not
+// from log2f, whose last bit differs from XLA:CPU's); an epilogue that
+// takes the albedo from the palette at level 0 and from the hit level's MIP
+// grid above it (`resolve_rgb_lod`), then Lambert, into f32.  What bounds
+// it: as the frame kernel, the automaton's steps, fewer as lod_scale stops
+// rays higher; each step adds a sqrt and the table's compares.
 
 #include "frame.cuh"
 #include "skip.cuh"
+
+// The LOD frame's parameters besides the frame's: the MIP color grids of
+// levels 1 .. n_mip (f32 [n^3, 3], n = max(size >> 2l, 1)) and their
+// cells, the stop levels' thresholds of dist * scale (level k from
+// thresholds[k - 1] on)
+struct LodParams {
+    const float* mip[VHX_MAX_LEVELS];
+    long long mip_cells[VHX_MAX_LEVELS];
+    float thresholds[VHX_MAX_LEVELS];
+    float scale;
+    int n_mip;
+};
+
+namespace vhx {
+
+// The LOD frame's policy: stop on the first hit, at the stop level of the
+// ray's distance from its origin `o`
+struct LodStop {
+    const LodParams* P;
+    float o[3];
+    int top;
+    __device__ __forceinline__ bool on_hit(March&) const { return true; }
+};
+
+// The LOD march's move: a hit at or below the stop level at the ray's
+// point, the thresholds at or below |p - o| * scale (the norm's squares
+// summed in order, unfused, as XLA:CPU sums the reference's), at most the
+// top level
+__device__ __forceinline__ int policy_move(const LodStop& pol, const March& m) {
+    const float x = __fmul_rn(ray_length(m.p, pol.o), pol.P->scale);
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < VHX_MAX_LEVELS - 1; ++i)
+        if (i < pol.top && x >= pol.P->thresholds[i]) k = i + 1;
+    return choose_move_at(m, k);
+}
+
+}  // namespace vhx
 
 struct FrameParams {
     TraceParams trace;
@@ -132,6 +183,60 @@ frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restri
                               start_stride, rgb_out, u8_out, substeps);
 }
 
+// The LOD frame of each pixel into rgb (f32 [h, w, 3])
+__global__ void __launch_bounds__(THREADS)
+frame_lod_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+                 const float4* __restrict__ palette, int n_colors, const FrameParams P,
+                 const __grid_constant__ LodParams Lp, float* __restrict__ rgb_out) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    int x, y;
+    vhx::tile_pixel(x, y);
+    if (x >= P.w || y >= P.h) return;
+    float o[3], d[3];
+    vhx::pixel_ray(P.origin, P.right, P.up, P.forward, P.scale, P.cw, P.ch, x, y, o, d);
+    const vhx::Grid g{occ, levels, P.trace.n_levels, P.trace.size, P.trace.n_blocks};
+    vhx::March m;
+    vhx::init(m, o, d, g);
+    vhx::LodStop pol{&Lp, {o[0], o[1], o[2]}, P.trace.n_levels - 1};
+    vhx::run<vhx::LodStop, 2>(m, g, P.trace.max_iters, pol);
+    const vhx::Hit h = vhx::hit_of(m, colors, P.trace.size);
+    float rgb[3] = {P.bg[0], P.bg[1], P.bg[2]};
+    if (h.hit) {
+        float a[3] = {0.f, 0.f, 0.f};
+        const int l = m.level;
+        if (l >= 1 && l <= Lp.n_mip) {
+            // the hit cell's MIP color: its cell of level l, clipped
+            const int n = (P.trace.size >> (2 * l)) > 1 ? P.trace.size >> (2 * l) : 1;
+            long long addr = 0, stride = 1;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const int v = h.hvox[c] >> (2 * l);
+                addr += (long long)(v < 0 ? 0 : (v > n - 1 ? n - 1 : v)) * stride;
+                stride *= n;
+            }
+            if (addr > Lp.mip_cells[l - 1] - 1) addr = Lp.mip_cells[l - 1] - 1;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) a[c] = __ldg(&Lp.mip[l - 1][3 * addr + c]);
+        } else if (h.voxel >= 0 && h.voxel != vhx::NO_COLOR_HIT) {
+            const float4 p = __ldg(&palette[h.voxel < n_colors ? h.voxel : n_colors - 1]);
+            a[0] = p.x;
+            a[1] = p.y;
+            a[2] = p.z;
+        }
+        // sum(n * (-0.5, 0.5, -0.5)) / 2 + 0.5, as shade_hit
+        const float s = __fadd_rn(__fadd_rn(__fmul_rn(h.normal[0], -0.5f),
+                                            __fmul_rn(h.normal[1], 0.5f)),
+                                  __fmul_rn(h.normal[2], -0.5f));
+        const float lambert = __fadd_rn(__fmul_rn(s, 0.5f), 0.5f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) rgb[c] = __fmul_rn(a[c], lambert);
+    }
+    const long long r = (long long)y * P.w + x;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb_out[3 * r + c] = rgb[c];
+}
+
 bool bad_frame(const FrameParams& P, int n_colors, const float* start, int start_tile,
                int max_levels) {
     return P.trace.n_levels < 1 || P.trace.n_levels > max_levels || n_colors < 1 || P.w < 1 ||
@@ -174,6 +279,30 @@ extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* color
         return cudaGetLastError();
     });
 }
+
+// The LOD frame (frame_lod_kernel) into rgb, f32 [h, w, 3]: `lod` holds the
+// MIP grids and the stop levels' thresholds; params->trace.max_iters steps
+// a ray.
+extern "C" cudaError_t vhx_render_frame_lod(const void* occ_pairs, const void* colors,
+                                            const float* palette, int n_colors,
+                                            const FrameParams* params, const LodParams* lod,
+                                            float* rgb, int device, cudaStream_t stream) {
+    const FrameParams& P = *params;
+    if (bad_frame(P, n_colors, nullptr, 1, VHX_MAX_LEVELS) || !rgb || lod->n_mip < 0 ||
+        lod->n_mip > VHX_MAX_LEVELS)
+        return cudaErrorInvalidValue;
+    for (int l = 0; l < lod->n_mip; ++l)
+        if (!lod->mip[l] || lod->mip_cells[l] < 1) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
+    frame_lod_kernel<<<grid, THREADS, 0, stream>>>(
+        static_cast<const uint2*>(occ_pairs), static_cast<const unsigned short*>(colors),
+        reinterpret_cast<const float4*>(palette), n_colors, P, *lod, rgb);
+    return cudaGetLastError();
+}
+
+extern "C" int vhx_lod_params_size() { return (int)sizeof(LodParams); }
 
 // The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,
 // one value a `start_tile` x `start_tile` tile of pixels, ceil(w /

@@ -46,6 +46,13 @@
 // of each tile, so the atomicMin of the values' bits (non-negative floats
 // order as their bits) gives the plain start bit for bit.
 //
+// A prepass of more levels than a launch takes (VHX_PREPASS_MAX_LEVELS) is
+// a chain of launches, each of at most that many levels, the coarsest
+// first: a launch's last level writes a start map as level 1 does, and the
+// next launch's coarsest level starts its rays from it (kChain), as a
+// level starts from the depths of the level before.  The one launch of a
+// prepass that fits keeps its instance (kChain false) unchanged.
+//
 // Under the reference renderer's `tracer="skip"` its levels march the skip
 // tracer (`self._trace`, bitgrid.py:1578, :1597), so a level's depths are
 // those of the skip tracer's hit points: the kernel's instance L >= 1 over
@@ -165,10 +172,12 @@ __device__ __forceinline__ int start_bits(float d) {
     return s != s ? -1 : __float_as_int(s);
 }
 
-template <int L>
+// With kChain, the coarsest level's rays start from `coarse`, the start map
+// [h / 2, w / 2] of the launch before (a cell a 2 x 2 tile of its pixels).
+template <int L, bool kChain>
 __global__ void __launch_bounds__(THREADS)
 prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ PrepassFrame F,
-                     int substeps) {
+                     int substeps, const float* __restrict__ coarse) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
     __shared__ int ticket;
     __shared__ float tile_depth[vhx::WARP_H][vhx::BLOCK_W];
@@ -247,9 +256,14 @@ prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ Prep
                 start_from(C.depth, C.w, C.h, x / 2, y / 2), true, substeps);
     } else {
         if (finest) wait_for(F, wait);
-        if (x < P.w && y < P.h)
-            depth = pixel_depth<L>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y, 0.f,
-                                         false, substeps);
+        if (x < P.w && y < P.h) {
+            if constexpr (kChain)
+                depth = pixel_depth<L>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y,
+                                       coarse[(y / 2) * (P.w / 2) + x / 2], true, substeps);
+            else
+                depth = pixel_depth<L>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y, 0.f,
+                                             false, substeps);
+        }
     }
     if constexpr (L == 0) {
         if (out) *out = depth;
@@ -296,8 +310,13 @@ prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ Prep
 
 template <int L>
 cudaError_t launch_frame(const uint2* occ, const PrepassFrame& F, int substeps,
-                         cudaStream_t stream) {
-    prepass_frame_kernel<L><<<F.n_blocks, THREADS, 0, stream>>>(occ, F, substeps);
+                         const float* coarse, cudaStream_t stream) {
+    if (coarse)
+        prepass_frame_kernel<L, true><<<F.n_blocks, THREADS, 0, stream>>>(occ, F, substeps,
+                                                                          coarse);
+    else
+        prepass_frame_kernel<L, false><<<F.n_blocks, THREADS, 0, stream>>>(occ, F, substeps,
+                                                                           nullptr);
     return cudaGetLastError();
 }
 
@@ -336,19 +355,15 @@ extern "C" long long vhx_prepass_sync_words(int w1, int h1, int n) {
     return tickets < 0 ? -1 : tickets + 1;
 }
 
-// The whole depth prepass in one launch: `n` levels, params[k] the camera
-// of level k + 1 (1 / 2^(k + 1) of the frame; each level twice the next
-// coarser one in each dimension), its depths into depths[k] (f32 [h, w]),
-// and the start map of the frame, f32 [h, w] of level 1, into `start`.
-// `substeps` 0 marches the stack automaton over the pyramid's word pairs
-// `words`, >= 1 the skip tracer over the skip rows (16 B aligned), with
-// params[0].trace.max_iters steps a ray.  `sync` (vhx_prepass_sync_words
-// int32 words, zero when first used) keeps its flags and its ticket
-// counter from launch to launch on one stream; `epoch` differs from that
-// of every launch before on it and is not 0.
-extern "C" cudaError_t vhx_prepass(const void* words, const PrepassParams* params, int n,
-                                   int substeps, float* const* depths, float* start, int* sync,
-                                   int epoch, int device, cudaStream_t stream) {
+// One launch of a chained prepass (vhx_prepass's arguments): with `coarse`
+// (f32, the start map that the launch before wrote, [h / 2, w / 2] of
+// params[n - 1]), the coarsest level's rays start from it, and `start` is
+// the start map of params[0]'s pixels for the next finer level (or the
+// frame); without it, vhx_prepass.
+extern "C" cudaError_t vhx_prepass_chain(const void* words, const PrepassParams* params, int n,
+                                         int substeps, float* const* depths, float* start,
+                                         const float* coarse, int* sync, int epoch, int device,
+                                         cudaStream_t stream) {
     if (n < 1 || n > VHX_PREPASS_MAX_LEVELS || !params || !depths || !start || !sync ||
         epoch == 0)
         return cudaErrorInvalidValue;
@@ -360,7 +375,8 @@ extern "C" cudaError_t vhx_prepass(const void* words, const PrepassParams* param
         const PrepassParams& P = params[k];
         if (bad_level(P, substeps, words) || !depths[k] ||
             memcmp(&P.trace, &F.trace, sizeof(TraceParams)) ||
-            (k + 1 < n && (P.w != 2 * params[k + 1].w || P.h != 2 * params[k + 1].h)))
+            (k + 1 < n && (P.w != 2 * params[k + 1].w || P.h != 2 * params[k + 1].h)) ||
+            (coarse && k == n - 1 && (P.w % 2 || P.h % 2)))
             return cudaErrorInvalidValue;
         FrameLevel& lv = F.lv[n - 1 - k];
         lv.cam = P.cam;
@@ -384,7 +400,24 @@ extern "C" cudaError_t vhx_prepass(const void* words, const PrepassParams* param
     const auto* occ = static_cast<const uint2*>(words);
     if (substeps)
         return vhx::skip_depth(F.trace.n_levels, [&](auto depth_of) {
-            return launch_frame<decltype(depth_of)::value>(occ, F, substeps, stream);
+            return launch_frame<decltype(depth_of)::value>(occ, F, substeps, coarse, stream);
         });
-    return launch_frame<0>(occ, F, 0, stream);
+    return launch_frame<0>(occ, F, 0, coarse, stream);
+}
+
+// The whole depth prepass in one launch: `n` levels, params[k] the camera
+// of level k + 1 (1 / 2^(k + 1) of the frame; each level twice the next
+// coarser one in each dimension), its depths into depths[k] (f32 [h, w]),
+// and the start map of the frame, f32 [h, w] of level 1, into `start`.
+// `substeps` 0 marches the stack automaton over the pyramid's word pairs
+// `words`, >= 1 the skip tracer over the skip rows (16 B aligned), with
+// params[0].trace.max_iters steps a ray.  `sync` (vhx_prepass_sync_words
+// int32 words, zero when first used) keeps its flags and its ticket
+// counter from launch to launch on one stream; `epoch` differs from that
+// of every launch before on it and is not 0.
+extern "C" cudaError_t vhx_prepass(const void* words, const PrepassParams* params, int n,
+                                   int substeps, float* const* depths, float* start, int* sync,
+                                   int epoch, int device, cudaStream_t stream) {
+    return vhx_prepass_chain(words, params, n, substeps, depths, start, nullptr, sync, epoch,
+                             device, stream);
 }

@@ -34,6 +34,15 @@
 //                    out[z, y, x] = in[z + sz, y + sy, x + sx] inside, the
 //                    fill outside.  It never writes over its input.
 //
+//   skip_rows        replaces `_skip_rows_from_pairs_jit` (voxelhex_tpu/
+//                    render/bitgrid.py:848, run at :432-441 and
+//                    :1359-1382): under the skip tracer, the rows of every
+//                    level-0 block (level k's pair of its ancestor in
+//                    columns 2k, 2k + 1: 64^3 rows of 4 pairs, 8 MiB, at S =
+//                    256) from the word pairs, after a change of the pairs.
+//                    The ancestor's index is computed from the block's
+//                    coordinates, not read from an index array.
+//
 // What bounds them on the H100: bytes.  A fly-over update pages about 1,500
 // regions (6 MB of u8 colors in, 12 MB out), rebuilds from 2 MB of level-0
 // pairs and shifts 33.5 MB of colors: each is a copy with arithmetic
@@ -279,7 +288,64 @@ window_shift_kernel(const unsigned short* __restrict__ colors,
     }
 }
 
+// Row a's pair of level k, a thread a (a, k): the pair of a's ancestor at
+// level k.  A block row of the grid is one (ay, az) line of rows (blockIdx.y
+// = ay, blockIdx.z = az), its n0 * L pairs in the threads in order, so a
+// warp writes 256 consecutive bytes and a row's address takes no division
+// but by L, a template parameter; the level's table entry is picked with
+// constant indices.  The pairs of the upper levels are few and stay in the
+// caches.
+template <int L>
+__global__ void __launch_bounds__(THREADS)
+skip_rows_kernel(const uint2* __restrict__ pairs, uint2* __restrict__ rows, const Pyramid P,
+                 int n0) {
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= n0 * L) return;
+    const int k = i % L, ax = i / L, ay = blockIdx.y, az = blockIdx.z;
+    int j = 0;
+#pragma unroll
+    for (int kk = 0; kk < L; ++kk)
+        if (kk == k) {
+            const int n = P.dims[kk];
+            j = P.bases[kk] + (ax >> (2 * kk)) + ((ay >> (2 * kk)) + (az >> (2 * kk)) * n) * n;
+        }
+    rows[((long long)az * n0 + ay) * n0 * L + i] = __ldg(&pairs[j]);
+}
+
 }  // namespace
+
+// The skip rows [n0^3, n_levels] of word pairs (n0 = dims[0], the level-0
+// blocks an axis) from `pairs`, the pyramid's word pairs of `bases` and
+// `dims` (each level's dims ceil(dims below / 4)); rows 16 B aligned.
+extern "C" cudaError_t vhx_skip_rows(const void* pairs, void* rows, const int* bases,
+                                     const int* dims, int n_levels, int device,
+                                     cudaStream_t stream) {
+    if (n_levels < 1 || n_levels > MAX_LEVELS || reinterpret_cast<uintptr_t>(rows) % 16)
+        return cudaErrorInvalidValue;
+    Pyramid P;
+    P.n_levels = n_levels;
+    for (int l = 0; l < n_levels; ++l) {
+        if (dims[l] < 1 || (l > 0 && dims[l] != (dims[l - 1] + 3) / 4))
+            return cudaErrorInvalidValue;
+        P.bases[l] = bases[l];
+        P.dims[l] = dims[l];
+    }
+    const int n0 = dims[0];
+    if (n0 > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n0 * n_levels + THREADS - 1) / THREADS, n0, n0);
+    const auto* pr = static_cast<const uint2*>(pairs);
+    auto* out = static_cast<uint2*>(rows);
+    switch (n_levels) {
+#define VHX_ROWS(n) \
+    case n: skip_rows_kernel<n><<<grid, THREADS, 0, stream>>>(pr, out, P, n0); break;
+        VHX_ROWS(1) VHX_ROWS(2) VHX_ROWS(3) VHX_ROWS(4) VHX_ROWS(5) VHX_ROWS(6)
+        VHX_ROWS(7) VHX_ROWS(8) VHX_ROWS(9) VHX_ROWS(10) VHX_ROWS(11) VHX_ROWS(12)
+#undef VHX_ROWS
+    }
+    return cudaGetLastError();
+}
 
 // K regions into the resident grids; `wide` says the colors are u16 (else
 // u8).  The grids, the wire and the pairs are 16 B aligned; each corner is

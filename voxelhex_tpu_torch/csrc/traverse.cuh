@@ -404,6 +404,7 @@ struct StopAtHit {
     __device__ __forceinline__ bool on_hit(March&) const { return true; }
 };
 
+
 // The pieces of one step, each a function that `run` calls (and
 // tools/automaton_probes.cu alone, to count its instructions).
 
@@ -415,6 +416,24 @@ __device__ __forceinline__ int choose_move(const March& m) {
     uint32_t m_lo, m_hi;
     reach_mask(m.tsect, m.octant, m_lo, m_hi);
     return ((m.lo & m_lo) | (m.hi & m_hi)) == 0u ? MOVE_ASCEND : MOVE_ADVANCE;
+}
+
+// The move of the LOD march (frame.cu `LodStop`): an occupied cell at or
+// below level `stop`, not only a voxel, is a hit.
+__device__ __forceinline__ int choose_move_at(const March& m, int stop) {
+    if (m.tsect >= OOB) return MOVE_LATERAL;
+    if (occ_bit(m.lo, m.hi, m.tsect)) return m.level <= stop ? MOVE_HIT : MOVE_DESCEND;
+    uint32_t m_lo, m_hi;
+    reach_mask(m.tsect, m.octant, m_lo, m_hi);
+    return ((m.lo & m_lo) | (m.hi & m_hi)) == 0u ? MOVE_ASCEND : MOVE_ADVANCE;
+}
+
+// The move `run` takes under its policy: `choose_move`'s, but for the LOD
+// frame's policy, whose overload (frame.cu) stops at a level of the ray's
+// distance
+template <class Policy>
+__device__ __forceinline__ int policy_move(const Policy&, const March& m) {
+    return choose_move(m);
 }
 
 // DESCEND into the occupied cell
@@ -553,7 +572,7 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Poli
     const int top = g.n_levels - 1;
     while (m.active && m.steps < max_steps) {
         m.steps += 1;
-        const int move = choose_move(m);
+        const int move = policy_move(pol, m);
         if (move == MOVE_HIT) {
             if (pol.on_hit(m)) {
                 m.hit = true;

@@ -87,6 +87,18 @@ class FrameCam(ctypes.Structure):
     ]
 
 
+class LodParams(ctypes.Structure):
+    """Mirror of ``struct LodParams`` in frame.cu."""
+
+    _fields_ = [
+        ("mip", ctypes.c_void_p * MAX_LEVELS),
+        ("mip_cells", ctypes.c_longlong * MAX_LEVELS),
+        ("thresholds", ctypes.c_float * MAX_LEVELS),
+        ("scale", ctypes.c_float),
+        ("n_mip", ctypes.c_int),
+    ]
+
+
 class FramesParams(ctypes.Structure):
     """Mirror of ``struct FramesParams`` in frames.cu."""
 
@@ -302,9 +314,11 @@ def library() -> types.SimpleNamespace:
     ``vhx_render_far_start``, ``vhx_beam``, ``vhx_splat``,
     ``vhx_splat_scratch_words``, ``vhx_prepass``, ``vhx_prepass_sync_words``,
     the skip tracer's instances ``vhx_traverse_skip``,
-    ``vhx_render_frame_skip``, ``vhx_render_frames_skip``, and the
-    multi-hit march's start and skip forms ``vhx_multihit_start`` and
-    ``vhx_multihit_skip``), built first if needed."""
+    ``vhx_render_frame_skip``, ``vhx_render_frames_skip``, ``vhx_render_far_skip``,
+    the multi-hit march's start and skip forms ``vhx_multihit_start`` and
+    ``vhx_multihit_skip``, the LOD frame ``vhx_render_frame_lod``, the skip
+    rows' refresh ``vhx_skip_rows`` and the depth prepass's chained form
+    ``vhx_prepass_chain``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -327,6 +341,8 @@ def library() -> types.SimpleNamespace:
                                                p, i, p],
                     "vhx_render_frame_skip": [p, p, p, i, ctypes.POINTER(FrameParams), i, p, i,
                                               p, p, i, p],
+                    "vhx_render_frame_lod": [p, p, p, i, ctypes.POINTER(FrameParams),
+                                             ctypes.POINTER(LodParams), p, i, p],
                 },
                 "frames.cu": {
                     "vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p, p, p, p,
@@ -355,10 +371,12 @@ def library() -> types.SimpleNamespace:
                     "vhx_region_scatter": [p, p, p, p, p, i, i, i, i, p],
                     "vhx_coarse_rebuild": [p, ctypes.POINTER(i), ctypes.POINTER(i), i, p, i, p],
                     "vhx_window_shift": [p, p, p, p, i, i, i, i, i, i, p],
+                    "vhx_skip_rows": [p, p, ctypes.POINTER(i), ctypes.POINTER(i), i, i, p],
                 },
                 "far.cu": {
                     "vhx_render_far": [ctypes.POINTER(FarParams), p, p, i, p],
                     "vhx_render_far_start": [ctypes.POINTER(FarParams), p, i, p, p, i, p],
+                    "vhx_render_far_skip": [ctypes.POINTER(FarParams), i, p, i, p, p, i, p],
                 },
                 "beam.cu": {"vhx_beam": [ctypes.POINTER(BeamParams), p, i, p]},
                 "splat.cu": {
@@ -367,6 +385,8 @@ def library() -> types.SimpleNamespace:
                 "prepass.cu": {
                     "vhx_prepass": [p, ctypes.POINTER(PrepassParams), i, i,
                                     ctypes.POINTER(p), p, p, i, i, p],
+                    "vhx_prepass_chain": [p, ctypes.POINTER(PrepassParams), i, i,
+                                          ctypes.POINTER(p), p, p, p, i, i, p],
                 },
             }
             fns = {}
@@ -378,6 +398,7 @@ def library() -> types.SimpleNamespace:
             for source, name, struct in (("traverse.cu", "vhx_trace_params_size", TraceParams),
                                          ("multihit.cu", "vhx_multihit_params_size", TraceParams),
                                          ("frame.cu", "vhx_frame_params_size", FrameParams),
+                                         ("frame.cu", "vhx_lod_params_size", LodParams),
                                          ("frames.cu", "vhx_frames_params_size", FramesParams),
                                          ("far.cu", "vhx_far_params_size", FarParams),
                                          ("beam.cu", "vhx_beam_params_size", BeamParams),

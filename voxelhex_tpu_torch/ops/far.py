@@ -18,6 +18,11 @@ The window's rays may start from a start map (the window renderer's beam
 prepass, ``ops/beam.py``), one value a ``start_tile`` x ``start_tile``
 pixel tile, as the reference's ``trace_compacted(..., beam=...)`` of the
 window; the rings keep their own starts.
+
+With ``skip_substeps`` every layer marches the skip tracer over its skip
+rows (the reference view's ``tracer="skip"``): ``far_skip_kernel``, whose
+instance takes the window's pyramid depth L and rings of L or L - 1
+levels (the depths a ``FarField`` gives).
 """
 
 from __future__ import annotations
@@ -28,8 +33,8 @@ import torch
 from voxelhex_tpu_torch.fp import sqrt32
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.frame import _pixel_steps, check_start, expand_start, frame_cam
-from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
-from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
+from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
 from voxelhex_tpu_torch.render.camera import device_rays
 from voxelhex_tpu_torch.render.shade import shade, to_u8
 
@@ -49,12 +54,13 @@ def hit_dist(hit, point, o, factor):
 
 
 def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
-                    max_iters=MAX_ITERS, stats=None, start=None, start_tile=1):
+                    max_iters=MAX_ITERS, stats=None, start=None, start_tile=1,
+                    skip_substeps=None):
     """The plain frame (see :func:`render_far`).  With a list ``stats``,
     each layer's march is appended to it: ``{"rays"``: the rays that start
-    it, ``"iters"``: each ray's automaton steps (int32 [h * w]), ``"hit"``,
-    ``"hvox"``, ``"reads"``: the word pairs the march fetches (bool over
-    ``occ_pairs``)``}``."""
+    it, ``"iters"``: each ray's automaton steps or body iterations (int32
+    [h * w]), ``"hit"``, ``"hvox"``, ``"reads"``: the word pairs the march
+    fetches (bool over ``occ_pairs``), or the skip rows``}``."""
     _tree, cam0, _f = layers[0]
     w, h = cam0.resolution
     dev = layers[0][0]["occ_pairs"].device
@@ -62,8 +68,7 @@ def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
     acc = None
     for i, (tree, cam, factor) in enumerate(layers):
         o, d = device_rays(cam, dev)
-        trace = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
-                                    **KERNEL_CONFIG)
+        trace = plain_tracer(tree, max_iters, skip_substeps)
         start_t = None
         if i == 0 and start is not None:
             start_t = expand_start(start, start_tile, w, h)
@@ -72,7 +77,8 @@ def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
                                   torch.zeros_like(acc[1]))
         reads = None
         if stats is not None:
-            reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+            words = tree["occ_pairs" if skip_substeps is None else "skip_rows"]
+            reads = torch.zeros(words.shape[0], dtype=torch.bool, device=dev)
         st = trace.run(tree, trace.init(tree, o, d, start_t), max_iters, reads=reads)
         hit = st["hit"]
         if stats is not None:
@@ -93,9 +99,10 @@ def far_frame_plain(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True,
     return (to_u8(rgb) if out_u8 else rgb).reshape(h, w, 3)
 
 
-def far_params(layers, inside: bool, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
-    """The launch parameters of one frame: each layer's level table, arrays,
-    palette size, factor and camera params, and the frame's constants."""
+def far_params(layers, inside: bool, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS, skip=False):
+    """The launch parameters of one frame: each layer's level table, arrays
+    (with ``skip``, its skip rows as ``occ``), palette size, factor and
+    camera params, and the frame's constants."""
     n = len(layers)
     if not 1 <= n <= _build.FAR_MAX_LAYERS:
         raise ValueError(f"{n} layers; the kernel takes 1..{_build.FAR_MAX_LAYERS}")
@@ -111,7 +118,7 @@ def far_params(layers, inside: bool, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
             raise ValueError("the layers' cameras differ in resolution")
         L = p.layers[i]
         L.trace = trace_params(tree, max_iters)
-        L.occ = tree["occ_pairs"].data_ptr()
+        L.occ = tree["skip_rows" if skip else "occ_pairs"].data_ptr()
         L.colors = tree["colors"].data_ptr()
         L.palette = tree["palette"].data_ptr()
         L.n_colors = int(tree["palette"].shape[0])
@@ -122,7 +129,7 @@ def far_params(layers, inside: bool, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
 
 
 def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-               start=None, start_tile=1):
+               start=None, start_tile=1, skip_substeps=None):
     """The frame of the window and its rings: ``layers`` is the window's
     ``(tree, camera, 1)``, then each ring's ``(tree, camera, factor)``
     inside-out, cameras of one resolution; each pixel's ray runs through
@@ -132,16 +139,21 @@ def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=
     (``start_t`` 0) and a ray that hit already skips it.  With ``start``
     (f32 [ceil(h / start_tile), ceil(w / start_tile)]), the window's rays
     start at least their tile's value along.  ``[h, w, 3]`` u8, or f32 when
-    ``out_u8`` is false.
+    ``out_u8`` is false.  With ``skip_substeps``, every layer marches the
+    skip tracer over its ``skip_rows`` (at most ``max_iters`` body
+    iterations a layer); a ring then has the window's pyramid depth or one
+    level less, else the kernel refuses it (``ValueError``).
 
-    CPU trees run the plain version; CUDA trees launch the kernel."""
+    CPU trees run the plain version; CUDA trees launch the kernel
+    (``render_far.launches`` counts the stack frames,
+    ``render_far.skip_launches`` the skip frames)."""
     dev = layers[0][0]["occ_pairs"].device
     if start is not None:
         w, h = layers[0][1].resolution
         check_start(start, start_tile, w, h, dev)
     if dev.type == "cpu":
         return far_frame_plain(layers, inside, bg, out_u8, max_iters, start=start,
-                               start_tile=start_tile)
+                               start_tile=start_tile, skip_substeps=skip_substeps)
     if dev.type != "cuda":
         raise ValueError(f"render_far runs on cuda or cpu tensors, not {dev}")
     for tree, _cam, _f in layers:
@@ -152,17 +164,33 @@ def render_far(layers, inside: bool, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=
         ))
         if tree["palette"].shape[0] < 1:
             raise ValueError("empty palette")
-    params = far_params(layers, inside, bg, max_iters)
+    skip = skip_substeps is not None
+    if skip:
+        depth = len(layers[0][0]["bases"])
+        for tree, _cam, _f in layers:
+            check_skip(tree, skip_substeps)
+            if len(tree["bases"]) not in (depth, depth - 1):
+                raise ValueError(f"a layer of {len(tree['bases'])} levels beside a window of "
+                                 f"{depth}: the skip far frame takes {depth} or {depth - 1}")
+    params = far_params(layers, inside, bg, max_iters, skip)
     w, h = params.w, params.h
     lib = _build.library()
     out = torch.empty((h, w, 3), dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     rgb_ptr, u8_ptr = (None, out.data_ptr()) if out_u8 else (out.data_ptr(), None)
-    err = lib.vhx_render_far_start(params, None if start is None else start.data_ptr(),
-                                   int(start_tile), rgb_ptr, u8_ptr, dev.index or 0,
-                                   torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "far frame kernel launch")
-    render_far.launches += 1
+    start_ptr = None if start is None else start.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if skip:
+        err = lib.vhx_render_far_skip(params, int(skip_substeps), start_ptr, int(start_tile),
+                                      rgb_ptr, u8_ptr, dev.index or 0, stream)
+        _build.check(err, "skip far frame kernel launch")
+        render_far.skip_launches += 1
+    else:
+        err = lib.vhx_render_far_start(params, start_ptr, int(start_tile), rgb_ptr, u8_ptr,
+                                       dev.index or 0, stream)
+        _build.check(err, "far frame kernel launch")
+        render_far.launches += 1
     return out
 
 
 render_far.launches = 0
+render_far.skip_launches = 0

@@ -15,6 +15,11 @@ tile's value along, the reference's ``start_t``: ``frame_start_kernel``,
 its own instance of the same code.  With ``skip_substeps`` the rays march
 the skip tracer (``ops/skip.py``) over the grid's skip rows:
 ``frame_skip_kernel``, with or without a start map.
+
+:func:`render_lod` is the reference renderer's ``render_lod``
+(``voxelhex_tpu/render/bitgrid.py:1627``), distance LOD over the MIP color
+grids: ``frame_lod_kernel``, beside its plain version
+:func:`render_lod_plain`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.shade import shade_plain
 from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
+from voxelhex_tpu_torch.render.bitgrid import LOD_THRESHOLDS, make_bitgrid_tracer
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
 
@@ -52,6 +58,26 @@ def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
     voxel = trace.resolve_color(tree, st["hit"], st["hvox"])
     return shade_plain(st["hit"], voxel, st["hnormal"], tree["palette"], bg,
                        out_u8).reshape(h, w, 3)
+
+
+def lod_tracer(tree, lod_scale, max_iters=MAX_ITERS):
+    """The plain LOD tracer of :func:`render_lod`: the reference's
+    ``make_bitgrid_tracer`` with its defaults (2 DDA substeps an ADVANCE,
+    lateral steps, 4 restarts) and ``lod_scale``."""
+    return make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
+                               lod_scale=lod_scale)
+
+
+def render_lod_plain(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
+    """The plain LOD frame (see :func:`render_lod`)."""
+    w, h = camera.resolution
+    o, d = device_rays(camera, tree["occ_pairs"].device)
+    hit, rgb, _hv, _pt, hnormal = lod_tracer(tree, lod_scale, max_iters).trace_lod(tree, o, d)
+    # sum(n * (-0.5, 0.5, -0.5)) / 2 + 0.5, the sum in order
+    s = (hnormal[:, 0] * -0.5 + hnormal[:, 1] * 0.5) + hnormal[:, 2] * -0.5
+    lit = rgb * (s / 2.0 + 0.5)[:, None]
+    bgt = torch.tensor(np.asarray(bg, dtype=np.float32).reshape(3), device=lit.device)
+    return torch.where(hit[:, None], lit, bgt.expand_as(lit)).reshape(h, w, 3)
 
 
 # the camera params of recent poses, as bytes: frame_cam's cache
@@ -181,3 +207,65 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
 
 render_frame.launches = 0
 render_frame.skip_launches = 0
+
+
+def lod_params(tree, lod_scale) -> _build.LodParams:
+    """The LOD frame's parameters: ``tree``'s MIP grids ``mip_rgb_{l}`` in
+    order while they last, the stop levels' thresholds and the scale."""
+    p = _build.LodParams()
+    n = 0
+    while f"mip_rgb_{n}" in tree and n < _build.MAX_LEVELS:
+        grid = tree[f"mip_rgb_{n}"]
+        p.mip[n] = grid.data_ptr()
+        p.mip_cells[n] = grid.shape[0]
+        n += 1
+    p.n_mip = n
+    p.thresholds[: len(LOD_THRESHOLDS)] = LOD_THRESHOLDS
+    p.scale = float(np.float32(lod_scale))
+    return p
+
+
+def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
+    """The frame of ``camera`` with distance LOD, f32 ``[h, w, 3]``: each ray
+    marches the reference's ``make_bitgrid_tracer(..., lod_scale)`` (its
+    default settings, at most ``max_iters`` steps) and stops on an occupied
+    cell at or below the level that its distance selects; the albedo comes
+    from the palette at level 0 and from the tree's MIP grid
+    ``mip_rgb_{l - 1}`` at level l (:func:`~voxelhex_tpu_torch.render.
+    bitgrid.build_mip_colors`), shaded by Lambert, ``bg`` on a miss.
+    ``lod_scale`` 0 stops every ray at level 0.
+
+    A CPU tree runs the plain version; a CUDA tree launches
+    ``frame_lod_kernel`` (``render_lod.launches``)."""
+    dev = tree["occ_pairs"].device
+    if dev.type == "cpu":
+        return render_lod_plain(tree, camera, lod_scale, bg, max_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"render_lod runs on cuda or cpu tensors, not {dev}")
+    w, h = camera.resolution
+    _build.check_inputs(dev, (
+        ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
+        ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
+        ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
+    ) + tuple((f"mip_rgb_{l}", tree[f"mip_rgb_{l}"], torch.float32,
+               (tree[f"mip_rgb_{l}"].shape[0], 3))
+              for l in range(_build.MAX_LEVELS) if f"mip_rgb_{l}" in tree))
+    n_colors = tree["palette"].shape[0]
+    if n_colors < 1:
+        raise ValueError("empty palette")
+    if w < 1 or h < 1:
+        raise ValueError(f"resolution {camera.resolution}")
+    params = frame_params(tree, camera, bg, max_iters)
+    lod = lod_params(tree, lod_scale)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    err = lib.vhx_render_frame_lod(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                                   tree["palette"].data_ptr(), n_colors, params, lod,
+                                   out.data_ptr(), dev.index or 0,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "LOD frame kernel launch")
+    render_lod.launches += 1
+    return out
+
+
+render_lod.launches = 0

@@ -118,7 +118,10 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
 
     A CPU tree runs the plain versions level by level; a CUDA tree makes
     one launch of ``prepass_frame_kernel`` for every level and the start
-    map (``prepass_start.launches`` counts the stack launches,
+    map, and for more than ``PREPASS_MAX_LEVELS`` levels a chain of
+    launches of at most that many levels each, the coarsest first, each
+    started from the start map of the one before (:func:`prepass_chunks`;
+    ``prepass_start.launches`` counts the stack launches,
     ``prepass_start.skip_launches`` the skip ones)."""
     cams = [level_camera(camera, i) for i in range(1, levels + 1)]  # level 1 first
     if levels < 1 or any(fine.resolution != (2 * coarse.resolution[0], 2 * coarse.resolution[1])
@@ -134,8 +137,6 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
                 depths.append(depth)
         return depth_start_plain(depth)
     _check(tree, dev)
-    if levels > _build.PREPASS_MAX_LEVELS:
-        raise ValueError(f"{levels} prepass levels, at most {_build.PREPASS_MAX_LEVELS} a launch")
     words = tree["occ_pairs"]
     if skip_substeps is not None:
         check_skip(tree, skip_substeps)
@@ -143,22 +144,44 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
     outs = [torch.empty((c.resolution[1], c.resolution[0]), dtype=torch.float32, device=dev)
             for c in cams]
     start = torch.empty_like(outs[0])
-    params = (_build.PrepassParams * levels)(*(prepass_params(tree, c, max_iters) for c in cams))
-    ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
-    w1, h1 = cams[0].resolution
     lib = _build.library()
-    with _SYNC.take(dev, lib.vhx_prepass_sync_words(w1, h1, levels)) as (sync, epoch):
-        err = lib.vhx_prepass(words.data_ptr(), params, levels, int(skip_substeps or 0), ptrs,
-                              start.data_ptr(), sync.data_ptr(), epoch, dev.index or 0,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "prepass kernel launch")
-    if skip_substeps is None:
-        prepass_start.launches += 1
-    else:
-        prepass_start.skip_launches += 1
+    coarse = None
+    for lo, n in prepass_chunks(levels):
+        chunk = cams[lo - 1: lo - 1 + n]  # its finest level first
+        # the chunk's start map: the frame's for the last, else the next
+        # chunk's coarsest level's
+        out = start if lo == 1 else torch.empty_like(outs[lo - 1])
+        params = (_build.PrepassParams * n)(*(prepass_params(tree, c, max_iters) for c in chunk))
+        ptrs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs[lo - 1: lo - 1 + n]))
+        w1, h1 = chunk[0].resolution
+        with _SYNC.take(dev, lib.vhx_prepass_sync_words(w1, h1, n)) as (sync, epoch):
+            err = lib.vhx_prepass_chain(words.data_ptr(), params, n, int(skip_substeps or 0),
+                                        ptrs, out.data_ptr(),
+                                        None if coarse is None else coarse.data_ptr(),
+                                        sync.data_ptr(), epoch, dev.index or 0,
+                                        torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "prepass kernel launch")
+        if skip_substeps is None:
+            prepass_start.launches += 1
+        else:
+            prepass_start.skip_launches += 1
+        coarse = out
     if depths is not None:
         depths.extend(reversed(outs))
     return start
+
+
+def prepass_chunks(levels, most=_build.PREPASS_MAX_LEVELS):
+    """The launches of a depth prepass of ``levels`` levels on the card, the
+    coarsest first: ``(finest level, levels)`` of each, at most ``most``
+    levels a launch and every launch but the first full (one launch for up
+    to ``most`` levels)."""
+    first = levels - most * ((levels - 1) // most)
+    chunks, top = [], levels
+    for n in [first] + [most] * ((levels - 1) // most):
+        chunks.append((top - n + 1, n))
+        top -= n
+    return chunks
 
 
 _SYNC = _build.StreamScratch()

@@ -8,7 +8,11 @@ version.
 * :func:`coarse_rebuild` rebuilds the pyramid's levels above level 0
   (``_make_coarse_rebuild``, ``:114``, with ``_jnp_pack_bits``, ``:89``);
 * :func:`window_shift` moves the window's colors and level-0 word pairs
-  when the window moves (``roll_zero`` in ``_shift_device``, ``:1073``).
+  when the window moves (``roll_zero`` in ``_shift_device``, ``:1073``);
+* :func:`refresh_skip_rows` derives the skip tracer's rows from the word
+  pairs after they change (``_skip_rows_from_pairs_jit``,
+  ``voxelhex_tpu/render/bitgrid.py:848``, which the reference runs at
+  ``streaming.py:432-441`` and ``:1359-1382``).
 
 The window is a :func:`~voxelhex_tpu_torch.render.bitgrid.device_bitgrid`
 dict: ``colors`` int16 [S^3] (u16 bit patterns, x fastest), ``occ_pairs``
@@ -19,11 +23,13 @@ the plain version for CPU tensors and launches the kernel for CUDA ones.
 from __future__ import annotations
 
 import ctypes
+import types
 
 import numpy as np
 import torch
 
 from voxelhex_tpu_torch.ops import _build
+from voxelhex_tpu_torch.render.bitgrid import skip_row_index, skip_rows_from_pairs
 
 REGION = 16  # voxels a paged region's edge (render/streaming.py's REGION)
 COLOR_EMPTY = 0xFFFF
@@ -264,3 +270,49 @@ def window_shift(tree, shift):
 
 
 window_shift.launches = 0
+
+
+def skip_rows_plain(pairs, bases, dims, size: int):
+    """The plain refresh (see :func:`refresh_skip_rows`): the reference's
+    ``skip_rows_from_pairs`` over ``skip_row_index``'s index, a new int32
+    tensor ``[n0^3, 2L]``."""
+    pyramid = types.SimpleNamespace(size=int(size), n_levels=len(bases), level_bases=bases)
+    idx = torch.from_numpy(skip_row_index(pyramid)).to(pairs.device).long()
+    return skip_rows_from_pairs(pairs, idx).contiguous()
+
+
+def refresh_skip_rows(tree):
+    """Set ``tree["skip_rows"]`` to the skip rows of ``tree``'s word pairs
+    (every level's pair over each level-0 block, as
+    :func:`~voxelhex_tpu_torch.render.bitgrid.build_skip_rows` builds them
+    on the host), after the pairs changed; the upper levels must be
+    current.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    into the tree's rows when it has rows of the pyramid's shape."""
+    pairs, bases, dims, size = tree["occ_pairs"], tree["bases"], tree["dims"], tree["size"]
+    dev = pairs.device
+    if dev.type == "cpu":
+        tree["skip_rows"] = skip_rows_plain(pairs, bases, dims, size)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"refresh_skip_rows runs on cuda or cpu tensors, not {dev}")
+    n = len(bases)
+    _build.check_inputs(dev, (("occ_pairs", pairs, torch.int32, (pairs.shape[0], 2)),))
+    if not 1 <= n <= _build.MAX_LEVELS or bases[-1] + dims[-1] ** 3 != pairs.shape[0]:
+        raise ValueError(f"a pyramid of {n} levels, bases {bases}, dims {dims} over "
+                         f"{pairs.shape[0]} word pairs")
+    shape = (int(dims[0]) ** 3, 2 * n)
+    rows = tree.get("skip_rows")
+    if rows is None or rows.device != dev or tuple(rows.shape) != shape or \
+            rows.dtype != torch.int32 or not rows.is_contiguous() or rows.data_ptr() % 16:
+        rows = torch.empty(shape, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.vhx_skip_rows(pairs.data_ptr(), rows.data_ptr(), _ints(bases), _ints(dims), n,
+                            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "skip rows launch")
+    tree["skip_rows"] = rows
+    refresh_skip_rows.launches += 1
+
+
+refresh_skip_rows.launches = 0

@@ -79,6 +79,61 @@ class BitGrid:
     occ_hi: np.ndarray  # uint32[total_blocks]
     colors: np.ndarray  # uint16[S^3], flat index x + y*S + z*S^2
     palette: np.ndarray  # float32[P, 4]
+    # per-level MIP colors for LOD rendering (build_mip_colors): mip_rgb[l]
+    # is f32 [(S / 4^(l + 1))^3, 3], the averaged color of each cell of
+    # level l + 1, flat index x + y*n + z*n^2; None until built
+    mip_rgb: list | None = None
+
+
+def build_mip_colors(bg: BitGrid) -> BitGrid:
+    """Attach the per-level averaged color grids ``bg.mip_rgb`` (a gamma-2
+    box filter over the occupied voxels) and return ``bg``: the reference's
+    ``build_mip_colors`` in the same NumPy operations, so bit-equal to it.
+    It holds the whole world's f32 colors on the host (about 28 B a voxel
+    at its peak)."""
+    S = bg.size
+    pal = np.asarray(bg.palette, dtype=np.float32)
+    ci = np.minimum(np.asarray(bg.colors), pal.shape[0] - 1).astype(np.int64)
+    occupied = np.asarray(bg.colors) != COLOR_EMPTY
+    rgb = pal[ci][:, :3] ** 2
+    rgb[~occupied] = 0.0
+    w = occupied.astype(np.float32)
+    rgb = rgb.reshape(S, S, S, 3)  # [z, y, x, 3]
+    w = w.reshape(S, S, S)
+    mip_rgb = []
+    c = S
+    while c > 1:
+        n = max(c // 4, 1)
+        f = c // n
+        rgb_b = rgb.reshape(n, f, n, f, n, f, 3).sum(axis=(1, 3, 5))
+        w_b = w.reshape(n, f, n, f, n, f).sum(axis=(1, 3, 5))
+        avg = np.sqrt(rgb_b / np.maximum(w_b[..., None], 1.0))
+        mip_rgb.append(avg.reshape(-1, 3).astype(np.float32))
+        rgb, w, c = rgb_b, w_b, n
+    bg.mip_rgb = mip_rgb
+    return bg
+
+
+# The stop level of the LOD tracer (make_bitgrid_tracer's lod_scale) at a
+# ray's distance d is the reference's clip(int(log2(max(d * lod_scale, 1))
+# * 0.5), 0, top).  XLA:CPU's f32 log2 and torch's differ in the last bit
+# on about a quarter of the inputs, so neither computes it here: level k
+# starts at LOD_THRESHOLDS[k - 1], the least f32 x at which the reference's
+# formula gives k (found by bisection over the f32 values with XLA:CPU's
+# log2; tests/test_torch_lod.py holds each entry and the f32 below it to
+# the formula).  Past level 1 each lies a few ulps below 4^k.
+LOD_THRESHOLDS = (
+    4.0, 15.999999046325684, 63.9999885559082, 255.9999542236328, 1023.9998168945312,
+    4095.998291015625, 16383.9931640625, 65535.97265625, 262143.890625, 1048575.5625,
+    4194302.25,
+)
+
+
+def lod_stop_level(x, top_level: int):
+    """The stop level at ``x = dist * lod_scale`` (f32 [R]): the number of
+    thresholds at or below ``x``, at most ``top_level`` (0 for NaN)."""
+    t = torch.tensor(LOD_THRESHOLDS[:max(top_level, 0)], dtype=torch.float32, device=x.device)
+    return (x[:, None] >= t[None, :]).sum(dim=1).to(torch.int32)
 
 
 def level_dims(size: int, n_levels: int) -> list[int]:
@@ -278,7 +333,9 @@ def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False) -> dict:
     * ``size`` and the pyramid's ``bases`` and ``dims`` as Python ints;
     * with ``skip_rows``, ``skip_rows`` int32 [n0^3, 2L]: the skip tracer's
       rows (:func:`build_skip_rows`) as bit patterns, as the reference's
-      ``device_bitgrid(..., skip_rows=True)`` adds them.
+      ``device_bitgrid(..., skip_rows=True)`` adds them;
+    * where ``bg.mip_rgb`` is built (:func:`build_mip_colors`), each level's
+      MIP colors as ``mip_rgb_{l}`` f32 [n^3, 3].
     """
     pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).astype(np.uint32)
     out = {
@@ -293,6 +350,9 @@ def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False) -> dict:
     }
     if skip_rows:
         out["skip_rows"] = torch.from_numpy(build_skip_rows(bg).view(np.int32)).to(device)
+    for l, grid in enumerate(bg.mip_rgb or ()):
+        out[f"mip_rgb_{l}"] = torch.from_numpy(np.ascontiguousarray(grid, dtype=np.float32)).to(
+            device)
     return out
 
 
@@ -388,7 +448,8 @@ def _fetch_words(tree, tables, level, bmin):
 
 def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
                         max_restarts: int = 4, lateral_step: bool = True,
-                        advance_substeps: int = 2, entry_fma=(True, True, False)):
+                        advance_substeps: int = 2, entry_fma=(True, True, False),
+                        lod_scale: float = 0.0):
     """Plain PyTorch tracer over a pyramid of ``n_levels`` levels and world
     extent ``size``: ``trace(tree, origins, dirs) -> (hit, voxel, hvox,
     point, hnormal)`` over the tensors of :func:`device_bitgrid`.
@@ -400,8 +461,17 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     ``max_iters`` iterations.  ``entry_fma``: on which axes the entry point
     ``o + d * enter`` is one fused multiply-add, as XLA:CPU compiles the
     reference program being matched (the renderer's frame: x and y; the
-    beam prepass: z alone)."""
+    beam prepass: z alone).
+
+    ``lod_scale`` > 0 is the reference's distance LOD: a ray stops on an
+    occupied cell of any level at or below its stop level, which each step
+    takes from the distance of its point to the ray's origin
+    (:func:`lod_stop_level`); ``st["hlev"]`` is the level of the hit and
+    ``trace.trace_lod`` resolves its color from the MIP grids
+    (``resolve_rgb_lod``)."""
     top_level = n_levels - 1
+    lod = float(lod_scale) > 0.0
+    lod_f32 = float(np.float32(lod_scale))
     Si = int(size)
     cell_sizes = [float(4**l) for l in range(n_levels)]
     top_block = cell_sizes[top_level] * 4.0
@@ -464,7 +534,16 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
             "restarts": torch.zeros(R, dtype=torch.int32, device=dev),
             "bmin": torch.zeros((R, 3), dtype=torch.float32, device=dev),
             "iters": torch.zeros(R, dtype=torch.int32, device=dev),  # steps taken
-        }
+        } | ({"origin": o, "hlev": torch.zeros(R, dtype=torch.int32, device=dev)} if lod
+             else {})
+
+    def stop_level(point, origin):
+        """The LOD stop level at ``point``: |point - o| (the squares summed
+        in order, unfused) times ``lod_scale``, through the threshold
+        table."""
+        x = point - origin
+        dist = sqrt32((x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2])
+        return lod_stop_level(dist * lod_f32, top_level)
 
     def body(tree, tables, st, record=False):
         """One automaton step for rays that are all active; with ``record``,
@@ -480,12 +559,14 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         occupied = _occ_bit_v(lo, hi, tsect) != 0
         m_lo, m_hi = _reach_mask_v(tsect.clamp(0, 63), st["octant"])
         no_overlap = ((lo & m_lo) == 0) & ((hi & m_hi) == 0)
-        at_bottom = level <= 0
+        at_bottom = level <= (stop_level(point, st["origin"]) if lod else 0)
         found = occupied & at_bottom & inb
         normal = _impact_normal_v(tmin, tsize, point)
         st["hit"] = st["hit"] | found
         st["hvox"] = torch.where(found[:, None], tmin.to(torch.int32), st["hvox"])
         st["hnormal"] = torch.where(found[:, None], normal, st["hnormal"])
+        if lod:
+            st["hlev"] = torch.where(found, level, st["hlev"])
         active = ~found
 
         descend = active & occupied & ~at_bottom & inb
@@ -627,14 +708,44 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         cidx = torch.where(cidx >= COLOR_NONE, torch.full_like(cidx, NO_COLOR_HIT), cidx)
         return torch.where(hit, cidx, torch.full_like(cidx, EMPTY_DESC))
 
+    def resolve_rgb_lod(tree, hit, hvox, hlev):
+        """The hit's albedo [R, 3]: from the palette at level 0 (0 for a
+        voxel with no color), from the MIP grid ``mip_rgb_{l - 1}`` of
+        :func:`device_bitgrid` at level l > 0 (the reference's
+        ``resolve_rgb_lod``)."""
+        voxel = resolve_color(tree, hit, hvox)
+        pal = tree["palette"]
+        has_color = hit & (voxel >= 0) & (voxel < NO_COLOR_HIT)
+        base = pal[voxel.clamp(0, pal.shape[0] - 1).long(), :3]
+        rgb = torch.where(has_color[:, None], base, torch.zeros_like(base))
+        for l in range(1, n_levels + 1):
+            grid = tree.get(f"mip_rgb_{l - 1}")
+            if grid is None:
+                break
+            n = max(Si // 4**l, 1)
+            cv = (hvox // 4**l).clamp(0, n - 1).long()
+            addr = (cv[:, 0] + cv[:, 1] * n + cv[:, 2] * n * n).clamp(0, grid.shape[0] - 1)
+            rgb = torch.where(((hlev == l) & hit)[:, None], grid[addr], rgb)
+        return rgb
+
     def trace(tree, o, dirv):
         st = run(tree, init(tree, o, dirv), max_iters)
         voxel = resolve_color(tree, st["hit"], st["hvox"])
         return st["hit"], voxel, st["hvox"], st["point"], st["hnormal"]
 
+    def trace_lod(tree, o, dirv):
+        """``(hit, rgb, hvox, point, hnormal)``: the march, and each hit's
+        albedo from the level it stopped at."""
+        st = run(tree, init(tree, o, dirv), max_iters)
+        hlev = st.get("hlev", torch.zeros_like(st["iters"]))
+        rgb = resolve_rgb_lod(tree, st["hit"], st["hvox"], hlev)
+        return st["hit"], rgb, st["hvox"], st["point"], st["hnormal"]
+
     trace.init = init
     trace.run = run
     trace.resolve_color = resolve_color
+    trace.resolve_rgb_lod = resolve_rgb_lod
+    trace.trace_lod = trace_lod
     return trace
 
 

@@ -31,19 +31,19 @@ import numpy as np
 import torch
 
 from voxelhex_tpu_torch.ops.beam import beam_tiles
-from voxelhex_tpu_torch.ops.frame import expand_start, render_frame
+from voxelhex_tpu_torch.ops.frame import expand_start, render_frame, render_lod
 from voxelhex_tpu_torch.ops.frames import ROW_GROUP, render_frames, render_frames_digest
 from voxelhex_tpu_torch.ops.prepass import prepass_start
 from voxelhex_tpu_torch.ops.skip import trace_skip
 from voxelhex_tpu_torch.ops.splat import splat_tiles
+from voxelhex_tpu_torch.ops.stream import refresh_skip_rows
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, traverse
 from voxelhex_tpu_torch.render.bitgrid import (
     BitGrid,
     bitgrid_from_occupancy,
     build_bitgrid,
+    build_mip_colors,
     device_bitgrid,
-    skip_row_index,
-    skip_rows_from_pairs,
 )
 from voxelhex_tpu_torch.render.camera import Camera
 from voxelhex_tpu_torch.render.starts import BEAM_TILE, beam_level, beam_occupancy, splat_points
@@ -126,15 +126,6 @@ def beam_spec_of(bitgrid: BitGrid, grids: dict, device, camera: Camera, tile: in
         occ = beam_occupancy(bitgrid, L)
         grid = grids[L] = device_bitgrid(bitgrid_from_occupancy(occ), device)
     return grid, float(4**L)
-
-
-def upload_skip_rows(tree: dict, bitgrid: BitGrid) -> None:
-    """Set ``tree["skip_rows"]`` to the skip rows of ``tree``'s word pairs
-    (``bitgrid``'s pyramid), derived on the tree's device: after a
-    re-upload of the content."""
-    pairs = tree["occ_pairs"]
-    idx = torch.from_numpy(skip_row_index(bitgrid)).to(pairs.device).long()
-    tree["skip_rows"] = skip_rows_from_pairs(pairs, idx).contiguous()
 
 
 class BitGridRenderer:
@@ -299,6 +290,29 @@ class BitGridRenderer:
             self.last_stats = {"rays": w * h, "prepass": kind, "beam_fused": kind == "beam"}
         return out if out_device else out.cpu().numpy()
 
+    def render_lod(self, camera: Camera, lod_scale: float, bg=(0.0, 0.0, 0.0)):
+        """A ``[h, w, 3]`` f32 NumPy frame with distance LOD (the reference's
+        ``render_lod``): rays stop descending once a cell subtends about
+        ``1 / lod_scale`` of its distance and shade from that level's MIP
+        colors.  The MIP grids are built on the host at the first call
+        (:func:`~voxelhex_tpu_torch.render.bitgrid.build_mip_colors`) and
+        added to the device tree, whose other arrays (the skip rows) stay,
+        until the content changes (:meth:`invalidate_beam`).  On the card it
+        is one launch of ``frame_lod_kernel``
+        (:func:`~voxelhex_tpu_torch.ops.frame.render_lod`); the march is the
+        stack automaton with the reference's tracer defaults, whatever the
+        renderer's ``tracer``."""
+        with self._render_lock:
+            if self.bitgrid.mip_rgb is None:
+                build_mip_colors(self.bitgrid)
+            if "mip_rgb_0" not in self.tree:
+                for l, grid in enumerate(self.bitgrid.mip_rgb):
+                    self.tree[f"mip_rgb_{l}"] = torch.from_numpy(grid).to(self.device)
+            out = render_lod(self.tree, camera, lod_scale, bg, self.max_iters)
+            w, h = camera.resolution
+            self.last_stats = {"rays": w * h, "lod_scale": float(lod_scale)}
+        return out.cpu().numpy()
+
     def invalidate_beam(self):
         """The content-change hook of the reference's edit pattern: swap
         ``renderer.bitgrid`` and ``renderer.tree`` (``device_bitgrid`` of
@@ -312,7 +326,9 @@ class BitGridRenderer:
         :meth:`render_delta_many` fetches just the rows that the change
         moved; the content version moves on, so the next batch is not
         ``pose_validated``.  Under ``tracer="skip"`` it derives the new
-        tree's skip rows from its word pairs, on the device."""
+        tree's skip rows from its word pairs, on the device
+        (:func:`~voxelhex_tpu_torch.ops.stream.refresh_skip_rows`).  It
+        drops the MIP colors of :meth:`render_lod`."""
         self._content_version += 1
         self._beam_grids.clear()
         self._splat_pts = None
@@ -323,7 +339,13 @@ class BitGridRenderer:
         if int(t["size"]) != bg.size or len(t["bases"]) != bg.n_levels:
             raise ValueError("renderer.tree does not match renderer.bitgrid")
         if self.skip_substeps is not None:
-            upload_skip_rows(t, bg)
+            refresh_skip_rows(t)
+        # the MIP colors follow the content: render_lod builds them anew
+        # (the reference keeps a BitGrid's MIP colors through an edit made
+        # in place: ROADMAP.md queue 3)
+        bg.mip_rgb = None
+        for key in [k for k in t if k.startswith("mip_rgb_")]:
+            del t[key]
 
     @staticmethod
     def _batch_resolution(cameras):

@@ -21,7 +21,9 @@ port's kernels, launched from the render thread: the region scatter, the
 coarse rebuild and the window shift (:mod:`voxelhex_tpu_torch.ops.stream`)
 keep the window's device grids current, and a frame with its far field is
 one launch of :mod:`voxelhex_tpu_torch.ops.far` (a frame without one, one
-launch of the frame kernel).
+launch of the frame kernel).  Under ``tracer="skip"`` the window and every
+ring march the skip tracer, and each change of a layer's word pairs derives
+its skip rows anew on the device (``refresh_skip_rows``), one launch.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from voxelhex_tpu_torch.ops.stream import (
     check_corners,
     coarse_rebuild,
     moved_grid,
+    refresh_skip_rows,
     region_scatter,
     window_shift,
 )
@@ -215,8 +218,9 @@ class FarTier:
                          colors=self._col.transpose(2, 1, 0).ravel(),
                          palette=_padded_palette(self.view.tree))
             if self.renderer is None:
-                self.renderer = BitGridRenderer(bg, device=dev)
+                self.renderer = BitGridRenderer(bg, device=dev, tracer=self.view.tracer)
             else:
+                # under the skip tracer invalidate_beam derives the rows
                 self.renderer.bitgrid = bg
                 self.renderer.tree = device_bitgrid(bg, dev)
                 self.renderer.invalidate_beam()
@@ -226,6 +230,8 @@ class FarTier:
         bg.occ_hi = np.concatenate(levels_hi)
         pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).astype(np.uint32)
         self.renderer.tree["occ_pairs"] = torch.from_numpy(pairs.view(np.int32)).to(dev)
+        if self.view.tracer == "skip":
+            refresh_skip_rows(self.renderer.tree)
 
 
 class FarField:
@@ -360,8 +366,9 @@ class StreamingView:
     accepted, and so is ``prepass``, which the reference's view keeps and
     never reads; ``beam_prepass`` starts the window's rays from the window
     renderer's beam prepass (:mod:`~voxelhex_tpu_torch.ops.beam`), as the
-    reference's does; ``tracer="skip"`` raises ``NotImplementedError``
-    (ROADMAP.md queue 1 item 11)."""
+    reference's does; ``tracer="skip"`` marches the skip tracer in the
+    window and every ring, at the reference renderer's default of 3
+    substeps (the reference's view passes none)."""
 
     _ASYNC_CHUNK = 64  # regions a worker job
 
@@ -374,12 +381,7 @@ class StreamingView:
         if view_size % REGION:
             raise ValueError(f"view_size {view_size} is not a multiple of {REGION}")
         check_options({"tracer": tracer, "fuse_plan": fuse_plan})
-        if tracer == "skip":
-            # the window and its rings march far.cu, which has no skip
-            # instance, and the skip rows would need refreshing after each
-            # update
-            raise NotImplementedError("tracer='skip' in the streaming view: ROADMAP.md queue 1 "
-                                      "item 11")
+        self.tracer = tracer
         self.device = resolve_device(device)
         self.native = bool(native)
         self.tree = tree
@@ -581,8 +583,11 @@ class StreamingView:
         elif touched:
             self._update_device_partial(touched, packed=packed)
         if self._levels_stale:
+            # the levels above level 0, then what derives from the pairs: the
+            # beam's grids and, under the skip tracer, the skip rows
             coarse_rebuild(self.renderer.tree)
             self._levels_stale = False
+            self.renderer.invalidate_beam()
         return len(self._dirty)
 
     def _region_slice(self, region):
@@ -739,10 +744,10 @@ class StreamingView:
     def _shift_device(self, shift):
         """The window moved by ``shift`` (world voxels, multiples of
         ``REGION``): move the device grids by -shift (the window shift
-        kernel, into new buffers; their upper levels wait for the update's
-        one coarse rebuild), and move the host pyramid's level 0 likewise,
-        its upper levels re-derived from it.  The exposed slab pages in as
-        its regions rasterize."""
+        kernel, into new buffers; their upper levels, and what derives from
+        them, wait for the update's one coarse rebuild), and move the host
+        pyramid's level 0 likewise, its upper levels re-derived from it.
+        The exposed slab pages in as its regions rasterize."""
         S = self.view_size
         nb = S // 4
         bg = self.renderer.bitgrid
@@ -756,7 +761,6 @@ class StreamingView:
                     for w in (bg.occ_lo, bg.occ_hi))
         bg.occ_lo, bg.occ_hi = _upper_levels(lo0, hi0, nb)
         bg.colors = self._col.transpose(2, 1, 0).ravel()
-        self.renderer.invalidate_beam()
 
     def _flat_snapshot(self):
         """The flat snapshot of the host tree, cached until the next edit."""
@@ -814,7 +818,8 @@ class StreamingView:
         """Page the changed regions into the device grids: their corners and
         wire rows (colors u8, or u16 past 254 palette colors, and level-0
         word pairs) go to the region scatter (the update's coarse rebuild
-        then re-derives the upper levels); the host pyramid follows.  ``packed``
+        then re-derives the upper levels, the beam's grids and the skip
+        rows); the host pyramid follows.  ``packed``
         holds the host library's wire rows of freshly rasterized regions;
         the others (placeholders, the NumPy route) are packed from the
         mirrors here."""
@@ -873,7 +878,6 @@ class StreamingView:
                        torch.from_numpy(np.ascontiguousarray(wire)).to(dev),
                        torch.from_numpy(np.ascontiguousarray(blk)).to(dev))
         self._levels_stale = True
-        self.renderer.invalidate_beam()
 
     def _rebuild_device(self):
         """Pack the whole pyramid on the host and upload the window."""
@@ -885,8 +889,9 @@ class StreamingView:
                      colors=self._col.transpose(2, 1, 0).ravel(),
                      palette=_padded_palette(self.tree))
         if self.renderer is None:
-            self.renderer = BitGridRenderer(bg, device=self.device)
+            self.renderer = BitGridRenderer(bg, device=self.device, tracer=self.tracer)
         else:
+            # under the skip tracer invalidate_beam derives the rows
             self.renderer.bitgrid = bg
             self.renderer.tree = device_bitgrid(bg, self.device)
             self.renderer.invalidate_beam()
@@ -960,5 +965,6 @@ class StreamingView:
         layers = self.layers(camera)
         start = self.renderer.beam_map(layers[0][1]) if self.beam_prepass else None
         frame = render_far(layers, self.camera_inside(camera), bg, out_u8,
-                           self.renderer.max_iters, start, self.renderer.beam_tile)
+                           self.renderer.max_iters, start, self.renderer.beam_tile,
+                           self.renderer.skip_substeps)
         return frame if out_device else frame.cpu().numpy()
