@@ -39,7 +39,12 @@ plain march's steps; the training path (``SoftRenderer.train_step_fused``)
 on the bench's own target (loss exactly 0, params unchanged) and on a
 constant target for 4 steps against the reference package's losses and param sums,
 one launch of each of the four kernels per step and no host
-synchronization inside a step; then its timing.
+synchronization inside a step; then its timing: the composite backward as
+the step calls it (the march's count; the two gradients zeroed) against
+``index_add_`` of its rows in turns (``index_add_``, the kernel, the
+kernel, ``index_add_``), the backward's launches by the profiler, and its
+atomic adds counted from the data (``composite.backward_adds``) against
+the hit slots.
 
 Phase 10 runs the scene model: the bench scene built as a BoxTree by
 ``from_voxels``, flattened and turned into a BitGrid by the host library,
@@ -184,7 +189,9 @@ frame to ``far_frame_plain``'s skip form on every pixel and to the JAX
 digests, one far launch a frame and two row refreshes an update (the
 window's, the ring's); then an edit, and frames with ``beam_prepass=True``;
 the skip far frame against the stack far frame on the same trees in turns,
-the rows refresh beside ``index_select``; (c) ``render_lod`` at the bench
+whole and on the window alone, at fly-over poses 0 and 7, with the
+skip/stack ratio of the frame, the window and the ring (the rest), the
+rows refresh beside ``index_select``; (c) ``render_lod`` at the bench
 pose at ``lod_scale`` 0, 0.3 and 0.05 and in phase 10's 512 world at 0.3,
 each against ``render_lod_plain`` on every pixel and the JAX digests, the
 share of hits stopped above level 0, and ``frame_lod_kernel`` against the
@@ -1930,7 +1937,7 @@ def offline_phases(dev, card, tmp):
     # the gradient of phase 6: the loss against the constant target
     const = torch.tensor(CONST_TARGET, dtype=torch.float32, device=dev)
     grad6 = (2.0 * (rgb_k - const) / (3 * R)).contiguous()
-    ga_k, gl_k = composite_backward(grad6, alb, lgt, voxels, S)
+    ga_k, gl_k = composite_backward(grad6, alb, lgt, voxels, S, count=count6)
     torch.cuda.synchronize()
     ga_p, gl_p = composite_backward_plain(grad6, alb, lgt, voxels, S)
     cbwd6_err = 0.0
@@ -2117,7 +2124,7 @@ def offline_phases(dev, card, tmp):
         f"composite forward K={CAND_HITS}": lambda: device_ms(
             lambda: composite_forward(alb, lgt, voxels, S), TIMED_FRAMES),
         f"composite backward K={CAND_HITS}": lambda: device_ms(
-            lambda: composite_backward(grad6, alb, lgt, voxels, S), TIMED_FRAMES),
+            lambda: composite_backward(grad6, alb, lgt, voxels, S, count=count6), TIMED_FRAMES),
     }
     for fn in timers.values():
         fn()
@@ -2181,8 +2188,8 @@ def offline_phases(dev, card, tmp):
                             total6 * TRAVERSE_OPS_PER_STEP)
     cf_bound, cf_by = bound(R * 12 * CAND_HITS + n_unique * 16 + R * 12,
                             n_slots * COMPOSITE_FWD_OPS_PER_SLOT)
-    cb_bound, cb_by = bound(n_hit_rays * 12 + R * 12 * CAND_HITS + n_unique * 16 + 4 * 4 * n_vox,
-                            n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
+    cb_bound, cb_by = bound(R * 4 + n_hit_rays * (12 * CAND_HITS + 12) + n_unique * 16
+                            + 4 * 4 * n_vox, n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
     log(f"albedo forward {ms['albedo forward']:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); "
         f"backward {ms['albedo backward']:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_by}), "
         f"index_add_ of the same rows {ms['index_add_']:.4f} ms; with the L2 flushed before "
@@ -2260,6 +2267,7 @@ def training_slice(dev, scene, o, d, tag):
     from voxelhex_tpu_torch.ops.composite import (
         composite_backward, composite_backward_plain, composite_forward,
         composite_forward_plain)
+    from voxelhex_tpu_torch.ops.composite import backward_adds as composite_backward_adds
     from voxelhex_tpu_torch.ops.frame import render_frame
     from voxelhex_tpu_torch.ops.multihit import multihit
     from voxelhex_tpu_torch.ops.shade import shade
@@ -2356,23 +2364,25 @@ def training_slice(dev, scene, o, d, tag):
         raise AssertionError("composite forward kernel differs from its plain version")
     target = torch.tensor(CONST_TARGET, dtype=torch.float32, device=dev).expand(R, 3).contiguous()
     grad_rgb = (2.0 * (rgb_k - target) / (3 * R)).contiguous()
-    g_k = composite_backward(grad_rgb, alb, lgt, voxels, soft.size)
-    torch.cuda.synchronize()
     g_p = composite_backward_plain(grad_rgb, alb, lgt, voxels, soft.size)
     bwd_err = 0.0
-    for name, a, b in zip(("albedo", "logits"), g_k, g_p):
-        err = max_abs_err(a, b)
-        scale = float(b.abs().max())
-        rel = float(((a - b).abs() / b.abs().clamp_min(1e-30))[b != 0].max())
-        zeros_differ = int(((a == 0) != (b == 0)).sum())
-        bwd_err = max(bwd_err, err)
-        log(f"  composite backward {name}: max abs err {err} (largest element {scale}), max "
-            f"relative err {rel}, {int((b != 0).sum())} non-zero, {zeros_differ} zero in one "
-            "only")
-        ok = bool(((a - b).abs() <= GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * scale).all())
-        if not ok or zeros_differ or scale == 0:
-            raise AssertionError(f"composite backward kernel differs on {name}")
-    del rgb_p, g_p
+    # with the march's count, as the step calls it, and without
+    for form, cnt in (("with the count", count), ("without the count", None)):
+        g_k = composite_backward(grad_rgb, alb, lgt, voxels, soft.size, count=cnt)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("albedo", "logits"), g_k, g_p):
+            err = max_abs_err(a, b)
+            scale = float(b.abs().max())
+            rel = float(((a - b).abs() / b.abs().clamp_min(1e-30))[b != 0].max())
+            zeros_differ = int(((a == 0) != (b == 0)).sum())
+            bwd_err = max(bwd_err, err)
+            log(f"  composite backward {form}, {name}: max abs err {err} (largest element "
+                f"{scale}), max relative err {rel}, {int((b != 0).sum())} non-zero, "
+                f"{zeros_differ} zero in one only")
+            ok = bool(((a - b).abs() <= GRAD_RTOL * b.abs() + GRAD_ATOL_SHARE * scale).all())
+            if not ok or zeros_differ or scale == 0:
+                raise AssertionError(f"composite backward kernel {form} differs on {name}")
+    del rgb_p, g_p, g_k
     log(f"phase 6 composite kernels == plain versions: {time.time() - t0:.1f} s")
 
     # ---- phase 7: the Adam kernel against its plain version, all params, two steps
@@ -2491,12 +2501,14 @@ def training_slice(dev, scene, o, d, tag):
                                                           CHAIN), 1) / CHAIN
     mh_ms = device_ms(lambda: multihit(tree, o, d, K), TIMED_FRAMES)
     fwd_ms = device_ms(lambda: composite_forward(alb, lgt, voxels, soft.size), TIMED_FRAMES)
-    # as the step calls it: the two dense gradients zeroed, then the scatter
-    bwd_ms = device_ms(lambda: composite_backward(grad_rgb, alb, lgt, voxels, soft.size),
-                       TIMED_FRAMES)
-    # the library yardstick: index_add_ of the same slots' rows into the two
-    # zeroed gradients, the contributions computed before the timing (it
-    # does not run the composite's recurrence)
+    # as the step calls it (the march's count; the two dense gradients
+    # zeroed, then the scatter), in turns with the library yardstick:
+    # index_add_ of the same slots' rows into the two zeroed gradients, the
+    # contributions computed before the timing (it does not run the
+    # composite's recurrence)
+    def bwd_kernel():
+        return composite_backward(grad_rgb, alb, lgt, voxels, soft.size, count=count)
+
     lib_a, lib_l = composite_backward_rows(grad_rgb, alb, lgt, voxels, soft.size)
     g_alb, g_lgt = torch.zeros_like(alb), torch.zeros_like(lgt)
 
@@ -2504,8 +2516,22 @@ def training_slice(dev, scene, o, d, tag):
         g_alb.zero_().index_add_(0, *lib_a)
         g_lgt.zero_().index_add_(0, *lib_l)
 
-    bwd_lib_ms = device_ms(bwd_library, TIMED_FRAMES)
+    bwd_group = {"index_add_": bwd_library, "composite backward": bwd_kernel}
+    for fn in bwd_group.values():
+        fn()
+    bwd_turns = {name: [] for name in bwd_group}
+    for name in ("index_add_", "composite backward", "composite backward", "index_add_"):
+        bwd_turns[name].append(device_ms(bwd_group[name], TIMED_FRAMES))
+        log(f"  turn {name}: {bwd_turns[name][-1]:.4f} ms device time {tag}")
+    bwd_lib_ms, bwd_ms = (sum(bwd_turns[n]) / 2 for n in bwd_group)
     del lib_a, lib_l, g_alb, g_lgt
+    # the kernel alone: the profiler's rows of the backward's launches
+    log(f"  composite backward as the step calls it, by the profiler over {TIMED_FRAMES} calls:")
+    profile_fn(lambda: [bwd_kernel() for _ in range(TIMED_FRAMES)], TIMED_FRAMES, bwd_ms, tag)
+    n_adds, n_hit_slots = composite_backward_adds(voxels, soft.size, count)
+    log(f"  composite backward atomics: {n_adds} adds for {n_hit_slots} hit slots "
+        f"({n_adds / max(n_hit_slots, 1):.3f} a hit slot; one thread a ray without merging: "
+        f"{4 * n_hit_slots}) {tag}")
     grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-4 for k, v in pk.items()}
 
     def adam_step():
@@ -2550,8 +2576,10 @@ def training_slice(dev, scene, o, d, tag):
     # none gets a zero gradient); it writes rgb, or the two dense gradients
     fwd_bound, fwd_by = bound(R * 12 * K + n_unique * 16 + R * 12,
                               n_slots * COMPOSITE_FWD_OPS_PER_SLOT)
-    bwd_bound, bwd_by = bound(n_hit_rays * 12 + R * 12 * K + n_unique * 16 + 4 * 4 * n_vox,
-                              n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
+    # backward: every ray's count, the slots and dL/drgb of the rays with a
+    # hit, the params of each distinct hit voxel, the two dense gradients
+    bwd_bound, bwd_by = bound(R * 4 + n_hit_rays * (12 * K + 12) + n_unique * 16
+                              + 4 * 4 * n_vox, n_slots * COMPOSITE_BWD_OPS_PER_SLOT)
     adam_bound, adam_by = bound(7 * 4 * 4 * n_vox, ADAM_OPS_PER_ELEMENT * 4 * n_vox)
     log(f"bounds: multihit {mh_bound:.4f} ms ({mh_by}), composite forward {fwd_bound:.4f} ms "
         f"({fwd_by}), composite backward {bwd_bound:.4f} ms ({bwd_by}), adam "
@@ -4576,6 +4604,16 @@ def lod_skip_slice(dev, card):
         far_ms.append(turns(f"far frame, fly-over pose {i}", {
             "stack": lambda: render_far(layers, inside),
             "skip": lambda: render_far(layers, inside, skip_substeps=S3)}))
+        # each layer's time: the same launch on the window alone, and the
+        # rest of the frame (the ring)
+        alone = turns(f"far frame on the window alone, fly-over pose {i}", {
+            "stack": lambda: render_far(layers[:1], inside),
+            "skip": lambda: render_far(layers[:1], inside, skip_substeps=S3)})
+        (st, sk), (wst, wsk) = far_ms[-1], alone
+        log(f"skip far frame / stack far frame at fly-over pose {i}: {sk / st:.4f} ({sk:.4f} "
+            f"against {st:.4f} ms); the window {wsk / wst:.4f} ({wsk:.4f} against {wst:.4f} "
+            f"ms), the ring {(sk - wsk) / (st - wst):.4f} ({sk - wsk:.4f} against "
+            f"{st - wst:.4f} ms) {tag}")
     cam, stats = fly_stats[-1]  # pose 7 after the edit, as timed
     far_skip_ms = far_ms[-1][1]
     far_skip_bound = far_bound(view, cam, stats, skip=True)

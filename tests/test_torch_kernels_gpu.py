@@ -1087,6 +1087,59 @@ def test_far_skip_kernel_equals_plain(cuda, depths, inside):
             render_far(_skip_layers(cuda, (4, 2), inside), inside, skip_substeps=3)
 
 
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("depths", [(3, 3), (3, 2)])
+@pytest.mark.parametrize("inside", [True, False])
+def test_far_skip_kernel_other_substeps_equal_plain(cuda, substeps, depths, inside):
+    """far.cu's skip instances for substeps other than the view's 3 (which
+    has instances of its own), at 1920 x 1080, u8 and f32, with and without
+    a window start map, against the plain skip far frame."""
+    from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
+
+    layers = _skip_layers(cuda, depths, inside)
+    rng = np.random.default_rng(8)
+    start = torch.from_numpy(rng.uniform(0, 60, (135, 240)).astype(np.float32)).to(cuda)
+    for out_u8, st in ((True, None), (False, start)):
+        k = render_far(layers, inside, (0.1, 0.2, 0.3), out_u8, start=st, start_tile=8,
+                       skip_substeps=substeps)
+        torch.cuda.synchronize()
+        assert _equal(k, far_frame_plain(layers, inside, (0.1, 0.2, 0.3), out_u8, start=st,
+                                         start_tile=8, skip_substeps=substeps))
+
+
+@pytest.mark.parametrize("with_count", [True, False])
+def test_composite_backward_bench_equals_plain(cuda, with_count):
+    """The composite backward at the training step's shapes: the bench scene
+    at 1920 x 1080, the march at K = 2 over SoftRenderer's initial params,
+    dL/drgb of a constant target, with the march's count (as the step calls
+    it) and without, against the plain version: one launch, the gradients
+    within the composite's tolerance and zero where its are."""
+    from voxelhex_tpu_torch.diff.soft import SoftRenderer
+    from voxelhex_tpu_torch.ops.composite import (composite_backward, composite_backward_plain,
+                                                  composite_forward)
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.scene import build_scene
+
+    soft = SoftRenderer(build_scene(), max_hits=2, device=cuda)
+    params = soft.init_params()
+    albedo, logits = params["albedo"].reshape(-1), params["logits"]
+    o, d = device_rays(orbit_camera(128.0, resolution=(1920, 1080)), cuda)
+    count, voxels, _dists = soft.trace_hits(o, d)
+    rgb = composite_forward(albedo, logits, voxels, soft.size)
+    grad = (2.0 * (rgb - torch.tensor([0.25, 0.5, 0.75], device=cuda)) / rgb.numel())
+    n0 = composite_backward.launches
+    ga, gl = composite_backward(grad.contiguous(), albedo, logits, voxels, soft.size,
+                                count=count if with_count else None)
+    torch.cuda.synchronize()
+    assert composite_backward.launches == n0 + 1
+    wa, wl = composite_backward_plain(grad, albedo, logits, voxels, soft.size)
+    assert int((wl != 0).sum()) > 10000
+    for got, ref in ((ga, wa), (gl, wl)):
+        scale = float(ref.abs().max())
+        assert bool(((got - ref).abs() <= 1e-4 * ref.abs() + 1e-6 * scale).all())
+        assert bool(((got == 0) == (ref == 0)).all())
+
+
 @pytest.mark.parametrize("S", [16, 48, 256, 1024])
 def test_skip_rows_refresh_equals_plain(cuda, S):
     """refresh_skip_rows' kernel against the reference's gather

@@ -617,14 +617,17 @@ static void composite_k(int backward, const float* grad, const float* albedo,
                         const float* logits, const int* voxels, int R, int size, const float* bg,
                         float* out, float* g_albedo, float* g_logits) {
     const float b0 = bg ? bg[0] : 0.f, b1 = bg ? bg[1] : 0.f, b2 = bg ? bg[2] : 0.f;
-    each_thread((R + comp::THREADS - 1) / comp::THREADS, comp::THREADS, [&] {
-        if (backward)
-            comp::composite_bwd_kernel<K>(grad, albedo, logits, voxels, R, size, b0, b1, b2,
-                                          bg ? 1 : 0, g_albedo, g_logits);
-        else
+    const unsigned blocks = (R + comp::THREADS - 1) / comp::THREADS;
+    if (backward)  // its lanes merge their adds: a warp's lanes as threads
+        vhx_host_warp_launch(dim3(blocks), comp::THREADS, 0, nullptr, [&] {
+            comp::composite_bwd_kernel<K>(grad, albedo, logits, voxels, nullptr, R, size, b0, b1,
+                                          b2, bg ? 1 : 0, g_albedo, g_logits);
+        });
+    else
+        each_thread(blocks, comp::THREADS, [&] {
             comp::composite_fwd_kernel<K>(albedo, logits, voxels, R, size, b0, b1, b2,
                                           bg ? 1 : 0, out);
-    });
+        });
 }
 extern "C" int host_composite(int backward, const float* grad, const float* albedo,
                               const float* logits, const int* voxels, int R, int K, int size,
@@ -692,8 +695,8 @@ def host_lib(tmp_path_factory):
     # launches run a block's threads as threads that meet at its barriers
     # (vhx_host_block_launch)
     entry = re.compile(r"(\w+(?:<[\w ,]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "far_skip_kernel",
-                     "region_scatter_kernel", "splat_texel_kernel")
+    block_kernels = ("coarse_kernel", "far_kernel", "far_start_kernel", "region_scatter_kernel",
+                     "splat_texel_kernel")
     # and the depth prepass's, whose blocks wait for each other's flags: all
     # its blocks at once, a later one running before an earlier one
     # (vhx_host_grid_launch), each with shared variables of its own

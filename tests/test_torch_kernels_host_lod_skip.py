@@ -5,9 +5,9 @@ CPU, against their plain PyTorch versions.
 As ``tests/test_torch_kernels_host.py`` does (whose stand-in header for the
 CUDA names this file shares), each source is built with the host compiler
 and each C entry's launch is rewritten into a loop over the grid: the
-frame kernels' and the refresh's threads in turn, the far frame's blocks
-as threads that meet at each ``__syncthreads``, the depth prepass's blocks
-all at once, later tickets first, so that every wait polls.  The outputs
+frame kernels', the refresh's and the skip far frame's threads in turn,
+the depth prepass's blocks all at once, later tickets first, so that every
+wait polls.  The outputs
 equal the plain versions bit for bit.  Skips where there is no C++
 compiler.
 """
@@ -58,8 +58,7 @@ def host_lib(tmp_path_factory):
         shutil.copy(os.path.join(CSRC, header), d)
     # each launch in a C entry becomes a call of the launcher over the grid
     entry = re.compile(r"(\w+(?:<[\w ,]+>)?)<<<(.*?)>>>\((.*?)\);", flags=re.S)
-    launchers = {"far_skip_kernel": "vhx_host_block_launch",
-                 "prepass_frame_kernel": "vhx_host_grid_launch"}
+    launchers = {"prepass_frame_kernel": "vhx_host_grid_launch"}
     shared = re.compile(r"__shared__ ([\w:]+) (\w+)((?:\[[^\]]+\])*);")
 
     def sub(m):
@@ -211,10 +210,9 @@ def _far_case(depths, inside, res=(37, 21)):
 @pytest.mark.parametrize("depths", [(2,), (3, 3), (3, 2), (3, 3, 2), (2, 1)])
 @pytest.mark.parametrize("inside", [True, False])
 def test_far_skip_kernel_source_equals_plain(host_lib, depths, inside):
-    """far.cu's skip instance through its C entry (a block's threads meeting
-    at its barriers) against the plain skip far frame, u8 and f32, with and
-    without a window start map, over layers of one depth and of the
-    window's depth and one less in one frame."""
+    """far.cu's skip instance through its C entry against the plain skip far
+    frame, u8 and f32, with and without a window start map, over layers of
+    one depth and of the window's depth and one less in one frame."""
     from voxelhex_tpu_torch.ops.far import far_frame_plain, far_params
 
     layers = _far_case(depths, inside)

@@ -81,10 +81,11 @@ REDESIGNED = (("traverse.cu", "traverse_skip_kernel"), ("frame.cu", "frame_skip_
               ("prepass.cu", "prepass_frame_kernel"), ("multihit.cu", "multihit_form_kernel"),
               ("beam.cu", "beam_kernel"), ("splat.cu", "splat_point_kernel"),
               ("splat.cu", "splat_texel_kernel"), ("far.cu", "far_skip_kernel"),
-              ("frame.cu", "frame_lod_kernel"), ("stream.cu", "skip_rows_kernel"))
-# the libraries whose functions may change; none: every function the
-# parent has is to keep its SASS
-REDESIGNED_SOURCES = ()
+              ("frame.cu", "frame_lod_kernel"), ("stream.cu", "skip_rows_kernel"),
+              ("composite.cu", "composite_bwd_kernel"))
+# the kernels whose functions may change (a name holds one of these):
+# every other function the parent has is to keep its SASS
+REDESIGNED_KERNELS = ("composite_bwd_kernel", "far_skip_kernel")
 SKIP_SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS
 # what every probe has besides its piece: memory, constants, the frame
 SKIP = re.compile(r"^(LDG|STG|LD|ST|LDS|STS|LDC|ULDC|S2R|S2UR|CS2R|MOV|UMOV|IMAD\.MOV|EXIT|BRA|"
@@ -135,11 +136,13 @@ def _library_sass(nvcc, build, source):
 
 def function_bodies(text):
     """``{function name: its SASS}`` of a ``cuobjdump -sass`` listing: the
-    instruction and encoding lines, the name aside."""
+    instruction and encoding lines, the name aside, each line's runs of
+    blanks as one (cuobjdump pads its columns to the widest line of the
+    whole listing, so a new function elsewhere in a library moves them)."""
     out = {}
     for part in re.split(r"(?m)^\s*Function : ", text)[1:]:
         name, _, body = part.partition("\n")
-        out[name.strip()] = "\n".join(line.strip() for line in body.splitlines()
+        out[name.strip()] = "\n".join(" ".join(line.split()) for line in body.splitlines()
                                        if line.strip().startswith("/*"))
     return out
 
@@ -180,19 +183,17 @@ def redesigned_report(nvcc, build, tag, out_dir):
 
 def sass_kept(nvcc, build, parent_build):
     """Which of the parent's functions in each library this tree has byte
-    for byte; the number changed outside REDESIGNED_SOURCES."""
+    for byte; the number changed outside REDESIGNED_KERNELS."""
     changed = 0
     for source in parent_build.SOURCES:
         change = set(function_bodies(_library_sass(nvcc, build, source)).values())
         for name, body in sorted(function_bodies(_library_sass(nvcc, parent_build,
                                                                source)).items()):
             kept = body in change
-            changed += not kept and source not in REDESIGNED_SOURCES
+            changed += not kept and not any(k in name for k in REDESIGNED_KERNELS)
             print(f"  {source} {short_name(name)} ({len(body.splitlines()) // 2} instructions): "
                   f"{'kept byte for byte' if kept else 'changed'}")
-    print(f"  the parent's functions changed"
-          f"{' outside ' + ', '.join(REDESIGNED_SOURCES) if REDESIGNED_SOURCES else ''}: "
-          f"{changed}")
+    print(f"  the parent's functions changed outside {', '.join(REDESIGNED_KERNELS)}: {changed}")
 
 
 def sass_report(build, parent_build, out_dir):
@@ -299,7 +300,7 @@ def entries(build):
                  "vhx_render_frame_skip", "vhx_render_frames_skip", "vhx_multihit_skip",
                  "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_splat_scratch_words",
                  "vhx_prepass", "vhx_prepass_sync_words", "vhx_prepass_level",
-                 "vhx_prepass_level_skip", "vhx_depth_start"):
+                 "vhx_prepass_level_skip", "vhx_depth_start", "vhx_composite_backward"):
         fn = getattr(lib, name, None)
         if fn is None:  # an entry of one tree only
             continue
@@ -308,6 +309,7 @@ def entries(build):
         def call(*args, _fn=fn):
             return _fn(*[ctypes.addressof(a) if isinstance(a, ctypes.Structure) else a
                          for a in args])
+        call.n_args = len(fn.argtypes)
         out[name] = call
     return out
 
@@ -562,6 +564,45 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
         build.check(err, "splat")
         return (out,)
 
+    # the composite backward at phase 9's shapes: the bench pose's march at
+    # K = 2 over SoftRenderer's initial params, dL/drgb of the constant
+    # target, the two gradients zeroed before each launch, as the step
+    # calls it (this tree's kernel with the march's count, or without it)
+    from voxelhex_tpu_torch.diff.soft import SoftRenderer
+    from voxelhex_tpu_torch.ops.composite import composite_forward
+
+    soft = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, device=dev)
+    sp = soft.init_params()
+    s_alb, s_lgt = sp["albedo"].reshape(-1), sp["logits"]
+    s_count, s_vox, _d = soft.trace_hits(*rays["bench"])
+    s_rgb = composite_forward(s_alb, s_lgt, s_vox, soft.size)
+    s_target = torch.tensor(chip_smoke.CONST_TARGET, dtype=torch.float32, device=dev)
+    s_grad = (2.0 * (s_rgb - s_target) / s_rgb.numel()).contiguous()
+    del sp, s_rgb, _d
+
+    def composite_bwd(lib, with_count=True):
+        entry = lib["vhx_composite_backward"]
+        ga, gl = torch.zeros_like(s_alb), torch.zeros_like(s_lgt)
+        args = (s_grad.data_ptr(), s_alb.data_ptr(), s_lgt.data_ptr(), s_vox.data_ptr())
+        rest = (s_vox.shape[0], K, soft.size, None, ga.data_ptr(), gl.data_ptr(), 0, stream)
+        if entry.n_args == 13:  # the march's count
+            err = entry(*args, s_count.data_ptr() if with_count else None, *rest)
+        else:
+            err = entry(*args, *rest)
+        build.check(err, "composite backward")
+        return ga, gl
+
+    def grads_close(want, got):
+        """Phase 6's tolerance: elementwise relative, a share of the largest
+        element, and the same zeros."""
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            if not bool(((a - b).abs() <= chip_smoke.GRAD_RTOL * b.abs()
+                         + chip_smoke.GRAD_ATOL_SHARE * scale).all()) or \
+                    bool(((a == 0) != (b == 0)).any()):
+                return False
+        return True
+
     kernels = {"frames.cu (K=16, a frame)": (frames, 4, chip_smoke.BATCH),
                "frame.cu": (frame, 16, 1), "traverse.cu": (traverse, 10, 1),
                "multihit.cu (K=2)": (multihit, 10, 1)}
@@ -583,15 +624,25 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
             kernels[f"{'skip ' if skip else ''}prepass.cu, {where} ({levels} levels)"] = (
                 lambda lib, where=where, skip=skip: prepass(lib, where, skip), 20, 1)
     kernels["splat.cu, bench"] = (splat, 20, 1)
+    kernels["composite backward, bench (K=2), as the step calls it"] = (
+        composite_bwd, 20, 1, grads_close)
+    kernels["composite backward, bench (K=2), without the count"] = (
+        lambda lib: composite_bwd(lib, False), 20, 1, grads_close)
     if only is not None:
         kernels = {k: v for k, v in kernels.items() if any(word in k for word in only)}
     tags = [t for t in libs if t != other]  # change, then the variants
     prev.copy_(frame(libs[other])[0])
-    for name, (fn, _reps, _per) in kernels.items():
+    for name, (fn, _reps, _per, *close) in kernels.items():
         want = [x.clone() for x in fn(libs[other])]
         for tag in tags:
             got = fn(libs[tag])
             torch.cuda.synchronize()
+            if close:  # f32 atomics in no fixed order: within a tolerance
+                ok = close[0](want, got)
+                print(f"  {name}: {tag} within the tolerance of {other}: {ok}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name}: {tag} differs from {other}")
+                continue
             bad = [i for i, (x, y) in enumerate(zip(want, got))
                    if not bool(chip_smoke.same(x, y).all())]
             print(f"  {name}: {tag} == {other} on every output: {not bad}", flush=True)
@@ -601,7 +652,7 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as profiled
 
-        for name, (fn, reps, _per) in kernels.items():
+        for name, (fn, reps, *_rest) in kernels.items():
             for tag in (other, *tags):
                 with profiled(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
@@ -612,7 +663,7 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
                         and not e.key.startswith(("aten::", "cuda"))]
                 print(f"profile {name} {tag}: {', '.join(rows)} ms a call [{card}]", flush=True)
     order = (other, *tags, *tags[::-1], other)
-    for name, (fn, reps, per) in kernels.items():
+    for name, (fn, reps, per, *_close) in kernels.items():
         for tag in (other, *tags):
             for _ in range(2):
                 fn(libs[tag])

@@ -2,7 +2,7 @@
 another tree's.
 
     python3 tools/stream_ab.py [--parent DIR] [--far-variant NAME=FLAGS ...] [--rounds N]
-                               [--frames N]
+                               [--frames N] [--skip] [--time-frames I,J,...]
 
 Follows ``chip_smoke.py``'s fly-over (phase 12 (a)): the 1024 terrain
 through ``StreamingView(tree, view_size=256, regions_per_update=8192)``
@@ -36,6 +36,23 @@ listed with their registers, SASS instructions and global stores by kind
 (``cuobjdump``): a 16 B store that the compiler splits into 4 B ones shows
 there.
 
+``--skip`` flies the view under ``tracer="skip"`` (phase 16 (b)) and times
+the far frame of both tracers on its trees instead of the rebuild and the
+scatter: the skip far frame (``far_skip_kernel``, ``skip_substeps`` 3) of
+each contender and its launch on the window alone, the stack far frame
+and its window alone, and ``frame.cu``'s stack and skip instances at the
+window and pose.  Each layer's rays, then, also get their skip march from
+``far_frame_plain(..., stats=[], skip_substeps=3)``: body iterations (a
+row fetch each: the entry's fetch, and one after each body but the last)
+and working lane-steps, beside the stack march's steps.  The window's
+march is the one that ``frame.cu`` runs at that pose.  Every contender's
+skip far frame, whole and on the window alone, is first held to
+``far_frame_plain`` bit for bit.  Prints the registers, stack and spills
+of each build's ``far_skip_kernel`` and ``frame.cu``'s
+``frame_skip_kernel`` instances of the window's depth.
+``--time-frames`` times only the frames listed (the view still flies
+through every frame up to ``--frames``).
+
 Needs one CUDA card.
 """
 
@@ -54,6 +71,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 sys.path.insert(0, ROOT)
 
 FAR_REPS = 10
+SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS, the view's skip_substeps
 REBUILD_REPS = 20
 SCATTER_REPS = 20
 
@@ -98,15 +116,22 @@ def main():
                     help="also time this tree's far.cu built with these nvcc flags")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--frames", type=int, default=8, help="fly-over frames (at most 8)")
+    ap.add_argument("--skip", action="store_true",
+                    help="the skip view: the far frames of both tracers, no rebuild or scatter")
+    ap.add_argument("--time-frames", help="comma-separated frames to time (default: all)")
     args = ap.parse_args()
+    time_frames = (None if args.time_frames is None
+                   else {int(v) for v in args.time_frames.split(",")})
 
     import torch
 
     if not torch.cuda.is_available():
         print("stream_ab: needs a CUDA card", file=sys.stderr)
         return 2
+    import concurrent.futures
+
     import chip_smoke
-    from automaton_ab import _cuobjdump, load_build, sass_functions
+    from automaton_ab import _cuobjdump, load_build, sass_functions, short_name
 
     chip_smoke.faulthandler.cancel_dump_traceback_later()
     from voxelhex_tpu_torch.ops import _build, stream
@@ -131,7 +156,7 @@ def main():
         parent.library()
         builds[args.name] = parent
         contenders[args.name] = parent
-    for variant in args.far_variant:
+    def build_variant(variant):
         name, _, flags = variant.partition("=")
         out = os.path.join(ROOT, "build", "stream_ab", f"libfar_{name}.so")
         os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -140,9 +165,18 @@ def main():
                              capture_output=True, text=True, timeout=_build.BUILD_TIMEOUT_S)
         if run.returncode != 0:
             raise RuntimeError(f"nvcc far.cu {flags}:\n{run.stdout}{run.stderr}")
-        usage = chip_smoke.ptxas_usage(run.stdout + run.stderr, "far_kernel")
-        print(f"  change {name} ({flags}) far_kernel: {usage[0]} registers, {usage[1]} B stack, "
-              f"{usage[2]} B spill stores, {usage[3]} B spill loads", flush=True)
+        return name, flags, out, run.stdout + run.stderr
+
+    with concurrent.futures.ThreadPoolExecutor(max(len(args.far_variant), 1)) as pool:
+        built = list(pool.map(build_variant, args.far_variant))
+    for name, flags, out, log in built:
+        for kernel in ("far_kernel", "far_skip_kernel"):
+            for k in chip_smoke.kernel_names(log, kernel):
+                if kernel == "far_kernel" or short_name(k).endswith(", 4, 3>"):
+                    usage = chip_smoke.ptxas_usage(log, k)
+                    print(f"  change {name} ({flags}) {short_name(k)}: {usage[0]} registers, "
+                          f"{usage[1]} B stack, {usage[2]} B spill stores, {usage[3]} B spill "
+                          "loads", flush=True)
         contenders[f"change {name}"] = ctypes.CDLL(out)
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     for name, b in builds.items():
@@ -154,12 +188,15 @@ def main():
                 stores = Counter(op for op in ops if op.startswith("STG"))
                 print(f"  {name} {fn}: {len(ops)} SASS instructions, global stores "
                       f"{dict(sorted(stores.items()))}", flush=True)
-        for source, kernel in (("far.cu", "far_kernel"), ("stream.cu", "region_scatter_kernel")):
+        for source, kernel in (("far.cu", "far_kernel"), ("stream.cu", "region_scatter_kernel"),
+                               ("far.cu", "far_skip_kernel"), ("frame.cu", "frame_skip_kernel")):
             log = b.build_log(source)
             for k in chip_smoke.kernel_names(log, kernel):
+                if "skip" in kernel and ", 4" not in short_name(k):
+                    continue  # the skip instances of the window's depth, 4
                 usage = chip_smoke.ptxas_usage(log, k)
-                print(f"  {name} {k}: {usage[0]} registers, {usage[1]} B stack, {usage[2]} B "
-                      f"spill stores, {usage[3]} B spill loads", flush=True)
+                print(f"  {name} {short_name(k)}: {usage[0]} registers, {usage[1]} B stack, "
+                      f"{usage[2]} B spill stores, {usage[3]} B spill loads", flush=True)
 
     def far_fn(name):
         """One far frame of ``name``'s kernel: ``fn(layers, inside)``."""
@@ -179,6 +216,24 @@ def main():
             out = torch.empty((p.h, p.w, 3), dtype=torch.uint8, device=dev)
             _build.check(entry(ctypes.addressof(p), None, out.data_ptr(), 0, cuda_stream),
                          f"{name} far frame")
+            return out
+        return call
+
+    def skip_fn(name):
+        """One skip far frame of ``name``'s kernel: ``fn(layers, inside)``."""
+        if name == "change":
+            return lambda layers, inside: render_far(layers, inside, skip_substeps=SUBSTEPS)
+        lib = contenders[name]
+        entry = (lib if isinstance(lib, ctypes.CDLL) else lib.library()).vhx_render_far_skip
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+
+        def call(layers, inside):
+            p = far_params(layers, inside, skip=True)
+            out = torch.empty((p.h, p.w, 3), dtype=torch.uint8, device=dev)
+            _build.check(entry(ctypes.addressof(p), SUBSTEPS, None, 1, None, out.data_ptr(), 0,
+                               cuda_stream), f"{name} skip far frame")
             return out
         return call
 
@@ -214,6 +269,7 @@ def main():
         return call
 
     fars = {name: far_fn(name) for name in contenders}
+    skips = {name: skip_fn(name) for name in contenders} if args.skip else {}
     rebuilds = {name: rebuild_fn(name) for name in builds}
     scatters = {name: scatter_fn(name) for name in builds}
     other = ([n for n in contenders if n != "change"] or ["change"])[0]
@@ -222,7 +278,8 @@ def main():
     pts, cols = terrain_points(chip_smoke.TERRAIN_WORLD)
     tree = from_voxels(pts, cols, size=chip_smoke.TERRAIN_WORLD, brick_dim=4)
     del pts, cols
-    view = StreamingView(tree, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192)
+    view = StreamingView(tree, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192,
+                         tracer="skip" if args.skip else "stack")
     print(f"terrain and view: {time.time() - t0:.1f} s", flush=True)
     sums = {}
     paged = []  # the update's scatter inputs
@@ -242,8 +299,11 @@ def main():
         layers, inside = view.layers(cam), view.camera_inside(cam)
         stats = []
         plain = far_frame_plain(layers, inside, stats=stats)
-        if not bool((plain == frame).all()):
+        want = far_frame_plain(layers, inside, skip_substeps=SUBSTEPS) if args.skip else plain
+        if not bool((want == frame).all()):
             raise AssertionError(f"frame {i}: render() differs from far_frame_plain")
+        if time_frames is not None and i not in time_frames:
+            continue
         h, w = plain.shape[:2]
         print(f"frame {i}: camera inside the window {inside}", flush=True)
         for li, s in enumerate(stats):
@@ -254,6 +314,24 @@ def main():
                   f"{int(s['iters'].max())}; working lane-steps: 4 x 8 tile {shares[0][0]:.4f}, "
                   f"packed in a block of 4 warps {shares[0][1]:.4f}, of 8 warps "
                   f"{shares[1][1]:.4f}", flush=True)
+        if args.skip:
+            skip_stats = []
+            skip_plain = far_frame_plain(layers, inside, stats=skip_stats, skip_substeps=SUBSTEPS)
+            for li, (s, st) in enumerate(zip(skip_stats, stats)):
+                iters = s["iters"].reshape(h, w)
+                go = iters > 0 if li and inside else torch.ones_like(iters, dtype=torch.bool)
+                n_it, n_st = int(s["iters"].sum()), int(st["iters"].sum())
+                print(f"  layer {li} skip march: {s['rays']} rays, {n_it} body iterations "
+                      f"({n_it / max(s['rays'], 1):.3f} a ray; {n_st / max(st['rays'], 1):.3f} "
+                      f"stack steps a ray), most {int(s['iters'].max())}; {int(s['reads'].sum())} "
+                      f"distinct rows; working lane-steps, 4 x 8 tile "
+                      f"{lane_shares(iters, go, 4)[0]:.4f}", flush=True)
+            skip_window = far_frame_plain(layers[:1], inside, skip_substeps=SUBSTEPS)
+            for name, fn in skips.items():
+                for lay, want in ((layers, skip_plain), (layers[:1], skip_window)):
+                    if not bool((fn(lay, inside) == want).all()):
+                        raise AssertionError(f"frame {i}: {name}'s skip far frame ({len(lay)} "
+                                             "layers) differs from far_frame_plain")
         window_plain = far_frame_plain(layers[:1], inside)
         for name, fn in fars.items():
             for lay, want in ((layers, plain), (layers[:1], window_plain)):
@@ -273,7 +351,7 @@ def main():
                 raise AssertionError(f"frame {i}: {name}'s rebuild differs from the plain one")
 
         scatter_work = None
-        if paged:
+        if paged and not args.skip:
             corners, col_vals, blk_vals = paged[-1]
             S = int(window["size"])
             scatter_work = dict(window, colors=window["colors"].clone(),
@@ -294,8 +372,15 @@ def main():
         for name, fn in fars.items():
             timers[f"far {name}"] = (lambda fn=fn: fn(layers, inside), FAR_REPS)
             timers[f"window-only far {name}"] = (lambda fn=fn: fn(layers[:1], inside), FAR_REPS)
+        for name, fn in skips.items():
+            timers[f"skip far {name}"] = (lambda fn=fn: fn(layers, inside), FAR_REPS)
+            timers[f"skip window-only far {name}"] = (lambda fn=fn: fn(layers[:1], inside),
+                                                      FAR_REPS)
         timers["frame.cu"] = (lambda: render_frame(window, layers[0][1]), FAR_REPS)
-        for name, fn in rebuilds.items():
+        if args.skip:
+            timers["skip frame.cu"] = (lambda: render_frame(window, layers[0][1],
+                                                            skip_substeps=SUBSTEPS), FAR_REPS)
+        for name, fn in rebuilds.items() if not args.skip else ():
             timers[f"rebuild {name}"] = (lambda fn=fn: fn(work), REBUILD_REPS)
         if scatter_work is not None:
             for name, fn in scatters.items():
@@ -312,8 +397,10 @@ def main():
                 for key in [k for k in timers if k.endswith(" " + name)]:
                     fn, reps = timers[key]
                     got[key].append(chip_smoke.device_ms(fn, reps))
-            fn, reps = timers["frame.cu"]
-            got["frame.cu"].append(chip_smoke.device_ms(fn, reps))
+            for key in ("frame.cu", "skip frame.cu"):
+                if key in timers:
+                    fn, reps = timers[key]
+                    got[key].append(chip_smoke.device_ms(fn, reps))
         for key, t in got.items():
             if not t:
                 continue

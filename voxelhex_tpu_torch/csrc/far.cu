@@ -51,18 +51,33 @@
 // Under the reference view's `tracer="skip"` (its window renderer and each
 // ring's renderer take the view's tracer, streaming.py:396, :1407) every
 // layer marches the skip tracer (skip.cuh) over its skip rows (a layer's
-// `occ`): `far_skip_kernel<kStart, L>`, with and without the window's start
-// map.  Its shape is this one's; the march of a layer of L levels is
-// `skip_march<true, L>`, with init's start form picked at run time as
-// above (a ray that hit already starts past its exit, 1e9, and is inactive
-// from init on, as under the stack automaton).  The skip march is an
-// instance a pyramid depth, and a far frame's layers need not share one:
-// the window and every ring have `view_size` cells, but the outermost ring
-// of a world more than 4 times the window has W / F cells, fewer than the
-// window's and more than a quarter of them, so its pyramid is one level
-// shallower or as deep.  So an instance takes the window's depth L and
-// marches each layer of L or L - 1 levels with its own depth's march; the
-// C entry refuses other depths.  The stack instances do not change.
+// `occ`): `far_skip_kernel<kStart, kInside, L, kSub>`.  The skip march is
+// an instance a pyramid depth, and a far frame's layers need not share
+// one: the window and every ring have `view_size` cells, but the outermost
+// ring of a world more than 4 times the window has W / F cells, fewer than
+// the window's and more than a quarter of them, so its pyramid is one
+// level shallower or as deep.  So an instance takes the window's depth L,
+// marches the window with L levels and each ring with its own, L or L - 1;
+// the C entry refuses other depths.  Where the stack form keeps one copy
+// of its march for every layer, the skip form fixes each of its march's
+// forms at compile time (PERF.md §6, on an NVIDIA H100 80GB HBM3 at
+// 700 W: -8.2% at fly-over pose 7, -5.4% at pose 0 against one march with
+// its forms picked at run time, in the same call):
+//   * init's start form: the window's by kStart (its start map), the
+//     rings' by kInside (from the camera when it is inside the window, the
+//     same for every block of a launch; a ray that hit stops there), so
+//     the window's march and the rings' are copies of their own (the
+//     forms picked at run time: +2.6% at pose 7);
+//   * the view's 3 substeps a body iteration (kSub = 3) have instances of
+//     their own, the substeps unrolled (without them: +7.2% at pose 7);
+//     other counts run skip.cuh's loop (kSub = 0);
+//   * what a pixel holds between layers stays in the block's shared
+//     memory, as above (in registers: +1.1% at pose 7).  No barrier: a
+//     thread touches only its own entry.
+// Capping its registers for more blocks on an SM made it no faster (48
+// registers and spills: +0.1%, on the window alone +1.1%): its march is
+// bound by its instructions, not by the row fetch's latency.  The stack
+// instances do not change.
 
 #include "frame.cuh"
 #include "skip.cuh"
@@ -116,36 +131,21 @@ __device__ __forceinline__ void thread_pixel(int t, int& x, int& y) {
     y = blockIdx.y * WARP_H + lane / vhx::WARP_W;
 }
 
-// The skip march of a layer whose `occ` holds the skip rows of a pyramid of
-// L levels
-template <int L>
-__device__ __forceinline__ vhx::Hit skip_layer(const FarLayer& Y, const float o[3],
-                                               const float d[3], int substeps, float start_t,
-                                               bool use_start) {
-    return vhx::skip_march<true, L>(o, d, vhx::skip_grid(Y.occ, Y.trace.size, substeps),
-                                    Y.colors, Y.trace.max_iters, start_t, use_start);
-}
-
 // The frame of this block's pixels.  With kStart the window's rays start at
 // least their tile's value of a start map along: one value a `start_tile` x
 // `start_tile` tile of pixels, `start_stride` tiles a row.  Without it the
-// window's rays start at their entry.  kDepth 0 marches the stack
-// automaton; kDepth L >= 1 the skip tracer, `substeps` substeps a body
-// iteration, over layers of L or L - 1 levels.
-template <bool kStart, int kDepth = 0>
+// window's rays start at their entry.
+template <bool kStart>
 __device__ __forceinline__ void far_frame(const FarParams& P, const float* __restrict__ start,
                                           int start_tile, int start_stride,
                                           float* __restrict__ rgb_out,
-                                          unsigned char* __restrict__ u8_out,
-                                          int substeps = 0) {
+                                          unsigned char* __restrict__ u8_out) {
     __shared__ int2 levels[VHX_FAR_MAX_LAYERS * VHX_MAX_LEVELS];
     __shared__ Pixels px;
     const int t = threadIdx.x;
-    if constexpr (kDepth == 0) {
-        for (int e = t; e < P.n_layers * VHX_MAX_LEVELS; e += THREADS) {
-            const TraceParams& T = P.layers[e / VHX_MAX_LEVELS].trace;
-            levels[e] = make_int2(T.bases[e % VHX_MAX_LEVELS], T.dims[e % VHX_MAX_LEVELS]);
-        }
+    for (int e = t; e < P.n_layers * VHX_MAX_LEVELS; e += THREADS) {
+        const TraceParams& T = P.layers[e / VHX_MAX_LEVELS].trace;
+        levels[e] = make_int2(T.bases[e % VHX_MAX_LEVELS], T.dims[e % VHX_MAX_LEVELS]);
     }
     int x, y;
     thread_pixel(t, x, y);
@@ -167,65 +167,33 @@ __device__ __forceinline__ void far_frame(const FarParams& P, const float* __res
             thread_pixel(t, sx, sy);
             float o[3], d[3];
             vhx::pixel_ray(L.origin, L.right, L.up, L.forward, L.scale, P.cw, P.ch, sx, sy, o, d);
-            if constexpr (kDepth == 0) {
-                const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels,
-                                  L.trace.size, L.trace.n_blocks};
-                vhx::March m;
-                // a ring's rays start at the camera (start_t = 0) when it is
-                // inside; the window's from its start map when there is one
-                float start_t = 0.f;
-                bool use_start = l > 0 && P.inside;
-                if constexpr (kStart) {
-                    if (l == 0) {
-                        start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
-                        use_start = true;
-                    }
+            const vhx::Grid g{L.occ, levels + l * VHX_MAX_LEVELS, L.trace.n_levels,
+                              L.trace.size, L.trace.n_blocks};
+            vhx::March m;
+            // a ring's rays start at the camera (start_t = 0) when it is
+            // inside; the window's from its start map when there is one
+            float start_t = 0.f;
+            bool use_start = l > 0 && P.inside;
+            if constexpr (kStart) {
+                if (l == 0) {
+                    start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
+                    use_start = true;
                 }
-                vhx::init<true>(m, o, d, g, start_t, use_start);
-                vhx::StopAtHit stop;
-                vhx::run(m, g, L.trace.max_iters, stop);
-                if (m.hit) {
-                    const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
-                    const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
-                    // the nearest hit in world voxels; a tie keeps the finer layer's
-                    if (!px.hit[t] || hd < px.dist[t]) {
-                        float rgb[3];
-                        vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
-                        px.hit[t] = 1;
-                        px.dist[t] = hd;
+            }
+            vhx::init<true>(m, o, d, g, start_t, use_start);
+            vhx::StopAtHit stop;
+            vhx::run(m, g, L.trace.max_iters, stop);
+            if (m.hit) {
+                const vhx::Hit h = vhx::hit_of(m, L.colors, L.trace.size);
+                const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
+                // the nearest hit in world voxels; a tie keeps the finer layer's
+                if (!px.hit[t] || hd < px.dist[t]) {
+                    float rgb[3];
+                    vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
+                    px.hit[t] = 1;
+                    px.dist[t] = hd;
 #pragma unroll
-                        for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
-                    }
-                }
-            } else {
-                // the starts of the stack form above
-                float start_t = 0.f;
-                bool use_start = l > 0 && P.inside;
-                if constexpr (kStart) {
-                    if (l == 0) {
-                        start_t = start[(sy / start_tile) * start_stride + sx / start_tile];
-                        use_start = true;
-                    }
-                }
-                vhx::Hit h;
-                if constexpr (kDepth > 1) {
-                    if (L.trace.n_levels == kDepth)
-                        h = skip_layer<kDepth>(L, o, d, substeps, start_t, use_start);
-                    else
-                        h = skip_layer<kDepth - 1>(L, o, d, substeps, start_t, use_start);
-                } else {
-                    h = skip_layer<kDepth>(L, o, d, substeps, start_t, use_start);
-                }
-                if (h.hit) {
-                    const float hd = __fmul_rn(vhx::ray_length(h.point, o), L.factor);
-                    if (!px.hit[t] || hd < px.dist[t]) {
-                        float rgb[3];
-                        vhx::shade_hit(h, L.palette, L.n_colors, P.bg, rgb);
-                        px.hit[t] = 1;
-                        px.dist[t] = hd;
-#pragma unroll
-                        for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
-                    }
+                    for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
                 }
             }
         }
@@ -253,14 +221,125 @@ far_start_kernel(const __grid_constant__ FarParams P, const float* __restrict__ 
     far_frame<true>(P, start, start_tile, start_stride, rgb_out, u8_out);
 }
 
+// ---- the skip tracer's frame (far_skip_kernel)
+
+// The substeps a body iteration of the reference view's skip tracer
+// (`skip_substeps`' default), which have instances of their own
+constexpr int VIEW_SUBSTEPS = 3;
+
+// skip_run with the single-hit policy and kSub substeps a body iteration,
+// unrolled
+template <int kSub, int L>
+__device__ __forceinline__ void skip_run_fixed(vhx::Skip<L>& m, const vhx::SkipGrid& g,
+                                               int max_iters) {
+    while (m.active && m.iters < max_iters) {
+        m.iters += 1;
+#pragma unroll
+        for (int j = 0; j < kSub; ++j)
+            if (!vhx::skip_substep(m, g)) break;
+        if (m.hit) return;
+        if (m.active) vhx::skip_fetch(m, g);
+    }
+}
+
+// The skip march of a layer whose `occ` holds the skip rows of a pyramid of
+// L levels: init's start form with kStartForm (from `start_t`), kSub
+// substeps a body iteration (0: `substeps`)
+template <bool kStartForm, int L, int kSub>
+__device__ __forceinline__ vhx::Hit skip_layer(const FarLayer& Y, const float o[3],
+                                               const float d[3], int substeps,
+                                               float start_t) {
+    const vhx::SkipGrid g = vhx::skip_grid(Y.occ, Y.trace.size, kSub > 0 ? kSub : substeps);
+    vhx::Skip<L> m;
+    vhx::skip_init<kStartForm>(m, o, d, g, start_t);
+    if constexpr (kSub > 0) {
+        skip_run_fixed<kSub>(m, g, Y.trace.max_iters);
+    } else {
+        vhx::SkipStopAtHit stop;
+        vhx::skip_run(m, g, Y.trace.max_iters, stop);
+    }
+    return vhx::skip_hit_of(m, Y.colors, g.size);
+}
+
+// The skip tracer's frame of this thread's pixel.  The window (layer 0, of
+// kDepth levels) starts from the start map with kStart, else at its entry;
+// the rings (of kDepth or kDepth - 1 levels) from the camera with kInside
+// (a ray that hit in a finer layer skips them: the reference's start_t =
+// 1e9), else at their entry.  kSub substeps a body iteration (0:
+// `substeps`).  What the pixel holds between layers is its entry of the
+// block's Pixels, as in far_frame.
+template <bool kStart, bool kInside, int kDepth, int kSub>
+__device__ __forceinline__ void far_skip_frame(const FarParams& P, int substeps,
+                                               const float* __restrict__ start, int start_tile,
+                                               int start_stride, float* __restrict__ rgb_out,
+                                               unsigned char* __restrict__ u8_out) {
+    __shared__ Pixels px;
+    const int t = threadIdx.x;
+    int x, y;
+    thread_pixel(t, x, y);
+    if (x >= P.w || y >= P.h) return;
+    px.hit[t] = 0;
+    px.dist[t] = INFINITY;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) px.rgb[k][t] = P.bg[k];
+    for (int l = 0; l < P.n_layers; ++l) {
+        if (kInside && l > 0 && px.hit[t]) break;
+        const FarLayer& Y = P.layers[l];
+        float o[3], d[3];
+        vhx::pixel_ray(Y.origin, Y.right, Y.up, Y.forward, Y.scale, P.cw, P.ch, x, y, o, d);
+        vhx::Hit h;
+        if (l == 0) {
+            float start_t = 0.f;
+            if constexpr (kStart) start_t = start[(y / start_tile) * start_stride + x / start_tile];
+            h = skip_layer<kStart, kDepth, kSub>(Y, o, d, substeps, start_t);
+        } else if (kDepth > 1 && Y.trace.n_levels != kDepth) {
+            h = skip_layer<kInside, (kDepth > 1 ? kDepth - 1 : 1), kSub>(Y, o, d, substeps, 0.f);
+        } else {
+            h = skip_layer<kInside, kDepth, kSub>(Y, o, d, substeps, 0.f);
+        }
+        if (h.hit) {
+            const float hd = __fmul_rn(vhx::ray_length(h.point, o), Y.factor);
+            // the nearest hit in world voxels; a tie keeps the finer layer's
+            if (!px.hit[t] || hd < px.dist[t]) {
+                float rgb[3];
+                vhx::shade_hit(h, Y.palette, Y.n_colors, P.bg, rgb);
+                px.hit[t] = 1;
+                px.dist[t] = hd;
+#pragma unroll
+                for (int k = 0; k < 3; ++k) px.rgb[k][t] = rgb[k];
+            }
+        }
+    }
+    const long long r = (long long)y * P.w + x;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        if (rgb_out) rgb_out[3 * r + k] = px.rgb[k][t];
+        if (u8_out) u8_out[3 * r + k] = vhx::to_u8(px.rgb[k][t]);
+    }
+}
+
 // The skip tracer's frame: layers of kDepth or kDepth - 1 levels, their
-// `occ` the skip rows, from the window's start map with kStart
-template <bool kStart, int kDepth>
+// `occ` the skip rows (far_skip_frame)
+template <bool kStart, bool kInside, int kDepth, int kSub>
 __global__ void __launch_bounds__(THREADS)
 far_skip_kernel(const __grid_constant__ FarParams P, int substeps,
                 const float* __restrict__ start, int start_tile, int start_stride,
                 float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out) {
-    far_frame<kStart, kDepth>(P, start, start_tile, start_stride, rgb_out, u8_out, substeps);
+    far_skip_frame<kStart, kInside, kDepth, kSub>(P, substeps, start, start_tile, start_stride,
+                                                  rgb_out, u8_out);
+}
+
+using FarSkipKernel = void (*)(const FarParams, int, const float*, int, int, float*,
+                               unsigned char*);
+
+// The instance of far_skip_kernel for a launch of the window's depth L
+template <bool kStart, int L>
+FarSkipKernel far_skip_instance(const FarParams& P, int substeps) {
+    constexpr int F = VIEW_SUBSTEPS;
+    if (P.inside) return substeps == F ? far_skip_kernel<kStart, true, L, F>
+                                       : far_skip_kernel<kStart, true, L, 0>;
+    return substeps == F ? far_skip_kernel<kStart, false, L, F>
+                         : far_skip_kernel<kStart, false, L, 0>;
 }
 
 bool bad_far(const FarParams& P, const float* start, int start_tile) {
@@ -296,12 +375,14 @@ extern "C" cudaError_t vhx_render_far_skip(const FarParams* params, int substeps
     const int stride = start ? (P.w + start_tile - 1) / start_tile : 0;
     return vhx::skip_depth(depth, [&](auto depth_of) {
         constexpr int L = decltype(depth_of)::value;
-        if (start)
-            far_skip_kernel<true, L><<<grid, THREADS, 0, stream>>>(P, substeps, start,
-                                                                   start_tile, stride, rgb, out);
-        else
-            far_skip_kernel<false, L><<<grid, THREADS, 0, stream>>>(P, substeps, nullptr, 1, 0,
-                                                                    rgb, out);
+        if (start) {
+            const FarSkipKernel kernel = far_skip_instance<true, L>(P, substeps);
+            kernel<<<grid, THREADS, 0, stream>>>(P, substeps, start, start_tile, stride, rgb,
+                                                 out);
+        } else {
+            const FarSkipKernel kernel = far_skip_instance<false, L>(P, substeps);
+            kernel<<<grid, THREADS, 0, stream>>>(P, substeps, nullptr, 1, 0, rgb, out);
+        }
         return cudaGetLastError();
     });
 }

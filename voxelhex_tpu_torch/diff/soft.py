@@ -162,9 +162,11 @@ class SoftRenderer:
         start = None if beam is None else self.beam_starts(beam, o.shape[0])
         return self._march(o, d, start)
 
-    def composite(self, params, voxels, bg_color=None):
+    def composite(self, params, voxels, bg_color=None, count=None):
         """Differentiable transmittance compositing over recorded voxels:
-        rgb f32 [R, 3].  The albedo's layout must be this renderer's."""
+        rgb f32 [R, 3].  The albedo's layout must be this renderer's.  With
+        the march's ``count`` the backward reads no slot of a ray that
+        recorded no hit."""
         want_ndim = 1 if self.flat_params else 2
         if params["albedo"].ndim != want_ndim:
             raise ValueError(
@@ -174,14 +176,14 @@ class SoftRenderer:
                 "(flat) or albedo.reshape(-1, 3) (rows), or construct the renderer with the "
                 "matching flat_params.")
         return _composite(params["albedo"].reshape(-1), params["logits"], voxels, self.size,
-                          bg_color)
+                          bg_color, count)
 
     def render(self, params, origins, dirs, bg_color=None):
         _count, voxels, _d = self.trace_hits(origins, dirs)
         return self.composite(params, voxels, bg_color)
 
-    def loss(self, params, voxels, target):
-        rgb = self.composite(params, voxels)
+    def loss(self, params, voxels, target, count=None):
+        rgb = self.composite(params, voxels, count=count)
         return torch.mean((rgb - target) ** 2)
 
     def grad_on_hits(self, params, count, voxels, target, fit_albedo: bool = True):
@@ -189,28 +191,28 @@ class SoftRenderer:
         ``{"albedo": f32 in the albedo's layout or None, "logits": f32
         [S^3]}`` (albedo None when ``fit_albedo`` is false).  Rays with no hit add nothing to the
         gradients (the backward kernel skips them), which is what the
-        reference's compaction of hit rows computes; ``count`` is accepted
-        for the reference's signature."""
-        del count
+        reference's compaction of hit rows computes; with the march's
+        ``count`` (or None) the kernel reads no slot of such a ray."""
         target = self._rays(target)
         albedo = params["albedo"].detach().requires_grad_(fit_albedo)
         logits = params["logits"].detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = self.loss({"albedo": albedo, "logits": logits}, voxels, target)
+            loss = self.loss({"albedo": albedo, "logits": logits}, voxels, target, count)
             wrt = [albedo, logits] if fit_albedo else [logits]
             g = torch.autograd.grad(loss, wrt)
         grads = {"albedo": g[0] if fit_albedo else None, "logits": g[-1]}
         return loss.detach(), grads
 
     def fit_step(self, params, opt_state, opt, voxels, target, opacity_l1: float = 0.0,
-                 fit_albedo: bool = True):
+                 fit_albedo: bool = True, count=None):
         """A step on recorded voxels: the composite and its gradient, the
         opacity-L1 term, ``opt``'s update (:func:`~voxelhex_tpu_torch.diff.
         optim.adam`) and the param clamps.  Returns ``(params, opt_state,
         loss)`` with ``loss`` a device scalar; params and the moments are
         updated in place.  ``fit_albedo=False`` gives Adam zero albedo
-        gradients, as the reference does (momentum still moves albedo)."""
-        loss, grads = self.grad_on_hits(params, None, voxels, target, fit_albedo)
+        gradients, as the reference does (momentum still moves albedo).
+        ``count``: the march's, or None (:meth:`grad_on_hits`)."""
+        loss, grads = self.grad_on_hits(params, count, voxels, target, fit_albedo)
         if opacity_l1:
             loss = loss + opacity_l1 * torch.mean(torch.sigmoid(params["logits"]))
         params, opt_state = opt.update(grads, opt_state, params, opacity_l1=opacity_l1,
@@ -225,8 +227,9 @@ class SoftRenderer:
         steps queue back to back; ``validate`` is accepted for the
         reference's signature and has nothing to check."""
         del validate
-        _count, voxels, _dists = self.trace_hits(origins, dirs, beam=beam)
-        return self.fit_step(params, opt_state, opt, voxels, target, opacity_l1, fit_albedo)
+        count, voxels, _dists = self.trace_hits(origins, dirs, beam=beam)
+        return self.fit_step(params, opt_state, opt, voxels, target, opacity_l1, fit_albedo,
+                             count)
 
     def train_steps_fused(self, params, opt_state, opt, origins, dirs, target, n_steps: int,
                           beam=None, opacity_l1: float = 0.0, fit_albedo: bool = True,
@@ -241,9 +244,9 @@ class SoftRenderer:
         start = None if beam is None else self.beam_starts(beam, origins.shape[0])
         losses = []
         for _ in range(int(n_steps)):
-            _count, voxels, _dists = self._march(origins, dirs, start)
+            count, voxels, _dists = self._march(origins, dirs, start)
             params, opt_state, loss = self.fit_step(params, opt_state, opt, voxels, target,
-                                                    opacity_l1, fit_albedo)
+                                                    opacity_l1, fit_albedo, count)
             losses.append(loss)
         return params, opt_state, torch.stack(losses)
 
@@ -337,12 +340,12 @@ def fit_soft(renderer: SoftRenderer, origins, dirs, targets, steps: int = 300, l
     else:
         params = {k: torch.as_tensor(params0[k], dtype=torch.float32,
                                      device=renderer.device).clone() for k in ("albedo", "logits")}
-    _count, voxels, _dists = renderer.trace_hits(origins, dirs)
+    count, voxels, _dists = renderer.trace_hits(origins, dirs)
     opt = adam(lr)
     start, params, opt_state = resume(checkpoint_path, params, opt.init(params))
 
     def step(p, s):
-        return renderer.fit_step(p, s, opt, voxels, targets, opacity_l1, fit_albedo)
+        return renderer.fit_step(p, s, opt, voxels, targets, opacity_l1, fit_albedo, count)
 
     params, _state, losses = run_steps(step, params, opt_state, start, steps, chain,
                                        checkpoint_path, checkpoint_every)

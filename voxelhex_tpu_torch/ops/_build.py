@@ -359,7 +359,7 @@ def library() -> types.SimpleNamespace:
                 },
                 "composite.cu": {
                     "vhx_composite_forward": [p, p, p, i, i, i, f3, p, i, p],
-                    "vhx_composite_backward": [p, p, p, p, i, i, i, f3, p, p, i, p],
+                    "vhx_composite_backward": [p, p, p, p, p, i, i, i, f3, p, p, i, p],
                 },
                 "adam.cu": {"vhx_adam": [p, p, p, p, ll, p, p, p, p, ll, p, p,
                                          ctypes.POINTER(AdamParams), i, p]},

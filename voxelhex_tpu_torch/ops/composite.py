@@ -51,9 +51,11 @@ def composite_forward_plain(albedo, logits, voxels, size, bg=None):
 
 
 def composite_backward_plain(grad_rgb, albedo, logits, voxels, size, bg=None,
-                             need_albedo=True, need_logits=True):
+                             need_albedo=True, need_logits=True, count=None):
     """The plain PyTorch backward (see :func:`composite_backward`)."""
     valid, addr, a, c = _slots(albedo, logits, voxels, size)
+    if count is not None:  # a ray of count 0 adds nothing
+        valid = valid & (count > 0)[:, None]
     K = voxels.shape[1]
     f = (1.0 - a) + 1e-9
     Tp = [torch.ones_like(a[:, 0])]
@@ -82,6 +84,27 @@ def composite_backward_plain(grad_rgb, albedo, logits, voxels, size, bg=None,
             flat = (idx[:, None] * 3 + torch.arange(3, device=idx.device)).reshape(-1)
             g_albedo.index_add_(0, flat, (w[:, None] * g[ok]).reshape(-1))
     return g_albedo, g_logits
+
+
+def backward_adds(voxels, size, count=None, need_albedo=True, need_logits=True):
+    """The atomic adds that the backward kernel (``csrc/composite.cu``)
+    issues on these slots, as ``(adds, hit slots)``, counted from the data:
+    for each warp (32 consecutive rays) and slot k, each distinct voxel of
+    the warp's valid slots k (of rays of count > 0, with ``count``) adds
+    once, 1 add into the logits and 2 into the albedo (an 8 B vector and a
+    scalar)."""
+    valid = voxels[..., 0] >= 0
+    if count is not None:
+        valid = valid & (count > 0)[:, None]
+    v = voxels.clamp(0, size - 1).long()
+    addr = v[..., 0] + v[..., 1] * size + v[..., 2] * size * size
+    R, K = valid.shape
+    warp = torch.arange(R, device=voxels.device)[:, None] // 32
+    slot = torch.arange(K, device=voxels.device)[None, :]
+    key = torch.stack([(warp * K + slot).expand(R, K)[valid], addr[valid]], 1)
+    merged = int(torch.unique(key, dim=0).shape[0]) if key.shape[0] else 0
+    per = int(bool(need_logits)) + 2 * int(bool(need_albedo))
+    return per * merged, int(valid.sum())
 
 
 def _check(albedo, logits, voxels, size, extra=()):
@@ -127,28 +150,33 @@ def composite_forward(albedo, logits, voxels, size, bg=None):
 
 
 def composite_backward(grad_rgb, albedo, logits, voxels, size, bg=None, need_albedo=True,
-                       need_logits=True):
+                       need_logits=True, count=None):
     """The gradients of :func:`composite_forward` for ``grad_rgb`` = dL/drgb
     f32 [R, 3]: ``(g_albedo f32 [S^3 * 3] or None, g_logits f32 [S^3] or
     None)``, scatter-added into zeros over the hit slots (rays with no hit
-    add nothing).
+    add nothing).  ``count`` (int32 [R], the march's hits a ray, optional):
+    a ray of count 0 adds nothing, and the kernel does not read its slots;
+    the march's counts give the same gradients as none.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, which
     adds with f32 atomics in no fixed order."""
     if albedo.device.type == "cpu":
         return composite_backward_plain(grad_rgb, albedo, logits, voxels, size, bg,
-                                        need_albedo, need_logits)
+                                        need_albedo, need_logits, count)
     if albedo.device.type != "cuda":
         raise ValueError(f"composite runs on cuda or cpu tensors, not {albedo.device}")
-    R, K = _check(albedo, logits, voxels, size,
-                  (("grad_rgb", grad_rgb, torch.float32, (voxels.shape[0], 3)),))
+    extra = (("grad_rgb", grad_rgb, torch.float32, (voxels.shape[0], 3)),)
+    if count is not None:
+        extra += (("count", count, torch.int32, (voxels.shape[0],)),)
+    R, K = _check(albedo, logits, voxels, size, extra)
     dev = albedo.device
     lib = _build.library()
     g_albedo = torch.zeros_like(albedo) if need_albedo else None
     g_logits = torch.zeros_like(logits) if need_logits else None
     err = lib.vhx_composite_backward(
-        grad_rgb.data_ptr(), albedo.data_ptr(), logits.data_ptr(), voxels.data_ptr(), R, K,
-        int(size), _bg_arg(bg), None if g_albedo is None else g_albedo.data_ptr(),
+        grad_rgb.data_ptr(), albedo.data_ptr(), logits.data_ptr(), voxels.data_ptr(),
+        None if count is None else count.data_ptr(), R, K, int(size), _bg_arg(bg),
+        None if g_albedo is None else g_albedo.data_ptr(),
         None if g_logits is None else g_logits.data_ptr(), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "composite backward kernel launch")
@@ -162,24 +190,26 @@ composite_backward.launches = 0
 
 class Composite(torch.autograd.Function):
     """:func:`composite_forward` with :func:`composite_backward` as its
-    gradient, for albedo and logits; ``voxels`` carries none."""
+    gradient, for albedo and logits; ``voxels`` and ``count`` carry none."""
 
     @staticmethod
-    def forward(ctx, albedo, logits, voxels, size, bg):
-        ctx.save_for_backward(albedo, logits, voxels)
+    def forward(ctx, albedo, logits, voxels, size, bg, count=None):
+        ctx.save_for_backward(albedo, logits, voxels, count)
         ctx.size, ctx.bg = size, bg
         return composite_forward(albedo, logits, voxels, size, bg)
 
     @staticmethod
     def backward(ctx, grad_rgb):
-        albedo, logits, voxels = ctx.saved_tensors
+        albedo, logits, voxels, count = ctx.saved_tensors
         need_albedo, need_logits = ctx.needs_input_grad[:2]
         g_albedo, g_logits = composite_backward(grad_rgb.contiguous(), albedo, logits, voxels,
-                                                ctx.size, ctx.bg, need_albedo, need_logits)
-        return g_albedo, g_logits, None, None, None
+                                                ctx.size, ctx.bg, need_albedo, need_logits,
+                                                count)
+        return g_albedo, g_logits, None, None, None, None
 
 
-def composite(albedo, logits, voxels, size, bg=None):
+def composite(albedo, logits, voxels, size, bg=None, count=None):
     """Differentiable :func:`composite_forward` (gradients by
-    :func:`composite_backward`)."""
-    return Composite.apply(albedo, logits, voxels, int(size), bg)
+    :func:`composite_backward`, which skips the rays of ``count`` 0 without
+    reading their slots where the march's ``count`` is given)."""
+    return Composite.apply(albedo, logits, voxels, int(size), bg, count)
