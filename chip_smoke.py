@@ -193,9 +193,12 @@ whole and on the window alone, at fly-over poses 0 and 7, with the
 skip/stack ratio of the frame, the window and the ring (the rest), the
 rows refresh beside ``index_select``; (c) ``render_lod`` at the bench
 pose at ``lod_scale`` 0, 0.3 and 0.05 and in phase 10's 512 world at 0.3,
-each against ``render_lod_plain`` on every pixel and the JAX digests, the
-share of hits stopped above level 0, and ``frame_lod_kernel`` against the
-frame kernel's f32 frame in turns.  The last line is ``{"ok": true,
+each against ``render_lod_plain`` on every pixel and the JAX digests, one
+launch each, of the stopless instance at 0 only; the share of hits stopped
+above level 0, the steps a ray of the LOD march and of the frame kernel's,
+and the steps on which the stop rule decides; ``frame_lod_kernel`` against
+the frame kernel's f32 frame in turns at each of the four, and ptxas of
+both of its instances (no stack, no spills).  The last line is ``{"ok": true,
 "device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
 card; there is no CPU fallback.
 """
@@ -387,8 +390,9 @@ LOD_SHA256 = {
 }
 LOD_512_SCALE = 0.3
 LOD_512_SHA256 = "9116997ee342bfaf04eaec77d5082eaa6d836c1eb41fad9c0b11b7a88d62b27f"
-# the LOD stop rule's operations a step, counted low from frame.cu: the
-# norm (6 and a sqrt), the multiply and the table's compares
+# the LOD stop rule's operations on a step where it decides (an occupied
+# cell above level 0), counted low from the reference's rule: the norm (6
+# and a sqrt), the multiply and the level's threshold
 LOD_OPS_PER_STEP = 20
 
 # ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
@@ -4436,13 +4440,14 @@ def lod_skip_slice(dev, card):
     from voxelhex_tpu_torch.ops.far import far_frame_plain, render_far
     from voxelhex_tpu_torch.ops.frame import (lod_tracer, render_frame, render_lod,
                                               render_lod_plain)
+    from voxelhex_tpu_torch.ops.skip import plain_tracer
     from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
                                                 level_depth_plain, prepass_chunks, prepass_start)
     from voxelhex_tpu_torch.ops.stream import refresh_skip_rows, skip_rows_plain
     from voxelhex_tpu_torch.ops.beam import beam_tiles
     from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
     from voxelhex_tpu_torch.render import fastest_renderer
-    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid, skip_row_index
+    from voxelhex_tpu_torch.render.bitgrid import MOVE_DESCEND, build_bitgrid, skip_row_index
     from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
     from voxelhex_tpu_torch.render.streaming import StreamingView
     from voxelhex_tpu_torch.scene import build_scene, build_scene_tree, terrain_points
@@ -4650,84 +4655,103 @@ def lod_skip_slice(dev, card):
     bench = fastest_renderer(scene, device=dev)
     cam = orbit_camera(128.0, resolution=RES)
     R = RES[0] * RES[1]
-    lod_err, n_lod, lod_plain_ms = 0.0, 0, None
-    for scale in LOD_SCALES:
-        n0 = render_lod.launches
-        got = bench.render_lod(cam, scale)
-        n = render_lod.launches - n0
-        n_lod += n
+    o, d = device_rays(cam, dev)
+    ft = plain_tracer(bench.tree, MAX_ITERS)
+    frame_steps = int(ft.run(bench.tree, ft.init(bench.tree, o, d), MAX_ITERS)["iters"].sum())
+    log(f"  the frame kernel's march (4 substeps an ADVANCE), bench pose: {frame_steps / R:.4f} "
+        f"steps a ray")
+    tree32 = build_scene_tree(32)
+    w512 = fastest_renderer(build_bitgrid(flatten(tree32)), device=dev)
+    del tree32
+    lod_err, n_lod, n_stopless, lod_plain_ms, mip_s = 0.0, 0, 0, None, None
+    for world, r, scale, want_sha in [("bench pose", bench, s, LOD_SHA256[s]) for s in LOD_SCALES] \
+            + [(f"{w512.bitgrid.size} world", w512, LOD_512_SCALE, LOD_512_SHA256)]:
+        n0, s0 = render_lod.launches, render_lod.stopless_launches
         t1 = time.perf_counter()
-        plain = render_lod_plain(bench.tree, cam, scale)
+        got = r.render_lod(cam, scale)
+        if r is w512:
+            mip_s = time.perf_counter() - t1
+        n, ns = render_lod.launches - n0, render_lod.stopless_launches - s0
+        n_lod += n
+        n_stopless += ns
+        t1 = time.perf_counter()
+        plain = render_lod_plain(r.tree, cam, scale)
         torch.cuda.synchronize()
-        if scale == 0.3:
+        if r is bench and scale == 0.3:
             lod_plain_ms = (time.perf_counter() - t1) * 1e3
         k = torch.from_numpy(got).to(dev)
         n_bad = int((~same(k, plain)).any(dim=-1).sum())
         lod_err = max(lod_err, max_abs_err(k, plain))
-        trace = lod_tracer(bench.tree, scale)
-        o, d = device_rays(cam, dev)
-        st = trace.run(bench.tree, trace.init(bench.tree, o, d), MAX_ITERS)
+        # the plain march's steps, and those on which the stop rule decides:
+        # an occupied cell above level 0 (a descend, or a hit above level 0)
+        trace = lod_tracer(r.tree, scale)
+        moves = []
+        reads = (torch.zeros(r.tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+                 if r is bench and scale == 0.3 else None)
+        st = trace.run(r.tree, trace.init(r.tree, o, d), MAX_ITERS, moves=moves, reads=reads)
         hit = st["hit"]
         above = int((hit & (st.get("hlev", torch.zeros_like(st["iters"])) > 0)).sum())
+        steps = int(st["iters"].sum())
+        decides = sum(int((m == MOVE_DESCEND).sum()) for m in moves) + above
+        del moves
         digest = sha(got)
-        log(f"  render_lod bench pose, lod_scale {scale}: {n} launch, {n_bad} pixels differ from "
-            f"render_lod_plain; {above} of {int(hit.sum())} hits ({above / max(int(hit.sum()), 1):.4f}) "
-            f"stopped above level 0; {int(st['iters'].sum())} steps; sha256 {digest} "
-            f"{'==' if digest == LOD_SHA256[scale] else '!='} reference")
-        if n != 1 or n_bad or digest != LOD_SHA256[scale] or got.dtype != np.float32:
-            raise AssertionError(f"render_lod at lod_scale {scale}")
-        if scale == 0.3:
-            reads = torch.zeros(bench.tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
-            st = trace.run(bench.tree, trace.init(bench.tree, o, d), MAX_ITERS, reads=reads)
-            lv = st["hlev"][st["hit"]]
-            hv = st["hvox"][st["hit"]].long()
+        log(f"  render_lod {world}, lod_scale {scale}: {n} launch ({ns} of the stopless "
+            f"instance), {n_bad} pixels differ from render_lod_plain; {above} of "
+            f"{int(hit.sum())} hits ({above / max(int(hit.sum()), 1):.4f}) stopped above level "
+            f"0; {steps / R:.4f} steps a ray (2 substeps an ADVANCE), {decides / R:.4f} a ray on "
+            f"an occupied cell above level 0; sha256 {digest} "
+            f"{'==' if digest == want_sha else '!='} reference")
+        if n != 1 or ns != (not scale > 0) or n_bad or digest != want_sha \
+                or got.dtype != np.float32:
+            raise AssertionError(f"render_lod in the {world} at lod_scale {scale}")
+        if reads is not None:
+            lv = st["hlev"][hit]
+            hv = st["hvox"][hit].long()
             cells = int(torch.unique(hv[:, 0] + (hv[:, 1] + hv[:, 2] * 4096) * 4096
                                      + lv.long() * 4096**3).numel())
-            lod_bound = bound(int(reads.sum()) * 8 + cells * 12
-                              + bench.tree["palette"].shape[0] * 16
-                              + ctypes.sizeof(_build.FrameParams)
-                              + ctypes.sizeof(_build.LodParams) + R * 12,
-                              int(st["iters"].sum()) * (TRAVERSE_OPS_PER_STEP + LOD_OPS_PER_STEP)
-                              + R * FRAME_OPS_PER_PIXEL)
-        del o, d, st, trace, plain, k
-    tree32 = build_scene_tree(32)
-    w512 = fastest_renderer(build_bitgrid(flatten(tree32)), device=dev)
-    del tree32
-    n0 = render_lod.launches
-    t1 = time.perf_counter()
-    got = w512.render_lod(cam, LOD_512_SCALE)
-    mip_s = time.perf_counter() - t1
-    n = render_lod.launches - n0
-    n_lod += n
-    plain = render_lod_plain(w512.tree, cam, LOD_512_SCALE)
-    k = torch.from_numpy(got).to(dev)
-    n_bad = int((~same(k, plain)).any(dim=-1).sum())
-    lod_err = max(lod_err, max_abs_err(k, plain))
-    digest = sha(got)
-    want_sha = LOD_512_SHA256
-    log(f"  render_lod in the {w512.bitgrid.size} world, lod_scale {LOD_512_SCALE}: {n} launch "
-        f"({mip_s:.1f} s with the MIP colors' host build and upload), {n_bad} pixels differ "
-        f"from render_lod_plain; sha256 {digest} "
-        f"{'==' if digest == want_sha else '!='} reference")
-    if n != 1 or n_bad or (want_sha is not None and digest != want_sha):
-        raise AssertionError("render_lod in the 512 world")
-    del w512, plain, k
+            lod_bytes = (int(reads.sum()) * 8 + cells * 12 + bench.tree["palette"].shape[0] * 16
+                         + ctypes.sizeof(_build.FrameParams) + ctypes.sizeof(_build.LodParams)
+                         + R * 12)
+            # the stop rule's operations where it decides; beside it the
+            # bound that charged them on every step
+            lod_bound = bound(lod_bytes, steps * TRAVERSE_OPS_PER_STEP
+                              + decides * LOD_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL)
+            lod_bound_every = bound(lod_bytes, steps * (TRAVERSE_OPS_PER_STEP + LOD_OPS_PER_STEP)
+                                    + R * FRAME_OPS_PER_PIXEL)
+        del st, trace, plain, k, reads
+    log(f"  the 512 world's first render_lod took {mip_s:.1f} s with the MIP colors' host build "
+        f"and upload; {n_stopless} launches of the stopless instance")
+    del o, d
     torch.cuda.empty_cache()
     lod_ms = turns("frame kernel against the LOD frame, bench pose", {
         "render_frame (f32)": lambda: render_frame(bench.tree, cam, out_u8=False),
         "frame_lod_kernel, lod_scale 0.3": lambda: render_lod(bench.tree, cam, 0.3)})[1]
-    turns("frame kernel against the LOD frame at lod_scale 0, bench pose", {
-        "render_frame (f32)": lambda: render_frame(bench.tree, cam, out_u8=False),
-        "frame_lod_kernel, lod_scale 0": lambda: render_lod(bench.tree, cam, 0.0)})
+    for scale in (0.0, 0.05):
+        turns(f"frame kernel against the LOD frame at lod_scale {scale}, bench pose", {
+            "render_frame (f32)": lambda: render_frame(bench.tree, cam, out_u8=False),
+            f"frame_lod_kernel, lod_scale {scale}": lambda s=scale: render_lod(bench.tree, cam,
+                                                                                s)})
+    turns(f"frame kernel against the LOD frame, the {w512.bitgrid.size} world", {
+        "render_frame (f32)": lambda: render_frame(w512.tree, cam, out_u8=False),
+        f"frame_lod_kernel, lod_scale {LOD_512_SCALE}": lambda: render_lod(w512.tree, cam,
+                                                                         LOD_512_SCALE)})
+    del w512
+    torch.cuda.empty_cache()
     log(f"frame_lod_kernel: {lod_ms:.4f} ms at lod_scale 0.3, bound {lod_bound[0]:.4f} ms "
-        f"({lod_bound[1]}), plain {lod_plain_ms:.1f} ms (host clock, one run) {tag}")
+        f"({lod_bound[1]}; {lod_bound_every[0]:.4f} ms with the stop rule charged on every "
+        f"step), plain {lod_plain_ms:.1f} ms (host clock, one run) {tag}")
     for source, kernel in (("far.cu", "far_skip_kernel"), ("frame.cu", "frame_lod_kernel"),
                            ("stream.cu", "skip_rows_kernel")):
         blog = _build.build_log(source)
-        for name in kernel_names(blog, kernel):
+        names = kernel_names(blog, kernel)
+        for name in names:
             usage = ptxas_usage(blog, name)
             log(f"  ptxas {name}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B "
                 f"spill stores, {usage[3]} B spill loads")
+            if kernel == "frame_lod_kernel" and any(usage[1:]):
+                raise AssertionError(f"{name} uses a stack or spills")
+        if kernel == "frame_lod_kernel" and len(names) != 2:
+            raise AssertionError(f"frame_lod_kernel instances: {names}")
     log(f"phase 16 (c) render_lod: {time.time() - t0:.1f} s")
     log(f"phase 16 deep prepass, skip streaming, LOD: {time.time() - t_all:.1f} s")
     src = "voxelhex_tpu_torch/csrc/"

@@ -1161,25 +1161,49 @@ def test_skip_rows_refresh_equals_plain(cuda, S):
     assert _equal(rows, want)
 
 
-@pytest.mark.parametrize("scale", [0.0, 0.3, 0.05, 2.0])
-def test_lod_kernel_equals_plain(cuda, scale):
+@pytest.fixture(scope="module")
+def world_512():
+    """The brick-32 512 world of chip_smoke.py phase 10 on the card (its MIP
+    grids built at first use), built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import build_bitgrid
+    from voxelhex_tpu_torch.scene import build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    return fastest_renderer(build_bitgrid(flatten(build_scene_tree(32))),
+                            device=torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.3, 0.05, 2.0, float("inf"), -1.0, float("nan")])
+def test_lod_kernel_equals_plain(cuda, world_512, scale):
     """frame_lod_kernel against render_lod_plain on every pixel of the bench
     pose at 1920 x 1080 and of a ragged 1001 x 523 frame, and the renderer's
-    render_lod on the card against the CPU's."""
+    render_lod on the card against the CPU's; the stopless instance at
+    lod_scale 0, -1 and NaN, and only there; then the brick-32 512 world
+    (chip_smoke.py phase 10) at 1080p."""
     from voxelhex_tpu_torch.ops.frame import render_lod, render_lod_plain
     from voxelhex_tpu_torch.render.camera import orbit_camera
 
+    stopless = not scale > 0.0
     gpu, cpu = _scene_renderers(cuda)
     for res in ((1920, 1080), (1001, 523)):
         cam = orbit_camera(128.0, resolution=res)
-        n0 = render_lod.launches
+        n0, s0 = render_lod.launches, render_lod.stopless_launches
         a = gpu.render_lod(cam, scale, bg=(0.1, 0.2, 0.3))
         torch.cuda.synchronize()
         assert render_lod.launches == n0 + 1 and a.dtype == np.float32
+        assert render_lod.stopless_launches == s0 + stopless
         assert _equal(torch.from_numpy(a), render_lod_plain(gpu.tree, cam, scale,
                                                             (0.1, 0.2, 0.3)).cpu())
         if res[0] < 1920:
             np.testing.assert_array_equal(a, cpu.render_lod(cam, scale, bg=(0.1, 0.2, 0.3)))
+    cam = orbit_camera(128.0, resolution=(1920, 1080))
+    s0 = render_lod.stopless_launches
+    a = world_512.render_lod(cam, scale)
+    assert render_lod.stopless_launches == s0 + stopless
+    assert _equal(torch.from_numpy(a), render_lod_plain(world_512.tree, cam, scale).cpu())
 
 
 def test_streaming_skip_view_on_the_card_equals_cpu(cuda):

@@ -42,8 +42,14 @@ frame 0 (``chip_smoke.py`` phase 14's poses), for one frame and a batch of
 floor); the depth prepass at ``prepass_levels=2`` (both levels' depths and
 the start map, however many launches each tree makes), stack and skip, at
 the bench and terrain poses; and the splat prepass at the bench pose (its
-device operations as each tree's wrapper makes them); ``--only WORDS``
-keeps the kernels whose names hold one of the comma-separated words.
+device operations as each tree's wrapper makes them); the LOD frame
+(``frame.cu``'s ``frame_lod_kernel``, f32) at the bench pose at
+``lod_scale`` 0, 0.05 and 0.3 and in ``chip_smoke.py`` phase 10's 512 world
+at 0.3, after each case's steps a ray and the steps on which its stop rule
+decides, from the plain march; ``--only WORDS`` keeps the kernels whose
+names hold one of the comma-separated words (``--only lod``, or words
+naming LOD cases such as ``--only "bench (lod_scale 0.0)"``, sets up only
+the LOD frame's worlds).
 ``--variant NAME=DIR[:FLAGS]`` (repeatable) adds another tree copy to the
 turns, built from its own sources by its own ``_build.py`` with the extra
 comma-separated nvcc ``FLAGS`` (e.g. ``-DNAME=1,-maxrregcount=64``): a
@@ -85,7 +91,7 @@ REDESIGNED = (("traverse.cu", "traverse_skip_kernel"), ("frame.cu", "frame_skip_
               ("composite.cu", "composite_bwd_kernel"))
 # the kernels whose functions may change (a name holds one of these):
 # every other function the parent has is to keep its SASS
-REDESIGNED_KERNELS = ("composite_bwd_kernel", "far_skip_kernel")
+REDESIGNED_KERNELS = ("frame_lod_kernel",)
 SKIP_SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS
 # what every probe has besides its piece: memory, constants, the frame
 SKIP = re.compile(r"^(LDG|STG|LD|ST|LDS|STS|LDC|ULDC|S2R|S2UR|CS2R|MOV|UMOV|IMAD\.MOV|EXIT|BRA|"
@@ -183,17 +189,20 @@ def redesigned_report(nvcc, build, tag, out_dir):
 
 def sass_kept(nvcc, build, parent_build):
     """Which of the parent's functions in each library this tree has byte
-    for byte; the number changed outside REDESIGNED_KERNELS."""
-    changed = 0
+    for byte; the number changed outside REDESIGNED_KERNELS, and their
+    names."""
+    changed = []
     for source in parent_build.SOURCES:
         change = set(function_bodies(_library_sass(nvcc, build, source)).values())
         for name, body in sorted(function_bodies(_library_sass(nvcc, parent_build,
                                                                source)).items()):
             kept = body in change
-            changed += not kept and not any(k in name for k in REDESIGNED_KERNELS)
+            if not kept and not any(k in name for k in REDESIGNED_KERNELS):
+                changed.append(f"{source} {short_name(name)}")
             print(f"  {source} {short_name(name)} ({len(body.splitlines()) // 2} instructions): "
                   f"{'kept byte for byte' if kept else 'changed'}")
-    print(f"  the parent's functions changed outside {', '.join(REDESIGNED_KERNELS)}: {changed}")
+    print(f"  the parent's functions changed outside {', '.join(REDESIGNED_KERNELS)}: "
+          f"{len(changed)}{': ' if changed else ''}{', '.join(changed)}")
 
 
 def sass_report(build, parent_build, out_dir):
@@ -300,7 +309,8 @@ def entries(build):
                  "vhx_render_frame_skip", "vhx_render_frames_skip", "vhx_multihit_skip",
                  "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_splat_scratch_words",
                  "vhx_prepass", "vhx_prepass_sync_words", "vhx_prepass_level",
-                 "vhx_prepass_level_skip", "vhx_depth_start", "vhx_composite_backward"):
+                 "vhx_prepass_level_skip", "vhx_depth_start", "vhx_composite_backward",
+                 "vhx_render_frame_lod", "vhx_render_frame_lod_stopless"):
         fn = getattr(lib, name, None)
         if fn is None:  # an entry of one tree only
             continue
@@ -386,6 +396,96 @@ def terrain_grid(dev):
     return tree, device_bitgrid(build_bitgrid(tree), dev, skip_rows=True)
 
 
+def lod_struct(build, tree, scale):
+    """``render_lod``'s ``LodParams`` of ``tree`` at ``scale`` in the layout
+    of ``build``'s mirror: this tree's, or an older tree's of the stop
+    levels' threshold table and the scale."""
+    import numpy as np
+
+    from voxelhex_tpu_torch.ops.frame import lod_params
+    from voxelhex_tpu_torch.render.bitgrid import LOD_THRESHOLDS
+
+    if hasattr(build.LodParams, "stop_sq"):
+        return build.LodParams.from_buffer_copy(bytes(lod_params(tree, scale)))
+    p = build.LodParams()
+    p.n_mip = 0
+    while f"mip_rgb_{p.n_mip}" in tree:
+        grid = tree[f"mip_rgb_{p.n_mip}"]
+        p.mip[p.n_mip], p.mip_cells[p.n_mip] = grid.data_ptr(), grid.shape[0]
+        p.n_mip += 1
+    p.thresholds[:len(LOD_THRESHOLDS)] = LOD_THRESHOLDS
+    p.scale = float(np.float32(scale))
+    return p
+
+
+def lod_turns(kernels, builds, libs, dev, cam, stream):
+    """Add the LOD frame (``frame_lod_kernel``, f32) to ``kernels``: the bench
+    pose at ``lod_scale`` 0, 0.05 and 0.3 and phase 10's 512 world at 0.3
+    (``chip_smoke.py`` phase 16 (c)); first print each case's steps a ray
+    and the steps on which the stop rule decides (an occupied cell above
+    level 0: a descend, or a hit above level 0) from the plain march, and
+    the frame kernel's steps a ray at the bench pose."""
+    import torch
+
+    import chip_smoke
+    from voxelhex_tpu_torch.ops.frame import frame_params, lod_params, lod_stopless, lod_tracer
+    from voxelhex_tpu_torch.ops.skip import plain_tracer
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
+    from voxelhex_tpu_torch.render.bitgrid import (MOVE_DESCEND, MOVE_HIT, build_bitgrid,
+                                                   build_mip_colors, device_bitgrid)
+    from voxelhex_tpu_torch.render.camera import device_rays
+    from voxelhex_tpu_torch.scene import build_scene, build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    worlds = {}
+    for name, grid in (("bench", build_scene()),
+                       ("512 world", build_bitgrid(flatten(build_scene_tree(32))))):
+        worlds[name] = device_bitgrid(build_mip_colors(grid), dev)  # the MIP grids too
+    o, d = device_rays(cam, dev)
+    R = o.shape[0]
+    t = worlds["bench"]
+    trace = plain_tracer(t, MAX_ITERS)
+    st = trace.run(t, trace.init(t, o, d), MAX_ITERS)
+    print(f"  frame kernel's march (4 substeps), bench: {int(st['iters'].sum()) / R:.4f} "
+          f"steps a ray", flush=True)
+    w, h = cam.resolution
+    cases = [("bench", 0.0), ("bench", 0.05), ("bench", 0.3), ("512 world", 0.3)]
+    for where, scale in cases:
+        t = worlds[where]
+        trace = lod_tracer(t, scale)
+        moves = []
+        st = trace.run(t, trace.init(t, o, d), MAX_ITERS, moves=moves)
+        mv = torch.stack(moves) if moves else torch.zeros((0, R), dtype=torch.int8, device=dev)
+        hit = st["hit"]
+        above = hit & (st.get("hlev", torch.zeros_like(st["iters"])) > 0)
+        decides = int((mv == MOVE_DESCEND).sum()) + int(above.sum())
+        steps = int(st["iters"].sum())
+        print(f"  LOD march (2 substeps), {where}, lod_scale {scale}: {steps / R:.4f} steps a "
+              f"ray, {decides / R:.4f} a ray on an occupied cell above level 0 "
+              f"({decides / max(steps, 1):.4f} of steps: {int((mv == MOVE_DESCEND).sum())} "
+              f"descends, {int(above.sum())} hits above level 0 of {int(hit.sum())} hits; "
+              f"{int((mv == MOVE_HIT).sum())} hit moves)", flush=True)
+
+    def lod(lib, build, where, scale):
+        t = worlds[where]
+        out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+        params = frame_params(t, cam)
+        entry = lib["vhx_render_frame_lod"]  # render_lod's choice where the tree has two
+        if "vhx_render_frame_lod_stopless" in lib and lod_stopless(params, lod_params(t, scale)):
+            entry = lib["vhx_render_frame_lod_stopless"]
+        err = entry(t["occ_pairs"].data_ptr(), t["colors"].data_ptr(), t["palette"].data_ptr(),
+                    t["palette"].shape[0], params, lod_struct(build, t, scale), out.data_ptr(),
+                    0, stream)
+        build.check(err, "LOD frame")
+        return (out,)
+
+    tag_of = {id(lib): tag for tag, lib in libs.items()}  # the build of each library
+    for where, scale in cases:
+        kernels[f"lod frame.cu, {where} (lod_scale {scale})"] = (
+            lambda lib, where=where, scale=scale: lod(lib, builds[tag_of[id(lib)]], where, scale),
+            16, 1)
+
+
 def ab(build, parent, card, rounds, other="parent", only=None, variants=None, profile=False):
     import numpy as np
     import torch
@@ -413,24 +513,37 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
     stream = torch.cuda.current_stream(dev).cuda_stream
     bench = [cam] * chip_smoke.BATCH
     prev = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
-    terrain, tgrid = terrain_grid(dev)
-    tcam = orbit_camera(float(chip_smoke.TERRAIN_WORLD), resolution=chip_smoke.RES)
-    scenes = {"bench": (tree, cam), "terrain": (tgrid, tcam)}
-    rays = {name: device_rays(c, dev) for name, (_t, c) in scenes.items()}
-    # the beam's (grid, cell, camera) at the bench and terrain poses and in
-    # the window of fly-over frame 0 (phase 14's poses)
-    view = StreamingView(terrain, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192,
-                         beam_prepass=True, device=dev)
-    fcam = chip_smoke.flight_cam(0)
-    view.render(fcam, out_u8=True, out_device=True)
-    wcam = view.layers(fcam)[0][1]
-    beams = {"bench": (*fastest_renderer(scene, device=dev)._beam_spec(cam), cam),
-             "terrain": (*fastest_renderer(terrain, device=dev)._beam_spec(tcam), tcam),
-             "fly-over window": (*view.renderer._beam_spec(wcam), wcam)}
+    scenes = {"bench": (tree, cam)}
+    rays = {"bench": device_rays(cam, dev)}
+    beams = {}
+    kept = (lambda name: True) if only is None else (
+        lambda name: any(word in name for word in only))
+
+    def terrain_setup():
+        """The terrain and the fly-over window: skip, beam and prepass
+        turns."""
+        terrain, tgrid = terrain_grid(dev)
+        tcam = orbit_camera(float(chip_smoke.TERRAIN_WORLD), resolution=chip_smoke.RES)
+        scenes["terrain"] = (tgrid, tcam)
+        rays["terrain"] = device_rays(tcam, dev)
+        # the beam's (grid, cell, camera) at the bench and terrain poses and
+        # in the window of fly-over frame 0 (phase 14's poses)
+        view = StreamingView(terrain, view_size=chip_smoke.FLY_VIEW, regions_per_update=8192,
+                             beam_prepass=True, device=dev)
+        fcam = chip_smoke.flight_cam(0)
+        view.render(fcam, out_u8=True, out_device=True)
+        wcam = view.layers(fcam)[0][1]
+        beams.update({
+            "bench": (*fastest_renderer(scene, device=dev)._beam_spec(cam), cam),
+            "terrain": (*fastest_renderer(terrain, device=dev)._beam_spec(tcam), tcam),
+            "fly-over window": (*view.renderer._beam_spec(wcam), wcam)})
+
+    if only is None or not all("lod" in word for word in only):
+        terrain_setup()
     # after the view's frame, which launches through the package's own
     # bindings: entries() retypes the library's functions
-    libs = {other: entries(parent), "change": entries(build),
-            **{name: entries(b) for name, b in (variants or {}).items()}}
+    builds = {other: parent, "change": build, **(variants or {})}
+    libs = {tag: entries(b) for tag, b in builds.items()}
 
     def frames(lib, where="bench", skip=False):
         t, c = scenes[where]
@@ -490,12 +603,11 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
         build.check(err, "multihit")
         return outs
 
-    bench_grid = beams["bench"][0]
-    empty = device_bitgrid(bitgrid_from_occupancy(np.zeros((bench_grid["size"],) * 3,
-                                                           dtype=bool)), dev)
-
     def beam(lib, pose="bench", n_frames=1, empty_grid=False):
         grid, cell, c = beams[pose]
+        if empty_grid:
+            empty = device_bitgrid(bitgrid_from_occupancy(np.zeros((grid["size"],) * 3,
+                                                                   dtype=bool)), dev)
         p = beam_params([(empty if empty_grid else grid, cell, c)] * n_frames, 8)
         out = torch.empty((n_frames, h // 8, w // 8), dtype=torch.float32, device=dev)
         build.check(lib["vhx_beam"](p, out.data_ptr(), 0, stream), "beam")
@@ -568,25 +680,32 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
     # K = 2 over SoftRenderer's initial params, dL/drgb of the constant
     # target, the two gradients zeroed before each launch, as the step
     # calls it (this tree's kernel with the march's count, or without it)
-    from voxelhex_tpu_torch.diff.soft import SoftRenderer
-    from voxelhex_tpu_torch.ops.composite import composite_forward
+    soft_state = {}
 
-    soft = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, device=dev)
-    sp = soft.init_params()
-    s_alb, s_lgt = sp["albedo"].reshape(-1), sp["logits"]
-    s_count, s_vox, _d = soft.trace_hits(*rays["bench"])
-    s_rgb = composite_forward(s_alb, s_lgt, s_vox, soft.size)
-    s_target = torch.tensor(chip_smoke.CONST_TARGET, dtype=torch.float32, device=dev)
-    s_grad = (2.0 * (s_rgb - s_target) / s_rgb.numel()).contiguous()
-    del sp, s_rgb, _d
+    def soft_setup():
+        from voxelhex_tpu_torch.diff.soft import SoftRenderer
+        from voxelhex_tpu_torch.ops.composite import composite_forward
+
+        soft = SoftRenderer(scene, max_hits=K, max_iters=MAX_ITERS, device=dev)
+        sp = soft.init_params()
+        alb, lgt = sp["albedo"].reshape(-1), sp["logits"]
+        count, vox, _d = soft.trace_hits(*rays["bench"])
+        rgb = composite_forward(alb, lgt, vox, soft.size)
+        target = torch.tensor(chip_smoke.CONST_TARGET, dtype=torch.float32, device=dev)
+        soft_state.update(size=soft.size, alb=alb, lgt=lgt, count=count, vox=vox,
+                          grad=(2.0 * (rgb - target) / rgb.numel()).contiguous())
 
     def composite_bwd(lib, with_count=True):
+        if not soft_state:
+            soft_setup()
+        st = soft_state
         entry = lib["vhx_composite_backward"]
-        ga, gl = torch.zeros_like(s_alb), torch.zeros_like(s_lgt)
-        args = (s_grad.data_ptr(), s_alb.data_ptr(), s_lgt.data_ptr(), s_vox.data_ptr())
-        rest = (s_vox.shape[0], K, soft.size, None, ga.data_ptr(), gl.data_ptr(), 0, stream)
+        ga, gl = torch.zeros_like(st["alb"]), torch.zeros_like(st["lgt"])
+        args = (st["grad"].data_ptr(), st["alb"].data_ptr(), st["lgt"].data_ptr(),
+                st["vox"].data_ptr())
+        rest = (st["vox"].shape[0], K, st["size"], None, ga.data_ptr(), gl.data_ptr(), 0, stream)
         if entry.n_args == 13:  # the march's count
-            err = entry(*args, s_count.data_ptr() if with_count else None, *rest)
+            err = entry(*args, st["count"].data_ptr() if with_count else None, *rest)
         else:
             err = entry(*args, *rest)
         build.check(err, "composite backward")
@@ -628,8 +747,9 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
         composite_bwd, 20, 1, grads_close)
     kernels["composite backward, bench (K=2), without the count"] = (
         lambda lib: composite_bwd(lib, False), 20, 1, grads_close)
-    if only is not None:
-        kernels = {k: v for k, v in kernels.items() if any(word in k for word in only)}
+    if only is None or any("lod" in word for word in only):
+        lod_turns(kernels, builds, libs, dev, cam, stream)
+    kernels = {k: v for k, v in kernels.items() if kept(k)}
     tags = [t for t in libs if t != other]  # change, then the variants
     prev.copy_(frame(libs[other])[0])
     for name, (fn, _reps, _per, *close) in kernels.items():

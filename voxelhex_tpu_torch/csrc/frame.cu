@@ -32,56 +32,72 @@
 // of a grid of L levels, with and without a start map: the same prologue
 // and epilogue.
 //
-// `frame_lod_kernel` is the reference renderer's `render_lod` (bitgrid.py:
-// 1627): the tracer `make_bitgrid_tracer(..., lod_scale)` with its default
-// settings (2 DDA substeps an ADVANCE, lateral steps, 4 restarts) and its
-// `shade_lod`, an XLA program on the path of the two ported kernels.  The
-// same prologue; the automaton with the LOD stop rule (`LodStop`: an
-// occupied cell at or below the stop level is a hit, the level taken each
-// step from |p - o| * lod_scale through the launch's threshold table, not
-// from log2f, whose last bit differs from XLA:CPU's); an epilogue that
-// takes the albedo from the palette at level 0 and from the hit level's MIP
-// grid above it (`resolve_rgb_lod`), then Lambert, into f32.  What bounds
-// it: as the frame kernel, the automaton's steps, fewer as lod_scale stops
-// rays higher; each step adds a sqrt and the table's compares.
+// `frame_lod_kernel<kStop>` is the reference renderer's `render_lod`
+// (bitgrid.py:1627): the tracer `make_bitgrid_tracer(..., lod_scale)` with
+// its default settings (2 DDA substeps an ADVANCE, lateral steps, 4
+// restarts) and its `shade_lod`, an XLA program on the path of the two
+// ported kernels.  The same prologue; the automaton with the LOD stop rule
+// (`LodStop`: an occupied cell above level 0 is a hit where the ray's
+// squared distance from its origin reaches its level's entry of the stop
+// table, not from log2f, whose last bit differs from XLA:CPU's); an
+// epilogue that takes the albedo from the palette at level 0 and from the
+// hit level's MIP grid above it (`resolve_rgb_lod`), then Lambert, into
+// f32.  What bounds it: as the frame kernel, the automaton's instructions
+// a step, with more steps (2 substeps an ADVANCE against 4) and fewer as
+// lod_scale stops rays higher.  The stop rule decides only on the steps
+// that meet an occupied cell above level 0 (a fifth of them at the bench
+// pose, a third in a 512 world), so it is computed only there, as one
+// compare of the unrooted squared distance against the level's entry (a
+// constant-bank load): no root, multiply or table scan on the other
+// steps.  The hit voxel's color is read only where the palette gives the
+// albedo.  Where no step can stop above level 0 (every entry of the table
+// NaN, at lod_scale <= 0 or NaN, or +inf: ops/frame.py lod_stopless) the
+// stopless instance marches without the rule.
 
 #include "frame.cuh"
 #include "skip.cuh"
 
 // The LOD frame's parameters besides the frame's: the MIP color grids of
 // levels 1 .. n_mip (f32 [n^3, 3], n = max(size >> 2l, 1)) and their
-// cells, the stop levels' thresholds of dist * scale (level k from
-// thresholds[k - 1] on)
+// cells, and the stop table: an occupied cell of level l >= 1 is a hit
+// where the squared distance s = |p - o|^2 of the ray's point from its
+// origin is at least stop_sq[l - 1] (NaN: at no s).  stop_sq[k] is the
+// least f32 s at which the reference's stop level, clip(int(log2(max(
+// sqrt(s) * lod_scale, 1)) * 0.5), 0, top), is above k (render/bitgrid.py
+// lod_stop_sq): both roundings are monotone, so one compare of s decides
+// what the norm, the multiply and the level's threshold decided.
 struct LodParams {
     const float* mip[VHX_MAX_LEVELS];
     long long mip_cells[VHX_MAX_LEVELS];
-    float thresholds[VHX_MAX_LEVELS];
-    float scale;
+    float stop_sq[VHX_MAX_LEVELS];
     int n_mip;
 };
 
 namespace vhx {
 
-// The LOD frame's policy: stop on the first hit, at the stop level of the
-// ray's distance from its origin `o`
+// The LOD frame's policy: stop on the first hit, an occupied cell above
+// level 0 included where the ray's squared distance from its origin `o`
+// reaches its level's entry of the stop table
 struct LodStop {
-    const LodParams* P;
+    const float* stop_sq;  // LodParams.stop_sq
     float o[3];
-    int top;
     __device__ __forceinline__ bool on_hit(March&) const { return true; }
 };
 
-// The LOD march's move: a hit at or below the stop level at the ray's
-// point, the thresholds at or below |p - o| * scale (the norm's squares
-// summed in order, unfused, as XLA:CPU sums the reference's), at most the
-// top level
+// |p - o|^2 as the reference's norm sums it before its root: the squares
+// summed in order, unfused (frame.cuh ray_length)
+__device__ __forceinline__ float ray_sq(const float p[3], const float o[3]) {
+    const float x = __fsub_rn(p[0], o[0]), y = __fsub_rn(p[1], o[1]), z = __fsub_rn(p[2], o[2]);
+    return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// The LOD march's move: choose_move's, but a descend into an occupied cell
+// of level l >= 1 is a hit where s >= stop_sq[l - 1].  The stop rule
+// decides only there, so only there is it computed.
 __device__ __forceinline__ int policy_move(const LodStop& pol, const March& m) {
-    const float x = __fmul_rn(ray_length(m.p, pol.o), pol.P->scale);
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < VHX_MAX_LEVELS - 1; ++i)
-        if (i < pol.top && x >= pol.P->thresholds[i]) k = i + 1;
-    return choose_move_at(m, k);
+    const int move = choose_move(m);
+    if (move != MOVE_DESCEND) return move;
+    return ray_sq(m.p, pol.o) >= pol.stop_sq[m.level - 1] ? MOVE_HIT : MOVE_DESCEND;
 }
 
 }  // namespace vhx
@@ -183,7 +199,10 @@ frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restri
                               start_stride, rgb_out, u8_out, substeps);
 }
 
-// The LOD frame of each pixel into rgb (f32 [h, w, 3])
+// The LOD frame of each pixel into rgb (f32 [h, w, 3]).  Without kStop no
+// ray stops above level 0: the march is the stack automaton's at 2
+// substeps, and every hit takes its albedo from the palette.
+template <bool kStop>
 __global__ void __launch_bounds__(THREADS)
 frame_lod_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
                  const float4* __restrict__ palette, int n_colors, const FrameParams P,
@@ -198,36 +217,48 @@ frame_lod_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict
     const vhx::Grid g{occ, levels, P.trace.n_levels, P.trace.size, P.trace.n_blocks};
     vhx::March m;
     vhx::init(m, o, d, g);
-    vhx::LodStop pol{&Lp, {o[0], o[1], o[2]}, P.trace.n_levels - 1};
-    vhx::run<vhx::LodStop, 2>(m, g, P.trace.max_iters, pol);
-    const vhx::Hit h = vhx::hit_of(m, colors, P.trace.size);
+    if constexpr (kStop) {
+        vhx::LodStop pol{Lp.stop_sq, {o[0], o[1], o[2]}};
+        vhx::run<vhx::LodStop, 2>(m, g, P.trace.max_iters, pol);
+    } else {
+        vhx::StopAtHit pol;
+        vhx::run<vhx::StopAtHit, 2>(m, g, P.trace.max_iters, pol);
+    }
     float rgb[3] = {P.bg[0], P.bg[1], P.bg[2]};
-    if (h.hit) {
+    if (m.hit) {
         float a[3] = {0.f, 0.f, 0.f};
         const int l = m.level;
-        if (l >= 1 && l <= Lp.n_mip) {
+        // hit_of's voxel and normal; its color read only where the albedo
+        // comes from the palette: at level 0, or above the MIP grids
+        int hvox[3];
+        float normal[3];
+        vhx::hit_cell(m, hvox, normal);
+        if (kStop && l >= 1 && l <= Lp.n_mip) {
             // the hit cell's MIP color: its cell of level l, clipped
             const int n = (P.trace.size >> (2 * l)) > 1 ? P.trace.size >> (2 * l) : 1;
             long long addr = 0, stride = 1;
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-                const int v = h.hvox[c] >> (2 * l);
+                const int v = hvox[c] >> (2 * l);
                 addr += (long long)(v < 0 ? 0 : (v > n - 1 ? n - 1 : v)) * stride;
                 stride *= n;
             }
             if (addr > Lp.mip_cells[l - 1] - 1) addr = Lp.mip_cells[l - 1] - 1;
 #pragma unroll
             for (int c = 0; c < 3; ++c) a[c] = __ldg(&Lp.mip[l - 1][3 * addr + c]);
-        } else if (h.voxel >= 0 && h.voxel != vhx::NO_COLOR_HIT) {
-            const float4 p = __ldg(&palette[h.voxel < n_colors ? h.voxel : n_colors - 1]);
-            a[0] = p.x;
-            a[1] = p.y;
-            a[2] = p.z;
+        } else {
+            const int voxel = vhx::hit_color(hvox, colors, P.trace.size);
+            if (voxel >= 0 && voxel != vhx::NO_COLOR_HIT) {
+                const float4 p = __ldg(&palette[voxel < n_colors ? voxel : n_colors - 1]);
+                a[0] = p.x;
+                a[1] = p.y;
+                a[2] = p.z;
+            }
         }
         // sum(n * (-0.5, 0.5, -0.5)) / 2 + 0.5, as shade_hit
-        const float s = __fadd_rn(__fadd_rn(__fmul_rn(h.normal[0], -0.5f),
-                                            __fmul_rn(h.normal[1], 0.5f)),
-                                  __fmul_rn(h.normal[2], -0.5f));
+        const float s = __fadd_rn(__fadd_rn(__fmul_rn(normal[0], -0.5f),
+                                            __fmul_rn(normal[1], 0.5f)),
+                                  __fmul_rn(normal[2], -0.5f));
         const float lambert = __fadd_rn(__fmul_rn(s, 0.5f), 0.5f);
 #pragma unroll
         for (int c = 0; c < 3; ++c) rgb[c] = __fmul_rn(a[c], lambert);
@@ -280,13 +311,12 @@ extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* color
     });
 }
 
-// The LOD frame (frame_lod_kernel) into rgb, f32 [h, w, 3]: `lod` holds the
-// MIP grids and the stop levels' thresholds; params->trace.max_iters steps
-// a ray.
-extern "C" cudaError_t vhx_render_frame_lod(const void* occ_pairs, const void* colors,
-                                            const float* palette, int n_colors,
-                                            const FrameParams* params, const LodParams* lod,
-                                            float* rgb, int device, cudaStream_t stream) {
+// The LOD frame of the instance kStop of frame_lod_kernel into rgb
+template <bool kStop>
+static cudaError_t launch_frame_lod(const void* occ_pairs, const void* colors,
+                                    const float* palette, int n_colors, const FrameParams* params,
+                                    const LodParams* lod, float* rgb, int device,
+                                    cudaStream_t stream) {
     const FrameParams& P = *params;
     if (bad_frame(P, n_colors, nullptr, 1, VHX_MAX_LEVELS) || !rgb || lod->n_mip < 0 ||
         lod->n_mip > VHX_MAX_LEVELS)
@@ -296,10 +326,31 @@ extern "C" cudaError_t vhx_render_frame_lod(const void* occ_pairs, const void* c
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
-    frame_lod_kernel<<<grid, THREADS, 0, stream>>>(
+    frame_lod_kernel<kStop><<<grid, THREADS, 0, stream>>>(
         static_cast<const uint2*>(occ_pairs), static_cast<const unsigned short*>(colors),
         reinterpret_cast<const float4*>(palette), n_colors, P, *lod, rgb);
     return cudaGetLastError();
+}
+
+// The LOD frame (frame_lod_kernel) into rgb, f32 [h, w, 3]: `lod` holds the
+// MIP grids and the stop table; params->trace.max_iters steps a ray.
+extern "C" cudaError_t vhx_render_frame_lod(const void* occ_pairs, const void* colors,
+                                            const float* palette, int n_colors,
+                                            const FrameParams* params, const LodParams* lod,
+                                            float* rgb, int device, cudaStream_t stream) {
+    return launch_frame_lod<true>(occ_pairs, colors, palette, n_colors, params, lod, rgb, device,
+                                  stream);
+}
+
+// The same frame by the stopless instance, where no step can stop above
+// level 0 (ops/frame.py lod_stopless)
+extern "C" cudaError_t vhx_render_frame_lod_stopless(const void* occ_pairs, const void* colors,
+                                                     const float* palette, int n_colors,
+                                                     const FrameParams* params,
+                                                     const LodParams* lod, float* rgb, int device,
+                                                     cudaStream_t stream) {
+    return launch_frame_lod<false>(occ_pairs, colors, palette, n_colors, params, lod, rgb,
+                                   device, stream);
 }
 
 extern "C" int vhx_lod_params_size() { return (int)sizeof(LodParams); }

@@ -418,19 +418,9 @@ __device__ __forceinline__ int choose_move(const March& m) {
     return ((m.lo & m_lo) | (m.hi & m_hi)) == 0u ? MOVE_ASCEND : MOVE_ADVANCE;
 }
 
-// The move of the LOD march (frame.cu `LodStop`): an occupied cell at or
-// below level `stop`, not only a voxel, is a hit.
-__device__ __forceinline__ int choose_move_at(const March& m, int stop) {
-    if (m.tsect >= OOB) return MOVE_LATERAL;
-    if (occ_bit(m.lo, m.hi, m.tsect)) return m.level <= stop ? MOVE_HIT : MOVE_DESCEND;
-    uint32_t m_lo, m_hi;
-    reach_mask(m.tsect, m.octant, m_lo, m_hi);
-    return ((m.lo & m_lo) | (m.hi & m_hi)) == 0u ? MOVE_ASCEND : MOVE_ADVANCE;
-}
-
 // The move `run` takes under its policy: `choose_move`'s, but for the LOD
-// frame's policy, whose overload (frame.cu) stops at a level of the ray's
-// distance
+// frame's policy, whose overload (frame.cu) also stops above level 0 at a
+// squared distance from the ray's origin
 template <class Policy>
 __device__ __forceinline__ int policy_move(const Policy&, const March& m) {
     return choose_move(m);
@@ -630,6 +620,26 @@ struct Hit {
     float normal[3];
 };
 
+// The hit cell of the single-hit march `m` that ended on a hit: the hit
+// voxel and its impact normal (the hit step moved nothing: the cell and
+// point are the hit's)
+__device__ __forceinline__ void hit_cell(const March& m, int hvox[3], float normal[3]) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) hvox[c] = (int)m.tmin[c];
+    impact_normal(m.tmin, m.tsize, m.p, normal);
+}
+
+// The color index of the hit voxel `hvox` (clipped to the world of edge
+// `size`, `colors`), or NO_COLOR_HIT where it has none
+__device__ __forceinline__ int hit_color(const int hvox[3],
+                                         const unsigned short* __restrict__ colors, int size) {
+    int v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[c] = hvox[c] < 0 ? 0 : (hvox[c] > size - 1 ? size - 1 : hvox[c]);
+    const int cidx = (int)__ldg(&colors[voxel_addr(v[0], v[1], v[2], size)]);
+    return cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
+}
+
 // What the single-hit march `m` ends with: on a hit, the hit voxel, its
 // impact normal and color (`colors` of the world of edge `size`).
 __device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __restrict__ colors,
@@ -642,17 +652,8 @@ __device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __re
     for (int c = 0; c < 3; ++c) out.point[c] = m.p[c];
     out.voxel = EMPTY_DESC;
     if (m.hit) {
-        // the hit step moved nothing: the cell and point are the hit's
-#pragma unroll
-        for (int c = 0; c < 3; ++c) out.hvox[c] = (int)m.tmin[c];
-        impact_normal(m.tmin, m.tsize, m.p, out.normal);
-        // the color of the hit voxel
-        int v[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-            v[c] = out.hvox[c] < 0 ? 0 : (out.hvox[c] > size - 1 ? size - 1 : out.hvox[c]);
-        const int cidx = (int)__ldg(&colors[voxel_addr(v[0], v[1], v[2], size)]);
-        out.voxel = cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
+        hit_cell(m, out.hvox, out.normal);
+        out.voxel = hit_color(out.hvox, colors, size);
     }
     return out;
 }

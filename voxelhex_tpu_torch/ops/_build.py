@@ -93,8 +93,7 @@ class LodParams(ctypes.Structure):
     _fields_ = [
         ("mip", ctypes.c_void_p * MAX_LEVELS),
         ("mip_cells", ctypes.c_longlong * MAX_LEVELS),
-        ("thresholds", ctypes.c_float * MAX_LEVELS),
-        ("scale", ctypes.c_float),
+        ("stop_sq", ctypes.c_float * MAX_LEVELS),
         ("n_mip", ctypes.c_int),
     ]
 
@@ -316,7 +315,8 @@ def library() -> types.SimpleNamespace:
     the skip tracer's instances ``vhx_traverse_skip``,
     ``vhx_render_frame_skip``, ``vhx_render_frames_skip``, ``vhx_render_far_skip``,
     the multi-hit march's start and skip forms ``vhx_multihit_start`` and
-    ``vhx_multihit_skip``, the LOD frame ``vhx_render_frame_lod``, the skip
+    ``vhx_multihit_skip``, the LOD frame ``vhx_render_frame_lod`` and its
+    stopless instance ``vhx_render_frame_lod_stopless``, the skip
     rows' refresh ``vhx_skip_rows`` and the depth prepass's chained form
     ``vhx_prepass_chain``), built first if needed."""
     global _lib
@@ -343,6 +343,8 @@ def library() -> types.SimpleNamespace:
                                               p, p, i, p],
                     "vhx_render_frame_lod": [p, p, p, i, ctypes.POINTER(FrameParams),
                                              ctypes.POINTER(LodParams), p, i, p],
+                    "vhx_render_frame_lod_stopless": [p, p, p, i, ctypes.POINTER(FrameParams),
+                                                      ctypes.POINTER(LodParams), p, i, p],
                 },
                 "frames.cu": {
                     "vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p, p, p, p,

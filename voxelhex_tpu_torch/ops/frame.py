@@ -19,13 +19,17 @@ the skip tracer (``ops/skip.py``) over the grid's skip rows:
 :func:`render_lod` is the reference renderer's ``render_lod``
 (``voxelhex_tpu/render/bitgrid.py:1627``), distance LOD over the MIP color
 grids: ``frame_lod_kernel``, beside its plain version
-:func:`render_lod_plain`.
+:func:`render_lod_plain`.  The kernel takes the stop rule as a table of
+squared distances (:func:`~voxelhex_tpu_torch.render.bitgrid.lod_stop_sq`,
+cached per f32 scale), and has a stopless instance for the frames in which
+no ray can stop above level 0.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import math
 import threading
 
 import numpy as np
@@ -35,7 +39,7 @@ from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.shade import shade_plain
 from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
 from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
-from voxelhex_tpu_torch.render.bitgrid import LOD_THRESHOLDS, make_bitgrid_tracer
+from voxelhex_tpu_torch.render.bitgrid import lod_stop_sq, make_bitgrid_tracer
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
 
@@ -209,9 +213,19 @@ render_frame.launches = 0
 render_frame.skip_launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def _stop_sq(scale_bits: int) -> tuple[float, ...]:
+    """:func:`lod_stop_sq` of every level for the f32 scale of these bits:
+    its bisection costs the host more than the kernel's frame."""
+    scale = np.array([scale_bits], dtype=np.uint32).view(np.float32)[0]
+    return lod_stop_sq(scale, _build.MAX_LEVELS - 1)
+
+
 def lod_params(tree, lod_scale) -> _build.LodParams:
     """The LOD frame's parameters: ``tree``'s MIP grids ``mip_rgb_{l}`` in
-    order while they last, the stop levels' thresholds and the scale."""
+    order while they last, and the stop table of ``lod_scale``
+    (:func:`~voxelhex_tpu_torch.render.bitgrid.lod_stop_sq`) for the tree's
+    top level, NaN past it."""
     p = _build.LodParams()
     n = 0
     while f"mip_rgb_{n}" in tree and n < _build.MAX_LEVELS:
@@ -220,9 +234,25 @@ def lod_params(tree, lod_scale) -> _build.LodParams:
         p.mip_cells[n] = grid.shape[0]
         n += 1
     p.n_mip = n
-    p.thresholds[: len(LOD_THRESHOLDS)] = LOD_THRESHOLDS
-    p.scale = float(np.float32(lod_scale))
+    top = len(tree["bases"]) - 1
+    stop = _stop_sq(int(np.array([lod_scale], dtype=np.float32).view(np.uint32)[0]))
+    p.stop_sq[:] = [v if k < top else float("nan") for k, v in enumerate(stop)] + [float("nan")]
     return p
+
+
+def lod_stopless(params: _build.FrameParams, lod: _build.LodParams) -> bool:
+    """Whether no step of the LOD frame of ``params`` and ``lod`` can stop
+    above level 0, so that ``frame_lod_kernel``'s stopless instance gives
+    its frame: every entry of the stop table below the top level is NaN
+    (``lod_scale`` <= 0, NaN or subnormal), or +inf, which only a squared
+    distance of +inf reaches.  The stop rule decides on an occupied cell,
+    which lies in the world (its edge an int), so with the camera's
+    coordinates under 2^62 every such distance is finite."""
+    stop = lod.stop_sq[: params.trace.n_levels - 1]
+    if all(math.isnan(v) for v in stop):
+        return True
+    return (all(not math.isfinite(v) for v in stop)
+            and all(abs(c) < 2.0**62 for c in params.origin))
 
 
 def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS):
@@ -236,7 +266,9 @@ def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MA
     ``lod_scale`` 0 stops every ray at level 0.
 
     A CPU tree runs the plain version; a CUDA tree launches
-    ``frame_lod_kernel`` (``render_lod.launches``)."""
+    ``frame_lod_kernel`` (``render_lod.launches``), its stopless instance
+    where no step can stop above level 0 (:func:`lod_stopless`;
+    ``render_lod.stopless_launches`` counts these)."""
     dev = tree["occ_pairs"].device
     if dev.type == "cpu":
         return render_lod_plain(tree, camera, lod_scale, bg, max_iters)
@@ -257,15 +289,18 @@ def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MA
         raise ValueError(f"resolution {camera.resolution}")
     params = frame_params(tree, camera, bg, max_iters)
     lod = lod_params(tree, lod_scale)
+    stopless = lod_stopless(params, lod)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.vhx_render_frame_lod(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
-                                   tree["palette"].data_ptr(), n_colors, params, lod,
-                                   out.data_ptr(), dev.index or 0,
-                                   torch.cuda.current_stream(dev).cuda_stream)
+    entry = lib.vhx_render_frame_lod_stopless if stopless else lib.vhx_render_frame_lod
+    err = entry(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
+                tree["palette"].data_ptr(), n_colors, params, lod, out.data_ptr(),
+                dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "LOD frame kernel launch")
     render_lod.launches += 1
+    render_lod.stopless_launches += stopless
     return out
 
 
 render_lod.launches = 0
+render_lod.stopless_launches = 0

@@ -136,6 +136,45 @@ def lod_stop_level(x, top_level: int):
     return (x[:, None] >= t[None, :]).sum(dim=1).to(torch.int32)
 
 
+F32_MIN_NORMAL = 2.0**-126
+
+
+def lod_stop_sq(lod_scale, top_level: int) -> tuple[float, ...]:
+    """The stop table of the LOD frame kernel (``csrc/frame.cu``
+    ``LodParams.stop_sq``): for each k < ``top_level``, the least f32 ``s``
+    at which the reference's stop level of the squared distance ``s``,
+    clip(int(log2(max(fl(sqrt(s)) * lod_scale, 1)) * 0.5), 0, top), is above
+    k, so that ``s >= stop_sq[k]`` is that test on every f32 ``s``; NaN
+    where no ``s`` passes (``lod_scale`` <= 0 or NaN).  The root is
+    correctly rounded and the product is by the f32 scale, as the plain
+    tracer's ``stop_level``; both are monotone, so the test is monotone in
+    ``s`` and a bisection over the f32 bit patterns of [0, inf] finds each
+    entry.  The reference runs on XLA:CPU, which flushes subnormal inputs
+    and results to zero, so a subnormal ``s`` or scale counts as 0 here:
+    every entry is NaN, +inf or at least the least normal f32."""
+    k = max(top_level, 0)
+    scale = np.float32(lod_scale)
+    if abs(float(scale)) < F32_MIN_NORMAL:
+        scale = np.float32(0.0)
+    sc = torch.tensor(scale)
+    t = torch.tensor(LOD_THRESHOLDS[:k], dtype=torch.float32)
+
+    def passes(bits):
+        s = bits.to(torch.int32).view(torch.float32)
+        s = torch.where(s < F32_MIN_NORMAL, torch.zeros_like(s), s)
+        return (sqrt32(s) * sc) >= t
+
+    lo = torch.zeros(k, dtype=torch.int64)
+    hi = torch.full((k,), 0x7F800000, dtype=torch.int64)  # +inf
+    some = passes(hi)
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        up = passes(mid)
+        hi, lo = torch.where(up, mid, hi), torch.where(up, lo, mid + 1)
+    s2 = torch.where(some, hi.to(torch.int32).view(torch.float32), torch.tensor(float("nan")))
+    return tuple(s2.tolist())
+
+
 def level_dims(size: int, n_levels: int) -> list[int]:
     """Blocks per axis at each level (partial top grids pad to one block)."""
     dims, c = [], int(size)
