@@ -198,9 +198,37 @@ launch each, of the stopless instance at 0 only; the share of hits stopped
 above level 0, the steps a ray of the LOD march and of the frame kernel's,
 and the steps on which the stop rule decides; ``frame_lod_kernel`` against
 the frame kernel's f32 frame in turns at each of the four, and ptxas of
-both of its instances (no stack, no spills).  The last line is ``{"ok": true,
-"device": {...}}``; any failure exits non-zero before it.  Needs one CUDA
-card; there is no CPU fallback.
+its instances (no stack, no spills).
+
+Phase 17 runs the stack automaton's options and the u8 color grid at
+1920x1080: (a) at the bench pose, for each of ``lateral_step=False``,
+``advance_substeps`` 1, 2 and 3 and ``parent_skip=True`` with and without
+lateral steps, ``render`` (u8), a beam frame, a ``prepass=True`` frame,
+``render_delta_many([cam] * 16)`` and ``trace()``, each launching the
+optioned instance of its kernel, each frame against the reference's digest
+for that option and each instance against its plain version on every ray
+or pixel; (b) the same at 7 steps, where rays stop mid-march (the
+reference's frames there without compaction, no beam digest), and each
+option's frame or ray points differ from the default options'; (c)
+``color_u8`` on phase 10's 1024 terrain: its colors held in u8 (by the
+grid's bytes and by ``torch.cuda.memory_allocated``), then through the
+renderers' entry points the stack renderer's frame, delta batch and
+``trace()`` of every ray, a ``tracer="skip"`` renderer's frame and
+``trace()``, and ``render_lod`` in the terrain at 512 (its MIP grids built
+on the host), each launching the u8 instance of its kernel (the counts read
+around each renderer's calls), each output (every one of the traces' five)
+equal to its plain version over u8 and to the u16 grid's kernel, and the
+bench grid (16425 colors) kept in u16;
+(d) the port's oracle (``render/oracle.py``) on the 400 rays of
+``tests/goldens/bench_rays.npz`` against their stored hits, and every
+optioned traversal instance and the u8 instances on those rays against
+the oracle's hits; (e) device times in turns of each option's instance
+against the default instance at the bench pose and the terrain, with the
+plain march's steps a ray and word pairs read, the batch, prepass and
+traversal instances, each u8 instance against its u16 instance on the
+same inputs, and ptxas of the new instances.  The last line is ``{"ok": true, "device":
+{...}}``; any failure exits non-zero before it.  Needs one CUDA card;
+there is no CPU fallback.
 """
 
 import faulthandler
@@ -390,10 +418,77 @@ LOD_SHA256 = {
 }
 LOD_512_SCALE = 0.3
 LOD_512_SHA256 = "9116997ee342bfaf04eaec77d5082eaa6d836c1eb41fad9c0b11b7a88d62b27f"
+# phase 17's u8 render_lod: phase 10's terrain points at this size (their
+# palette fits a byte) in bricks of 32, as phase 10's 512 world, at
+# LOD_512_SCALE
+LOD_U8_WORLD = 512
 # the LOD stop rule's operations on a step where it decides (an occupied
 # cell above level 0), counted low from the reference's rule: the norm (6
 # and a sqrt), the multiply and the level's threshold
 LOD_OPS_PER_STEP = 20
+
+# ---- phase 17, the stack automaton's options and the u8 color grid at
+# 1920x1080: sha256 of the reference package's u8 frames at the bench pose,
+# made on the CPU with
+#   BitGridRenderer(flatten(bench.build_scene()), max_iters=m, **OPTION_CASES[name])
+#   .render(orbit_camera(128.0, resolution=(1920, 1080)), out_u8=True)
+# ("plain"; with beam_prepass=True "beam"), and with prepass=True,
+# prepass_levels=2 ("prepass"); at m = OPTION_SHORT with compact=False (the
+# reference's compacted frames march whole rounds of 14 steps past a smaller
+# limit: ROADMAP.md queue 3), and with no beam frame there (the reference's
+# beam runs only with compaction).  At 2048 steps every option's frame is the
+# default options' (REFERENCE_SHA256[40.0], PREPASS_SHA256, BEAM_SHA256)
+# but the beam frame at 1 substep.
+OPTION_CASES = {
+    "lateral_off": dict(lateral_step=False),
+    "substeps_1": dict(advance_substeps=1),
+    "substeps_2": dict(advance_substeps=2),
+    "substeps_3": dict(advance_substeps=3),
+    "parent_skip": dict(parent_skip=True),
+    "parent_skip_lateral_off": dict(parent_skip=True, lateral_step=False),
+}
+OPTION_SHORT = 7
+MAX_ITERS_DEFAULT = 2048  # ops.traverse.MAX_ITERS, the renderer's default
+OPTION_SHA256 = {
+    ("substeps_1", "beam", 2048):
+        "51272b18665e4ba6d1749414e248c9735335db92356ccbf8682b7bc59bca524c",
+    ("lateral_off", "plain", 7): "60edcb4039226d171da8d66db981fa7d33bc3c7ac54eaaa39aeb3a425aff30e1",
+    ("lateral_off", "prepass", 7):
+        "2f94453c1999396603da77d6d5cea98be85585af3af68b1f551fa32b904dbc4c",
+    ("substeps_1", "plain", 7): "7a0077ac315e1a2b0222cf0f6f3e0a32002f1f50798180b662abfef4b8afccbd",
+    ("substeps_1", "prepass", 7):
+        "178fa17d2f129e20727209b533f2d8921f58c3b03e75341ad425846ace0cf643",
+    ("substeps_2", "plain", 7): "88dd685860e005b73f79cc1ad72fdcacbb9fd22d32ad4338a945ab337c0596f8",
+    ("substeps_2", "prepass", 7):
+        "e8f754ad5c24f1416febc76515b534dead1b73630a0a3abec23f6307bcc32d13",
+    ("substeps_3", "plain", 7): "8c73a184f955cb4bf05abdd3216358ecfd1fd7705f8a2f29e309576bd109d98c",
+    ("substeps_3", "prepass", 7):
+        "b37b0387a8a93938ed7d5e3c4d305bb6fd643cc1d60f231f35b745c79472b5b4",
+    ("parent_skip", "plain", 7): "2ac68a47e5c06ec272e7fb063bcc452550c65727a622a3e4794b5f922cbd6c64",
+    ("parent_skip", "prepass", 7):
+        "9f1a0ac3f4b6a1d218214cc627f9ca8ccb48e7feb299d666a9a445860ad8366e",
+    ("parent_skip_lateral_off", "plain", 7):
+        "60edcb4039226d171da8d66db981fa7d33bc3c7ac54eaaa39aeb3a425aff30e1",
+    ("parent_skip_lateral_off", "prepass", 7):
+        "2f94453c1999396603da77d6d5cea98be85585af3af68b1f551fa32b904dbc4c",
+}
+# the option whose instances the kernels line reports (each option's times
+# are logged)
+OPTION_REPORTED = "lateral_off"
+# the goldens of the port's oracle: 400 rays of the bench scene
+BENCH_RAYS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                          "bench_rays.npz")
+
+
+def option_sha(name, route, max_iters):
+    """The reference's digest of option ``name``'s frame of ``route``."""
+    if (name, route, max_iters) in OPTION_SHA256:
+        return OPTION_SHA256[(name, route, max_iters)]
+    if max_iters == MAX_ITERS_DEFAULT:
+        return {"plain": REFERENCE_SHA256[40.0], "beam": BEAM_SHA256,
+                "prepass": PREPASS_SHA256}[route]
+    return None
+
 
 # ---- phase 12, streaming: the terrain fly-over of benches/ab_flyover.py
 # (examples/terrain.py's StreamingView, BASELINE.json's config 4): the
@@ -773,7 +868,10 @@ def main():
                                      ("stream.cu", "region_scatter_kernel", None),
                                      ("far.cu", "far_skip_kernel", None),
                                      ("frame.cu", "frame_lod_kernel", None),
-                                     ("stream.cu", "skip_rows_kernel", None)):
+                                     ("stream.cu", "skip_rows_kernel", None),
+                                     ("traverse.cu", "traverse_form_kernel", None),
+                                     ("frame.cu", "frame_form_kernel", None),
+                                     ("frames.cu", "frames_form_kernel", None)):
         build_log = _build.build_log(source)
         for name in kernel_names(build_log, kernel) or [kernel]:  # each template instance
             usage = ptxas_usage(build_log, name)
@@ -1034,13 +1132,19 @@ def main():
     for name, n in counts.items():
         by_name[name]["launches"] += n
     kernels += entries
-    del terrain
     torch.cuda.empty_cache()
     by_name = {k["name"]: k for k in kernels}
     entries, counts = lod_skip_slice(dev, card)
     for name, n in counts.items():
         by_name[name]["launches"] += n
     kernels += entries
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    entries, counts = options_slice(dev, card, terrain)
+    for name, n in counts.items():
+        by_name[name]["launches"] += n
+    kernels += entries
+    del terrain
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1398,21 +1502,21 @@ def host_cpu():
     return "CPU model not reported"
 
 
-def plain_reads(tree, cam, dev):
-    """What the plain tracer's march over ``cam``'s rays takes of the card:
+def plain_reads(tree, cam, dev, options=None):
+    """What the plain tracer's march over ``cam``'s rays (under the
+    automaton's ``options``, an ``AutomatonOptions``) takes of the card:
     ``steps`` (automaton steps), ``hits``, ``pairs`` (the distinct 8 B word
     pairs the rays fetch) and ``colors`` (the distinct 2 B colors of the hit
     voxels), each input counted once however many rays read it, the least a
     kernel that marches these rays must read; ``sectors``, the 32 B sectors
     those pairs and colors lie in; ``share``, the working lane-steps of the
     frame kernel's warps (:func:`working_share`)."""
-    from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS
-    from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer
+    from voxelhex_tpu_torch.ops.skip import plain_tracer
+    from voxelhex_tpu_torch.ops.traverse import MAX_ITERS
     from voxelhex_tpu_torch.render.camera import device_rays
 
     o, d = device_rays(cam, dev)
-    plain = make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=MAX_ITERS,
-                                **KERNEL_CONFIG)
+    plain = plain_tracer(tree, MAX_ITERS, None, options)
     reads = torch.zeros(tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
     st = plain.run(tree, plain.init(tree, o, d), MAX_ITERS, reads=reads)
     v = st["hvox"][st["hit"]].long()
@@ -4750,7 +4854,7 @@ def lod_skip_slice(dev, card):
                 f"spill stores, {usage[3]} B spill loads")
             if kernel == "frame_lod_kernel" and any(usage[1:]):
                 raise AssertionError(f"{name} uses a stack or spills")
-        if kernel == "frame_lod_kernel" and len(names) != 2:
+        if kernel == "frame_lod_kernel" and len(names) != 4:
             raise AssertionError(f"frame_lod_kernel instances: {names}")
     log(f"phase 16 (c) render_lod: {time.time() - t0:.1f} s")
     log(f"phase 16 deep prepass, skip streaming, LOD: {time.time() - t_all:.1f} s")
@@ -4771,6 +4875,521 @@ def lod_skip_slice(dev, card):
     ]
     return entries, launches
 
+
+def options_slice(dev, card, terrain):
+    """Phase 17: the stack automaton's options and the u8 color grid on the
+    card at 1920x1080 (module docstring).  Returns the entries of the new
+    instances and the main path's launches of the earlier kernels."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops.beam import beam_tiles
+    from voxelhex_tpu_torch.ops.frame import (lod_tracer, render_frame, render_frame_plain,
+                                              render_lod, render_lod_plain)
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.prepass import (depth_start_plain, level_camera,
+                                                level_depth_plain, prepass_start)
+    from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
+    from voxelhex_tpu_torch.ops.traverse import (MAX_ITERS, AutomatonOptions, traverse,
+                                                 traverse_plain)
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.bitgrid import (MOVE_DESCEND, build_bitgrid, build_skip_rows,
+                                                   device_bitgrid, make_skip_tracer)
+    from voxelhex_tpu_torch.render.camera import device_rays, orbit_camera
+    from voxelhex_tpu_torch.render.oracle import get_by_ray
+    from voxelhex_tpu_torch.scene import build_scene, build_scene_tree, terrain_points
+    from voxelhex_tpu_torch.tree.build import from_voxels
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    t_all = time.time()
+    tag = f"[{card}]"
+    if MAX_ITERS != MAX_ITERS_DEFAULT:
+        raise AssertionError("the kernels' default step limit moved")
+    scene = build_scene()
+    cam = orbit_camera(128.0, resolution=RES)
+    o, d = device_rays(cam, dev)
+    R = o.shape[0]
+    # (wrapper, counter) of each new instance
+    counters = {"option_frame": (render_frame, "option_launches"),
+                "option_frames": (render_frames, "option_launches"),
+                "option_prepass": (prepass_start, "option_launches"),
+                "option_traverse": (traverse, "option_launches"),
+                "u8_frame": (render_frame, "u8_launches"),
+                "u8_frames": (render_frames, "u8_launches"),
+                "u8_traverse": (traverse, "u8_launches"),
+                "u8_skip_traverse": (trace_skip, "u8_launches"),
+                "u8_lod": (render_lod, "u8_launches")}
+    earlier = {"frame": (render_frame, "launches"), "frames": (render_frames, "launches"),
+               "beam": (beam_tiles, "launches"), "traverse": (traverse, "launches"),
+               "skip_frame": (render_frame, "skip_launches"),
+               "skip_traverse": (trace_skip, "launches"),
+               "prepass": (prepass_start, "launches"), "lod_frame": (render_lod, "launches")}
+
+    def count():
+        return {k: getattr(w, c) for k, (w, c) in (counters | earlier).items()}
+
+    def since(before):
+        now = count()
+        return {k: now[k] - before[k] for k in now}
+
+    # (a) and (b): each option through the main path at the bench pose, at
+    # the default step limit and at 7 steps
+    t0 = time.time()
+    # the main path's launches: the counts read around its calls only
+    launches = {k: 0 for k in count()}
+    frames_of, errs = {}, {k: 0.0 for k in counters}
+    for name, kw in OPTION_CASES.items():
+        for m in (MAX_ITERS, OPTION_SHORT):
+            r = fastest_renderer(scene, device=dev, max_iters=m, color_u8=True, **kw)
+            deep = fastest_renderer(scene, device=dev, max_iters=m, prepass=True,
+                                    prepass_levels=PREPASS_LEVELS, **kw)
+            if r.tree["colors"].dtype != torch.int16 or r.options is None:
+                raise AssertionError(f"{name}: the bench grid (16425 colors) is not u16, or "
+                                     "the renderer has no options")
+            n0 = count()
+            got = {"plain": r.render(cam, out_u8=True, out_device=True),
+                   "beam": r.render(cam, out_u8=True, out_device=True, beam_prepass=True),
+                   "prepass": deep.render(cam, out_u8=True, out_device=True)}
+            delta = r.render_delta_many([cam] * BATCH)
+            k_trace = r.trace(o, d)
+            torch.cuda.synchronize()
+            n = since(n0)
+            for k, v in n.items():
+                launches[k] += v
+            # every stack launch an optioned one; the beam keeps its own tracer
+            want_n = {"option_frame": 3, "option_frames": 1, "option_prepass": 1,
+                      "option_traverse": 1, "beam": 1, "frame": 3, "frames": 1, "prepass": 1,
+                      "traverse": 1}
+            bad = {k: (n[k], want_n.get(k, 0)) for k in n if n[k] != want_n.get(k, 0)}
+            shas = {route: sha(f) for route, f in got.items()}
+            wants = [(option_sha(name, k, m) or "none")[:16] for k in shas]
+            miss = [route for route, f in shas.items()
+                    if option_sha(name, route, m) not in (None, f)]
+            if any(sha(f) != shas["plain"] for f in delta):
+                miss.append("render_delta_many")
+            frames_of[(name, m)] = (got["plain"], k_trace)
+            log(f"  {name} (max_iters {m}): render, beam and prepass frames sha256 "
+                + ", ".join(f"{k} {v[:16]}" for k, v in shas.items())
+                + f"; the reference's {wants}; "
+                f"{BATCH} delta frames equal the render frame: {'render_delta_many' not in miss}; "
+                f"launches {dict((k, n[k]) for k in want_n)}")
+            if bad or miss:
+                raise AssertionError(f"{name} at {m} steps: launches {bad}, digests {miss}")
+            # each instance against its plain version on every ray or pixel
+            opts = r.options
+            p_trace = traverse_plain(r.tree, o, d, m, opts)
+            errs["option_traverse"] = max(errs["option_traverse"],
+                                          *(max_abs_err(a, b) for a, b in zip(k_trace, p_trace)))
+            n_bad = sum(int((~same(a, b)).reshape(R, -1).any(dim=1).sum())
+                        for a, b in zip(k_trace, p_trace))
+            p_frame = render_frame_plain(r.tree, cam, options=opts, max_iters=m)
+            n_bad += int((~same(got["plain"], p_frame)).any(dim=-1).sum())
+            errs["option_frame"] = max(errs["option_frame"], max_abs_err(got["plain"], p_frame))
+            starts = r.beam_map(cam)
+            k_beam = render_frame(r.tree, cam, max_iters=m, start=starts, start_tile=r.beam_tile,
+                                  options=opts)
+            p_beam = render_frame_plain(r.tree, cam, max_iters=m, start=starts,
+                                        start_tile=r.beam_tile, options=opts)
+            n_bad += int((~same(k_beam, p_beam)).any(dim=-1).sum())
+            depths = []
+            k_start = prepass_start(deep.tree, cam, PREPASS_LEVELS, m, depths=depths,
+                                    options=opts)
+            coarser = None
+            for lv, k in zip(range(PREPASS_LEVELS, 0, -1), depths):
+                want = level_depth_plain(deep.tree, level_camera(cam, lv), coarser, m,
+                                         options=opts)
+                n_bad += int((~same(k, want)).sum())
+                errs["option_prepass"] = max(errs["option_prepass"], max_abs_err(k, want))
+                coarser = k
+            n_bad += int((~same(k_start, depth_start_plain(coarser))).sum())
+            k_frames = render_frames(r.tree, [cam, orbit_camera(128.0, yaw_deg=130.0,
+                                                                 resolution=RES)],
+                                     max_iters=m, prev=got["plain"], options=opts)
+            p_frames = render_frames_plain(r.tree, [cam, orbit_camera(128.0, yaw_deg=130.0,
+                                                                      resolution=RES)],
+                                           max_iters=m, prev=got["plain"], options=opts)
+            for a, b in zip(k_frames, p_frames):
+                n_bad += int((~same(a, b)).sum())
+                errs["option_frames"] = max(errs["option_frames"], max_abs_err(a, b))
+            log(f"    each optioned instance against its plain version (traverse, frame, beam "
+                f"frame, prepass levels and start map, a 2-pose batch and its digests): "
+                f"{n_bad} values differ")
+            if n_bad:
+                raise AssertionError(f"{name} at {m} steps: {n_bad} values differ from the "
+                                     "plain versions")
+            del p_trace, p_frame, k_beam, p_beam, depths, k_start, k_frames, p_frames, r, deep
+    # at 7 steps each option changes the frame, or where the rays stop
+    # (parent_skip's frame at the bench pose is the default options')
+    m = OPTION_SHORT
+    base = fastest_renderer(scene, device=dev, max_iters=m)
+    base_frame, base_trace = base.render(cam, out_u8=True, out_device=True), base.trace(o, d)
+    changed = {}
+    for name in OPTION_CASES:
+        frame, trace = frames_of[(name, m)]
+        changed[name] = (int((frame != base_frame).any(dim=-1).sum()),
+                         int((trace[3] != base_trace[3]).any(dim=-1).sum()))
+    log(f"  at {m} steps, each option's (pixels, ray points) that differ from the default "
+        f"options': {changed}")
+    if any(px == 0 and pt == 0 for px, pt in changed.values()):
+        raise AssertionError(f"an option not honored at {m} steps: {changed}")
+    del frames_of, base
+    torch.cuda.empty_cache()
+    log(f"phase 17 (a), (b) options at the bench pose: {time.time() - t0:.1f} s, launches "
+        f"{launches}")
+
+    # (c) color_u8 on the 1024 terrain, and the bench grid kept in u16
+    t0 = time.time()
+    tbg = build_bitgrid(terrain)
+    real = tbg.colors[tbg.colors < 0xFFFE]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t16 = fastest_renderer(tbg, device=dev)
+    mem16 = torch.cuda.memory_allocated() - mem0
+    t8 = fastest_renderer(tbg, device=dev, color_u8=True)
+    mem8 = torch.cuda.memory_allocated() - mem0 - mem16
+    tcam = orbit_camera(float(TERRAIN_WORLD), resolution=RES)
+    to, td = device_rays(tcam, dev)
+    log(f"  terrain {TERRAIN_WORLD}^3: palette indices up to {int(real.max())} "
+        f"({tbg.palette.shape[0]} colors); colors {t8.tree['colors'].dtype} "
+        f"{t8.tree['colors'].numel() * t8.tree['colors'].element_size() / 2**30:.3f} GiB against "
+        f"{t16.tree['colors'].dtype} "
+        f"{t16.tree['colors'].numel() * t16.tree['colors'].element_size() / 2**30:.3f} GiB; "
+        f"torch.cuda.memory_allocated grew {mem8 / 2**30:.3f} GiB for the u8 renderer, "
+        f"{mem16 / 2**30:.3f} GiB for the u16 one")
+    if t8.tree["colors"].dtype != torch.uint8 or t16.tree["colors"].dtype != torch.int16 or \
+            not mem8 < 0.55 * mem16:
+        raise AssertionError("the terrain's u8 grid")
+    sk8 = fastest_renderer(tbg, device=dev, tracer="skip", color_u8=True)
+    sk_rows = sk8.tree["skip_rows"]
+    sk16_tree = dict(t16.tree, skip_rows=sk_rows)
+    # phase 10's terrain cut to 512 for render_lod, whose MIP grids of the
+    # 1024 world take tens of GiB and minutes on the host
+    pts, cols = terrain_points(LOD_U8_WORLD)
+    lbg = build_bitgrid(from_voxels(pts, cols, size=LOD_U8_WORLD, brick_dim=32))
+    del pts, cols
+    l8 = fastest_renderer(lbg, device=dev, color_u8=True)
+    l16 = fastest_renderer(lbg, device=dev)
+    lcam = orbit_camera(float(LOD_U8_WORLD), resolution=RES)
+    if l8.tree["colors"].dtype != torch.uint8:
+        raise AssertionError(f"the {LOD_U8_WORLD} terrain's u8 grid")
+
+    # the main path over u8 colors, each renderer's calls between two reads
+    # of the counts: the stack renderer's frame, delta batch and trace, the
+    # skip renderer's frame and trace, render_lod
+    def main_path(calls, want):
+        n0 = count()
+        out = [fn() for fn in calls]
+        torch.cuda.synchronize()
+        n = since(n0)
+        for k, v in n.items():
+            launches[k] += v
+        bad = {k: (n[k], want.get(k, 0)) for k in n if n[k] != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"launches over u8 colors: {bad}")
+        return out, n
+
+    (u8_stack, u8_delta, u8_trace), n_stack = main_path(
+        [lambda: t8.render(tcam, out_u8=True, out_device=True),
+         lambda: t8.render_delta_many([tcam] * BATCH), lambda: t8.trace(to, td)],
+        {"frame": 1, "u8_frame": 1, "frames": 1, "u8_frames": 1, "traverse": 1,
+         "u8_traverse": 1})
+    (u8_skip, u8_skip_trace), n_skip = main_path(
+        [lambda: sk8.render(tcam, out_u8=True, out_device=True), lambda: sk8.trace(to, td)],
+        {"skip_frame": 1, "u8_frame": 1, "skip_traverse": 1, "u8_skip_traverse": 1})
+    t1 = time.perf_counter()
+    (u8_lod,), n_lod = main_path([lambda: l8.render_lod(lcam, LOD_512_SCALE)],
+                                 {"lod_frame": 1, "u8_lod": 1})
+    lod_first_s = time.perf_counter() - t1
+    # each u8 instance's launches on the main path (the skip frame's by the
+    # skip renderer's window)
+    u8_launches = {"u8_frame": n_stack["u8_frame"], "u8_frames": n_stack["u8_frames"],
+                   "u8_traverse": n_stack["u8_traverse"], "u8_skip_frame": n_skip["u8_frame"],
+                   "u8_skip_traverse": n_skip["u8_skip_traverse"], "u8_lod": n_lod["u8_lod"]}
+    u8_lod = torch.from_numpy(u8_lod).to(dev)
+    # against the u16 grids' kernels and the plain versions over u8 colors
+    u16 = {"stack": t16.render(tcam, out_u8=True, out_device=True), "trace": t16.trace(to, td),
+           "skip": render_frame(sk16_tree, tcam, skip_substeps=SKIP_SUBSTEPS),
+           "skip_trace": trace_skip(sk16_tree, to, td, MAX_ITERS, SKIP_SUBSTEPS),
+           "lod": torch.from_numpy(l16.render_lod(lcam, LOD_512_SCALE)).to(dev)}
+    plain_ms = {}
+
+    def plain_timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t1) * 1e3
+        return out
+
+    p_stack = plain_timed("u8_frame", lambda: render_frame_plain(t8.tree, tcam))
+    p_trace = plain_timed("u8_traverse", lambda: traverse_plain(t8.tree, to, td))
+    p_skip = plain_timed("u8_skip_frame", lambda: render_frame_plain(
+        sk8.tree, tcam, skip_substeps=SKIP_SUBSTEPS))
+    p_skip_trace = plain_timed("u8_skip_traverse", lambda: trace_skip_plain(
+        sk8.tree, to, td, MAX_ITERS, SKIP_SUBSTEPS))
+    p_lod = plain_timed("u8_lod", lambda: render_lod_plain(l8.tree, lcam, LOD_512_SCALE))
+    plain_timed("u8_frames", lambda: render_frames_plain(t8.tree, [tcam] * 2))
+    plain_ms["u8_frames"] /= 2
+    delta = [torch.from_numpy(f).to(dev) for f in u8_delta]
+    pairs = {"u8_frame": ([u8_stack], [p_stack], [u16["stack"]]),
+             "u8_frames": (delta, [p_stack] * BATCH, [u16["stack"]] * BATCH),
+             "u8_traverse": (u8_trace, p_trace, u16["trace"]),
+             "u8_skip_frame": ([u8_skip], [p_skip], [u16["skip"]]),
+             "u8_skip_traverse": (u8_skip_trace, p_skip_trace, u16["skip_trace"]),
+             "u8_lod": ([u8_lod], [p_lod], [u16["lod"]])}
+    n_bad = {}
+    for k, (got, plain, wide) in pairs.items():
+        errs[k] = max(max_abs_err(a, b) for a, b in zip(got, plain))
+        n_bad[k] = (sum(int((~same(a, b)).sum()) for a, b in zip(got, plain)),
+                    sum(int((~same(a, b)).sum()) for a, b in zip(got, wide)))
+    log(f"  u8 colors through the renderers' entry points (the {TERRAIN_WORLD} terrain's stack "
+        f"frame, delta batch of {BATCH} and trace of every ray; its skip frame and skip trace; "
+        f"render_lod at {LOD_512_SCALE} in the {LOD_U8_WORLD} terrain, {lod_first_s:.1f} s with "
+        f"its MIP grids' host build): values that differ from (the plain versions over u8, "
+        f"the kernels over u16): {n_bad}")
+    if any(a or b for a, b in n_bad.values()):
+        raise AssertionError("the u8 instances against their plain versions or the u16 ones")
+    del p_stack, p_trace, p_skip, p_skip_trace, p_lod, u16, delta, pairs, u8_delta
+    del u8_stack, u8_trace, u8_skip, u8_skip_trace, u8_lod
+    torch.cuda.empty_cache()
+    log(f"phase 17 (c) color_u8: {time.time() - t0:.1f} s")
+
+    # (d) the 400 golden rays: every new instance, the oracle and the goldens
+    t0 = time.time()
+    g = np.load(BENCH_RAYS)
+    go, gd = (torch.from_numpy(np.ascontiguousarray(g[k])).to(dev) for k in ("origins", "dirs"))
+    flat = flatten(build_scene_tree(4))
+    oracle = [get_by_ray(flat, a, b) for a, b in zip(g["origins"], g["dirs"])]
+    o_hit = np.array([h is not None for h in oracle])
+    o_vox = np.array([h.voxel if h is not None else -1 for h in oracle])
+    o_pt = np.array([h.point if h is not None else np.zeros(3, np.float32) for h in oracle])
+    n_or = int((o_hit != g["hit"]).sum() + (o_vox != g["voxel"])[g["hit"]].sum()
+               + (np.abs(o_pt - g["point"]) > 1e-4)[g["hit"]].any(axis=1).sum())
+    log(f"  the port's oracle on the {len(oracle)} golden rays: {n_or} differ from the stored "
+        f"hits, voxels and points (1e-4); {int(o_hit.sum())} hits")
+    if n_or:
+        raise AssertionError("the oracle against the goldens")
+    bench16 = device_bitgrid(scene, dev)
+    # a u8 grid of the bench: its colors folded into a byte, as the u8
+    # instance reads them (a voxel's index v -> v % 250)
+    cols8 = np.where(scene.colors < 0xFFFE, scene.colors % 250,
+                     np.where(scene.colors == 0xFFFF, 255, 254)).astype(np.uint8)
+    bench8 = dict(bench16, colors=torch.from_numpy(cols8).to(dev))
+    n_bad = 0
+    for name, kw in OPTION_CASES.items():
+        opts = AutomatonOptions(**{**AutomatonOptions()._asdict(), **kw})
+        for tree, fold in ((bench16, False), (bench8, True)):
+            hit, voxel, _hv, _pt, _hn = (x.cpu().numpy() for x in traverse(tree, go, gd,
+                                                                              options=opts))
+            want = np.where(o_vox >= 0, o_vox % 250, o_vox) if fold else o_vox
+            n_bad += int((hit != g["hit"]).sum() + (voxel != want)[g["hit"]].sum())
+    hit, voxel, _hv, _pt, _hn = (x.cpu().numpy() for x in traverse(bench8, go, gd))
+    n_bad += int((hit != g["hit"]).sum() + (voxel != o_vox % 250)[g["hit"]].sum())
+    bench8["skip_rows"] = torch.from_numpy(build_skip_rows(scene).view(np.int32)).to(dev)
+    hit, voxel, _hv, _pt, _hn = (x.cpu().numpy() for x in trace_skip(bench8, go, gd))
+    n_bad += int((hit != g["hit"]).sum() + (voxel != o_vox % 250)[g["hit"]].sum())
+    log(f"  every optioned traversal instance (u16 and u8 colors), the u8 default and skip "
+        f"instances on the golden rays: {n_bad} hits or voxels differ from the oracle's "
+        f"(the u8 grid's indices folded by 250)")
+    if n_bad:
+        raise AssertionError("the new instances against the oracle")
+    del bench8, bench16
+    log(f"phase 17 (d) goldens: {time.time() - t0:.1f} s")
+
+    # (e) times in turns: each option's instance against the default
+    # instance at the bench pose and the terrain, steps a ray; the u8 frames
+    # against the u16 frames at the terrain
+    t0 = time.time()
+
+    def turns(what, group, reps=TIMED_FRAMES, per=1):
+        names = list(group)
+        for fn in group.values():
+            fn()
+        torch.cuda.synchronize()
+        got = {n: [] for n in names}
+        for n in (names[0], names[1], names[1], names[0]):
+            ms = device_ms(group[n], reps) / per
+            got[n].append(ms)
+            log(f"  turn {what} {n}: {ms:.4f} ms device time {tag}")
+        a, b = (sum(got[n]) / 2 for n in names)
+        log(f"{what}: {names[0]} {a:.4f} ms, {names[1]} {b:.4f} ms ({100 * (b - a) / a:+.1f}%) "
+            f"device time {tag}")
+        return a, b
+
+    bench = device_bitgrid(scene, dev)
+    ttree, t16tree = t8.tree, t16.tree
+    base_steps = {"bench": plain_reads(bench, cam, dev),
+                  "terrain": plain_reads(t16tree, tcam, dev)}
+    ms = {}
+    for name, kw in OPTION_CASES.items():
+        opts = AutomatonOptions(**{**AutomatonOptions()._asdict(), **kw})
+        for where, tree, c in (("bench", bench, cam), ("terrain", t16tree, tcam)):
+            st = plain_reads(tree, c, dev, opts)
+            a, b = turns(f"{where} frame, {name}", {
+                "default instance": lambda tree=tree, c=c: render_frame(tree, c),
+                "optioned instance": lambda tree=tree, c=c, opts=opts: render_frame(
+                    tree, c, options=opts)})
+            ms[(name, where)] = (a, b, st)
+            log(f"  {where} {name}: {st['steps'] / R:.4f} steps a ray against "
+                f"{base_steps[where]['steps'] / R:.4f} with the default options, "
+                f"{st['pairs']} word pairs read against {base_steps[where]['pairs']} "
+                f"[{card}]")
+    name = OPTION_REPORTED
+    opts = AutomatonOptions(**{**AutomatonOptions()._asdict(), **OPTION_CASES[name]})
+    frames_ms = turns(f"bench batch of {BATCH}, a frame, {name}", {
+        "default instance": lambda: render_frames(bench, [cam] * BATCH),
+        "optioned instance": lambda: render_frames(bench, [cam] * BATCH, options=opts)},
+        reps=4, per=BATCH)[1]
+    prepass_ms = turns(f"bench depth prepass of {PREPASS_LEVELS} levels, {name}", {
+        "default instance": lambda: prepass_start(bench, cam, PREPASS_LEVELS),
+        "optioned instance": lambda: prepass_start(bench, cam, PREPASS_LEVELS,
+                                                   options=opts)})[1]
+    trav_ms = turns(f"bench traversal, {name}", {
+        "default instance": lambda: traverse(bench, o, d),
+        "optioned instance": lambda: traverse(bench, o, d, options=opts)})[1]
+    # each u8 instance against its u16 instance on the same inputs
+    S3 = SKIP_SUBSTEPS
+    u8_ms = {k: turns(f"{what}, u16 against u8 colors",
+                      {"u16 instance": wide, "u8 instance": narrow}, **kw)[1]
+             for k, what, wide, narrow, kw in (
+                 ("u8_frame", "terrain frame", lambda: render_frame(t16tree, tcam),
+                  lambda: render_frame(ttree, tcam), {}),
+                 ("u8_frames", f"terrain batch of {BATCH}, a frame",
+                  lambda: render_frames(t16tree, [tcam] * BATCH),
+                  lambda: render_frames(ttree, [tcam] * BATCH), dict(reps=4, per=BATCH)),
+                 ("u8_traverse", "terrain traversal", lambda: traverse(t16tree, to, td),
+                  lambda: traverse(ttree, to, td), {}),
+                 ("u8_skip_frame", "terrain skip frame",
+                  lambda: render_frame(sk16_tree, tcam, skip_substeps=S3),
+                  lambda: render_frame(sk8.tree, tcam, skip_substeps=S3), {}),
+                 ("u8_skip_traverse", "terrain skip traversal",
+                  lambda: trace_skip(sk16_tree, to, td, MAX_ITERS, S3),
+                  lambda: trace_skip(sk8.tree, to, td, MAX_ITERS, S3), {}),
+                 ("u8_lod", f"{LOD_U8_WORLD} terrain LOD frame at {LOD_512_SCALE}",
+                  lambda: render_lod(l16.tree, lcam, LOD_512_SCALE),
+                  lambda: render_lod(l8.tree, lcam, LOD_512_SCALE), {}))}
+    # the plain versions' host time, one run each
+    t1 = time.perf_counter()
+    render_frame_plain(bench, cam, options=opts)
+    torch.cuda.synchronize()
+    frame_plain_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    render_frames_plain(bench, [cam] * 2, options=opts)
+    torch.cuda.synchronize()
+    frames_plain_ms = (time.perf_counter() - t1) * 1e3 / 2
+    t1 = time.perf_counter()
+    coarser = None
+    for lv in range(PREPASS_LEVELS, 0, -1):
+        coarser = level_depth_plain(bench, level_camera(cam, lv), coarser, options=opts)
+    depth_start_plain(coarser)
+    torch.cuda.synchronize()
+    prepass_plain_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    traverse_plain(bench, o, d, options=opts)
+    torch.cuda.synchronize()
+    trav_plain_ms = (time.perf_counter() - t1) * 1e3
+    for source, kernel in (("traverse.cu", "traverse_form_kernel"),
+                           ("frame.cu", "frame_form_kernel"),
+                           ("frames.cu", "frames_form_kernel"),
+                           ("prepass.cu", "prepass_frame_kernel"),
+                           ("frame.cu", "frame_kernel"), ("frames.cu", "frames_kernel")):
+        blog = _build.build_log(source)
+        for kname in kernel_names(blog, kernel):
+            usage = ptxas_usage(blog, kname)
+            log(f"  ptxas {kname}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} "
+                f"B spill stores, {usage[3]} B spill loads")
+    log(f"phase 17 (e) timings: {time.time() - t0:.1f} s")
+
+    # bounds, counted from this run's marches: the word pairs (skip rows)
+    # and colors the plain march reads, each once, and its steps; u8 colors
+    # are 1 B
+    st = ms[(name, "bench")][2]
+    read_bytes = st["pairs"] * 8 + st["colors"] * 2
+    pal = bench["palette"].shape[0] * 16
+    frame_bound = bound(read_bytes + pal + ctypes.sizeof(_build.FrameParams) + R * 3,
+                        st["steps"] * TRAVERSE_OPS_PER_STEP + R * FRAME_OPS_PER_PIXEL)
+    frames_bound = bound(read_bytes + pal + ctypes.sizeof(_build.FramesParams) + R * 3 * BATCH,
+                         BATCH * (st["steps"] * TRAVERSE_OPS_PER_STEP
+                                  + R * FRAME_OPS_PER_PIXEL))
+    frames_bound = (frames_bound[0] / BATCH, frames_bound[1])  # a frame, as its ms
+    trav_bound = bound(R * 24 + read_bytes + R * 41, st["steps"] * TRAVERSE_OPS_PER_STEP)
+    lv_steps, lv_pairs, lv_px = 0, 0, 0
+    coarser = None
+    for lv in range(PREPASS_LEVELS, 0, -1):
+        stats = {}
+        lc = level_camera(cam, lv)
+        coarser = level_depth_plain(bench, lc, coarser, stats=stats, options=opts)
+        lv_steps += int(stats["iters"].sum())
+        lv_pairs += int(stats["reads"].sum())
+        lv_px += lc.resolution[0] * lc.resolution[1]
+    prepass_bound = bound(lv_pairs * 8 + lv_px * 4 + lv_px // PREPASS_LEVELS * 4,
+                          lv_steps * TRAVERSE_OPS_PER_STEP + lv_px * FRAME_OPS_PER_PIXEL)
+    tst = base_steps["terrain"]
+    t_read = tst["pairs"] * 8 + tst["colors"]
+    t_pal = ttree["palette"].shape[0] * 16
+    t_ops = tst["steps"] * TRAVERSE_OPS_PER_STEP
+    u8_bounds = {
+        "u8_frame": bound(t_read + t_pal + ctypes.sizeof(_build.FrameParams) + R * 3,
+                          t_ops + R * FRAME_OPS_PER_PIXEL),
+        "u8_traverse": bound(R * 24 + t_read + R * 41, t_ops)}
+    b = bound(t_read + t_pal + ctypes.sizeof(_build.FramesParams) + R * 3 * BATCH,
+              BATCH * (t_ops + R * FRAME_OPS_PER_PIXEL))
+    u8_bounds["u8_frames"] = (b[0] / BATCH, b[1])
+    sk_tracer = make_skip_tracer(len(ttree["bases"]), ttree["size"], MAX_ITERS, S3)
+    sk_reads = torch.zeros(sk_rows.shape[0], dtype=torch.bool, device=dev)
+    sk = sk_tracer.run(sk8.tree, sk_tracer.init(sk8.tree, to, td), MAX_ITERS, reads=sk_reads)
+    v = sk["hvox"][sk["hit"]].long()
+    S = int(ttree["size"])
+    sk_read = (int(sk_reads.sum()) * 8 * len(ttree["bases"])
+               + int(torch.unique(v[:, 0] + (v[:, 1] + v[:, 2] * S) * S).numel()))
+    bodies = int(sk["iters"].sum()) * SKIP_OPS_PER_BODY
+    u8_bounds["u8_skip_frame"] = bound(sk_read + t_pal + ctypes.sizeof(_build.FrameParams)
+                                       + R * 3, bodies + R * FRAME_OPS_PER_PIXEL)
+    u8_bounds["u8_skip_traverse"] = bound(R * 24 + sk_read + R * 41, bodies)
+    lo, ld = device_rays(lcam, dev)
+    lt = lod_tracer(l8.tree, LOD_512_SCALE)
+    moves = []
+    l_reads = torch.zeros(l8.tree["occ_pairs"].shape[0], dtype=torch.bool, device=dev)
+    lst = lt.run(l8.tree, lt.init(l8.tree, lo, ld), MAX_ITERS, moves=moves, reads=l_reads)
+    hit, lev = lst["hit"], lst["hlev"]
+    hv = lst["hvox"].long()
+    cell = hv[:, 0] + (hv[:, 1] + hv[:, 2] * 4096) * 4096 + lev.long() * 4096**3
+    n0_cells = int(torch.unique(cell[hit & (lev == 0)]).numel())
+    n_up_cells = int(torch.unique(cell[hit & (lev > 0)]).numel())
+    decides = (sum(int((m == MOVE_DESCEND).sum()) for m in moves)
+               + int((hit & (lev > 0)).sum()))
+    # a level-0 hit reads its u8 color, a hit above it its MIP cell's 12 B
+    u8_bounds["u8_lod"] = bound(
+        int(l_reads.sum()) * 8 + n0_cells + n_up_cells * 12 + l8.tree["palette"].shape[0] * 16
+        + ctypes.sizeof(_build.FrameParams) + ctypes.sizeof(_build.LodParams) + R * 12,
+        int(lst["iters"].sum()) * TRAVERSE_OPS_PER_STEP + decides * LOD_OPS_PER_STEP
+        + R * FRAME_OPS_PER_PIXEL)
+    del moves, lst, sk, sk_reads, l_reads
+    log(f"bounds ({name} at the bench pose; the u8 instances at the terrains): frame "
+        f"{frame_bound[0]:.4f} ms ({frame_bound[1]}), a batch frame {frames_bound[0]:.4f} ms, "
+        f"traverse {trav_bound[0]:.4f} ms, prepass {prepass_bound[0]:.4f} ms; "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in u8_bounds.items()) + f" {tag}")
+    del bench, t16tree, t16, t8, ttree, sk8, sk16_tree, sk_rows, l8, l16
+    torch.cuda.empty_cache()
+    log(f"phase 17 options and u8 colors: {time.time() - t_all:.1f} s")
+    src = "voxelhex_tpu_torch/csrc/"
+    ref = "voxelhex_tpu/ops/traverse_pallas.py:79"
+    rows = [("option_frame", "frame.cu", ref, ms[(name, "bench")][1], frame_plain_ms,
+             frame_bound),
+            ("option_frames", "frames.cu", ref, frames_ms, frames_plain_ms, frames_bound),
+            ("option_prepass", "prepass.cu", ref, prepass_ms, prepass_plain_ms, prepass_bound),
+            ("option_traverse", "traverse.cu", ref, trav_ms, trav_plain_ms, trav_bound)]
+    rows += [(k, f, r, u8_ms[k], plain_ms[k], u8_bounds[k]) for k, f, r in (
+        ("u8_frame", "frame.cu", ref), ("u8_frames", "frames.cu", ref),
+        ("u8_traverse", "traverse.cu", ref),
+        ("u8_skip_frame", "frame.cu", "voxelhex_tpu/render/bitgrid.py:859"),
+        ("u8_skip_traverse", "traverse.cu", "voxelhex_tpu/render/bitgrid.py:859"),
+        ("u8_lod", "frame.cu", "voxelhex_tpu/render/bitgrid.py:1627"))]
+    n_launch = {k: launches[k] for k in counters} | u8_launches
+    entries = [{"name": k, "route": "cuda", "source": src + f, "replaces": r,
+                "launches": n_launch[k], "max_abs_err": errs[k], "ms": t, "plain_ms": p,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+               for k, f, r, t, p, b in rows]
+    # every other launch of the main path above ran a new instance (each
+    # window's counts are checked): the beam is the one earlier kernel
+    return entries, {"beam": launches["beam"]}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1233,3 +1233,121 @@ def test_streaming_skip_view_on_the_card_equals_cpu(cuda):
                         views["cpu"].far.tiers[0].renderer.tree)):
             assert _equal(ta["skip_rows"].cpu(), tb["skip_rows"])
             assert _equal(ta["occ_pairs"].cpu(), tb["occ_pairs"])
+
+
+# the stack automaton's options of the renderer (ops.traverse.AutomatonOptions
+# fields), each an optioned instance; and the u8 color grid
+GPU_OPTIONS = [(False, False, 4), (True, False, 0), (True, False, 1), (True, False, 3),
+               (True, True, 4), (False, True, 2)]
+
+
+def _options_tree(cuda, u8, skip=False):
+    """_grid's 64^3 world (7 colors: a u8 grid with ``u8``) with a
+    colorless voxel, on the card."""
+    from voxelhex_tpu_torch.constants import COLOR_NONE
+    from voxelhex_tpu_torch.render.bitgrid import device_bitgrid
+
+    bg = _grid()
+    hit = np.flatnonzero(bg.colors != 0xFFFF)
+    bg.colors = bg.colors.copy()
+    bg.colors[hit[::5]] = COLOR_NONE
+    tree = device_bitgrid(bg, cuda, skip_rows=skip, color_u8=u8)
+    assert tree["colors"].dtype == (torch.uint8 if u8 else torch.int16)
+    return tree
+
+
+@pytest.mark.parametrize("u8", [False, True])
+@pytest.mark.parametrize("options", GPU_OPTIONS)
+def test_option_instances_equal_plain(cuda, options, u8):
+    """traverse.cu's, frame.cu's (with and without a start map), frames.cu's
+    (with the digest) and prepass.cu's optioned instances, over u16 and u8
+    colors, at the default step limit and at 7, against their plain
+    versions; each call launches the optioned instance."""
+    from voxelhex_tpu_torch.ops.frame import render_frame, render_frame_plain
+    from voxelhex_tpu_torch.ops.frames import render_frames, render_frames_plain
+    from voxelhex_tpu_torch.ops.prepass import prepass_start
+    from voxelhex_tpu_torch.ops.traverse import AutomatonOptions, traverse, traverse_plain
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    opts = AutomatonOptions(*options)
+    tree = _options_tree(cuda, u8)
+    o, d = (t.to(cuda) for t in _rays(5000, 64, 1))
+    cams = [orbit_camera(64.0, yaw_deg=y, resolution=(67, 41)) for y in (30.0, 150.0)]
+    start = torch.rand((6, 9), device=cuda) * 40.0
+    prev = torch.zeros((41, 67, 3), dtype=torch.uint8, device=cuda)
+    for max_iters in (2048 if opts.advance_substeps > 0 else 100, 7):
+        n = (traverse.launches, traverse.option_launches, traverse.u8_launches)
+        k = traverse(tree, o, d, max_iters, opts)
+        torch.cuda.synchronize()
+        assert (traverse.launches, traverse.option_launches, traverse.u8_launches) == (
+            n[0] + 1, n[1] + 1, n[2] + u8)
+        for a, b in zip(k, traverse_plain(tree, o, d, max_iters, opts)):
+            assert _equal(a, b)
+        for s in (None, start):
+            n0 = render_frame.option_launches
+            got = render_frame(tree, cams[0], (0.1, 0.2, 0.3), False, max_iters, s, 8,
+                               options=opts)
+            assert render_frame.option_launches == n0 + 1
+            assert _equal(got, render_frame_plain(tree, cams[0], (0.1, 0.2, 0.3), False,
+                                                  max_iters, s, 8, options=opts))
+        n0 = render_frames.option_launches
+        got = render_frames(tree, cams, max_iters=max_iters, prev=prev, options=opts)
+        assert render_frames.option_launches == n0 + 1
+        want = render_frames_plain(tree, cams, max_iters=max_iters, prev=prev, options=opts)
+        for a, b in zip(got, want):
+            assert _equal(a, b)
+        n0 = prepass_start.option_launches
+        depths = []
+        got = prepass_start(tree, orbit_camera(64.0, resolution=(64, 48)), 2, max_iters,
+                            depths=depths, options=opts)
+        assert prepass_start.option_launches == n0 + 1
+        cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in tree.items()}
+        plain_depths = []
+        want = prepass_start(cpu, orbit_camera(64.0, resolution=(64, 48)), 2, max_iters,
+                             depths=plain_depths, options=opts)
+        assert _equal(got.cpu(), want)
+        for a, b in zip(depths, plain_depths):
+            assert _equal(a.cpu(), b)
+
+
+def test_u8_instances_equal_plain(cuda):
+    """The u8 instances of the default options (traverse.cu, frame.cu with
+    and without a start map, frames.cu), of the skip tracer (traverse.cu,
+    frame.cu, frames.cu) and of the LOD frame (stop and stopless) against
+    their plain versions and the u16 instances' outputs."""
+    from voxelhex_tpu_torch.ops.frame import render_frame, render_lod, render_lod_plain
+    from voxelhex_tpu_torch.ops.frames import render_frames
+    from voxelhex_tpu_torch.ops.skip import trace_skip, trace_skip_plain
+    from voxelhex_tpu_torch.ops.traverse import traverse, traverse_plain
+    from voxelhex_tpu_torch.render.bitgrid import build_mip_colors
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+
+    t8, t16 = _options_tree(cuda, True, skip=True), _options_tree(cuda, False, skip=True)
+    o, d = (t.to(cuda) for t in _rays(5000, 64, 3))
+    cams = [orbit_camera(64.0, yaw_deg=y, resolution=(67, 41)) for y in (30.0, 150.0)]
+    start = torch.rand((6, 9), device=cuda) * 40.0
+    n = (traverse.u8_launches, trace_skip.u8_launches, render_frame.u8_launches,
+         render_frames.u8_launches, render_lod.u8_launches)
+    for a, b, c in zip(traverse(t8, o, d), traverse_plain(t8, o, d), traverse(t16, o, d)):
+        assert _equal(a, b) and _equal(a, c)
+    for a, b, c in zip(trace_skip(t8, o, d), trace_skip_plain(t8, o, d), trace_skip(t16, o, d)):
+        assert _equal(a, b) and _equal(a, c)
+    for skip in (None, 3):
+        for s in (None, start):
+            got = render_frame(t8, cams[0], start=s, start_tile=8, skip_substeps=skip)
+            assert _equal(got, render_frame(t16, cams[0], start=s, start_tile=8,
+                                            skip_substeps=skip))
+        got = render_frames(t8, cams, skip_substeps=skip)[0]
+        assert _equal(got, render_frames(t16, cams, skip_substeps=skip)[0])
+    bg = _grid()
+    build_mip_colors(bg)
+    for l, grid in enumerate(bg.mip_rgb):
+        t8[f"mip_rgb_{l}"] = torch.from_numpy(grid).to(cuda)
+    for scale in (0.0, 0.3):
+        got = render_lod(t8, cams[1], scale)
+        cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in t8.items()}
+        assert _equal(got.cpu(), render_lod_plain(cpu, cams[1], scale))
+    torch.cuda.synchronize()
+    assert (traverse.u8_launches, trace_skip.u8_launches, render_frame.u8_launches,
+            render_frames.u8_launches, render_lod.u8_launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 4, n[3] + 2, n[4] + 2)

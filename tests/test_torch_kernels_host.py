@@ -711,10 +711,10 @@ def host_lib(tmp_path_factory):
             return f"{launcher}({m.group(2)}, [&] {{ {m.group(1)}({m.group(3)}); }});"
         return sub
 
-    for name, launcher, n_launches in (("frame", "vhx_host_launch", 5),
-                                       ("traverse", "vhx_host_launch", 2),
+    for name, launcher, n_launches in (("frame", "vhx_host_launch", 6),
+                                       ("traverse", "vhx_host_launch", 4),
                                        ("multihit", "vhx_host_launch", 2),
-                                       ("frames", "vhx_host_launch", 3),
+                                       ("frames", "vhx_host_launch", 5),
                                        ("albedo", "vhx_host_warp_launch", 2),
                                        ("stream", "vhx_host_launch", 6),
                                        ("far", "vhx_host_launch", 4),

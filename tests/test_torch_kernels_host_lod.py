@@ -37,8 +37,8 @@ const void* vhx_launched = nullptr;
 // 1 if the last launch was frame_lod_kernel's stopless instance, 0 if its
 // stop instance, -1 if another kernel
 extern "C" int vhx_last_lod_stopless() {
-    if (vhx_launched == (const void*)&frame_lod_kernel<false>) return 1;
-    return vhx_launched == (const void*)&frame_lod_kernel<true> ? 0 : -1;
+    if (vhx_launched == (const void*)&frame_lod_kernel<false, false>) return 1;
+    return vhx_launched == (const void*)&frame_lod_kernel<true, false> ? 0 : -1;
 }
 """
 

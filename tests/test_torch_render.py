@@ -99,10 +99,13 @@ def test_fastest_renderer_takes_the_references_keywords():
     skip = fastest_renderer(bg, device="cpu", tracer="skip", skip_substeps=2)
     np.testing.assert_array_equal(skip.render(cam, out_u8=True),
                                   fastest_renderer(bg, device="cpu").render(cam, out_u8=True))
+    # the stack automaton's options and the u8 color grid render the default
+    # frame on this scene (test_torch_options.py, test_torch_color_u8.py)
     for kw in ({"lateral_step": False}, {"advance_substeps": 2},
                {"parent_skip": True}, {"color_u8": True}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            fastest_renderer(bg, device="cpu", **kw)
+        np.testing.assert_array_equal(fastest_renderer(bg, device="cpu", **kw).render(cam), want)
+    with pytest.raises(NotImplementedError, match="tracer"):
+        fastest_renderer(bg, device="cpu", tracer="wavefront")
     with pytest.raises(TypeError, match="unexpected keyword"):
         fastest_renderer(bg, device="cpu", lod_bias=1)
 

@@ -90,8 +90,10 @@ REDESIGNED = (("traverse.cu", "traverse_skip_kernel"), ("frame.cu", "frame_skip_
               ("frame.cu", "frame_lod_kernel"), ("stream.cu", "skip_rows_kernel"),
               ("composite.cu", "composite_bwd_kernel"))
 # the kernels whose functions may change (a name holds one of these):
-# every other function the parent has is to keep its SASS
-REDESIGNED_KERNELS = ("frame_lod_kernel",)
+# every other function the parent has is to keep its SASS (none here: the
+# options' and the u8 colors' instances are new functions beside the
+# parent's)
+REDESIGNED_KERNELS = ()
 SKIP_SUBSTEPS = 3  # chip_smoke.SKIP_SUBSTEPS
 # what every probe has besides its piece: memory, constants, the frame
 SKIP = re.compile(r"^(LDG|STG|LD|ST|LDS|STS|LDC|ULDC|S2R|S2UR|CS2R|MOV|UMOV|IMAD\.MOV|EXIT|BRA|"
@@ -201,7 +203,8 @@ def sass_kept(nvcc, build, parent_build):
                 changed.append(f"{source} {short_name(name)}")
             print(f"  {source} {short_name(name)} ({len(body.splitlines()) // 2} instructions): "
                   f"{'kept byte for byte' if kept else 'changed'}")
-    print(f"  the parent's functions changed outside {', '.join(REDESIGNED_KERNELS)}: "
+    outside = f" outside {', '.join(REDESIGNED_KERNELS)}" if REDESIGNED_KERNELS else ""
+    print(f"  the parent's functions changed{outside}: "
           f"{len(changed)}{': ' if changed else ''}{', '.join(changed)}")
 
 

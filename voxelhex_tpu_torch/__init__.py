@@ -11,9 +11,11 @@ It imports neither JAX nor the reference package.  Layout:
   the bencode format and versioned checkpoints; :mod:`.native` builds and
   binds its host libraries (``host/rasterize.cpp``, ``host/tree_edit.cpp``);
 * :mod:`.render` — camera and rays, the BitGrid and its plain tracer,
-  plain shading, the renderer (:func:`.render.fastest_renderer`), the
-  streaming view over a world larger than the card's window and its far
-  field (:mod:`.render.streaming`);
+  plain shading, the renderer (:func:`.render.fastest_renderer`, with the
+  reference's automaton options and u8 color storage), the streaming view
+  over a world larger than the card's window and its far field
+  (:mod:`.render.streaming`), the scalar ground-truth tracer
+  (:mod:`.render.oracle`);
 * :mod:`.diff` — differentiable rendering: the soft-occupancy renderer,
   the albedo renderer and their offline trainers;
 * :mod:`.ops` — the CUDA kernels' wrappers (the frame, the batched
@@ -24,7 +26,8 @@ It imports neither JAX nor the reference package.  Layout:
   Adam state to the port's;
 * :mod:`.serve` — the render/edit server (``RenderService``, its HTTP
   server and CLI, ``python -m voxelhex_tpu_torch.serve``), with
-  :mod:`.utils.png`'s encoder;
+  :mod:`.utils.png`'s encoder; :mod:`.utils.profiling` — frame meters and
+  ``torch.profiler`` traces;
 * :mod:`.tree.native_edit` — the native edit engine (``NativeEditTree``,
   over the host library ``host/tree_edit.cpp``).
 

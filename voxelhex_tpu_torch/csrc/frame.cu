@@ -27,10 +27,16 @@
 // `frame_start_kernel` is the same frame from a prepass's start map (the
 // reference's `start_t`): each ray starts at least its pixel tile's value
 // along.  It is its own instance, so the frame without a start compiles as
-// it did.  `frame_skip_kernel<kStart, L>` is the frame of the skip tracer
-// (skip.cuh, the reference renderer's `tracer="skip"`) over the skip rows
-// of a grid of L levels, with and without a start map: the same prologue
-// and epilogue.
+// it did.  `frame_skip_kernel<kStart, L, kU8>` is the frame of the skip
+// tracer (skip.cuh, the reference renderer's `tracer="skip"`) over the skip
+// rows of a grid of L levels, with and without a start map: the same
+// prologue and epilogue.  `frame_form_kernel<kStart, kOpt, kU8>` is the
+// stack automaton's frame under the renderer's options read at run time
+// (kOpt: traverse.cuh TraceOptions, the reference's `lateral_step`,
+// `parent_skip` and `advance_substeps`), or over a u8 color grid (kU8:
+// `color_u8`), or both; the two instances of the default options over u16
+// colors are `frame_kernel` and `frame_start_kernel`.  kU8 of the skip and
+// LOD frames reads u8 colors too.
 //
 // `frame_lod_kernel<kStop>` is the reference renderer's `render_lod`
 // (bitgrid.py:1627): the tracer `make_bitgrid_tracer(..., lod_scale)` with
@@ -124,16 +130,18 @@ constexpr int BLOCK_W = vhx::BLOCK_W;
 // (traverse.cuh init's start form): a prepass's start map, one value for
 // each `start_tile` x `start_tile` pixels, `start_stride` tiles a row.
 // With L >= 1, `occ` holds the skip rows of a grid of L levels and the ray
-// marches the skip tracer, `substeps` substeps a body iteration.
-template <bool kStart, int L = 0>
+// marches the skip tracer, `substeps` substeps a body iteration; with kOpt
+// the stack automaton follows `opt`.
+template <bool kStart, int L = 0, bool kOpt = false, class TColor>
 __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
-                                            const unsigned short* __restrict__ colors,
+                                            const TColor* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
                                             const FrameParams& P, const int2* levels,
                                             const float* __restrict__ start, int start_tile,
                                             int start_stride, float* __restrict__ rgb_out,
                                             unsigned char* __restrict__ u8_out,
-                                            int substeps = 0) {
+                                            int substeps = 0,
+                                            const TraceOptions& opt = TraceOptions{}) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -150,8 +158,8 @@ __device__ __forceinline__ void frame_pixel(const uint2* __restrict__ occ,
         h = vhx::skip_march<kStart, L>(o, d, vhx::skip_grid(occ, P.trace.size, substeps), colors,
                                        P.trace.max_iters, start_t);
     else
-        h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
-                               P.trace.n_blocks, P.trace.max_iters, start_t);
+        h = vhx::march<kStart, kOpt>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
+                                     P.trace.n_blocks, P.trace.max_iters, start_t, true, opt);
 
     // ---- epilogue: albedo x Lambert, the background on a miss, u8
     float rgb[3];
@@ -186,11 +194,26 @@ frame_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restri
                       start_stride, rgb_out, u8_out);
 }
 
-// The skip tracer's frame over a grid of L levels, from a start map with
-// kStart
-template <bool kStart, int L>
+// The stack automaton's frame from a start map with kStart, under `opt`
+// with kOpt, over u8 colors with kU8
+template <bool kStart, bool kOpt, bool kU8>
 __global__ void __launch_bounds__(THREADS)
-frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
+frame_form_kernel(const uint2* __restrict__ occ, const vhx::color_t<kU8>* __restrict__ colors,
+                  const float4* __restrict__ palette, int n_colors, const FrameParams P,
+                  const TraceOptions opt, const float* __restrict__ start, int start_tile,
+                  int start_stride, float* __restrict__ rgb_out,
+                  unsigned char* __restrict__ u8_out) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    frame_pixel<kStart, 0, kOpt>(occ, colors, palette, n_colors, P, levels, start, start_tile,
+                                 start_stride, rgb_out, u8_out, 0, opt);
+}
+
+// The skip tracer's frame over a grid of L levels, from a start map with
+// kStart, over u8 colors with kU8
+template <bool kStart, int L, bool kU8>
+__global__ void __launch_bounds__(THREADS)
+frame_skip_kernel(const uint2* __restrict__ rows, const vhx::color_t<kU8>* __restrict__ colors,
                   const float4* __restrict__ palette, int n_colors, const FrameParams P,
                   int substeps, const float* __restrict__ start, int start_tile,
                   int start_stride, float* __restrict__ rgb_out,
@@ -201,10 +224,11 @@ frame_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restri
 
 // The LOD frame of each pixel into rgb (f32 [h, w, 3]).  Without kStop no
 // ray stops above level 0: the march is the stack automaton's at 2
-// substeps, and every hit takes its albedo from the palette.
-template <bool kStop>
+// substeps, and every hit takes its albedo from the palette.  kU8: u8
+// colors.
+template <bool kStop, bool kU8>
 __global__ void __launch_bounds__(THREADS)
-frame_lod_kernel(const uint2* __restrict__ occ, const unsigned short* __restrict__ colors,
+frame_lod_kernel(const uint2* __restrict__ occ, const vhx::color_t<kU8>* __restrict__ colors,
                  const float4* __restrict__ palette, int n_colors, const FrameParams P,
                  const __grid_constant__ LodParams Lp, float* __restrict__ rgb_out) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
@@ -278,107 +302,143 @@ bool bad_frame(const FrameParams& P, int n_colors, const float* start, int start
 
 extern "C" int vhx_frame_params_size() { return (int)sizeof(FrameParams); }
 
-// The skip tracer's frame: as vhx_render_frame_start, over `rows` (the
-// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned),
-// `substeps` >= 1 substeps a body iteration and params->trace.max_iters
-// body iterations a ray; the instance of the grid's depth.
+// The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,
+// one value a `start_tile` x `start_tile` tile of pixels, ceil(w /
+// start_tile) a row), each ray starts at least its tile's value along.
+// `substeps` 0 marches the stack automaton over the pyramid's word pairs
+// `words`, under `opts` (null: the default options); `substeps` >= 1 the
+// skip tracer over the skip rows (u32 [ceil(S / 4)^3, 2 n_levels], 16 B
+// aligned; `opts` null), `substeps` substeps a body iteration and
+// params->trace.max_iters body iterations a ray, the instance of the
+// grid's depth.  `colors` is u16 (`color_bytes` 2) or u8 (1).
+extern "C" cudaError_t vhx_render_frame_ex(const void* words, const void* colors,
+                                           const float* palette, int n_colors,
+                                           const FrameParams* params, const TraceOptions* opts,
+                                           int color_bytes, int substeps, const float* start,
+                                           int start_tile, float* rgb, void* u8, int device,
+                                           cudaStream_t stream) {
+    const FrameParams& P = *params;
+    if (bad_frame(P, n_colors, start, start_tile,
+                  substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS) ||
+        substeps < 0 || (color_bytes != 1 && color_bytes != 2) || (substeps && opts) ||
+        (substeps && !vhx::skip_rows_aligned(words)))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
+    const auto* occ = static_cast<const uint2*>(words);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto* out = static_cast<unsigned char*>(u8);
+    const int stride = start ? (P.w + start_tile - 1) / start_tile : 0;
+    const TraceOptions opt = opts ? *opts : TraceOptions{};
+    auto launch = [&](auto u8_colors, auto with_start) {
+        constexpr bool kU8 = decltype(u8_colors)::value;
+        constexpr bool kStart = decltype(with_start)::value;
+        const auto* col = static_cast<const vhx::color_t<kU8>*>(colors);
+        if (substeps)
+            return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
+                constexpr int L = decltype(depth)::value;
+                frame_skip_kernel<kStart, L, kU8><<<grid, THREADS, 0, stream>>>(
+                    occ, col, pal, n_colors, P, substeps, start, start_tile, stride, rgb, out);
+                return cudaGetLastError();
+            });
+        if (opts)
+            frame_form_kernel<kStart, true, kU8><<<grid, THREADS, 0, stream>>>(
+                occ, col, pal, n_colors, P, opt, start, start_tile, stride, rgb, out);
+        else if constexpr (kU8)
+            frame_form_kernel<kStart, false, true><<<grid, THREADS, 0, stream>>>(
+                occ, col, pal, n_colors, P, opt, start, start_tile, stride, rgb, out);
+        else if constexpr (kStart)
+            frame_start_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, start,
+                                                             start_tile, stride, rgb, out);
+        else
+            frame_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, rgb, out);
+        return cudaGetLastError();
+    };
+    if (color_bytes == 1)
+        return start ? launch(std::true_type{}, std::true_type{})
+                     : launch(std::true_type{}, std::false_type{});
+    return start ? launch(std::false_type{}, std::true_type{})
+                 : launch(std::false_type{}, std::false_type{});
+}
+
+// The skip tracer's frame over u16 colors: vhx_render_frame_ex with
+// `substeps` >= 1
 extern "C" cudaError_t vhx_render_frame_skip(const void* rows, const void* colors,
                                              const float* palette, int n_colors,
                                              const FrameParams* params, int substeps,
                                              const float* start, int start_tile, float* rgb,
                                              void* u8, int device, cudaStream_t stream) {
-    const FrameParams& P = *params;
-    if (bad_frame(P, n_colors, start, start_tile, VHX_SKIP_MAX_LEVELS) || substeps < 1 ||
-        !vhx::skip_rows_aligned(rows))
-        return cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
-    const auto* rw = static_cast<const uint2*>(rows);
-    const auto* col = static_cast<const unsigned short*>(colors);
-    const auto* pal = reinterpret_cast<const float4*>(palette);
-    auto* out = static_cast<unsigned char*>(u8);
-    const int stride = start ? (P.w + start_tile - 1) / start_tile : 0;
-    return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
-        constexpr int L = decltype(depth)::value;
-        if (start)
-            frame_skip_kernel<true, L><<<grid, THREADS, 0, stream>>>(
-                rw, col, pal, n_colors, P, substeps, start, start_tile, stride, rgb, out);
-        else
-            frame_skip_kernel<false, L><<<grid, THREADS, 0, stream>>>(
-                rw, col, pal, n_colors, P, substeps, nullptr, 1, 0, rgb, out);
-        return cudaGetLastError();
-    });
+    if (substeps < 1) return cudaErrorInvalidValue;
+    return vhx_render_frame_ex(rows, colors, palette, n_colors, params, nullptr, 2, substeps,
+                               start, start_tile, rgb, u8, device, stream);
 }
 
-// The LOD frame of the instance kStop of frame_lod_kernel into rgb
-template <bool kStop>
-static cudaError_t launch_frame_lod(const void* occ_pairs, const void* colors,
-                                    const float* palette, int n_colors, const FrameParams* params,
-                                    const LodParams* lod, float* rgb, int device,
-                                    cudaStream_t stream) {
+// The LOD frame (frame_lod_kernel) into rgb, f32 [h, w, 3]: `lod` holds the
+// MIP grids and the stop table; params->trace.max_iters steps a ray;
+// `colors` u16 (`color_bytes` 2) or u8 (1); the stop instance with `stop`,
+// else the stopless one, for frames in which no step can stop above level 0
+// (ops/frame.py lod_stopless).
+extern "C" cudaError_t vhx_render_frame_lod_ex(const void* occ_pairs, const void* colors,
+                                               const float* palette, int n_colors,
+                                               const FrameParams* params, const LodParams* lod,
+                                               int color_bytes, int stop, float* rgb, int device,
+                                               cudaStream_t stream) {
     const FrameParams& P = *params;
     if (bad_frame(P, n_colors, nullptr, 1, VHX_MAX_LEVELS) || !rgb || lod->n_mip < 0 ||
-        lod->n_mip > VHX_MAX_LEVELS)
+        lod->n_mip > VHX_MAX_LEVELS || (color_bytes != 1 && color_bytes != 2))
         return cudaErrorInvalidValue;
     for (int l = 0; l < lod->n_mip; ++l)
         if (!lod->mip[l] || lod->mip_cells[l] < 1) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
-    frame_lod_kernel<kStop><<<grid, THREADS, 0, stream>>>(
-        static_cast<const uint2*>(occ_pairs), static_cast<const unsigned short*>(colors),
-        reinterpret_cast<const float4*>(palette), n_colors, P, *lod, rgb);
-    return cudaGetLastError();
+    const auto* occ = static_cast<const uint2*>(occ_pairs);
+    const auto* pal = reinterpret_cast<const float4*>(palette);
+    auto launch = [&](auto u8_colors, auto with_stop) {
+        constexpr bool kU8 = decltype(u8_colors)::value;
+        constexpr bool kStop = decltype(with_stop)::value;
+        frame_lod_kernel<kStop, kU8><<<grid, THREADS, 0, stream>>>(
+            occ, static_cast<const vhx::color_t<kU8>*>(colors), pal, n_colors, P, *lod, rgb);
+        return cudaGetLastError();
+    };
+    if (color_bytes == 1)
+        return stop ? launch(std::true_type{}, std::true_type{})
+                    : launch(std::true_type{}, std::false_type{});
+    return stop ? launch(std::false_type{}, std::true_type{})
+                : launch(std::false_type{}, std::false_type{});
 }
 
-// The LOD frame (frame_lod_kernel) into rgb, f32 [h, w, 3]: `lod` holds the
-// MIP grids and the stop table; params->trace.max_iters steps a ray.
+// The LOD frame over u16 colors by the stop instance
 extern "C" cudaError_t vhx_render_frame_lod(const void* occ_pairs, const void* colors,
                                             const float* palette, int n_colors,
                                             const FrameParams* params, const LodParams* lod,
                                             float* rgb, int device, cudaStream_t stream) {
-    return launch_frame_lod<true>(occ_pairs, colors, palette, n_colors, params, lod, rgb, device,
-                                  stream);
+    return vhx_render_frame_lod_ex(occ_pairs, colors, palette, n_colors, params, lod, 2, 1, rgb,
+                                   device, stream);
 }
 
-// The same frame by the stopless instance, where no step can stop above
-// level 0 (ops/frame.py lod_stopless)
+// The same frame by the stopless instance
 extern "C" cudaError_t vhx_render_frame_lod_stopless(const void* occ_pairs, const void* colors,
                                                      const float* palette, int n_colors,
                                                      const FrameParams* params,
                                                      const LodParams* lod, float* rgb, int device,
                                                      cudaStream_t stream) {
-    return launch_frame_lod<false>(occ_pairs, colors, palette, n_colors, params, lod, rgb,
+    return vhx_render_frame_lod_ex(occ_pairs, colors, palette, n_colors, params, lod, 2, 0, rgb,
                                    device, stream);
 }
 
 extern "C" int vhx_lod_params_size() { return (int)sizeof(LodParams); }
 
-// The frame into rgb (f32 [h, w, 3]) or u8 ([h, w, 3]).  With `start` (f32,
-// one value a `start_tile` x `start_tile` tile of pixels, ceil(w /
-// start_tile) a row), each ray starts at least its tile's value along.
+// The stack automaton's frame over u16 colors with the default options:
+// vhx_render_frame_ex with `substeps` 0
 extern "C" cudaError_t vhx_render_frame_start(const void* occ_pairs, const void* colors,
                                               const float* palette, int n_colors,
                                               const FrameParams* params, const float* start,
                                               int start_tile, float* rgb, void* u8, int device,
                                               cudaStream_t stream) {
-    const FrameParams& P = *params;
-    if (bad_frame(P, n_colors, start, start_tile, VHX_MAX_LEVELS)) return cudaErrorInvalidValue;
-    const dim3 grid((P.w + BLOCK_W - 1) / BLOCK_W, (P.h + WARP_H - 1) / WARP_H);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    const auto* occ = static_cast<const uint2*>(occ_pairs);
-    const auto* col = static_cast<const unsigned short*>(colors);
-    const auto* pal = reinterpret_cast<const float4*>(palette);
-    auto* out = static_cast<unsigned char*>(u8);
-    if (start)
-        frame_start_kernel<<<grid, THREADS, 0, stream>>>(
-            occ, col, pal, n_colors, P, start, start_tile,
-            (P.w + start_tile - 1) / start_tile, rgb, out);
-    else
-        frame_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, rgb, out);
-    return cudaGetLastError();
+    return vhx_render_frame_ex(occ_pairs, colors, palette, n_colors, params, nullptr, 2, 0, start,
+                               start_tile, rgb, u8, device, stream);
 }
 
 extern "C" cudaError_t vhx_render_frame(const void* occ_pairs, const void* colors,

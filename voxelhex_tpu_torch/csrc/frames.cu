@@ -42,9 +42,14 @@
 // `frames_start_kernel` is the same batch from each frame's start map (the
 // beam prepass of beam.cu, one map a camera): its own instance, so the
 // batch without a start compiles as it did.  `frames_skip_kernel<kStart,
-// L>` is the batch of the skip tracer (skip.cuh, the reference renderer's
-// `tracer="skip"`) over the skip rows of a grid of L levels, with and
-// without start maps.
+// L, kU8>` is the batch of the skip tracer (skip.cuh, the reference
+// renderer's `tracer="skip"`) over the skip rows of a grid of L levels, with
+// and without start maps.  `frames_form_kernel<kStart, kOpt, kU8>` is the
+// stack automaton's batch under the renderer's options read at run time
+// (kOpt: traverse.cuh TraceOptions), or over a u8 color grid (kU8: the
+// reference's `color_u8`), or both; `frames_kernel` and
+// `frames_start_kernel` are the default options' over u16 colors, as they
+// were.  The skip batch's kU8 reads u8 colors too.
 
 #include "frame.cuh"
 #include "skip.cuh"
@@ -77,16 +82,18 @@ struct StartMaps {
 };
 
 // With L >= 1, `occ` holds the skip rows of a grid of L levels and each ray
-// marches the skip tracer, `substeps` substeps a body iteration.
-template <bool kStart, int L = 0>
+// marches the skip tracer, `substeps` substeps a body iteration; with kOpt
+// the stack automaton follows `opt`.
+template <bool kStart, int L = 0, bool kOpt = false, class TColor>
 __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
-                                            const unsigned short* __restrict__ colors,
+                                            const TColor* __restrict__ colors,
                                             const float4* __restrict__ palette, int n_colors,
                                             const FramesParams& P, const int2* levels,
                                             const StartMaps& S, float* __restrict__ rgb_out,
                                             unsigned char* __restrict__ u8_out,
                                             const unsigned char* __restrict__ prev,
-                                            int* __restrict__ digest, int substeps = 0) {
+                                            int* __restrict__ digest, int substeps = 0,
+                                            const TraceOptions& opt = TraceOptions{}) {
     int x, y;
     vhx::tile_pixel(x, y);
     if (x >= P.w || y >= P.h) return;
@@ -118,8 +125,9 @@ __device__ __forceinline__ void frames_body(const uint2* __restrict__ occ,
             h = vhx::skip_march<kStart, L>(o, d, vhx::skip_grid(occ, P.trace.size, substeps),
                                            colors, P.trace.max_iters, start_t, use_start);
         else
-            h = vhx::march<kStart>(o, d, occ, colors, levels, P.trace.n_levels, P.trace.size,
-                                   P.trace.n_blocks, P.trace.max_iters, start_t, use_start);
+            h = vhx::march<kStart, kOpt>(o, d, occ, colors, levels, P.trace.n_levels,
+                                         P.trace.size, P.trace.n_blocks, P.trace.max_iters,
+                                         start_t, use_start, opt);
         float rgb[3];
         vhx::shade_hit(h, palette, n_colors, P.bg, rgb);
         const long long px = 3 * (k * frame_px + r);
@@ -174,11 +182,27 @@ frames_start_kernel(const uint2* __restrict__ occ, const unsigned short* __restr
                       digest);
 }
 
-// The skip tracer's batch over a grid of L levels, from start maps with
-// kStart
-template <bool kStart, int L>
+// The stack automaton's batch from start maps with kStart, under `opt` with
+// kOpt, over u8 colors with kU8
+template <bool kStart, bool kOpt, bool kU8>
 __global__ void __launch_bounds__(THREADS)
-frames_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restrict__ colors,
+frames_form_kernel(const uint2* __restrict__ occ, const vhx::color_t<kU8>* __restrict__ colors,
+                   const float4* __restrict__ palette, int n_colors,
+                   const __grid_constant__ FramesParams P, const StartMaps S,
+                   const TraceOptions opt, float* __restrict__ rgb_out,
+                   unsigned char* __restrict__ u8_out, const unsigned char* __restrict__ prev,
+                   int* __restrict__ digest) {
+    __shared__ int2 levels[VHX_MAX_LEVELS];
+    vhx::load_levels(P.trace, levels);
+    frames_body<kStart, 0, kOpt>(occ, colors, palette, n_colors, P, levels, S, rgb_out, u8_out,
+                                 prev, digest, 0, opt);
+}
+
+// The skip tracer's batch over a grid of L levels, from start maps with
+// kStart, over u8 colors with kU8
+template <bool kStart, int L, bool kU8>
+__global__ void __launch_bounds__(THREADS)
+frames_skip_kernel(const uint2* __restrict__ rows, const vhx::color_t<kU8>* __restrict__ colors,
                    const float4* __restrict__ palette, int n_colors,
                    const __grid_constant__ FramesParams P, const StartMaps S, int substeps,
                    float* __restrict__ rgb_out, unsigned char* __restrict__ u8_out,
@@ -187,37 +211,21 @@ frames_skip_kernel(const uint2* __restrict__ rows, const unsigned short* __restr
                            digest, substeps);
 }
 
-// The stack automaton's batch with L = 0, else the skip tracer's over a
-// grid of L levels
-template <bool kStart, int L>
-cudaError_t launch(dim3 grid, const uint2* occ, const unsigned short* colors,
-                   const float4* palette, int n_colors, const FramesParams& P,
-                   const StartMaps& S, int substeps, float* rgb, unsigned char* u8,
-                   const unsigned char* prev, int* digest, cudaStream_t stream) {
-    if constexpr (L > 0)
-        frames_skip_kernel<kStart, L><<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors,
-                                                                    P, S, substeps, rgb, u8, prev,
-                                                                    digest);
-    else if constexpr (kStart)
-        frames_start_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, S,
-                                                          rgb, u8, prev, digest);
-    else
-        frames_kernel<<<grid, THREADS, 0, stream>>>(occ, colors, palette, n_colors, P, rgb, u8,
-                                                    prev, digest);
-    return cudaGetLastError();
-}
-
-// The batch of either tracer: the stack automaton over the pyramid's word
-// pairs with `substeps` 0, else the skip tracer over the skip rows
+// The batch of either tracer over u16 (`color_bytes` 2) or u8 (1) colors:
+// the stack automaton over the pyramid's word pairs with `substeps` 0,
+// under `opts` (null: the default options), else the skip tracer over the
+// skip rows
 cudaError_t render(const void* grid_words, const void* colors, const float* palette,
-                   int n_colors, const FramesParams* params, int substeps, const float* start,
-                   int start_tile, unsigned start_mask, float* rgb, void* u8, const void* prev,
-                   int* digest, int device, cudaStream_t stream) {
+                   int n_colors, const FramesParams* params, const TraceOptions* opts,
+                   int color_bytes, int substeps, const float* start, int start_tile,
+                   unsigned start_mask, float* rgb, void* u8, const void* prev, int* digest,
+                   int device, cudaStream_t stream) {
     const FramesParams& P = *params;
     const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
     if (P.trace.n_levels < 1 || P.trace.n_levels > max_levels || n_colors < 1 || P.w < 1 ||
         P.h < 1 || P.n_frames < 1 || P.n_frames > VHX_KMAX || (!rgb) == (!u8) ||
         (digest && (!u8 || !prev)) || (start && start_tile < 1) || substeps < 0 ||
+        (color_bytes != 1 && color_bytes != 2) || (substeps && opts) ||
         (substeps && !vhx::skip_rows_aligned(grid_words)))
         return cudaErrorInvalidValue;
     const dim3 grid((P.w + vhx::BLOCK_W - 1) / vhx::BLOCK_W,
@@ -231,7 +239,6 @@ cudaError_t render(const void* grid_words, const void* colors, const float* pale
         if (err != cudaSuccess) return err;
     }
     const auto* occ = static_cast<const uint2*>(grid_words);
-    const auto* col = static_cast<const unsigned short*>(colors);
     const auto* pal = reinterpret_cast<const float4*>(palette);
     auto* out = static_cast<unsigned char*>(u8);
     const auto* base = static_cast<const unsigned char*>(prev);
@@ -241,18 +248,37 @@ cudaError_t render(const void* grid_words, const void* colors, const float* pale
         S = StartMaps{start, (long long)stride * ((P.h + start_tile - 1) / start_tile),
                       start_tile, stride, start_mask};
     }
-    if (substeps)
-        return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
-            constexpr int L = decltype(depth)::value;
-            return start ? launch<true, L>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
-                                           out, base, digest, stream)
-                         : launch<false, L>(grid, occ, col, pal, n_colors, P, S, substeps, rgb,
-                                            out, base, digest, stream);
-        });
-    return start ? launch<true, 0>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
-                                   digest, stream)
-                 : launch<false, 0>(grid, occ, col, pal, n_colors, P, S, 0, rgb, out, base,
-                                    digest, stream);
+    const TraceOptions opt = opts ? *opts : TraceOptions{};
+    auto launch = [&](auto u8_colors, auto with_start) {
+        constexpr bool kU8 = decltype(u8_colors)::value;
+        constexpr bool kStart = decltype(with_start)::value;
+        const auto* col = static_cast<const vhx::color_t<kU8>*>(colors);
+        if (substeps)
+            return vhx::skip_depth(P.trace.n_levels, [&](auto depth) {
+                constexpr int L = decltype(depth)::value;
+                frames_skip_kernel<kStart, L, kU8><<<grid, THREADS, 0, stream>>>(
+                    occ, col, pal, n_colors, P, S, substeps, rgb, out, base, digest);
+                return cudaGetLastError();
+            });
+        if (opts)
+            frames_form_kernel<kStart, true, kU8><<<grid, THREADS, 0, stream>>>(
+                occ, col, pal, n_colors, P, S, opt, rgb, out, base, digest);
+        else if constexpr (kU8)
+            frames_form_kernel<kStart, false, true><<<grid, THREADS, 0, stream>>>(
+                occ, col, pal, n_colors, P, S, opt, rgb, out, base, digest);
+        else if constexpr (kStart)
+            frames_start_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, S, rgb,
+                                                              out, base, digest);
+        else
+            frames_kernel<<<grid, THREADS, 0, stream>>>(occ, col, pal, n_colors, P, rgb, out,
+                                                        base, digest);
+        return cudaGetLastError();
+    };
+    if (color_bytes == 1)
+        return start ? launch(std::true_type{}, std::true_type{})
+                     : launch(std::true_type{}, std::false_type{});
+    return start ? launch(std::false_type{}, std::true_type{})
+                 : launch(std::false_type{}, std::false_type{});
 }
 
 }  // namespace
@@ -267,20 +293,35 @@ extern "C" int vhx_frames_kmax() { return VHX_KMAX; }
 // `start`, frame k whose bit of `start_mask` is set starts each ray at
 // least its tile's value of start map k along (f32 [K, ceil(h / tile),
 // ceil(w / tile)], `start_tile` x `start_tile` pixels a value).
+// `substeps` 0 marches the stack automaton over the pyramid's word pairs
+// `words`, under `opts` (null: the default options); `substeps` >= 1 the
+// skip tracer over the skip rows (u32 [ceil(S / 4)^3, 2 n_levels], 16 B
+// aligned; `opts` null), `substeps` substeps a body iteration and
+// params->trace.max_iters body iterations a ray, the instance of the
+// grid's depth.  `colors` is u16 (`color_bytes` 2) or u8 (1).
+extern "C" cudaError_t vhx_render_frames_ex(const void* words, const void* colors,
+                                            const float* palette, int n_colors,
+                                            const FramesParams* params, const TraceOptions* opts,
+                                            int color_bytes, int substeps, const float* start,
+                                            int start_tile, unsigned start_mask, float* rgb,
+                                            void* u8, const void* prev, int* digest, int device,
+                                            cudaStream_t stream) {
+    return render(words, colors, palette, n_colors, params, opts, color_bytes, substeps, start,
+                  start_tile, start_mask, rgb, u8, prev, digest, device, stream);
+}
+
+// The stack automaton's batch over u16 colors with the default options
 extern "C" cudaError_t vhx_render_frames_start(const void* occ_pairs, const void* colors,
                                                const float* palette, int n_colors,
                                                const FramesParams* params, const float* start,
                                                int start_tile, unsigned start_mask, float* rgb,
                                                void* u8, const void* prev, int* digest,
                                                int device, cudaStream_t stream) {
-    return render(occ_pairs, colors, palette, n_colors, params, 0, start, start_tile, start_mask,
-                  rgb, u8, prev, digest, device, stream);
+    return render(occ_pairs, colors, palette, n_colors, params, nullptr, 2, 0, start, start_tile,
+                  start_mask, rgb, u8, prev, digest, device, stream);
 }
 
-// The skip tracer's batch: as vhx_render_frames_start, over `rows` (the
-// grid's skip rows, u32 [ceil(S / 4)^3, 2 n_levels], 16 B aligned),
-// `substeps` >= 1 substeps a body iteration and params->trace.max_iters
-// body iterations a ray; the instance of the grid's depth.
+// The skip tracer's batch over u16 colors, `substeps` >= 1
 extern "C" cudaError_t vhx_render_frames_skip(const void* rows, const void* colors,
                                               const float* palette, int n_colors,
                                               const FramesParams* params, int substeps,
@@ -289,8 +330,8 @@ extern "C" cudaError_t vhx_render_frames_skip(const void* rows, const void* colo
                                               const void* prev, int* digest, int device,
                                               cudaStream_t stream) {
     if (substeps < 1) return cudaErrorInvalidValue;
-    return render(rows, colors, palette, n_colors, params, substeps, start, start_tile,
-                  start_mask, rgb, u8, prev, digest, device, stream);
+    return render(rows, colors, palette, n_colors, params, nullptr, 2, substeps, start,
+                  start_tile, start_mask, rgb, u8, prev, digest, device, stream);
 }
 
 extern "C" cudaError_t vhx_render_frames(const void* occ_pairs, const void* colors,

@@ -117,12 +117,13 @@ __device__ __forceinline__ float start_from(const float* __restrict__ d, int w, 
 // The depth of pixel (x, y)'s ray (the camera `cam` at w x h), started at
 // `start_t` when `use_start`.  With L >= 1, `occ` holds the skip rows of a
 // grid of L levels and the ray marches the skip tracer, `substeps`
-// substeps a body iteration.
-template <int L>
+// substeps a body iteration; with kOpt the stack automaton follows `opt`.
+template <int L, bool kOpt>
 __device__ __forceinline__ float pixel_depth(const uint2* __restrict__ occ, const int2* levels,
                                              const TraceParams& T, const FrameCam& cam, float cw,
                                              float ch, int x, int y, float start_t,
-                                             bool use_start, int substeps) {
+                                             bool use_start, int substeps,
+                                             const TraceOptions& opt) {
     float o[3], d[3];
     vhx::pixel_ray(cam.origin, cam.right, cam.up, cam.forward, cam.scale, cw, ch, x, y, o, d);
     if constexpr (L > 0) {
@@ -137,7 +138,7 @@ __device__ __forceinline__ float pixel_depth(const uint2* __restrict__ occ, cons
         vhx::March m;
         vhx::init<true>(m, o, d, g, start_t, use_start);
         vhx::StopAtHit stop;
-        vhx::run(m, g, T.max_iters, stop);
+        vhx::run<vhx::StopAtHit, vhx::ADVANCE_SUBSTEPS, kOpt>(m, g, T.max_iters, stop, opt);
         return m.hit ? vhx::ray_length(m.p, o) : MISS_DEPTH;
     }
 }
@@ -174,10 +175,13 @@ __device__ __forceinline__ int start_bits(float d) {
 
 // With kChain, the coarsest level's rays start from `coarse`, the start map
 // [h / 2, w / 2] of the launch before (a cell a 2 x 2 tile of its pixels).
-template <int L, bool kChain>
+// With kOpt (L = 0), the stack automaton follows `opt` (traverse.cuh
+// TraceOptions: the renderer's options, which the reference's prepass
+// levels march too).
+template <int L, bool kChain, bool kOpt>
 __global__ void __launch_bounds__(THREADS)
 prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ PrepassFrame F,
-                     int substeps, const float* __restrict__ coarse) {
+                     int substeps, const float* __restrict__ coarse, const TraceOptions opt) {
     __shared__ int2 levels[VHX_MAX_LEVELS];
     __shared__ int ticket;
     __shared__ float tile_depth[vhx::WARP_H][vhx::BLOCK_W];
@@ -251,18 +255,19 @@ prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ Prep
         if (tid >= 3 && tid < 7 && a <= cx1 && b <= cy1) wait = C.first + b * C.tiles_x + a;
         wait_for(F, wait);
         if (x < P.w && y < P.h)
-            depth = pixel_depth<L>(
+            depth = pixel_depth<L, kOpt>(
                 occ, levels, F.trace, P.cam, P.cw, P.ch, x, y,
-                start_from(C.depth, C.w, C.h, x / 2, y / 2), true, substeps);
+                start_from(C.depth, C.w, C.h, x / 2, y / 2), true, substeps, opt);
     } else {
         if (finest) wait_for(F, wait);
         if (x < P.w && y < P.h) {
             if constexpr (kChain)
-                depth = pixel_depth<L>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y,
-                                       coarse[(y / 2) * (P.w / 2) + x / 2], true, substeps);
+                depth = pixel_depth<L, kOpt>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y,
+                                             coarse[(y / 2) * (P.w / 2) + x / 2], true,
+                                             substeps, opt);
             else
-                depth = pixel_depth<L>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y, 0.f,
-                                             false, substeps);
+                depth = pixel_depth<L, kOpt>(occ, levels, F.trace, P.cam, P.cw, P.ch, x, y,
+                                             0.f, false, substeps, opt);
         }
     }
     if constexpr (L == 0) {
@@ -308,15 +313,16 @@ prepass_frame_kernel(const uint2* __restrict__ occ, const __grid_constant__ Prep
     }
 }
 
-template <int L>
+template <int L, bool kOpt = false>
 cudaError_t launch_frame(const uint2* occ, const PrepassFrame& F, int substeps,
-                         const float* coarse, cudaStream_t stream) {
+                         const float* coarse, cudaStream_t stream,
+                         const TraceOptions opt = TraceOptions{}) {
     if (coarse)
-        prepass_frame_kernel<L, true><<<F.n_blocks, THREADS, 0, stream>>>(occ, F, substeps,
-                                                                          coarse);
+        prepass_frame_kernel<L, true, kOpt><<<F.n_blocks, THREADS, 0, stream>>>(
+            occ, F, substeps, coarse, opt);
     else
-        prepass_frame_kernel<L, false><<<F.n_blocks, THREADS, 0, stream>>>(occ, F, substeps,
-                                                                           nullptr);
+        prepass_frame_kernel<L, false, kOpt><<<F.n_blocks, THREADS, 0, stream>>>(
+            occ, F, substeps, nullptr, opt);
     return cudaGetLastError();
 }
 
@@ -324,10 +330,12 @@ cudaError_t launch_frame(const uint2* occ, const PrepassFrame& F, int substeps,
 int tiles_x(int w) { return (w + vhx::BLOCK_W - 1) / vhx::BLOCK_W; }
 int tiles_y(int h) { return (h + vhx::WARP_H - 1) / vhx::WARP_H; }
 
-bool bad_level(const PrepassParams& P, int substeps, const void* grid_words) {
+bool bad_level(const PrepassParams& P, int substeps, const void* grid_words,
+               const TraceOptions* opts) {
     const int max_levels = substeps ? VHX_SKIP_MAX_LEVELS : VHX_MAX_LEVELS;
     return P.trace.n_levels < 1 || P.trace.n_levels > max_levels || P.w < 1 || P.h < 1 ||
-           substeps < 0 || (substeps && !vhx::skip_rows_aligned(grid_words));
+           substeps < 0 || (substeps && opts) ||
+           (substeps && !vhx::skip_rows_aligned(grid_words));
 }
 
 // The tickets of a prepass of `n` levels whose level 1 is w1 x h1: a tile
@@ -359,11 +367,13 @@ extern "C" long long vhx_prepass_sync_words(int w1, int h1, int n) {
 // (f32, the start map that the launch before wrote, [h / 2, w / 2] of
 // params[n - 1]), the coarsest level's rays start from it, and `start` is
 // the start map of params[0]'s pixels for the next finer level (or the
-// frame); without it, vhx_prepass.
-extern "C" cudaError_t vhx_prepass_chain(const void* words, const PrepassParams* params, int n,
-                                         int substeps, float* const* depths, float* start,
-                                         const float* coarse, int* sync, int epoch, int device,
-                                         cudaStream_t stream) {
+// frame); without it, vhx_prepass.  With `opts` (`substeps` 0 only), the
+// stack automaton follows them (traverse.cuh TraceOptions); null: the
+// default options.
+extern "C" cudaError_t vhx_prepass_ex(const void* words, const PrepassParams* params, int n,
+                                      int substeps, const TraceOptions* opts,
+                                      float* const* depths, float* start, const float* coarse,
+                                      int* sync, int epoch, int device, cudaStream_t stream) {
     if (n < 1 || n > VHX_PREPASS_MAX_LEVELS || !params || !depths || !start || !sync ||
         epoch == 0)
         return cudaErrorInvalidValue;
@@ -373,7 +383,7 @@ extern "C" cudaError_t vhx_prepass_chain(const void* words, const PrepassParams*
     int ticket = 0;
     for (int k = n - 1; k >= 0; --k) {  // the coarsest level first
         const PrepassParams& P = params[k];
-        if (bad_level(P, substeps, words) || !depths[k] ||
+        if (bad_level(P, substeps, words, opts) || !depths[k] ||
             memcmp(&P.trace, &F.trace, sizeof(TraceParams)) ||
             (k + 1 < n && (P.w != 2 * params[k + 1].w || P.h != 2 * params[k + 1].h)) ||
             (coarse && k == n - 1 && (P.w % 2 || P.h % 2)))
@@ -402,7 +412,17 @@ extern "C" cudaError_t vhx_prepass_chain(const void* words, const PrepassParams*
         return vhx::skip_depth(F.trace.n_levels, [&](auto depth_of) {
             return launch_frame<decltype(depth_of)::value>(occ, F, substeps, coarse, stream);
         });
+    if (opts) return launch_frame<0, true>(occ, F, 0, coarse, stream, *opts);
     return launch_frame<0>(occ, F, 0, coarse, stream);
+}
+
+// vhx_prepass_ex with the default options
+extern "C" cudaError_t vhx_prepass_chain(const void* words, const PrepassParams* params, int n,
+                                         int substeps, float* const* depths, float* start,
+                                         const float* coarse, int* sync, int epoch, int device,
+                                         cudaStream_t stream) {
+    return vhx_prepass_ex(words, params, n, substeps, nullptr, depths, start, coarse, sync, epoch,
+                          device, stream);
 }
 
 // The whole depth prepass in one launch: `n` levels, params[k] the camera

@@ -296,22 +296,12 @@ __device__ __forceinline__ void skip_run(Skip<L>& m, const SkipGrid& g, int max_
     }
 }
 
-// The color index of the hit voxel `hvox` (clipped to the world), or
-// NO_COLOR_HIT for a voxel with no color
-__device__ __forceinline__ int voxel_color(const int hvox[3],
-                                           const unsigned short* __restrict__ colors, int size) {
-    int v[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] = hvox[c] < 0 ? 0 : (hvox[c] > size - 1 ? size - 1 : hvox[c]);
-    const int cidx = (int)__ldg(&colors[voxel_addr(v[0], v[1], v[2], size)]);
-    return cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
-}
-
 // What the single-hit skip march `m` ends with: on a hit, the hit voxel,
-// its impact normal (the unit cell at v) and color.
-template <int L>
-__device__ __forceinline__ Hit skip_hit_of(const Skip<L>& m,
-                                           const unsigned short* __restrict__ colors, int size) {
+// its impact normal (the unit cell at v) and color (traverse.cuh hit_color,
+// from a u16 or u8 grid).
+template <int L, class TColor>
+__device__ __forceinline__ Hit skip_hit_of(const Skip<L>& m, const TColor* __restrict__ colors,
+                                           int size) {
     Hit out;
     out.hit = m.hit;
     out.hvox[0] = out.hvox[1] = out.hvox[2] = 0;
@@ -327,7 +317,7 @@ __device__ __forceinline__ Hit skip_hit_of(const Skip<L>& m,
             vmin[c] = (float)m.v[c];
         }
         impact_normal(vmin, 1.f, m.p, out.normal);
-        out.voxel = voxel_color(out.hvox, colors, size);
+        out.voxel = hit_color(out.hvox, colors, size);
     }
     return out;
 }
@@ -335,9 +325,9 @@ __device__ __forceinline__ Hit skip_hit_of(const Skip<L>& m,
 // March the ray (o, d) over the skip rows of a pyramid of L levels: the
 // reference skip tracer's `trace` of one ray; with kStart, from `start_t`
 // where `use_start`.
-template <bool kStart, int L>
+template <bool kStart, int L, class TColor>
 __device__ __forceinline__ Hit skip_march(const float o[3], const float d[3], const SkipGrid& g,
-                                          const unsigned short* __restrict__ colors,
+                                          const TColor* __restrict__ colors,
                                           int max_iters, float start_t = 0.f,
                                           bool use_start = true) {
     Skip<L> m;

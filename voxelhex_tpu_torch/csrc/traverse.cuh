@@ -49,6 +49,22 @@
 // unless a kernel asks for another count (beam.cu marches the reference's
 // `make_bitgrid_tracer` default of 2).
 //
+// The renderer's other automaton options (bitgrid.py make_bitgrid_tracer:
+// `lateral_step`, `parent_skip`, `advance_substeps`) are read at run time
+// from a TraceOptions by the optioned instances, `run<..., kOpt = true>`;
+// the instances of the default options compile as they did without them.
+// Without lateral steps an empty block exit ascends (and re-descends).
+// With `parent_skip` a lateral step first looks up the target block's bit
+// in its parent block's words, read from the pyramid at the parent's
+// address on that step alone (no [B, 4] quad rows to store or refresh), and
+// ascends where the target is empty.  An ADVANCE of `advance_substeps` <= 0
+// moves nothing, as the reference's empty range: the ray spins to
+// `max_iters`.
+//
+// The color grid is u16, or u8 where the reference's `color_u8` stored it
+// so (254 and 255 the sentinels): the color reads take its type as a
+// template parameter.
+//
 // The per-level table (word-pair base, blocks per axis) is read with a
 // per-thread level.  Indexed that way inside the launch parameters it would
 // be copied to each thread's local memory (a 112 B stack frame), so every
@@ -59,6 +75,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define VHX_MAX_LEVELS 12
 
@@ -71,6 +89,14 @@ struct TraceParams {
     int max_iters;
 };
 
+// The automaton options of the optioned instances (see above); the default
+// options are {1, 0, ADVANCE_SUBSTEPS}
+struct TraceOptions {
+    int lateral_step;      // 1: lateral steps; 0: an empty block exit ascends
+    int parent_skip;       // 1: a lateral step into a block empty by its parent's words ascends
+    int advance_substeps;  // DDA substeps an ADVANCE; <= 0 moves nothing
+};
+
 namespace vhx {
 
 constexpr int MAX_RESTARTS = 4;
@@ -80,6 +106,17 @@ constexpr float BIG = 1e30f;
 constexpr int NO_COLOR_HIT = 0x3FFFFFFE;
 constexpr int EMPTY_DESC = -1;
 constexpr int COLOR_NONE = 0xFFFE;
+
+// The element of a color grid: u8 with kU8, else u16
+template <bool kU8>
+using color_t = std::conditional_t<kU8, unsigned char, unsigned short>;
+
+// The least stored color index that means "no color" in a grid of TColor:
+// COLOR_NONE in u16, 254 in u8 (the reference's resolve_color)
+template <class TColor>
+__device__ __forceinline__ constexpr int colorless() {
+    return sizeof(TColor) == 1 ? 254 : COLOR_NONE;
+}
 
 // jnp.sign: +-1, and zero (with its sign) or NaN as given
 __device__ __forceinline__ float sgn(float x) {
@@ -444,20 +481,23 @@ __device__ __forceinline__ void descend(March& m) {
 }
 
 // The DDA step of every other move: through the cell for an ADVANCE
-// substep, through the block for an ascend or a lateral step.
+// substep, through the block for an ascend or a lateral step.  kFma: the
+// axes whose multiply-add is fused (dda_step).
+template <int kFma = 7>
 __device__ __forceinline__ void move_dda(const March& m, int move, float np[3], float st[3]) {
     const bool advance = move == MOVE_ADVANCE;
     float cmin[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) cmin[c] = advance ? m.tmin[c] : m.bmin[c];
-    dda_step(m.d, m.sg, m.sf, m.p, cmin, advance ? m.tsize : m.tsize * 4.f, np, st);
+    dda_step<kFma>(m.d, m.sg, m.sf, m.p, cmin, advance ? m.tsize : m.tsize * 4.f, np, st);
 }
 
 // An ADVANCE substep to the DDA's point; `m.sub` is 0 again when the step
-// ends: the cell left the block or is occupied, or the `kSubsteps` substeps
-// are spent.
+// ends: the cell left the block or is occupied, or the `n_sub` substeps
+// (kSubsteps, or the optioned instances' run-time count) are spent.
 template <int kSubsteps = ADVANCE_SUBSTEPS>
-__device__ __forceinline__ void advance_tail(March& m, const float np[3], const float st[3]) {
+__device__ __forceinline__ void advance_tail(March& m, const float np[3], const float st[3],
+                                             int n_sub = kSubsteps) {
     const int s_ts = step_sectant(m.tsect, st);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -466,7 +506,7 @@ __device__ __forceinline__ void advance_tail(March& m, const float np[3], const 
     }
     m.tsect = s_ts;
     m.sub += 1;
-    if (m.sub == kSubsteps || s_ts >= OOB || occ_bit(m.lo, m.hi, s_ts)) m.sub = 0;
+    if (m.sub == n_sub || s_ts >= OOB || occ_bit(m.lo, m.hi, s_ts)) m.sub = 0;
 }
 
 // ASCEND to the parent block, derived arithmetically
@@ -489,6 +529,28 @@ __device__ __forceinline__ void ascend_tail(March& m, const float np[3], const f
     }
     m.tsize = block;
     m.level += 1;
+}
+
+// Whether the block that a lateral step of DDA step `st` enters is empty by
+// its parent block's words (`parent_skip`): its sectant in the parent, as
+// ascend_tail computes it, lies inside the parent and its bit is clear.  A
+// top-level block has no parent (the reference's all-ones words).
+__device__ __forceinline__ bool lateral_target_empty(const March& m, const Grid& g,
+                                                     const float st[3]) {
+    if (m.level >= g.n_levels - 1) return false;
+    const float block = m.tsize * 4.f;
+    const float parent_block = block * 4.f;
+    const float inv_parent = inv_pow4(m.level + 2);
+    float off[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+        off[c] = __fsub_rn(__fadd_rn(m.bmin[c], __fmul_rn(block, 0.5f)),
+                           block_floor(m.bmin[c], parent_block, inv_parent));
+    const int a_ts = step_sectant(offset_sectant(off, inv_parent), st);
+    if (a_ts >= OOB) return false;
+    uint32_t lo, hi;
+    fetch(g.occ, g.levels, g.n_blocks, m.level + 1, m.bmin, lo, hi);
+    return !occ_bit(lo, hi, a_ts);
 }
 
 // After an ascend past the top level: restart a little on, at the top
@@ -556,13 +618,21 @@ __device__ __forceinline__ bool lateral_tail(March& m, const float np[3], const 
 // the warp's lanes (the header's note).  A step is counted when it starts,
 // and `max_steps` is tested only there: an ADVANCE's substeps belong to the
 // step that began them, as in the reference, whose step runs all of them
-// (`kSubsteps` of them at most).
-template <class Policy, int kSubsteps = ADVANCE_SUBSTEPS>
-__device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Policy& pol) {
+// (`kSubsteps` of them at most).  With kOpt the step follows `opt` (the
+// header's note), `opt.advance_substeps` in place of kSubsteps.
+template <class Policy, int kSubsteps = ADVANCE_SUBSTEPS, bool kOpt = false>
+__device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Policy& pol,
+                                    const TraceOptions opt = TraceOptions{1, 0, kSubsteps}) {
     const int top = g.n_levels - 1;
     while (m.active && m.steps < max_steps) {
         m.steps += 1;
-        const int move = policy_move(pol, m);
+        int move = policy_move(pol, m);
+        if constexpr (kOpt) {
+            // the reference's ascend of tsect >= OOB without lateral steps,
+            // and its ADVANCE of no substeps, which leaves the state as it is
+            if (move == MOVE_LATERAL && !opt.lateral_step) move = MOVE_ASCEND;
+            if (move == MOVE_ADVANCE && opt.advance_substeps <= 0) continue;
+        }
         if (move == MOVE_HIT) {
             if (pol.on_hit(m)) {
                 m.hit = true;
@@ -579,13 +649,26 @@ __device__ __forceinline__ void run(March& m, const Grid& g, int max_steps, Poli
             float np[3], st[3];
 #pragma unroll 1
             do {
-                move_dda(m, move, np, st);
+                // XLA:CPU fuses the block DDA's multiply-add on x only where
+                // the reference's ADVANCE has substeps: with none, on y and z
+                if constexpr (kOpt) {
+                    if (opt.advance_substeps <= 0)
+                        move_dda<6>(m, move, np, st);
+                    else
+                        move_dda(m, move, np, st);
+                } else {
+                    move_dda(m, move, np, st);
+                }
                 if (move != MOVE_ADVANCE) break;
-                advance_tail<kSubsteps>(m, np, st);
+                advance_tail<kSubsteps>(m, np, st, kOpt ? opt.advance_substeps : kSubsteps);
             } while (m.sub != 0);
             if (move != MOVE_ADVANCE) {
                 bool on;
-                if (move == MOVE_ASCEND) {
+                bool skip = false;
+                if constexpr (kOpt)
+                    skip = move == MOVE_LATERAL && opt.parent_skip &&
+                           lateral_target_empty(m, g, st);
+                if (move == MOVE_ASCEND || skip) {
                     ascend_tail(m, np, st);
                     on = m.level <= top || restart(m, g);
                 } else {
@@ -630,19 +713,21 @@ __device__ __forceinline__ void hit_cell(const March& m, int hvox[3], float norm
 }
 
 // The color index of the hit voxel `hvox` (clipped to the world of edge
-// `size`, `colors`), or NO_COLOR_HIT where it has none
-__device__ __forceinline__ int hit_color(const int hvox[3],
-                                         const unsigned short* __restrict__ colors, int size) {
+// `size`, `colors` of u16 or u8), or NO_COLOR_HIT where it has none
+template <class TColor>
+__device__ __forceinline__ int hit_color(const int hvox[3], const TColor* __restrict__ colors,
+                                         int size) {
     int v[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) v[c] = hvox[c] < 0 ? 0 : (hvox[c] > size - 1 ? size - 1 : hvox[c]);
     const int cidx = (int)__ldg(&colors[voxel_addr(v[0], v[1], v[2], size)]);
-    return cidx >= COLOR_NONE ? NO_COLOR_HIT : cidx;
+    return cidx >= colorless<TColor>() ? NO_COLOR_HIT : cidx;
 }
 
 // What the single-hit march `m` ends with: on a hit, the hit voxel, its
 // impact normal and color (`colors` of the world of edge `size`).
-__device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __restrict__ colors,
+template <class TColor>
+__device__ __forceinline__ Hit hit_of(const March& m, const TColor* __restrict__ colors,
                                       int size) {
     Hit out;
     out.hit = m.hit;
@@ -659,18 +744,20 @@ __device__ __forceinline__ Hit hit_of(const March& m, const unsigned short* __re
 }
 
 // March the ray (o, d) through the pyramid: the reference's `trace` of one
-// ray; with kStart, from `start_t` where `use_start` (init's start form).
-template <bool kStart = false>
+// ray; with kStart, from `start_t` where `use_start` (init's start form);
+// with kOpt, under the options `opt`.
+template <bool kStart = false, bool kOpt = false, class TColor = unsigned short>
 __device__ __forceinline__ Hit march(const float o[3], const float d[3],
                                      const uint2* __restrict__ occ,
-                                     const unsigned short* __restrict__ colors,
+                                     const TColor* __restrict__ colors,
                                      const int2* levels, int n_levels, int size, int n_blocks,
-                                     int max_iters, float start_t = 0.f, bool use_start = true) {
+                                     int max_iters, float start_t = 0.f, bool use_start = true,
+                                     const TraceOptions opt = TraceOptions{}) {
     const Grid g{occ, levels, n_levels, size, n_blocks};
     March m;
     init<kStart>(m, o, d, g, start_t, use_start);
     StopAtHit stop;
-    run(m, g, max_iters, stop);
+    run<StopAtHit, ADVANCE_SUBSTEPS, kOpt>(m, g, max_iters, stop, opt);
     return hit_of(m, colors, size);
 }
 

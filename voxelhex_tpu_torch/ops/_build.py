@@ -57,6 +57,17 @@ class TraceParams(ctypes.Structure):
     ]
 
 
+class TraceOptions(ctypes.Structure):
+    """Mirror of ``struct TraceOptions`` in traverse.cuh: the automaton
+    options of the optioned instances."""
+
+    _fields_ = [
+        ("lateral_step", ctypes.c_int),
+        ("parent_skip", ctypes.c_int),
+        ("advance_substeps", ctypes.c_int),
+    ]
+
+
 class FrameParams(ctypes.Structure):
     """Mirror of ``struct FrameParams`` in frame.cu."""
 
@@ -317,8 +328,11 @@ def library() -> types.SimpleNamespace:
     the multi-hit march's start and skip forms ``vhx_multihit_start`` and
     ``vhx_multihit_skip``, the LOD frame ``vhx_render_frame_lod`` and its
     stopless instance ``vhx_render_frame_lod_stopless``, the skip
-    rows' refresh ``vhx_skip_rows`` and the depth prepass's chained form
-    ``vhx_prepass_chain``), built first if needed."""
+    rows' refresh ``vhx_skip_rows``, the depth prepass's chained form
+    ``vhx_prepass_chain``, and the entries that take the automaton's options
+    and the color grid's width, which the wrappers call: ``vhx_traverse_ex``,
+    ``vhx_render_frame_ex``, ``vhx_render_frame_lod_ex``,
+    ``vhx_render_frames_ex`` and ``vhx_prepass_ex``), built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -329,10 +343,13 @@ def library() -> types.SimpleNamespace:
             dlls = {s: ctypes.CDLL(_so(out_dir, s)) for s in SOURCES}
             p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
             trace_p, f3 = ctypes.POINTER(TraceParams), ctypes.POINTER(ctypes.c_float)
+            opts_p, u = ctypes.POINTER(TraceOptions), ctypes.c_uint
             signatures = {
                 "traverse.cu": {
                     "vhx_traverse": [p, p, p, p, trace_p, i, p, p, p, p, p, i, p],
                     "vhx_traverse_skip": [p, p, p, p, trace_p, i, i, p, p, p, p, p, i, p],
+                    "vhx_traverse_ex": [p, p, p, p, trace_p, opts_p, i, i, i, p, p, p, p, p, i,
+                                        p],
                 },
                 "shade.cu": {"vhx_shade": [p, p, p, p, i, f, f, f, i, p, p, i, p]},
                 "frame.cu": {
@@ -345,6 +362,10 @@ def library() -> types.SimpleNamespace:
                                              ctypes.POINTER(LodParams), p, i, p],
                     "vhx_render_frame_lod_stopless": [p, p, p, i, ctypes.POINTER(FrameParams),
                                                       ctypes.POINTER(LodParams), p, i, p],
+                    "vhx_render_frame_ex": [p, p, p, i, ctypes.POINTER(FrameParams), opts_p, i,
+                                            i, p, i, p, p, i, p],
+                    "vhx_render_frame_lod_ex": [p, p, p, i, ctypes.POINTER(FrameParams),
+                                                ctypes.POINTER(LodParams), i, i, p, i, p],
                 },
                 "frames.cu": {
                     "vhx_render_frames": [p, p, p, i, ctypes.POINTER(FramesParams), p, p, p, p,
@@ -353,6 +374,8 @@ def library() -> types.SimpleNamespace:
                                                 ctypes.c_uint, p, p, p, p, i, p],
                     "vhx_render_frames_skip": [p, p, p, i, ctypes.POINTER(FramesParams), i, p, i,
                                                ctypes.c_uint, p, p, p, p, i, p],
+                    "vhx_render_frames_ex": [p, p, p, i, ctypes.POINTER(FramesParams), opts_p, i,
+                                             i, p, i, u, p, p, p, p, i, p],
                 },
                 "multihit.cu": {
                     "vhx_multihit": [p, p, p, trace_p, i, i, p, p, p, i, p],
@@ -389,6 +412,8 @@ def library() -> types.SimpleNamespace:
                                     ctypes.POINTER(p), p, p, i, i, p],
                     "vhx_prepass_chain": [p, ctypes.POINTER(PrepassParams), i, i,
                                           ctypes.POINTER(p), p, p, p, i, i, p],
+                    "vhx_prepass_ex": [p, ctypes.POINTER(PrepassParams), i, i, opts_p,
+                                       ctypes.POINTER(p), p, p, p, i, i, p],
                 },
             }
             fns = {}
@@ -398,6 +423,8 @@ def library() -> types.SimpleNamespace:
                     fn.argtypes, fn.restype = argtypes, i
                     fns[name] = fn
             for source, name, struct in (("traverse.cu", "vhx_trace_params_size", TraceParams),
+                                         ("traverse.cu", "vhx_trace_options_size",
+                                          TraceOptions),
                                          ("multihit.cu", "vhx_multihit_params_size", TraceParams),
                                          ("frame.cu", "vhx_frame_params_size", FrameParams),
                                          ("frame.cu", "vhx_lod_params_size", LodParams),

@@ -14,7 +14,10 @@ With a start map (the beam, splat or depth prepass: ``ops/beam.py``,
 tile's value along, the reference's ``start_t``: ``frame_start_kernel``,
 its own instance of the same code.  With ``skip_substeps`` the rays march
 the skip tracer (``ops/skip.py``) over the grid's skip rows:
-``frame_skip_kernel``, with or without a start map.
+``frame_skip_kernel``, with or without a start map.  Under the renderer's
+automaton options (``options``: ``ops.traverse.AutomatonOptions``) or over a
+u8 color grid the stack frame is ``frame_form_kernel``'s instance for them;
+the skip and LOD frames have u8 instances too.
 
 :func:`render_lod` is the reference renderer's ``render_lod``
 (``voxelhex_tpu/render/bitgrid.py:1627``), distance LOD over the MIP color
@@ -38,7 +41,14 @@ import torch
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.shade import shade_plain
 from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
-from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
+from voxelhex_tpu_torch.ops.traverse import (
+    MAX_ITERS,
+    color_bytes,
+    color_spec,
+    count_launch,
+    kernel_options,
+    trace_params,
+)
 from voxelhex_tpu_torch.render.bitgrid import lod_stop_sq, make_bitgrid_tracer
 from voxelhex_tpu_torch.render.camera import Camera, camera_params, device_rays, pixel_steps
 
@@ -52,11 +62,12 @@ def expand_start(start, tile, w, h):
 
 
 def render_frame_plain(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True,
-                       max_iters=MAX_ITERS, start=None, start_tile=1, skip_substeps=None):
+                       max_iters=MAX_ITERS, start=None, start_tile=1, skip_substeps=None,
+                       options=None):
     """The plain PyTorch frame (see :func:`render_frame`)."""
     w, h = camera.resolution
     o, d = device_rays(camera, tree["occ_pairs"].device)
-    trace = plain_tracer(tree, max_iters, skip_substeps)
+    trace = plain_tracer(tree, max_iters, skip_substeps, options)
     st0 = None if start is None else expand_start(start, start_tile, w, h)
     st = trace.run(tree, trace.init(tree, o, d, st0), max_iters)
     voxel = trace.resolve_color(tree, st["hit"], st["hvox"])
@@ -153,7 +164,7 @@ def check_start(start, start_tile, w, h, dev):
 
 
 def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                 start=None, start_tile=1, skip_substeps=None):
+                 start=None, start_tile=1, skip_substeps=None, options=None):
     """The frame of ``camera`` over the BitGrid ``tree``
     (:func:`device_bitgrid`) with the reference renderer's tracer settings,
     each ray for at most ``max_iters`` steps: ``[h, w, 3]`` u8, or f32 when
@@ -161,27 +172,34 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
     start_tile), ceil(w / start_tile)] on the tree's device), each ray
     starts at least its tile's value along.  With ``skip_substeps``, the
     rays march the skip tracer over ``tree["skip_rows"]``, at most
-    ``max_iters`` body iterations a ray.
+    ``max_iters`` body iterations a ray; with ``options``
+    (``ops.traverse.AutomatonOptions``), the stack automaton follows them.
+    ``tree["colors"]`` is u16 (int16) or u8.
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel
     (``render_frame.launches`` counts the stack frames,
-    ``render_frame.skip_launches`` the skip frames)."""
+    ``render_frame.skip_launches`` the skip frames; of the stack frames,
+    ``render_frame.option_launches`` ran an optioned instance, and
+    ``render_frame.u8_launches`` counts the frames of either tracer over u8
+    colors)."""
     dev = tree["occ_pairs"].device
     w, h = camera.resolution
     if start is not None:
         check_start(start, start_tile, w, h, dev)
     if dev.type == "cpu":
         return render_frame_plain(tree, camera, bg, out_u8, max_iters, start, start_tile,
-                                  skip_substeps)
+                                  skip_substeps, options)
     if dev.type != "cuda":
         raise ValueError(f"render_frame runs on cuda or cpu tensors, not {dev}")
     _build.check_inputs(dev, (
         ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
-        ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
+        color_spec(tree),
         ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
     ))
     if skip_substeps is not None:
         check_skip(tree, skip_substeps)
+        if options is not None:
+            raise ValueError("the skip tracer takes no automaton options")
     n_colors = tree["palette"].shape[0]
     if n_colors < 1:
         raise ValueError("empty palette")
@@ -194,23 +212,26 @@ def render_frame(tree, camera: Camera, bg=(0.0, 0.0, 0.0), out_u8=True, max_iter
     stream = torch.cuda.current_stream(dev).cuda_stream
     start_ptr = None if start is None else start.data_ptr()
     colors, palette = tree["colors"].data_ptr(), tree["palette"].data_ptr()
-    if skip_substeps is None:
-        err = lib.vhx_render_frame_start(
-            tree["occ_pairs"].data_ptr(), colors, palette, n_colors, params, start_ptr,
-            int(start_tile), rgb_ptr, u8_ptr, dev.index or 0, stream)
-        _build.check(err, "frame kernel launch")
-        render_frame.launches += 1
-    else:
-        err = lib.vhx_render_frame_skip(
-            tree["skip_rows"].data_ptr(), colors, palette, n_colors, params, int(skip_substeps),
-            start_ptr, int(start_tile), rgb_ptr, u8_ptr, dev.index or 0, stream)
-        _build.check(err, "skip frame kernel launch")
+    opts, n_bytes = kernel_options(options), color_bytes(tree)
+    skip = skip_substeps is not None
+    words = tree["skip_rows"] if skip else tree["occ_pairs"]
+    err = lib.vhx_render_frame_ex(
+        words.data_ptr(), colors, palette, n_colors, params, opts, n_bytes,
+        int(skip_substeps) if skip else 0, start_ptr, int(start_tile), rgb_ptr, u8_ptr,
+        dev.index or 0, stream)
+    _build.check(err, f"{'skip ' if skip else ''}frame kernel launch")
+    if skip:
         render_frame.skip_launches += 1
+        render_frame.u8_launches += n_bytes == 1
+    else:
+        count_launch(render_frame, opts, n_bytes)
     return out
 
 
 render_frame.launches = 0
 render_frame.skip_launches = 0
+render_frame.option_launches = 0
+render_frame.u8_launches = 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -268,7 +289,8 @@ def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MA
     A CPU tree runs the plain version; a CUDA tree launches
     ``frame_lod_kernel`` (``render_lod.launches``), its stopless instance
     where no step can stop above level 0 (:func:`lod_stopless`;
-    ``render_lod.stopless_launches`` counts these)."""
+    ``render_lod.stopless_launches`` counts these), its u8 instances over a
+    u8 color grid (``render_lod.u8_launches``)."""
     dev = tree["occ_pairs"].device
     if dev.type == "cpu":
         return render_lod_plain(tree, camera, lod_scale, bg, max_iters)
@@ -277,7 +299,7 @@ def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MA
     w, h = camera.resolution
     _build.check_inputs(dev, (
         ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
-        ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
+        color_spec(tree),
         ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
     ) + tuple((f"mip_rgb_{l}", tree[f"mip_rgb_{l}"], torch.float32,
                (tree[f"mip_rgb_{l}"].shape[0], 3))
@@ -292,15 +314,18 @@ def render_lod(tree, camera: Camera, lod_scale, bg=(0.0, 0.0, 0.0), max_iters=MA
     stopless = lod_stopless(params, lod)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lib = _build.library()
-    entry = lib.vhx_render_frame_lod_stopless if stopless else lib.vhx_render_frame_lod
-    err = entry(tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(),
-                tree["palette"].data_ptr(), n_colors, params, lod, out.data_ptr(),
-                dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    n_bytes = color_bytes(tree)
+    err = lib.vhx_render_frame_lod_ex(
+        tree["occ_pairs"].data_ptr(), tree["colors"].data_ptr(), tree["palette"].data_ptr(),
+        n_colors, params, lod, n_bytes, int(not stopless), out.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "LOD frame kernel launch")
     render_lod.launches += 1
     render_lod.stopless_launches += stopless
+    render_lod.u8_launches += n_bytes == 1
     return out
 
 
 render_lod.launches = 0
 render_lod.stopless_launches = 0
+render_lod.u8_launches = 0

@@ -23,7 +23,10 @@ tile)], tile, use)``, where frame k reads map k if ``use[k]`` and marches
 from its entry otherwise.  It runs ``frames_start_kernel``, its own
 instance of the same code.  With ``skip_substeps`` the rays march the skip
 tracer (``ops/skip.py``) over the grid's skip rows: ``frames_skip_kernel``,
-with or without start maps.
+with or without start maps.  Under the renderer's automaton options
+(``options``: ``ops.traverse.AutomatonOptions``) or over a u8 color grid the
+stack batch is ``frames_form_kernel``'s instance for them; the skip batch
+has u8 instances too.
 """
 
 from __future__ import annotations
@@ -34,7 +37,14 @@ import torch
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.frame import _pixel_steps, check_start, frame_cam, render_frame_plain
 from voxelhex_tpu_torch.ops.skip import check_skip
-from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
+from voxelhex_tpu_torch.ops.traverse import (
+    MAX_ITERS,
+    color_bytes,
+    color_spec,
+    count_launch,
+    kernel_options,
+    trace_params,
+)
 
 ROW_GROUP = 8  # rows a digest flag covers
 
@@ -56,13 +66,13 @@ def digest_plain(frames, prev):
 
 
 def render_frames_plain(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                        prev=None, starts=None, skip_substeps=None):
+                        prev=None, starts=None, skip_substeps=None, options=None):
     """The plain PyTorch version of :func:`render_frames`."""
     cameras = _check_cameras(cameras)
     maps, tile, use = starts if starts is not None else (None, 1, [False] * len(cameras))
     frames = torch.stack([
         render_frame_plain(tree, c, bg, out_u8, max_iters, maps[k] if use[k] else None, tile,
-                           skip_substeps)
+                           skip_substeps, options)
         for k, c in enumerate(cameras)])
     if prev is None:
         return frames, None, None
@@ -161,7 +171,7 @@ def launch_frames(entry, tree, cameras, bg, out_u8, max_iters, prev, *, device_i
 
 
 def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS, prev=None,
-                         starts=None, skip_substeps=None):
+                         starts=None, skip_substeps=None, options=None):
     """:func:`render_frames` of u8 frames with the digest packed in one
     int32 tensor ``[K, 1 + G]`` (column 0 ``nrows_changed``, then
     ``rowflags``), or ``None`` without ``prev``: ``(frames, digest)``.  One
@@ -172,19 +182,19 @@ def render_frames_digest(tree, cameras, bg=(0.0, 0.0, 0.0), max_iters=MAX_ITERS,
         _check_starts(starts, cameras, dev)
     if dev.type == "cpu":
         frames, nrows, flags = render_frames_plain(tree, cameras, bg, True, max_iters, prev,
-                                                   starts, skip_substeps)
+                                                   starts, skip_substeps, options)
         return frames, None if prev is None else torch.cat([nrows[:, None], flags], dim=1)
-    return _launch(tree, cameras, bg, True, max_iters, prev, starts, skip_substeps)
+    return _launch(tree, cameras, bg, True, max_iters, prev, starts, skip_substeps, options)
 
 
-def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps):
+def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps, options):
     dev = tree["occ_pairs"].device
     if dev.type != "cuda":
         raise ValueError(f"render_frames runs on cuda or cpu tensors, not {dev}")
     w, h = cameras[0].resolution
     specs = [
         ("occ_pairs", tree["occ_pairs"], torch.int32, (tree["occ_pairs"].shape[0], 2)),
-        ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
+        color_spec(tree),
         ("palette", tree["palette"], torch.float32, (tree["palette"].shape[0], 4)),
     ]
     if prev is not None:
@@ -195,27 +205,31 @@ def _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps):
         raise ValueError("empty palette")
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if skip_substeps is None:
-        frames, digest, n = launch_frames(
-            lib.vhx_render_frames_start, tree, cameras, bg, out_u8, max_iters, prev,
-            device_index=dev.index or 0, stream=stream, starts=starts)
-        render_frames.launches += n
-        return frames, digest
-    check_skip(tree, skip_substeps)
-    substeps = int(skip_substeps)
+    opts, n_bytes = kernel_options(options), color_bytes(tree)
+    skip = skip_substeps is not None
+    if skip:
+        check_skip(tree, skip_substeps)
+        if opts is not None:
+            raise ValueError("the skip tracer takes no automaton options")
+    substeps = int(skip_substeps) if skip else 0
 
-    def entry(rows, colors, palette, n_colors, p, *rest):
-        return lib.vhx_render_frames_skip(rows, colors, palette, n_colors, p, substeps, *rest)
+    def entry(words, colors, palette, n_colors, p, *rest):
+        return lib.vhx_render_frames_ex(words, colors, palette, n_colors, p, opts, n_bytes,
+                                        substeps, *rest)
 
     frames, digest, n = launch_frames(
         entry, tree, cameras, bg, out_u8, max_iters, prev, device_index=dev.index or 0,
-        stream=stream, starts=starts, words=tree["skip_rows"])
-    render_frames.skip_launches += n
+        stream=stream, starts=starts, words=tree["skip_rows"] if skip else None)
+    if skip:
+        render_frames.skip_launches += n
+        render_frames.u8_launches += n if n_bytes == 1 else 0
+    else:
+        count_launch(render_frames, opts, n_bytes, n)
     return frames, digest
 
 
 def render_frames(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_ITERS,
-                  prev=None, starts=None, skip_substeps=None):
+                  prev=None, starts=None, skip_substeps=None, options=None):
     """The frames of ``cameras`` (one resolution) over the BitGrid ``tree``
     (:func:`device_bitgrid`), as :func:`render_frame` draws each:
     ``(frames [K, h, w, 3], nrows_changed, rowflags)``, u8 or f32.  With
@@ -223,19 +237,23 @@ def render_frames(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_
     (module docstring), frame 0's against ``prev``; without it, ``None``
     and ``None``.  With ``starts``, each frame's rays start from its start
     map (module docstring).  With ``skip_substeps``, the rays march the skip
-    tracer.
+    tracer; with ``options``, the stack automaton follows them.
 
     A CPU tree runs the plain version; a CUDA tree launches the kernel,
     once for each ``KMAX`` cameras (``render_frames.launches`` counts the
-    stack launches, ``render_frames.skip_launches`` the skip launches)."""
+    stack launches, ``render_frames.skip_launches`` the skip launches;
+    ``render_frames.option_launches`` the stack launches of an optioned
+    instance, ``render_frames.u8_launches`` those of either tracer over u8
+    colors)."""
     cameras = _check_cameras(cameras)
     dev = tree["occ_pairs"].device
     if starts is not None:
         _check_starts(starts, cameras, dev)
     if dev.type == "cpu":
         return render_frames_plain(tree, cameras, bg, out_u8, max_iters, prev, starts,
-                                   skip_substeps)
-    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps)
+                                   skip_substeps, options)
+    frames, digest = _launch(tree, cameras, bg, out_u8, max_iters, prev, starts, skip_substeps,
+                             options)
     if digest is None:
         return frames, None, None
     return frames, digest[:, 0], digest[:, 1:]
@@ -243,3 +261,5 @@ def render_frames(tree, cameras, bg=(0.0, 0.0, 0.0), out_u8=True, max_iters=MAX_
 
 render_frames.launches = 0
 render_frames.skip_launches = 0
+render_frames.option_launches = 0
+render_frames.u8_launches = 0

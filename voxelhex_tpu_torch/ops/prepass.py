@@ -17,7 +17,9 @@ plain one, by design, as the reference's does.
 :func:`depth_start_plain`, one level and the start map, are its plain
 PyTorch version.  Under ``tracer="skip"`` the levels march the skip
 tracer, as the reference's do (its ``self._trace``): ``skip_substeps``,
-the kernels' skip instances.
+the kernels' skip instances.  Under the renderer's automaton options
+(``options``: ``ops.traverse.AutomatonOptions``) the stack levels march
+them, the optioned instance of ``prepass_frame_kernel``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from voxelhex_tpu_torch.fp import maximum, minimum, sqrt32
 from voxelhex_tpu_torch.ops import _build
 from voxelhex_tpu_torch.ops.frame import _pixel_steps, expand_start, frame_cam
 from voxelhex_tpu_torch.ops.skip import check_skip, plain_tracer
-from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, trace_params
+from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, kernel_options, trace_params
 from voxelhex_tpu_torch.render.camera import device_rays
 
 MISS_DEPTH = 1e8
@@ -65,19 +67,20 @@ def ray_depth(hit, point, o):
 
 
 def level_depth_plain(tree, camera, coarser=None, max_iters=MAX_ITERS, stats=None,
-                      skip_substeps=None):
+                      skip_substeps=None, options=None):
     """One level of the depth prepass at ``camera``'s resolution: f32 [h,
     w] depths, each ray started from the start map of ``coarser`` (the
     level before, [h / 2, w / 2]; None for the coarsest level, which
     starts at the world's entry).  With ``skip_substeps``, the rays march
-    the skip tracer over ``tree["skip_rows"]``.  With a dict ``stats``,
+    the skip tracer over ``tree["skip_rows"]``; with ``options``, the stack
+    automaton follows them.  With a dict ``stats``,
     the level's march goes into it (``"iters"``, and ``"reads"``: the word
     pairs it fetches, bool over ``occ_pairs``)."""
     w, h = camera.resolution
     dev = tree["occ_pairs"].device
     o, d = device_rays(camera, dev)
     start = None if coarser is None else expand_start(depth_start_plain(coarser), 2, w, h)
-    trace = plain_tracer(tree, max_iters, skip_substeps)
+    trace = plain_tracer(tree, max_iters, skip_substeps, options)
     if skip_substeps is not None:
         st = trace.run(tree, trace.init(tree, o, d, start), max_iters)
         if stats is not None:
@@ -109,12 +112,13 @@ def _check(tree, dev):
                                (tree["occ_pairs"].shape[0], 2)),))
 
 
-def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None, depths=None):
+def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None, depths=None,
+                  options=None):
     """The start map of ``camera``'s full-resolution frame after ``levels``
     levels of the depth prepass (``levels`` >= 1, each level's resolution
     twice the next coarser one's): f32 [h / 2, w / 2], one value a 2 x 2
     tile.  With a list ``depths``, each level's depths are appended to it,
-    the coarsest first.
+    the coarsest first.  With ``options``, the stack automaton follows them.
 
     A CPU tree runs the plain versions level by level; a CUDA tree makes
     one launch of ``prepass_frame_kernel`` for every level and the start
@@ -122,7 +126,9 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
     launches of at most that many levels each, the coarsest first, each
     started from the start map of the one before (:func:`prepass_chunks`;
     ``prepass_start.launches`` counts the stack launches,
-    ``prepass_start.skip_launches`` the skip ones)."""
+    ``prepass_start.skip_launches`` the skip ones,
+    ``prepass_start.option_launches`` the stack launches of the optioned
+    instance)."""
     cams = [level_camera(camera, i) for i in range(1, levels + 1)]  # level 1 first
     if levels < 1 or any(fine.resolution != (2 * coarse.resolution[0], 2 * coarse.resolution[1])
                          for fine, coarse in zip(cams, cams[1:])):
@@ -132,14 +138,18 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
     if dev.type == "cpu":
         depth = None
         for cam in reversed(cams):
-            depth = level_depth_plain(tree, cam, depth, max_iters, skip_substeps=skip_substeps)
+            depth = level_depth_plain(tree, cam, depth, max_iters, skip_substeps=skip_substeps,
+                                      options=options)
             if depths is not None:
                 depths.append(depth)
         return depth_start_plain(depth)
     _check(tree, dev)
     words = tree["occ_pairs"]
+    opts = kernel_options(options)
     if skip_substeps is not None:
         check_skip(tree, skip_substeps)
+        if opts is not None:
+            raise ValueError("the skip tracer takes no automaton options")
         words = tree["skip_rows"]
     outs = [torch.empty((c.resolution[1], c.resolution[0]), dtype=torch.float32, device=dev)
             for c in cams]
@@ -155,14 +165,15 @@ def prepass_start(tree, camera, levels, max_iters=MAX_ITERS, skip_substeps=None,
         ptrs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs[lo - 1: lo - 1 + n]))
         w1, h1 = chunk[0].resolution
         with _SYNC.take(dev, lib.vhx_prepass_sync_words(w1, h1, n)) as (sync, epoch):
-            err = lib.vhx_prepass_chain(words.data_ptr(), params, n, int(skip_substeps or 0),
-                                        ptrs, out.data_ptr(),
-                                        None if coarse is None else coarse.data_ptr(),
-                                        sync.data_ptr(), epoch, dev.index or 0,
-                                        torch.cuda.current_stream(dev).cuda_stream)
+            err = lib.vhx_prepass_ex(words.data_ptr(), params, n, int(skip_substeps or 0), opts,
+                                     ptrs, out.data_ptr(),
+                                     None if coarse is None else coarse.data_ptr(),
+                                     sync.data_ptr(), epoch, dev.index or 0,
+                                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "prepass kernel launch")
         if skip_substeps is None:
             prepass_start.launches += 1
+            prepass_start.option_launches += opts is not None
         else:
             prepass_start.skip_launches += 1
         coarse = out
@@ -187,3 +198,4 @@ def prepass_chunks(levels, most=_build.PREPASS_MAX_LEVELS):
 _SYNC = _build.StreamScratch()
 prepass_start.launches = 0
 prepass_start.skip_launches = 0
+prepass_start.option_launches = 0

@@ -19,20 +19,27 @@ from __future__ import annotations
 import torch
 
 from voxelhex_tpu_torch.ops import _build
-from voxelhex_tpu_torch.ops.traverse import KERNEL_CONFIG, MAX_ITERS, trace_params
+from voxelhex_tpu_torch.ops.traverse import (
+    MAX_ITERS,
+    color_bytes,
+    color_spec,
+    plain_options,
+    trace_params,
+)
 from voxelhex_tpu_torch.render.bitgrid import make_bitgrid_tracer, make_skip_tracer
 
 SKIP_MAX_LEVELS = 8  # the deepest pyramid of the plain skip tracer
 SKIP_KERNEL_MAX_LEVELS = 6  # VHX_SKIP_MAX_LEVELS in skip.cuh: the deepest with an instance
 
 
-def plain_tracer(tree, max_iters=MAX_ITERS, skip_substeps=None):
+def plain_tracer(tree, max_iters=MAX_ITERS, skip_substeps=None, options=None):
     """The plain tracer of the frame paths over ``tree``: the stack
-    automaton with the reference renderer's settings, or with
-    ``skip_substeps`` the skip tracer (``tree`` then holds ``skip_rows``)."""
+    automaton with the reference renderer's settings, or under ``options``
+    (``ops.traverse.AutomatonOptions``), or with ``skip_substeps`` the skip
+    tracer (``tree`` then holds ``skip_rows``), which has no such options."""
     if skip_substeps is None:
         return make_bitgrid_tracer(len(tree["bases"]), tree["size"], max_iters=max_iters,
-                                   **KERNEL_CONFIG)
+                                   **plain_options(options))
     check_skip(tree, skip_substeps)
     return make_skip_tracer(len(tree["bases"]), tree["size"], max_iters, int(skip_substeps))
 
@@ -67,7 +74,9 @@ def trace_skip(tree, origins, dirs, max_iters=MAX_ITERS, substeps=3):
     hvox int32 [R,3], point f32 [R,3], hnormal f32 [R,3])``, as the
     reference renderer's ``trace`` under ``tracer="skip"``.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (``trace_skip.launches``; ``trace_skip.u8_launches`` those over u8
+    colors)."""
     if origins.device.type == "cpu":
         return trace_skip_plain(tree, origins, dirs, max_iters, substeps)
     if origins.device.type != "cuda":
@@ -79,23 +88,26 @@ def trace_skip(tree, origins, dirs, max_iters=MAX_ITERS, substeps=3):
         ("origins", origins, torch.float32, (R, 3)),
         ("dirs", dirs, torch.float32, (R, 3)),
         ("skip_rows", tree["skip_rows"], torch.int32, tuple(tree["skip_rows"].shape)),
-        ("colors", tree["colors"], torch.int16, (int(tree["size"]) ** 3,)),
+        color_spec(tree),
     ))
+    n_bytes = color_bytes(tree)
     lib = _build.library()
     hit = torch.empty(R, dtype=torch.bool, device=dev)
     voxel = torch.empty(R, dtype=torch.int32, device=dev)
     hvox = torch.empty((R, 3), dtype=torch.int32, device=dev)
     point = torch.empty((R, 3), dtype=torch.float32, device=dev)
     hnormal = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    err = lib.vhx_traverse_skip(
+    err = lib.vhx_traverse_ex(
         origins.data_ptr(), dirs.data_ptr(), tree["skip_rows"].data_ptr(),
-        tree["colors"].data_ptr(), trace_params(tree, max_iters), R, int(substeps),
-        hit.data_ptr(), voxel.data_ptr(), hvox.data_ptr(), point.data_ptr(), hnormal.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        tree["colors"].data_ptr(), trace_params(tree, max_iters), None, n_bytes, int(substeps),
+        R, hit.data_ptr(), voxel.data_ptr(), hvox.data_ptr(), point.data_ptr(),
+        hnormal.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "skip traverse kernel launch")
     trace_skip.launches += 1
+    trace_skip.u8_launches += n_bytes == 1
     return hit, voxel, hvox, point, hnormal
 
 
 trace_skip.launches = 0
+trace_skip.u8_launches = 0

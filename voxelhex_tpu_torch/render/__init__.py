@@ -10,6 +10,9 @@
 * :mod:`voxelhex_tpu_torch.render.streaming` — ``StreamingView``, a
   camera-following window paged from a large host tree, with the coarse
   LOD rings of its far field (``FarField``, ``FarTier``).
+* :mod:`voxelhex_tpu_torch.render.oracle` — the scalar ground-truth tracer
+  over a ``FlatTree`` (NumPy, on the host), which the kernels' hits are
+  held to.
 """
 
 

@@ -362,12 +362,36 @@ def bitgrid_from_occupancy(occ_xyz: np.ndarray, palette=None) -> BitGrid:
     return bitgrid_from_grids(occ_xyz, colors, pal)
 
 
-def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False) -> dict:
+def color_grid(colors, color_u8: bool = False) -> np.ndarray:
+    """The device color grid of the u16 color indices ``colors`` [S^3]: int16
+    (the u16 bit patterns), or with ``color_u8`` uint8 where every real
+    index is at most 253, the sentinels ``COLOR_EMPTY`` and ``COLOR_NONE``
+    as 255 and 254 (the reference's ``device_bitgrid(..., color_u8=True)``,
+    which keeps u16 where the palette does not fit a byte)."""
+    cols = np.ascontiguousarray(colors, dtype=np.uint16)
+    if color_u8:
+        real = cols[cols < COLOR_NONE]
+        if real.size == 0 or int(real.max()) <= 253:
+            return np.where(cols == COLOR_EMPTY, 255,
+                            np.where(cols == COLOR_NONE, 254, cols)).astype(np.uint8)
+    return cols.view(np.int16)
+
+
+def colorless_index(colors) -> int:
+    """The least stored index that resolves to a voxel with no color: 254 in
+    a u8 color grid, ``COLOR_NONE`` in a u16 one (the reference's
+    ``resolve_color`` reads the grid's dtype)."""
+    return 254 if colors.dtype == torch.uint8 else COLOR_NONE
+
+
+def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False,
+                   color_u8: bool = False) -> dict:
     """The tensors the tracer and the shader read, on ``device``:
 
     * ``occ_pairs`` int32 [B, 2]: the (lo, hi) u32 words as bit patterns
       (read them back with ``& 0xFFFFFFFF`` after widening);
-    * ``colors`` int16 [S^3]: the u16 color indices as bit patterns;
+    * ``colors`` int16 [S^3]: the u16 color indices as bit patterns, or with
+      ``color_u8`` uint8 where the palette fits a byte (:func:`color_grid`);
     * ``palette`` f32 [P, 4];
     * ``size`` and the pyramid's ``bases`` and ``dims`` as Python ints;
     * with ``skip_rows``, ``skip_rows`` int32 [n0^3, 2L]: the skip tracer's
@@ -379,9 +403,7 @@ def device_bitgrid(bg: BitGrid, device="cuda", skip_rows: bool = False) -> dict:
     pairs = np.stack([bg.occ_lo, bg.occ_hi], axis=1).astype(np.uint32)
     out = {
         "occ_pairs": torch.from_numpy(pairs.view(np.int32)).to(device),
-        "colors": torch.from_numpy(
-            np.ascontiguousarray(bg.colors, dtype=np.uint16).view(np.int16)
-        ).to(device),
+        "colors": torch.from_numpy(color_grid(bg.colors, color_u8)).to(device),
         "palette": torch.from_numpy(np.asarray(bg.palette, dtype=np.float32)).to(device),
         "size": int(bg.size),
         "bases": [int(b) for b in bg.level_bases],
@@ -488,14 +510,19 @@ def _fetch_words(tree, tables, level, bmin):
 def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
                         max_restarts: int = 4, lateral_step: bool = True,
                         advance_substeps: int = 2, entry_fma=(True, True, False),
-                        lod_scale: float = 0.0):
+                        lod_scale: float = 0.0, parent_skip: bool = False):
     """Plain PyTorch tracer over a pyramid of ``n_levels`` levels and world
     extent ``size``: ``trace(tree, origins, dirs) -> (hit, voxel, hvox,
     point, hnormal)`` over the tensors of :func:`device_bitgrid`.
 
     ``lateral_step``: on block exit, move straight to the same-level
     neighbor block instead of POP + re-PUSH.  ``advance_substeps``: DDA
-    steps inside the current block per iteration.  Each ray stops on a hit,
+    steps inside the current block per iteration (0 or less: an ADVANCE
+    moves nothing, as the reference's empty ``range``).  ``parent_skip``: a
+    lateral step whose target block is empty by its parent block's
+    occupancy words ascends at once instead (the reference's quad rows: the
+    words of the parent at its address in ``occ_pairs``, all ones for a
+    top-level block).  Each ray stops on a hit,
     on leaving the world after ``max_restarts`` re-entries, or after
     ``max_iters`` iterations.  ``entry_fma``: on which axes the entry point
     ``o + d * enter`` is one fused multiply-add, as XLA:CPU compiles the
@@ -626,9 +653,23 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
         parent_block = block * 4.0
         parent_min = bmin - _floor_mod(bmin, parent_block[:, None])
         a_ts0 = _offset_sectant_v(bmin + block[:, None] / 2.0 - parent_min, parent_block)
-        a_new_p, a_step = _dda_step_v(dirv, sf, point, bmin, block)
+        # XLA:CPU fuses the block DDA's multiply-add on x only where the
+        # ADVANCE's substeps exist: with none, on y and z alone
+        a_new_p, a_step = _dda_step_v(dirv, sf, point, bmin, block,
+                                      (advance_substeps > 0, True, True))
         a_ts = _step_sectant_v(a_ts0, a_step)
         a_tmin = bmin + a_step * block[:, None]
+
+        if parent_skip:
+            # the lateral step's target block is empty by its parent's
+            # words: ascend now (a top-level block's parent words are all ones)
+            p_lo, p_hi = _fetch_words(tree, tables, (level + 1).clamp(max=top_level), bmin)
+            top = level >= top_level
+            p_lo = torch.where(top, U32_MASK, p_lo)
+            p_hi = torch.where(top, U32_MASK, p_hi)
+            skip = lateral & (a_ts < OOB) & (_occ_bit_v(p_lo, p_hi, a_ts) == 0)
+            lateral = lateral & ~skip
+            ascend = ascend | skip
 
         # ADVANCE: DDA substeps inside the current block
         v_ts, v_tmin, v_p, v_go = tsect, tmin, point, advance
@@ -743,8 +784,10 @@ def make_bitgrid_tracer(n_levels: int, size: int, max_iters: int = 2048,
     def resolve_color(tree, hit, hvox):
         v = hvox.clamp(0, Si - 1).long()
         caddr = v[:, 0] + v[:, 1] * Si + v[:, 2] * Si * Si
-        cidx = tree["colors"][caddr].int() & 0xFFFF
-        cidx = torch.where(cidx >= COLOR_NONE, torch.full_like(cidx, NO_COLOR_HIT), cidx)
+        colors = tree["colors"]
+        cidx = colors[caddr].int() & 0xFFFF
+        cidx = torch.where(cidx >= colorless_index(colors), torch.full_like(cidx, NO_COLOR_HIT),
+                           cidx)
         return torch.where(hit, cidx, torch.full_like(cidx, EMPTY_DESC))
 
     def resolve_rgb_lod(tree, hit, hvox, hlev):
@@ -1020,8 +1063,10 @@ def make_skip_tracer(n_levels: int, size: int, max_iters: int = 2048, substeps: 
     def resolve_color(tree, hit, hvox):
         v = hvox.clamp(0, Si - 1).long()
         caddr = v[:, 0] + v[:, 1] * Si + v[:, 2] * Si * Si
-        cidx = tree["colors"][caddr].int() & 0xFFFF
-        cidx = torch.where(cidx >= COLOR_NONE, torch.full_like(cidx, NO_COLOR_HIT), cidx)
+        colors = tree["colors"]
+        cidx = colors[caddr].int() & 0xFFFF
+        cidx = torch.where(cidx >= colorless_index(colors), torch.full_like(cidx, NO_COLOR_HIT),
+                           cidx)
         return torch.where(hit, cidx, torch.full_like(cidx, EMPTY_DESC))
 
     def trace(tree, o, dirv, start_t=None):

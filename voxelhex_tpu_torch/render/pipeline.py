@@ -10,6 +10,8 @@ once.  The frame's copy to pinned host memory runs on a copy stream of its
 own, after an event that marks the frame done, so the next frame's kernel
 can run while it copies; the future resolves when the copy's event has
 completed.  On a CPU renderer the frame is ready when ``render`` returns.
+Each frame is the renderer's ``render``, so a renderer with the automaton's
+options or u8 colors launches their instances here too.
 """
 
 from __future__ import annotations

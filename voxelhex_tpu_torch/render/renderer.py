@@ -21,10 +21,22 @@ entry point: ``trace``, ``render`` with or without a prepass (the depth
 prepass's levels march it too, as the reference's do; the beam prepass
 marches the stack automaton on its dilated grid whatever the tracer),
 ``render_many`` and ``render_delta_many``; each kernel has a skip
-instance."""
+instance.
+
+The stack automaton's options (``lateral_step``, ``parent_skip``,
+``advance_substeps``) reach every route that marches the renderer's tracer,
+as the reference's do: ``trace``, ``render`` and the frame after any start
+prepass, the depth prepass's levels, ``render_many`` and
+``render_delta_many``.  Other than the defaults they run the kernels'
+optioned instances.  The beam prepass keeps its own tracer, ``render_lod``
+and the skip tracer the reference's defaults.  ``color_u8`` stores the
+color grid as u8 where the palette fits a byte (the reference's rule,
+``device_bitgrid(..., color_u8=True)``); every kernel that reads colors has
+u8 instances."""
 
 from __future__ import annotations
 
+import operator
 import threading
 
 import numpy as np
@@ -37,7 +49,7 @@ from voxelhex_tpu_torch.ops.prepass import prepass_start
 from voxelhex_tpu_torch.ops.skip import trace_skip
 from voxelhex_tpu_torch.ops.splat import splat_tiles
 from voxelhex_tpu_torch.ops.stream import refresh_skip_rows
-from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, traverse
+from voxelhex_tpu_torch.ops.traverse import MAX_ITERS, automaton_options, traverse
 from voxelhex_tpu_torch.render.bitgrid import (
     BitGrid,
     bitgrid_from_occupancy,
@@ -50,24 +62,26 @@ from voxelhex_tpu_torch.render.starts import BEAM_TILE, beam_level, beam_occupan
 from voxelhex_tpu_torch.tree.boxtree import BoxTree
 from voxelhex_tpu_torch.tree.flat import FlatTree
 
-# The reference renderer's options, each with the values the kernels accept
-# (csrc/traverse.cuh fixes the stack tracer's settings); None accepts any
-# value.  The frame is the same whatever plan, fusion or color storage the
-# reference would pick; `prepass` runs the depth prepass of
-# `prepass_levels` levels; `tracer="skip"` runs the skip tracer
+# The reference renderer's options, each with the values the kernels accept;
+# None accepts any value the reference takes.  The frame is the same
+# whatever plan or fusion the reference would pick; `prepass` runs the depth
+# prepass of `prepass_levels` levels; `tracer="skip"` runs the skip tracer
 # (csrc/skip.cuh), with `skip_substeps` >= 1 substeps a body iteration,
-# which is read only with it.
+# which is read only with it; `lateral_step`, `parent_skip` and
+# `advance_substeps` are the stack automaton's options (csrc/traverse.cuh
+# TraceOptions), read only with the stack tracer; `color_u8` the color
+# grid's storage.
 RESULT_NEUTRAL = {
     "fuse_plan": None,
     "auto_plan": None,
     "prepass_levels": None,
     "skip_substeps": None,
     "prepass": None,
-    "lateral_step": (True,),
-    "advance_substeps": (4,),
+    "lateral_step": None,
+    "advance_substeps": None,
     "tracer": ("stack", "skip"),
-    "parent_skip": (False,),
-    "color_u8": (False,),
+    "parent_skip": None,
+    "color_u8": None,
 }
 
 
@@ -103,8 +117,7 @@ def check_options(options: dict) -> None:
         allowed = RESULT_NEUTRAL[name]
         if allowed is not None and value not in allowed:
             raise NotImplementedError(
-                f"{name}={value!r}: the kernels fix {name}={allowed[0]!r}; other renderer "
-                "options are ROADMAP.md queue 1 item 11"
+                f"{name}={value!r}: the kernels take {name} in {allowed!r}"
             )
 
 
@@ -136,9 +149,13 @@ class BitGridRenderer:
     ``max_iters`` is the kernels' step limit per ray; ``prepass`` runs the
     depth prepass of ``prepass_levels`` levels before each frame; the
     options of ``RESULT_NEUTRAL`` are accepted at the values the kernels
-    fix; any other value raises.  ``tracer="skip"`` uploads the grid's
+    take; any other value raises.  ``tracer="skip"`` uploads the grid's
     skip rows and marches the skip tracer, ``skip_substeps`` substeps a
-    body iteration.  ``device`` is keyword-only."""
+    body iteration.  ``lateral_step``, ``parent_skip`` and
+    ``advance_substeps`` (an int; 0 or less: an ADVANCE moves nothing) are
+    the stack automaton's options (``self.options``, None at the
+    defaults); ``color_u8`` stores the colors as u8 where the palette fits
+    a byte (``self.tree["colors"].dtype``).  ``device`` is keyword-only."""
 
     def __init__(self, source, max_iters: int = MAX_ITERS, prepass: bool = False,
                  prepass_levels: int = 2, lateral_step: bool = True, parent_skip: bool = False,
@@ -163,7 +180,15 @@ class BitGridRenderer:
         self.skip_substeps = int(skip_substeps) if tracer == "skip" else None
         if self.skip_substeps is not None and self.skip_substeps < 1:
             raise ValueError(f"skip_substeps {skip_substeps}: the skip tracer takes 1 or more")
-        self.tree = device_bitgrid(self.bitgrid, self.device, skip_rows=tracer == "skip")
+        # the stack automaton's options as the wrappers take them, None at
+        # the defaults (the default instances) and under the skip tracer,
+        # which has none; advance_substeps is an int, as the reference's
+        # range() takes it
+        self.options = None if tracer == "skip" else automaton_options(
+            lateral_step, parent_skip, operator.index(advance_substeps))
+        self.color_u8 = bool(color_u8)
+        self.tree = device_bitgrid(self.bitgrid, self.device, skip_rows=tracer == "skip",
+                                   color_u8=self.color_u8)
         # the beam prepass's tile, and what the prepasses derive from the
         # content until invalidate_beam: the dilated grid of each beam level
         # on the device, and the splat prepass's surface centers
@@ -190,7 +215,7 @@ class BitGridRenderer:
         renderer's device, with the reference renderer's tracer settings."""
         if self.skip_substeps is not None:
             return trace_skip(self.tree, origins, dirs, self.max_iters, self.skip_substeps)
-        return traverse(self.tree, origins, dirs, self.max_iters)
+        return traverse(self.tree, origins, dirs, self.max_iters, self.options)
 
     # ---- the start prepasses
 
@@ -251,8 +276,8 @@ class BitGridRenderer:
         while levels and (h % (2**levels) or w % (2**levels)):
             levels -= 1
         if levels:
-            return prepass_start(self.tree, camera, levels, self.max_iters,
-                                 self.skip_substeps), 2, "depth"
+            return prepass_start(self.tree, camera, levels, self.max_iters, self.skip_substeps,
+                                 options=self.options), 2, "depth"
         if not compact:
             return None, 1, None
         if beam_prepass:
@@ -286,7 +311,7 @@ class BitGridRenderer:
         with self._render_lock:
             start, tile, kind = self._frame_start(camera, compact, splat_prepass, beam_prepass)
             out = render_frame(self.tree, camera, bg, out_u8, self.max_iters, start, tile,
-                               self.skip_substeps)
+                               self.skip_substeps, self.options)
             self.last_stats = {"rays": w * h, "prepass": kind, "beam_fused": kind == "beam"}
         return out if out_device else out.cpu().numpy()
 
@@ -301,7 +326,8 @@ class BitGridRenderer:
         is one launch of ``frame_lod_kernel``
         (:func:`~voxelhex_tpu_torch.ops.frame.render_lod`); the march is the
         stack automaton with the reference's tracer defaults, whatever the
-        renderer's ``tracer``."""
+        renderer's ``tracer`` and automaton options; the colors are read
+        from the tree's grid, u16 or u8."""
         with self._render_lock:
             if self.bitgrid.mip_rgb is None:
                 build_mip_colors(self.bitgrid)
@@ -316,7 +342,9 @@ class BitGridRenderer:
     def invalidate_beam(self):
         """The content-change hook of the reference's edit pattern: swap
         ``renderer.bitgrid`` and ``renderer.tree`` (``device_bitgrid`` of
-        the new BitGrid on the renderer's device), then call this.  It drops
+        the new BitGrid on the renderer's device, with
+        ``color_u8=renderer.color_u8`` to keep the color storage; a tree of
+        either storage renders), then call this.  It drops
         what the prepasses derived from the old content: the beam grids and
         the splat prepass's surface centers (the reference keeps its splat
         centers, so that its splat starts go on from the old surface:
@@ -397,7 +425,8 @@ class BitGridRenderer:
             if beam_prepass and starts is None:
                 return None
             frames, _n, _f = render_frames(self.tree, cameras, bg, out_u8, self.max_iters,
-                                           starts=starts, skip_substeps=self.skip_substeps)
+                                           starts=starts, skip_substeps=self.skip_substeps,
+                                           options=self.options)
             self.last_stats = {"rays": res[0] * res[1] * len(cameras),
                                "batched_frames": len(cameras), "beam_fused": bool(beam_prepass)}
         return frames if out_device else frames.cpu().numpy()
@@ -463,7 +492,8 @@ class BitGridRenderer:
                 _key, prev_dev, prev_host = state
             frames_dev, digest = render_frames_digest(self.tree, cameras, bg, self.max_iters,
                                                       prev=prev_dev, starts=starts,
-                                                      skip_substeps=self.skip_substeps)
+                                                      skip_substeps=self.skip_substeps,
+                                                      options=self.options)
             digest = _read(digest)  # the batch's one blocking read of the digests
             nrows, flags = digest[:, 0], digest[:, 1:]
             frames, cur, fetched, rows_fetched, reads = [], prev_host, 0, 0, 1

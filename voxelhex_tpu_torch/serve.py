@@ -157,7 +157,7 @@ class RenderService:
             if self.view is None:
                 r = self.renderer
                 r.bitgrid = build_bitgrid(flatten(self.tree))
-                r.tree = device_bitgrid(r.bitgrid, r.device)
+                r.tree = device_bitgrid(r.bitgrid, r.device, color_u8=r.color_u8)
                 r.invalidate_beam()
         return n
 

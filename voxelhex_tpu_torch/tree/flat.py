@@ -72,6 +72,16 @@ class FlatTree:
     def n_bricks(self) -> int:
         return int(self.bricks.shape[0])
 
+    def is_leaf(self, key: int) -> bool:
+        return bool(self.node_meta[key] & META_LEAF)
+
+    def is_uniform(self, key: int) -> bool:
+        return bool(self.node_meta[key] & META_UNIFORM)
+
+    def occupied64(self, key: int) -> int:
+        """Node ``key``'s 64 occupancy bits as one int."""
+        return int(self.node_ocbits[key, 0]) | (int(self.node_ocbits[key, 1]) << 32)
+
 
 def _voxelize_packed(tree: BoxTree, packed_arr: np.ndarray) -> np.ndarray:
     """Packed palette values as flat voxel values, emptiness resolved."""

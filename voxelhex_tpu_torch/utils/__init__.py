@@ -1,1 +1,2 @@
-"""Small host utilities: the PNG encoder (:mod:`.png`)."""
+"""Small host utilities: the PNG encoder (:mod:`.png`), frame meters and
+device traces (:mod:`.profiling`)."""
