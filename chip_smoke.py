@@ -226,8 +226,24 @@ the oracle's hits; (e) device times in turns of each option's instance
 against the default instance at the bench pose and the terrain, with the
 plain march's steps a ray and word pairs read, the batch, prepass and
 traversal instances, each u8 instance against its u16 instance on the
-same inputs, and ptxas of the new instances.  The last line is ``{"ok": true, "device":
-{...}}``; any failure exits non-zero before it.  Needs one CUDA card;
+same inputs, and ptxas of the new instances.
+
+Phase 18 runs the flat-tree renderers at 1920x1080: (a) the main path,
+``render`` and ``trace`` of the frame's host rays (``Camera.rays()``)
+through ``JaxRenderer(flat, max_inner=2048)``, ``WavefrontRenderer(flat,
+max_iters=4096)``, ``FastRenderer(flat, max_iters=4096)`` with and without
+``prepass=True`` over the bench tree (``flatten(build_scene_tree(4))``),
+and ``FastRenderer`` over phase 10's 512 world of bricks of 32 (the fast
+kernel's voxel-read form): the launches of ``csrc/flat.cu``'s kernels
+and of ``shade.cu`` (one a frame; two trace launches for the prepassed
+frame), each f32 frame against the JAX package's digest; (b) each kernel
+form against its plain version on every ray (all six outputs), the
+prepassed frame's depth launch and its full-res launch from the pooled
+starts included; (c) the pixels where each flat frame differs from
+``BitGridRenderer``'s f32 frame; (d) each form's device time, steps a
+ray, node and brick rows read, registers (ptxas) and bound.  The last
+line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
+before it.  Needs one CUDA card;
 there is no CPU fallback.
 """
 
@@ -475,6 +491,30 @@ OPTION_SHA256 = {
 # the option whose instances the kernels line reports (each option's times
 # are logged)
 OPTION_REPORTED = "lateral_off"
+# ---- phase 18, the flat-tree renderers at 1920x1080: sha256 of the
+# reference package's f32 frames' bytes at the bench pose, made on the CPU
+# with
+#   JaxRenderer(flat).render(cam) ("vmap"), WavefrontRenderer(flat) ("wavefront"),
+#   FastRenderer(flat) ("fast"), FastRenderer(flat, prepass=True)
+#   ("fast_prepass"), and FastRenderer(flat512) ("fast_512")
+# where flat = flatten(bench.build_scene()), flat512 = flatten(from_voxels(
+# pts, cols, size=512, brick_dim=32)) of the same points and colors (phase
+# 10's 512 world) and cam = orbit_camera(128.0, yaw_deg=40, resolution=(1920,
+# 1080)).  The prepassed frame differs from the plain one on 910 pixels in
+# the reference itself (ROADMAP.md queue 3, "Known traps").
+FLAT_SHA256 = {
+    "vmap": "1ce06d5446ab877bdf39b9ac160f54e4355d09512cf62f5b97db8248d036205c",
+    "wavefront": "a1d7c6b4c75e332fb70d3b45f8cfeb85ee3e3970242b23785dda312b24e0655f",
+    "fast": "a1d7c6b4c75e332fb70d3b45f8cfeb85ee3e3970242b23785dda312b24e0655f",
+    "fast_prepass": "5f256f1be2fe1ee77ab8fb206e0e60ad33b629ccf0bd38f5d613430f41873957",
+    "fast_512": "aa1a8b5083d3ae78ef3da333687fe648af36430c8728a416b867a08496bc39f9",
+}
+# f32 and int32 operations in one step of a flat-tree tracer (an automaton
+# step or a body), counted low from flat.cu: one DDA step's distances,
+# minimum, new point and step signs
+FLAT_OPS_PER_STEP = 36
+# device-timed launches of each flat kernel
+FLAT_REPS = 5
 # the goldens of the port's oracle: 400 rays of the bench scene
 BENCH_RAYS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
                           "bench_rays.npz")
@@ -1145,6 +1185,12 @@ def main():
         by_name[name]["launches"] += n
     kernels += entries
     del terrain
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    entries, counts = flat_slice(dev, card)
+    for name, n in counts.items():
+        by_name[name]["launches"] += n
+    kernels += entries
     log(f"total: {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -5390,6 +5436,191 @@ def options_slice(dev, card, terrain):
     # every other launch of the main path above ran a new instance (each
     # window's counts are checked): the beam is the one earlier kernel
     return entries, {"beam": launches["beam"]}
+
+def flat_slice(dev, card):
+    """Phase 18: the flat-tree renderers on the card at 1920x1080 (module
+    docstring).  Returns the new kernels' entries and the main path's
+    launches of the shade kernel."""
+    from voxelhex_tpu_torch.ops import _build
+    from voxelhex_tpu_torch.ops import flat as ops
+    from voxelhex_tpu_torch.ops.shade import shade
+    from voxelhex_tpu_torch.render import fastest_renderer
+    from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+    from voxelhex_tpu_torch.render.fast import (PREPASS_ENTRY_FMA, FastRenderer, make_fast_tracer,
+                                                prepass_depth, start_from_depth)
+    from voxelhex_tpu_torch.render.jax_renderer import JaxRenderer, make_trace_ray, rays_on
+    from voxelhex_tpu_torch.render.wavefront import WavefrontRenderer, make_wavefront_tracer
+    from voxelhex_tpu_torch.scene import build_scene, build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    t_all = time.time()
+    tag = f"[{card}]"
+    flat, flat512 = flatten(build_scene_tree(4)), flatten(build_scene_tree(32))
+    log(f"  bench FlatTree: world {flat.size}, brick_dim {flat.brick_dim}, {flat.n_nodes} nodes, "
+        f"{flat.n_bricks} bricks; 512 world: brick_dim {flat512.brick_dim}, {flat512.n_nodes} "
+        f"nodes, {flat512.n_bricks} bricks")
+    cam = orbit_camera(128.0, resolution=RES)
+    w, h = RES
+    ho, hd = cam.rays()
+    renderers = {"vmap": JaxRenderer(flat, max_inner=2048, device="cuda"),
+                 "wavefront": WavefrontRenderer(flat, max_iters=4096, device="cuda"),
+                 "fast": FastRenderer(flat, max_iters=4096, device="cuda"),
+                 "fast_prepass": FastRenderer(flat, max_iters=4096, prepass=True, device="cuda"),
+                 "fast_512": FastRenderer(flat512, max_iters=4096, device="cuda")}
+    counters = {"flat_vmap": ops.trace_vmap, "flat_wavefront": ops.trace_wavefront,
+                "flat_fast": ops.trace_fast, "shade": shade}
+
+    # (a) the main path: each renderer's render() and trace() of the frame's
+    # host rays
+    t0 = time.time()
+    for c in counters.values():
+        c.launches = 0
+    frames = {name: r.render(cam) for name, r in renderers.items()}
+    traces = {name: r.trace(ho, hd) for name, r in renderers.items()}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"flat_vmap": 2, "flat_wavefront": 2, "flat_fast": 7, "shade": len(renderers)}
+    log(f"  main path launches: {launches}")
+    if launches != want:
+        raise AssertionError(f"phase 18 launches {launches}, want {want}")
+    bad = []
+    for name, frame in frames.items():
+        digest = sha(np.ascontiguousarray(frame, dtype=np.float32))
+        ok = (frame.shape == (h, w, 3) and frame.dtype == np.float32
+              and bool(np.isfinite(frame).all()) and digest == FLAT_SHA256[name])
+        log(f"  {name} frame: sha256 {digest[:16]} "
+            f"{'== reference' if ok else '!= reference ' + FLAT_SHA256[name][:16]}")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"flat frames {bad} differ from the reference digests")
+    log(f"phase 18 (a) main path: {time.time() - t0:.1f} s")
+
+    # (b) each kernel against its plain version on every ray
+    t0 = time.time()
+    o, d = rays_on(ho, hd, dev)
+    R = o.shape[0]
+    half = Camera(origin=cam.origin, target=cam.target, up=cam.up, fov_y_deg=cam.fov_y_deg,
+                  resolution=(w // 2, h // 2))
+    po, pd = rays_on(*half.rays(), dev)
+    names = ("hit", "voxel", "brick", "cell", "point", "normal")
+    errs = {"flat_vmap": 0.0, "flat_wavefront": 0.0, "flat_fast": 0.0}
+    records, plain_ms = {}, {}
+
+    def check(kernel, what, got, want_out):
+        n_bad = 0
+        for n, a, b in zip(names, got, want_out):
+            rows = int((~same(a, b)).reshape(a.shape[0], -1).any(dim=1).sum())
+            n_bad += rows
+            errs[kernel] = max(errs[kernel], max_abs_err(a, b))
+        log(f"    {what}: {n_bad} (ray, output) pairs differ of {got[0].shape[0]} rays x 6")
+        if n_bad:
+            raise AssertionError(f"{what}: the kernel differs from its plain version")
+
+    fast = make_fast_tracer(4, 4096)
+    plains = {
+        "vmap": ("flat_vmap", lambda rec: make_trace_ray(4, ops.MAX_RESTARTS, 2048)(
+            renderers["vmap"].tree, o, d, record=rec)),
+        "wavefront": ("flat_wavefront", lambda rec: make_wavefront_tracer(4, 4096)(
+            renderers["wavefront"].tree, o, d, record=rec)),
+        "fast": ("flat_fast", lambda rec: fast(renderers["fast"].tree, o, d, record=rec)),
+        "fast_512": ("flat_fast", lambda rec: make_fast_tracer(32, 4096)(
+            renderers["fast_512"].tree, o, d, record=rec)),
+    }
+    for name, (kernel, run) in plains.items():
+        rec = {}
+        t1 = time.time()
+        want_out = run(rec)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.time() - t1) * 1e3
+        records[name] = rec
+        check(kernel, f"{name} trace() of every 1080p ray", traces[name], want_out)
+        if name == "fast":
+            check(kernel, "fast_prepass trace() (the plain fast march)", traces["fast_prepass"],
+                  want_out)
+    # the prepassed frame's two launches: the half-res depths, then the
+    # full-res march from their pooled starts
+    ftree = renderers["fast_prepass"].tree
+    k_depth = ops.trace_fast(ftree, 4, po, pd, 4096, depth=True)
+    t1 = time.time()
+    p_half = fast(ftree, po, pd)
+    p_depth = prepass_depth(p_half[0], p_half[4], po)
+    p_start = make_fast_tracer(4, 4096, entry_fma=PREPASS_ENTRY_FMA)(
+        ftree, o, d, start_from_depth(p_depth, h // 2, w // 2))
+    torch.cuda.synchronize()
+    plain_ms["fast_prepass"] = (time.time() - t1) * 1e3
+    n_depth = int((~same(k_depth, p_depth)).sum())
+    errs["flat_fast"] = max(errs["flat_fast"], max_abs_err(k_depth, p_depth))
+    log(f"    fast_prepass half-res depths ({po.shape[0]} rays, {int((p_depth > 0).sum())} hits): "
+        f"{n_depth} differ")
+    if n_depth:
+        raise AssertionError("the depth form differs from the plain prepass depth")
+    k_start = ops.trace_fast(ftree, 4, o, d, 4096, start_depth=(k_depth, h // 2, w // 2))
+    check("flat_fast", "fast_prepass full-res march from the pooled starts", k_start, p_start)
+    moved = int((p_start[0] != traces["fast"][0]).sum() + (p_start[1] != traces["fast"][1]).sum())
+    log(f"    the pooled starts change {moved} hits or voxels of the plain fast march")
+    log(f"phase 18 (b) kernels == plain versions: {time.time() - t0:.1f} s")
+
+    # (c) each flat frame against the BitGrid renderer's f32 frame
+    bitgrid = fastest_renderer(build_scene(), device=dev).render(cam)
+    diff = {name: int((frame != bitgrid).any(axis=-1).sum()) for name, frame in frames.items()}
+    log(f"  pixels where each flat frame differs from BitGridRenderer's f32 frame: {diff}")
+
+    # (d) device times, steps, registers and bounds
+    t0 = time.time()
+    ftree = renderers["fast"].tree
+    calls = {
+        "vmap": lambda: ops.trace_vmap(renderers["vmap"].tree, 4, o, d, 2048),
+        "wavefront": lambda: ops.trace_wavefront(renderers["wavefront"].tree, 4, o, d, 4096),
+        "fast": lambda: ops.trace_fast(ftree, 4, o, d, 4096),
+        "fast_depth": lambda: ops.trace_fast(ftree, 4, po, pd, 4096, depth=True),
+        "fast_start": lambda: ops.trace_fast(ftree, 4, o, d, 4096,
+                                             start_depth=(k_depth, h // 2, w // 2)),
+        "fast_512": lambda: ops.trace_fast(renderers["fast_512"].tree, 32, o, d, 4096),
+    }
+    for fn in calls.values():
+        fn()
+    ms = {name: device_ms(fn, FLAT_REPS) for name, fn in calls.items()}
+    for name, rec in records.items():
+        steps = rec["steps"]
+        log(f"  {name}: {ms[name]:.4f} ms device time a launch, plain {plain_ms[name]:.0f} ms "
+            f"(host clock, one run); steps a ray mean {float(steps.double().mean()):.2f}, "
+            f"max {int(steps.max())}; node rows read {int(rec['nodes'].sum())}, brick rows "
+            f"{int(rec['bricks'].sum())} {tag}")
+    log(f"  fast_prepass: depth launch ({po.shape[0]} rays) {ms['fast_depth']:.4f} ms, full-res "
+        f"launch from the starts {ms['fast_start']:.4f} ms, plain {plain_ms['fast_prepass']:.0f} "
+        f"ms {tag}")
+    build_log = _build.build_log("flat.cu")
+    for kname in kernel_names(build_log, "flat_"):
+        usage = ptxas_usage(build_log, kname)
+        log(f"  ptxas {kname}: {usage[0]} registers, {usage[1]} B stack frame, {usage[2]} B spill "
+            f"stores, {usage[3]} B spill loads")
+
+    def flat_bound(name, node_bytes, brick_bytes):
+        rec = records[name]
+        n_bytes = (int(rec["nodes"].sum()) * node_bytes + int(rec["bricks"].sum()) * brick_bytes
+                   + R * 24 + R * (1 + 4 + 4 + 4 + 12 + 12))
+        return bound(n_bytes, int(rec["steps"].sum()) * FLAT_OPS_PER_STEP)
+
+    bounds = {"vmap": flat_bound("vmap", 4 + 256 + 8, 64 * 4),
+              "wavefront": flat_bound("wavefront", 4 + 256 + 8, 64 * 4),
+              "fast": flat_bound("fast", 256 + 8, 8)}
+    log(f"  bounds: " + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in bounds.items())
+        + f" {tag}")
+    log(f"phase 18 (d) timing: {time.time() - t0:.1f} s")
+    log(f"phase 18 flat-tree renderers: {time.time() - t_all:.1f} s")
+    entries = []
+    for name, kernel, replaces in (("vmap", "flat_vmap", "voxelhex_tpu/render/jax_renderer.py:140"),
+                                   ("wavefront", "flat_wavefront",
+                                    "voxelhex_tpu/render/wavefront.py:101"),
+                                   ("fast", "flat_fast", "voxelhex_tpu/render/fast.py:88")):
+        entries.append({"name": kernel, "route": "cuda", "source": "voxelhex_tpu_torch/csrc/flat.cu",
+                        "replaces": replaces, "launches": launches[kernel],
+                        "max_abs_err": errs[kernel], "ms": ms[name], "plain_ms": plain_ms[name],
+                        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                        "library_ms": None})
+    return entries, {"shade": launches["shade"]}
+
 
 if __name__ == "__main__":
     sys.exit(main())

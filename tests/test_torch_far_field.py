@@ -176,6 +176,18 @@ def test_one_ring_frames_equal_reference(one_ring, pose, out_u8):
                                                              for s in stats[1:])
 
 
+
+def test_far_field_single_ring_surface(one_ring):
+    """``FarField.cells`` and ``FarField.renderer``: the innermost ring's,
+    as the reference's single-tier surface, equal to the reference's."""
+    ref_view, view = one_ring
+    render_both(ref_view, view, cameras(*POSES["outside"]), True)
+    assert view.far.cells == ref_view.far.cells == view.far.tiers[0].cells
+    assert view.far.renderer is view.far.tiers[0].renderer is not None
+    for field in ("occ_lo", "occ_hi", "colors"):
+        assert np.array_equal(np.asarray(getattr(view.far.renderer.bitgrid, field)),
+                              np.asarray(getattr(ref_view.far.renderer.bitgrid, field)))
+
 def test_far_edit_equals_reference(one_ring):
     """An edit outside the window re-samples the ring's cells there."""
     ref_view, view = one_ring

@@ -121,6 +121,44 @@ def test_wrappers_have_no_fallback():
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], name
 
 
+
+def test_flat_tracers_have_no_fallback():
+    """The flat-tree wrappers (ops/flat.py) catch nothing, and a tensor on
+    neither the card nor the CPU raises before any plain version runs."""
+    from voxelhex_tpu_torch.ops import flat
+    from voxelhex_tpu_torch.render.jax_renderer import device_tree
+    from voxelhex_tpu_torch.tree.boxtree import Albedo, BoxTree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    with open(os.path.join(PKG, "ops", "flat.py")) as f:
+        assert not [n for n in ast.walk(ast.parse(f.read())) if isinstance(n, ast.Try)]
+    tree = BoxTree(16, 4)
+    tree.insert((1, 2, 3), Albedo(10, 20, 30, 255))
+    dev_tree = device_tree(flatten(tree), "cpu")
+    o = torch.zeros((8, 3), device="meta")
+    for call in (lambda: flat.trace_vmap(dev_tree, 4, o, o),
+                 lambda: flat.trace_wavefront(dev_tree, 4, o, o),
+                 lambda: flat.trace_fast(dev_tree, 4, o, o)):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
+
+
+def test_flat_renderers_need_cuda_by_default(monkeypatch):
+    from voxelhex_tpu_torch.render.fast import FastRenderer
+    from voxelhex_tpu_torch.render.jax_renderer import JaxRenderer
+    from voxelhex_tpu_torch.render.wavefront import WavefrontRenderer
+    from voxelhex_tpu_torch.tree.boxtree import Albedo, BoxTree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    tree = BoxTree(16, 4)
+    tree.insert((1, 2, 3), Albedo(10, 20, 30, 255))
+    flat_tree = flatten(tree)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (JaxRenderer, WavefrontRenderer, FastRenderer):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(flat_tree)
+        assert cls(flat_tree, device="cpu").tree["bricks"].device.type == "cpu"
+
 def test_default_device_needs_cuda(monkeypatch):
     from voxelhex_tpu_torch.render import fastest_renderer
     from voxelhex_tpu_torch.render.bitgrid import bitgrid_from_occupancy

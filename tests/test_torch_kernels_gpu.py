@@ -1351,3 +1351,79 @@ def test_u8_instances_equal_plain(cuda):
     assert (traverse.u8_launches, trace_skip.u8_launches, render_frame.u8_launches,
             render_frames.u8_launches, render_lod.u8_launches) == (
         n[0] + 1, n[1] + 1, n[2] + 4, n[3] + 2, n[4] + 2)
+
+
+def _flat_tree(size=64, brick_dim=4, n=3000, seed=5):
+    """A port FlatTree of ``n`` random voxels and one uniform node (``size``
+    is ``brick_dim * 4**k``)."""
+    from voxelhex_tpu_torch.tree.boxtree import Albedo, BoxTree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    cols = [Albedo.from_u32(v) for v in (0xFF0000FF, 0x00FF00FF, 0x0000FFFF)]
+    tree = BoxTree(size, brick_dim, auto_simplify=False)
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        tree.insert(tuple(int(v) for v in rng.integers(0, size, 3)), cols[rng.integers(0, 3)])
+    tree.insert_at_lod((8, 8, 8), 4, cols[0])
+    return flatten(tree)
+
+
+@pytest.mark.parametrize("brick_dim", [4, 8])
+@pytest.mark.parametrize("tracer", ["vmap", "wavefront", "fast"])
+@pytest.mark.parametrize("limit", [None, 7])
+def test_flat_kernels_equal_plain(cuda, brick_dim, tracer, limit):
+    """Each flat-tree kernel (``csrc/flat.cu``) against its plain tracer on
+    the card, all six outputs bit for bit, at the default caps and at 7
+    steps; the fast kernel also from a start a ray and in its depth form."""
+    from voxelhex_tpu_torch.ops import flat as ops
+    from voxelhex_tpu_torch.render.fast import make_fast_tracer, pack_device_tree, prepass_depth
+    from voxelhex_tpu_torch.render.jax_renderer import device_tree, make_trace_ray
+    from voxelhex_tpu_torch.render.wavefront import make_wavefront_tracer
+
+    flat = _flat_tree(64, 4, 3000) if brick_dim == 4 else _flat_tree(32, 8, 1500)
+    o, d = (t.to(cuda) for t in _rays(6000, flat.size, 21))
+    if tracer == "vmap":
+        tree, cap = device_tree(flat, cuda), limit or 2048
+        got = ops.trace_vmap(tree, brick_dim, o, d, cap)
+        want = make_trace_ray(brick_dim, ops.MAX_RESTARTS, cap)(tree, o, d)
+    elif tracer == "wavefront":
+        tree, cap = device_tree(flat, cuda), limit or 4096
+        got = ops.trace_wavefront(tree, brick_dim, o, d, cap)
+        want = make_wavefront_tracer(brick_dim, cap)(tree, o, d)
+    else:
+        tree, cap = pack_device_tree(flat, cuda), limit or 4096
+        trace = make_fast_tracer(brick_dim, cap)
+        got = ops.trace_fast(tree, brick_dim, o, d, cap)
+        want = trace(tree, o, d)
+        depth = ops.trace_fast(tree, brick_dim, o, d, cap, depth=True)
+        assert _equal(depth, prepass_depth(want[0], want[4], o))
+        start = torch.rand(o.shape[0], generator=torch.Generator().manual_seed(3)).to(cuda) * 64
+        for a, b in zip(ops.trace_fast(tree, brick_dim, o, d, cap, start_t=start),
+                        trace(tree, o, d, start)):
+            assert _equal(a, b)
+    torch.cuda.synchronize()
+    if limit is None:
+        assert int(want[0].sum()) > 1000
+    for a, b in zip(got, want):
+        assert _equal(a, b)
+
+
+def test_flat_renderers_render_on_the_card(cuda):
+    """The three flat renderers' frames on the card (the prepassed one
+    too) equal their CPU frames, each through its kernel."""
+    from voxelhex_tpu_torch.ops import flat as ops
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.fast import FastRenderer
+    from voxelhex_tpu_torch.render.jax_renderer import JaxRenderer
+    from voxelhex_tpu_torch.render.wavefront import WavefrontRenderer
+
+    flat = _flat_tree()
+    cam = orbit_camera(64.0, resolution=(160, 96))
+    for cls, kw, counter, n in ((JaxRenderer, {}, ops.trace_vmap, 1),
+                                (WavefrontRenderer, {}, ops.trace_wavefront, 1),
+                                (FastRenderer, {}, ops.trace_fast, 1),
+                                (FastRenderer, {"prepass": True}, ops.trace_fast, 2)):
+        n0 = counter.launches
+        frame = cls(flat, **kw).render(cam, bg=(0.1, 0.2, 0.3))
+        assert counter.launches == n0 + n
+        assert np.array_equal(frame, cls(flat, device="cpu", **kw).render(cam, bg=(0.1, 0.2, 0.3)))

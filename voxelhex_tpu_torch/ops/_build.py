@@ -28,7 +28,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "voxelhex_tpu_torch")
 SOURCES = ("traverse.cu", "shade.cu", "frame.cu", "frames.cu", "multihit.cu", "composite.cu",
-           "adam.cu", "albedo.cu", "stream.cu", "far.cu", "beam.cu", "splat.cu", "prepass.cu")
+           "adam.cu", "albedo.cu", "stream.cu", "far.cu", "beam.cu", "splat.cu", "prepass.cu",
+           "flat.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -213,6 +214,28 @@ class PrepassParams(ctypes.Structure):
     ]
 
 
+class FlatParams(ctypes.Structure):
+    """Mirror of ``struct FlatParams`` in flat.cu."""
+
+    _fields_ = [
+        ("node_meta", ctypes.c_void_p),
+        ("node_children", ctypes.c_void_p),
+        ("node_ocbits", ctypes.c_void_p),
+        ("bricks", ctypes.c_void_p),
+        ("brick_ocbits", ctypes.c_void_p),
+        ("start", ctypes.c_void_p),
+        ("n_bricks", ctypes.c_int),
+        ("brick_dim", ctypes.c_int),
+        ("size", ctypes.c_float),
+        ("root_meta", ctypes.c_int),
+        ("limit", ctypes.c_int),
+        ("max_restarts", ctypes.c_int),
+        ("start_w", ctypes.c_int),
+        ("half_h", ctypes.c_int),
+        ("half_w", ctypes.c_int),
+    ]
+
+
 class AdamParams(ctypes.Structure):
     """Mirror of ``struct AdamParams`` in adam.cu."""
 
@@ -332,7 +355,9 @@ def library() -> types.SimpleNamespace:
     ``vhx_prepass_chain``, and the entries that take the automaton's options
     and the color grid's width, which the wrappers call: ``vhx_traverse_ex``,
     ``vhx_render_frame_ex``, ``vhx_render_frame_lod_ex``,
-    ``vhx_render_frames_ex`` and ``vhx_prepass_ex``), built first if needed."""
+    ``vhx_render_frames_ex`` and ``vhx_prepass_ex``), and the flat-tree
+    tracers ``vhx_flat_vmap``, ``vhx_flat_wavefront``, ``vhx_flat_fast`` and
+    ``vhx_flat_fast_depth``, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -415,6 +440,10 @@ def library() -> types.SimpleNamespace:
                     "vhx_prepass_ex": [p, ctypes.POINTER(PrepassParams), i, i, opts_p,
                                        ctypes.POINTER(p), p, p, p, i, i, p],
                 },
+                "flat.cu": {
+                    name: [ctypes.POINTER(FlatParams), p, p, i, p, p, p, p, p, p, i, p]
+                    for name in ("vhx_flat_vmap", "vhx_flat_wavefront", "vhx_flat_fast")
+                } | {"vhx_flat_fast_depth": [ctypes.POINTER(FlatParams), p, p, i, p, i, p]},
             }
             fns = {}
             for source, entries in signatures.items():
@@ -434,7 +463,8 @@ def library() -> types.SimpleNamespace:
                                          ("splat.cu", "vhx_splat_params_size", SplatParams),
                                          ("prepass.cu", "vhx_prepass_params_size",
                                           PrepassParams),
-                                         ("adam.cu", "vhx_adam_params_size", AdamParams)):
+                                         ("adam.cu", "vhx_adam_params_size", AdamParams),
+                                         ("flat.cu", "vhx_flat_params_size", FlatParams)):
                 fn = getattr(dlls[source], name)
                 fn.argtypes, fn.restype = [], i
                 if fn() != ctypes.sizeof(struct):

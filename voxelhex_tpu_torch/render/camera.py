@@ -1,7 +1,8 @@
 """Pinhole camera and ray generation.
 
-A copy of the reference camera (``Camera``, ``orbit_camera``,
-``Viewport``) and its device ray generator.  Rays come out as f32 ``[h*w, 3]`` tensors, bit-equal
+A copy of the reference camera (``Camera`` with its host rays and
+matrices, ``orbit_camera``, ``Viewport``) and its device ray generator.
+Device rays come out as f32 ``[h*w, 3]`` tensors, bit-equal
 to the reference's ``device_rays`` on XLA:CPU: the same constant folding
 (``x / w * 2`` is ``x * (2/w)``), the same fused multiply-adds and the same
 reduction order for the norm.
@@ -58,6 +59,51 @@ class Camera:
         right = _normalize(np.cross(up_hint, forward))
         up = np.cross(forward, right)
         return forward, right, up
+
+    def view_matrix(self) -> np.ndarray:
+        """The right-handed look-at view matrix, f32 [4, 4]."""
+        forward, right, up = self.basis()
+        eye = np.asarray(self.origin, dtype=np.float32)
+        m = np.eye(4, dtype=np.float32)
+        m[0, :3], m[1, :3], m[2, :3] = right, up, -forward
+        m[0, 3] = -float(np.dot(right, eye))
+        m[1, 3] = -float(np.dot(up, eye))
+        m[2, 3] = float(np.dot(forward, eye))
+        return m
+
+    def projection_matrix(self, near: float = 0.1, far: float = 4096.0) -> np.ndarray:
+        """The perspective projection of the field of view and aspect, f32
+        [4, 4]."""
+        w, h = self.resolution
+        aspect = w / h
+        f = 1.0 / np.tan(np.radians(self.fov_y_deg) / 2.0)
+        m = np.zeros((4, 4), dtype=np.float32)
+        m[0, 0] = f / aspect
+        m[1, 1] = f
+        m[2, 2] = (far + near) / (near - far)
+        m[2, 3] = 2.0 * far * near / (near - far)
+        m[3, 2] = -1.0
+        return m
+
+    def rays(self):
+        """The frame's rays on the host: ``(origins, dirs)``, each f32
+        NumPy ``[h, w, 3]``, the directions of unit length, pixel (0, 0) at
+        the top left.  The math is in f64 and rounds once to f32 (the flat
+        renderers' rays; :func:`device_rays` makes the BitGrid frames')."""
+        w, h = self.resolution
+        forward, right, up = self.basis()
+        aspect = w / h
+        tan_half = np.tan(np.radians(self.fov_y_deg) / 2.0)
+        px = (np.arange(w) + 0.5) / w * 2.0 - 1.0  # [-1, 1] left -> right
+        py = 1.0 - (np.arange(h) + 0.5) / h * 2.0  # [1, -1] top -> bottom
+        dirs = (
+            forward[None, None, :]
+            + px[None, :, None] * tan_half * aspect * right[None, None, :]
+            + py[:, None, None] * tan_half * up[None, None, :]
+        )
+        dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+        origins = np.broadcast_to(np.asarray(self.origin, dtype=np.float32), dirs.shape)
+        return origins.astype(np.float32), dirs.astype(np.float32)
 
 
 def orbit_camera(
@@ -129,6 +175,23 @@ class Viewport:
         d = self.origin_delta
         self.origin_delta = np.zeros(3, dtype=np.float32)
         return d
+
+    def left_brick_slot(self, brick_dim: int) -> bool:
+        """Whether the movement accumulated since the last take has left
+        the brick-aligned cube the viewport started in (the trigger to
+        re-page)."""
+        from voxelhex_tpu_torch.spatial.math import brick_slot_for, cube_contains
+
+        prev = self.origin - self.origin_delta
+        slot_min, slot_size = brick_slot_for(prev, brick_dim)
+        return not cube_contains(slot_min, slot_size, self.origin)
+
+    def update_matrices(self):
+        """``(view, projection, inverse view-projection)``: the per-frame
+        matrices, the projection's far plane at the frustum's depth."""
+        view = self.camera.view_matrix()
+        proj = self.camera.projection_matrix(far=float(self.frustum[2]))
+        return view, proj, np.linalg.inv(proj @ view)
 
 
 def camera_params(camera: Camera):

@@ -210,6 +210,17 @@ class BitGridRenderer:
         self._content_version = 0
         self.last_stats: dict = {}
 
+    @staticmethod
+    def resolve_entries(host_tree, hit, hvox):
+        """The host tree's entry (color and user data) of each ray's hit
+        voxel, None for a miss: the card carries only what renders, and a
+        query of user data goes through the host tree.  ``hit`` [R] and
+        ``hvox`` [R, 3] as ``trace`` returns them, on any device."""
+        hit = np.asarray(hit.cpu() if isinstance(hit, torch.Tensor) else hit)
+        hvox = np.asarray(hvox.cpu() if isinstance(hvox, torch.Tensor) else hvox)
+        return [host_tree.get(tuple(int(c) for c in v)) if h else None
+                for h, v in zip(hit, hvox)]
+
     def trace(self, origins, dirs):
         """``(hit, voxel, hvox, point, hnormal)`` for f32 [R, 3] rays on the
         renderer's device, with the reference renderer's tracer settings."""

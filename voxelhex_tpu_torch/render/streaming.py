@@ -281,6 +281,14 @@ class FarField:
         return self.tiers[0].factor
 
     @property
+    def cells(self):
+        return self.tiers[0].cells
+
+    @property
+    def renderer(self):
+        return self.tiers[0].renderer
+
+    @property
     def _occ(self):
         return self.tiers[0]._occ
 

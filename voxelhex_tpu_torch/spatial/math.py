@@ -44,6 +44,24 @@ def sectant_offset(sectant: int) -> np.ndarray:
     )
 
 
+class CubeSides:
+    """Face indices of a node's 6-bit occlusion field."""
+
+    BACK = 0
+    FRONT = 1
+    TOP = 2
+    BOTTOM = 3
+    LEFT = 4
+    RIGHT = 5
+
+
+def brick_slot_for(position, brick_dim: int):
+    """``(min_position, size)`` of the brick-aligned cube that holds
+    ``position`` (f64 min corner, edge ``brick_dim``)."""
+    p = np.asarray(position, dtype=np.float64)
+    return p - np.abs(np.mod(p, float(brick_dim))), float(brick_dim)
+
+
 def cube_contains(min_position, size, position) -> bool:
     """``position`` lies in the half-open cube ``[min, min + size)``."""
     p = np.asarray(position, dtype=np.float32)

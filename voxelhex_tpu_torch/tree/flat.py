@@ -20,7 +20,7 @@ solid brick, else an index into the brick pool.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -81,6 +81,30 @@ class FlatTree:
     def occupied64(self, key: int) -> int:
         """Node ``key``'s 64 occupancy bits as one int."""
         return int(self.node_ocbits[key, 0]) | (int(self.node_ocbits[key, 1]) << 32)
+
+    def with_padding(self, node_multiple: int = 8, brick_multiple: int = 8) -> "FlatTree":
+        """A copy whose node and brick pools are padded to multiples (and
+        to at least one row) with empty rows: meta 0, children and MIPs -1,
+        occupancy 0, voxels -1."""
+
+        def pad(arr, n, fill):
+            if arr.shape[0] % n == 0 and arr.shape[0] > 0:
+                return arr
+            target = max(n, ((arr.shape[0] + n - 1) // n) * n)
+            out = np.full((target,) + arr.shape[1:], fill, dtype=arr.dtype)
+            out[: arr.shape[0]] = arr
+            return out
+
+        return replace(
+            self,
+            node_meta=pad(self.node_meta, node_multiple, 0),
+            node_children=pad(self.node_children, node_multiple, EMPTY_DESC),
+            node_ocbits=pad(self.node_ocbits, node_multiple, 0),
+            node_mips=pad(self.node_mips, node_multiple, EMPTY_DESC),
+            bricks=pad(self.bricks, brick_multiple, EMPTY_DESC),
+            brick_ocbits=(pad(self.brick_ocbits, brick_multiple, 0)
+                          if self.brick_ocbits is not None else None),
+        )
 
 
 def _voxelize_packed(tree: BoxTree, packed_arr: np.ndarray) -> np.ndarray:
