@@ -239,9 +239,12 @@ and of ``shade.cu`` (one a frame; two trace launches for the prepassed
 frame), each f32 frame against the JAX package's digest; (b) each kernel
 form against its plain version on every ray (all six outputs), the
 prepassed frame's depth launch and its full-res launch from the pooled
-starts included; (c) the pixels where each flat frame differs from
-``BitGridRenderer``'s f32 frame; (d) each form's device time, steps a
-ray, node and brick rows read, registers (ptxas) and bound.  The last
+starts included, each as ``render()`` launches it (warps on the frame's
+4 x 8 tiles) and the plain forms as ``trace()`` launches them (rows); (c)
+the pixels where each flat frame differs from ``BitGridRenderer``'s f32
+frame; (d) each form's device time (tiled, and the wavefront's and fast
+kernel's on rows too), steps a ray, node and brick rows read, registers
+(ptxas) and bound.  The last
 line is ``{"ok": true, "device": {...}}``; any failure exits non-zero
 before it.  Needs one CUDA card;
 there is no CPU fallback.
@@ -5527,6 +5530,11 @@ def flat_slice(dev, card):
         "fast_512": ("flat_fast", lambda rec: make_fast_tracer(32, 4096)(
             renderers["fast_512"].tree, o, d, record=rec)),
     }
+    tiled = {"wavefront": lambda: ops.trace_wavefront(renderers["wavefront"].tree, 4, o, d, 4096,
+                                                      _width=w),
+             "fast": lambda: ops.trace_fast(renderers["fast"].tree, 4, o, d, 4096, _width=w),
+             "fast_512": lambda: ops.trace_fast(renderers["fast_512"].tree, 32, o, d, 4096,
+                                                _width=w)}
     for name, (kernel, run) in plains.items():
         rec = {}
         t1 = time.time()
@@ -5535,13 +5543,16 @@ def flat_slice(dev, card):
         plain_ms[name] = (time.time() - t1) * 1e3
         records[name] = rec
         check(kernel, f"{name} trace() of every 1080p ray", traces[name], want_out)
+        if name in tiled:
+            check(kernel, f"{name} on the frame's 4 x 8 tiles (render()'s launch)", tiled[name](),
+                  want_out)
         if name == "fast":
             check(kernel, "fast_prepass trace() (the plain fast march)", traces["fast_prepass"],
                   want_out)
     # the prepassed frame's two launches: the half-res depths, then the
     # full-res march from their pooled starts
     ftree = renderers["fast_prepass"].tree
-    k_depth = ops.trace_fast(ftree, 4, po, pd, 4096, depth=True)
+    k_depth = ops.trace_fast(ftree, 4, po, pd, 4096, depth=True, _width=w // 2)
     t1 = time.time()
     p_half = fast(ftree, po, pd)
     p_depth = prepass_depth(p_half[0], p_half[4], po)
@@ -5555,7 +5566,8 @@ def flat_slice(dev, card):
         f"{n_depth} differ")
     if n_depth:
         raise AssertionError("the depth form differs from the plain prepass depth")
-    k_start = ops.trace_fast(ftree, 4, o, d, 4096, start_depth=(k_depth, h // 2, w // 2))
+    k_start = ops.trace_fast(ftree, 4, o, d, 4096, start_depth=(k_depth, h // 2, w // 2),
+                             _width=w)
     check("flat_fast", "fast_prepass full-res march from the pooled starts", k_start, p_start)
     moved = int((p_start[0] != traces["fast"][0]).sum() + (p_start[1] != traces["fast"][1]).sum())
     log(f"    the pooled starts change {moved} hits or voxels of the plain fast march")
@@ -5571,12 +5583,14 @@ def flat_slice(dev, card):
     ftree = renderers["fast"].tree
     calls = {
         "vmap": lambda: ops.trace_vmap(renderers["vmap"].tree, 4, o, d, 2048),
-        "wavefront": lambda: ops.trace_wavefront(renderers["wavefront"].tree, 4, o, d, 4096),
-        "fast": lambda: ops.trace_fast(ftree, 4, o, d, 4096),
-        "fast_depth": lambda: ops.trace_fast(ftree, 4, po, pd, 4096, depth=True),
+        "wavefront": tiled["wavefront"],
+        "fast": tiled["fast"],
+        "fast_depth": lambda: ops.trace_fast(ftree, 4, po, pd, 4096, depth=True, _width=w // 2),
         "fast_start": lambda: ops.trace_fast(ftree, 4, o, d, 4096,
-                                             start_depth=(k_depth, h // 2, w // 2)),
-        "fast_512": lambda: ops.trace_fast(renderers["fast_512"].tree, 32, o, d, 4096),
+                                             start_depth=(k_depth, h // 2, w // 2), _width=w),
+        "fast_512": tiled["fast_512"],
+        "wavefront_rows": lambda: ops.trace_wavefront(renderers["wavefront"].tree, 4, o, d, 4096),
+        "fast_rows": lambda: ops.trace_fast(ftree, 4, o, d, 4096),
     }
     for fn in calls.values():
         fn()
@@ -5590,6 +5604,9 @@ def flat_slice(dev, card):
     log(f"  fast_prepass: depth launch ({po.shape[0]} rays) {ms['fast_depth']:.4f} ms, full-res "
         f"launch from the starts {ms['fast_start']:.4f} ms, plain {plain_ms['fast_prepass']:.0f} "
         f"ms {tag}")
+    log(f"  the frames' launches on 4 x 8 tiles against trace()'s on rows: wavefront "
+        f"{ms['wavefront']:.4f} against {ms['wavefront_rows']:.4f} ms, fast {ms['fast']:.4f} "
+        f"against {ms['fast_rows']:.4f} ms {tag}")
     build_log = _build.build_log("flat.cu")
     for kname in kernel_names(build_log, "flat_"):
         usage = ptxas_usage(build_log, kname)

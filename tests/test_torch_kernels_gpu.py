@@ -1427,3 +1427,50 @@ def test_flat_renderers_render_on_the_card(cuda):
         frame = cls(flat, **kw).render(cam, bg=(0.1, 0.2, 0.3))
         assert counter.launches == n0 + n
         assert np.array_equal(frame, cls(flat, device="cpu", **kw).render(cam, bg=(0.1, 0.2, 0.3)))
+
+
+@pytest.mark.parametrize("brick_dim", [4, 8])
+@pytest.mark.parametrize("res", [(160, 96), (157, 93)])
+@pytest.mark.parametrize("limit", [None, 9])
+def test_flat_kernels_on_tiles_equal_plain(cuda, brick_dim, res, limit):
+    """The batched flat kernels with a frame's width (warps on 4 x 8 tiles,
+    frames whose sides are not multiples of 4 and 8 too) against their
+    plain tracers on every ray of the frame, all six outputs bit for bit:
+    the wavefront, the fast kernel and its depth form, and on the even
+    frame the full-res march from the pooled half-res depths."""
+    from voxelhex_tpu_torch.ops import flat as ops
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.fast import (PREPASS_ENTRY_FMA, make_fast_tracer,
+                                                pack_device_tree, prepass_depth, start_from_depth)
+    from voxelhex_tpu_torch.render.jax_renderer import device_tree, rays_on
+    from voxelhex_tpu_torch.render.wavefront import make_wavefront_tracer
+
+    flat = _flat_tree(64, 4, 3000) if brick_dim == 4 else _flat_tree(32, 8, 1500)
+    w, h = res
+    cap = limit or 4096
+    o, d = rays_on(*orbit_camera(float(flat.size), yaw_deg=35.0, resolution=res).rays(), cuda)
+    wf, fast = device_tree(flat, cuda), pack_device_tree(flat, cuda)
+    got = ops.trace_wavefront(wf, brick_dim, o, d, cap, _width=w)
+    for a, b in zip(got, make_wavefront_tracer(brick_dim, cap)(wf, o, d)):
+        assert _equal(a, b)
+    trace = make_fast_tracer(brick_dim, cap)
+    want = trace(fast, o, d)
+    for a, b in zip(ops.trace_fast(fast, brick_dim, o, d, cap, _width=w), want):
+        assert _equal(a, b)
+    depth = ops.trace_fast(fast, brick_dim, o, d, cap, depth=True, _width=w)
+    assert _equal(depth, prepass_depth(want[0], want[4], o))
+    if limit is None:
+        assert int(want[0].sum()) > 1000
+    if w % 2 or h % 2:
+        return
+    half = orbit_camera(float(flat.size), yaw_deg=35.0, resolution=(w // 2, h // 2))
+    po, pd = rays_on(*half.rays(), cuda)
+    dmap = ops.trace_fast(fast, brick_dim, po, pd, cap, depth=True, _width=w // 2)
+    p = trace(fast, po, pd)
+    assert _equal(dmap, prepass_depth(p[0], p[4], po))
+    want = make_fast_tracer(brick_dim, cap, entry_fma=PREPASS_ENTRY_FMA)(
+        fast, o, d, start_from_depth(dmap, h // 2, w // 2))
+    got = ops.trace_fast(fast, brick_dim, o, d, cap, start_depth=(dmap, h // 2, w // 2), _width=w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _equal(a, b)

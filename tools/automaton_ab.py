@@ -58,7 +58,27 @@ then back in reverse, each held to the parent's outputs bit for bit.
 ``--profile`` first prints each tree's device time of each kernel and
 fill a call launches (``torch.profiler``), e.g. the parent's launch a
 level of the depth prepass beside this tree's one launch.
-Needs one CUDA card.
+
+``--only flat`` sets up and times only the flat-tree kernels of
+``csrc/flat.cu`` at ``chip_smoke.py`` phase 18's shapes (the bench FlatTree
+at the 1080p bench pose, the 512 world): the wavefront, the fast kernel's
+bitmap form, its voxel-read form in the 512 world, the prepass's depth
+launch (960x540) and the full-res launch from the pooled starts, each in
+this tree under four launch settings (warps on 4 x 8 tiles of the frame or
+on rows, ``pow2`` products by inverses or divisions; a tree whose
+``FlatParams`` lacks the fields takes rows and divisions), and
+``flat_vmap_kernel`` as a control; first the registers, stack and spills
+of every flat kernel of both trees, and the move record of the plain
+wavefront and fast marches on the whole frame (``--flat-moves``); last,
+each flat renderer's ``render()`` at 1080p by host clock in each tree
+(a process a tree, in turns), with its ``Camera.rays()``, the rays' two
+copies to the card and a frame's copy back.
+``--flat-moves`` alone prints that record and stops: turns a warp,
+working lane-turns and DDA steps a warp, rows against tiles
+(``render/wavefront.py`` ``warp_moves``); with ``--cpu`` on the CPU, for
+``--windows NXxNY`` windows of 64 x 32 pixels spread over the frame (each
+its own small frame; the whole frame is too large for the CPU).
+Needs one CUDA card, but for ``--flat-moves --cpu``.
 """
 
 from __future__ import annotations
@@ -313,7 +333,8 @@ def entries(build):
                  "vhx_beam", "vhx_splat", "vhx_splat_block_words", "vhx_splat_scratch_words",
                  "vhx_prepass", "vhx_prepass_sync_words", "vhx_prepass_level",
                  "vhx_prepass_level_skip", "vhx_depth_start", "vhx_composite_backward",
-                 "vhx_render_frame_lod", "vhx_render_frame_lod_stopless"):
+                 "vhx_render_frame_lod", "vhx_render_frame_lod_stopless", "vhx_flat_vmap",
+                 "vhx_flat_wavefront", "vhx_flat_fast", "vhx_flat_fast_depth"):
         fn = getattr(lib, name, None)
         if fn is None:  # an entry of one tree only
             continue
@@ -341,9 +362,19 @@ def main():
                     help="print each tree's device time of each launch of a call")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=DIR[:FLAG,FLAG...]: another tree copy timed in the turns")
+    ap.add_argument("--flat-moves", action="store_true",
+                    help="print the flat marches' move record and stop")
+    ap.add_argument("--cpu", action="store_true", help="with --flat-moves: on the CPU")
+    ap.add_argument("--windows", default="8x6",
+                    help="with --flat-moves --cpu: NXxNY windows of 64 x 32 pixels")
     args = ap.parse_args()
 
     import torch
+
+    if args.flat_moves and args.cpu:
+        nx, ny = (int(v) for v in args.windows.split("x"))
+        flat_move_report(torch.device("cpu"), (nx, ny))
+        return 0
 
     if not torch.cuda.is_available():
         print("automaton_ab: needs a CUDA card", file=sys.stderr)
@@ -355,6 +386,9 @@ def main():
 
     card = chip_smoke.card_line()
     print(f"card: {card}", flush=True)
+    if args.flat_moves:
+        flat_move_report(torch.device("cuda", 0), None, f" [{card}]")
+        return 0
     parent = None if args.parent is None else load_build(os.path.abspath(args.parent),
                                                          "parent_build")
     t0 = time.time()
@@ -489,6 +523,212 @@ def lod_turns(kernels, builds, libs, dev, cam, stream):
             16, 1)
 
 
+def flat_trees(dev):
+    """The bench FlatTree's tensors on ``dev`` (``device_tree`` and packed)
+    and the 512 world's packed tree (``chip_smoke.py`` phase 18)."""
+    from voxelhex_tpu_torch.render.fast import pack_device_tree
+    from voxelhex_tpu_torch.render.jax_renderer import device_tree
+    from voxelhex_tpu_torch.scene import build_scene_tree
+    from voxelhex_tpu_torch.tree.flat import flatten
+
+    flat, flat512 = flatten(build_scene_tree(4)), flatten(build_scene_tree(32))
+    return device_tree(flat, dev), pack_device_tree(flat, dev), pack_device_tree(flat512, dev)
+
+
+def flat_move_report(dev, windows=None, tag=""):
+    """The move record of the plain wavefront and fast marches at the 1080p
+    bench pose (``lockstep_run``'s ``moves``), seen by warps of 32 rays of
+    a row, of 4 x 8 tiles (the kernels') and of 8 x 4 (``warp_moves``):
+    turns a warp, working lane-turns, DDA steps a warp under one shared DDA
+    loop and under a branch a move.  With ``windows = (nx, ny)`` only nx x
+    ny windows of 64 x 32 pixels spread evenly over the frame, each its own
+    small frame."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from voxelhex_tpu_torch.render.camera import orbit_camera
+    from voxelhex_tpu_torch.render.fast import make_fast_tracer
+    from voxelhex_tpu_torch.render.jax_renderer import rays_on
+    from voxelhex_tpu_torch.render.wavefront import make_wavefront_tracer, warp_moves
+
+    w, h = chip_smoke.RES
+    ho, hd = orbit_camera(128.0, resolution=chip_smoke.RES).rays()
+    if windows is None:
+        frames = [(0, 0, w, h)]
+    else:
+        nx, ny = windows
+        frames = [(int(x), int(y), 64, 32) for y in np.linspace(0, h - 32, ny).round()
+                  for x in np.linspace(0, w - 64, nx).round()]
+    o = np.concatenate([ho[y:y + fh, x:x + fw].reshape(-1, 3) for x, y, fw, fh in frames])
+    d = np.concatenate([hd[y:y + fh, x:x + fw].reshape(-1, 3) for x, y, fw, fh in frames])
+    o, d = rays_on(o, d, dev)
+    wf, fast, _f512 = flat_trees(dev)
+    where = "the whole frame" if windows is None else (
+        f"{len(frames)} windows of 64 x 32 ({o.shape[0]} rays)")
+    for name, trace, tree in (("wavefront", make_wavefront_tracer(4, 4096), wf),
+                              ("fast", make_fast_tracer(4, 4096), fast)):
+        t0 = time.time()
+        rec = {"moves": []}
+        trace(tree, o, d, record=rec)
+        steps = rec["steps"].double()
+        print(f"flat moves, {name}, {where}: {float(steps.mean()):.4f} bodies a ray (max "
+              f"{int(steps.max())}), {len(rec['moves'])} turns, plain march {time.time() - t0:.1f} "
+              f"s{tag}", flush=True)
+        for shape in (None, (4, 8), (8, 4)):
+            total, off = {}, 0
+            for _x, _y, fw, fh in frames:
+                part = warp_moves([m[off:off + fw * fh] for m in rec["moves"]], fw, fh, shape)
+                off += fw * fh
+                for k, v in part.items():
+                    if k != "working":
+                        total[k] = total.get(k, 0) + v
+            warps = total["warps"]
+            label = "rows of 32" if shape is None else f"{shape[0]} x {shape[1]} tiles"
+            print(f"  {label}: {total['turns'] / warps:.4f} turns a warp, working lane-turns "
+                  f"{total['lane_turns'] / (32 * total['turns']):.4f}, DDA steps a warp "
+                  f"{total['dda_shared'] / warps:.4f} shared, {total['dda_branches'] / warps:.4f} "
+                  f"a branch a move ({warps} warps){tag}", flush=True)
+
+
+# the launch settings of this tree's flat kernels that the turns time: warps
+# on the frame's 4 x 8 tiles or on rows, products by inverses or divisions
+FLAT_SETTINGS = (("tiles, pow2", True, True), ("rows, pow2", False, True),
+                 ("tiles, div", True, False), ("rows, div", False, False))
+
+
+def flat_struct(build, p, tiles, pow2):
+    """``p`` (this tree's ``FlatParams``) in the layout of ``build``'s mirror,
+    on rows without ``tiles``, by divisions without ``pow2``; a mirror of
+    one flat struct (an older tree's) takes the tree's fields alone."""
+    q = build.FlatParams()
+    names = [n for n, _t in build.FlatParams._fields_]
+    if "tree" not in names:
+        for n, _t in q._fields_:
+            setattr(q, n, getattr(p.tree, n))
+        return q
+    ctypes.memmove(ctypes.addressof(q), ctypes.addressof(p), ctypes.sizeof(q))
+    q.pow2 = int(pow2 and p.pow2)
+    if not tiles:
+        q.tile_w = q.tile_h = 0
+    return q
+
+
+def flat_turns(kernels, builds, libs, dev, stream, card):
+    """Add the flat-tree kernels to ``kernels`` (the module's note on
+    ``--only flat``); first print the kernels' registers and the move
+    record."""
+    import torch
+
+    import chip_smoke
+    from voxelhex_tpu_torch.ops import flat as ops
+    from voxelhex_tpu_torch.render.camera import Camera, orbit_camera
+    from voxelhex_tpu_torch.render.jax_renderer import rays_on
+
+    for tag, b in builds.items():
+        log = b.build_log("flat.cu")
+        for kname in chip_smoke.kernel_names(log, "flat_"):
+            regs, stack, st_spill, ld_spill = chip_smoke.ptxas_usage(log, kname)
+            print(f"  ptxas {tag} {short_name(kname)}: {regs} registers, {stack} B stack frame, "
+                  f"{st_spill} B spill stores, {ld_spill} B spill loads", flush=True)
+    flat_move_report(dev, None, f" [{card}]")
+    wf, fast, f512 = flat_trees(dev)
+    cam = orbit_camera(128.0, resolution=chip_smoke.RES)
+    w, h = chip_smoke.RES
+    half = Camera(origin=cam.origin, target=cam.target, up=cam.up, fov_y_deg=cam.fov_y_deg,
+                  resolution=(w // 2, h // 2))
+    o, d = rays_on(*cam.rays(), dev)
+    po, pd = rays_on(*half.rays(), dev)
+    dmap = ops.trace_fast(fast, 4, po, pd, 4096, depth=True, _width=w // 2)
+    tag_of = {id(lib): tag for tag, lib in libs.items()}
+
+    def run(lib, entry, tree, D, limit, ro, rd, frame, setting, start=None, half=(0, 0)):
+        build = builds[tag_of[id(lib)]]
+        p = ops.flat_params(tree, D, limit, start, 2 * half[1], half, frame)
+        q = flat_struct(build, p, *setting)
+        R = ro.shape[0]
+        if entry == "vhx_flat_fast_depth":
+            outs = (torch.empty(R, dtype=torch.float32, device=dev),)
+        else:
+            outs = ops._outputs(R, dev)
+        err = lib[entry](q, ro.data_ptr(), rd.data_ptr(), R, *(t.data_ptr() for t in outs), 0,
+                         stream)
+        build.check(err, entry)
+        return outs
+
+    forms = {
+        "wavefront": lambda lib, s: run(lib, "vhx_flat_wavefront", wf, 4, 4096, o, d, (w, h), s),
+        "fast bitmap": lambda lib, s: run(lib, "vhx_flat_fast", fast, 4, 4096, o, d, (w, h), s),
+        "fast voxel-read, 512 world": lambda lib, s: run(lib, "vhx_flat_fast", f512, 32, 4096, o,
+                                                         d, (w, h), s),
+        "fast depth, 960x540": lambda lib, s: run(lib, "vhx_flat_fast_depth", fast, 4, 4096, po,
+                                                  pd, (w // 2, h // 2), s),
+        "fast from the pooled starts": lambda lib, s: run(lib, "vhx_flat_fast", fast, 4, 4096, o,
+                                                          d, (w, h), s, dmap, (h // 2, w // 2)),
+    }
+    for form, fn in forms.items():
+        for name, tiles, pow2 in FLAT_SETTINGS:
+            kernels[f"flat {form}, change {name}"] = (
+                lambda lib, fn=fn, s=(tiles, pow2): fn(lib, s), 20, 1)
+    kernels["flat vmap (unchanged control)"] = (
+        lambda lib: run(lib, "vhx_flat_vmap", wf, 4, 2048, o, d, (0, 0), (False, False)), 20, 1)
+
+
+# render() of each flat renderer at the 1080p bench pose by host clock, in
+# the package under sys.argv[1], with its host pieces; a process a tree
+RENDER_CLOCK = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from voxelhex_tpu_torch.render.camera import orbit_camera
+from voxelhex_tpu_torch.render.fast import FastRenderer
+from voxelhex_tpu_torch.render.jax_renderer import JaxRenderer, rays_on
+from voxelhex_tpu_torch.render.wavefront import WavefrontRenderer
+from voxelhex_tpu_torch.scene import build_scene_tree
+from voxelhex_tpu_torch.tree.flat import flatten
+
+reps, res, tag = int(sys.argv[2]), (1920, 1080), sys.argv[3]
+flat, cam, dev = flatten(build_scene_tree(4)), orbit_camera(128.0, resolution=(1920, 1080)), "cuda"
+
+
+def clock(fn):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+ho, hd = cam.rays()
+frame = torch.zeros((1080, 1920, 3), dtype=torch.float32, device=dev)
+parts = {"Camera.rays()": clock(cam.rays),
+         "the rays' two copies to the card": clock(lambda: rays_on(ho, hd, dev)),
+         "a frame's copy back": clock(lambda: frame.cpu().numpy())}
+renderers = {"vmap": JaxRenderer(flat, max_inner=2048, device=dev),
+             "wavefront": WavefrontRenderer(flat, max_iters=4096, device=dev),
+             "fast": FastRenderer(flat, max_iters=4096, device=dev),
+             "fast_prepass": FastRenderer(flat, max_iters=4096, prepass=True, device=dev)}
+times = {name: clock(lambda r=r: r.render(cam)) for name, r in renderers.items()}
+print(f"render() host ms at 1080p, {tag}: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+      + "; " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+"""
+
+
+def render_clock(roots, card, reps=10):
+    """Run RENDER_CLOCK in each tree of ``roots`` ({tag: root}) in turns,
+    first to last and back."""
+    order = list(roots) + list(roots)[::-1]
+    for tag in order:
+        out = subprocess.run([sys.executable, "-c", RENDER_CLOCK, roots[tag], str(reps), tag],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"render clock of {tag} failed:\n{out.stderr[-4000:]}")
+        print(out.stdout.strip() + f" [{card}]", flush=True)
+
+
 def ab(build, parent, card, rounds, other="parent", only=None, variants=None, profile=False):
     import numpy as np
     import torch
@@ -541,7 +781,7 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
             "terrain": (*fastest_renderer(terrain, device=dev)._beam_spec(tcam), tcam),
             "fly-over window": (*view.renderer._beam_spec(wcam), wcam)})
 
-    if only is None or not all("lod" in word for word in only):
+    if only is None or not all("lod" in word or "flat" in word for word in only):
         terrain_setup()
     # after the view's frame, which launches through the package's own
     # bindings: entries() retypes the library's functions
@@ -752,6 +992,8 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
         lambda lib: composite_bwd(lib, False), 20, 1, grads_close)
     if only is None or any("lod" in word for word in only):
         lod_turns(kernels, builds, libs, dev, cam, stream)
+    if only is None or any("flat" in word for word in only):
+        flat_turns(kernels, builds, libs, dev, stream, card)
     kernels = {k: v for k, v in kernels.items() if kept(k)}
     tags = [t for t in libs if t != other]  # change, then the variants
     prev.copy_(frame(libs[other])[0])
@@ -800,6 +1042,10 @@ def ab(build, parent, card, rounds, other="parent", only=None, variants=None, pr
               + " ms; means " + ", ".join(f"{t} {m:.4f}" for t, m in mean.items())
               + " ms; " + ", ".join(f"{t} / {other} {mean[t] / mean[other]:.4f}" for t in tags)
               + f" [{card}]", flush=True)
+    if only is not None and any("flat" in word for word in only):
+        roots = {other: os.path.dirname(os.path.dirname(os.path.dirname(parent.__file__))),
+                 "change": ROOT}
+        render_clock(roots, card)
     return 0
 
 

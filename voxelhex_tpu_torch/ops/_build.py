@@ -214,8 +214,8 @@ class PrepassParams(ctypes.Structure):
     ]
 
 
-class FlatParams(ctypes.Structure):
-    """Mirror of ``struct FlatParams`` in flat.cu."""
+class FlatTreeParams(ctypes.Structure):
+    """Mirror of ``struct FlatTreeParams`` in flat.cu."""
 
     _fields_ = [
         ("node_meta", ctypes.c_void_p),
@@ -233,6 +233,17 @@ class FlatParams(ctypes.Structure):
         ("start_w", ctypes.c_int),
         ("half_h", ctypes.c_int),
         ("half_w", ctypes.c_int),
+    ]
+
+
+class FlatParams(ctypes.Structure):
+    """Mirror of ``struct FlatParams`` in flat.cu."""
+
+    _fields_ = [
+        ("tree", FlatTreeParams),
+        ("pow2", ctypes.c_int),
+        ("tile_w", ctypes.c_int),
+        ("tile_h", ctypes.c_int),
     ]
 
 

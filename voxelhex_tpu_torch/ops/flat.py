@@ -15,6 +15,12 @@ PyTorch ops would be an op launch per step per state field:
   a start a ray or from a half-res depth map (the prepassed frame), or
   writing a depth a ray (the prepass).
 
+The batched kernels' warps take 32 rays of a row, or with the private
+keyword ``_width`` (the renderers' frames: the rays are a frame that wide,
+in row order) each a 4 x 8 pixel tile of the frame.  Where the world's
+edge and ``brick_dim`` are powers of two (:func:`flat_params`' ``pow2``)
+they divide by edges as products by exact inverses: the same values.
+
 A wrapper runs the plain PyTorch version (:mod:`voxelhex_tpu_torch.render.
 jax_renderer`, :mod:`~voxelhex_tpu_torch.render.wavefront`,
 :mod:`~voxelhex_tpu_torch.render.fast`) for CPU tensors and launches the
@@ -24,7 +30,9 @@ kernel for CUDA tensors, or raises; each counts its launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from voxelhex_tpu_torch.ops import _build
@@ -45,27 +53,40 @@ BRICK_SUBSTEPS = 4  # the fast tracer's bitmap cells a body
 ADVANCE_SUBSTEPS = 2  # the fast tracer's ADVANCE substeps
 
 
-def flat_params(tree, brick_dim, limit, start=None, start_w=0, half=(0, 0)):
+def is_pow2(x) -> bool:
+    """Whether ``x`` (as f32) is a power of two from 1 to 2^30: the inverse
+    of each edge of a world that size (its quarters, 63 levels down) is a
+    normal f32, which the kernels take from its exponent bits."""
+    m, e = math.frexp(float(np.float32(x)))
+    return m == 0.5 and 1 <= e <= 31
+
+
+def flat_params(tree, brick_dim, limit, start=None, start_w=0, half=(0, 0), frame=(0, 0)):
     """The kernels' ``FlatParams`` for ``tree`` (:func:`~voxelhex_tpu_torch.
     render.jax_renderer.device_tree` or :func:`~voxelhex_tpu_torch.render.
     fast.pack_device_tree`) at ``brick_dim``: ``limit`` is ``max_inner``
     or ``max_iters``; ``start`` a start a ray [R] or, with ``half``, the
-    half-res depth map [h2 * w2] of a frame ``start_w`` wide."""
+    half-res depth map [h2 * w2] of a frame ``start_w`` wide; ``frame``
+    the ``(width, height)`` of the rays' frame, whose 4 x 8 tiles the
+    batched kernels' warps take, or ``(0, 0)`` for row order."""
     p = _build.FlatParams()
+    t = p.tree
     empty = tree["node_children"]  # any valid pointer for arrays a tree lacks
-    p.node_meta = tree.get("node_meta", empty).data_ptr()
-    p.node_children = tree["node_children"].data_ptr()
-    p.node_ocbits = tree["node_ocbits"].data_ptr()
-    p.bricks = tree["bricks"].data_ptr()
-    p.brick_ocbits = tree.get("brick_ocbits", empty).data_ptr()
-    p.start = start.data_ptr() if start is not None else None
-    p.n_bricks = tree["bricks"].shape[0]
-    p.brick_dim = int(brick_dim)
-    p.size = float(tree["size"])
-    p.root_meta = int(tree.get("root_meta", 0))
-    p.limit = int(limit)
-    p.max_restarts = MAX_RESTARTS
-    p.start_w, p.half_h, p.half_w = int(start_w), int(half[0]), int(half[1])
+    t.node_meta = tree.get("node_meta", empty).data_ptr()
+    t.node_children = tree["node_children"].data_ptr()
+    t.node_ocbits = tree["node_ocbits"].data_ptr()
+    t.bricks = tree["bricks"].data_ptr()
+    t.brick_ocbits = tree.get("brick_ocbits", empty).data_ptr()
+    t.start = start.data_ptr() if start is not None else None
+    t.n_bricks = tree["bricks"].shape[0]
+    t.brick_dim = int(brick_dim)
+    t.size = float(tree["size"])
+    t.root_meta = int(tree.get("root_meta", 0))
+    t.limit = int(limit)
+    t.max_restarts = MAX_RESTARTS
+    t.start_w, t.half_h, t.half_w = int(start_w), int(half[0]), int(half[1])
+    p.pow2 = int(is_pow2(t.size) and is_pow2(brick_dim))
+    p.tile_w, p.tile_h = int(frame[0]), int(frame[1])
     return p
 
 
@@ -102,6 +123,17 @@ def _rays(o, d):
     return R
 
 
+def _frame(R, width):
+    """``(width, height)`` of a frame of ``R`` rays ``width`` wide, or (0,
+    0) for rays in row order (``width`` None)."""
+    if width is None:
+        return 0, 0
+    width = int(width)
+    if width < 1 or R % width:
+        raise ValueError(f"_width={width}: {R} rays are no frame that wide")
+    return width, R // width
+
+
 def _launch(name, params, o, d, outs, extra=()):
     R = o.shape[0]
     dev = o.device
@@ -130,17 +162,20 @@ def trace_vmap(tree, brick_dim, o, d, max_inner=2048):
 trace_vmap.launches = 0
 
 
-def trace_wavefront(tree, brick_dim, o, d, max_iters=4096):
+def trace_wavefront(tree, brick_dim, o, d, max_iters=4096, *, _width=None):
     """The wavefront tracer's ``(hit, voxel, brick, cell, point, normal)``
     of rays ``o``, ``d`` over ``tree`` (``device_tree``); ``point`` is
-    where each ray's march ended."""
+    where each ray's march ended.  ``_width``: the rays are a frame that
+    wide in row order (the module's note)."""
     R = _rays(o, d)
+    frame = _frame(R, _width)
     if o.device.type == "cpu":
         return make_wavefront_tracer(brick_dim, max_iters, MAX_RESTARTS)(tree, o, d)
     _check_tree(tree, o.device, brick_dim, packed=False)
     outs = _outputs(R, o.device)
     if R:
-        _launch("vhx_flat_wavefront", flat_params(tree, brick_dim, max_iters), o, d, outs)
+        _launch("vhx_flat_wavefront", flat_params(tree, brick_dim, max_iters, frame=frame), o,
+                d, outs)
         trace_wavefront.launches += 1
     return outs
 
@@ -149,15 +184,20 @@ trace_wavefront.launches = 0
 
 
 def trace_fast(tree, brick_dim, o, d, max_iters=4096, start_t=None, depth=False,
-               start_depth=None):
+               start_depth=None, *, _width=None):
     """The fast tracer over ``tree`` (``pack_device_tree``): ``(hit,
     voxel, brick, cell, point, normal)`` of rays ``o``, ``d``, each from
-    ``start_t`` [R] if given or from the start of its pixel in
-    ``start_depth = (depth [h2 * w2], h2, w2)``, the half-res depths of a
-    frame of 2 * h2 rows of 2 * w2 rays; or with ``depth`` only each ray's
-    depth [R] (the prepass: ``norm(point - o)`` on a hit, else 0)."""
+    ``start_t`` [R] or from the start of its pixel in ``start_depth =
+    (depth [h2 * w2], h2, w2)``, the half-res depths of a frame of 2 * h2
+    rows of 2 * w2 rays (not both); or with ``depth`` only each ray's
+    depth [R] (the prepass: ``norm(point - o)`` on a hit, else 0).
+    ``_width``: the rays are a frame that wide in row order (the module's
+    note)."""
     R = _rays(o, d)
     dev = o.device
+    frame = _frame(R, _width)
+    if start_t is not None and start_depth is not None:
+        raise ValueError("trace_fast takes start_t or start_depth, not both")
     if start_depth is not None:
         dmap, h2, w2 = start_depth
         if R != 4 * h2 * w2 or tuple(dmap.shape) != (h2 * w2,):
@@ -178,7 +218,7 @@ def trace_fast(tree, brick_dim, o, d, max_iters=4096, start_t=None, depth=False,
     elif start_depth is not None:
         _build.check_inputs(dev, (("start_depth", dmap, torch.float32, (h2 * w2,)),))
         start, start_w, half = dmap, 2 * w2, (h2, w2)
-    params = flat_params(tree, brick_dim, max_iters, start, start_w, half)
+    params = flat_params(tree, brick_dim, max_iters, start, start_w, half, frame)
     if depth:
         out = torch.empty(R, dtype=torch.float32, device=dev)
         outs = (out,)

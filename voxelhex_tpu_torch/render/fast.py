@@ -153,7 +153,8 @@ class FastRenderer:
     def render(self, camera, bg=(0.0, 0.0, 0.0)):
         """A frame of ``camera``'s host rays: f32 NumPy [H, W, 3].  With
         ``prepass`` and an even size, a half-res depth launch first gives
-        each full-res ray its start."""
+        each full-res ray its start.  Each launch's warps take 4 x 8 pixel
+        tiles of its frame."""
         from voxelhex_tpu_torch.ops.flat import trace_fast
         from voxelhex_tpu_torch.render.camera import Camera
         from voxelhex_tpu_torch.render.jax_renderer import rays_on, shade_frame
@@ -165,13 +166,14 @@ class FastRenderer:
             half = Camera(origin=camera.origin, target=camera.target, up=camera.up,
                           fov_y_deg=camera.fov_y_deg, resolution=(w // 2, h // 2))
             po, pd = rays_on(*half.rays(), self.device)
-            depth = trace_fast(self.tree, self.brick_dim, po, pd, self.max_iters, depth=True)
+            depth = trace_fast(self.tree, self.brick_dim, po, pd, self.max_iters, depth=True,
+                               _width=w // 2)
             hit, voxel, _b, _c, _p, normal = trace_fast(
-                self.tree, self.brick_dim, o, d, self.max_iters, start_depth=(depth, h // 2,
-                                                                               w // 2))
+                self.tree, self.brick_dim, o, d, self.max_iters,
+                start_depth=(depth, h // 2, w // 2), _width=w)
         else:
             hit, voxel, _b, _c, _p, normal = trace_fast(self.tree, self.brick_dim, o, d,
-                                                        self.max_iters)
+                                                        self.max_iters, _width=w)
         rgb = shade_frame(self.tree["palette"], hit, voxel, normal, bg)
         return rgb.cpu().numpy().reshape(h, w, 3)
 

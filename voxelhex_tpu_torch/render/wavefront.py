@@ -123,6 +123,15 @@ PH_DONE = 2
 META_SHIFT = 28
 KEY_MASK = (1 << META_SHIFT) - 1
 
+# The move record of lockstep_run (``record["moves"]``): each body's kind
+# in bits 0-2, its DDA steps (a BRICK body's cell steps, a POP's one, an
+# ADVANCE's substeps) times MOVE_DDA, and MOVE_RESTART where the body ends
+# with the stack run dry (the nudge, then a restart or the end); 0 for a
+# ray that is done
+MOVE_BRICK, MOVE_PROBE, MOVE_PUSH, MOVE_POP, MOVE_ADVANCE = 1, 2, 3, 4, 5
+MOVE_DDA = 8
+MOVE_RESTART = 64
+
 # On which axes XLA:CPU fuses the entry point o + d * enter in the
 # reference's flat-tree programs (tests/test_torch_flat_renderers.py); they
 # fuse every DDA step's point + d * t on all three, and no restart's point
@@ -260,6 +269,7 @@ def _brick_steps(tree, st, cfg):
     point, bcell, bmin = st["point"], st["bcell"], st["bmin"]
     unit = st["bsize"] / d
     marching = torch.ones_like(st["hit"])
+    dda = torch.zeros_like(st["iters"])
     for _ in range(cfg.brick_substeps):
         inb = ((bcell >= 0) & (bcell < d)).all(dim=1)
         flat = bcell[:, 0] + bcell[:, 1] * d + bcell[:, 2] * d * d
@@ -286,11 +296,14 @@ def _brick_steps(tree, st, cfg):
         go = marching & ~found & inb
         point = where_rows(go, new_p, point)
         bcell = where_rows(go, bcell + step.int(), bcell)
+        dda = dda + go.int()
         st["phase"] = torch.where(found, PH_DONE, torch.where(b_exit, PH_NODE, st["phase"])).int()
         st["probed"] = st["probed"] | b_exit
         st["force_pop"] = st["force_pop"] | (b_exit & st["b_uniform"])
         marching = go
     st["point"], st["bcell"] = point, bcell
+    if "move" in st:
+        st["move"] = (MOVE_BRICK + MOVE_DDA * dda).to(torch.int8)
     return st
 
 
@@ -386,7 +399,9 @@ def _node_step(tree, st, cfg):
     # ADVANCE, its substeps stopping at an occupied sectant or the block's
     # edge
     adv_p, adv_ts, adv_tmin, go = point, tsect, tmin, adv
+    adv_dda = torch.zeros_like(tsect)
     for _ in range(cfg.advance_substeps):
+        adv_dda = adv_dda + go.int()
         a_p, a_step = _dda_step_v(st["dirv"], st["sf"], adv_p, adv_tmin, tsize)
         a_ts = _step_sectant_v(adv_ts, a_step)
         a_tmin = where_rows(a_ts < OOB, adv_tmin + a_step * tsize[:, None], adv_tmin)
@@ -413,6 +428,10 @@ def _node_step(tree, st, cfg):
     moved = pop | push | adv
     st["probed"] = probed & ~moved
     st["force_pop"] = force_pop & ~moved
+    if "move" in st:
+        kind = torch.where(pop, MOVE_POP + MOVE_DDA,
+                           torch.where(push, MOVE_PUSH, MOVE_ADVANCE + MOVE_DDA * adv_dda))
+        st["move"] = torch.where(s_hit | enter_brick, MOVE_PROBE, kind).to(torch.int8)
     return st
 
 
@@ -460,8 +479,14 @@ def lockstep_run(tree, st, cfg, record=None):
     changes nothing of a done ray, so each turn runs on the rays not yet
     done, as the lock-step loop's masks do.  ``record``: a dict that gets
     each ray's bodies (``steps`` [R]) and which node rows and brick rows
-    the march reads (``nodes`` [N], ``bricks`` [B]: bool)."""
+    the march reads (``nodes`` [N], ``bricks`` [B]: bool); and where it
+    holds ``moves`` (a list), an int8 [R] a turn appended to it, each
+    ray's body in that turn (``MOVE_*``)."""
     const = ("dirv", "sf", "octant")
+    moves = None if record is None else record.get("moves")
+    if moves is not None:
+        st["move"] = torch.zeros(st["point"].shape[0], dtype=torch.int8,
+                                 device=st["point"].device)
     if record is not None:
         dev = st["point"].device
         record.update(nodes=torch.zeros(tree["node_children"].shape[0], dtype=torch.bool,
@@ -483,6 +508,11 @@ def lockstep_run(tree, st, cfg, record=None):
                 for k, v in part.items():
                     if k not in const and k != "record":
                         sub[k][rows] = v
+        if moves is not None:
+            dry = (sub["phase"] == PH_NODE) & (sub["count"] <= 0)
+            turn = torch.zeros_like(st["move"])
+            turn[live] = sub["move"] | (dry.to(torch.int8) * MOVE_RESTART)
+            moves.append(turn)
         sub = _restart(tree, sub, cfg)
         sub["iters"] = sub["iters"] + 1
         for k, v in sub.items():
@@ -490,7 +520,50 @@ def lockstep_run(tree, st, cfg, record=None):
                 st[k][live] = v
     if record is not None:
         record["steps"] = st["iters"].long()
+    st.pop("move", None)
     return st
+
+
+def warp_moves(moves, width, height, tile=None):
+    """The warps' view of a move record (``lockstep_run``'s ``moves``) of a
+    frame ``width`` x ``height`` in row order: its rays in warps of 32 in
+    a row (``trace()``'s launch), or with ``tile = (w, h)`` of a w x h
+    pixel tile (w * h = 32; lanes past the frame idle).  Each warp runs as many turns as its
+    longest ray has bodies; in a turn it runs a DDA loop as long as its
+    lanes' most DDA steps (one shared DDA step a loop turn), or with a
+    branch a move the longest BRICK body's steps, one POP step if any lane
+    pops, and the longest ADVANCE's.  Returns ``warps``, ``turns`` (summed
+    over warps), ``lane_turns`` (bodies), ``working`` (lane_turns / (turns
+    * 32)), ``dda_shared`` and ``dda_branches`` (summed over warps and
+    turns)."""
+    n = width * height
+    dev = moves[0].device if moves else torch.device("cpu")
+    if tile is None:
+        index = torch.arange(-(-n // 32) * 32, device=dev).clamp(max=n).reshape(-1, 32)
+    else:
+        tw, th = tile
+        if tw * th != 32:
+            raise ValueError(f"a warp is 32 lanes, not a {tw} x {th} tile")
+        wx, wy = -(-width // tw), -(-height // th)
+        ys = torch.arange(wy * th, device=dev).reshape(wy, th)
+        xs = torch.arange(wx * tw, device=dev).reshape(wx, tw)
+        py = ys[:, None, :, None].expand(wy, wx, th, tw).reshape(-1, 32)
+        px = xs[None, :, None, :].expand(wy, wx, th, tw).reshape(-1, 32)
+        inside = (px < width) & (py < height)
+        index = torch.where(inside, py * width + px, torch.full_like(px, n))
+    out = {"warps": int(index.shape[0]), "turns": 0, "lane_turns": 0, "dda_shared": 0,
+           "dda_branches": 0}
+    for turn in moves:
+        m = torch.cat([turn[:n].long(), torch.zeros(1, dtype=torch.long, device=dev)])[index]
+        kind, dda = m & 7, (m // MOVE_DDA) & 7
+        live = kind > 0
+        out["turns"] += int(live.any(dim=1).sum())
+        out["lane_turns"] += int(live.sum())
+        out["dda_shared"] += int(dda.amax(dim=1).sum())
+        for k in (MOVE_BRICK, MOVE_POP, MOVE_ADVANCE):
+            out["dda_branches"] += int(torch.where(kind == k, dda, 0).amax(dim=1).sum())
+    out["working"] = out["lane_turns"] / max(32 * out["turns"], 1)
+    return out
 
 
 def make_wavefront_tracer(brick_dim: int, max_iters: int = 4096, max_restarts: int = 8):
@@ -536,10 +609,13 @@ class WavefrontRenderer:
 
     def render(self, camera, bg=(0.0, 0.0, 0.0)):
         """A frame of ``camera``'s host rays: f32 NumPy [H, W, 3]."""
-        from voxelhex_tpu_torch.render.jax_renderer import shade_frame
+        from voxelhex_tpu_torch.ops.flat import trace_wavefront
+        from voxelhex_tpu_torch.render.jax_renderer import rays_on, shade_frame
 
         origins, dirs = camera.rays()
         h, w = origins.shape[:2]
-        hit, voxel, _b, _c, _p, normal = self.trace(origins, dirs)
+        o, d = rays_on(origins, dirs, self.device)
+        hit, voxel, _b, _c, _p, normal = trace_wavefront(self.tree, self.brick_dim, o, d,
+                                                         self.max_iters, _width=w)
         rgb = shade_frame(self.tree["palette"], hit, voxel, normal, bg)
         return rgb.cpu().numpy().reshape(h, w, 3)
